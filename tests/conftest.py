@@ -82,6 +82,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: heavy run excluded from tier-1 (-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skips without one")
 
 
 @pytest.fixture(scope="session")
