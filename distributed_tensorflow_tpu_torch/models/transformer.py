@@ -1,4 +1,4 @@
-"""Transformer LM, forward only — port of
+"""Transformer LM and its train step — port of
 ``distributed_tensorflow_tpu/models/transformer.py``.
 
 The same architecture and parameter layout as the flax model: tied
@@ -22,8 +22,14 @@ index — flax's ``scan_layers=True`` tree with torch tensors::
 :func:`init_params` makes one from a ``torch.Generator`` with flax's
 init distributions; :func:`params_from_jax` converts a flax tree (as
 numpy arrays, either layout); :meth:`TransformerLM.load_params` loads
-one into the module. Mesh, MoE, remat, scan and the loss/optimizer
-fields of the JAX config belong to later slices.
+one into the module and :meth:`TransformerLM.stacked_params` reads the
+parameters (or their gradients, or optimizer moments) back in it.
+
+Training: :func:`next_token_loss` (full logits), :func:`kernel_next_token_loss`
+(the fused CE kernels), :func:`make_optimizer` (AdamW with optax's
+semantics), :func:`make_loss_fn` and :func:`make_train_step`. Mesh, MoE,
+remat, scan, the scan-chunked loss and the fused optimizer belong to
+later slices.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from torch.nn import functional as F
 
 from distributed_tensorflow_tpu_torch.ops.attention import (
     flash_attention, mha_reference)
+from distributed_tensorflow_tpu_torch.ops.fused_ce import (
+    fused_cross_entropy)
 
 
 def resolve_device(device) -> torch.device:
@@ -61,6 +69,36 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: Any = torch.bfloat16
     causal: bool = True            # False -> bidirectional encoder (BERT)
+    # None: flash attention (the CUDA kernels on a card, their plain
+    # versions on the CPU); "reference": the unfused mha_reference
+    attention_impl: str | None = None
+    # "kernel": the fused CE kernels (ops/fused_ce.py); "scan" with
+    # loss_chunks=0: full (B, S, V) logits and next_token_loss
+    loss_impl: str = "scan"
+    loss_chunks: int = 0
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    # AdamW first-moment storage dtype (None = the parameters' f32)
+    adam_mu_dtype: Any = None
+    fused_optimizer: bool = False
+
+    def __post_init__(self):
+        # the one place where options without a ported kernel are refused
+        if self.attention_impl not in (None, "reference"):
+            raise ValueError(f"attention_impl={self.attention_impl!r}; "
+                             f"expected None or 'reference'")
+        if self.loss_impl not in ("scan", "kernel"):
+            raise ValueError(f"loss_impl={self.loss_impl!r}; expected "
+                             f"'scan' or 'kernel'")
+        if self.loss_impl == "scan" and self.loss_chunks > 0:
+            raise NotImplementedError(
+                "loss_impl='scan' with loss_chunks > 0 "
+                "(fused_next_token_loss) is not ported yet; use "
+                "loss_impl='kernel' or loss_chunks=0")
+        if self.fused_optimizer:
+            raise NotImplementedError(
+                "fused_optimizer=True needs the TPU kernel _adamw_kernel "
+                "(#9, ops/fused_adamw.py), which is ported in slice 3")
 
     @property
     def head_dim(self) -> int:
@@ -163,6 +201,8 @@ class MultiHeadAttention(nn.Module):
             # right-padded mixed-length batch: the factored length mask
             # (the flash kernel takes no per-row length)
             o = mha_reference(q, k, v, causal=cfg.causal, lengths=lengths)
+        elif cfg.attention_impl == "reference":
+            o = mha_reference(q, k, v, causal=cfg.causal)
         else:
             o = flash_attention(q, k, v, causal=cfg.causal)
         return merge_heads(o, self.out.to(dt))
@@ -227,6 +267,21 @@ class TransformerLM(nn.Module):
                 mod = getattr(block, group)
                 for name, stacked in leaves.items():
                     getattr(mod, name).copy_(stacked[i])
+
+    def stacked_params(self, of=None) -> dict:
+        """The parameters in the port's stacked dict layout (the module
+        docstring's), each leaf ``of(parameter)`` stacked over layers:
+        the parameters themselves by default, ``lambda p: p.grad`` for
+        their gradients, ``lambda p: opt.state[p]["mu"]`` for a moment."""
+        of = of or (lambda p: p)
+        layers = {}
+        for group, leaves in param_shapes(self.cfg)["layers"].items():
+            layers[group] = {
+                name: torch.stack([of(getattr(getattr(b, group), name))
+                                   for b in self.layers])
+                for name in leaves}
+        return {"embed": of(self.embed), "layers": layers,
+                "final_norm": {"scale": of(self.final_norm.scale)}}
 
     def forward(self, tokens, return_hidden: bool = False, lengths=None):
         """``lengths`` (B,) marks a right-padded mixed-length batch: every
@@ -332,3 +387,142 @@ def params_from_jax(cfg: TransformerConfig, tree, device="cuda") -> dict:
                 raise ValueError(f"layers/{g}/{n}: shape {got}, expected "
                                  f"{shape} for this config")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training step
+# ---------------------------------------------------------------------------
+
+def next_token_loss(logits, tokens):
+    """Shifted next-token cross-entropy over full f32 logits (ignores the
+    final position): ``optax.softmax_cross_entropy_with_integer_labels``
+    averaged."""
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1].float()
+    tl = logits.gather(-1, targets[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - tl).mean()
+
+
+def _shifted_targets_and_mask(tokens):
+    """Next-token shift shared by the fused-loss paths: position t
+    predicts token t+1; the final position has no target (pad target 0,
+    mask 0), as in ``next_token_loss``."""
+    B, S = tokens.shape
+    targets = torch.cat([tokens[:, 1:],
+                         tokens.new_zeros((B, 1))], dim=1)
+    mask = torch.cat([torch.ones((B, S - 1), device=tokens.device),
+                      torch.zeros((B, 1), device=tokens.device)], dim=1)
+    return targets, mask
+
+
+def kernel_next_token_loss(hidden, embed, tokens, *,
+                           compute_dtype=torch.bfloat16):
+    """Shifted next-token CE through the fused CE kernels
+    (:func:`~distributed_tensorflow_tpu_torch.ops.fused_ce.
+    fused_cross_entropy`): the ``(B, S, V)`` logits never exist. The
+    hidden state and the tied embedding are cast to ``compute_dtype``
+    first."""
+    B, S, D = hidden.shape
+    targets, mask = _shifted_targets_and_mask(tokens)
+    losses = fused_cross_entropy(
+        hidden.reshape(B * S, D).to(compute_dtype),
+        embed.to(compute_dtype), targets.reshape(B * S))
+    return (losses * mask.reshape(B * S)).sum() / (B * (S - 1))
+
+
+class AdamW(torch.optim.Optimizer):
+    """AdamW with ``optax.adamw``'s semantics, updating in place:
+
+        mu' = b1 mu + (1 − b1) g,   nu' = b2 nu + (1 − b2) g²   (f32)
+        u   = (mu' / (1 − b1^t)) / (sqrt(nu' / (1 − b2^t)) + eps) + wd p
+        p'  = p − lr u
+
+    ``mu`` is stored in ``mu_dtype`` (None: the parameter's dtype) and
+    updated in f32 from its stored value, as optax's ``mu_dtype`` does
+    inside a jitted step. As there, the ``b1`` that multiplies the stored
+    ``mu`` is rounded to ``mu_dtype`` (optax's Python-float ``b1`` is
+    weakly typed and takes the array's dtype: 0.8984375 for bf16), while
+    XLA keeps the product in f32. ``torch.optim.AdamW``
+    keeps its moments in the parameter's dtype and puts the decay in
+    another place, hence this class. Plain tensor ops."""
+
+    def __init__(self, params, *, lr: float, weight_decay: float,
+                 mu_dtype=None, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay,
+                                      mu_dtype=mu_dtype))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(
+                        p, dtype=group["mu_dtype"] or p.dtype)
+                    st["nu"] = torch.zeros_like(p)
+                st["count"] += 1
+                t = st["count"]
+                g = p.grad.float()
+                # optax's b1 is a weakly typed scalar: it takes mu's
+                # stored dtype (bf16(0.9) = 0.8984375 for a bf16 mu)
+                b1_mu = torch.tensor(b1, dtype=st["mu"].dtype).item()
+                mu = (1 - b1) * g + b1_mu * st["mu"].float()
+                nu = (1 - b2) * g.square() + b2 * st["nu"].float()
+                # bias corrections in f32, as optax computes decay**count
+                c1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
+                c2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
+                u = (mu / c1.item()) / ((nu / c2.item()).sqrt() + eps)
+                p.add_((u + wd * p) * -lr)
+                st["mu"] = mu.to(st["mu"].dtype)
+                st["nu"] = nu
+
+
+def make_optimizer(cfg: TransformerConfig, params) -> AdamW:
+    """AdamW over ``params`` at ``cfg.learning_rate`` /
+    ``cfg.weight_decay`` with ``cfg.adam_mu_dtype`` — the counterpart of
+    ``optax.adamw(lr, weight_decay=wd, mu_dtype=...)``."""
+    return AdamW(params, lr=cfg.learning_rate,
+                 weight_decay=cfg.weight_decay,
+                 mu_dtype=cfg.adam_mu_dtype)
+
+
+def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
+    """``loss_fn(tokens) -> scalar`` for ``cfg``/``model``: the fused CE
+    kernels for ``loss_impl="kernel"``, else full logits and
+    :func:`next_token_loss`."""
+
+    def loss_fn(tokens):
+        if cfg.loss_impl == "kernel":
+            hidden = model(tokens, return_hidden=True)
+            return kernel_next_token_loss(hidden, model.embed, tokens,
+                                          compute_dtype=cfg.dtype)
+        return next_token_loss(model(tokens), tokens)
+
+    return loss_fn
+
+
+def make_train_step(cfg: TransformerConfig, model: TransformerLM,
+                    optimizer: torch.optim.Optimizer):
+    """``train_step(state, batch) -> (state, {"loss"})`` with
+    ``state = {"model", "optimizer", "step"}`` (``model`` and
+    ``optimizer`` as given here) and ``batch = {"tokens": (B, S)}`` — the
+    JAX signature. Unlike JAX's pure step it updates the model's
+    parameters and the optimizer's moments in place; the returned state
+    holds the same objects and ``step + 1``."""
+    loss_fn = make_loss_fn(cfg, model)
+
+    def train_step(state, batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(batch["tokens"])
+        loss.backward()
+        optimizer.step()
+        return ({**state, "step": state["step"] + 1},
+                {"loss": loss.detach()})
+
+    return train_step

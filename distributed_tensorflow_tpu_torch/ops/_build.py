@@ -1,6 +1,6 @@
 """Build a ``csrc/*.cu`` kernel source with ``nvcc`` and load it.
 
-Each source has a plain C entry point (no PyTorch headers), so one
+Each source has plain C entry points (no PyTorch headers), so one
 ``nvcc`` call takes seconds. The shared library goes into
 ``build/torch_kernels/`` at the repository root, named after the
 source and a hash of its contents, so an edited source is always
@@ -79,16 +79,17 @@ def build(name: str) -> str:
     return lib
 
 
-def load(name: str, argtypes) -> ctypes.CDLL:
+def load(name: str, entries: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use.
-    Its entry point ``name`` takes ``argtypes`` and returns
-    ``cudaGetLastError()`` as an int."""
+    ``entries`` maps each C entry point of the source to its argtypes;
+    every entry point returns ``cudaGetLastError()`` as an int."""
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(build(name))
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

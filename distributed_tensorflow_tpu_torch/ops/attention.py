@@ -1,4 +1,5 @@
-"""Multi-head attention: the unfused contract and the flash forward.
+"""Multi-head attention: the unfused contract and flash attention with
+its gradient.
 
 Port of ``distributed_tensorflow_tpu/ops/attention.py``. Layout is
 ``(batch, num_heads, seq, head_dim)`` throughout, as in the JAX package.
@@ -11,11 +12,16 @@ Port of ``distributed_tensorflow_tpu/ops/attention.py``. Layout is
   ``(o, lse)``. On a CUDA tensor it launches the hand-written Hopper
   kernel ``csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``);
   on a CPU tensor it runs :func:`flash_attention_plain`, the plain
-  PyTorch version of the same function. Any other device raises.
-- :func:`flash_attention` — the public op, ``o`` only.
-
-Forward only: the dq/dkv backward kernels belong to the training slice,
-so the wrappers raise when autograd would need a gradient.
+  PyTorch version of the same function. Any other device raises. It
+  records no autograd graph.
+- :func:`flash_attention_bwd` — the backward ``(dq, dk, dv)`` from the
+  forward's ``(o, lse)``: on a CUDA tensor the kernels
+  ``flash_bwd_dq`` and ``flash_bwd_dkv`` of ``csrc/flash_bwd.cu`` (the
+  ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), on a CPU tensor
+  :func:`flash_attention_bwd_plain`.
+- :func:`flash_attention` — the public op, ``o`` only, differentiable
+  through :class:`FlashAttention` (the counterpart of the JAX
+  ``custom_vjp``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,12 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p])
+#: C signatures of ``csrc/flash_bwd.cu``: q, k, v, do, lse, delta and the
+#: outputs (dq; dk, dv) as pointers, then as ``flash_fwd``
+FLASH_BWD_ARGTYPES = {
+    name: ([ctypes.c_void_p] * n + [ctypes.c_int] * 5
+           + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    for name, n in (("flash_bwd_dq", 7), ("flash_bwd_dkv", 8))}
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +184,7 @@ def _launch_kernel(q, k, v, sm_scale, causal, causal_offset):
     from distributed_tensorflow_tpu_torch.ops import _build
 
     _check_kernel_inputs(q, k, v)
-    lib = _build.load("flash_fwd", FLASH_FWD_ARGTYPES)
+    lib = _build.load("flash_fwd", {"flash_fwd": FLASH_FWD_ARGTYPES})
     b, h, sq, hd = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
@@ -196,35 +208,201 @@ def _launch_kernel(q, k, v, sm_scale, causal, causal_offset):
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         sm_scale: float | None = None,
                         causal_offset: int | None = None):
-    """Flash-attention forward ``(o, lse)``.
+    """Flash-attention forward ``(o, lse)``, recording no autograd graph.
 
     A CUDA tensor goes through the ``flash_fwd`` kernel (and counts one
     launch in ``flash_attention_fwd.launches``); a CPU tensor through
-    :func:`flash_attention_plain`. Any other device raises, as does a
-    call that would need a gradient (forward only)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention is forward-only: the backward kernels are "
-            "not ported yet (run under torch.no_grad())")
+    :func:`flash_attention_plain`. Any other device raises. Gradients go
+    through :func:`flash_attention`."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if causal_offset is None:
         causal_offset = k.shape[2] - q.shape[2]
-    if q.device.type == "cuda":
-        return _launch_kernel(q, k, v, float(sm_scale), causal,
-                              causal_offset)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale,
-                                     causal_offset=causal_offset)
+    with torch.no_grad():
+        if q.device.type == "cuda":
+            return _launch_kernel(q, k, v, float(sm_scale), causal,
+                                  causal_offset)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         sm_scale=sm_scale,
+                                         causal_offset=causal_offset)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
 flash_attention_fwd.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Flash-attention backward: plain version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool,
+                              sm_scale: float,
+                              causal_offset: int | None = None):
+    """Plain PyTorch version of the flash backward: ``(dq, dk, dv)`` in
+    the inputs' dtypes.
+
+    ``p = exp(q kᵀ · sm_scale − lse)`` is recomputed from the forward's
+    row logsumexp (``p = 0`` on masked pairs and on rows with
+    ``lse = +inf``), ``delta = rowsum(o · do)`` in f32 and
+    ``ds = p ⊙ (do vᵀ − delta) · sm_scale``. As in the Pallas kernels,
+    ``ds`` is rounded to the input dtype before ``dq = ds k`` and
+    ``dk = dsᵀ q``, and ``p`` before ``dv = pᵀ do``; products accumulate
+    in f32."""
+    sq, sk = q.shape[2], k.shape[2]
+    if causal_offset is None:
+        causal_offset = sk - sq
+    dt = q.dtype
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    delta = (o.float() * do32).sum(-1, keepdim=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        q_ids = torch.arange(sq, device=q.device)[:, None]
+        k_ids = torch.arange(sk, device=q.device)[None, :]
+        p = p.masked_fill(k_ids > q_ids + causal_offset, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, v32)
+    ds = (p * (dp - delta) * sm_scale).to(dt).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do32)
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta):
+    _check_kernel_inputs(q, k, v)
+    b, h, sq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype \
+            or do.device != q.device or not do.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: do must be a contiguous "
+                         f"{q.dtype} tensor of q's shape {tuple(q.shape)} "
+                         f"on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous float32 tensor of shape "
+                             f"{(b, h, sq)} on {q.device}")
+
+
+def _launch_bwd(entry, outs, q, k, v, do, lse, delta, sm_scale, causal,
+                causal_offset) -> bool:
+    """Run C entry point ``entry`` of ``csrc/flash_bwd.cu`` into ``outs``;
+    True if it launched, False if the work was empty (``outs`` zeroed)."""
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    if q.device.type != "cuda":
+        raise ValueError(f"{entry}: the kernel takes CUDA tensors, q is "
+                         f"on {q.device}")
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    b, h, sq, hd = q.shape
+    sk = k.shape[2]
+    if b * h == 0 or sq == 0 or sk == 0:
+        for t in outs:
+            t.zero_()
+        return False
+    lib = _build.load("flash_bwd", FLASH_BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            b * h, sq, sk, hd, KERNEL_DTYPES[q.dtype],
+            ctypes.c_float(sm_scale), int(bool(causal)), int(causal_offset),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
+                           f"{err} ({_build.error_string(lib, err)})")
+    return True
+
+
+def launch_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
+                  causal: bool, causal_offset: int):
+    """``dq`` from one launch of the ``flash_bwd_dq`` kernel (CUDA
+    tensors; ``delta = rowsum(o · do)`` f32), counted in
+    ``flash_attention_bwd.launches_dq``; empty work launches nothing and
+    counts nothing."""
+    dq = torch.empty_like(q)
+    if _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, sm_scale,
+                   causal, causal_offset):
+        flash_attention_bwd.launches_dq += 1
+    return dq
+
+
+def launch_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
+                   causal: bool, causal_offset: int):
+    """``(dk, dv)`` from one launch of the ``flash_bwd_dkv`` kernel,
+    counted in ``flash_attention_bwd.launches_dkv``."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta,
+                   sm_scale, causal, causal_offset):
+        flash_attention_bwd.launches_dkv += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
+                        sm_scale: float | None = None,
+                        causal_offset: int | None = None):
+    """Flash-attention backward ``(dq, dk, dv)`` from the forward's
+    ``(o, lse)`` and the output cotangent ``do``.
+
+    A CUDA tensor goes through the ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    kernels (counting one launch each in ``flash_attention_bwd.
+    launches_dq`` / ``.launches_dkv``); a CPU tensor through
+    :func:`flash_attention_bwd_plain`. Any other device raises."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if causal_offset is None:
+        causal_offset = k.shape[2] - q.shape[2]
+    with torch.no_grad():
+        if q.device.type == "cuda":
+            if o.shape != q.shape or o.device != q.device:
+                raise ValueError(f"flash_attention_bwd: o must have q's "
+                                 f"shape {tuple(q.shape)} on {q.device}")
+            # delta = rowsum(o · do) in f32 before the kernels, as in
+            # JAX (:371)
+            delta = (o.float() * do.float()).sum(-1)
+            kw = dict(sm_scale=float(sm_scale), causal=causal,
+                      causal_offset=causal_offset)
+            dq = launch_bwd_dq(q, k, v, do, lse, delta, **kw)
+            return (dq, *launch_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale,
+                causal_offset=causal_offset)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+flash_attention_bwd.launches_dq = 0
+flash_attention_bwd.launches_dkv = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward saves
+    ``(q, k, v, o, lse)`` and the backward recomputes ``p`` from them —
+    the counterpart of ``_flash_mha``'s ``custom_vjp`` (JAX
+    ``ops/attention.py:433-452``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: float | None = None):
-    """Fused attention. ``(b, h, s, d)`` in, ``(b, h, s, d)`` out."""
-    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)[0]
+    """Fused attention. ``(b, h, s, d)`` in, ``(b, h, s, d)`` out;
+    differentiable in ``q``, ``k`` and ``v``."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, causal, float(sm_scale))

@@ -129,8 +129,9 @@ def test_plain_zeroes_every_fully_masked_row():
 
 def test_wrapper_dispatch_on_cpu():
     """A CPU tensor takes the plain version and counts no launch; the
-    public op returns its ``o``; a gradient or an unknown device
-    raises."""
+    public op returns its ``o`` and, where a gradient is needed, records
+    one through its backward (``flash_attention_fwd`` itself records
+    none); an unknown device raises."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 2, 20, 20, 16))
     before = tattn.flash_attention_fwd.launches
     o, lse = tattn.flash_attention_fwd(q, k, v, causal=True)
@@ -139,35 +140,11 @@ def test_wrapper_dispatch_on_cpu():
     assert torch.equal(o, po) and torch.equal(lse, plse)
     assert torch.equal(tattn.flash_attention(q, k, v, causal=True), po)
     assert tattn.flash_attention_fwd.launches == before
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention(q.clone().requires_grad_(), k, v)
+    qg = q.clone().requires_grad_()
+    assert tattn.flash_attention_fwd(qg, k, v)[0].grad_fn is None
+    assert tattn.flash_attention(qg, k, v).grad_fn is not None
     with torch.no_grad():
-        tattn.flash_attention(q.clone().requires_grad_(), k, v)
+        assert tattn.flash_attention(qg, k, v).grad_fn is None
     with pytest.raises(ValueError):
         tattn.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
-                                       ("bfloat16", 2e-2)])
-def test_kernel_matches_plain_on_card(dtype, tol):
-    """The flash_fwd CUDA kernel against its plain version on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    dt = getattr(torch, dtype)
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for sq, sk, causal in ((100, 100, True), (70, 30, True),
-                           (64, 200, False)):
-        q, k, v = (torch.randn(2, 3, s, 64, device="cuda",
-                               generator=g).to(dt)
-                   for s in (sq, sk, sk))
-        before = tattn.flash_attention_fwd.launches
-        o, lse = tattn.flash_attention_fwd(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        assert tattn.flash_attention_fwd.launches == before + 1
-        po, plse = tattn.flash_attention_plain(q, k, v, causal=causal,
-                                               sm_scale=0.125)
-        assert (o.float() - po.float()).abs().max().item() <= tol
-        assert torch.equal(torch.isinf(lse), torch.isinf(plse))
-        fin = torch.isfinite(plse)
-        assert (lse[fin] - plse[fin]).abs().max().item() <= 1e-2

@@ -1,0 +1,70 @@
+"""``distributed_tensorflow_tpu_torch.ops._build`` on a machine without
+``nvcc``: loading a kernel source raises instead of falling back, and
+``load`` binds every entry point it is given. Nothing is compiled."""
+
+import ctypes
+import os
+
+import pytest
+
+from distributed_tensorflow_tpu_torch.ops import _build
+from distributed_tensorflow_tpu_torch.ops.attention import (
+    FLASH_BWD_ARGTYPES, FLASH_FWD_ARGTYPES)
+from distributed_tensorflow_tpu_torch.ops.fused_ce import CE_ARGTYPES
+
+SOURCES = {"flash_fwd": {"flash_fwd": FLASH_FWD_ARGTYPES},
+           "flash_bwd": FLASH_BWD_ARGTYPES,
+           "fused_ce": CE_ARGTYPES}
+
+
+@pytest.fixture
+def no_nvcc(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    real_exists = os.path.exists
+    monkeypatch.setattr(_build.os.path, "exists",
+                        lambda p: False if p.endswith("nvcc")
+                        else real_exists(p))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_libs", {})
+
+
+@pytest.mark.parametrize("name", sorted(SOURCES))
+def test_load_without_nvcc_raises(no_nvcc, name):
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load(name, SOURCES[name])
+    assert name not in _build._libs
+
+
+def test_every_source_has_its_entry_points():
+    """Each source defines the C entry points its wrapper binds, plus
+    ``kernel_error_string``."""
+    for name, entries in SOURCES.items():
+        with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+            src = f.read()
+        for entry in (*entries, "kernel_error_string"):
+            assert f" {entry}(" in src, (name, entry)
+
+
+def test_load_binds_every_entry(monkeypatch, tmp_path):
+    """``load`` sets argtypes and an int restype on each entry point it
+    is given, and caches the library for the process."""
+    class FakeFn:
+        argtypes = restype = None
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+            self.flash_bwd_dq, self.flash_bwd_dkv = FakeFn(), FakeFn()
+            self.kernel_error_string = FakeFn()
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build", lambda name: str(tmp_path / name))
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    lib = _build.load("flash_bwd", FLASH_BWD_ARGTYPES)
+    for entry, argtypes in FLASH_BWD_ARGTYPES.items():
+        assert getattr(lib, entry).argtypes == argtypes
+        assert getattr(lib, entry).restype is ctypes.c_int
+    assert lib.kernel_error_string.restype is ctypes.c_char_p
+    assert _build.load("flash_bwd", FLASH_BWD_ARGTYPES) is lib

@@ -32,9 +32,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def _kernels(prof):
+    """The device events of a trace, without the ranges that annotate a
+    stretch of them (``Optimizer.step#...``), which would count twice."""
     import torch
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def summarize(name, prof, wall_s, steps):
