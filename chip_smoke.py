@@ -15,9 +15,13 @@ printing one JSON line:
    version on the card, in bf16 and f32, at the main paths' shapes and
    at the edges (ragged tails, causal offsets, fully-masked rows, vocab
    tails, targets on tile edges, two row chunks), with the tolerances
-   below; then each kernel, its plain version and a PyTorch library
-   yardstick timed at the train step's shapes with CUDA events, in turns
-   plain, kernel, kernel, plain.
+   below; the cross-entropy backward variants "a" and "split" through
+   the public op ``fused_cross_entropy`` and autograd, each against its
+   plain versions and against variant "b", their launches counted over
+   that run; the fused AdamW on ``transformer_big``'s leaf shapes, f32
+   and bf16 ``mu``, steps 1 and 1000. Then each kernel, its plain
+   version and a PyTorch library yardstick timed at the train step's
+   shapes with CUDA events, in turns plain, kernel, kernel, plain.
 4. ``serve``   — ``InferenceEngine.generate`` at the full width of
    ``transformer_big`` in bf16 (random weights from seed 0), 8 requests
    × 32 new tokens. The launch counters are set to 0 just before and
@@ -26,8 +30,9 @@ printing one JSON line:
 5. ``parity``  — the serving path in f32: decode logits at every
    generated position against ``TransformerLM`` full-sequence
    recompute, and greedy tokens wherever the top-2 gap is clear.
-6. ``train``   — the train step (``make_train_step``) at the full width
-   and depth of ``transformer_big`` in bf16, batch 8 × 1024, kernel
+6. ``train``   — the train step (``make_train_step``) of ``bench.py``'s
+   headline row at the full width and depth of ``transformer_big`` in
+   bf16: batch 8 × 1024, no remat, unrolled layers, kernel
    cross-entropy, bf16 AdamW first moment; one warm-up step, then 5
    steps timed with CUDA events on one seeded token batch. The counters
    are set to 0 before the timed steps and read after: per step 12
@@ -35,16 +40,23 @@ printing one JSON line:
    ``fused_ce_fwd`` and 2 ``fused_ce_bwd`` launches. The first loss must
    lie within 1.0 of ln V and the loss must fall. A smoke run, not a
    benchmark.
-7. ``train_parity`` — f32 with TF32 off: the kernel path against the
+7. ``train_fused`` — the same with ``fused_optimizer=True``: per step
+   also 98 ``fused_adamw`` launches (one per parameter tensor), and the
+   plain ``AdamW.step`` is never reached.
+8. ``train_parity`` — f32 with TF32 off: the kernel path against the
    reference configuration (``mha_reference``, full-logits loss) from
    the same weights at full width, 2 layers, batch 2 × 256: loss,
    every gradient leaf, and the parameters after 3 AdamW steps.
+9. ``train_options`` — the same size, one step: ``remat=True`` with the
+   "nothing" and "dots" policies against ``remat=False``, and the
+   scan-chunked loss (8 chunks, both chunk policies) against full
+   logits: loss and every gradient leaf.
 
-Then a ``{"kernels": [...]}`` line (per kernel: launches on the train
-path, error, measured times and the bound), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
-without that last line, as does a machine with no CUDA device or a
-directory without the package. Imports nothing of JAX.
+Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
+that runs it, error, measured times and the bound), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``. Any failed phase
+exits non-zero without that last line, as does a machine with no CUDA
+device or a directory without the package. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -97,7 +109,7 @@ GRAD_AGREE = 1e-3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-SOURCES = ("flash_fwd", "flash_bwd", "fused_ce")
+SOURCES = ("flash_fwd", "flash_bwd", "fused_ce", "fused_adamw")
 SERVE_SLOTS, SERVE_BLOCK, SERVE_REQUESTS, SERVE_NEW = 8, 16, 8, 32
 PARITY_REQUESTS, PARITY_NEW = 4, 16
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
@@ -106,15 +118,32 @@ TRAIN_BATCH, TRAIN_STEPS = 8, 5
 # 4096-row chunk of the 8192 tokens
 TRAIN_LAUNCHES = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
                   "fused_ce_fwd": 2, "fused_ce_bwd": 2}
+# with fused_optimizer=True also one AdamW launch per parameter tensor:
+# 12 layers x 8 tensors, the embedding and the final norm's scale
+FUSED_LAUNCHES = {**TRAIN_LAUNCHES, "fused_adamw": 98}
 TRAIN_PARITY_STEPS = 3
+# fused AdamW against its plain version: p, nu and an f32 mu within
+# ADAMW_ULP f32 units in the last place (the kernel rounds each operation
+# as the plain version does); a bf16 mu the same value or its neighbour
+ADAMW_ULP = 2
+ADAMW_MU_BF16_ULP = 1
 
-KERNELS = {   # name: (source, TPU kernel it replaces)
+KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd": ("flash_fwd.cu", "ops/attention.py:135"),
     "flash_bwd_dq": ("flash_bwd.cu", "ops/attention.py:260"),
     "flash_bwd_dkv": ("flash_bwd.cu", "ops/attention.py:309"),
     "fused_ce_fwd": ("fused_ce.cu", "ops/fused_ce.py:75"),
+    "fused_ce_dh": ("fused_ce.cu", "ops/fused_ce.py:137"),
+    "fused_ce_bwd_a": ("fused_ce.cu", "ops/fused_ce.py:159"),
     "fused_ce_bwd": ("fused_ce.cu", "ops/fused_ce.py:201"),
+    "fused_ce_de": ("fused_ce.cu", "ops/fused_ce.py:242"),
+    "fused_adamw": ("fused_adamw.cu", "ops/fused_adamw.py:53"),
 }
+# the path each kernel's "launches" are read on: the train step, the
+# public op fused_cross_entropy with bwd_variant "a" and "split" (the
+# kernels phase), or the train step with fused_optimizer=True
+KERNEL_PATH = {"fused_ce_dh": "ce_variants", "fused_ce_bwd_a": "ce_variants",
+               "fused_ce_de": "ce_variants", "fused_adamw": "train_fused"}
 
 
 def emit(obj):
@@ -144,13 +173,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def in_turns(kernel, plain, iters: int) -> dict:
+def device_ms(fn, iters: int = 5) -> float:
+    """Device time of one call of ``fn``: the durations of the kernels it
+    launches, summed, from ``torch.profiler`` over ``iters`` calls. Unlike
+    :func:`time_ms` it leaves out the gaps in which the card waits for
+    the host to launch, which dominate a call of many small launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    return us / 1e3 / iters
+
+
+def in_turns(kernel, plain, iters: int, timer=time_ms) -> dict:
     """Kernel and plain version timed in turns plain, kernel, kernel,
     plain within this call."""
-    p1 = time_ms(plain, iters)
-    k1 = time_ms(kernel, iters)
-    k2 = time_ms(kernel, iters)
-    p2 = time_ms(plain, iters)
+    p1 = timer(plain, iters)
+    k1 = timer(kernel, iters)
+    k2 = timer(kernel, iters)
+    p2 = timer(plain, iters)
     return {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
             "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
 
@@ -193,12 +242,15 @@ def attention_work(q, k, causal: bool, causal_offset: int, which: str):
 
 def ce_work(n: int, v: int, d: int, el: int, which: str):
     """FLOPs and bytes of one CE call: ``fwd`` 2 N V D, h and E read,
-    targets read, lse and tl written; ``bwd`` 6 N V D (logits, dh, dE),
-    h, E, targets, lse, g read, dh and dE written."""
+    targets read, lse and tl written; ``bwd`` (either merged variant)
+    6 N V D (logits, dh, dE), h, E, targets, lse, g read, dh and dE
+    written; ``dh`` and ``de`` 4 N V D (logits and one product), the same
+    reads and their one gradient written."""
     io = (n * d + v * d) * el
-    if which == "fwd":
-        return 2 * n * v * d, io + n * 4 * 3
-    return 6 * n * v * d, 2 * io + n * 4 * 3
+    return {"fwd": (2 * n * v * d, io + n * 4 * 3),
+            "bwd": (6 * n * v * d, 2 * io + n * 4 * 3),
+            "dh": (4 * n * v * d, io + n * d * el + n * 4 * 3),
+            "de": (4 * n * v * d, io + v * d * el + n * 4 * 3)}[which]
 
 
 def rel_err(got, want) -> float:
@@ -212,21 +264,35 @@ def abs_err(got, want) -> float:
 
 
 def launch_counts() -> dict:
-    from distributed_tensorflow_tpu_torch.ops import attention, fused_ce
+    from distributed_tensorflow_tpu_torch.ops import (
+        attention, fused_adamw, fused_ce)
     return {"flash_fwd": attention.flash_attention_fwd.launches,
             "flash_bwd_dq": attention.flash_attention_bwd.launches_dq,
             "flash_bwd_dkv": attention.flash_attention_bwd.launches_dkv,
             "fused_ce_fwd": fused_ce.fused_ce_fwd.launches,
-            "fused_ce_bwd": fused_ce.fused_ce_bwd.launches}
+            "fused_ce_dh": fused_ce.fused_ce_bwd.launches_dh,
+            "fused_ce_bwd_a": fused_ce.fused_ce_bwd.launches_a,
+            "fused_ce_bwd": fused_ce.fused_ce_bwd.launches,
+            "fused_ce_de": fused_ce.fused_ce_bwd.launches_de,
+            "fused_adamw": fused_adamw.fused_adamw_update.launches}
 
 
 def zero_launch_counts():
-    from distributed_tensorflow_tpu_torch.ops import attention, fused_ce
+    from distributed_tensorflow_tpu_torch.ops import (
+        attention, fused_adamw, fused_ce)
     attention.flash_attention_fwd.launches = 0
     attention.flash_attention_bwd.launches_dq = 0
     attention.flash_attention_bwd.launches_dkv = 0
     fused_ce.fused_ce_fwd.launches = 0
-    fused_ce.fused_ce_bwd.launches = 0
+    for name in ("launches", "launches_a", "launches_dh", "launches_de"):
+        setattr(fused_ce.fused_ce_bwd, name, 0)
+    fused_adamw.fused_adamw_update.launches = 0
+
+
+def expected_counts(per_step: dict, steps: int) -> dict:
+    """Every kernel's count after ``steps`` steps that each launch
+    ``per_step`` (the kernels not named there: 0)."""
+    return {k: per_step.get(k, 0) * steps for k in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -554,6 +620,7 @@ def _check_fused_ce(state, gen):
     unfused_bwd = time_ms(lambda: torch.autograd.grad(
         ul, (hl, el_), g.to(ul.dtype), retain_graph=True), 5)
     del ul
+    state["ce_unfused_bwd_ms"] = unfused_bwd
     shape_out = {}
     for kname, tm, err, which in (("fused_ce_fwd", t_fwd, fwd_err, "fwd"),
                                   ("fused_ce_bwd", t_bwd, bwd_err, "bwd")):
@@ -563,6 +630,8 @@ def _check_fused_ce(state, gen):
                         "plain_ms": tm["plain_ms"], "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": None,
                         "shape": [n, v, d]}
+        if which == "bwd":
+            state[kname]["unfused_bwd_ms"] = unfused_bwd
         shape_out[kname] = {**tm, "bound_ms": bound, "bound_by": bound_by,
                             "flops": flops, "bytes": nbytes,
                             "achieved_tflops":
@@ -573,12 +642,295 @@ def _check_fused_ce(state, gen):
             "unfused_cross_entropy_linear_bwd_ms": unfused_bwd}
 
 
+# (name, N, V, D): a ragged vocab tail (V = 1000, 15 tiles + 40), N no
+# multiple of the 32-row tile, the widest D, the train step's chunk, and
+# two 4096-row chunks of the public op
+CE_VARIANT_CASES = [("N300_V1000_D256", 300, 1000, 256),
+                    ("N100_V1000_D1024", 100, 1000, 1024),
+                    ("N4133_V1000_D64", 4133, 1000, 64),
+                    ("train_chunk_N4096_V32768_D1024", 4096, 32768, 1024),
+                    ("two_chunks_N8192_V1000_D128", 8192, 1000, 128)]
+
+
+def _ce_variant_grads(h, e, t, w, variant):
+    """``(dh, dE)`` of ``sum(fused_cross_entropy(h, e, t) * w)`` through
+    the public op with ``bwd_variant=variant`` and autograd."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.fused_ce import (
+        fused_cross_entropy)
+    hl, el = (x.detach().requires_grad_() for x in (h, e))
+    loss = (fused_cross_entropy(hl, el, t, bwd_variant=variant) * w).sum()
+    return torch.autograd.grad(loss, (hl, el))
+
+
+def _check_ce_variants(state, gen):
+    """The backward variants "a" (#6) and "split" (#5, #8) through the
+    public op, each against its plain versions and against variant "b"
+    (#7) on the same inputs, in bf16 and f32; the variant kernels'
+    launches are counted over this run. Then #5, #6 and #8 timed at the
+    train step's chunk against their plain versions, in turns."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_ce as ce
+
+    runs = [(f"{tag}_{name}", dt, *shape)
+            for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))
+            for name, *shape in CE_VARIANT_CASES
+            if not (tag == "f32" and shape[1] == 32768)]
+    results, failures, main = [], [], None
+    chunks = 0
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    for name, dt, n, v, d in runs:
+        h = _rand((n, d), dt, gen)
+        e = _rand((v, d), dt, gen, 0.1)
+        t = torch.randint(0, v, (n,), device="cuda", generator=gen)
+        edges = torch.tensor([0, 63, 64, 127, 128, v - 40, v - 41, v - 1],
+                             device="cuda")
+        t[:len(edges)] = edges
+        w = torch.rand(n, device="cuda", generator=gen) / n
+        got = {var: _ce_variant_grads(h, e, t, w, var)
+               for var in ce.BWD_VARIANTS}
+        torch.cuda.synchronize()
+        chunks += n // ce.ROW_CHUNK if n > ce.ROW_CHUNK \
+            and n % ce.ROW_CHUNK == 0 else 1
+        plse, _ = ce.fused_ce_fwd_plain(h, e, t)
+        pdh, pde = ce.fused_ce_bwd_plain(h, e, t, plse, w)
+        want = {"a": (pdh, pde),
+                "split": (ce.fused_ce_dh_plain(h, e, t, plse, w),
+                          ce.fused_ce_de_plain(h, e, t, plse, w))}
+        tol = GRAD_TOL[str(dt).replace("torch.", "")]
+        errs = {}
+        for var, (wdh, wde) in want.items():
+            gdh, gde = got[var]
+            errs[var] = {"dh_rel": rel_err(gdh, wdh), "de_rel": rel_err(gde, wde),
+                         "dh_rel_vs_b": rel_err(gdh, got["b"][0]),
+                         "de_rel_vs_b": rel_err(gde, got["b"][1])}
+        ok = (all(x <= tol for er in errs.values() for x in er.values())
+              and all(bool(torch.isfinite(x).all().item())
+                      for pair in got.values() for x in pair))
+        results.append({"case": name, "err": errs, "tol": tol, "ok": ok})
+        if not ok:
+            failures.append(name)
+        if "train_chunk" in name:
+            main = (h, e, t, w, {
+                "fused_ce_bwd_a": max(abs_err(got["a"][0], pdh),
+                                      abs_err(got["a"][1], pde)),
+                "fused_ce_dh": abs_err(got["split"][0], pdh),
+                "fused_ce_de": abs_err(got["split"][1], pde)})
+        del got, want, pdh, pde
+    counts = launch_counts()
+    state["ce_variants_launches"] = counts
+    # one launch of each variant kernel per row chunk; "b" ran beside them
+    expected = {"fused_ce_fwd": 3 * chunks, "fused_ce_bwd": chunks,
+                "fused_ce_bwd_a": chunks, "fused_ce_dh": chunks,
+                "fused_ce_de": chunks}
+    if failures or counts != expected_counts(expected, 1):
+        raise AssertionError(f"fused_ce variants: failures {failures}, "
+                             f"launches {counts} (expected {expected}): "
+                             f"{results}")
+
+    h, e, t, g, errs = main
+    n, d = h.shape
+    v = e.shape[0]
+    lse, _ = ce.fused_ce_fwd(h, e, t)
+    t32 = t.to(torch.int32)
+    dh, de = torch.empty_like(h), torch.empty_like(e)
+    ptrs = (h.data_ptr(), e.data_ptr(), t32.data_ptr(), lse.data_ptr(),
+            g.data_ptr())
+    dims = (n, v, d, ce.KERNEL_DTYPES[h.dtype])
+    timed = {
+        "fused_ce_bwd_a": (
+            in_turns(lambda: ce.fused_ce_bwd(h, e, t, lse, g, variant="a"),
+                     lambda: ce.fused_ce_bwd_plain(h, e, t, lse, g), 3),
+            "bwd"),
+        "fused_ce_dh": (
+            in_turns(lambda: ce._launch("fused_ce_dh", h.device, *ptrs,
+                                        dh.data_ptr(), *dims),
+                     lambda: ce.fused_ce_dh_plain(h, e, t, lse, g), 3),
+            "dh"),
+        "fused_ce_de": (
+            in_turns(lambda: ce._launch("fused_ce_de", h.device, *ptrs,
+                                        de.data_ptr(), *dims),
+                     lambda: ce.fused_ce_de_plain(h, e, t, lse, g), 3),
+            "de"),
+    }
+    shape_out = {}
+    for kname, (tm, which) in timed.items():
+        flops, nbytes = ce_work(n, v, d, h.element_size(), which)
+        bound, bound_by = bound_ms(flops, nbytes, h.dtype)
+        state[kname] = {"max_abs_err": errs[kname], "ms": tm["ms"],
+                        "plain_ms": tm["plain_ms"], "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": None,
+                        "unfused_bwd_ms": state["ce_unfused_bwd_ms"],
+                        "shape": [n, v, d]}
+        shape_out[kname] = {**tm, "bound_ms": bound, "bound_by": bound_by,
+                            "flops": flops, "bytes": nbytes,
+                            "achieved_tflops":
+                                flops / (tm["ms"] * 1e-3) / 1e12}
+    return {"cases": results, "launches": counts, "shape": [n, v, d],
+            "dtype": "bfloat16", **shape_out,
+            "split_ms": timed["fused_ce_dh"][0]["ms"]
+            + timed["fused_ce_de"][0]["ms"]}
+
+
+def ulps(got, want) -> int:
+    """Largest distance of ``got`` from ``want`` in units in the last
+    place of their dtype (f32 or bf16), from their bit patterns ordered
+    as the values are."""
+    import torch
+    bits, mask = ((torch.int32, 0x7FFFFFFF) if want.dtype == torch.float32
+                  else (torch.int16, 0x7FFF))
+
+    def key(x):
+        i = x.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & mask), i)
+
+    return int((key(got) - key(want)).abs().max().item())
+
+
+ADAMW_HYPER = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+
+
+def _adamw_inputs(shapes, mu_dtype, gen):
+    """p, g, mu, nu for tensors of ``shapes``: f32 but mu; nu > 0."""
+    import torch
+    p = [_rand(s, torch.float32, gen) for s in shapes]
+    g = [_rand(s, torch.float32, gen, 1e-2) for s in shapes]
+    mu = [_rand(s, mu_dtype, gen, 1e-2) for s in shapes]
+    nu = [1e-4 * torch.rand(s, device="cuda", generator=gen) for s in shapes]
+    return p, g, mu, nu
+
+
+def _check_fused_adamw(state, gen):
+    """#9 against ``adamw_reference`` on the leaf shapes of
+    ``transformer_big`` and a 1000-element tail, with an f32 and a bf16
+    mu, at step 1 and step 1000; one leaf misaligned for the vector loads.
+    Then the update of the whole model (98 tensors) timed against its
+    plain version, in turns, and against one ``torch.optim.AdamW(
+    fused=True)`` step over the same tensors with f32 moments: device
+    time (the kernels' durations, :func:`device_ms`), and CUDA events
+    over the whole update, which add the host's launch gaps."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, param_shapes)
+    from distributed_tensorflow_tpu_torch.ops.fused_adamw import (
+        adamw_reference, bias_corrections, fused_adamw_update)
+
+    leaves = [("embed", (32768, 1024)), ("mlp.wi", (1024, 8192)),
+              ("scale", (1024,)), ("tail", (1000,)),
+              ("unaligned_1001", (1001,))]
+    hp = dict(ADAMW_HYPER)
+    wd = hp.pop("weight_decay")
+    results, failures, worst = [], [], 0.0
+    for mu_dt in (torch.float32, torch.bfloat16):
+        for count in (0, 999):      # bias corrections of steps 1 and 1000
+            c1, c2 = bias_corrections(count, hp["b1"], hp["b2"])
+            for name, shape in leaves:
+                p, g, mu, nu = (x[0] for x in _adamw_inputs([shape], mu_dt,
+                                                            gen))
+                if name.startswith("unaligned"):
+                    # a view 4 bytes into its storage: the scalar path
+                    p, g, nu = (torch.cat([x.new_zeros(1), x])[1:]
+                                for x in (p, g, nu))
+                want = adamw_reference(p, g, mu, nu, c1, c2, wd=wd, **hp)
+                kp, km, kv = p.clone(), mu.clone(), nu.clone()
+                if name.startswith("unaligned"):
+                    kp, kv = (torch.cat([x.new_zeros(1), x])[1:]
+                              for x in (kp, kv))
+                fused_adamw_update([kp], [g], [km], [kv], count,
+                                   weight_decay=wd, **hp)
+                torch.cuda.synchronize()
+                err = {"p_ulp": ulps(kp, want[0]), "mu_ulp": ulps(km, want[1]),
+                       "nu_ulp": ulps(kv, want[2]),
+                       "p_abs": abs_err(kp, want[0])}
+                mu_tol = ADAMW_ULP if mu_dt == torch.float32 \
+                    else ADAMW_MU_BF16_ULP
+                ok = (err["p_ulp"] <= ADAMW_ULP and err["nu_ulp"] <= ADAMW_ULP
+                      and err["mu_ulp"] <= mu_tol
+                      and bool(torch.isfinite(kp).all().item()))
+                case = f"{str(mu_dt)[6:]}_mu_step{count + 1}_{name}"
+                results.append({"case": case, "err": err, "ok": ok})
+                worst = max(worst, err["p_abs"])
+                if not ok:
+                    failures.append(case)
+    if failures:
+        raise AssertionError(f"fused_adamw disagrees with its plain "
+                             f"version: {failures}: {results}")
+
+    # the whole model's update, as the fused train step runs it
+    cfg = TransformerConfig.transformer_big()
+    tree = param_shapes(cfg)
+    shapes = [tree["embed"], tree["final_norm"]["scale"]] + [
+        s[1:] for leaves_ in tree["layers"].values() for s in leaves_.values()
+        for _ in range(s[0])]
+    n_params = sum(math.prod(s) for s in shapes)
+    timings = {}
+    for tag, mu_dt in (("bf16_mu", torch.bfloat16), ("f32_mu", torch.float32)):
+        p, g, mu, nu = _adamw_inputs(shapes, mu_dt, gen)
+        c1, c2 = bias_corrections(0, hp["b1"], hp["b2"])
+
+        def plain():
+            for x in zip(p, g, mu, nu):
+                adamw_reference(*x, c1, c2, wd=wd, **hp)
+
+        def kernel():
+            fused_adamw_update(p, g, mu, nu, 0, weight_decay=wd, **hp)
+
+        timings[tag] = in_turns(kernel, plain, 5, timer=device_ms)
+        events = in_turns(kernel, plain, 10)
+        timings[tag].update({f"{k}_events": events[k]
+                             for k in ("ms", "plain_ms")})
+        if tag == "f32_mu":
+            leaves_ = [x.clone().requires_grad_() for x in p]
+            for x, gx in zip(leaves_, g):
+                x.grad = gx
+            lib = torch.optim.AdamW(leaves_, lr=hp["lr"],
+                                    betas=(hp["b1"], hp["b2"]),
+                                    eps=hp["eps"], weight_decay=wd,
+                                    fused=True)
+            library = device_ms(lib.step)
+            library_events = time_ms(lib.step, 10)
+            del lib, leaves_
+        del p, g, mu, nu
+        torch.cuda.empty_cache()
+    out = {}
+    for tag, el_mu in (("bf16_mu", 2), ("f32_mu", 4)):
+        nbytes = n_params * (4 + 4 + 4 + 2 * el_mu + 4 + 4)
+        bound, bound_by = bound_ms(13 * n_params, nbytes, torch.float32)
+        out[tag] = {**timings[tag], "bound_ms": bound, "bound_by": bound_by,
+                    "bytes": nbytes,
+                    "achieved_gb_s": nbytes / (timings[tag]["ms"] * 1e-3)
+                    / 1e9}
+    # the row: the fused train step's bf16 mu; the library (f32 moments)
+    # beside the f32-mu run
+    state["fused_adamw"] = {
+        "max_abs_err": worst, "ms": out["bf16_mu"]["ms"],
+        "plain_ms": out["bf16_mu"]["plain_ms"],
+        "bound_ms": out["bf16_mu"]["bound_ms"],
+        "bound_by": out["bf16_mu"]["bound_by"], "library_ms": library,
+        "ms_events": out["bf16_mu"]["ms_events"],
+        "f32_mu": {k: out["f32_mu"][k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "ms_events")},
+        "library_ms_events": library_events,
+        "shape": f"{len(shapes)} tensors, {n_params} parameters"}
+    return {"cases": results, "tol_ulp": {"p": ADAMW_ULP, "nu": ADAMW_ULP,
+                                          "mu_f32": ADAMW_ULP,
+                                          "mu_bf16": ADAMW_MU_BF16_ULP},
+            "tensors": len(shapes), "n_params": n_params, **out,
+            "library": "torch.optim.AdamW(fused=True).step, f32 moments",
+            "library_ms": library, "library_ms_events": library_events}
+
+
 def phase_kernels(state):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"flash_fwd": _check_flash_fwd(state, gen),
            "flash_bwd": _check_flash_bwd(state, gen),
            "fused_ce": _check_fused_ce(state, gen)}
+    torch.cuda.empty_cache()
+    out["fused_ce_variants"] = _check_ce_variants(state, gen)
+    torch.cuda.empty_cache()
+    out["fused_adamw"] = _check_fused_adamw(state, gen)
     torch.cuda.empty_cache()
     return out
 
@@ -790,16 +1142,33 @@ def _train_setup(cfg, seed, batch):
     return model, opt, step, {"tokens": tokens}
 
 
-def phase_train(state):
-    import numpy as np
+def _headline_config(**kw):
+    """The ``bench.py`` headline row (``bench.py:2657-2668``) in the port:
+    batch 8 x 1024, no remat, unrolled layers, kernel cross-entropy, bf16
+    AdamW first moment."""
     import torch
     from distributed_tensorflow_tpu_torch.models.transformer import (
         TransformerConfig)
+    return TransformerConfig.transformer_big(
+        max_seq_len=1024, remat=False, scan_layers=False, loss_impl="kernel",
+        adam_mu_dtype=torch.bfloat16, **kw)
+
+
+def _timed_train(cfg, per_step: dict, forbid_plain_step: bool):
+    """One warm-up step of ``cfg``'s train step, then TRAIN_STEPS timed
+    with CUDA events with the launch counters set to 0 before and read
+    after; checks the launches, the first loss and that the loss falls.
+    With ``forbid_plain_step`` the optimizer's own ``step`` raises if it
+    is ever reached."""
+    import numpy as np
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TransformerConfig.transformer_big(
-        max_seq_len=1024, loss_impl="kernel", adam_mu_dtype=torch.bfloat16)
     model, opt, step, batch = _train_setup(cfg, 0, TRAIN_BATCH)
+    if forbid_plain_step:
+        def plain_step(*_a, **_k):
+            raise AssertionError("the plain AdamW.step was reached")
+        opt.step = plain_step
     n_params = sum(p.numel() for p in model.parameters())
     st = {"model": model, "optimizer": opt, "step": 0}
     t0 = time.perf_counter()
@@ -824,11 +1193,11 @@ def phase_train(state):
         losses.append(metrics["loss"].item())
     counts = launch_counts()
 
-    expected = {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()}
+    expected = expected_counts(per_step, TRAIN_STEPS)
     problems = []
     if counts != expected:
         problems.append(f"launches {counts} != {expected}")
-    if any(n == 0 for n in counts.values()):
+    if any(counts[k] == 0 for k in per_step):
         problems.append(f"a kernel of the path never launched: {counts}")
     if not math.isfinite(first_loss) or abs(
             first_loss - math.log(cfg.vocab_size)) > 1.0:
@@ -840,28 +1209,117 @@ def phase_train(state):
         problems.append(f"step count {st['step']}")
     if problems:
         raise AssertionError("; ".join(problems))
-    state["train_launches"] = counts
     mean_s = float(np.mean(step_ms)) / 1e3
     median_s = float(np.median(step_ms)) / 1e3
     tokens = TRAIN_BATCH * cfg.max_seq_len
     flops = step_flops(cfg, TRAIN_BATCH, n_params)
-    return {"note": "smoke run, not a benchmark",
-            "config": "transformer_big", "dtype": "bfloat16",
-            "batch": TRAIN_BATCH, "seq_len": cfg.max_seq_len,
-            "loss_impl": "kernel", "adam_mu_dtype": "bfloat16",
-            "n_params": n_params, "warmup_step_s": warmup_s,
-            "step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
-            "step_ms_median": median_s * 1e3,
-            "host_step_ms": host_ms, "tokens_per_s": tokens / mean_s,
-            "tokens_per_s_median": tokens / median_s,
-            "step_flops": flops,
-            "mfu": flops / mean_s / PEAK_FLOPS["bfloat16"],
-            "mfu_median": flops / median_s / PEAK_FLOPS["bfloat16"],
-            "mfu_peak": "989 TFLOP/s bf16 dense",
-            "first_loss": first_loss, "ln_vocab": math.log(cfg.vocab_size),
-            "losses": losses, "launches": counts,
-            "launches_per_step": TRAIN_LAUNCHES,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    return counts, {
+        "note": "smoke run, not a benchmark",
+        "config": "transformer_big", "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq_len": cfg.max_seq_len,
+        "loss_impl": "kernel", "adam_mu_dtype": "bfloat16",
+        "fused_optimizer": cfg.fused_optimizer,
+        "n_params": n_params, "warmup_step_s": warmup_s,
+        "step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+        "step_ms_median": median_s * 1e3,
+        "host_step_ms": host_ms, "tokens_per_s": tokens / mean_s,
+        "tokens_per_s_median": tokens / median_s,
+        "step_flops": flops,
+        "mfu": flops / mean_s / PEAK_FLOPS["bfloat16"],
+        "mfu_median": flops / median_s / PEAK_FLOPS["bfloat16"],
+        "mfu_peak": "989 TFLOP/s bf16 dense",
+        "first_loss": first_loss, "ln_vocab": math.log(cfg.vocab_size),
+        "losses": losses, "launches": counts,
+        "launches_per_step": per_step,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_train(state):
+    counts, out = _timed_train(_headline_config(), TRAIN_LAUNCHES, False)
+    state["train_launches"] = counts
+    state["train_step_ms_median"] = out["step_ms_median"]
+    return out
+
+
+def phase_train_fused(state):
+    import torch
+    torch.cuda.empty_cache()
+    counts, out = _timed_train(_headline_config(fused_optimizer=True),
+                               FUSED_LAUNCHES, True)
+    state["train_fused_launches"] = counts
+    out["train_step_ms_median"] = state["train_step_ms_median"]
+    return out
+
+
+def _grads_of_one_step(cfg, seed: int, batch: int):
+    """Loss and every gradient leaf of one step of ``cfg`` from the seeded
+    weights and tokens of ``_train_setup``, and the launches it made."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        make_loss_fn)
+    model, _, _, data = _train_setup(cfg, seed, batch)
+    zero_launch_counts()
+    loss = make_loss_fn(cfg, model)(data["tokens"])
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    grads = dict(_leaves(model.stacked_params(lambda p: p.grad.clone())))
+    return loss.item(), grads, counts
+
+
+def phase_train_options(state):
+    """f32, TF32 off, full width, 2 layers, batch 2 x 256, one step from
+    the same weights: ``remat=True`` with the "nothing" and "dots" policies
+    against ``remat=False`` (flash_fwd launched twice a layer under
+    recompute), and the scan-chunked loss (8 chunks, both chunk
+    policies) against full logits: loss and every gradient."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dict(n_layers=2, max_seq_len=256, dtype=torch.float32,
+                remat=False, scan_layers=False)
+    pairs = {
+        "remat_nothing": (dict(loss_impl="kernel", remat=True,
+                               remat_policy="nothing"),
+                          dict(loss_impl="kernel")),
+        "remat_dots": (dict(loss_impl="kernel", remat=True,
+                            remat_policy="dots"), dict(loss_impl="kernel")),
+        "loss_chunks8_recompute": (dict(loss_chunks=8), dict()),
+        "loss_chunks8_save": (dict(loss_chunks=8,
+                                   loss_chunk_policy="save"), dict()),
+    }
+    runs, results, failures = {}, {}, []
+    for name, (kw, ref_kw) in pairs.items():
+        for key in (tuple(sorted(kw.items())), tuple(sorted(ref_kw.items()))):
+            if key not in runs:
+                cfg = TransformerConfig.transformer_big(**{**base,
+                                                           **dict(key)})
+                runs[key] = _grads_of_one_step(cfg, 3, 2)
+                torch.cuda.empty_cache()
+        (gl, gg, gc), (rl, rg, rc) = (runs[tuple(sorted(kw.items()))],
+                                      runs[tuple(sorted(ref_kw.items()))])
+        grad_err = max(rel_err(g, rg[n]) for n, g in gg.items())
+        fwd = {"got": gc["flash_fwd"], "reference": rc["flash_fwd"]}
+        want_fwd = (2 if name.startswith("remat") else 1) * base["n_layers"]
+        ok = (abs(gl - rl) <= TRAIN_LOSS_TOL
+              and grad_err <= GRAD_TOL["float32"] and len(gg) == 10
+              and fwd["got"] == want_fwd
+              and fwd["reference"] == base["n_layers"])
+        results[name] = {"loss": gl, "loss_reference": rl,
+                         "abs_loss_err": abs(gl - rl),
+                         "max_grad_rel_err": grad_err,
+                         "flash_fwd_launches": fwd, "ok": ok}
+        if not ok:
+            failures.append(name)
+    out = {"config": "transformer_big, 2 layers", "dtype": "float32",
+           "batch": 2, "seq_len": 256, "loss_tol": TRAIN_LOSS_TOL,
+           "grad_tol": GRAD_TOL["float32"], **results}
+    if failures:
+        raise AssertionError(f"train options: {failures}: {json.dumps(out)}")
+    return out
 
 
 def _leaves(tree, prefix=""):
@@ -898,7 +1356,8 @@ def phase_train_parity(state):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    base = dict(n_layers=2, max_seq_len=256, dtype=torch.float32)
+    base = dict(n_layers=2, max_seq_len=256, dtype=torch.float32,
+                remat=False, scan_layers=False)
     runs = {}
     for name, kw in (("kernel", dict(loss_impl="kernel")),
                      ("reference", dict(attention_impl="reference",
@@ -990,7 +1449,9 @@ def main() -> int:
     for name, fn in (("device", phase_device), ("build", phase_build),
                      ("kernels", phase_kernels), ("serve", phase_serve),
                      ("parity", phase_parity), ("train", phase_train),
-                     ("train_parity", phase_train_parity)):
+                     ("train_fused", phase_train_fused),
+                     ("train_parity", phase_train_parity),
+                     ("train_options", phase_train_options)):
         t0 = time.perf_counter()
         try:
             out = fn(state)
@@ -1004,14 +1465,21 @@ def main() -> int:
     summary = []
     for name, (source, replaces) in KERNELS.items():
         k = state[name]
+        path = KERNEL_PATH.get(name, "train")
         row = {"name": name, "route": "cuda",
                "source": f"distributed_tensorflow_tpu_torch/ops/csrc/"
                          f"{source}",
                "replaces": f"distributed_tensorflow_tpu/{replaces}",
-               "launches": state["train_launches"][name]}
+               "launches": state[f"{path}_launches"][name],
+               "launches_path": path,
+               "train_launches": state["train_launches"][name]}
         row.update({key: k[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")})
+        for key in ("unfused_bwd_ms", "f32_mu", "ms_events",
+                    "library_ms_events"):
+            if key in k:
+                row[key] = k[key]
         if name == "flash_fwd":
             # the same kernel on the serve path, at its longest prefill
             row["serve"] = {"launches": state["serve_launches"],

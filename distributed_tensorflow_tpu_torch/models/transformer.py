@@ -25,27 +25,53 @@ numpy arrays, either layout); :meth:`TransformerLM.load_params` loads
 one into the module and :meth:`TransformerLM.stacked_params` reads the
 parameters (or their gradients, or optimizer moments) back in it.
 
-Training: :func:`next_token_loss` (full logits), :func:`kernel_next_token_loss`
-(the fused CE kernels), :func:`make_optimizer` (AdamW with optax's
-semantics), :func:`make_loss_fn` and :func:`make_train_step`. Mesh, MoE,
-remat, scan, the scan-chunked loss and the fused optimizer belong to
-later slices.
+Training: :func:`next_token_loss` (full logits),
+:func:`fused_next_token_loss` (logits one sequence chunk at a time),
+:func:`kernel_next_token_loss` (the fused CE kernels),
+:func:`make_optimizer` (AdamW with optax's semantics), :func:`make_loss_fn`
+and :func:`make_train_step` (the optimizer's step, or the fused AdamW
+kernel with ``fused_optimizer=True``). ``remat`` recomputes each block in
+the backward. Mesh and MoE belong to later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from distributed_tensorflow_tpu_torch.ops.attention import (
     flash_attention, mha_reference)
+from distributed_tensorflow_tpu_torch.ops.fused_adamw import (
+    fused_adamw_update)
 from distributed_tensorflow_tpu_torch.ops.fused_ce import (
     fused_cross_entropy)
+
+#: matrix products without batch dimensions: the outputs that the
+#: "dots" policies save (jax.checkpoint_policies.
+#: dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+#: ``remat_policy`` → ``checkpoint``'s ``context_fn``
+REMAT_POLICIES = {
+    "nothing": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _save_dots),
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -69,36 +95,50 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: Any = torch.bfloat16
     causal: bool = True            # False -> bidirectional encoder (BERT)
+    # remat: each Block under torch.utils.checkpoint while grad is
+    # enabled; remat_policy "nothing" saves nothing, "dots" saves the
+    # matmul outputs. scan_layers is accepted and numerically neutral:
+    # the port always loops over its layers in Python.
+    remat: bool = True
+    remat_policy: str = "nothing"
+    scan_layers: bool = True
     # None: flash attention (the CUDA kernels on a card, their plain
     # versions on the CPU); "reference": the unfused mha_reference
     attention_impl: str | None = None
-    # "kernel": the fused CE kernels (ops/fused_ce.py); "scan" with
-    # loss_chunks=0: full (B, S, V) logits and next_token_loss
+    # "kernel": the fused CE kernels (ops/fused_ce.py); "scan": full
+    # (B, S, V) logits and next_token_loss with loss_chunks=0, else
+    # fused_next_token_loss over loss_chunks sequence chunks, whose
+    # backward recomputes ("recompute") or keeps ("save") each chunk's
+    # logits
     loss_impl: str = "scan"
     loss_chunks: int = 0
+    loss_chunk_policy: str = "recompute"
     learning_rate: float = 3e-4
     weight_decay: float = 0.01
     # AdamW first-moment storage dtype (None = the parameters' f32)
     adam_mu_dtype: Any = None
+    # one fused_adamw_update over the AdamW state in place of its step
     fused_optimizer: bool = False
 
     def __post_init__(self):
-        # the one place where options without a ported kernel are refused
+        # the one place where options are checked
         if self.attention_impl not in (None, "reference"):
             raise ValueError(f"attention_impl={self.attention_impl!r}; "
                              f"expected None or 'reference'")
         if self.loss_impl not in ("scan", "kernel"):
             raise ValueError(f"loss_impl={self.loss_impl!r}; expected "
                              f"'scan' or 'kernel'")
-        if self.loss_impl == "scan" and self.loss_chunks > 0:
+        if self.loss_chunk_policy not in ("recompute", "save"):
+            raise ValueError(f"loss_chunk_policy={self.loss_chunk_policy!r}"
+                             f"; expected 'recompute' or 'save'")
+        if self.remat_policy in ("attn", "dots_attn"):
             raise NotImplementedError(
-                "loss_impl='scan' with loss_chunks > 0 "
-                "(fused_next_token_loss) is not ported yet; use "
-                "loss_impl='kernel' or loss_chunks=0")
-        if self.fused_optimizer:
-            raise NotImplementedError(
-                "fused_optimizer=True needs the TPU kernel _adamw_kernel "
-                "(#9, ops/fused_adamw.py), which is ported in slice 3")
+                f"remat_policy={self.remat_policy!r} saves the attention "
+                f"output by name, which needs the flash call visible to "
+                f"selective checkpointing (ROADMAP.md queue A item 2)")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={self.remat_policy!r}; expected "
+                             f"one of {sorted(REMAT_POLICIES)}")
 
     @property
     def head_dim(self) -> int:
@@ -288,11 +328,17 @@ class TransformerLM(nn.Module):
         layer's attention masks padded keys with the factored rule
         (:func:`~distributed_tensorflow_tpu_torch.ops.attention.
         length_valid_mask`); None runs the flash forward."""
-        dt = self.cfg.dtype
+        cfg = self.cfg
+        dt = cfg.dtype
         emb = self.embed.to(dt)
         x = emb[tokens]
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.layers:
-            x = block(x, lengths)
+            if remat:
+                x = checkpoint(block, x, lengths, use_reentrant=False,
+                               context_fn=REMAT_POLICIES[cfg.remat_policy])
+            else:
+                x = block(x, lengths)
         x = self.final_norm(x)
         if return_hidden:
             return x
@@ -403,6 +449,46 @@ def next_token_loss(logits, tokens):
     return (torch.logsumexp(logits, dim=-1) - tl).mean()
 
 
+def _chunk_loss(xc, emb, tc, mc):
+    """Summed masked CE of one sequence chunk: its ``(B, C, V)`` logits in
+    ``emb``'s dtype (one matrix product), then f32."""
+    logits = (xc.to(emb.dtype) @ emb.T).float()
+    tl = logits.gather(-1, tc.long()[..., None])[..., 0]
+    return ((torch.logsumexp(logits, dim=-1) - tl) * mc).sum()
+
+
+def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
+                          compute_dtype=torch.bfloat16,
+                          chunk_policy: str = "recompute"):
+    """Chunked next-token CE over the tied embedding (JAX
+    ``:459-510``): ``next_token_loss(hidden @ embed.T, tokens)`` without
+    the ``(B, S, V)`` f32 logits. Each of ``num_chunks`` sequence chunks
+    computes its logits and reduces them to a partial CE sum under
+    ``torch.utils.checkpoint``, added in chunk order as JAX's scan carry
+    does. ``chunk_policy="recompute"`` keeps nothing of a chunk, so the
+    backward recomputes its logits; ``"save"`` keeps the logits in
+    ``compute_dtype`` (the output of the chunk's matrix product) and
+    recomputes only what follows them."""
+    B, S, D = hidden.shape
+    if S % num_chunks:
+        raise ValueError(f"seq len {S} not divisible by loss "
+                         f"num_chunks={num_chunks}")
+    if chunk_policy not in ("recompute", "save"):
+        raise ValueError(f"chunk_policy={chunk_policy!r}; expected "
+                         f"'recompute' or 'save'")
+    C = S // num_chunks
+    targets, mask = _shifted_targets_and_mask(tokens)
+    emb = embed.to(compute_dtype)
+    context_fn = REMAT_POLICIES["dots" if chunk_policy == "save"
+                                else "nothing"]
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, S, C):
+        total = total + checkpoint(
+            _chunk_loss, hidden[:, c:c + C], emb, targets[:, c:c + C],
+            mask[:, c:c + C], use_reentrant=False, context_fn=context_fn)
+    return total / (B * (S - 1))
+
+
 def _shifted_targets_and_mask(tokens):
     """Next-token shift shared by the fused-loss paths: position t
     predicts token t+1; the final position has no target (pad target 0,
@@ -442,15 +528,30 @@ class AdamW(torch.optim.Optimizer):
     inside a jitted step. As there, the ``b1`` that multiplies the stored
     ``mu`` is rounded to ``mu_dtype`` (optax's Python-float ``b1`` is
     weakly typed and takes the array's dtype: 0.8984375 for bf16), while
-    XLA keeps the product in f32. ``torch.optim.AdamW``
-    keeps its moments in the parameter's dtype and puts the decay in
-    another place, hence this class. Plain tensor ops."""
+    XLA keeps the product in f32. :meth:`fused_step`, which
+    :func:`make_train_step` runs in place of :meth:`step` with
+    ``fused_optimizer=True``, follows the JAX fused update instead and
+    multiplies by an f32 ``b1`` = 0.9, so the two part after one step
+    with a bf16 ``mu``; in f32 they agree.
+    ``torch.optim.AdamW`` keeps its moments in the parameter's dtype and
+    puts the decay in another place, hence this class. Plain tensor
+    ops."""
 
     def __init__(self, params, *, lr: float, weight_decay: float,
                  mu_dtype=None, betas=(0.9, 0.999), eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay,
                                       mu_dtype=mu_dtype))
+
+    def moments(self, p, group) -> dict:
+        """``p``'s state ``{"count", "mu", "nu"}``, made (count 0, zero
+        moments) at first use."""
+        st = self.state[p]
+        if not st:
+            st["count"] = 0
+            st["mu"] = torch.zeros_like(p, dtype=group["mu_dtype"] or p.dtype)
+            st["nu"] = torch.zeros_like(p)
+        return st
 
     @torch.no_grad()
     def step(self):
@@ -460,12 +561,7 @@ class AdamW(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                st = self.state[p]
-                if not st:
-                    st["count"] = 0
-                    st["mu"] = torch.zeros_like(
-                        p, dtype=group["mu_dtype"] or p.dtype)
-                    st["nu"] = torch.zeros_like(p)
+                st = self.moments(p, group)
                 st["count"] += 1
                 t = st["count"]
                 g = p.grad.float()
@@ -482,6 +578,25 @@ class AdamW(torch.optim.Optimizer):
                 st["mu"] = mu.to(st["mu"].dtype)
                 st["nu"] = nu
 
+    def fused_step(self):
+        """The update by :func:`~distributed_tensorflow_tpu_torch.ops.
+        fused_adamw.fused_adamw_update` over this optimizer's ``mu``,
+        ``nu`` and ``count``, in place: one kernel launch per parameter
+        tensor on a card, the JAX fused update's numbers (an f32 ``b1``)."""
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = [self.moments(p, group) for p in params]
+            b1, b2 = group["betas"]
+            *_, count = fused_adamw_update(
+                params, [p.grad for p in params],
+                [st["mu"] for st in states], [st["nu"] for st in states],
+                states[0]["count"], lr=group["lr"], b1=b1, b2=b2,
+                eps=group["eps"], weight_decay=group["weight_decay"])
+            for st in states:
+                st["count"] = count
+
 
 def make_optimizer(cfg: TransformerConfig, params) -> AdamW:
     """AdamW over ``params`` at ``cfg.learning_rate`` /
@@ -493,18 +608,54 @@ def make_optimizer(cfg: TransformerConfig, params) -> AdamW:
 
 
 def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
-    """``loss_fn(tokens) -> scalar`` for ``cfg``/``model``: the fused CE
-    kernels for ``loss_impl="kernel"``, else full logits and
-    :func:`next_token_loss`."""
+    """``loss_fn(tokens) -> scalar`` for ``cfg``/``model`` (JAX
+    ``:580-631``): the fused CE kernels for ``loss_impl="kernel"``;
+    :func:`fused_next_token_loss` for ``loss_impl="scan"`` with
+    ``loss_chunks > 0``; else full logits and :func:`next_token_loss`."""
+    if cfg.loss_chunks > 0:
+        scan_chunks = cfg.loss_chunks
+    else:
+        # JAX's kernel→scan default: the largest power of two that
+        # divides the sequence length, capped at 8. Without a mesh the
+        # kernel path never falls back, so "scan" takes it only with an
+        # explicit count; the rule stays beside it for the sharded step.
+        scan_chunks = 1
+        while scan_chunks < 8 and cfg.max_seq_len % (scan_chunks * 2) == 0:
+            scan_chunks *= 2
 
     def loss_fn(tokens):
         if cfg.loss_impl == "kernel":
             hidden = model(tokens, return_hidden=True)
             return kernel_next_token_loss(hidden, model.embed, tokens,
                                           compute_dtype=cfg.dtype)
+        if cfg.loss_chunks > 0:
+            hidden = model(tokens, return_hidden=True)
+            return fused_next_token_loss(
+                hidden, model.embed, tokens, num_chunks=scan_chunks,
+                compute_dtype=cfg.dtype, chunk_policy=cfg.loss_chunk_policy)
         return next_token_loss(model(tokens), tokens)
 
     return loss_fn
+
+
+def _check_fused_optimizer(cfg: TransformerConfig, model: TransformerLM,
+                           optimizer):
+    """Raise unless ``optimizer`` is exactly what ``make_optimizer(cfg,
+    model.parameters())`` builds (the JAX step's state-structure check,
+    ``:669-677``): the fused update replaces the whole optimizer, so
+    anything else would be silently skipped."""
+    defaults = dict(lr=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                    mu_dtype=cfg.adam_mu_dtype, betas=(0.9, 0.999), eps=1e-8)
+    groups = getattr(optimizer, "param_groups", [])
+    ok = (type(optimizer) is AdamW and len(groups) == 1
+          and all(groups[0][k] == v for k, v in defaults.items())
+          and [id(p) for p in groups[0]["params"]]
+          == [id(p) for p in model.parameters()])
+    if not ok:
+        raise ValueError(
+            "fused_optimizer=True supports exactly the make_optimizer(cfg, "
+            "model.parameters()) AdamW; set fused_optimizer=False or use "
+            "make_optimizer(cfg, model.parameters())")
 
 
 def make_train_step(cfg: TransformerConfig, model: TransformerLM,
@@ -514,14 +665,24 @@ def make_train_step(cfg: TransformerConfig, model: TransformerLM,
     ``optimizer`` as given here) and ``batch = {"tokens": (B, S)}`` — the
     JAX signature. Unlike JAX's pure step it updates the model's
     parameters and the optimizer's moments in place; the returned state
-    holds the same objects and ``step + 1``."""
+    holds the same objects and ``step + 1``.
+
+    With ``cfg.fused_optimizer`` the step runs :meth:`AdamW.fused_step`
+    (the fused AdamW kernel over the optimizer's own state) in place of
+    ``optimizer.step()``; the optimizer must be exactly
+    ``make_optimizer(cfg, model.parameters())``, else ``ValueError``."""
     loss_fn = make_loss_fn(cfg, model)
+    if cfg.fused_optimizer:
+        _check_fused_optimizer(cfg, model, optimizer)
 
     def train_step(state, batch):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch["tokens"])
         loss.backward()
-        optimizer.step()
+        if cfg.fused_optimizer:
+            optimizer.fused_step()
+        else:
+            optimizer.step()
         return ({**state, "step": state["step"] + 1},
                 {"loss": loss.detach()})
 

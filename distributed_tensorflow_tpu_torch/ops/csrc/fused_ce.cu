@@ -7,58 +7,74 @@
 //   targets t (N,) int32: lse_i = logsumexp_v(h_i . E_v) and the target
 //   logit tl_i = h_i . E_{t_i}, both (N,) f32. A target outside [0, V)
 //   picks up 0, as the one-hot never matches there.
-// - fused_ce_bwd: _bwd_merged_b_kernel (:201; _bwd_merged_b_call :387,
-//   pl.pallas_call at :397), the merged backward "b". From the saved
-//   lse and the per-row cotangent g (N,) f32 it rebuilds, as _p_adj
-//   does (:123), p_adj_iv = (exp(h_i . E_v - lse_i) - [v = t_i]) g_i,
-//   rounds it to E's dtype (:220) and feeds that one tile to both
-//   dh += p_adj E (accumulated on chip, written once in h's dtype) and
-//   dE += p_adj^T h (added into an f32 (V, D) accumulator that the
-//   caller zeroes and later casts to E's dtype, as :425 does).
-// The vocab tail past V is masked in both (the role of _col_ids and
-// _masked_e, :70-120), and so are the token rows past N.
+// - the backward, from the saved lse and the per-row cotangent g (N,)
+//   f32. Each kernel rebuilds, as _p_adj does (:123), p_adj_iv =
+//   (exp(h_i . E_v - lse_i) - [v = t_i]) g_i, rounds it to E's dtype
+//   (:220) and feeds that tile to the products it computes:
+//   - fused_ce_bwd: _bwd_merged_b_kernel (:201; call :397), the merged
+//     variant "b": dh = p_adj E accumulated on chip and written once in
+//     h's dtype, dE = p_adj^T h added into an f32 (V, D) accumulator that
+//     the caller zeroes and later casts to E's dtype, as :425 does;
+//   - fused_ce_bwd_a: _bwd_merged_kernel (:159; call :356), the merged
+//     variant "a", the roles swapped: dE on chip, written once, and dh
+//     added into an f32 (N, D) accumulator, which takes the place of the
+//     TPU's aliased dh buffer (:355, :377);
+//   - fused_ce_dh: _dh_kernel (:137; call :326), dh alone, on chip;
+//   - fused_ce_de: _de_kernel (:242; call :432), dE alone, on chip.
+//   "split" is fused_ce_dh then fused_ce_de: no atomics, so it gives the
+//   same dE on every run.
+// The vocab tail past V is masked in all (the role of _col_ids and
+// _masked_e, :70-120), and so are the token rows past N. A row with
+// lse = +inf gets p = 0 but for -g at its target.
 //
 // Design. The TPU kernels walk a sequential (N/bn, V/bv) grid, carrying
-// the online (max, sum-exp) pair -- or the dh accumulator -- in VMEM
-// scratch across vocab tiles, and variant "b" carries dE across token
-// sweeps through an input->output aliased HBM buffer. Here one thread
-// block owns a tile of BN = 32 token rows and loops over the vocab in
-// tiles of BV = 64 rows of E itself. 256 threads: thread (ty, tx), ty,
-// tx in 0..15, owns rows ty + 16 i (i < 2) of the token tile and columns
+// the online (max, sum-exp) pair -- or a gradient accumulator -- in VMEM
+// scratch across tiles, and the merged variants carry the other gradient
+// across sweeps through an input->output aliased HBM buffer. Here one
+// thread block owns a tile of BN = 32 rows and loops over the other
+// operand in tiles of BV = 64 rows. In the forward, and in the backward
+// kernels whose gradient stays with the tokens (#7, #5), the rows are
+// token rows of h and the loop runs over E; in the other two (#6, #8)
+// they are vocab rows of E and the loop runs over h: the same body with
+// the operands swapped. 256 threads: thread (ty, tx), ty,
+// tx in 0..15, owns rows ty + 16 i (i < 2) of the row tile and columns
 // tx + 16 j (j < 4) of each 32 x 64 logits tile, which is built in f32
-// registers over d_model in chunks of 32 staged through shared memory.
+// registers over d_model in chunks staged through shared memory.
 // The forward keeps m, l and the target logit per row in registers; a
 // row's 16 threads sit in one half-warp, so the row reductions are
 // __shfl_xor. Its block holds four such groups of 256 threads (1024),
 // each its own stream of vocab tiles (g, g + 4, g + 8, ...), whose row
 // states are merged through shared memory at the end: four times the
 // warps on an SM to hide the latency of the staging loads (with one
-// group the forward ran at a quarter of this speed on an H100). The backward block has two
-// such groups (512 threads) that split d_model between them: for the
-// logits tile each sums half of every 64-wide chunk (group 1 hands its
-// part to group 0 through shared memory, which forms p_adj), and for
-// the gradients each takes half of every 128-wide chunk. It writes the
-// p_adj tile to shared memory and then walks d_model: dh (BN x D, f32)
-// lives in shared memory for the block's whole life (128 KB at
-// D = 1024, so D <= 1024), and each thread adds a 4 x 4 piece of the
-// tile's dE contribution into the f32 accumulator with atomicAdd (on an
-// H100 a float4 atomicAdd, 4x fewer operations, was no faster) --
-// blocks run in no order on Hopper, so the TPU's sequential
+// group the forward ran at a quarter of this speed on an H100). A
+// backward block has two such groups (512 threads) that split d_model
+// between them: for the logits tile each sums half of every 64-wide
+// chunk (group 1 hands its part to group 0 through shared memory, which
+// forms p_adj), and for the gradients each takes half of every 128-wide
+// chunk. It writes the p_adj tile to shared memory and then walks
+// d_model: the row gradient (BN x D, f32) lives in shared memory for the
+// block's whole life (128 KB at D = 1024, so D <= 1024), and in the
+// merged kernels each thread adds a 4 x 4 piece of the tile's
+// contribution to the other gradient into its f32 accumulator with
+// atomicAdd (on an H100 a float4 atomicAdd, 4x fewer operations, was no
+// faster) -- blocks run in no order on Hopper, so the TPU's sequential
 // read-modify-write becomes atomics, whose summation order varies from
-// run to run. With BN = 32 a row chunk of N = 4096 gives 128 blocks, one
-// per SM on 128 of the 132, so no second grid axis over vocab ranges is
-// needed to fill the card.
+// run to run. With BN = 32 a row chunk of N = 4096 gives 128 token
+// blocks, one per SM on 128 of the 132, and V = 32768 gives 1024 vocab
+// blocks.
 //
 // Bound at the train step's shape (one row chunk: N = 4096, V = 32768,
 // D = 1024, bf16; two chunks, so two launches of each kernel, a step):
 // the forward does 2 N V D = 275 GFLOP -> 278 us at 989 TFLOP/s against
-// h and E read once (75.5 MB -> 23 us), the backward 6 N V D = 825 GFLOP
-// -> 834 us against h, E read and dh, dE written (151 MB -> 45 us): both
-// are bound by operations, by far. These kernels run f32 FMAs on CUDA
-// cores (67 TFLOP/s peak) and reach about 12 TFLOP/s, the rate at which
-// the shared-memory reads of a 2 x 4 register tile (6 loads for 8 FMAs)
-// feed the FMA units; the route to the bound is mma.sync / wgmma on
-// bf16 tiles with TMA-fed E stages, a later change.
+// h and E read once (75.5 MB -> 23 us); the merged backwards (#7, #6)
+// 6 N V D = 825 GFLOP -> 834 us against h, E read and dh, dE written
+// (151 MB -> 45 us); #5 and #8 each 4 N V D (the logits again, then
+// one product) = 550 GFLOP -> 556 us. All are bound by operations, by
+// far. These kernels run f32 FMAs on CUDA cores (67 TFLOP/s peak) and
+// reach about 12 TFLOP/s, the rate at which the shared-memory reads of a
+// 2 x 4 register tile (6 loads for 8 FMAs) feed the FMA units; the route
+// to the bound is mma.sync / wgmma on bf16 tiles with TMA-fed stages, a
+// later change.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -240,41 +256,55 @@ size_t bwd_smem_bytes(int D) {
   return sizeof(float) * ((size_t)BN * D + BN * PS + BWD_R);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BWD_NT)
-fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
-                    const int* __restrict__ t,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ g, T* __restrict__ dh,
-                    float* __restrict__ de, int N, int V, int D) {
-  extern __shared__ float smem[];
-  float* dhs = smem;            // BN x D, the dh accumulator
-  float* Ps = dhs + BN * D;     // BN x PS, p_adj in E's precision
+// The four backward kernels, one body. The block owns BN rows of the
+// "row" operand A and loops over the "column" operand B in tiles of BV
+// rows; s[r][c] = A_r . B_c is a logits entry, of token r and vocab c
+// when TOK_ROWS (A = h, B = E), of vocab r and token c otherwise (A = E,
+// B = h). From the tile it forms p_adj (rounded to T), adds
+// p_adj B into the row gradient dA, kept in shared memory and written
+// once in T, and, when ATOMIC_B, adds p_adj^T A into the f32 column
+// gradient dB with atomics:
+//   #7 fused_ce_bwd   (_bwd_merged_b_kernel): TOK_ROWS, ATOMIC_B
+//   #5 fused_ce_dh    (_dh_kernel):           TOK_ROWS
+//   #8 fused_ce_de    (_de_kernel):           vocab rows
+//   #6 fused_ce_bwd_a (_bwd_merged_kernel):   vocab rows, ATOMIC_B
+template <typename T, bool TOK_ROWS, bool ATOMIC_B>
+__device__ __forceinline__ void bwd_body(
+    const T* __restrict__ A, const T* __restrict__ B,
+    const int* __restrict__ t, const float* __restrict__ lse,
+    const float* __restrict__ g, T* __restrict__ dA,
+    float* __restrict__ dB, int NR, int NC, int D, float* smem) {
+  float* dAs = smem;            // BN x D, the dA accumulator
+  float* Ps = dAs + BN * D;     // BN x PS, p_adj in T's precision
   float* R = Ps + BN * PS;      // staging, used by the two phases in turn:
-  float* Hs = R;                //   logits: h chunk BN x LL,
-  float* Es = Hs + BN * LL;     //     E chunk BV x LL,
-  float* Lp = Es + BV * LL;     //     group 1's partial logits BN x PS;
-  float* Ec = R;                //   gradients: E chunk BV x DG,
-  float* Hc = Ec + BV * DG;     //     h chunk BN x DG
+  float* As = R;                //   logits: A chunk BN x LL,
+  float* Bs = As + BN * LL;     //     B chunk BV x LL,
+  float* Lp = Bs + BV * LL;     //     group 1's partial logits BN x PS;
+  float* Bc = R;                //   gradients: B chunk BV x DG,
+  float* Ac = Bc + BV * DG;     //     A chunk BN x DG
 
   const int tid = threadIdx.x;
   const int grp = tid / NT;     // which half of each d_model chunk
   const int tx = tid & 15;
   const int ty = (tid % NT) >> 4;
-  const int n0 = blockIdx.x * BN;
+  const int r0 = blockIdx.x * BN;
 
-  for (int e = tid; e < BN * D; e += BWD_NT) dhs[e] = 0.f;
-  int tr[2];
-  float lr[2], gr[2];
+  for (int e = tid; e < BN * D; e += BWD_NT) dAs[e] = 0.f;
+  // the token data of this thread's rows (TOK_ROWS) or, loaded per tile,
+  // of its columns
+  int tk[4];
+  float lk[4], gk[4];
+  if (TOK_ROWS) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = n0 + ty + 16 * i;
-    tr[i] = row < N ? t[row] : -1;
-    lr[i] = row < N ? lse[row] : 0.f;
-    gr[i] = row < N ? g[row] : 0.f;
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + ty + 16 * i;
+      tk[i] = row < NR ? t[row] : -1;
+      lk[i] = row < NR ? lse[row] : 0.f;
+      gk[i] = row < NR ? g[row] : 0.f;
+    }
   }
 
-  for (int v0 = 0; v0 < V; v0 += BV) {
+  for (int c0 = 0; c0 < NC; c0 += BV) {
     // logits tile, rows ty + 16 i, columns tx + 16 j: each group sums
     // its half of every 64-wide d_model chunk, group 1 hands its part
     // to group 0 through Lp
@@ -284,28 +314,28 @@ fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     for (int d0 = 0; d0 < D; d0 += DL) {
-      __syncthreads();  // previous chunk / previous tile's Ec, Hc used
+      __syncthreads();  // previous chunk / previous tile's Bc, Ac used
       for (int e = tid; e < BN * DL; e += BWD_NT) {
         const int r = e / DL, c = e % DL;
-        Hs[r * LL + c] = (n0 + r < N && d0 + c < D)
-                             ? to_f32(h[(size_t)(n0 + r) * D + d0 + c])
+        As[r * LL + c] = (r0 + r < NR && d0 + c < D)
+                             ? to_f32(A[(size_t)(r0 + r) * D + d0 + c])
                              : 0.f;
       }
       for (int e = tid; e < BV * DL; e += BWD_NT) {
         const int r = e / DL, c = e % DL;
-        Es[r * LL + c] = (v0 + r < V && d0 + c < D)
-                             ? to_f32(E[(size_t)(v0 + r) * D + d0 + c])
+        Bs[r * LL + c] = (c0 + r < NC && d0 + c < D)
+                             ? to_f32(B[(size_t)(c0 + r) * D + d0 + c])
                              : 0.f;
       }
       __syncthreads();
-      const int c0 = grp * (DL / 2);
+      const int k0 = grp * (DL / 2);
 #pragma unroll 8
-      for (int c = c0; c < c0 + DL / 2; ++c) {
+      for (int c = k0; c < k0 + DL / 2; ++c) {
         float a[2], b[4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) a[i] = Hs[(ty + 16 * i) * LL + c];
+        for (int i = 0; i < 2; ++i) a[i] = As[(ty + 16 * i) * LL + c];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Es[(tx + 16 * j) * LL + c];
+        for (int j = 0; j < 4; ++j) b[j] = Bs[(tx + 16 * j) * LL + c];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -321,18 +351,29 @@ fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
     }
     __syncthreads();
     if (grp == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = n0 + ty + 16 * i;
+      if (!TOK_ROWS) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int col = v0 + tx + 16 * j;
+          const int col = c0 + tx + 16 * j;
+          tk[j] = col < NC ? t[col] : -1;
+          lk[j] = col < NC ? lse[col] : 0.f;
+          gk[j] = col < NC ? g[col] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c0 + tx + 16 * j;
+          const int k = TOK_ROWS ? i : j;      // this entry's token data
+          const int voc = TOK_ROWS ? col : row;
           float p = 0.f;
-          if (row < N && col < V) {
+          if (row < NR && col < NC) {
             p = expf(s[i][j] + Lp[(ty + 16 * i) * PS + tx + 16 * j] -
-                     lr[i]);
-            if (col == tr[i]) p -= 1.f;
-            p *= gr[i];
+                     lk[k]);
+            if (voc == tk[k]) p -= 1.f;
+            p *= gk[k];
           }
           Ps[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(p);
         }
@@ -346,19 +387,21 @@ fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
       __syncthreads();  // Ps visible / Lp, previous chunk consumed
       for (int e = tid; e < BV * DG; e += BWD_NT) {
         const int r = e / DG, c = e % DG;
-        Ec[e] = (v0 + r < V && d0 + c < D)
-                    ? to_f32(E[(size_t)(v0 + r) * D + d0 + c])
+        Bc[e] = (c0 + r < NC && d0 + c < D)
+                    ? to_f32(B[(size_t)(c0 + r) * D + d0 + c])
                     : 0.f;
       }
-      for (int e = tid; e < BN * DG; e += BWD_NT) {
-        const int r = e / DG, c = e % DG;
-        Hc[e] = (n0 + r < N && d0 + c < D)
-                    ? to_f32(h[(size_t)(n0 + r) * D + d0 + c])
-                    : 0.f;
+      if (ATOMIC_B) {
+        for (int e = tid; e < BN * DG; e += BWD_NT) {
+          const int r = e / DG, c = e % DG;
+          Ac[e] = (r0 + r < NR && d0 + c < D)
+                      ? to_f32(A[(size_t)(r0 + r) * D + d0 + c])
+                      : 0.f;
+        }
       }
       __syncthreads();
 
-      // dh[ty + 16 i][d0 + dg + tx + 16 j] += sum_c p[.][c] E[v0 + c][.]
+      // dA[ty + 16 i][d0 + dg + tx + 16 j] += sum_c p[.][c] B[c0 + c][.]
       float a[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -366,25 +409,26 @@ fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
         for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
 #pragma unroll 8
       for (int c = 0; c < BV; ++c) {
-        float pa[2], ev[4];
+        float pa[2], bv[4];
 #pragma unroll
         for (int i = 0; i < 2; ++i) pa[i] = Ps[(ty + 16 * i) * PS + c];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) ev[j] = Ec[c * DG + dg + tx + 16 * j];
+        for (int j = 0; j < 4; ++j) bv[j] = Bc[c * DG + dg + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) a[i][j] = fmaf(pa[i], ev[j], a[i][j]);
+          for (int j = 0; j < 4; ++j) a[i][j] = fmaf(pa[i], bv[j], a[i][j]);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int dim = d0 + dg + tx + 16 * j;
-          if (dim < D) dhs[(ty + 16 * i) * D + dim] += a[i][j];
+          if (dim < D) dAs[(ty + 16 * i) * D + dim] += a[i][j];
         }
 
-      // dE[v0 + ty + 16 i][d0 + dg + tx + 16 j] += sum_r p[r][.] h[n0 + r][.]
+      if (!ATOMIC_B) continue;
+      // dB[c0 + ty + 16 i][d0 + dg + tx + 16 j] += sum_r p[r][.] A[r0 + r][.]
       float b[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -392,24 +436,24 @@ fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
         for (int j = 0; j < 4; ++j) b[i][j] = 0.f;
 #pragma unroll 8
       for (int r = 0; r < BN; ++r) {
-        float pv[4], hv[4];
+        float pv[4], av[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) pv[i] = Ps[r * PS + ty + 16 * i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) hv[j] = Hc[r * DG + dg + tx + 16 * j];
+        for (int j = 0; j < 4; ++j) av[j] = Ac[r * DG + dg + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[i][j] = fmaf(pv[i], hv[j], b[i][j]);
+          for (int j = 0; j < 4; ++j) b[i][j] = fmaf(pv[i], av[j], b[i][j]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int vr = v0 + ty + 16 * i;
-        if (vr >= V) continue;
+        const int cr = c0 + ty + 16 * i;
+        if (cr >= NC) continue;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int dim = d0 + dg + tx + 16 * j;
-          if (dim < D) atomicAdd(&de[(size_t)vr * D + dim], b[i][j]);
+          if (dim < D) atomicAdd(&dB[(size_t)cr * D + dim], b[i][j]);
         }
       }
     }
@@ -418,9 +462,43 @@ fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
   __syncthreads();
   for (int e = tid; e < BN * D; e += BWD_NT) {
     const int r = e / D;
-    if (n0 + r < N)
-      dh[(size_t)(n0 + r) * D + e % D] = from_f32<T>(dhs[e]);
+    if (r0 + r < NR)
+      dA[(size_t)(r0 + r) * D + e % D] = from_f32<T>(dAs[e]);
   }
+}
+
+// h (N, D), E (V, D), t, lse, g (N,) as in the forward; the outputs as
+// the C entry points below say. Each kernel is its own symbol, so a
+// profile tells them apart.
+#define CE_BWD_ARGS                                                     \
+  const T *__restrict__ h, const T *__restrict__ E,                     \
+      const int *__restrict__ t, const float *__restrict__ lse,         \
+      const float *__restrict__ g, T *__restrict__ dA,                  \
+      float *__restrict__ dB, int N, int V, int D
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_NT) fused_ce_bwd_kernel(CE_BWD_ARGS) {
+  extern __shared__ float smem[];
+  bwd_body<T, true, true>(h, E, t, lse, g, dA, dB, N, V, D, smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_NT) fused_ce_dh_kernel(CE_BWD_ARGS) {
+  extern __shared__ float smem[];
+  bwd_body<T, true, false>(h, E, t, lse, g, dA, dB, N, V, D, smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_NT) fused_ce_de_kernel(CE_BWD_ARGS) {
+  extern __shared__ float smem[];
+  bwd_body<T, false, false>(E, h, t, lse, g, dA, dB, V, N, D, smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_NT)
+fused_ce_bwd_a_kernel(CE_BWD_ARGS) {
+  extern __shared__ float smem[];
+  bwd_body<T, false, true>(E, h, t, lse, g, dA, dB, V, N, D, smem);
 }
 
 template <typename T>
@@ -434,20 +512,70 @@ cudaError_t launch_fwd(const void* h, const void* E, const int* t,
   return cudaGetLastError();
 }
 
+// rows: N for the kernels whose rows are tokens, V for the others
 template <typename T>
-cudaError_t launch_bwd(const void* h, const void* E, const int* t,
-                       const float* lse, const float* g, void* dh, float* de,
+cudaError_t launch_bwd(void (*kern)(const T*, const T*, const int*,
+                                    const float*, const float*, T*, float*,
+                                    int, int, int),
+                       int rows, const void* h, const void* E, const int* t,
+                       const float* lse, const float* g, void* dA, float* dB,
                        int N, int V, int D, cudaStream_t stream) {
-  auto kern = fused_ce_bwd_kernel<T>;
   const size_t smem = bwd_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN);
+  const dim3 grid((rows + BN - 1) / BN);
   kern<<<grid, BWD_NT, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(E), t, lse, g,
-      static_cast<T*>(dh), de, N, V, D);
+      static_cast<T*>(dA), dB, N, V, D);
   return cudaGetLastError();
+}
+
+// variant: 0 = "b" (#7), 1 = dh of "split" (#5), 2 = dE of "split" (#8),
+// 3 = "a" (#6)
+template <typename T>
+cudaError_t launch_bwd_variant(int variant, const void* h, const void* E,
+                               const int* t, const float* lse,
+                               const float* g, void* dA, float* dB, int N,
+                               int V, int D, cudaStream_t stream) {
+  switch (variant) {
+    case 0:
+      return launch_bwd<T>(fused_ce_bwd_kernel<T>, N, h, E, t, lse, g, dA,
+                           dB, N, V, D, stream);
+    case 1:
+      return launch_bwd<T>(fused_ce_dh_kernel<T>, N, h, E, t, lse, g, dA,
+                           dB, N, V, D, stream);
+    case 2:
+      return launch_bwd<T>(fused_ce_de_kernel<T>, V, h, E, t, lse, g, dA,
+                           dB, N, V, D, stream);
+    case 3:
+      return launch_bwd<T>(fused_ce_bwd_a_kernel<T>, V, h, E, t, lse, g, dA,
+                           dB, N, V, D, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The backward kernels. dh: (N, D) in the dtype, written once by
+// fused_ce_bwd and fused_ce_dh; dh_acc: (N, D) f32, zeroed by the caller,
+// added into by fused_ce_bwd_a; de: (V, D) in the dtype, written once by
+// fused_ce_de and fused_ce_bwd_a; de_acc: (V, D) f32, zeroed by the
+// caller, added into by fused_ce_bwd.
+int bwd_entry(int variant, const void* h, const void* E, const void* t,
+              const void* lse, const void* g, void* dA, void* dB, int N,
+              int V, int D, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ti = static_cast<const int*>(t);
+  const float* l = static_cast<const float*>(lse);
+  const float* gg = static_cast<const float*>(g);
+  float* b = static_cast<float*>(dB);
+  if (D < 1 || D > MAX_D || V < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_bwd_variant<float>(variant, h, E, ti, l, gg, dA, b, N,
+                                          V, D, st);
+  if (dtype == 1)
+    return (int)launch_bwd_variant<__nv_bfloat16>(variant, h, E, ti, l, gg,
+                                                  dA, b, N, V, D, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -472,18 +600,25 @@ int fused_ce_fwd(const void* h, const void* E, const void* t, void* lse,
 int fused_ce_bwd(const void* h, const void* E, const void* t,
                  const void* lse, const void* g, void* dh, void* de_acc,
                  int N, int V, int D, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* ti = static_cast<const int*>(t);
-  const float* l = static_cast<const float*>(lse);
-  const float* gg = static_cast<const float*>(g);
-  float* de = static_cast<float*>(de_acc);
-  if (D < 1 || D > MAX_D || V < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_bwd<float>(h, E, ti, l, gg, dh, de, N, V, D, st);
-  if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(h, E, ti, l, gg, dh, de, N, V, D,
-                                          st);
-  return (int)cudaErrorInvalidValue;
+  return bwd_entry(0, h, E, t, lse, g, dh, de_acc, N, V, D, dtype, stream);
+}
+
+int fused_ce_dh(const void* h, const void* E, const void* t,
+                const void* lse, const void* g, void* dh, int N, int V,
+                int D, int dtype, void* stream) {
+  return bwd_entry(1, h, E, t, lse, g, dh, nullptr, N, V, D, dtype, stream);
+}
+
+int fused_ce_de(const void* h, const void* E, const void* t,
+                const void* lse, const void* g, void* de, int N, int V,
+                int D, int dtype, void* stream) {
+  return bwd_entry(2, h, E, t, lse, g, de, nullptr, N, V, D, dtype, stream);
+}
+
+int fused_ce_bwd_a(const void* h, const void* E, const void* t,
+                   const void* lse, const void* g, void* dh_acc, void* de,
+                   int N, int V, int D, int dtype, void* stream) {
+  return bwd_entry(3, h, E, t, lse, g, de, dh_acc, N, V, D, dtype, stream);
 }
 
 const char* kernel_error_string(int err) {

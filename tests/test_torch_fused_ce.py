@@ -41,10 +41,11 @@ def _jax(h, e, t, mask, **kw):
     return float(loss), np.asarray(gh), np.asarray(ge)
 
 
-def _port(h, e, t, mask):
+def _port(h, e, t, mask, variant="b"):
     th = torch.from_numpy(h).requires_grad_()
     te = torch.from_numpy(e).requires_grad_()
-    losses = tce.fused_cross_entropy(th, te, torch.from_numpy(t))
+    losses = tce.fused_cross_entropy(th, te, torch.from_numpy(t),
+                                     bwd_variant=variant)
     m = torch.from_numpy(mask)
     loss = (losses * m).sum() / m.sum()
     loss.backward()
@@ -80,9 +81,9 @@ def test_two_row_chunks_match_jax(monkeypatch):
     fwd, bwd = tce.fused_ce_fwd, tce.fused_ce_bwd
 
     def counting(name, fn):
-        def wrapped(*a):
+        def wrapped(*a, **kw):
             calls[name] += 1
-            return fn(*a)
+            return fn(*a, **kw)
         return wrapped
 
     monkeypatch.setattr(tce, "fused_ce_fwd", counting("fwd", fwd))
@@ -108,19 +109,95 @@ def test_plain_versions_match_jax_reference():
 
 
 def test_wrapper_dispatch_and_unported_variants():
-    """CPU tensors take the plain versions and count no launch; another
-    device raises; the backward variants of slice 3 raise."""
+    """CPU tensors take the plain versions and count no launch, for every
+    backward variant; another device raises, and so does an unknown
+    variant."""
     h, e, t, _ = (torch.from_numpy(a) for a in _inputs(20, 40, 8, seed=3))
-    before = (tce.fused_ce_fwd.launches, tce.fused_ce_bwd.launches)
+    counters = ("launches", "launches_a", "launches_dh", "launches_de")
+    before = (tce.fused_ce_fwd.launches,
+              *(getattr(tce.fused_ce_bwd, c) for c in counters))
     lse, tl = tce.fused_ce_fwd(h, e, t)
     g = torch.ones(20)
-    dh, de = tce.fused_ce_bwd(h, e, t, lse, g)
     want = tce.fused_ce_bwd_plain(h, e, t, lse, g)
-    assert torch.equal(dh, want[0]) and torch.equal(de, want[1])
-    assert (tce.fused_ce_fwd.launches, tce.fused_ce_bwd.launches) == before
+    for variant in tce.BWD_VARIANTS:
+        dh, de = tce.fused_ce_bwd(h, e, t, lse, g, variant=variant)
+        assert torch.equal(dh, want[0]) and torch.equal(de, want[1])
+        tce.fused_cross_entropy(h, e, t, bwd_variant=variant)
+    assert torch.equal(tce.fused_ce_dh_plain(h, e, t, lse, g), want[0])
+    assert torch.equal(tce.fused_ce_de_plain(h, e, t, lse, g), want[1])
+    assert (tce.fused_ce_fwd.launches,
+            *(getattr(tce.fused_ce_bwd, c) for c in counters)) == before
     with pytest.raises(ValueError):
         tce.fused_ce_fwd(h.to("meta"), e.to("meta"), t.to("meta"))
-    for variant in ("a", "split"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tce.fused_cross_entropy(h, e, t, bwd_variant=variant)
+    for variant in tce.BWD_VARIANTS:
+        with pytest.raises(ValueError, match="no kernel"):
+            tce.fused_ce_bwd(h.to("meta"), e.to("meta"), t.to("meta"),
+                             lse.to("meta"), g.to("meta"), variant=variant)
+    with pytest.raises(ValueError, match="bwd_variant"):
+        tce.fused_cross_entropy(h, e, t, bwd_variant="c")
 
+
+def _inputs_dtype(n, v, d, dtype, seed):
+    h, e, t, mask = _inputs(n, v, d, seed)
+    if dtype == "bf16":    # the same bf16 values in both packages
+        h, e = (np.asarray(jnp.asarray(x, jnp.bfloat16)) for x in (h, e))
+    return h, e, t, mask
+
+
+def _port_dtype(h, e, t, mask, variant, dtype):
+    th = torch.from_numpy(np.asarray(h, np.float32))
+    te = torch.from_numpy(np.asarray(e, np.float32))
+    if dtype == "bf16":
+        th, te = th.to(torch.bfloat16), te.to(torch.bfloat16)
+    th.requires_grad_()
+    te.requires_grad_()
+    losses = tce.fused_cross_entropy(th, te, torch.from_numpy(t),
+                                     bwd_variant=variant)
+    m = torch.from_numpy(mask)
+    loss = (losses * m).sum() / m.sum()
+    loss.backward()
+    return (loss.item(), th.grad.float().numpy(), te.grad.float().numpy())
+
+
+def _jax_dtype(h, e, t, mask, **kw):
+    def f(h, e):
+        losses = jce.fused_cross_entropy(h, e, jnp.asarray(t), **kw)
+        return (losses * mask).sum() / mask.sum()
+    loss, (gh, ge) = jax.value_and_grad(f, argnums=(0, 1))(
+        jnp.asarray(h), jnp.asarray(e))
+    return (float(loss), np.asarray(gh, np.float32),
+            np.asarray(ge, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["a", "split"])
+def test_backward_variants_match_jax_interpret(variant, dtype):
+    """dh and dE of ``bwd_variant`` "a" and "split" against the JAX op in
+    interpret mode with the same variant (the interpreter runs the split
+    kernels #5 and #8 for every variant, ``_bwd_dispatch:472-477``), on a
+    ragged row count and vocab tail. bf16: both take the same bf16
+    inputs and round ``p_adj`` and the gradients to bf16, so a gradient
+    may land one bf16 step (2**-8 relative) from the other's."""
+    h, e, t, mask = _inputs_dtype(100, 130, 48, dtype, seed=4)
+    want = _jax_dtype(h, e, t, mask, block_n=32, block_v=64,
+                      implementation="interpret", bwd_variant=variant)
+    got = _port_dtype(h, e, t, mask, variant, dtype)
+    if dtype == "f32":
+        _close(got, want)
+        return
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=2.0 ** -7,
+                                   atol=2.0 ** -8 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("variant", ["b", "a", "split"])
+def test_backward_variants_match_grad_of_reference(variant):
+    """Each variant's gradients against ``jax.grad`` of JAX's
+    ``ce_reference`` in f32, with a padded target (-1, outside the vocab,
+    masked out) in the batch, at the tolerances of the interpret
+    comparison."""
+    h, e, t, mask = _inputs(64, 200, 32, seed=5)
+    t[3], mask[3] = -1, 0.0
+    want = _jax(h, e, t, mask, implementation="reference")
+    _close(_port(h, e, t, mask, variant), want)

@@ -46,7 +46,8 @@ print(json.dumps({"imported": names,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    for sub in ("ops.attention", "ops.fused_ce", "ops._build",
+    for sub in ("ops.attention", "ops.fused_ce", "ops.fused_adamw",
+                "ops._build",
                 "models.transformer",
                 "serving.engine", "serving.decode", "serving.kv_cache",
                 "serving.scheduler", "telemetry.events"):

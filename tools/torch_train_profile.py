@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where a train step's time goes in the PyTorch port, on one GPU.
 
-    python3 tools/torch_train_profile.py
+    python3 tools/torch_train_profile.py [--fused-optimizer]
 
-Builds the port's train step (``make_train_step``) at the full width of
-``transformer_big`` in bf16 (random weights from seed 0, batch 8 x 1024,
-kernel cross-entropy, bf16 AdamW first moment: the ``train`` phase of
-``chip_smoke.py``), takes one warm-up step, then traces one step with
+Builds the port's train step (``make_train_step``) of ``bench.py``'s
+headline row at the full width of ``transformer_big`` in bf16 (random
+weights from seed 0, batch 8 x 1024, no remat, unrolled layers, kernel
+cross-entropy, bf16 AdamW first moment: the ``train`` phase of
+``chip_smoke.py``; with ``--fused-optimizer`` its ``train_fused``
+phase), takes one warm-up step, then traces one step with
 ``torch.profiler``. Prints one JSON line: host wall time of the step,
 the device's busy time (union of kernel intervals) and idle share,
 kernel launches, device time by group (the port's hand-written kernels,
-matrix products, the rest) and the kernels with the most device time.
-Needs a CUDA device; imports nothing of JAX.
+matrix products, the plain optimizer's step, the rest) and the kernels
+with the most device time. The ``optimizer`` group holds the kernels
+that run inside the device-side range ``torch.optim`` puts around
+``Optimizer.step``. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
           ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
           ("fused_ce_fwd", ("fused_ce_fwd_kernel",)),
           ("fused_ce_bwd", ("fused_ce_bwd_kernel",)),
+          ("fused_adamw", ("fused_adamw_kernel",)),
           ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
 
 
@@ -45,6 +50,15 @@ def group_of(name: str) -> str:
         if any(f in low for f in frags):
             return group
     return "other"
+
+
+def optimizer_ranges(prof):
+    """Device time ranges of the ``Optimizer.step`` annotations."""
+    import torch
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and getattr(e, "is_user_annotation", False)
+            and e.name.startswith("Optimizer.step")]
 
 
 def main() -> int:
@@ -59,8 +73,10 @@ def main() -> int:
         TransformerConfig, TransformerLM, init_params, make_optimizer,
         make_train_step)
 
+    fused = "--fused-optimizer" in sys.argv[1:]
     cfg = TransformerConfig.transformer_big(
-        max_seq_len=1024, loss_impl="kernel", adam_mu_dtype=torch.bfloat16)
+        max_seq_len=1024, remat=False, scan_layers=False, loss_impl="kernel",
+        adam_mu_dtype=torch.bfloat16, fused_optimizer=fused)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     model = TransformerLM(cfg, params, device="cuda")
@@ -82,15 +98,22 @@ def main() -> int:
         wall = time.perf_counter() - t0
     out = summarize("train_step", prof, wall, 1)
     groups = collections.defaultdict(lambda: [0, 0.0])
+    opt_ranges = optimizer_ranges(prof)
     for e in _kernels(prof):
-        g = groups[group_of(e.name)]
+        name = group_of(e.name)
+        if name == "other" and any(a <= e.time_range.start < b
+                                   for a, b in opt_ranges):
+            name = "optimizer"
+        g = groups[name]
         g[0] += 1
         g[1] += (e.time_range.end - e.time_range.start) / 1e3
     out.update({
         "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
         "config": "transformer_big", "layers": cfg.n_layers,
         "batch": BATCH, "seq_len": cfg.max_seq_len,
-        "dtype": "bfloat16", "loss": metrics["loss"].item(),
+        "dtype": "bfloat16", "fused_optimizer": fused,
+        "loss": metrics["loss"].item(),
+        "optimizer_ranges_ms": [(b - a) / 1e3 for a, b in opt_ranges],
         "by_group": {k: {"launches": c, "ms": ms}
                      for k, (c, ms) in sorted(groups.items(),
                                               key=lambda kv: -kv[1][1])}})
