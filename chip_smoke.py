@@ -15,13 +15,19 @@ printing one JSON line:
    version on the card, in bf16 and f32, at the main paths' shapes and
    at the edges (ragged tails, causal offsets, fully-masked rows, vocab
    tails, targets on tile edges, two row chunks), with the tolerances
-   below; the cross-entropy backward variants "a" and "split" through
-   the public op ``fused_cross_entropy`` and autograd, each against its
-   plain versions and against variant "b", their launches counted over
-   that run; the fused AdamW on ``transformer_big``'s leaf shapes, f32
-   and bf16 ``mu``, steps 1 and 1000. Then each kernel, its plain
-   version and a PyTorch library yardstick timed at the train step's
-   shapes with CUDA events, in turns plain, kernel, kernel, plain.
+   below; the cross-entropy forward and merged backward take the
+   tensor-core kernels in bf16 (also at their tiling's edges: N and V
+   one off a multiple of 128, a vocab split whose last slice is the
+   ragged tail alone, targets on the slice boundaries) and the
+   CUDA-core kernels in f32; the backward variants "a" and "split"
+   through the public op ``fused_cross_entropy`` and autograd, each
+   against its plain versions and against variant "b", their launches
+   counted over that run; the fused AdamW on ``transformer_big``'s leaf
+   shapes, f32 and bf16 ``mu``, steps 1 and 1000. Then each kernel, its
+   plain version and a PyTorch library yardstick (for the cross-entropy
+   ``F.linear_cross_entropy``, plain and chunked) timed at the train
+   step's shapes with CUDA events, in turns plain, kernel, kernel,
+   plain.
 4. ``serve``   — ``InferenceEngine.generate`` at the full width of
    ``transformer_big`` in bf16 (random weights from seed 0), 8 requests
    × 32 new tokens. The launch counters are set to 0 just before and
@@ -37,20 +43,23 @@ printing one JSON line:
    steps timed with CUDA events on one seeded token batch. The counters
    are set to 0 before the timed steps and read after: per step 12
    ``flash_fwd``, 12 ``flash_bwd_dq``, 12 ``flash_bwd_dkv``, 2
-   ``fused_ce_fwd`` and 2 ``fused_ce_bwd`` launches. The first loss must
+   ``fused_ce_fwd_tc`` and 2 ``fused_ce_bwd_tc`` launches (the
+   tensor-core cross-entropy kernels). The first loss must
    lie within 1.0 of ln V and the loss must fall. A smoke run, not a
    benchmark.
 7. ``train_fused`` — the same with ``fused_optimizer=True``: per step
    also 98 ``fused_adamw`` launches (one per parameter tensor), and the
    plain ``AdamW.step`` is never reached.
-8. ``train_parity`` — f32 with TF32 off: the kernel path against the
-   reference configuration (``mha_reference``, full-logits loss) from
-   the same weights at full width, 2 layers, batch 2 × 256: loss,
-   every gradient leaf, and the parameters after 3 AdamW steps.
+8. ``train_parity`` — f32 with TF32 off: the kernel path (the f32
+   cross-entropy on the CUDA-core kernels, whose launches it counts)
+   against the reference configuration (``mha_reference``, full-logits
+   loss) from the same weights at full width, 2 layers, batch 2 × 256:
+   loss, every gradient leaf, and the parameters after 3 AdamW steps.
 9. ``train_options`` — the same size, one step: ``remat=True`` with the
    "nothing" and "dots" policies against ``remat=False``, and the
    scan-chunked loss (8 chunks, both chunk policies) against full
-   logits: loss and every gradient leaf.
+   logits: loss and every gradient leaf; then in bf16 the kernel loss
+   (the tensor-core kernels) against full logits from the same weights.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it, error, measured times and the bound), the ``nvidia-smi``
@@ -109,19 +118,36 @@ GRAD_AGREE = 1e-3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-SOURCES = ("flash_fwd", "flash_bwd", "fused_ce", "fused_adamw")
+SOURCES = ("flash_fwd", "flash_bwd", "fused_ce", "fused_ce_tc",
+           "fused_adamw")
 SERVE_SLOTS, SERVE_BLOCK, SERVE_REQUESTS, SERVE_NEW = 8, 16, 8, 32
 PARITY_REQUESTS, PARITY_NEW = 4, 16
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
 # kernels launched per train step of transformer_big at batch 8 x 1024:
 # one flash forward, dq and dkv a layer; one CE forward and backward per
-# 4096-row chunk of the 8192 tokens
+# 4096-row chunk of the 8192 tokens, in bf16 on the tensor-core kernels
 TRAIN_LAUNCHES = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
-                  "fused_ce_fwd": 2, "fused_ce_bwd": 2}
+                  "fused_ce_fwd_tc": 2, "fused_ce_bwd_tc": 2}
 # with fused_optimizer=True also one AdamW launch per parameter tensor:
 # 12 layers x 8 tensors, the embedding and the final norm's scale
 FUSED_LAUNCHES = {**TRAIN_LAUNCHES, "fused_adamw": 98}
+# train_parity's f32 kernel step, 2 layers, 512 tokens (one row chunk):
+# the CE kernels on the CUDA cores
+PARITY_LAUNCHES = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                   "fused_ce_fwd": 1, "fused_ce_bwd": 1}
 TRAIN_PARITY_STEPS = 3
+# train_options' bf16 step, kernel loss against full logits from the same
+# weights. Loss, absolute: the full-logits path rounds every logit to bf16
+# (2^-9 relative, about 2e-3 at the init's |logit| <= 1) before its f32
+# logsumexp, the kernels keep them in f32; over 510 tokens of random-sign
+# differences that moves the mean loss far less than 1e-2, 1e-3 of ln V.
+# Gradients, each leaf's largest error over its largest magnitude: both
+# paths round p_adj (the kernels) or the logits' gradient (the reference)
+# to bf16 and carry that through two bf16 layers; held to the kernels'
+# bf16 gradient tolerance plus twice the leaf's bf16 noise, the distance
+# of the full-logits bf16 step from the f32 step of the same weights.
+BF16_TRAIN_LOSS_TOL = 1e-2
+BF16_TRAIN_GRAD_TOL = 2e-2
 # fused AdamW against its plain version: p, nu and an f32 mu within
 # ADAMW_ULP f32 units in the last place (the kernel rounds each operation
 # as the plain version does); a bf16 mu the same value or its neighbour
@@ -132,18 +158,22 @@ KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd": ("flash_fwd.cu", "ops/attention.py:135"),
     "flash_bwd_dq": ("flash_bwd.cu", "ops/attention.py:260"),
     "flash_bwd_dkv": ("flash_bwd.cu", "ops/attention.py:309"),
+    "fused_ce_fwd_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:75"),
     "fused_ce_fwd": ("fused_ce.cu", "ops/fused_ce.py:75"),
     "fused_ce_dh": ("fused_ce.cu", "ops/fused_ce.py:137"),
     "fused_ce_bwd_a": ("fused_ce.cu", "ops/fused_ce.py:159"),
+    "fused_ce_bwd_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:201"),
     "fused_ce_bwd": ("fused_ce.cu", "ops/fused_ce.py:201"),
     "fused_ce_de": ("fused_ce.cu", "ops/fused_ce.py:242"),
     "fused_adamw": ("fused_adamw.cu", "ops/fused_adamw.py:53"),
 }
 # the path each kernel's "launches" are read on: the train step, the
 # public op fused_cross_entropy with bwd_variant "a" and "split" (the
-# kernels phase), or the train step with fused_optimizer=True
+# kernels phase), the train step with fused_optimizer=True, or the f32
+# train step of train_parity (the CUDA-core CE kernels take f32)
 KERNEL_PATH = {"fused_ce_dh": "ce_variants", "fused_ce_bwd_a": "ce_variants",
-               "fused_ce_de": "ce_variants", "fused_adamw": "train_fused"}
+               "fused_ce_de": "ce_variants", "fused_adamw": "train_fused",
+               "fused_ce_fwd": "train_parity", "fused_ce_bwd": "train_parity"}
 
 
 def emit(obj):
@@ -269,9 +299,11 @@ def launch_counts() -> dict:
     return {"flash_fwd": attention.flash_attention_fwd.launches,
             "flash_bwd_dq": attention.flash_attention_bwd.launches_dq,
             "flash_bwd_dkv": attention.flash_attention_bwd.launches_dkv,
+            "fused_ce_fwd_tc": fused_ce.fused_ce_fwd.launches_tc,
             "fused_ce_fwd": fused_ce.fused_ce_fwd.launches,
             "fused_ce_dh": fused_ce.fused_ce_bwd.launches_dh,
             "fused_ce_bwd_a": fused_ce.fused_ce_bwd.launches_a,
+            "fused_ce_bwd_tc": fused_ce.fused_ce_bwd.launches_tc,
             "fused_ce_bwd": fused_ce.fused_ce_bwd.launches,
             "fused_ce_de": fused_ce.fused_ce_bwd.launches_de,
             "fused_adamw": fused_adamw.fused_adamw_update.launches}
@@ -284,7 +316,9 @@ def zero_launch_counts():
     attention.flash_attention_bwd.launches_dq = 0
     attention.flash_attention_bwd.launches_dkv = 0
     fused_ce.fused_ce_fwd.launches = 0
-    for name in ("launches", "launches_a", "launches_dh", "launches_de"):
+    fused_ce.fused_ce_fwd.launches_tc = 0
+    for name in ("launches", "launches_tc", "launches_a", "launches_dh",
+                 "launches_de"):
         setattr(fused_ce.fused_ce_bwd, name, 0)
     fused_adamw.fused_adamw_update.launches = 0
 
@@ -521,9 +555,86 @@ def _check_flash_bwd(state, gen):
             "plain_note": "the plain backward computes dq, dk and dv"}
 
 
-def _check_fused_ce(state, gen):
+def _ce_targets(n, v, gen):
+    """Seeded targets in ``[0, V)`` whose first rows sit on the edges of the
+    backward's 64-row vocab tiles, the forward's 128-row vocab tiles, the
+    ragged tail, and both sides of every boundary of the forward's vocab
+    slices (:func:`fwd_vocab_split` on this card)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.fused_ce import (
+        TC_FWD_TILE, fwd_vocab_split)
+    per, slices = fwd_vocab_split(n, v, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    cols = {0, 63, 64, 127, 128, v - 40, v - 41, v - 1}
+    for sl in range(1, slices):
+        cols |= {sl * per * TC_FWD_TILE - 1, sl * per * TC_FWD_TILE}
+    edges = sorted(c for c in cols if 0 <= c < v)[:n]
+    t = torch.randint(0, v, (n,), device="cuda", generator=gen)
+    t[:len(edges)] = torch.tensor(edges, device="cuda")
+    return t, (per, slices)
+
+
+def _ce_library(h, e, t, g):
+    """``F.linear_cross_entropy(h, e, t, reduction="none")`` timed with
+    CUDA events, forward and its backward alone (the gradients of ``h``
+    and ``e`` against ``g``), with ``options=None`` (the reference path)
+    and, where ``torch.nn.LinearCrossEntropyOptions`` exists, with its
+    chunked path; and the unfused ``F.cross_entropy(F.linear(h, e))``
+    pair. None where this torch lacks the call."""
+    import warnings
+
     import torch
     import torch.nn.functional as F
+    hl, el = (x.detach().clone().requires_grad_() for x in (h, e))
+    out = {}
+
+    def timed(tag, fwd):
+        loss = fwd()
+        out[f"{tag}_fwd_ms"] = time_ms(fwd, 5)
+        out[f"{tag}_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            loss, (hl, el), g.to(loss.dtype), retain_graph=True), 5)
+
+    timed("unfused", lambda: F.cross_entropy(F.linear(hl, el), t,
+                                             reduction="none"))
+    lce = getattr(F, "linear_cross_entropy", None)
+    options = getattr(torch.nn, "LinearCrossEntropyOptions", None)
+    out["linear_cross_entropy"] = lce is not None
+    out["linear_cross_entropy_options"] = options is not None
+    if lce is not None:
+        timed("lce", lambda: lce(hl, el, t, reduction="none"))
+    if lce is not None and options is not None:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            timed("lce_chunked", lambda: lce(hl, el, t, reduction="none",
+                                             options=options()))
+        out["lce_chunked_warnings"] = [str(w.message)[:200] for w in caught]
+    for which in ("fwd", "bwd"):
+        got = [out[k] for k in (f"lce_{which}_ms", f"lce_chunked_{which}_ms")
+               if k in out]
+        out[f"library_{which}_ms"] = min(got) if got else None
+    return out
+
+
+def _ce_row(n, v, d, dtype, which, tm, err, lib, **extra):
+    """A kernel line's numbers for one CE kernel timed at (N, V, D)."""
+    el = 2 if str(dtype).endswith("bfloat16") else 4
+    flops, nbytes = ce_work(n, v, d, el, which)
+    bound, bound_by = bound_ms(flops, nbytes, dtype)
+    return {"max_abs_err": err, "ms": tm["ms"], "ms_runs": tm["ms_runs"],
+            "plain_ms": tm["plain_ms"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib[f"library_{which}_ms"],
+            "library": "F.linear_cross_entropy(h, E, t, reduction='none')"
+                       + ("" if which == "fwd" else ", backward alone")
+                       + ", the faster of options=None and the chunked path",
+            "unfused_ms": lib[f"unfused_{which}_ms"], "flops": flops,
+            "bytes": nbytes,
+            "achieved_tflops": flops / (tm["ms"] * 1e-3) / 1e12,
+            "bound_share": bound / tm["ms"], "shape": [n, v, d],
+            "dtype": str(dtype).replace("torch.", ""), **extra}
+
+
+def _check_fused_ce(state, gen):
+    import torch
     from distributed_tensorflow_tpu_torch.ops.fused_ce import (
         ce_reference, fused_ce_bwd, fused_ce_bwd_plain, fused_ce_fwd,
         fused_ce_fwd_plain, fused_cross_entropy)
@@ -536,30 +647,45 @@ def _check_fused_ce(state, gen):
     runs = [(f"{tag}_{name}", dt, *shape)
             for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))
             for name, *shape in cases]
+    # the tensor-core kernels' tiling edges (128-row forward tiles and
+    # vocab slices, 32 x 64 backward tiles, 128-wide d chunks): N and V
+    # one below and one above a multiple of 128; a split whose last slice
+    # holds only the ragged tail (V = 1025 in 9 slices of one tile: the
+    # last holds column 1024 alone); a D no multiple of the d chunk
+    runs += [("bf16_N127_V1023_D128", torch.bfloat16, 127, 1023, 128),
+             ("bf16_N129_V1025_D64", torch.bfloat16, 129, 1025, 64),
+             ("bf16_N255_V2049_D1000", torch.bfloat16, 255, 2049, 1000),
+             ("bf16_N4095_V32767_D1024", torch.bfloat16, 4095, 32767, 1024),
+             ("bf16_N4097_V32769_D1024", torch.bfloat16, 4097, 32769, 1024)]
     runs.append(("bf16_train_chunk_N4096_V32768_D1024", torch.bfloat16,
                  4096, 32768, 1024))
     results, failures, main = [], [], None
     for name, dt, n, v, d in runs:
         h = _rand((n, d), dt, gen)
         e = _rand((v, d), dt, gen, 0.1)
-        t = torch.randint(0, v, (n,), device="cuda", generator=gen)
-        edges = torch.tensor([0, 63, 64, 127, 128, v - 40, v - 41, v - 1],
-                             device="cuda")
-        t[:len(edges)] = edges
+        t, split = _ce_targets(n, v, gen)
         g = torch.rand(n, device="cuda", generator=gen) / n
+        before = launch_counts()
         lse, tl = fused_ce_fwd(h, e, t)
         dh, de = fused_ce_bwd(h, e, t, lse, g)
         torch.cuda.synchronize()
+        after = launch_counts()
         plse, ptl = fused_ce_fwd_plain(h, e, t)
         pdh, pde = fused_ce_bwd_plain(h, e, t, plse, g)
         errs = {"lse": abs_err(lse, plse), "tl": abs_err(tl, ptl),
                 "dh_rel": rel_err(dh, pdh), "de_rel": rel_err(de, pde)}
         tol = GRAD_TOL[str(dt).replace("torch.", "")]
+        route = "_tc" if dt == torch.bfloat16 else ""
+        calls = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
         ok = (errs["lse"] <= CE_ROW_TOL and errs["tl"] <= CE_ROW_TOL
               and errs["dh_rel"] <= tol and errs["de_rel"] <= tol
+              and calls == {f"fused_ce_fwd{route}": 1,
+                            f"fused_ce_bwd{route}": 1}
               and all(bool(torch.isfinite(x).all().item())
                       for x in (lse, tl, dh, de)))
-        results.append({"case": name, "err": errs,
+        results.append({"case": name, "err": errs, "launches": calls,
+                        "vocab_split": split,
                         "tol": {"lse": CE_ROW_TOL, "grad_rel": tol},
                         "ok": ok})
         if not ok:
@@ -567,6 +693,7 @@ def _check_fused_ce(state, gen):
         if name.startswith("bf16_train_chunk"):
             main = (h, e, t, g, max(errs["lse"], errs["tl"]),
                     max(abs_err(dh, pdh), abs_err(de, pde)))
+        del h, e, dh, de, pdh, pde
 
     # two 4096-row chunks through the differentiable op, against autograd
     # through ce_reference in f32: one forward and one backward launch a
@@ -585,14 +712,16 @@ def _check_fused_ce(state, gen):
         h32, e32 = (x.detach().float().requires_grad_() for x in (h, e))
         ref = (ce_reference(h32, e32, t) * w).sum()
         rh, re_ = torch.autograd.grad(ref, (h32, e32))
-        calls = {k: after[k] - before[k] for k in ("fused_ce_fwd",
-                                                   "fused_ce_bwd")}
+        route = "_tc" if dt == torch.bfloat16 else ""
+        calls = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
         errs = {"loss_rel": abs(loss.item() - ref.item()) / abs(ref.item()),
                 "dh_rel": rel_err(gh, rh), "de_rel": rel_err(ge, re_)}
         tol = GRAD_TOL[str(dt).replace("torch.", "")]
         ok = (errs["loss_rel"] <= CE_LOSS_TOL and errs["dh_rel"] <= tol
               and errs["de_rel"] <= tol
-              and calls == {"fused_ce_fwd": 2, "fused_ce_bwd": 2})
+              and calls == {f"fused_ce_fwd{route}": 2,
+                            f"fused_ce_bwd{route}": 2})
         results.append({"case": f"{tag}_two_chunks_N8192_V1000_D128",
                         "err": errs, "launches": calls,
                         "tol": {"loss_rel": CE_LOSS_TOL, "grad_rel": tol},
@@ -603,6 +732,9 @@ def _check_fused_ce(state, gen):
         raise AssertionError(f"fused_ce disagrees with its plain version: "
                              f"{failures}: {results}")
 
+    # timing at the train step's chunk: bf16 on the tensor cores; f32 on
+    # the CUDA cores (the route f32 takes), TF32 off for its library calls
+    torch.backends.cuda.matmul.allow_tf32 = False
     h, e, t, g, fwd_err, bwd_err = main
     n, d = h.shape
     v = e.shape[0]
@@ -611,35 +743,47 @@ def _check_fused_ce(state, gen):
                      lambda: fused_ce_fwd_plain(h, e, t), 5)
     t_bwd = in_turns(lambda: fused_ce_bwd(h, e, t, lse, g),
                      lambda: fused_ce_bwd_plain(h, e, t, lse, g), 3)
-    # no single PyTorch call computes either: the unfused
-    # F.cross_entropy(F.linear(h, E)) forward, and its backward alone
-    hl, el_ = (x.detach().clone().requires_grad_() for x in (h, e))
-    unfused_fwd = time_ms(lambda: F.cross_entropy(
-        F.linear(hl, el_), t, reduction="none"), 5)
-    ul = F.cross_entropy(F.linear(hl, el_), t, reduction="none")
-    unfused_bwd = time_ms(lambda: torch.autograd.grad(
-        ul, (hl, el_), g.to(ul.dtype), retain_graph=True), 5)
-    del ul
-    state["ce_unfused_bwd_ms"] = unfused_bwd
-    shape_out = {}
-    for kname, tm, err, which in (("fused_ce_fwd", t_fwd, fwd_err, "fwd"),
-                                  ("fused_ce_bwd", t_bwd, bwd_err, "bwd")):
-        flops, nbytes = ce_work(n, v, d, h.element_size(), which)
-        bound, bound_by = bound_ms(flops, nbytes, h.dtype)
-        state[kname] = {"max_abs_err": err, "ms": tm["ms"],
-                        "plain_ms": tm["plain_ms"], "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": None,
-                        "shape": [n, v, d]}
-        if which == "bwd":
-            state[kname]["unfused_bwd_ms"] = unfused_bwd
-        shape_out[kname] = {**tm, "bound_ms": bound, "bound_by": bound_by,
-                            "flops": flops, "bytes": nbytes,
-                            "achieved_tflops":
-                                flops / (tm["ms"] * 1e-3) / 1e12}
-    return {"cases": results, "shape": [n, v, d], "dtype": "bfloat16",
-            **shape_out, "library_ms": None,
-            "unfused_cross_entropy_linear_fwd_ms": unfused_fwd,
-            "unfused_cross_entropy_linear_bwd_ms": unfused_bwd}
+    lib = _ce_library(h, e, t, g)
+    state["ce_library_bf16"] = lib
+    state["fused_ce_fwd_tc"] = _ce_row(n, v, d, h.dtype, "fwd", t_fwd,
+                                       fwd_err, lib)
+    # the two-pass design's own work: 8 N V D (logits twice)
+    design = bound_ms(8 * n * v * d, 0, h.dtype)[0]
+    state["fused_ce_bwd_tc"] = _ce_row(n, v, d, h.dtype, "bwd", t_bwd,
+                                       bwd_err, lib, design_bound_ms=design)
+    del h, e, lse, main
+    torch.cuda.empty_cache()
+
+    h32 = _rand((n, d), torch.float32, gen)
+    e32 = _rand((v, d), torch.float32, gen, 0.1)
+    lse, tl = fused_ce_fwd(h32, e32, t)
+    dh, de = fused_ce_bwd(h32, e32, t, lse, g)
+    plse, ptl = fused_ce_fwd_plain(h32, e32, t)
+    pdh, pde = fused_ce_bwd_plain(h32, e32, t, plse, g)
+    f32_err = {"fwd": max(abs_err(lse, plse), abs_err(tl, ptl)),
+               "bwd": max(abs_err(dh, pdh), abs_err(de, pde)),
+               "dh_rel": rel_err(dh, pdh), "de_rel": rel_err(de, pde)}
+    del dh, de, pdh, pde
+    if (f32_err["fwd"] > CE_ROW_TOL or f32_err["dh_rel"] > GRAD_TOL["float32"]
+            or f32_err["de_rel"] > GRAD_TOL["float32"]):
+        raise AssertionError(f"fused_ce f32 at the train chunk: {f32_err}")
+    t32_fwd = in_turns(lambda: fused_ce_fwd(h32, e32, t),
+                       lambda: fused_ce_fwd_plain(h32, e32, t), 3)
+    t32_bwd = in_turns(lambda: fused_ce_bwd(h32, e32, t, lse, g),
+                       lambda: fused_ce_bwd_plain(h32, e32, t, lse, g), 2)
+    lib32 = _ce_library(h32, e32, t, g)
+    state["ce_library_f32"] = lib32
+    state["fused_ce_fwd"] = _ce_row(n, v, d, h32.dtype, "fwd", t32_fwd,
+                                    f32_err["fwd"], lib32)
+    state["fused_ce_bwd"] = _ce_row(n, v, d, h32.dtype, "bwd", t32_bwd,
+                                    f32_err["bwd"], lib32)
+    state["ce_unfused_bwd_ms"] = lib["unfused_bwd_ms"]
+    del h32, e32
+    torch.cuda.empty_cache()
+    return {"cases": results, "shape": [n, v, d],
+            **{k: state[k] for k in ("fused_ce_fwd_tc", "fused_ce_bwd_tc",
+                                     "fused_ce_fwd", "fused_ce_bwd")},
+            "library_bf16": lib, "library_f32": lib32}
 
 
 # (name, N, V, D): a ragged vocab tail (V = 1000, 15 tiles + 40), N no
@@ -677,7 +821,7 @@ def _check_ce_variants(state, gen):
             for name, *shape in CE_VARIANT_CASES
             if not (tag == "f32" and shape[1] == 32768)]
     results, failures, main = [], [], None
-    chunks = 0
+    chunks = {torch.bfloat16: 0, torch.float32: 0}
     torch.cuda.synchronize()
     zero_launch_counts()
     for name, dt, n, v, d in runs:
@@ -691,7 +835,7 @@ def _check_ce_variants(state, gen):
         got = {var: _ce_variant_grads(h, e, t, w, var)
                for var in ce.BWD_VARIANTS}
         torch.cuda.synchronize()
-        chunks += n // ce.ROW_CHUNK if n > ce.ROW_CHUNK \
+        chunks[dt] += n // ce.ROW_CHUNK if n > ce.ROW_CHUNK \
             and n % ce.ROW_CHUNK == 0 else 1
         plse, _ = ce.fused_ce_fwd_plain(h, e, t)
         pdh, pde = ce.fused_ce_bwd_plain(h, e, t, plse, w)
@@ -720,10 +864,13 @@ def _check_ce_variants(state, gen):
         del got, want, pdh, pde
     counts = launch_counts()
     state["ce_variants_launches"] = counts
-    # one launch of each variant kernel per row chunk; "b" ran beside them
-    expected = {"fused_ce_fwd": 3 * chunks, "fused_ce_bwd": chunks,
-                "fused_ce_bwd_a": chunks, "fused_ce_dh": chunks,
-                "fused_ce_de": chunks}
+    # one launch of each variant kernel per row chunk; "b" ran beside them,
+    # on the tensor cores in bf16, and so did every forward
+    bf, f32 = chunks[torch.bfloat16], chunks[torch.float32]
+    expected = {"fused_ce_fwd_tc": 3 * bf, "fused_ce_fwd": 3 * f32,
+                "fused_ce_bwd_tc": bf, "fused_ce_bwd": f32,
+                "fused_ce_bwd_a": bf + f32, "fused_ce_dh": bf + f32,
+                "fused_ce_de": bf + f32}
     if failures or counts != expected_counts(expected, 1):
         raise AssertionError(f"fused_ce variants: failures {failures}, "
                              f"launches {counts} (expected {expected}): "
@@ -758,10 +905,16 @@ def _check_ce_variants(state, gen):
     for kname, (tm, which) in timed.items():
         flops, nbytes = ce_work(n, v, d, h.element_size(), which)
         bound, bound_by = bound_ms(flops, nbytes, h.dtype)
+        # the library backward computes dh and dE: the function of #6;
+        # #5 and #8 compute one of the two
         state[kname] = {"max_abs_err": errs[kname], "ms": tm["ms"],
                         "plain_ms": tm["plain_ms"], "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": None,
-                        "unfused_bwd_ms": state["ce_unfused_bwd_ms"],
+                        "bound_by": bound_by,
+                        "library_ms": state["ce_library_bf16"][
+                            "library_bwd_ms"],
+                        "library": "F.linear_cross_entropy backward alone "
+                                   "(dh and dE)",
+                        "unfused_ms": state["ce_unfused_bwd_ms"],
                         "shape": [n, v, d]}
         shape_out[kname] = {**tm, "bound_ms": bound, "bound_by": bound_by,
                             "flops": flops, "bytes": nbytes,
@@ -1314,6 +1467,34 @@ def phase_train_options(state):
                          "flash_fwd_launches": fwd, "ok": ok}
         if not ok:
             failures.append(name)
+
+    # bf16: the kernel loss (the tensor-core CE kernels inside autograd, on
+    # real hidden states) against full logits from the same weights; the
+    # f32 full-logits step above is the yardstick of bf16's own noise
+    bf16 = dict(base, dtype=torch.bfloat16)
+    kl, kg, kc = _grads_of_one_step(TransformerConfig.transformer_big(
+        **bf16, loss_impl="kernel"), 3, 2)
+    rl, rg, _ = _grads_of_one_step(TransformerConfig.transformer_big(**bf16),
+                                   3, 2)
+    fl, fg, _ = runs[()]
+    leaves = {}
+    for name, g in kg.items():
+        noise = rel_err(rg[name], fg[name])
+        leaves[name] = {"err": rel_err(g, rg[name]), "noise": noise,
+                        "tol": BF16_TRAIN_GRAD_TOL + 2 * noise}
+    ce_calls = {k: kc[k] for k in ("fused_ce_fwd_tc", "fused_ce_bwd_tc",
+                                   "fused_ce_fwd", "fused_ce_bwd")}
+    ok = (abs(kl - rl) <= BF16_TRAIN_LOSS_TOL and len(kg) == 10
+          and all(x["err"] <= x["tol"] for x in leaves.values())
+          and ce_calls == {"fused_ce_fwd_tc": 1, "fused_ce_bwd_tc": 1,
+                           "fused_ce_fwd": 0, "fused_ce_bwd": 0})
+    results["bf16_kernel_loss"] = {
+        "loss": kl, "loss_reference": rl, "loss_f32": fl,
+        "abs_loss_err": abs(kl - rl), "loss_tol": BF16_TRAIN_LOSS_TOL,
+        "max_grad_rel_err": max(x["err"] for x in leaves.values()),
+        "leaves": leaves, "ce_launches": ce_calls, "ok": ok}
+    if not ok:
+        failures.append("bf16_kernel_loss")
     out = {"config": "transformer_big, 2 layers", "dtype": "float32",
            "batch": 2, "seq_len": 256, "loss_tol": TRAIN_LOSS_TOL,
            "grad_tol": GRAD_TOL["float32"], **results}
@@ -1366,11 +1547,15 @@ def phase_train_parity(state):
         model, opt, step, batch = _train_setup(cfg, 2, 2)
         st = {"model": model, "optimizer": opt, "step": 0}
         losses, grads = [], []
+        torch.cuda.synchronize()
+        zero_launch_counts()
         for _ in range(TRAIN_PARITY_STEPS):
             st, metrics = step(st, batch)
             losses.append(metrics["loss"].item())
             grads.append(dict(_leaves(model.stacked_params(
                 lambda p: p.grad.clone()))))
+        if name == "kernel":   # f32: the CUDA-core CE kernels
+            state["train_parity_launches"] = launch_counts()
         runs[name] = (losses, grads, dict(_leaves(model.stacked_params(
             lambda p: p.detach().clone()))))
         del model, opt, step, st
@@ -1426,8 +1611,11 @@ def phase_train_parity(state):
            "beyond_tol_grad_gap_min": (beyond_gap.min().item()
                                        if beyond_gap.numel() else None),
            "beyond_tol_step1_sign_flips": flips}
+    counts = state["train_parity_launches"]
+    want = expected_counts(PARITY_LAUNCHES, TRAIN_PARITY_STEPS)
+    out["launches"] = counts
     if (loss_err > TRAIN_LOSS_TOL or worst_grad > GRAD_TOL["float32"]
-            or held_err > TRAIN_PARAM_TOL
+            or counts != want or held_err > TRAIN_PARAM_TOL
             or over > TRAIN_PARAM_FRAC * n_params or len(grad_err) != 10):
         raise AssertionError(f"train parity: {json.dumps(out)}")
     return out
@@ -1476,8 +1664,9 @@ def main() -> int:
         row.update({key: k[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")})
-        for key in ("unfused_bwd_ms", "f32_mu", "ms_events",
-                    "library_ms_events"):
+        for key in ("unfused_ms", "f32_mu", "ms_events", "library_ms_events",
+                    "library", "design_bound_ms", "achieved_tflops",
+                    "bound_share", "dtype"):
             if key in k:
                 row[key] = k[key]
         if name == "flash_fwd":

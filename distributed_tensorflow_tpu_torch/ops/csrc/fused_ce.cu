@@ -1,10 +1,14 @@
 // Fused cross-entropy against a tied embedding, for Hopper (sm_90a),
 // CUDA C++, CUDA cores: the (N, V) logits never reach device memory.
+// These kernels take f32, whose f32 products keep f32 parity (on tensor
+// cores f32 would be TF32), and bf16 for the variants "a" and "split";
+// bf16 fused_ce_fwd and fused_ce_bwd run on the tensor cores of
+// fused_ce_tc.cu instead, and return cudaErrorInvalidValue here.
 //
 // Replaces: distributed_tensorflow_tpu/ops/fused_ce.py
 // - fused_ce_fwd: _fwd_kernel (:75; _fwd_call :288, pl.pallas_call at
-//   :292). For h (N, D) and E (V, D) in one dtype (bf16 or f32) and
-//   targets t (N,) int32: lse_i = logsumexp_v(h_i . E_v) and the target
+//   :292). For h (N, D) and E (V, D) in one dtype and targets t (N,)
+//   int32: lse_i = logsumexp_v(h_i . E_v) and the target
 //   logit tl_i = h_i . E_{t_i}, both (N,) f32. A target outside [0, V)
 //   picks up 0, as the one-hot never matches there.
 // - the backward, from the saved lse and the per-row cotangent g (N,)
@@ -70,15 +74,17 @@
 // 6 N V D = 825 GFLOP -> 834 us against h, E read and dh, dE written
 // (151 MB -> 45 us); #5 and #8 each 4 N V D (the logits again, then
 // one product) = 550 GFLOP -> 556 us. All are bound by operations, by
-// far. These kernels run f32 FMAs on CUDA cores (67 TFLOP/s peak) and
-// reach about 12 TFLOP/s, the rate at which the shared-memory reads of a
-// 2 x 4 register tile (6 loads for 8 FMAs) feed the FMA units; the route
-// to the bound is mma.sync / wgmma on bf16 tiles with TMA-fed stages, a
-// later change.
+// far (in f32, at 67 TFLOP/s on CUDA cores: 4.1, 12.3, 8.2 ms). These
+// kernels run f32 FMAs on CUDA cores and reach about 12 TFLOP/s, the
+// rate at which the shared-memory reads of a 2 x 4 register tile (6
+// loads for 8 FMAs) feed the FMA units; bf16 #4 and #7 moved to the
+// tensor cores (fused_ce_tc.cu), and #5, #6, #8 are to follow.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -539,9 +545,11 @@ cudaError_t launch_bwd_variant(int variant, const void* h, const void* E,
                                const float* g, void* dA, float* dB, int N,
                                int V, int D, cudaStream_t stream) {
   switch (variant) {
-    case 0:
-      return launch_bwd<T>(fused_ce_bwd_kernel<T>, N, h, E, t, lse, g, dA,
-                           dB, N, V, D, stream);
+    case 0:  // bf16 "b" runs on the tensor cores (fused_ce_tc.cu)
+      if constexpr (std::is_same<T, float>::value)
+        return launch_bwd<T>(fused_ce_bwd_kernel<T>, N, h, E, t, lse, g, dA,
+                             dB, N, V, D, stream);
+      return cudaErrorInvalidValue;
     case 1:
       return launch_bwd<T>(fused_ce_dh_kernel<T>, N, h, E, t, lse, g, dA,
                            dB, N, V, D, stream);
@@ -582,8 +590,9 @@ int bwd_entry(int variant, const void* h, const void* E, const void* t,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for a dtype or a D it does not take).
+// dtype: 0 = float32, 1 = bfloat16 (fused_ce_bwd_a, fused_ce_dh and
+// fused_ce_de only). Each returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a dtype or a D it does not take).
 int fused_ce_fwd(const void* h, const void* E, const void* t, void* lse,
                  void* tl, int N, int V, int D, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -592,9 +601,7 @@ int fused_ce_fwd(const void* h, const void* E, const void* t, void* lse,
   float* tg = static_cast<float*>(tl);
   if (D < 1 || V < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)launch_fwd<float>(h, E, ti, l, tg, N, V, D, st);
-  if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(h, E, ti, l, tg, N, V, D, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // bf16: fused_ce_tc.cu
 }
 
 int fused_ce_bwd(const void* h, const void* E, const void* t,

@@ -7,17 +7,21 @@ device memory:
 
 - :func:`ce_reference` — the unfused semantics contract.
 - :func:`fused_ce_fwd` — ``(lse, tl)``, the row logsumexp and the target
-  logit. On a CUDA tensor it launches ``fused_ce_fwd`` of
-  ``csrc/fused_ce.cu`` (the port of the Pallas ``_fwd_kernel``); on a
-  CPU tensor it runs :func:`fused_ce_fwd_plain`.
+  logit. On a CUDA tensor it launches the port of the Pallas
+  ``_fwd_kernel``: in bf16 ``fused_ce_fwd_tc`` of ``csrc/fused_ce_tc.cu``
+  (tensor cores), in f32 ``fused_ce_fwd`` of ``csrc/fused_ce.cu`` (CUDA
+  cores); on a CPU tensor it runs :func:`fused_ce_fwd_plain`.
 - :func:`fused_ce_bwd` — ``(dh, dE)`` from the saved ``lse`` and the
   per-row cotangent ``g``, by one of three variants. On a CUDA tensor it
-  launches, in ``csrc/fused_ce.cu``: for ``"b"`` ``fused_ce_bwd`` (the
-  port of the merged backward ``_bwd_merged_b_kernel``), for ``"a"``
-  ``fused_ce_bwd_a`` (``_bwd_merged_kernel``), for ``"split"``
-  ``fused_ce_dh`` then ``fused_ce_de`` (``_dh_kernel``, ``_de_kernel``).
-  On a CPU tensor it runs :func:`fused_ce_bwd_plain`, or for ``"split"``
-  :func:`fused_ce_dh_plain` and :func:`fused_ce_de_plain`.
+  launches: for ``"b"`` (the port of the merged backward
+  ``_bwd_merged_b_kernel``) in bf16 ``fused_ce_bwd_tc`` of
+  ``csrc/fused_ce_tc.cu`` (tensor cores), in f32 ``fused_ce_bwd`` of
+  ``csrc/fused_ce.cu``; for ``"a"`` ``fused_ce_bwd_a``
+  (``_bwd_merged_kernel``), for ``"split"`` ``fused_ce_dh`` then
+  ``fused_ce_de`` (``_dh_kernel``, ``_de_kernel``), all of
+  ``csrc/fused_ce.cu`` in either dtype. :func:`kernel_route` states the
+  rule. On a CPU tensor it runs :func:`fused_ce_bwd_plain`, or for
+  ``"split"`` :func:`fused_ce_dh_plain` and :func:`fused_ce_de_plain`.
 - :func:`fused_cross_entropy` — the public op, differentiable in
   ``hidden`` and ``embed`` through :class:`FusedCrossEntropy`.
 
@@ -28,6 +32,7 @@ launch: nothing falls back to the plain version on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -47,6 +52,19 @@ CE_ARGTYPES = {
     for name, n in (("fused_ce_fwd", 5), ("fused_ce_bwd", 7),
                     ("fused_ce_bwd_a", 7), ("fused_ce_dh", 6),
                     ("fused_ce_de", 6))}
+#: C signatures of ``csrc/fused_ce_tc.cu`` (bf16 only): pointers, then
+#: N, V, D (and for the forward tiles per slice, slices), stream
+CE_TC_ARGTYPES = {
+    "fused_ce_fwd_tc": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "fused_ce_bwd_tc": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p]}
+#: token rows and vocab rows of a tile of ``fused_ce_fwd_tc``
+TC_FWD_TILE = 128
+#: (m, l) partials a row gets from each vocab slice of the forward
+TC_FWD_PARTS = 2
+#: blocks of the forward that fit an SM at once
+TC_FWD_BLOCKS_PER_SM = 2
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +131,85 @@ def fused_ce_bwd_plain(hidden, embed, targets, lse, g):
     return dh.to(hidden.dtype), de.to(embed.dtype)
 
 
+def fwd_vocab_split(n: int, v: int, sm_count: int) -> tuple[int, int]:
+    """``(tiles_per_slice, slices)`` of ``fused_ce_fwd_tc`` for N rows and
+    V vocab rows: the 128-row vocab tiles go to as many slices as let
+    ``ceil(N / 128)`` row tiles times the slices fill the card's
+    ``sm_count`` SMs at two blocks each, in one wave; every slice holds at
+    least one tile."""
+    row_tiles = math.ceil(n / TC_FWD_TILE)
+    vocab_tiles = math.ceil(v / TC_FWD_TILE)
+    slices = min(vocab_tiles, max(
+        1, TC_FWD_BLOCKS_PER_SM * sm_count // row_tiles))
+    per = math.ceil(vocab_tiles / slices)
+    return per, math.ceil(vocab_tiles / per)
+
+
+def fwd_partials_plain(hidden, embed, targets, bounds):
+    """Plain version of the forward's per-slice partials: for vocab slices
+    ``[bounds[s], bounds[s + 1])`` (columns at or past V masked), each
+    row's ``(m, l)`` = (max, sum of exp(logit − max)) over the slice,
+    ``(S, N)`` f32 — ``(-inf, 0)`` for a slice that holds no column —
+    and the target logit ``tl`` ``(N,)``, 0 for a target outside
+    ``[0, V)``."""
+    logits = _logits(hidden, embed)
+    v = embed.shape[0]
+    ms, ls = [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        part = logits[:, min(lo, v):min(hi, v)]
+        if part.shape[1] == 0:
+            ms.append(torch.full((logits.shape[0],), -math.inf))
+            ls.append(torch.zeros(logits.shape[0]))
+            continue
+        m = part.max(dim=1).values
+        ms.append(m)
+        ls.append(torch.exp(part - m[:, None]).sum(dim=1))
+    return (torch.stack(ms), torch.stack(ls),
+            fused_ce_fwd_plain(hidden, embed, targets)[1])
+
+
+def merge_partials_plain(m, l):
+    """Plain version of ``fused_ce_lse_merge_kernel``: each row's lse from
+    its ``(P, N)`` partials ``(m, l)``, folded in partial order; a partial
+    with ``l = 0`` (it saw no column) adds nothing."""
+    mx = m.max(dim=0).values
+    w = torch.where(l > 0, l * torch.exp(m - mx), torch.zeros_like(l))
+    return mx + torch.log(w.sum(dim=0))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+def kernel_route(dtype, d: int, op: str) -> str:
+    """Which kernel a CUDA call takes: ``"tensor_core"`` (``csrc/
+    fused_ce_tc.cu``) or ``"cuda_core"`` (``csrc/fused_ce.cu``), for
+    inputs of ``dtype`` and d_model ``d`` and ``op`` — ``"fwd"`` or a
+    backward variant (``"b"``, ``"a"``, ``"split"``).
+
+    - bf16 forward and bf16 ``"b"`` go to the tensor cores, which need
+      16-byte rows: ``d`` a multiple of 8, else ValueError;
+    - f32 stays on the CUDA cores, whose f32 products keep f32 parity
+      (on tensor cores f32 would be TF32), and so do ``"a"`` and
+      ``"split"`` in either dtype;
+    - every backward keeps a ``32 x d`` f32 gradient on chip: ``d`` at
+      most :data:`KERNEL_MAX_D`, else ValueError."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"fused_ce: no kernel for dtype {dtype}")
+    if op not in ("fwd", *BWD_VARIANTS):
+        raise ValueError(f"fused_ce: op={op!r}; expected 'fwd' or one of "
+                         f"{BWD_VARIANTS}")
+    if op != "fwd" and d > KERNEL_MAX_D:
+        raise ValueError(f"fused_ce_bwd: d_model {d} > {KERNEL_MAX_D}, the "
+                         f"widest the kernel takes")
+    if dtype == torch.bfloat16 and op in ("fwd", "b"):
+        if d % 8:
+            raise ValueError(f"fused_ce: bf16 d_model {d} is not a "
+                             f"multiple of 8 (the tensor-core kernels "
+                             f"stage 16-byte rows)")
+        return "tensor_core"
+    return "cuda_core"
+
 
 def _check_kernel_inputs(hidden, embed, targets):
     if hidden.ndim != 2 or embed.ndim != 2 \
@@ -139,11 +233,12 @@ def _check_kernel_inputs(hidden, embed, targets):
             raise ValueError(f"fused_ce: {name} is not contiguous")
 
 
-def _launch(entry, device, *args):
-    """Run C entry point ``entry`` of ``csrc/fused_ce.cu`` on ``device``'s
+def _launch(entry, device, *args, source="fused_ce"):
+    """Run C entry point ``entry`` of ``csrc/<source>.cu`` on ``device``'s
     current stream; raise if the launch failed."""
     from distributed_tensorflow_tpu_torch.ops import _build
-    lib = _build.load("fused_ce", CE_ARGTYPES)
+    lib = _build.load(source, CE_TC_ARGTYPES if source == "fused_ce_tc"
+                      else CE_ARGTYPES)
     with torch.cuda.device(device):
         err = getattr(lib, entry)(*args,
                                   torch.cuda.current_stream().cuda_stream)
@@ -162,9 +257,12 @@ def _row_vector(x, n, name, device):
 def fused_ce_fwd(hidden, embed, targets):
     """``(lse, tl)`` of ``hidden @ embed.T``, both ``(N,)`` f32.
 
-    A CUDA tensor goes through the ``fused_ce_fwd`` kernel (one launch
-    counted in ``fused_ce_fwd.launches``), a CPU tensor through
-    :func:`fused_ce_fwd_plain`; any other device raises."""
+    A CUDA tensor goes through the kernel :func:`kernel_route` names: in
+    bf16 ``fused_ce_fwd_tc`` (tensor cores; its forward and the merge of
+    its vocab slices counted as one launch in ``fused_ce_fwd.launches_tc``),
+    in f32 ``fused_ce_fwd`` (CUDA cores; ``fused_ce_fwd.launches``). A
+    CPU tensor goes through :func:`fused_ce_fwd_plain`; any other device
+    raises."""
     with torch.no_grad():
         if hidden.device.type == "cpu":
             return fused_ce_fwd_plain(hidden, embed, targets)
@@ -174,30 +272,49 @@ def fused_ce_fwd(hidden, embed, targets):
         _check_kernel_inputs(hidden, embed, targets)
         n, d = hidden.shape
         v = embed.shape[0]
+        route = kernel_route(hidden.dtype, d, "fwd")
         lse = torch.empty(n, dtype=torch.float32, device=hidden.device)
-        tl = torch.empty_like(lse)
         if n == 0:
-            return lse, tl
+            return lse, torch.empty_like(lse)
         t = targets.to(torch.int32).contiguous()
-        _launch("fused_ce_fwd", hidden.device, hidden.data_ptr(),
+        if route == "cuda_core":
+            tl = torch.empty_like(lse)
+            _launch("fused_ce_fwd", hidden.device, hidden.data_ptr(),
+                    embed.data_ptr(), t.data_ptr(), lse.data_ptr(),
+                    tl.data_ptr(), n, v, d, KERNEL_DTYPES[hidden.dtype])
+            fused_ce_fwd.launches += 1
+            return lse, tl
+        per, slices = fwd_vocab_split(
+            n, v, torch.cuda.get_device_properties(
+                hidden.device).multi_processor_count)
+        tl = torch.zeros_like(lse)   # written only where a target lies
+        part = torch.empty((2, TC_FWD_PARTS * slices, n),
+                           dtype=torch.float32, device=hidden.device)
+        _launch("fused_ce_fwd_tc", hidden.device, hidden.data_ptr(),
                 embed.data_ptr(), t.data_ptr(), lse.data_ptr(),
-                tl.data_ptr(), n, v, d, KERNEL_DTYPES[hidden.dtype])
-        fused_ce_fwd.launches += 1
+                tl.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), n, v,
+                d, per, slices, source="fused_ce_tc")
+        fused_ce_fwd.launches_tc += 1
         return lse, tl
 
 
-fused_ce_fwd.launches = 0
+fused_ce_fwd.launches = 0       # f32, CUDA cores
+fused_ce_fwd.launches_tc = 0    # bf16, tensor cores
 
 
 def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
     """``(dh, dE)`` of the per-token losses against the cotangent ``g``
     (``(N,)`` f32), from the forward's ``lse``.
 
-    A CUDA tensor goes through the kernels of ``variant``, each launch
-    counted on this function:
+    A CUDA tensor goes through the kernels of ``variant`` (the rule:
+    :func:`kernel_route`), each launch counted on this function:
 
-    - ``"b"``: ``fused_ce_bwd`` (``.launches``) adds dE into an f32
-      ``(V, D)`` accumulator with atomics and keeps dh on chip;
+    - ``"b"`` in bf16: ``fused_ce_bwd_tc`` (``.launches_tc``, one for its
+      two passes), on tensor cores: a dh pass over token tiles, then a
+      dE pass over vocab tiles, each gradient on chip and written once,
+      no atomics;
+    - ``"b"`` in f32: ``fused_ce_bwd`` (``.launches``) adds dE into an
+      f32 ``(V, D)`` accumulator with atomics and keeps dh on chip;
     - ``"a"``: ``fused_ce_bwd_a`` (``.launches_a``) adds dh into an f32
       ``(N, D)`` accumulator with atomics and keeps dE on chip;
     - ``"split"``: ``fused_ce_dh`` (``.launches_dh``) then
@@ -222,10 +339,7 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
         _check_kernel_inputs(hidden, embed, targets)
         n, d = hidden.shape
         v = embed.shape[0]
-        if d > KERNEL_MAX_D:
-            raise ValueError(f"fused_ce_bwd: d_model {d} > "
-                             f"{KERNEL_MAX_D}, the widest the kernel "
-                             f"takes")
+        route = kernel_route(hidden.dtype, d, variant)
         if n == 0:
             return torch.empty_like(hidden), torch.zeros_like(embed)
         lse = _row_vector(lse, n, "lse", hidden.device)
@@ -235,6 +349,12 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
                 lse.data_ptr(), g.data_ptr())
         shape = (n, v, d, KERNEL_DTYPES[hidden.dtype])
         f32 = dict(dtype=torch.float32, device=hidden.device)
+        if route == "tensor_core":
+            dh, de = torch.empty_like(hidden), torch.empty_like(embed)
+            _launch("fused_ce_bwd_tc", hidden.device, *args, dh.data_ptr(),
+                    de.data_ptr(), n, v, d, source="fused_ce_tc")
+            fused_ce_bwd.launches_tc += 1
+            return dh, de
         if variant == "b":
             dh = torch.empty_like(hidden)
             de_acc = torch.zeros((v, d), **f32)
@@ -257,7 +377,8 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
         return dh, de
 
 
-fused_ce_bwd.launches = 0       # "b", #7
+fused_ce_bwd.launches = 0       # "b", #7, f32 (CUDA cores)
+fused_ce_bwd.launches_tc = 0    # "b", #7, bf16 (tensor cores)
 fused_ce_bwd.launches_a = 0     # "a", #6
 fused_ce_bwd.launches_dh = 0    # "split", #5
 fused_ce_bwd.launches_de = 0    # "split", #8

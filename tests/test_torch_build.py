@@ -11,11 +11,13 @@ from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops.attention import (
     FLASH_BWD_ARGTYPES, FLASH_FWD_ARGTYPES)
 from distributed_tensorflow_tpu_torch.ops.fused_adamw import ADAMW_ARGTYPES
-from distributed_tensorflow_tpu_torch.ops.fused_ce import CE_ARGTYPES
+from distributed_tensorflow_tpu_torch.ops.fused_ce import (
+    CE_ARGTYPES, CE_TC_ARGTYPES)
 
 SOURCES = {"flash_fwd": {"flash_fwd": FLASH_FWD_ARGTYPES},
            "flash_bwd": FLASH_BWD_ARGTYPES,
            "fused_ce": CE_ARGTYPES,
+           "fused_ce_tc": CE_TC_ARGTYPES,
            "fused_adamw": ADAMW_ARGTYPES}
 
 

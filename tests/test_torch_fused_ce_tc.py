@@ -1,0 +1,148 @@
+"""The tensor-core cross-entropy route of
+``distributed_tensorflow_tpu_torch.ops.fused_ce`` on the CPU.
+
+The kernels of ``csrc/fused_ce_tc.cu`` run only on the card; what
+surrounds them is plain Python and is tested here: the rule that sends a
+call to the tensor-core or the CUDA-core kernels (:func:`kernel_route`),
+the forward's split of the vocabulary across blocks
+(:func:`fwd_vocab_split`), and the merge of the per-slice ``(m, l)``
+partials into ``lse`` (:func:`merge_partials_plain`, the plain version of
+``fused_ce_lse_merge_kernel``), held against the JAX ``ce_reference`` on
+seeded inputs. Tolerance (f32, another summation order): 1e-5 relative
+plus 1e-5 absolute on losses near ln V.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_tensorflow_tpu.ops import fused_ce as jce
+from distributed_tensorflow_tpu_torch.ops import fused_ce as tce
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,d,op,route", [
+    (BF16, 1024, "fwd", "tensor_core"),
+    (BF16, 1024, "b", "tensor_core"),
+    (BF16, 8, "fwd", "tensor_core"),
+    (BF16, 1000, "b", "tensor_core"),
+    (BF16, 4096, "fwd", "tensor_core"),     # the forward keeps no D on chip
+    (BF16, 1024, "a", "cuda_core"),
+    (BF16, 1024, "split", "cuda_core"),
+    (BF16, 12, "a", "cuda_core"),
+    (F32, 1024, "fwd", "cuda_core"),
+    (F32, 1024, "b", "cuda_core"),
+    (F32, 12, "fwd", "cuda_core"),
+    (F32, 12, "b", "cuda_core"),
+])
+def test_kernel_route(dtype, d, op, route):
+    assert tce.kernel_route(dtype, d, op) == route
+
+
+@pytest.mark.parametrize("dtype,d,op,match", [
+    (BF16, 12, "fwd", "multiple of 8"),     # rows not 16-byte aligned
+    (BF16, 1020, "b", "multiple of 8"),
+    (BF16, 1032, "b", "1024"),              # dh no longer fits on chip
+    (F32, 2048, "b", "1024"),
+    (BF16, 2048, "split", "1024"),
+    (torch.float16, 1024, "fwd", "dtype"),
+    (BF16, 1024, "c", "op="),
+])
+def test_kernel_route_refuses(dtype, d, op, match):
+    with pytest.raises(ValueError, match=match):
+        tce.kernel_route(dtype, d, op)
+
+
+@pytest.mark.parametrize("n,v,sm,want", [
+    (4096, 32768, 132, (32, 8)),    # the train chunk: 32 x 8 = 256 blocks
+    (4133, 1000, 132, (1, 8)),      # 33 row tiles, 8 vocab tiles
+    (129, 1025, 132, (1, 9)),       # last slice: the tail column alone
+    (100, 32768, 132, (1, 256)),    # one row tile: a slice per tile
+    (8192, 32768, 132, (64, 4)),
+    (50000, 1000, 132, (8, 1)),     # more row tiles than fit: one slice
+])
+def test_fwd_vocab_split(n, v, sm, want):
+    per, slices = tce.fwd_vocab_split(n, v, sm)
+    assert (per, slices) == want
+    tiles = math.ceil(v / tce.TC_FWD_TILE)
+    assert (slices - 1) * per < tiles <= slices * per   # none empty
+    rows = math.ceil(n / tce.TC_FWD_TILE)
+    assert slices == 1 or rows * slices <= tce.TC_FWD_BLOCKS_PER_SM * sm
+
+
+def _inputs(n, v, d, seed):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    e = (rng.normal(size=(v, d)) * 0.3).astype(np.float32)
+    t = rng.integers(0, v, n).astype(np.int32)
+    return h, e, t
+
+
+@pytest.mark.parametrize("n,v,d,bounds", [
+    # one slice: the plain logsumexp
+    (37, 300, 16, [0, 300]),
+    # slices of two 128-row tiles, the last the ragged tail alone
+    (37, 300, 16, [0, 128, 256, 384]),
+    # a slice past V (all -inf, l = 0), as a warp's columns past the
+    # vocab tail give in the kernel
+    (37, 300, 16, [0, 256, 384, 512]),
+    # uneven slices, one of a single column
+    (64, 1025, 32, [0, 512, 1024, 1025]),
+])
+def test_merged_partials_match_jax_reference(n, v, d, bounds):
+    h, e, t = _inputs(n, v, d, seed=len(bounds) + v)
+    t[:4] = [0, v - 1, min(127, v - 1), min(128, v - 1)]
+    want = np.asarray(jce.ce_reference(jnp.asarray(h), jnp.asarray(e),
+                                       jnp.asarray(t)))
+    th, te, tt = (torch.from_numpy(x) for x in (h, e, t))
+    m, l, tl = tce.fwd_partials_plain(th, te, tt, bounds)
+    assert m.shape == l.shape == (len(bounds) - 1, n)
+    lse = tce.merge_partials_plain(m, l)
+    assert torch.isfinite(lse).all()
+    np.testing.assert_allclose((lse - tl).numpy(), want, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_partials_of_an_empty_slice_add_nothing():
+    """A slice with no column has ``(m, l) = (-inf, 0)``, and the merge
+    gives the same lse with or without it, wherever it stands."""
+    h, e, t = (torch.from_numpy(x) for x in _inputs(20, 200, 8, seed=5))
+    m, l, _ = tce.fwd_partials_plain(h, e, t, [0, 128, 200, 256])
+    assert torch.isneginf(m[2]).all() and (l[2] == 0).all()
+    base = tce.merge_partials_plain(m[:2], l[:2])
+    for order in ([2, 0, 1], [0, 2, 1], [0, 1, 2]):
+        assert torch.equal(tce.merge_partials_plain(m[order], l[order]),
+                           base)
+    np.testing.assert_allclose(
+        base.numpy(), tce.fused_ce_fwd_plain(h, e, t)[0].numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_target_outside_vocab_picks_up_zero():
+    h, e, t = (torch.from_numpy(x) for x in _inputs(10, 300, 8, seed=6))
+    t[0], t[1] = -1, 300
+    _, _, tl = tce.fwd_partials_plain(h, e, t, [0, 128, 256, 384])
+    assert tl[0].item() == 0.0 and tl[1].item() == 0.0
+
+
+def test_cpu_bf16_takes_plain_versions_and_counts_nothing():
+    """bf16 CPU tensors take the plain versions, whatever route a CUDA
+    tensor of that shape would take; no launch is counted."""
+    h, e, t = (torch.from_numpy(x) for x in _inputs(20, 300, 16, seed=7))
+    h, e = h.to(BF16), e.to(BF16)
+    before = (tce.fused_ce_fwd.launches_tc, tce.fused_ce_bwd.launches_tc,
+              tce.fused_ce_fwd.launches, tce.fused_ce_bwd.launches)
+    lse, tl = tce.fused_ce_fwd(h, e, t)
+    plse, ptl = tce.fused_ce_fwd_plain(h, e, t)
+    assert torch.equal(lse, plse) and torch.equal(tl, ptl)
+    g = torch.full((20,), 0.05)
+    dh, de = tce.fused_ce_bwd(h, e, t, lse, g)
+    pdh, pde = tce.fused_ce_bwd_plain(h, e, t, lse, g)
+    assert dh.dtype == de.dtype == BF16
+    assert torch.equal(dh, pdh) and torch.equal(de, pde)
+    assert (tce.fused_ce_fwd.launches_tc, tce.fused_ce_bwd.launches_tc,
+            tce.fused_ce_fwd.launches, tce.fused_ce_bwd.launches) == before

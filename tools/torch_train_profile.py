@@ -38,8 +38,10 @@ BATCH = 8
 GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
           ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
           ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-          ("fused_ce_fwd", ("fused_ce_fwd_kernel",)),
-          ("fused_ce_bwd", ("fused_ce_bwd_kernel",)),
+          ("fused_ce_fwd", ("fused_ce_fwd_kernel", "fused_ce_fwd_tc_kernel",
+                            "fused_ce_lse_merge_kernel")),
+          ("fused_ce_bwd", ("fused_ce_bwd_kernel", "fused_ce_bwd_tc_dh_kernel",
+                            "fused_ce_bwd_tc_de_kernel")),
           ("fused_adamw", ("fused_adamw_kernel",)),
           ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
 
