@@ -15,7 +15,12 @@ printing one JSON line:
    version on the card, in bf16 and f32, at the main paths' shapes and
    at the edges (ragged tails, causal offsets, fully-masked rows, vocab
    tails, targets on tile edges, two row chunks), with the tolerances
-   below; the cross-entropy forward and merged backward take the
+   below; the flash-attention forward and dk/dv backward take the
+   tensor-core kernels in bf16 (also at their tiling's edges: Sq < 64,
+   Sk one past a multiple of 64, a causal offset no multiple of the
+   tile, both tails ragged at hd 128) and the CUDA-core kernels in f32,
+   dq the CUDA-core kernel in both; the cross-entropy forward and merged
+   backward take the
    tensor-core kernels in bf16 (also at their tiling's edges: N and V
    one off a multiple of 128, a vocab split whose last slice is the
    ragged tail alone, targets on the slice boundaries) and the
@@ -24,15 +29,17 @@ printing one JSON line:
    against its plain versions and against variant "b", their launches
    counted over that run; the fused AdamW on ``transformer_big``'s leaf
    shapes, f32 and bf16 ``mu``, steps 1 and 1000. Then each kernel, its
-   plain version and a PyTorch library yardstick (for the cross-entropy
+   plain version and a PyTorch library yardstick (for attention
+   ``scaled_dot_product_attention``, for the cross-entropy
    ``F.linear_cross_entropy``, plain and chunked) timed at the train
    step's shapes with CUDA events, in turns plain, kernel, kernel,
-   plain.
+   plain; the flash forward also at the serve shape, and the f32
+   CUDA-core attention kernels at the train step's shape in f32.
 4. ``serve``   — ``InferenceEngine.generate`` at the full width of
    ``transformer_big`` in bf16 (random weights from seed 0), 8 requests
    × 32 new tokens. The launch counters are set to 0 just before and
-   read just after: ``flash_fwd`` must run exactly once per layer per
-   prefill.
+   read just after: ``flash_fwd_tc`` must run exactly once per layer per
+   prefill, and no other kernel.
 5. ``parity``  — the serving path in f32: decode logits at every
    generated position against ``TransformerLM`` full-sequence
    recompute, and greedy tokens wherever the top-2 gap is clear.
@@ -42,16 +49,18 @@ printing one JSON line:
    cross-entropy, bf16 AdamW first moment; one warm-up step, then 5
    steps timed with CUDA events on one seeded token batch. The counters
    are set to 0 before the timed steps and read after: per step 12
-   ``flash_fwd``, 12 ``flash_bwd_dq``, 12 ``flash_bwd_dkv``, 2
+   ``flash_fwd_tc``, 12 ``flash_bwd_dq``, 12 ``flash_bwd_dkv_tc``, 2
    ``fused_ce_fwd_tc`` and 2 ``fused_ce_bwd_tc`` launches (the
-   tensor-core cross-entropy kernels). The first loss must
+   tensor-core attention and cross-entropy kernels, dq on the CUDA
+   cores). The first loss must
    lie within 1.0 of ln V and the loss must fall. A smoke run, not a
    benchmark.
 7. ``train_fused`` — the same with ``fused_optimizer=True``: per step
    also 98 ``fused_adamw`` launches (one per parameter tensor), and the
    plain ``AdamW.step`` is never reached.
 8. ``train_parity`` — f32 with TF32 off: the kernel path (the f32
-   cross-entropy on the CUDA-core kernels, whose launches it counts)
+   attention and cross-entropy on the CUDA-core kernels, whose launches
+   it counts)
    against the reference configuration (``mha_reference``, full-logits
    loss) from the same weights at full width, 2 layers, batch 2 × 256:
    loss, every gradient leaf, and the parameters after 3 AdamW steps.
@@ -118,21 +127,23 @@ GRAD_AGREE = 1e-3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-SOURCES = ("flash_fwd", "flash_bwd", "fused_ce", "fused_ce_tc",
+SOURCES = ("flash_fwd", "flash_bwd", "flash_tc", "fused_ce", "fused_ce_tc",
            "fused_adamw")
 SERVE_SLOTS, SERVE_BLOCK, SERVE_REQUESTS, SERVE_NEW = 8, 16, 8, 32
 PARITY_REQUESTS, PARITY_NEW = 4, 16
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
 # kernels launched per train step of transformer_big at batch 8 x 1024:
 # one flash forward, dq and dkv a layer; one CE forward and backward per
-# 4096-row chunk of the 8192 tokens, in bf16 on the tensor-core kernels
-TRAIN_LAUNCHES = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
-                  "fused_ce_fwd_tc": 2, "fused_ce_bwd_tc": 2}
+# 4096-row chunk of the 8192 tokens; bf16, so on the tensor-core kernels
+# but for dq
+TRAIN_LAUNCHES = {"flash_fwd_tc": 12, "flash_bwd_dq": 12,
+                  "flash_bwd_dkv_tc": 12, "fused_ce_fwd_tc": 2,
+                  "fused_ce_bwd_tc": 2}
 # with fused_optimizer=True also one AdamW launch per parameter tensor:
 # 12 layers x 8 tensors, the embedding and the final norm's scale
 FUSED_LAUNCHES = {**TRAIN_LAUNCHES, "fused_adamw": 98}
 # train_parity's f32 kernel step, 2 layers, 512 tokens (one row chunk):
-# the CE kernels on the CUDA cores
+# the attention and CE kernels on the CUDA cores
 PARITY_LAUNCHES = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
                    "fused_ce_fwd": 1, "fused_ce_bwd": 1}
 TRAIN_PARITY_STEPS = 3
@@ -155,8 +166,10 @@ ADAMW_ULP = 2
 ADAMW_MU_BF16_ULP = 1
 
 KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
+    "flash_fwd_tc": ("flash_tc.cu", "ops/attention.py:135"),
     "flash_fwd": ("flash_fwd.cu", "ops/attention.py:135"),
     "flash_bwd_dq": ("flash_bwd.cu", "ops/attention.py:260"),
+    "flash_bwd_dkv_tc": ("flash_tc.cu", "ops/attention.py:309"),
     "flash_bwd_dkv": ("flash_bwd.cu", "ops/attention.py:309"),
     "fused_ce_fwd_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:75"),
     "fused_ce_fwd": ("fused_ce.cu", "ops/fused_ce.py:75"),
@@ -170,9 +183,11 @@ KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
 # the path each kernel's "launches" are read on: the train step, the
 # public op fused_cross_entropy with bwd_variant "a" and "split" (the
 # kernels phase), the train step with fused_optimizer=True, or the f32
-# train step of train_parity (the CUDA-core CE kernels take f32)
+# train step of train_parity (the CUDA-core attention and CE kernels take
+# f32)
 KERNEL_PATH = {"fused_ce_dh": "ce_variants", "fused_ce_bwd_a": "ce_variants",
                "fused_ce_de": "ce_variants", "fused_adamw": "train_fused",
+               "flash_fwd": "train_parity", "flash_bwd_dkv": "train_parity",
                "fused_ce_fwd": "train_parity", "fused_ce_bwd": "train_parity"}
 
 
@@ -296,8 +311,11 @@ def abs_err(got, want) -> float:
 def launch_counts() -> dict:
     from distributed_tensorflow_tpu_torch.ops import (
         attention, fused_adamw, fused_ce)
-    return {"flash_fwd": attention.flash_attention_fwd.launches,
+    return {"flash_fwd_tc": attention.flash_attention_fwd.launches_tc,
+            "flash_fwd": attention.flash_attention_fwd.launches,
             "flash_bwd_dq": attention.flash_attention_bwd.launches_dq,
+            "flash_bwd_dkv_tc":
+                attention.flash_attention_bwd.launches_dkv_tc,
             "flash_bwd_dkv": attention.flash_attention_bwd.launches_dkv,
             "fused_ce_fwd_tc": fused_ce.fused_ce_fwd.launches_tc,
             "fused_ce_fwd": fused_ce.fused_ce_fwd.launches,
@@ -313,8 +331,9 @@ def zero_launch_counts():
     from distributed_tensorflow_tpu_torch.ops import (
         attention, fused_adamw, fused_ce)
     attention.flash_attention_fwd.launches = 0
-    attention.flash_attention_bwd.launches_dq = 0
-    attention.flash_attention_bwd.launches_dkv = 0
+    attention.flash_attention_fwd.launches_tc = 0
+    for name in ("launches_dq", "launches_dkv", "launches_dkv_tc"):
+        setattr(attention.flash_attention_bwd, name, 0)
     fused_ce.fused_ce_fwd.launches = 0
     fused_ce.fused_ce_fwd.launches_tc = 0
     for name in ("launches", "launches_tc", "launches_a", "launches_dh",
@@ -354,12 +373,26 @@ def phase_build(state):
     out = {"wall_s": round(wall, 3), "sources": {}}
     for name in SOURCES:
         info = _build.build_info[name]
-        regs = re.findall(r"Used (\d+) registers", info["log"])
-        spills = re.findall(r"(\d+) bytes spill stores", info["log"])
-        out["sources"][name] = {
-            "nvcc_s": round(info["seconds"], 3),
-            "registers": [int(r) for r in regs],
-            "spill_store_bytes": [int(s) for s in spills]}
+        out["sources"][name] = {"nvcc_s": round(info["seconds"], 3),
+                                "kernels": ptxas_report(info["log"])}
+    return out
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill-store bytes of each kernel in an ``nvcc -Xptxas
+    -v`` log, keyed by the kernel's name and its mangled template
+    arguments (``flash_fwd_tc_kernelILi64EE``: ``HD = 64``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            k = re.search(r"\d([a-z_]+_kernel)(I\w*?EE)?", entry.group(1))
+            name = k.group(1) + (k.group(2) or "") if k else entry.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out[name]["spill_store_bytes"] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
     return out
 
 
@@ -392,24 +425,56 @@ def _fwd_errors(q, k, v, o, lse, causal: bool) -> dict:
             "masked_rows": int(inf_p.sum().item()), "tol": tol, "ok": ok}
 
 
+def _flash_row(t: dict, flops: float, nbytes: float, dtype, err: float,
+               lib_ms: float, shape) -> dict:
+    """A kernel line's numbers for an attention kernel timed in turns."""
+    bound, bound_by = bound_ms(flops, nbytes, dtype)
+    return {"max_abs_err": err, "ms": t["ms"], "ms_runs": t["ms_runs"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms, "flops": flops,
+            "bytes": nbytes,
+            "achieved_tflops": flops / (t["ms"] * 1e-3) / 1e12,
+            "bound_share": bound / t["ms"], "shape": list(shape),
+            "dtype": str(dtype).replace("torch.", "")}
+
+
 def _time_flash_fwd(q, k, v, o_err: float) -> dict:
-    """``flash_fwd`` causal on ``q, k, v`` against its plain version (in
-    turns) and SDPA, with the bound of the work."""
+    """The flash forward (the kernel ``attention_route`` names) causal on
+    ``q, k, v`` against its plain version (in turns) and SDPA, with the
+    bound of the work; also the kernel's and SDPA's device time by
+    :func:`device_ms`, which leaves out the host's time between launches
+    (at the serve shape the wrapper's host time a call can exceed the
+    kernel's, and CUDA events then time the host)."""
     import torch
     from distributed_tensorflow_tpu_torch.ops.attention import (
         flash_attention_fwd, flash_attention_plain)
     sm = q.shape[-1] ** -0.5
-    t = in_turns(lambda: flash_attention_fwd(q, k, v, causal=True),
-                 lambda: flash_attention_plain(q, k, v, causal=True,
-                                               sm_scale=sm), 20)
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=sm))
+
+    def kernel():
+        flash_attention_fwd(q, k, v, causal=True)
+
+    def library():
+        torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=sm)
+
+    t = in_turns(kernel, lambda: flash_attention_plain(
+        q, k, v, causal=True, sm_scale=sm), 20)
+    lib = time_ms(library)
     flops, nbytes = attention_work(q, k, True, 0, "fwd")
-    bound, bound_by = bound_ms(flops, nbytes, q.dtype)
-    return {"shape": list(q.shape), "max_abs_err": o_err, **t,
-            "library_ms": lib, "bound_ms": bound, "bound_by": bound_by,
-            "flops": flops, "bytes": nbytes,
-            "achieved_tflops": flops / (t["ms"] * 1e-3) / 1e12}
+    return {**_flash_row(t, flops, nbytes, q.dtype, o_err, lib, q.shape),
+            "plain_ms_runs": t["plain_ms_runs"],
+            "device_ms": device_ms(kernel, 20),
+            "library_device_ms": device_ms(library, 20),
+            "library": "scaled_dot_product_attention"}
+
+
+def _route_name(dtype, hd: int, op: str) -> str:
+    """The counter of the kernel ``attention_route`` sends ``op`` to."""
+    from distributed_tensorflow_tpu_torch.ops.attention import (
+        attention_route)
+    base = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+            "dkv": "flash_bwd_dkv"}[op]
+    return base + ("_tc" if attention_route(dtype, hd, op) == "tc" else "")
 
 
 def _check_flash_fwd(state, gen):
@@ -429,37 +494,53 @@ def _check_flash_fwd(state, gen):
                True),
               ("bf16_causal_hd128_q200_k130", bf, 1, 4, 200, 130, 128,
                True),
+              # the tensor-core kernel's 64-row tiles: Sk one past a
+              # multiple of 64, Sq below one tile, a causal offset (24) no
+              # multiple of the tile, both tails ragged at hd 128
+              ("bf16_causal_q100_k129", bf, 1, 16, 100, 129, 64, True),
+              ("bf16_causal_q40_k300", bf, 1, 16, 40, 300, 64, True),
+              ("bf16_causal_q1000_k1024", bf, 1, 16, 1000, 1024, 64, True),
+              ("bf16_noncausal_hd128_q130_k200", bf, 1, 4, 130, 200, 128,
+               False),
               ("f32_causal_S300", f32, 1, 16, 300, 300, 64, True),
               ("f32_noncausal_hd128_q200_k130", f32, 1, 4, 200, 130, 128,
-               False)]
+               False),
+              ("f32_causal_train_step_8x16x1024", f32, 8, 16, 1024, 1024,
+               64, True)]
     results, failures, timed = [], [], {}
     for name, dt, b, h, sq, sk, hd, causal in cases:
         q = _rand((b, h, sq, hd), dt, gen)
         k = _rand((b, h, sk, hd), dt, gen)
         v = _rand((b, h, sk, hd), dt, gen)
+        before = launch_counts()
         o, lse = flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        res = {"case": name, **_fwd_errors(q, k, v, o, lse, causal)}
+        after = launch_counts()
+        calls = {c: after[c] - before[c] for c in after
+                 if after[c] != before[c]}
+        res = {"case": name, **_fwd_errors(q, k, v, o, lse, causal),
+               "launches": calls}
+        res["ok"] = res["ok"] and calls == {_route_name(dt, hd, "fwd"): 1}
         results.append(res)
         if not res["ok"]:
             failures.append(name)
-        if name in ("bf16_causal_S1024", "bf16_causal_train_step_8x16x1024"):
+        if name in ("bf16_causal_S1024", "bf16_causal_train_step_8x16x1024",
+                    "f32_causal_train_step_8x16x1024"):
             timed[name] = (q, k, v, res["o_err"])
     if failures:
         raise AssertionError(f"flash_fwd disagrees with its plain version: "
                              f"{failures}: {results}")
 
-    # the train step's shape (12 launches a step) and the longest prefill
-    # of the serve path (12 a prefill)
+    # bf16 (tensor cores) at the train step's shape (12 launches a step)
+    # and the longest prefill of the serve path (12 a prefill); f32 (CUDA
+    # cores, the train_parity path) at the train step's shape
     train = _time_flash_fwd(*timed["bf16_causal_train_step_8x16x1024"])
     serve = _time_flash_fwd(*timed["bf16_causal_S1024"])
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
-    state["flash_fwd"] = {**{key: train[key] for key in keys},
-                          "serve": {key: serve[key] for key in keys}}
-    return {"cases": results, "dtype": "bfloat16", "causal": True,
-            "library": "scaled_dot_product_attention",
-            "train_shape": train, "serve_shape": serve}
+    f32_train = _time_flash_fwd(*timed["f32_causal_train_step_8x16x1024"])
+    state["flash_fwd_tc"] = {**train, "serve": serve}
+    state["flash_fwd"] = f32_train
+    return {"cases": results, "causal": True, "train_shape": train,
+            "serve_shape": serve, "f32_train_shape": f32_train}
 
 
 def _check_flash_bwd(state, gen):
@@ -468,6 +549,7 @@ def _check_flash_bwd(state, gen):
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         launch_bwd_dkv, launch_bwd_dq)
 
+    bf, f32 = torch.bfloat16, torch.float32
     # (name, B, H, Sq, Sk, hd, causal); each in bf16 and f32
     cases = [("causal_S200", 1, 4, 200, 200, 64, True),
              ("causal_q100_k300", 1, 4, 100, 300, 64, True),
@@ -476,18 +558,31 @@ def _check_flash_bwd(state, gen):
              ("noncausal_q150_k90", 1, 4, 150, 90, 64, False),
              ("noncausal_hd128_q70_k200", 1, 2, 70, 200, 128, False)]
     runs = [(f"{tag}_{name}", dt, *shape)
-            for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))
+            for tag, dt in (("bf16", bf), ("f32", f32))
             for name, *shape in cases]
-    # the train step's shape, which the timings below use
-    runs.append(("bf16_train_step_8x16x1024_hd64", torch.bfloat16, 8, 16,
-                 1024, 1024, 64, True))
-    results, failures, main = [], [], None
+    # the dk/dv tensor-core kernel's 64-row tiles: Sk one past a multiple
+    # of 64, Sq below one tile, a causal offset (24) no multiple of the
+    # tile, both tails ragged at hd 128
+    runs += [("bf16_causal_q100_k129", bf, 1, 4, 100, 129, 64, True),
+             ("bf16_causal_q40_k40", bf, 1, 4, 40, 40, 64, True),
+             ("bf16_causal_q1000_k1024", bf, 1, 4, 1000, 1024, 64, True),
+             ("bf16_noncausal_hd128_q130_k200", bf, 1, 2, 130, 200, 128,
+              False)]
+    # the train step's shape, which the timings below use: bf16 (the train
+    # step's route) and f32 (the CUDA-core dk/dv of train_parity)
+    runs += [(f"{tag}_train_step_8x16x1024_hd64", dt, 8, 16, 1024, 1024,
+              64, True) for tag, dt in (("bf16", bf), ("f32", f32))]
+    results, failures, main = [], [], {}
     for name, dt, b, h, sq, sk, hd, causal in runs:
         q, k, v, do = (_rand((b, h, s, hd), dt, gen)
                        for s in (sq, sk, sk, sq))
+        before = launch_counts()
         o, lse = flash_attention_fwd(q, k, v, causal=causal)
         got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
+        after = launch_counts()
+        calls = {c: after[c] - before[c] for c in after
+                 if after[c] != before[c]}
         # the forward these gradients start from, against its plain version
         fwd = _fwd_errors(q, k, v, o, lse, causal)
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
@@ -497,62 +592,65 @@ def _check_flash_bwd(state, gen):
         masked = torch.isposinf(lse)
         ok = (fwd["ok"] and max(errs.values()) <= tol
               and all(bool(torch.isfinite(g).all().item()) for g in got)
-              and bool((got[0][masked] == 0).all().item()))
+              and bool((got[0][masked] == 0).all().item())
+              and calls == {_route_name(dt, hd, op): 1
+                            for op in ("fwd", "dq", "dkv")})
         results.append({"case": name, "rel_err": errs, "tol": tol,
                         "fwd_o_err": fwd["o_err"],
                         "fwd_lse_err": fwd["lse_err"],
-                        "masked_rows": int(masked.sum().item()), "ok": ok})
+                        "masked_rows": int(masked.sum().item()),
+                        "launches": calls, "ok": ok})
         if not ok:
             failures.append(name)
-        if name.startswith("bf16_train_step"):
-            main = (q, k, v, o, lse, do,
-                    abs_err(got[0], want[0]),
-                    max(abs_err(got[1], want[1]), abs_err(got[2], want[2])))
+        if "_train_step" in name:
+            main[dt] = (q, k, v, o, lse, do,
+                        abs_err(got[0], want[0]),
+                        max(abs_err(got[1], want[1]),
+                            abs_err(got[2], want[2])))
     if failures:
         raise AssertionError(f"flash_bwd disagrees with its plain version: "
                              f"{failures}: {results}")
 
-    q, k, v, o, lse, do, dq_err, dkv_err = main
-    sm = q.shape[-1] ** -0.5
-    delta = (o.float() * do.float()).sum(-1)
-    kw = dict(sm_scale=sm, causal=True, causal_offset=0)
+    out = {"cases": results, "causal": True,
+           "library": "scaled_dot_product_attention backward (dq, dk, dv)",
+           "plain_note": "the plain backward computes dq, dk and dv"}
+    # bf16: dq (CUDA cores) and dk/dv (tensor cores), the train step's
+    # kernels; f32: dk/dv (CUDA cores), train_parity's
+    for dt, ops in ((bf, ("dq", "dkv")), (f32, ("dkv",))):
+        q, k, v, o, lse, do, dq_err, dkv_err = main.pop(dt)
+        sm = q.shape[-1] ** -0.5
+        delta = (o.float() * do.float()).sum(-1)
+        kw = dict(sm_scale=sm, causal=True, causal_offset=0)
 
-    def plain():
-        flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
-                                  sm_scale=sm)
+        def plain():
+            flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                      sm_scale=sm)
 
-    t_dq = in_turns(lambda: launch_bwd_dq(q, k, v, do, lse, delta, **kw),
-                    plain, 10)
-    t_dkv = in_turns(lambda: launch_bwd_dkv(q, k, v, do, lse, delta, **kw),
-                     plain, 10)
-    # library yardstick: scaled_dot_product_attention's backward alone,
-    # through autograd; it computes dq, dk and dv together
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, is_causal=True, scale=sm)
-    lib = time_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                              retain_graph=True))
-    shape_out = {}
-    for kname, t, err, which in (("flash_bwd_dq", t_dq, dq_err, "dq"),
-                                 ("flash_bwd_dkv", t_dkv, dkv_err, "dkv")):
-        flops, nbytes = attention_work(q, k, True, 0, which)
-        bound, bound_by = bound_ms(flops, nbytes, q.dtype)
-        state[kname] = {"max_abs_err": err, "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": lib,
-                        "shape": list(q.shape)}
-        shape_out[kname] = {**t, "bound_ms": bound, "bound_by": bound_by,
-                            "flops": flops, "bytes": nbytes,
-                            "achieved_tflops":
-                                flops / (t["ms"] * 1e-3) / 1e12}
-    flops, nbytes = attention_work(q, k, True, 0, "bwd")
-    bound, bound_by = bound_ms(flops, nbytes, q.dtype)
-    return {"cases": results, "shape": list(q.shape), "dtype": "bfloat16",
-            "causal": True, **shape_out,
-            "backward_bound_ms": bound, "backward_bound_by": bound_by,
-            "library_ms": lib,
-            "library": "scaled_dot_product_attention backward (dq, dk, dv)",
-            "plain_note": "the plain backward computes dq, dk and dv"}
+        # library yardstick: scaled_dot_product_attention's backward alone,
+        # through autograd; it computes dq, dk and dv together
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True, scale=sm)
+        lib = time_ms(lambda: torch.autograd.grad(sdpa, leaves, do,
+                                                  retain_graph=True))
+        del sdpa, leaves
+        tag = str(dt).replace("torch.", "")
+        out[f"library_ms_{tag}"] = lib
+        for op in ops:
+            fn = launch_bwd_dq if op == "dq" else launch_bwd_dkv
+            t = in_turns(lambda: fn(q, k, v, do, lse, delta, **kw), plain,
+                         10)
+            flops, nbytes = attention_work(q, k, True, 0, op)
+            kname = _route_name(dt, q.shape[-1], op)
+            state[kname] = _flash_row(t, flops, nbytes, dt,
+                                      dq_err if op == "dq" else dkv_err,
+                                      lib, q.shape)
+            out[kname] = {**state[kname],
+                          "plain_ms_runs": t["plain_ms_runs"]}
+        flops, nbytes = attention_work(q, k, True, 0, "bwd")
+        out[f"backward_bound_ms_{tag}"] = bound_ms(flops, nbytes, dt)
+    torch.cuda.empty_cache()
+    return out
 
 
 def _ce_targets(n, v, gen):
@@ -1143,7 +1241,7 @@ def phase_serve(state):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    launches = counts["flash_fwd"]
+    launches = counts["flash_fwd_tc"]
 
     prefills = engine.prefills - prefills0
     acct = engine.block_accounting()
@@ -1154,12 +1252,12 @@ def phase_serve(state):
     if any(not 0 <= t < cfg.vocab_size for o in outs for t in o):
         problems.append("token id out of range")
     if launches == 0:
-        problems.append("flash_fwd never launched on the serving path")
+        problems.append("flash_fwd_tc never launched on the serving path")
     if launches != cfg.n_layers * prefills:
-        problems.append(f"flash_fwd launches {launches} != "
+        problems.append(f"flash_fwd_tc launches {launches} != "
                         f"{cfg.n_layers} x {prefills} prefills")
-    if any(n for k, n in counts.items() if k != "flash_fwd"):
-        problems.append(f"a training kernel ran while serving: {counts}")
+    if any(n for k, n in counts.items() if k != "flash_fwd_tc"):
+        problems.append(f"another kernel ran while serving: {counts}")
     if not acct["conserved"] or acct["leaked_refs"] != 0 \
             or acct["free"] != acct["usable"]:
         problems.append(f"block accounting at idle: {acct}")
@@ -1183,7 +1281,7 @@ def phase_serve(state):
             "decode_step_ms_mean": float(np.mean(dec)),
             "decode_step_ms_p50": float(np.median(dec)),
             "decode_batch_sizes": sorted({b for b, _ in decode_ms}),
-            "flash_fwd_launches": launches,
+            "flash_fwd_tc_launches": launches,
             "expected_launches": cfg.n_layers * prefills,
             "block_accounting": acct,
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
@@ -1666,10 +1764,11 @@ def main() -> int:
             "library_ms", "shape")})
         for key in ("unfused_ms", "f32_mu", "ms_events", "library_ms_events",
                     "library", "design_bound_ms", "achieved_tflops",
-                    "bound_share", "dtype"):
+                    "bound_share", "dtype", "device_ms",
+                    "library_device_ms"):
             if key in k:
                 row[key] = k[key]
-        if name == "flash_fwd":
+        if name == "flash_fwd_tc":
             # the same kernel on the serve path, at its longest prefill
             row["serve"] = {"launches": state["serve_launches"],
                             **k["serve"]}

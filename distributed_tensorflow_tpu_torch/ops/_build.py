@@ -3,10 +3,11 @@
 Each source has plain C entry points (no PyTorch headers), so one
 ``nvcc`` call takes seconds. The shared library goes into
 ``build/torch_kernels/`` at the repository root, named after the
-source and a hash of its contents, so an edited source is always
-rebuilt and a stale library is never loaded. Nothing is built when a
-module is imported: :func:`load` builds at first use and caches the
-loaded library for the process. A failed build raises.
+source and a hash of its contents and of every header in ``csrc/``
+(``*.cuh``, which a source may include), so an edited source or header
+is always rebuilt and a stale library is never loaded. Nothing is
+built when a module is imported: :func:`load` builds at first use and
+caches the loaded library for the process. A failed build raises.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <lib> <source>
@@ -15,6 +16,7 @@ loaded library for the process. A failed build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -49,11 +51,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha1()
+    for path in (os.path.join(CSRC, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:

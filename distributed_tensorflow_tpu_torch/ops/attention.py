@@ -9,16 +9,19 @@ Port of ``distributed_tensorflow_tpu/ops/attention.py``. Layout is
   cache positions via ``q_positions``, bottom-right causal alignment,
   fully-masked rows output 0).
 - :func:`flash_attention_fwd` — the flash-attention forward, returning
-  ``(o, lse)``. On a CUDA tensor it launches the hand-written Hopper
-  kernel ``csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``);
-  on a CPU tensor it runs :func:`flash_attention_plain`, the plain
-  PyTorch version of the same function. Any other device raises. It
-  records no autograd graph.
+  ``(o, lse)``. On a CUDA tensor it launches a hand-written Hopper
+  kernel, the port of the Pallas ``_fwd_kernel``: in bf16
+  ``flash_fwd_tc`` (``csrc/flash_tc.cu``, tensor cores), in f32
+  ``flash_fwd`` (``csrc/flash_fwd.cu``, CUDA cores); on a CPU tensor it
+  runs :func:`flash_attention_plain`, the plain PyTorch version of the
+  same function. Any other device raises. It records no autograd graph.
 - :func:`flash_attention_bwd` — the backward ``(dq, dk, dv)`` from the
-  forward's ``(o, lse)``: on a CUDA tensor the kernels
-  ``flash_bwd_dq`` and ``flash_bwd_dkv`` of ``csrc/flash_bwd.cu`` (the
-  ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), on a CPU tensor
-  :func:`flash_attention_bwd_plain`.
+  forward's ``(o, lse)``: on a CUDA tensor the kernels ``flash_bwd_dq``
+  (``csrc/flash_bwd.cu``) and, in bf16, ``flash_bwd_dkv_tc``
+  (``csrc/flash_tc.cu``) or, in f32, ``flash_bwd_dkv``
+  (``csrc/flash_bwd.cu``) — the ports of ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``; on a CPU tensor :func:`flash_attention_bwd_plain`.
+  :func:`attention_route` states which kernel a CUDA call takes.
 - :func:`flash_attention` — the public op, ``o`` only, differentiable
   through :class:`FlashAttention` (the counterpart of the JAX
   ``custom_vjp``).
@@ -32,10 +35,14 @@ import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-#: head dims the CUDA kernel is instantiated for
+#: head dims the CUDA kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
-#: input dtypes the CUDA kernel takes (code passed to the C entry point)
+#: input dtypes the CUDA kernels take (code passed to the C entry points)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels of the forward and of the backward's two halves
+ATTENTION_OPS = ("fwd", "dq", "dkv")
+#: the ops that bf16 takes to the tensor cores (``csrc/flash_tc.cu``)
+TC_OPS = ("fwd", "dkv")
 #: C signature of ``flash_fwd`` in ``csrc/flash_fwd.cu``: q, k, v, o, lse
 #: pointers; bh, sq, sk, hd, dtype; sm_scale; causal, causal_offset; stream
 FLASH_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -47,6 +54,10 @@ FLASH_BWD_ARGTYPES = {
     name: ([ctypes.c_void_p] * n + [ctypes.c_int] * 5
            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     for name, n in (("flash_bwd_dq", 7), ("flash_bwd_dkv", 8))}
+#: C signatures of ``csrc/flash_tc.cu``: those of the CUDA-core entry
+#: points they stand in for in bf16
+FLASH_TC_ARGTYPES = {"flash_fwd_tc": FLASH_FWD_ARGTYPES,
+                     "flash_bwd_dkv_tc": FLASH_BWD_ARGTYPES["flash_bwd_dkv"]}
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +166,33 @@ def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
     return o.to(q.dtype), lse[..., 0]
 
 
-def _check_kernel_inputs(q, k, v):
+def attention_route(dtype, hd: int, op: str) -> str:
+    """Which kernel a CUDA call takes: ``"tc"`` (``csrc/flash_tc.cu``,
+    tensor cores) or ``"cuda_cores"`` (``csrc/flash_fwd.cu``,
+    ``csrc/flash_bwd.cu``), for inputs of ``dtype`` and head dim ``hd``
+    and ``op`` — ``"fwd"``, ``"dq"`` or ``"dkv"``.
+
+    - bf16 forward and dk/dv go to the tensor cores; bf16 dq stays on
+      the CUDA cores;
+    - f32 stays on the CUDA cores, whose f32 products keep f32 parity
+      (on tensor cores f32 would be TF32);
+    - any other dtype, a head dim outside :data:`KERNEL_HEAD_DIMS` or an
+      unknown ``op`` raises ValueError."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"flash_attention: dtype {dtype} not in "
+                         f"{sorted(map(str, KERNEL_DTYPES))}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    if op not in ATTENTION_OPS:
+        raise ValueError(f"flash_attention: op={op!r}; expected one of "
+                         f"{ATTENTION_OPS}")
+    return "tc" if dtype == torch.bfloat16 and op in TC_OPS \
+        else "cuda_cores"
+
+
+def _check_kernel_inputs(q, k, v, op: str) -> str:
+    """Raise on inputs no kernel takes; return the route of ``op``."""
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, "
@@ -163,28 +200,25 @@ def _check_kernel_inputs(q, k, v):
         if t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype}, "
                              f"q is {q.dtype}")
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"flash_attention: dtype {q.dtype} not in "
-                         f"{sorted(map(str, KERNEL_DTYPES))}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: q, k, v must be (B, H, S, hd)")
     b, h, _, hd = q.shape
     if k.shape[:2] != (b, h) or k.shape[3] != hd or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in "
-                         f"{KERNEL_HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
+    return attention_route(q.dtype, hd, op)
 
 
 def _launch_kernel(q, k, v, sm_scale, causal, causal_offset):
     from distributed_tensorflow_tpu_torch.ops import _build
 
-    _check_kernel_inputs(q, k, v)
-    lib = _build.load("flash_fwd", {"flash_fwd": FLASH_FWD_ARGTYPES})
+    tc = _check_kernel_inputs(q, k, v, "fwd") == "tc"
+    lib = (_build.load("flash_tc", FLASH_TC_ARGTYPES) if tc else
+           _build.load("flash_fwd", {"flash_fwd": FLASH_FWD_ARGTYPES}))
+    entry = "flash_fwd_tc" if tc else "flash_fwd"
     b, h, sq, hd = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
@@ -193,15 +227,18 @@ def _launch_kernel(q, k, v, sm_scale, causal, causal_offset):
         return o, lse
     # the launch (and its cudaFuncSetAttribute) must run in q's context
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b * h, sq, sk, hd, KERNEL_DTYPES[q.dtype],
             ctypes.c_float(sm_scale), int(bool(causal)),
             int(causal_offset), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
-    flash_attention_fwd.launches += 1
+    if tc:
+        flash_attention_fwd.launches_tc += 1
+    else:
+        flash_attention_fwd.launches += 1
     return o, lse
 
 
@@ -210,8 +247,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         causal_offset: int | None = None):
     """Flash-attention forward ``(o, lse)``, recording no autograd graph.
 
-    A CUDA tensor goes through the ``flash_fwd`` kernel (and counts one
-    launch in ``flash_attention_fwd.launches``); a CPU tensor through
+    A CUDA tensor goes through the kernel :func:`attention_route` names:
+    in bf16 ``flash_fwd_tc`` (tensor cores; one launch counted in
+    ``flash_attention_fwd.launches_tc``), in f32 ``flash_fwd`` (CUDA
+    cores; ``flash_attention_fwd.launches``). A CPU tensor goes through
     :func:`flash_attention_plain`. Any other device raises. Gradients go
     through :func:`flash_attention`."""
     if sm_scale is None:
@@ -229,7 +268,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fwd.launches = 0       # f32, CUDA cores
+flash_attention_fwd.launches_tc = 0    # bf16, tensor cores
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +309,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool,
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta):
-    _check_kernel_inputs(q, k, v)
+def _check_bwd_inputs(q, k, v, do, lse, delta, op: str) -> str:
+    route = _check_kernel_inputs(q, k, v, op)
     b, h, sq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype \
             or do.device != q.device or not do.is_contiguous():
@@ -283,25 +323,32 @@ def _check_bwd_inputs(q, k, v, do, lse, delta):
             raise ValueError(f"flash_attention_bwd: {name} must be a "
                              f"contiguous float32 tensor of shape "
                              f"{(b, h, sq)} on {q.device}")
+    return route
 
 
-def _launch_bwd(entry, outs, q, k, v, do, lse, delta, sm_scale, causal,
-                causal_offset) -> bool:
-    """Run C entry point ``entry`` of ``csrc/flash_bwd.cu`` into ``outs``;
-    True if it launched, False if the work was empty (``outs`` zeroed)."""
+def _launch_bwd(op, outs, q, k, v, do, lse, delta, sm_scale, causal,
+                causal_offset):
+    """Run the ``op`` (``"dq"`` or ``"dkv"``) kernel that
+    :func:`attention_route` names into ``outs``; returns its route, or
+    None if the work was empty (``outs`` zeroed)."""
     from distributed_tensorflow_tpu_torch.ops import _build
 
     if q.device.type != "cuda":
-        raise ValueError(f"{entry}: the kernel takes CUDA tensors, q is "
-                         f"on {q.device}")
-    _check_bwd_inputs(q, k, v, do, lse, delta)
+        raise ValueError(f"flash_bwd_{op}: the kernel takes CUDA tensors, "
+                         f"q is on {q.device}")
+    route = _check_bwd_inputs(q, k, v, do, lse, delta, op)
     b, h, sq, hd = q.shape
     sk = k.shape[2]
     if b * h == 0 or sq == 0 or sk == 0:
         for t in outs:
             t.zero_()
-        return False
-    lib = _build.load("flash_bwd", FLASH_BWD_ARGTYPES)
+        return None
+    if route == "tc":
+        entry, lib = f"flash_bwd_{op}_tc", _build.load("flash_tc",
+                                                        FLASH_TC_ARGTYPES)
+    else:
+        entry, lib = f"flash_bwd_{op}", _build.load("flash_bwd",
+                                                     FLASH_BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -312,7 +359,7 @@ def _launch_bwd(entry, outs, q, k, v, do, lse, delta, sm_scale, causal,
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
-    return True
+    return route
 
 
 def launch_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
@@ -322,19 +369,24 @@ def launch_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
     ``flash_attention_bwd.launches_dq``; empty work launches nothing and
     counts nothing."""
     dq = torch.empty_like(q)
-    if _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, sm_scale,
-                   causal, causal_offset):
+    if _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, sm_scale, causal,
+                   causal_offset):
         flash_attention_bwd.launches_dq += 1
     return dq
 
 
 def launch_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
                    causal: bool, causal_offset: int):
-    """``(dk, dv)`` from one launch of the ``flash_bwd_dkv`` kernel,
-    counted in ``flash_attention_bwd.launches_dkv``."""
+    """``(dk, dv)`` from one launch of the kernel :func:`attention_route`
+    names: in bf16 ``flash_bwd_dkv_tc`` (tensor cores, counted in
+    ``flash_attention_bwd.launches_dkv_tc``), in f32 ``flash_bwd_dkv``
+    (CUDA cores, ``flash_attention_bwd.launches_dkv``)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta,
-                   sm_scale, causal, causal_offset):
+    route = _launch_bwd("dkv", (dk, dv), q, k, v, do, lse, delta, sm_scale,
+                        causal, causal_offset)
+    if route == "tc":
+        flash_attention_bwd.launches_dkv_tc += 1
+    elif route == "cuda_cores":
         flash_attention_bwd.launches_dkv += 1
     return dk, dv
 
@@ -345,9 +397,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     """Flash-attention backward ``(dq, dk, dv)`` from the forward's
     ``(o, lse)`` and the output cotangent ``do``.
 
-    A CUDA tensor goes through the ``flash_bwd_dq`` and ``flash_bwd_dkv``
-    kernels (counting one launch each in ``flash_attention_bwd.
-    launches_dq`` / ``.launches_dkv``); a CPU tensor through
+    A CUDA tensor goes through the ``flash_bwd_dq`` kernel and the dk/dv
+    kernel :func:`attention_route` names (counting one launch each in
+    ``flash_attention_bwd.launches_dq`` and ``.launches_dkv_tc`` in bf16
+    or ``.launches_dkv`` in f32); a CPU tensor through
     :func:`flash_attention_bwd_plain`. Any other device raises."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -373,7 +426,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
 
 
 flash_attention_bwd.launches_dq = 0
-flash_attention_bwd.launches_dkv = 0
+flash_attention_bwd.launches_dkv = 0       # f32, CUDA cores
+flash_attention_bwd.launches_dkv_tc = 0    # bf16, tensor cores
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,8 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a), CUDA C++, CUDA cores.
 //
 // Replaces: distributed_tensorflow_tpu/ops/attention.py _bwd_dq_kernel
-// (:260) and _bwd_dkv_kernel (:309), driven by _flash_backward (:360;
-// pl.pallas_call at :388 and :409). Same functions: with p = exp(q k^T
+// (:260; bf16 and f32) and, for f32 inputs, _bwd_dkv_kernel (:309),
+// driven by _flash_backward (:360; pl.pallas_call at :388 and :409).
+// bf16 dk/dv goes to flash_bwd_dkv_tc in flash_tc.cu (tensor cores); f32
+// stays here, where its products keep f32 parity (on tensor cores f32
+// would be TF32). Same functions: with p = exp(q k^T
 // * sm_scale - lse) recomputed from the forward's row logsumexp and
 // delta = rowsum(o * do) (f32, computed by the caller),
 //   ds = p * (do v^T - delta) * sm_scale,
@@ -39,9 +42,9 @@
 // bound by operations. Split as launched, the dq kernel needs 6 hd a
 // pair (s, dp, dq: 26 us) and the dkv kernel 8 hd (s, dp, dk, dv: 35
 // us), each recomputing s and dp. These kernels run f32 FMAs on CUDA
-// cores (67 TFLOP/s peak)
-// from shared memory, as the forward does; the route to the bound is
-// mma.sync / wgmma on bf16 tiles, a later change. What the design keeps:
+// cores (67 TFLOP/s peak) from shared memory, as flash_fwd.cu does; bf16
+// dk/dv runs mma.sync on bf16 tiles in flash_tc.cu, and bf16 dq is to
+// follow it. What the design keeps:
 // the S x S score and probability matrices never leave the SM, every
 // block reads its own tile once, and causal work is halved by skipping
 // the tiles above the diagonal.
@@ -372,9 +375,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for a dtype / head_dim it does not
-// take).
+// dtype: 0 = float32, 1 = bfloat16 (flash_bwd_dkv: float32 only; bfloat16
+// takes flash_bwd_dkv_tc). Each returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a dtype / head_dim it does not take).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int BH, int Sq, int Sk, int hd, int dtype,
@@ -418,14 +421,6 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   else if (dtype == 0 && hd == 128)
     err = launch_dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, BH, Sq, Sk,
                                  sm_scale, causal, causal_offset, st);
-  else if (dtype == 1 && hd == 64)
-    err = launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dk, dv, BH,
-                                        Sq, Sk, sm_scale, causal,
-                                        causal_offset, st);
-  else if (dtype == 1 && hd == 128)
-    err = launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk, dv, BH,
-                                         Sq, Sk, sm_scale, causal,
-                                         causal_offset, st);
   return (int)err;
 }
 

@@ -1,6 +1,7 @@
 """``distributed_tensorflow_tpu_torch.ops._build`` on a machine without
-``nvcc``: loading a kernel source raises instead of falling back, and
-``load`` binds every entry point it is given. Nothing is compiled."""
+``nvcc``: loading a kernel source raises instead of falling back,
+``load`` binds every entry point it is given, and a library's name
+follows its source and every shared header. Nothing is compiled."""
 
 import ctypes
 import os
@@ -9,13 +10,14 @@ import pytest
 
 from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops.attention import (
-    FLASH_BWD_ARGTYPES, FLASH_FWD_ARGTYPES)
+    FLASH_BWD_ARGTYPES, FLASH_FWD_ARGTYPES, FLASH_TC_ARGTYPES)
 from distributed_tensorflow_tpu_torch.ops.fused_adamw import ADAMW_ARGTYPES
 from distributed_tensorflow_tpu_torch.ops.fused_ce import (
     CE_ARGTYPES, CE_TC_ARGTYPES)
 
 SOURCES = {"flash_fwd": {"flash_fwd": FLASH_FWD_ARGTYPES},
            "flash_bwd": FLASH_BWD_ARGTYPES,
+           "flash_tc": FLASH_TC_ARGTYPES,
            "fused_ce": CE_ARGTYPES,
            "fused_ce_tc": CE_TC_ARGTYPES,
            "fused_adamw": ADAMW_ARGTYPES}
@@ -72,3 +74,26 @@ def test_load_binds_every_entry(monkeypatch, tmp_path):
         assert getattr(lib, entry).restype is ctypes.c_int
     assert lib.kernel_error_string.restype is ctypes.c_char_p
     assert _build.load("flash_bwd", FLASH_BWD_ARGTYPES) is lib
+
+
+def test_library_path_follows_sources_and_headers(monkeypatch, tmp_path):
+    """An edit to a source or to any ``csrc/*.cuh`` header (which a source
+    may include) names another library, so a stale build is never
+    loaded; an edit elsewhere does not."""
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "helpers.cuh"\n')
+    (tmp_path / "helpers.cuh").write_text("// v1\n")
+    (tmp_path / "notes.txt").write_text("a\n")
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    (tmp_path / "notes.txt").write_text("b\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "helpers.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    third = _build.library_path("k")
+    assert third != second
+    (tmp_path / "k.cu").write_text('#include "helpers.cuh"\n// edit\n')
+    assert _build.library_path("k") not in (first, second, third)
+    assert os.path.basename(first).startswith("k-")

@@ -14,8 +14,9 @@ windows with ``torch.profiler``:
 
 For each window it prints one JSON line: host wall time per step, the
 device's busy time (union of kernel intervals) and idle share, kernel
-launches per step, and the kernels with the most device time. Needs a
-CUDA device; imports nothing of JAX.
+launches per step, device time by group (the port's hand-written
+kernels, matrix products, the rest) and the kernels with the most device
+time. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +31,27 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+# device-kernel name fragments of each group, first match wins
+GROUPS = (("flash_fwd_tc", ("flash_fwd_tc_kernel",)),
+          ("flash_fwd", ("flash_fwd_kernel",)),
+          ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+          ("flash_bwd_dkv_tc", ("flash_bwd_dkv_tc_kernel",)),
+          ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+          ("fused_ce_fwd", ("fused_ce_fwd_kernel", "fused_ce_fwd_tc_kernel",
+                            "fused_ce_lse_merge_kernel")),
+          ("fused_ce_bwd", ("fused_ce_bwd_kernel", "fused_ce_bwd_tc_dh_kernel",
+                            "fused_ce_bwd_tc_de_kernel")),
+          ("fused_adamw", ("fused_adamw_kernel",)),
+          ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, frags in GROUPS:
+        if any(f in low for f in frags):
+            return group
+    return "other"
+
 
 def _kernels(prof):
     """The device events of a trace, without the ranges that annotate a
@@ -40,7 +62,10 @@ def _kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def summarize(name, prof, wall_s, steps):
+def summarize(name, prof, wall_s, steps, group=None):
+    """One window's numbers; ``group`` maps a device event to its group
+    (by default :func:`group_of` its name)."""
+    group = group or (lambda e: group_of(e.name))
     ks = _kernels(prof)
     spans = sorted((e.time_range.start, e.time_range.end) for e in ks)
     busy, cur_s, cur_e = 0.0, None, None
@@ -54,9 +79,11 @@ def summarize(name, prof, wall_s, steps):
     if cur_e is not None:
         busy += cur_e - cur_s
     by_name = collections.defaultdict(lambda: [0, 0.0])
+    groups = collections.defaultdict(lambda: [0, 0.0])
     for e in ks:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.end - e.time_range.start
+        for acc in (by_name[e.name], groups[group(e)]):
+            acc[0] += 1
+            acc[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     wall_us = wall_s * 1e6
     return {"window": name, "steps": steps,
@@ -64,6 +91,10 @@ def summarize(name, prof, wall_s, steps):
             "device_busy_ms_per_step": busy / steps / 1e3,
             "device_idle_share": (1 - busy / wall_us) if ks else None,
             "kernel_launches_per_step": len(ks) / steps,
+            "by_group_per_step": {
+                k: {"launches": c / steps, "ms": us / steps / 1e3}
+                for k, (c, us) in sorted(groups.items(),
+                                         key=lambda kv: -kv[1][1])},
             "top_kernels": [{"name": n[:90], "count": c, "ms": us / 1e3}
                             for n, (c, us) in top]}
 

@@ -20,7 +20,6 @@ that run inside the device-side range ``torch.optim`` puts around
 
 from __future__ import annotations
 
-import collections
 import json
 import os
 import sys
@@ -30,28 +29,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 sys.path.insert(0, HERE)
 
-from torch_serve_profile import _kernels, summarize  # noqa: E402
+from torch_serve_profile import group_of, summarize  # noqa: E402
 
 BATCH = 8
-
-# device-kernel name fragments of each group, first match wins
-GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
-          ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-          ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-          ("fused_ce_fwd", ("fused_ce_fwd_kernel", "fused_ce_fwd_tc_kernel",
-                            "fused_ce_lse_merge_kernel")),
-          ("fused_ce_bwd", ("fused_ce_bwd_kernel", "fused_ce_bwd_tc_dh_kernel",
-                            "fused_ce_bwd_tc_de_kernel")),
-          ("fused_adamw", ("fused_adamw_kernel",)),
-          ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
-
-
-def group_of(name: str) -> str:
-    low = name.lower()
-    for group, frags in GROUPS:
-        if any(f in low for f in frags):
-            return group
-    return "other"
 
 
 def optimizer_ranges(prof):
@@ -98,27 +78,23 @@ def main() -> int:
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out = summarize("train_step", prof, wall, 1)
-    groups = collections.defaultdict(lambda: [0, 0.0])
     opt_ranges = optimizer_ranges(prof)
-    for e in _kernels(prof):
+
+    def group(e):
         name = group_of(e.name)
         if name == "other" and any(a <= e.time_range.start < b
                                    for a, b in opt_ranges):
-            name = "optimizer"
-        g = groups[name]
-        g[0] += 1
-        g[1] += (e.time_range.end - e.time_range.start) / 1e3
+            return "optimizer"
+        return name
+
+    out = summarize("train_step", prof, wall, 1, group)
     out.update({
         "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
         "config": "transformer_big", "layers": cfg.n_layers,
         "batch": BATCH, "seq_len": cfg.max_seq_len,
         "dtype": "bfloat16", "fused_optimizer": fused,
         "loss": metrics["loss"].item(),
-        "optimizer_ranges_ms": [(b - a) / 1e3 for a, b in opt_ranges],
-        "by_group": {k: {"launches": c, "ms": ms}
-                     for k, (c, ms) in sorted(groups.items(),
-                                              key=lambda kv: -kv[1][1])}})
+        "optimizer_ranges_ms": [(b - a) / 1e3 for a, b in opt_ranges]})
     print(json.dumps(out), flush=True)
     return 0
 
