@@ -15,15 +15,15 @@ printing one JSON line:
    version on the card, in bf16 and f32, at the main paths' shapes and
    at the edges (ragged tails, causal offsets, fully-masked rows, vocab
    tails, targets on tile edges, two row chunks), with the tolerances
-   below; the flash-attention forward and dk/dv backward take the
+   below; the flash-attention forward, dq and dk/dv backward take the
    tensor-core kernels in bf16 (also at their tiling's edges: Sq < 64,
    Sk one past a multiple of 64, a causal offset no multiple of the
-   tile, both tails ragged at hd 128) and the CUDA-core kernels in f32,
-   dq the CUDA-core kernel in both; the cross-entropy forward and merged
-   backward take the
-   tensor-core kernels in bf16 (also at their tiling's edges: N and V
-   one off a multiple of 128, a vocab split whose last slice is the
-   ragged tail alone, targets on the slice boundaries) and the
+   tile, both tails ragged at hd 128, rows that see no key) and the
+   CUDA-core kernels in f32, also at BH = 65552 (past grid y's limit);
+   the cross-entropy forward, merged backward "b" and split backward
+   take the tensor-core kernels in bf16 (also at their tiling's edges:
+   N and V one off a multiple of 128, a vocab split whose last slice is
+   the ragged tail alone, targets on the slice boundaries) and the
    CUDA-core kernels in f32; the backward variants "a" and "split"
    through the public op ``fused_cross_entropy`` and autograd, each
    against its plain versions and against variant "b", their launches
@@ -34,7 +34,8 @@ printing one JSON line:
    ``F.linear_cross_entropy``, plain and chunked) timed at the train
    step's shapes with CUDA events, in turns plain, kernel, kernel,
    plain; the flash forward also at the serve shape, and the f32
-   CUDA-core attention kernels at the train step's shape in f32.
+   CUDA-core attention and split cross-entropy kernels at the train
+   step's shapes in f32.
 4. ``serve``   — ``InferenceEngine.generate`` at the full width of
    ``transformer_big`` in bf16 (random weights from seed 0), 8 requests
    × 32 new tokens. The launch counters are set to 0 just before and
@@ -49,10 +50,9 @@ printing one JSON line:
    cross-entropy, bf16 AdamW first moment; one warm-up step, then 5
    steps timed with CUDA events on one seeded token batch. The counters
    are set to 0 before the timed steps and read after: per step 12
-   ``flash_fwd_tc``, 12 ``flash_bwd_dq``, 12 ``flash_bwd_dkv_tc``, 2
+   ``flash_fwd_tc``, 12 ``flash_bwd_dq_tc``, 12 ``flash_bwd_dkv_tc``, 2
    ``fused_ce_fwd_tc`` and 2 ``fused_ce_bwd_tc`` launches (the
-   tensor-core attention and cross-entropy kernels, dq on the CUDA
-   cores). The first loss must
+   tensor-core attention and cross-entropy kernels). The first loss must
    lie within 1.0 of ln V and the loss must fall. A smoke run, not a
    benchmark.
 7. ``train_fused`` — the same with ``fused_optimizer=True``: per step
@@ -68,7 +68,10 @@ printing one JSON line:
    "nothing" and "dots" policies against ``remat=False``, and the
    scan-chunked loss (8 chunks, both chunk policies) against full
    logits: loss and every gradient leaf; then in bf16 the kernel loss
-   (the tensor-core kernels) against full logits from the same weights.
+   (the tensor-core kernels) against full logits from the same weights;
+   then ``TransformerConfig.tiny()`` (head dim 16, ``mha_reference`` as
+   in JAX) trains a step and serves two requests on the card, with no
+   attention kernel launched.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it, error, measured times and the bound), the ``nvidia-smi``
@@ -135,8 +138,7 @@ TRAIN_BATCH, TRAIN_STEPS = 8, 5
 # kernels launched per train step of transformer_big at batch 8 x 1024:
 # one flash forward, dq and dkv a layer; one CE forward and backward per
 # 4096-row chunk of the 8192 tokens; bf16, so on the tensor-core kernels
-# but for dq
-TRAIN_LAUNCHES = {"flash_fwd_tc": 12, "flash_bwd_dq": 12,
+TRAIN_LAUNCHES = {"flash_fwd_tc": 12, "flash_bwd_dq_tc": 12,
                   "flash_bwd_dkv_tc": 12, "fused_ce_fwd_tc": 2,
                   "fused_ce_bwd_tc": 2}
 # with fused_optimizer=True also one AdamW launch per parameter tensor:
@@ -168,15 +170,18 @@ ADAMW_MU_BF16_ULP = 1
 KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd_tc": ("flash_tc.cu", "ops/attention.py:135"),
     "flash_fwd": ("flash_fwd.cu", "ops/attention.py:135"),
+    "flash_bwd_dq_tc": ("flash_tc.cu", "ops/attention.py:260"),
     "flash_bwd_dq": ("flash_bwd.cu", "ops/attention.py:260"),
     "flash_bwd_dkv_tc": ("flash_tc.cu", "ops/attention.py:309"),
     "flash_bwd_dkv": ("flash_bwd.cu", "ops/attention.py:309"),
     "fused_ce_fwd_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:75"),
     "fused_ce_fwd": ("fused_ce.cu", "ops/fused_ce.py:75"),
+    "fused_ce_dh_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:137"),
     "fused_ce_dh": ("fused_ce.cu", "ops/fused_ce.py:137"),
     "fused_ce_bwd_a": ("fused_ce.cu", "ops/fused_ce.py:159"),
     "fused_ce_bwd_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:201"),
     "fused_ce_bwd": ("fused_ce.cu", "ops/fused_ce.py:201"),
+    "fused_ce_de_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:242"),
     "fused_ce_de": ("fused_ce.cu", "ops/fused_ce.py:242"),
     "fused_adamw": ("fused_adamw.cu", "ops/fused_adamw.py:53"),
 }
@@ -186,8 +191,10 @@ KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
 # train step of train_parity (the CUDA-core attention and CE kernels take
 # f32)
 KERNEL_PATH = {"fused_ce_dh": "ce_variants", "fused_ce_bwd_a": "ce_variants",
-               "fused_ce_de": "ce_variants", "fused_adamw": "train_fused",
-               "flash_fwd": "train_parity", "flash_bwd_dkv": "train_parity",
+               "fused_ce_de": "ce_variants", "fused_ce_dh_tc": "ce_variants",
+               "fused_ce_de_tc": "ce_variants", "fused_adamw": "train_fused",
+               "flash_fwd": "train_parity", "flash_bwd_dq": "train_parity",
+               "flash_bwd_dkv": "train_parity",
                "fused_ce_fwd": "train_parity", "fused_ce_bwd": "train_parity"}
 
 
@@ -313,16 +320,19 @@ def launch_counts() -> dict:
         attention, fused_adamw, fused_ce)
     return {"flash_fwd_tc": attention.flash_attention_fwd.launches_tc,
             "flash_fwd": attention.flash_attention_fwd.launches,
+            "flash_bwd_dq_tc": attention.flash_attention_bwd.launches_dq_tc,
             "flash_bwd_dq": attention.flash_attention_bwd.launches_dq,
             "flash_bwd_dkv_tc":
                 attention.flash_attention_bwd.launches_dkv_tc,
             "flash_bwd_dkv": attention.flash_attention_bwd.launches_dkv,
             "fused_ce_fwd_tc": fused_ce.fused_ce_fwd.launches_tc,
             "fused_ce_fwd": fused_ce.fused_ce_fwd.launches,
+            "fused_ce_dh_tc": fused_ce.fused_ce_bwd.launches_dh_tc,
             "fused_ce_dh": fused_ce.fused_ce_bwd.launches_dh,
             "fused_ce_bwd_a": fused_ce.fused_ce_bwd.launches_a,
             "fused_ce_bwd_tc": fused_ce.fused_ce_bwd.launches_tc,
             "fused_ce_bwd": fused_ce.fused_ce_bwd.launches,
+            "fused_ce_de_tc": fused_ce.fused_ce_bwd.launches_de_tc,
             "fused_ce_de": fused_ce.fused_ce_bwd.launches_de,
             "fused_adamw": fused_adamw.fused_adamw_update.launches}
 
@@ -332,12 +342,13 @@ def zero_launch_counts():
         attention, fused_adamw, fused_ce)
     attention.flash_attention_fwd.launches = 0
     attention.flash_attention_fwd.launches_tc = 0
-    for name in ("launches_dq", "launches_dkv", "launches_dkv_tc"):
+    for name in ("launches_dq", "launches_dq_tc", "launches_dkv",
+                 "launches_dkv_tc"):
         setattr(attention.flash_attention_bwd, name, 0)
     fused_ce.fused_ce_fwd.launches = 0
     fused_ce.fused_ce_fwd.launches_tc = 0
     for name in ("launches", "launches_tc", "launches_a", "launches_dh",
-                 "launches_de"):
+                 "launches_de", "launches_dh_tc", "launches_de_tc"):
         setattr(fused_ce.fused_ce_bwd, name, 0)
     fused_adamw.fused_adamw_update.launches = 0
 
@@ -572,6 +583,14 @@ def _check_flash_bwd(state, gen):
     # step's route) and f32 (the CUDA-core dk/dv of train_parity)
     runs += [(f"{tag}_train_step_8x16x1024_hd64", dt, 8, 16, 1024, 1024,
               64, True) for tag, dt in (("bf16", bf), ("f32", f32))]
+    # BH = 4097 x 16 = 65552 heads, past grid y's limit of 65535: every
+    # kernel puts BH on grid x. Not causal: under the causal mask rows 1-3
+    # of a head average 2-4 rows of v, so |o| reaches 4-5 on some of its
+    # 67 M outputs, where one bf16 step of o (2^-6 up to 8) exceeds
+    # TOL["bfloat16"]["o"]; over all 16 keys |o| stays below 4, as in the
+    # other cases
+    runs += [(f"{tag}_noncausal_BH65552_S16", dt, 4097, 16, 16, 16, 64,
+              False) for tag, dt in (("bf16", bf), ("f32", f32))]
     results, failures, main = [], [], {}
     for name, dt, b, h, sq, sk, hd, causal in runs:
         q, k, v, do = (_rand((b, h, s, hd), dt, gen)
@@ -614,9 +633,9 @@ def _check_flash_bwd(state, gen):
     out = {"cases": results, "causal": True,
            "library": "scaled_dot_product_attention backward (dq, dk, dv)",
            "plain_note": "the plain backward computes dq, dk and dv"}
-    # bf16: dq (CUDA cores) and dk/dv (tensor cores), the train step's
-    # kernels; f32: dk/dv (CUDA cores), train_parity's
-    for dt, ops in ((bf, ("dq", "dkv")), (f32, ("dkv",))):
+    # bf16: dq and dk/dv (tensor cores), the train step's kernels; f32: dq
+    # and dk/dv (CUDA cores), train_parity's
+    for dt in (bf, f32):
         q, k, v, o, lse, do, dq_err, dkv_err = main.pop(dt)
         sm = q.shape[-1] ** -0.5
         delta = (o.float() * do.float()).sum(-1)
@@ -631,20 +650,32 @@ def _check_flash_bwd(state, gen):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         sdpa = torch.nn.functional.scaled_dot_product_attention(
             *leaves, is_causal=True, scale=sm)
-        lib = time_ms(lambda: torch.autograd.grad(sdpa, leaves, do,
-                                                  retain_graph=True))
+
+        def library():
+            torch.autograd.grad(sdpa, leaves, do, retain_graph=True)
+
+        # by CUDA events, and its device time: the profiler's kernel
+        # durations, which leave out the host's gaps (the event time of
+        # this call has moved between calls)
+        lib, lib_dev = time_ms(library), device_ms(library, 10)
         del sdpa, leaves
         tag = str(dt).replace("torch.", "")
         out[f"library_ms_{tag}"] = lib
-        for op in ops:
+        out[f"library_device_ms_{tag}"] = lib_dev
+        for op in ("dq", "dkv"):
             fn = launch_bwd_dq if op == "dq" else launch_bwd_dkv
-            t = in_turns(lambda: fn(q, k, v, do, lse, delta, **kw), plain,
-                         10)
+
+            def kernel():
+                fn(q, k, v, do, lse, delta, **kw)
+
+            t = in_turns(kernel, plain, 10)
             flops, nbytes = attention_work(q, k, True, 0, op)
             kname = _route_name(dt, q.shape[-1], op)
-            state[kname] = _flash_row(t, flops, nbytes, dt,
-                                      dq_err if op == "dq" else dkv_err,
-                                      lib, q.shape)
+            state[kname] = {**_flash_row(t, flops, nbytes, dt,
+                                         dq_err if op == "dq" else dkv_err,
+                                         lib, q.shape),
+                            "device_ms": device_ms(kernel, 10),
+                            "library_device_ms": lib_dev}
             out[kname] = {**state[kname],
                           "plain_ms_runs": t["plain_ms_runs"]}
         flops, nbytes = attention_work(q, k, True, 0, "bwd")
@@ -875,7 +906,6 @@ def _check_fused_ce(state, gen):
                                     f32_err["fwd"], lib32)
     state["fused_ce_bwd"] = _ce_row(n, v, d, h32.dtype, "bwd", t32_bwd,
                                     f32_err["bwd"], lib32)
-    state["ce_unfused_bwd_ms"] = lib["unfused_bwd_ms"]
     del h32, e32
     torch.cuda.empty_cache()
     return {"cases": results, "shape": [n, v, d],
@@ -909,8 +939,10 @@ def _check_ce_variants(state, gen):
     """The backward variants "a" (#6) and "split" (#5, #8) through the
     public op, each against its plain versions and against variant "b"
     (#7) on the same inputs, in bf16 and f32; the variant kernels'
-    launches are counted over this run. Then #5, #6 and #8 timed at the
-    train step's chunk against their plain versions, in turns."""
+    launches are counted over this run (bf16 "split" on the tensor
+    cores). Then #5, #6 and #8 timed at the train step's chunk against
+    their plain versions, in turns: bf16 "a", each bf16 "split" pass, and
+    the f32 "split" kernels in f32."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import fused_ce as ce
 
@@ -957,71 +989,95 @@ def _check_ce_variants(state, gen):
             main = (h, e, t, w, {
                 "fused_ce_bwd_a": max(abs_err(got["a"][0], pdh),
                                       abs_err(got["a"][1], pde)),
-                "fused_ce_dh": abs_err(got["split"][0], pdh),
-                "fused_ce_de": abs_err(got["split"][1], pde)})
+                "fused_ce_dh_tc": abs_err(got["split"][0], want["split"][0]),
+                "fused_ce_de_tc": abs_err(got["split"][1],
+                                          want["split"][1])})
         del got, want, pdh, pde
     counts = launch_counts()
     state["ce_variants_launches"] = counts
     # one launch of each variant kernel per row chunk; "b" ran beside them,
-    # on the tensor cores in bf16, and so did every forward
+    # on the tensor cores in bf16, and so did every forward and "split"
     bf, f32 = chunks[torch.bfloat16], chunks[torch.float32]
     expected = {"fused_ce_fwd_tc": 3 * bf, "fused_ce_fwd": 3 * f32,
                 "fused_ce_bwd_tc": bf, "fused_ce_bwd": f32,
-                "fused_ce_bwd_a": bf + f32, "fused_ce_dh": bf + f32,
-                "fused_ce_de": bf + f32}
+                "fused_ce_bwd_a": bf + f32, "fused_ce_dh_tc": bf,
+                "fused_ce_de_tc": bf, "fused_ce_dh": f32, "fused_ce_de": f32}
     if failures or counts != expected_counts(expected, 1):
         raise AssertionError(f"fused_ce variants: failures {failures}, "
                              f"launches {counts} (expected {expected}): "
                              f"{results}")
 
     h, e, t, g, errs = main
+    del main
     n, d = h.shape
     v = e.shape[0]
-    lse, _ = ce.fused_ce_fwd(h, e, t)
-    t32 = t.to(torch.int32)
-    dh, de = torch.empty_like(h), torch.empty_like(e)
-    ptrs = (h.data_ptr(), e.data_ptr(), t32.data_ptr(), lse.data_ptr(),
-            g.data_ptr())
-    dims = (n, v, d, ce.KERNEL_DTYPES[h.dtype])
-    timed = {
-        "fused_ce_bwd_a": (
-            in_turns(lambda: ce.fused_ce_bwd(h, e, t, lse, g, variant="a"),
-                     lambda: ce.fused_ce_bwd_plain(h, e, t, lse, g), 3),
-            "bwd"),
-        "fused_ce_dh": (
-            in_turns(lambda: ce._launch("fused_ce_dh", h.device, *ptrs,
-                                        dh.data_ptr(), *dims),
-                     lambda: ce.fused_ce_dh_plain(h, e, t, lse, g), 3),
-            "dh"),
-        "fused_ce_de": (
-            in_turns(lambda: ce._launch("fused_ce_de", h.device, *ptrs,
-                                        de.data_ptr(), *dims),
-                     lambda: ce.fused_ce_de_plain(h, e, t, lse, g), 3),
-            "de"),
-    }
+    rows = {}   # kernel: (dtype, its timing in turns, ce_work's name)
+    for dt in (torch.bfloat16, torch.float32):
+        if dt == torch.float32:   # the f32 "split" kernels at the chunk
+            h, e = h.float(), e.float()
+        tc = dt == torch.bfloat16
+        lse, _ = ce.fused_ce_fwd(h, e, t)
+        t32 = t.to(torch.int32)
+        ptrs = (h.data_ptr(), e.data_ptr(), t32.data_ptr(), lse.data_ptr(),
+                g.data_ptr())
+        source, dims = (("fused_ce_tc", (n, v, d)) if tc else
+                        ("fused_ce", (n, v, d, ce.KERNEL_DTYPES[dt])))
+        if tc:
+            rows["fused_ce_bwd_a"] = (dt, in_turns(
+                lambda: ce.fused_ce_bwd(h, e, t, lse, g, variant="a"),
+                lambda: ce.fused_ce_bwd_plain(h, e, t, lse, g), 3), "bwd")
+        for which, like in (("dh", h), ("de", e)):
+            entry = f"fused_ce_{which}" + ("_tc" if tc else "")
+            plain = getattr(ce, f"fused_ce_{which}_plain")
+            out = torch.empty_like(like)
+
+            def kernel():
+                ce._launch(entry, h.device, *ptrs, out.data_ptr(), *dims,
+                           source=source)
+
+            if not tc:   # the bf16 passes were held to it in the cases
+                kernel()
+                want = plain(h, e, t, lse, g)
+                errs[entry] = abs_err(out, want)
+                if rel_err(out, want) > GRAD_TOL["float32"]:
+                    raise AssertionError(
+                        f"{entry} f32 at the train chunk: rel err "
+                        f"{rel_err(out, want)}")
+                del want
+            rows[entry] = (dt, in_turns(kernel, lambda: plain(
+                h, e, t, lse, g), 3), which)
+            del out
+    torch.cuda.empty_cache()
     shape_out = {}
-    for kname, (tm, which) in timed.items():
-        flops, nbytes = ce_work(n, v, d, h.element_size(), which)
-        bound, bound_by = bound_ms(flops, nbytes, h.dtype)
+    for kname, (dt, tm, which) in rows.items():
+        flops, nbytes = ce_work(n, v, d, 2 if dt == torch.bfloat16 else 4,
+                                which)
+        bound, bound_by = bound_ms(flops, nbytes, dt)
         # the library backward computes dh and dE: the function of #6;
-        # #5 and #8 compute one of the two
+        # #5 and #8 compute one of the two. bf16 yardsticks for the bf16
+        # rows, f32 for the f32 split kernels
+        lib = state["ce_library_bf16" if dt == torch.bfloat16
+                    else "ce_library_f32"]
+        tflops = flops / (tm["ms"] * 1e-3) / 1e12
         state[kname] = {"max_abs_err": errs[kname], "ms": tm["ms"],
                         "plain_ms": tm["plain_ms"], "bound_ms": bound,
                         "bound_by": bound_by,
-                        "library_ms": state["ce_library_bf16"][
-                            "library_bwd_ms"],
+                        "library_ms": lib["library_bwd_ms"],
                         "library": "F.linear_cross_entropy backward alone "
                                    "(dh and dE)",
-                        "unfused_ms": state["ce_unfused_bwd_ms"],
-                        "shape": [n, v, d]}
+                        "unfused_ms": lib["unfused_bwd_ms"],
+                        "achieved_tflops": tflops,
+                        "bound_share": bound / tm["ms"],
+                        "dtype": str(dt)[6:], "shape": [n, v, d]}
         shape_out[kname] = {**tm, "bound_ms": bound, "bound_by": bound_by,
                             "flops": flops, "bytes": nbytes,
-                            "achieved_tflops":
-                                flops / (tm["ms"] * 1e-3) / 1e12}
+                            "dtype": str(dt)[6:], "achieved_tflops": tflops}
     return {"cases": results, "launches": counts, "shape": [n, v, d],
-            "dtype": "bfloat16", **shape_out,
-            "split_ms": timed["fused_ce_dh"][0]["ms"]
-            + timed["fused_ce_de"][0]["ms"]}
+            **shape_out,
+            "split_ms": shape_out["fused_ce_dh_tc"]["ms"]
+            + shape_out["fused_ce_de_tc"]["ms"],
+            "split_ms_f32": shape_out["fused_ce_dh"]["ms"]
+            + shape_out["fused_ce_de"]["ms"]}
 
 
 def ulps(got, want) -> int:
@@ -1593,12 +1649,49 @@ def phase_train_options(state):
         "leaves": leaves, "ce_launches": ce_calls, "ok": ok}
     if not ok:
         failures.append("bf16_kernel_loss")
+    results["tiny_reference"] = tiny = _check_tiny()
+    if not tiny["ok"]:
+        failures.append("tiny_reference")
     out = {"config": "transformer_big, 2 layers", "dtype": "float32",
            "batch": 2, "seq_len": 256, "loss_tol": TRAIN_LOSS_TOL,
            "grad_tol": GRAD_TOL["float32"], **results}
     if failures:
         raise AssertionError(f"train options: {failures}: {json.dumps(out)}")
     return out
+
+
+def _check_tiny() -> dict:
+    """``TransformerConfig.tiny()`` on the card: head dim 16, which no
+    attention kernel takes, so it runs ``mha_reference`` as JAX's
+    ``tiny()`` does. One train step (the kernel loss: the f32 CE kernels)
+    and two greedy requests through ``InferenceEngine``; no attention
+    kernel may launch, the loss must be finite and the streams
+    complete."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, init_params)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    cfg = TransformerConfig.tiny(loss_impl="kernel")
+    model, opt, step, batch = _train_setup(cfg, 4, 2)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    _, metrics = step({"model": model, "optimizer": opt, "step": 0}, batch)
+    loss = metrics["loss"].item()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                         device="cuda")
+    engine = InferenceEngine(cfg, params, device="cuda", num_blocks=32,
+                             block_size=SERVE_BLOCK, max_slots=2)
+    outs = engine.generate([[1, 2, 3], [4, 5, 6, 7, 8, 9, 10]],
+                           max_new_tokens=4)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    ok = (cfg.attention_impl == "reference" and math.isfinite(loss)
+          and counts == {"fused_ce_fwd": 1, "fused_ce_bwd": 1}
+          and [len(o) for o in outs] == [4, 4]
+          and all(0 <= x < cfg.vocab_size for o in outs for x in o))
+    return {"head_dim": cfg.head_dim, "attention_impl": cfg.attention_impl,
+            "loss": loss, "streams": outs, "launches": counts, "ok": ok}
 
 
 def _leaves(tree, prefix=""):

@@ -146,9 +146,12 @@ class TransformerConfig:
 
     @classmethod
     def tiny(cls, **kw) -> "TransformerConfig":
-        """Test-sized config."""
+        """Test-sized config. Like JAX's ``tiny()`` it takes the unfused
+        ``mha_reference`` (head dim 16, which no attention kernel takes);
+        pass ``attention_impl=None`` for the flash path."""
         defaults = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
-                        d_ff=128, max_seq_len=128, dtype=torch.float32)
+                        d_ff=128, max_seq_len=128, dtype=torch.float32,
+                        attention_impl="reference")
         defaults.update(kw)
         return cls(**defaults)
 

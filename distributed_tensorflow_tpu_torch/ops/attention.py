@@ -16,11 +16,12 @@ Port of ``distributed_tensorflow_tpu/ops/attention.py``. Layout is
   runs :func:`flash_attention_plain`, the plain PyTorch version of the
   same function. Any other device raises. It records no autograd graph.
 - :func:`flash_attention_bwd` — the backward ``(dq, dk, dv)`` from the
-  forward's ``(o, lse)``: on a CUDA tensor the kernels ``flash_bwd_dq``
-  (``csrc/flash_bwd.cu``) and, in bf16, ``flash_bwd_dkv_tc``
-  (``csrc/flash_tc.cu``) or, in f32, ``flash_bwd_dkv``
-  (``csrc/flash_bwd.cu``) — the ports of ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``; on a CPU tensor :func:`flash_attention_bwd_plain`.
+  forward's ``(o, lse)``: on a CUDA tensor the kernels of the ports of
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, in bf16
+  ``flash_bwd_dq_tc`` and ``flash_bwd_dkv_tc`` (``csrc/flash_tc.cu``,
+  tensor cores), in f32 ``flash_bwd_dq`` and ``flash_bwd_dkv``
+  (``csrc/flash_bwd.cu``, CUDA cores); on a CPU tensor
+  :func:`flash_attention_bwd_plain`.
   :func:`attention_route` states which kernel a CUDA call takes.
 - :func:`flash_attention` — the public op, ``o`` only, differentiable
   through :class:`FlashAttention` (the counterpart of the JAX
@@ -41,8 +42,6 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels of the forward and of the backward's two halves
 ATTENTION_OPS = ("fwd", "dq", "dkv")
-#: the ops that bf16 takes to the tensor cores (``csrc/flash_tc.cu``)
-TC_OPS = ("fwd", "dkv")
 #: C signature of ``flash_fwd`` in ``csrc/flash_fwd.cu``: q, k, v, o, lse
 #: pointers; bh, sq, sk, hd, dtype; sm_scale; causal, causal_offset; stream
 FLASH_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -57,6 +56,7 @@ FLASH_BWD_ARGTYPES = {
 #: C signatures of ``csrc/flash_tc.cu``: those of the CUDA-core entry
 #: points they stand in for in bf16
 FLASH_TC_ARGTYPES = {"flash_fwd_tc": FLASH_FWD_ARGTYPES,
+                     "flash_bwd_dq_tc": FLASH_BWD_ARGTYPES["flash_bwd_dq"],
                      "flash_bwd_dkv_tc": FLASH_BWD_ARGTYPES["flash_bwd_dkv"]}
 
 
@@ -172,8 +172,7 @@ def attention_route(dtype, hd: int, op: str) -> str:
     ``csrc/flash_bwd.cu``), for inputs of ``dtype`` and head dim ``hd``
     and ``op`` — ``"fwd"``, ``"dq"`` or ``"dkv"``.
 
-    - bf16 forward and dk/dv go to the tensor cores; bf16 dq stays on
-      the CUDA cores;
+    - bf16 goes to the tensor cores, every op;
     - f32 stays on the CUDA cores, whose f32 products keep f32 parity
       (on tensor cores f32 would be TF32);
     - any other dtype, a head dim outside :data:`KERNEL_HEAD_DIMS` or an
@@ -187,8 +186,7 @@ def attention_route(dtype, hd: int, op: str) -> str:
     if op not in ATTENTION_OPS:
         raise ValueError(f"flash_attention: op={op!r}; expected one of "
                          f"{ATTENTION_OPS}")
-    return "tc" if dtype == torch.bfloat16 and op in TC_OPS \
-        else "cuda_cores"
+    return "tc" if dtype == torch.bfloat16 else "cuda_cores"
 
 
 def _check_kernel_inputs(q, k, v, op: str) -> str:
@@ -329,8 +327,10 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, op: str) -> str:
 def _launch_bwd(op, outs, q, k, v, do, lse, delta, sm_scale, causal,
                 causal_offset):
     """Run the ``op`` (``"dq"`` or ``"dkv"``) kernel that
-    :func:`attention_route` names into ``outs``; returns its route, or
-    None if the work was empty (``outs`` zeroed)."""
+    :func:`attention_route` names into ``outs`` and count the launch in
+    ``flash_attention_bwd.launches_<op>_tc`` (tensor cores) or
+    ``.launches_<op>`` (CUDA cores); empty work launches nothing, counts
+    nothing and zeroes ``outs``."""
     from distributed_tensorflow_tpu_torch.ops import _build
 
     if q.device.type != "cuda":
@@ -342,7 +342,7 @@ def _launch_bwd(op, outs, q, k, v, do, lse, delta, sm_scale, causal,
     if b * h == 0 or sq == 0 or sk == 0:
         for t in outs:
             t.zero_()
-        return None
+        return
     if route == "tc":
         entry, lib = f"flash_bwd_{op}_tc", _build.load("flash_tc",
                                                         FLASH_TC_ARGTYPES)
@@ -359,19 +359,22 @@ def _launch_bwd(op, outs, q, k, v, do, lse, delta, sm_scale, causal,
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
-    return route
+    counter = f"launches_{op}_tc" if route == "tc" else f"launches_{op}"
+    setattr(flash_attention_bwd, counter,
+            getattr(flash_attention_bwd, counter) + 1)
 
 
 def launch_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
                   causal: bool, causal_offset: int):
-    """``dq`` from one launch of the ``flash_bwd_dq`` kernel (CUDA
-    tensors; ``delta = rowsum(o · do)`` f32), counted in
-    ``flash_attention_bwd.launches_dq``; empty work launches nothing and
-    counts nothing."""
+    """``dq`` from one launch of the kernel :func:`attention_route` names
+    (CUDA tensors; ``delta = rowsum(o · do)`` f32): in bf16
+    ``flash_bwd_dq_tc`` (tensor cores, counted in
+    ``flash_attention_bwd.launches_dq_tc``), in f32 ``flash_bwd_dq``
+    (CUDA cores, ``flash_attention_bwd.launches_dq``); empty work
+    launches nothing and counts nothing."""
     dq = torch.empty_like(q)
-    if _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, sm_scale, causal,
-                   causal_offset):
-        flash_attention_bwd.launches_dq += 1
+    _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, sm_scale, causal,
+                causal_offset)
     return dq
 
 
@@ -382,12 +385,8 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
     ``flash_attention_bwd.launches_dkv_tc``), in f32 ``flash_bwd_dkv``
     (CUDA cores, ``flash_attention_bwd.launches_dkv``)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    route = _launch_bwd("dkv", (dk, dv), q, k, v, do, lse, delta, sm_scale,
-                        causal, causal_offset)
-    if route == "tc":
-        flash_attention_bwd.launches_dkv_tc += 1
-    elif route == "cuda_cores":
-        flash_attention_bwd.launches_dkv += 1
+    _launch_bwd("dkv", (dk, dv), q, k, v, do, lse, delta, sm_scale, causal,
+                causal_offset)
     return dk, dv
 
 
@@ -397,11 +396,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     """Flash-attention backward ``(dq, dk, dv)`` from the forward's
     ``(o, lse)`` and the output cotangent ``do``.
 
-    A CUDA tensor goes through the ``flash_bwd_dq`` kernel and the dk/dv
-    kernel :func:`attention_route` names (counting one launch each in
-    ``flash_attention_bwd.launches_dq`` and ``.launches_dkv_tc`` in bf16
-    or ``.launches_dkv`` in f32); a CPU tensor through
-    :func:`flash_attention_bwd_plain`. Any other device raises."""
+    A CUDA tensor goes through the dq and the dk/dv kernels
+    :func:`attention_route` names (counting one launch each in
+    ``flash_attention_bwd.launches_dq_tc`` and ``.launches_dkv_tc`` in
+    bf16, ``.launches_dq`` and ``.launches_dkv`` in f32); a CPU tensor
+    through :func:`flash_attention_bwd_plain`. Any other device
+    raises."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if causal_offset is None:
@@ -425,7 +425,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
-flash_attention_bwd.launches_dq = 0
+flash_attention_bwd.launches_dq = 0        # f32, CUDA cores
+flash_attention_bwd.launches_dq_tc = 0     # bf16, tensor cores
 flash_attention_bwd.launches_dkv = 0       # f32, CUDA cores
 flash_attention_bwd.launches_dkv_tc = 0    # bf16, tensor cores
 

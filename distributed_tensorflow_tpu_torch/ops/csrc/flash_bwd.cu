@@ -1,56 +1,49 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA C++, CUDA cores.
+// Flash-attention backward for Hopper (sm_90a), CUDA C++, CUDA cores, f32.
 //
-// Replaces: distributed_tensorflow_tpu/ops/attention.py _bwd_dq_kernel
-// (:260; bf16 and f32) and, for f32 inputs, _bwd_dkv_kernel (:309),
-// driven by _flash_backward (:360; pl.pallas_call at :388 and :409).
-// bf16 dk/dv goes to flash_bwd_dkv_tc in flash_tc.cu (tensor cores); f32
+// Replaces, for f32 inputs: distributed_tensorflow_tpu/ops/attention.py
+// _bwd_dq_kernel (:260) and _bwd_dkv_kernel (:309), driven by
+// _flash_backward (:360; pl.pallas_call at :388 and :409). bf16 goes to
+// flash_bwd_dq_tc and flash_bwd_dkv_tc in flash_tc.cu (tensor cores); f32
 // stays here, where its products keep f32 parity (on tensor cores f32
-// would be TF32). Same functions: with p = exp(q k^T
-// * sm_scale - lse) recomputed from the forward's row logsumexp and
-// delta = rowsum(o * do) (f32, computed by the caller),
+// would be TF32). Same functions: with p = exp(q k^T * sm_scale - lse)
+// recomputed from the forward's row logsumexp and delta = rowsum(o * do)
+// (f32, computed by the caller),
 //   ds = p * (do v^T - delta) * sm_scale,
 //   dq = ds k,  dk = ds^T q,  dv = p^T do,
-// for q, do (BH, Sq, hd) and k, v (BH, Sk, hd), contiguous, bf16 or f32,
-// hd in {64, 128}; lse, delta (BH, Sq) f32. Masking is the forward's
+// for q, do (BH, Sq, hd) and k, v (BH, Sk, hd), contiguous, f32, hd in
+// {64, 128}; lse, delta (BH, Sq) f32. Masking is the forward's
 // (flash_fwd.cu): bottom-right causal via causal_offset, ragged q and k
 // tails masked here, and a row whose lse is +inf (it saw no key) gets
-// p = 0. Rounding follows the Pallas kernels: ds is rounded to the input
-// dtype before both of its products (:299, :349) and p before p^T do
-// (:345); every product accumulates in f32 and the outputs are stored
-// in the input dtype.
+// p = 0. Every product accumulates in f32 (in f32 the Pallas kernels'
+// roundings of ds and p to the input dtype, :299, :345, :349, are exact).
 //
 // Design. The TPU kernels walk sequential grids and carry dq (resp. dk,
 // dv) in VMEM scratch across the inner grid axis. Here one thread block
 // owns one (bh, 64-row tile) and loops over the other axis itself:
 // flash_bwd_dq_kernel owns a q-tile and walks the k-tiles up to the
 // causal diagonal; flash_bwd_dkv_kernel owns a k-tile and walks the
-// q-tiles from the diagonal down. 256 threads: thread (ty, tx), ty, tx
-// in 0..15, owns rows ty + 16 i (i < 4) of its tile and, of each 64 x 64
-// score tile, columns tx + 16 j (j < 4) -- the forward's 4 x 4 register
-// tile -- and of each output row the dims tx + 16 j. Accumulators stay
-// in f32 registers (one for dq; two, dk and dv, in the dkv kernel). The
-// tiles the block owns stay in shared memory for the whole loop (as f32,
-// at stride hd + 1 so that column reads are conflict-free); the other
+// q-tiles from the diagonal down. The grid is (BH, tiles), so BH is
+// limited only by grid x. 256 threads: thread (ty, tx), ty, tx in 0..15,
+// owns rows ty + 16 i (i < 4) of its tile and, of each 64 x 64 score
+// tile, columns tx + 16 j (j < 4) -- the forward's 4 x 4 register tile
+// -- and of each output row the dims tx + 16 j. Accumulators stay in
+// f32 registers (one for dq; two, dk and dv, in the dkv kernel). The
+// tiles the block owns stay in shared memory for the whole loop (at
+// stride hd + 1 so that column reads are conflict-free); the other
 // side's tiles are restaged per step, and the ds (resp. p^T and ds^T)
 // tile goes through shared memory to feed the second product.
 //
-// Bound at the train step's shape ((8, 16, 1024, 64) bf16 causal, one
-// launch of each kernel per layer, 67.2 M unmasked (q, k) pairs): the
-// backward as a whole needs 10 hd FLOP a pair (s, dp, dq, dk, dv), 43.0
-// GFLOP -> 43.5 us at 989 TFLOP/s, against q, k, v, o, do, lse, delta
-// read once and dq, dk, dv written once, 135 MB -> 40.4 us at 3.35 TB/s:
-// bound by operations. Split as launched, the dq kernel needs 6 hd a
-// pair (s, dp, dq: 26 us) and the dkv kernel 8 hd (s, dp, dk, dv: 35
-// us), each recomputing s and dp. These kernels run f32 FMAs on CUDA
-// cores (67 TFLOP/s peak) from shared memory, as flash_fwd.cu does; bf16
-// dk/dv runs mma.sync on bf16 tiles in flash_tc.cu, and bf16 dq is to
-// follow it. What the design keeps:
+// Bound at the f32 train-parity shape it runs on (2 layers of
+// transformer_big, (2, 16, 256, 64) causal, 1.1 M unmasked (q, k) pairs
+// a head): the dq kernel needs 6 hd FLOP a pair (s, dp, dq) and the dkv
+// kernel 8 hd (s, dp, dk, dv), each recomputing s and dp: at 67 TFLOP/s
+// (f32 CUDA cores) both are bound by operations. These kernels run f32
+// FMAs from shared memory, as flash_fwd.cu does. What the design keeps:
 // the S x S score and probability matrices never leave the SM, every
 // block reads its own tile once, and causal work is halved by skipping
 // the tiles above the diagonal.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
 namespace {
@@ -60,32 +53,15 @@ constexpr int BN = 64;      // k rows per tile
 constexpr int NT = 256;     // threads per block
 constexpr int PS = BN + 1;  // padded row stride of the ds / p tiles
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T's precision, kept as f32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 // Rows [r0, r0 + 64) of a contiguous (rows, HD) matrix into shared
-// memory as f32 at stride HD + 1; rows past `rows` are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
+// memory at stride HD + 1; rows past `rows` are zero.
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
                                       int rows) {
   for (int e = threadIdx.x; e < 64 * HD; e += NT) {
     const int r = e / HD, d = e % HD;
     dst[r * (HD + 1) + d] =
-        (r0 + r < rows) ? to_f32(src[(size_t)(r0 + r) * HD + d]) : 0.f;
+        (r0 + r < rows) ? src[(size_t)(r0 + r) * HD + d] : 0.f;
   }
 }
 
@@ -125,12 +101,13 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (size_t)(4 * 64 * (HD + 1) + 2 * BN * PS + 2 * BM);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int Sq, int Sk, float sm_scale, int causal,
                     int causal_offset) {
   constexpr int S = HD + 1;
@@ -145,13 +122,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BM;
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BM;
   const size_t qoff = (size_t)bh * Sq * HD;
   const size_t koff = (size_t)bh * Sk * HD;
 
-  stage<T, HD>(Qs, q + qoff, q0, Sq);
-  stage<T, HD>(DOs, dout + qoff, q0, Sq);
+  stage<HD>(Qs, q + qoff, q0, Sq);
+  stage<HD>(DOs, dout + qoff, q0, Sq);
   float lse_r[4], dl_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -174,8 +151,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < k_end; k0 += BN) {
     __syncthreads();  // Q, dO visible / previous K, V, dS consumed
-    stage<T, HD>(Ks, k + koff, k0, Sk);
-    stage<T, HD>(Vs, v + koff, k0, Sk);
+    stage<HD>(Ks, k + koff, k0, Sk);
+    stage<HD>(Vs, v + koff, k0, Sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -191,7 +168,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         (!causal || col <= row + causal_offset);
         const float p = ok ? expf(s[i][j] * sm_scale - lse_r[i]) : 0.f;
         DSs[(ty + 16 * i) * PS + tx + 16 * j] =
-            round_to<T>(p * (dp[i][j] - dl_r[i]) * sm_scale);
+            p * (dp[i][j] - dl_r[i]) * sm_scale;
       }
     }
     __syncthreads();
@@ -214,19 +191,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
-    T* out = dq + qoff + (size_t)row * HD;
+    float* out = dq + qoff + (size_t)row * HD;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = from_f32<T>(acc[i][j]);
+    for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = acc[i][j];
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Sq, int Sk, float sm_scale,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, float sm_scale,
                      int causal, int causal_offset) {
   constexpr int S = HD + 1;
   constexpr int DJ = HD / 16;
@@ -243,13 +222,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BN;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BN;
   const size_t qoff = (size_t)bh * Sq * HD;
   const size_t koff = (size_t)bh * Sk * HD;
 
-  stage<T, HD>(Ks, k + koff, k0, Sk);
-  stage<T, HD>(Vs, v + koff, k0, Sk);
+  stage<HD>(Ks, k + koff, k0, Sk);
+  stage<HD>(Vs, v + koff, k0, Sk);
   float acc_dk[4][DJ], acc_dv[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -267,8 +246,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = q_begin; q0 < Sq; q0 += BM) {
     __syncthreads();  // K, V visible / previous Q, dO, P^T, dS^T consumed
-    stage<T, HD>(Qs, q + qoff, q0, Sq);
-    stage<T, HD>(DOs, dout + qoff, q0, Sq);
+    stage<HD>(Qs, q + qoff, q0, Sq);
+    stage<HD>(DOs, dout + qoff, q0, Sq);
     if (tid < BM) {
       const int row = q0 + tid;
       lse_s[tid] = row < Sq ? lse[(size_t)bh * Sq + row] : INFINITY;
@@ -290,9 +269,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = row < Sq && key < Sk &&
                         (!causal || key <= row + causal_offset);
         const float p = ok ? expf(s[i][j] * sm_scale - lse_s[c]) : 0.f;
-        PTs[(ty + 16 * i) * PS + c] = round_to<T>(p);
-        DSTs[(ty + 16 * i) * PS + c] =
-            round_to<T>(p * (dpt[i][j] - dl_s[c]) * sm_scale);
+        PTs[(ty + 16 * i) * PS + c] = p;
+        DSTs[(ty + 16 * i) * PS + c] = p * (dpt[i][j] - dl_s[c]) * sm_scale;
       }
     }
     __syncthreads();
@@ -322,51 +300,33 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= Sk) continue;
-    T* dko = dk + koff + (size_t)key * HD;
-    T* dvo = dv + koff + (size_t)key * HD;
+    float* dko = dk + koff + (size_t)key * HD;
+    float* dvo = dv + koff + (size_t)key * HD;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dko[tx + 16 * j] = from_f32<T>(acc_dk[i][j]);
-      dvo[tx + 16 * j] = from_f32<T>(acc_dv[i][j]);
+      dko[tx + 16 * j] = acc_dk[i][j];
+      dvo[tx + 16 * j] = acc_dv[i][j];
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse,
-                      const float* delta, void* dq, int BH, int Sq, int Sk,
-                      float sm_scale, int causal, int causal_offset,
-                      cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<T, HD>;
-  constexpr size_t smem = dq_smem_bytes<HD>();
+// one launch of `kern` over (BH, tiles) blocks; q-tiles (dq) or k-tiles
+// (dkv) of 64 rows on grid y, whose limit is 65535
+template <typename Kernel, typename... Outs>
+cudaError_t launch(Kernel kern, size_t smem, int tiles, const void* q,
+                   const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, int BH, int Sq,
+                   int Sk, float sm_scale, int causal, int causal_offset,
+                   cudaStream_t stream, Outs... outs) {
+  if (tiles > 65535) return cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BM - 1) / BM, BH);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), Sq, Sk, sm_scale, causal, causal_offset);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int BH,
-                       int Sq, int Sk, float sm_scale, int causal,
-                       int causal_offset, cudaStream_t stream) {
-  auto kern = flash_bwd_dkv_kernel<T, HD>;
-  constexpr size_t smem = dkv_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + BN - 1) / BN, BH);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, sm_scale, causal,
+  kern<<<dim3(BH, tiles), NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(outs)..., Sq, Sk, sm_scale, causal,
       causal_offset);
   return cudaGetLastError();
 }
@@ -375,34 +335,26 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (flash_bwd_dkv: float32 only; bfloat16
-// takes flash_bwd_dkv_tc). Each returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a dtype / head_dim it does not take).
+// dtype: 0 = float32 (bfloat16 takes flash_bwd_dq_tc / flash_bwd_dkv_tc).
+// Each returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a dtype / head_dim it does not take, cudaErrorInvalidConfiguration
+// past the grid's limit of 65535 tiles on y; BH, on x, takes any int).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int BH, int Sq, int Sk, int hd, int dtype,
                  float sm_scale, int causal, int causal_offset,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (BH > 65535) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaErrorInvalidValue;
+  const int tiles = (Sq + BM - 1) / BM;
   if (dtype == 0 && hd == 64)
-    err = launch_dq<float, 64>(q, k, v, dout, l, dl, dq, BH, Sq, Sk,
-                               sm_scale, causal, causal_offset, st);
-  else if (dtype == 0 && hd == 128)
-    err = launch_dq<float, 128>(q, k, v, dout, l, dl, dq, BH, Sq, Sk,
-                                sm_scale, causal, causal_offset, st);
-  else if (dtype == 1 && hd == 64)
-    err = launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dq, BH, Sq,
-                                       Sk, sm_scale, causal, causal_offset,
-                                       st);
-  else if (dtype == 1 && hd == 128)
-    err = launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, BH, Sq,
-                                        Sk, sm_scale, causal, causal_offset,
-                                        st);
-  return (int)err;
+    return (int)launch(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(), tiles,
+                       q, k, v, dout, lse, delta, BH, Sq, Sk, sm_scale,
+                       causal, causal_offset, st, dq);
+  if (dtype == 0 && hd == 128)
+    return (int)launch(flash_bwd_dq_kernel<128>, dq_smem_bytes<128>(),
+                       tiles, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       sm_scale, causal, causal_offset, st, dq);
+  return (int)cudaErrorInvalidValue;
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -411,17 +363,16 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   int dtype, float sm_scale, int causal, int causal_offset,
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (BH > 65535) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaErrorInvalidValue;
+  const int tiles = (Sk + BN - 1) / BN;
   if (dtype == 0 && hd == 64)
-    err = launch_dkv<float, 64>(q, k, v, dout, l, dl, dk, dv, BH, Sq, Sk,
-                                sm_scale, causal, causal_offset, st);
-  else if (dtype == 0 && hd == 128)
-    err = launch_dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, BH, Sq, Sk,
-                                 sm_scale, causal, causal_offset, st);
-  return (int)err;
+    return (int)launch(flash_bwd_dkv_kernel<64>, dkv_smem_bytes<64>(),
+                       tiles, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       sm_scale, causal, causal_offset, st, dk, dv);
+  if (dtype == 0 && hd == 128)
+    return (int)launch(flash_bwd_dkv_kernel<128>, dkv_smem_bytes<128>(),
+                       tiles, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       sm_scale, causal, causal_offset, st, dk, dv);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* kernel_error_string(int err) {

@@ -22,8 +22,9 @@
 // read feeds four FMAs. The 16 threads of a row sit in one half-warp,
 // so row max and row sum are __shfl_xor reductions. m, l and the output
 // accumulator (rows ty + 16 i, dims tx + 16 j) stay in registers in
-// f32. The Q tile stays in shared memory for the whole loop; K, V and
-// the probability tile P are restaged per k-tile.
+// f32. The grid is (BH, q-tiles), so BH is limited only by grid x. The
+// Q tile stays in shared memory for the whole loop; K, V and the
+// probability tile P are restaged per k-tile.
 // Masked scores are -inf (not the Pallas finite mask value), so p is
 // exactly 0 on masked keys and an all-masked row keeps l = 0.
 //
@@ -72,8 +73,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BM;
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BM;
   const float* qb = q + (size_t)bh * Sq * HD;
   const float* kb = k + (size_t)bh * Sk * HD;
   const float* vb = v + (size_t)bh * Sk * HD;
@@ -201,7 +202,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BM - 1) / BM, BH);
+  const dim3 grid(BH, (Sq + BM - 1) / BM);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk,
@@ -216,14 +217,15 @@ extern "C" {
 
 // dtype: 0 = float32 (bfloat16 takes flash_fwd_tc). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype
-// / head_dim it does not take).
+// / head_dim it does not take, cudaErrorInvalidConfiguration past the
+// grid's limit of 65535 q-tiles on y; BH, on x, takes any int).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int BH, int Sq, int Sk, int hd, int dtype,
               float sm_scale, int causal, int causal_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
-  if (BH > 65535) return (int)cudaErrorInvalidConfiguration;
+  if ((Sq + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
   if (dtype == 0 && hd == 64)
     err = launch<64>(q, k, v, o, l, BH, Sq, Sk, sm_scale, causal,
                      causal_offset, st);

@@ -15,6 +15,9 @@
 //   and delta = rowsum(o do) (f32, computed by the caller, :371):
 //   dv = p^T do with p rounded to bf16 (:345), ds = p (do v^T - delta)
 //   sm_scale rounded to bf16 (:349), dk = ds^T q; f32 sums, bf16 outputs.
+// - flash_bwd_dq_tc: _bwd_dq_kernel (:260; pl.pallas_call at :388). With
+//   p and delta as above, ds = p (do v^T - delta) sm_scale rounded to
+//   bf16 (:299) and dq = ds k, summed in f32 and written once in bf16.
 // Masking is that of flash_fwd.cu: bottom-right causal via causal_offset
 // (query i sees key j iff j <= i + causal_offset), the ragged q and k
 // tails masked here, and a row that sees no key gets o = 0 and lse = +inf
@@ -26,6 +29,9 @@
 // 67.6 MB -> 20.2 us at 3.35 TB/s: bound by bytes. The dk/dv kernel does
 // 8 hd a pair (s, dp, dk, dv), 34.4 GFLOP -> 34.8 us, against q, k, v,
 // do, lse, delta, dk and dv, 101.7 MB -> 30.4 us: bound by operations.
+// The dq kernel does 6 hd a pair (s, dp, dq), 25.8 GFLOP -> 26.1 us,
+// against q, k, v, do, lse, delta and dq, 84.9 MB -> 25.3 us: bound by
+// operations, barely.
 // At the serve shape (1, 16, 1024, 64) the forward's bound is 2.5 us
 // (bytes). mma.sync reaches a fraction of the peak that wgmma would; what
 // the design does about the rest: every product is on the tensor cores,
@@ -63,6 +69,22 @@
 // at hd 128 the dK and dV accumulators double (128 registers a thread),
 // so K and V stay in shared memory and are re-read with ldmatrix. The
 // grid is (BH, k-tiles), the first k-tile (the most q-tiles) first.
+//
+// dq design. The forward's shape with the roles of the backward: a block
+// of 4 warps owns 64 query rows, 16 a warp, and walks the k-tiles up to
+// the causal limit through the forward's 2-stage K, V ring. Each warp
+// computes S = Q K^T and dP = dO V^T as 16 x 64 mma tiles (K and V as B
+// operands, read row by row), turns S into p with the row's lse and dP
+// into dS = p (dP - delta) sm_scale in place (lse and delta of its two
+// rows a thread in registers), and feeds dS, packed to bf16 straight
+// from the accumulators, as the A operand of dQ += dS K, K read by
+// ldmatrix.trans (the forward's P V). At hd 64 the Q and dO fragments
+// stay in registers; at hd 128 the dQ accumulator doubles (64 registers
+// a thread), so Q and dO stay in shared memory and are re-read with
+// ldmatrix. Each block writes only its own rows of dq, once: no atomics,
+// the same dq on every run. The grid is (BH, q-tiles), the last q-tile
+// (the most k-tiles) first. BH sits on grid x in all three kernels, so
+// it takes any int; the tiles on grid y are limited to 65535.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -162,6 +184,12 @@ template <int HD>
 constexpr size_t fwd_smem_bytes() {
   // Q, then per stage a K and a V tile
   return sizeof(bf16) * (size_t)(BM + STAGES * 2 * BN) * (HD + 8);
+}
+
+template <int HD>
+constexpr size_t dq_smem_bytes() {
+  // Q, dO, then per stage a K and a V tile
+  return sizeof(bf16) * (size_t)(2 * BM + STAGES * 2 * BN) * (HD + 8);
 }
 
 template <int HD>
@@ -517,6 +545,176 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward: dq
+// ---------------------------------------------------------------------------
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 2)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Sq, int Sk, float sm_scale, float scale_log2,
+                       int causal, int causal_offset) {
+  constexpr int LD = HD + 8;
+  constexpr int TILE = BN * LD;
+  constexpr bool RESIDENT = HD == 64;  // Q, dO fragments in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* DOs = Qs + BM * LD;
+  bf16* KV = DOs + BM * LD;  // stage s: K at KV + 2 s TILE, V after it
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qd = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
+  const size_t qoff = (size_t)bh * Sq * HD;
+  const bf16* kb = k + (size_t)bh * Sk * HD;
+  const bf16* vb = v + (size_t)bh * Sk * HD;
+  // this thread's rows: row0 (fragment elements 0, 1) and row0 + 8 (2, 3)
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+
+  // keys [0, k_end) can be visible to some row of this tile
+  int k_end = Sk;
+  if (causal) {
+    const long long last = (long long)q0 + BM - 1 + causal_offset;
+    k_end = last < 0 ? 0 : (last + 1 < Sk ? (int)(last + 1) : Sk);
+  }
+  const int ntiles = (k_end + BN - 1) / BN;
+
+  load_tile<HD>(Qs, q + qoff, q0, Sq);
+  load_tile<HD>(DOs, dout + qoff, q0, Sq);
+  cp_async_commit();
+  auto load_kv = [&](int t) {
+    bf16* Ks = KV + (t % STAGES) * 2 * TILE;
+    load_tile<HD>(Ks, kb, t * BN, Sk);
+    load_tile<HD>(Ks + TILE, vb, t * BN, Sk);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_kv(s);
+    cp_async_commit();
+  }
+  // lse (in log2 units) and delta of this thread's two rows; rows past Sq
+  // get lse = +inf, so p = exp2(s - inf) = 0 there
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < Sq ? lse[(size_t)bh * Sq + row] * LOG2E : INFINITY;
+    dl[r] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
+  }
+  cp_async_wait<STAGES - 1>();  // Q, dO landed
+  __syncthreads();
+  uint32_t qf[RESIDENT ? HD / 16 : 1][4], dof[RESIDENT ? HD / 16 : 1][4];
+  if constexpr (RESIDENT) {
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      ldsm_a<LD>(qf[ks], Qs, warp * 16, ks, lane);
+      ldsm_a<LD>(dof[ks], DOs, warp * 16, ks, lane);
+    }
+  }
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile t landed; tile t - 1's stage no longer read
+    if (t + STAGES - 1 < ntiles) load_kv(t + STAGES - 1);
+    cp_async_commit();
+    const bf16* Ks = KV + (t % STAGES) * 2 * TILE;
+    const bf16* Vs = Ks + TILE;
+    const int k0 = t * BN;
+
+    // S = Q K^T, then p in place
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      uint32_t a[4];
+      if constexpr (RESIDENT) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[ks][i];
+      } else {
+        ldsm_a<LD>(a, Qs, warp * 16, ks, lane);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t b[4];
+        ldsm_b<LD>(b, Ks, nj * 16, ks, lane);
+        mma_bf16(s[2 * nj], a, b[0], b[1]);
+        mma_bf16(s[2 * nj + 1], a, b[2], b[3]);
+      }
+    }
+    // the Sk tail, or a key past the warp's first row's causal limit
+    const bool mask = k0 + BN > Sk ||
+                      (causal && k0 + BN - 1 > q0 + warp * 16 + causal_offset);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[j][e] * scale_log2 - lse2[e >> 1]);
+        if (mask) {
+          const int col = k0 + j * 8 + 2 * qd + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          if (col >= Sk || (causal && col > row + causal_offset)) p = 0.f;
+        }
+        s[j][e] = p;
+      }
+
+    // dP = dO V^T, then dS in place
+    float dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      uint32_t a[4];
+      if constexpr (RESIDENT) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = dof[ks][i];
+      } else {
+        ldsm_a<LD>(a, DOs, warp * 16, ks, lane);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t b[4];
+        ldsm_b<LD>(b, Vs, nj * 16, ks, lane);
+        mma_bf16(dp[2 * nj], a, b[0], b[1]);
+        mma_bf16(dp[2 * nj + 1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]) * sm_scale;
+    gemm_c_as_a<HD>(acc, dp, Ks, lane);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    bf16* out = dq + qoff + (size_t)row * HD + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
+          __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
+  }
+}
+
 template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int BH, int Sq, int Sk, float sm_scale,
@@ -531,6 +729,26 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), Sq, Sk, sm_scale * LOG2E, causal,
+      causal_offset);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int BH, int Sq, int Sk, float sm_scale,
+                      int causal, int causal_offset, cudaStream_t stream) {
+  auto kern = flash_bwd_dq_tc_kernel<HD>;
+  constexpr size_t smem = dq_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Sq + BM - 1) / BM);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), Sq, Sk, sm_scale, sm_scale * LOG2E, causal,
       causal_offset);
   return cudaGetLastError();
 }
@@ -560,17 +778,16 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The arguments of flash_fwd / flash_bwd_dkv (flash_fwd.cu,
+// The arguments of flash_fwd / flash_bwd_dq / flash_bwd_dkv (flash_fwd.cu,
 // flash_bwd.cu); dtype must be 1 (bfloat16). Each returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype
 // or head_dim it does not take, cudaErrorInvalidConfiguration past the
-// grid's limits).
+// grid's limit of 65535 tiles on y; BH, on x, takes any int).
 int flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
                  void* lse, int BH, int Sq, int Sk, int hd, int dtype,
                  float sm_scale, int causal, int causal_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH > 65535 || (Sq + BM - 1) / BM > 65535)
-    return (int)cudaErrorInvalidConfiguration;
+  if ((Sq + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (hd == 64)
     return (int)launch_fwd<64>(q, k, v, o, lse, BH, Sq, Sk, sm_scale, causal,
@@ -581,14 +798,30 @@ int flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
+int flash_bwd_dq_tc(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int BH, int Sq, int Sk, int hd, int dtype,
+                    float sm_scale, int causal, int causal_offset,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((Sq + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hd == 64)
+    return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk,
+                              sm_scale, causal, causal_offset, st);
+  if (hd == 128)
+    return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk,
+                               sm_scale, causal, causal_offset, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int BH, int Sq, int Sk, int hd,
                      int dtype, float sm_scale, int causal,
                      int causal_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH > 65535 || (Sk + BN - 1) / BN > 65535)
-    return (int)cudaErrorInvalidConfiguration;
+  if ((Sk + BN - 1) / BN > 65535) return (int)cudaErrorInvalidConfiguration;
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (hd == 64)
     return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk,

@@ -1,9 +1,10 @@
 // Fused cross-entropy against a tied embedding, for Hopper (sm_90a),
 // CUDA C++, CUDA cores: the (N, V) logits never reach device memory.
 // These kernels take f32, whose f32 products keep f32 parity (on tensor
-// cores f32 would be TF32), and bf16 for the variants "a" and "split";
-// bf16 fused_ce_fwd and fused_ce_bwd run on the tensor cores of
-// fused_ce_tc.cu instead, and return cudaErrorInvalidValue here.
+// cores f32 would be TF32), and bf16 for the variant "a" only; bf16
+// fused_ce_fwd, fused_ce_bwd, fused_ce_dh and fused_ce_de run on the
+// tensor cores of fused_ce_tc.cu instead, and return
+// cudaErrorInvalidValue here.
 //
 // Replaces: distributed_tensorflow_tpu/ops/fused_ce.py
 // - fused_ce_fwd: _fwd_kernel (:75; _fwd_call :288, pl.pallas_call at
@@ -77,14 +78,12 @@
 // far (in f32, at 67 TFLOP/s on CUDA cores: 4.1, 12.3, 8.2 ms). These
 // kernels run f32 FMAs on CUDA cores and reach about 12 TFLOP/s, the
 // rate at which the shared-memory reads of a 2 x 4 register tile (6
-// loads for 8 FMAs) feed the FMA units; bf16 #4 and #7 moved to the
-// tensor cores (fused_ce_tc.cu), and #5, #6, #8 are to follow.
+// loads for 8 FMAs) feed the FMA units; bf16 #4, #5, #7 and #8 moved to
+// the tensor cores (fused_ce_tc.cu), and bf16 #6 is to follow.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -538,27 +537,30 @@ cudaError_t launch_bwd(void (*kern)(const T*, const T*, const int*,
 }
 
 // variant: 0 = "b" (#7), 1 = dh of "split" (#5), 2 = dE of "split" (#8),
-// 3 = "a" (#6)
-template <typename T>
-cudaError_t launch_bwd_variant(int variant, const void* h, const void* E,
-                               const int* t, const float* lse,
+// 3 = "a" (#6); each in f32, and "a" in bf16 too (bf16 "b" and "split"
+// run on the tensor cores, fused_ce_tc.cu)
+cudaError_t launch_bwd_variant(int variant, int dtype, const void* h,
+                               const void* E, const int* t, const float* lse,
                                const float* g, void* dA, float* dB, int N,
                                int V, int D, cudaStream_t stream) {
+  if (dtype == 1 && variant == 3)
+    return launch_bwd<__nv_bfloat16>(fused_ce_bwd_a_kernel<__nv_bfloat16>, V,
+                                     h, E, t, lse, g, dA, dB, N, V, D,
+                                     stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
   switch (variant) {
-    case 0:  // bf16 "b" runs on the tensor cores (fused_ce_tc.cu)
-      if constexpr (std::is_same<T, float>::value)
-        return launch_bwd<T>(fused_ce_bwd_kernel<T>, N, h, E, t, lse, g, dA,
-                             dB, N, V, D, stream);
-      return cudaErrorInvalidValue;
+    case 0:
+      return launch_bwd<float>(fused_ce_bwd_kernel<float>, N, h, E, t, lse,
+                               g, dA, dB, N, V, D, stream);
     case 1:
-      return launch_bwd<T>(fused_ce_dh_kernel<T>, N, h, E, t, lse, g, dA,
-                           dB, N, V, D, stream);
+      return launch_bwd<float>(fused_ce_dh_kernel<float>, N, h, E, t, lse, g,
+                               dA, dB, N, V, D, stream);
     case 2:
-      return launch_bwd<T>(fused_ce_de_kernel<T>, V, h, E, t, lse, g, dA,
-                           dB, N, V, D, stream);
+      return launch_bwd<float>(fused_ce_de_kernel<float>, V, h, E, t, lse, g,
+                               dA, dB, N, V, D, stream);
     case 3:
-      return launch_bwd<T>(fused_ce_bwd_a_kernel<T>, V, h, E, t, lse, g, dA,
-                           dB, N, V, D, stream);
+      return launch_bwd<float>(fused_ce_bwd_a_kernel<float>, V, h, E, t, lse,
+                               g, dA, dB, N, V, D, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -577,22 +579,17 @@ int bwd_entry(int variant, const void* h, const void* E, const void* t,
   const float* gg = static_cast<const float*>(g);
   float* b = static_cast<float*>(dB);
   if (D < 1 || D > MAX_D || V < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_bwd_variant<float>(variant, h, E, ti, l, gg, dA, b, N,
-                                          V, D, st);
-  if (dtype == 1)
-    return (int)launch_bwd_variant<__nv_bfloat16>(variant, h, E, ti, l, gg,
-                                                  dA, b, N, V, D, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_bwd_variant(variant, dtype, h, E, ti, l, gg, dA, b, N, V,
+                                 D, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (fused_ce_bwd_a, fused_ce_dh and
-// fused_ce_de only). Each returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a dtype or a D it does not take).
+// dtype: 0 = float32, 1 = bfloat16 (fused_ce_bwd_a only). Each returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype
+// or a D it does not take).
 int fused_ce_fwd(const void* h, const void* E, const void* t, void* lse,
                  void* tl, int N, int V, int D, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -16,6 +16,11 @@
 //   (N,) f32, p_adj = (exp(h E^T - lse) - onehot(t)) g rounded to bf16
 //   (:220), dh = p_adj E and dE = p_adj^T h, each summed in f32 and
 //   written once in bf16.
+// - fused_ce_dh_tc and fused_ce_de_tc: _dh_kernel (:137; call :326) and
+//   _de_kernel (:242; call :432), the variant "split": the same p_adj,
+//   rebuilt per tile as _p_adj does (:123), and one of the two products
+//   each, dh = p_adj E and dE = p_adj^T h. They are the two passes of
+//   fused_ce_bwd_tc, launched one at a time.
 // The vocab tail past V and the token rows past N are zero-filled as they
 // are staged (cp.async with src-size 0), so no uninitialised row is read
 // (the role of _masked_e, :111), and masked out of the results. A row with
@@ -25,7 +30,9 @@
 // chunks, so two launches of each, a step): the forward does 2 N V D =
 // 275 GFLOP -> 0.278 ms at 989 TFLOP/s bf16, against 75.5 MB of h and E
 // (23 us at 3.35 TB/s); the backward function 6 N V D = 825 GFLOP ->
-// 0.834 ms. Both are bound by operations, by far.
+// 0.834 ms. Both are bound by operations, by far. Each "split" pass
+// does 4 N V D = 550 GFLOP (the logits again, then its product) ->
+// 0.556 ms.
 //
 // Forward design. One block (8 warps) owns 128 token rows and a slice of
 // the vocabulary; it walks the slice in tiles of 128 vocab rows and
@@ -552,6 +559,26 @@ fused_ce_bwd_tc_de_kernel(const bf16* __restrict__ h,
   bwd_tc_body<false>(E, h, t, lse, g, de, V, N, D, smem_raw);
 }
 
+// One backward pass, the dh pass over the N token rows or the dE pass
+// over the V vocab rows, after checking the shapes the passes take.
+cudaError_t bwd_pass(bool dh_pass, const void* h, const void* E,
+                     const void* t, const void* lse, const void* g,
+                     void* out, int N, int V, int D, cudaStream_t st) {
+  if (N < 1 || V < 1 || D < 8 || D % 8 || D > B_MAX_D)
+    return cudaErrorInvalidValue;
+  const auto kern =
+      dh_pass ? fused_ce_bwd_tc_dh_kernel : fused_ce_bwd_tc_de_kernel;
+  const size_t smem = bwd_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<((dh_pass ? N : V) + B_BR - 1) / B_BR, B_THREADS, smem, st>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(E),
+      static_cast<const int*>(t), static_cast<const float*>(lse),
+      static_cast<const float*>(g), static_cast<bf16*>(out), N, V, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -596,29 +623,25 @@ int fused_ce_bwd_tc(const void* h, const void* E, const void* t,
                     const void* lse, const void* g, void* dh, void* de,
                     int N, int V, int D, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N < 1 || V < 1 || D < 8 || D % 8 || D > B_MAX_D)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_bwd_tc_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t err = bwd_pass(true, h, E, t, lse, g, dh, N, V, D, st);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(fused_ce_bwd_tc_de_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const bf16* hb = static_cast<const bf16*>(h);
-  const bf16* eb = static_cast<const bf16*>(E);
-  const int* ti = static_cast<const int*>(t);
-  const float* l = static_cast<const float*>(lse);
-  const float* gg = static_cast<const float*>(g);
-  fused_ce_bwd_tc_dh_kernel<<<(N + B_BR - 1) / B_BR, B_THREADS, smem, st>>>(
-      hb, eb, ti, l, gg, static_cast<bf16*>(dh), N, V, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fused_ce_bwd_tc_de_kernel<<<(V + B_BR - 1) / B_BR, B_THREADS, smem, st>>>(
-      hb, eb, ti, l, gg, static_cast<bf16*>(de), N, V, D);
-  return (int)cudaGetLastError();
+  return (int)bwd_pass(false, h, E, t, lse, g, de, N, V, D, st);
+}
+
+// The variant "split", one pass each, with fused_ce_bwd_tc's arguments:
+// dh (N, D), written once by fused_ce_dh_tc; de (V, D), by fused_ce_de_tc.
+int fused_ce_dh_tc(const void* h, const void* E, const void* t,
+                   const void* lse, const void* g, void* dh, int N, int V,
+                   int D, void* stream) {
+  return (int)bwd_pass(true, h, E, t, lse, g, dh, N, V, D,
+                       static_cast<cudaStream_t>(stream));
+}
+
+int fused_ce_de_tc(const void* h, const void* E, const void* t,
+                   const void* lse, const void* g, void* de, int N, int V,
+                   int D, void* stream) {
+  return (int)bwd_pass(false, h, E, t, lse, g, de, N, V, D,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) {

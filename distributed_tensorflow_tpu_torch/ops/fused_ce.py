@@ -16,12 +16,14 @@ device memory:
   launches: for ``"b"`` (the port of the merged backward
   ``_bwd_merged_b_kernel``) in bf16 ``fused_ce_bwd_tc`` of
   ``csrc/fused_ce_tc.cu`` (tensor cores), in f32 ``fused_ce_bwd`` of
+  ``csrc/fused_ce.cu``; for ``"split"`` (``_dh_kernel``, ``_de_kernel``)
+  in bf16 ``fused_ce_dh_tc`` then ``fused_ce_de_tc`` of
+  ``csrc/fused_ce_tc.cu``, in f32 ``fused_ce_dh`` then ``fused_ce_de`` of
   ``csrc/fused_ce.cu``; for ``"a"`` ``fused_ce_bwd_a``
-  (``_bwd_merged_kernel``), for ``"split"`` ``fused_ce_dh`` then
-  ``fused_ce_de`` (``_dh_kernel``, ``_de_kernel``), all of
-  ``csrc/fused_ce.cu`` in either dtype. :func:`kernel_route` states the
-  rule. On a CPU tensor it runs :func:`fused_ce_bwd_plain`, or for
-  ``"split"`` :func:`fused_ce_dh_plain` and :func:`fused_ce_de_plain`.
+  (``_bwd_merged_kernel``) of ``csrc/fused_ce.cu`` in either dtype.
+  :func:`kernel_route` states the rule. On a CPU tensor it runs
+  :func:`fused_ce_bwd_plain`, or for ``"split"``
+  :func:`fused_ce_dh_plain` and :func:`fused_ce_de_plain`.
 - :func:`fused_cross_entropy` — the public op, differentiable in
   ``hidden`` and ``embed`` through :class:`FusedCrossEntropy`.
 
@@ -57,8 +59,9 @@ CE_ARGTYPES = {
 CE_TC_ARGTYPES = {
     "fused_ce_fwd_tc": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "fused_ce_bwd_tc": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p]}
+    **{name: [ctypes.c_void_p] * n + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+       for name, n in (("fused_ce_bwd_tc", 7), ("fused_ce_dh_tc", 6),
+                       ("fused_ce_de_tc", 6))}}
 #: token rows and vocab rows of a tile of ``fused_ce_fwd_tc``
 TC_FWD_TILE = 128
 #: (m, l) partials a row gets from each vocab slice of the forward
@@ -187,11 +190,11 @@ def kernel_route(dtype, d: int, op: str) -> str:
     inputs of ``dtype`` and d_model ``d`` and ``op`` — ``"fwd"`` or a
     backward variant (``"b"``, ``"a"``, ``"split"``).
 
-    - bf16 forward and bf16 ``"b"`` go to the tensor cores, which need
-      16-byte rows: ``d`` a multiple of 8, else ValueError;
+    - bf16 forward, ``"b"`` and ``"split"`` go to the tensor cores, which
+      need 16-byte rows: ``d`` a multiple of 8, else ValueError;
     - f32 stays on the CUDA cores, whose f32 products keep f32 parity
-      (on tensor cores f32 would be TF32), and so do ``"a"`` and
-      ``"split"`` in either dtype;
+      (on tensor cores f32 would be TF32), and so does ``"a"`` in either
+      dtype;
     - every backward keeps a ``32 x d`` f32 gradient on chip: ``d`` at
       most :data:`KERNEL_MAX_D`, else ValueError."""
     if dtype not in KERNEL_DTYPES:
@@ -202,7 +205,7 @@ def kernel_route(dtype, d: int, op: str) -> str:
     if op != "fwd" and d > KERNEL_MAX_D:
         raise ValueError(f"fused_ce_bwd: d_model {d} > {KERNEL_MAX_D}, the "
                          f"widest the kernel takes")
-    if dtype == torch.bfloat16 and op in ("fwd", "b"):
+    if dtype == torch.bfloat16 and op in ("fwd", "b", "split"):
         if d % 8:
             raise ValueError(f"fused_ce: bf16 d_model {d} is not a "
                              f"multiple of 8 (the tensor-core kernels "
@@ -317,9 +320,12 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
       f32 ``(V, D)`` accumulator with atomics and keeps dh on chip;
     - ``"a"``: ``fused_ce_bwd_a`` (``.launches_a``) adds dh into an f32
       ``(N, D)`` accumulator with atomics and keeps dE on chip;
-    - ``"split"``: ``fused_ce_dh`` (``.launches_dh``) then
-      ``fused_ce_de`` (``.launches_de``), each gradient on chip, no
-      atomics: the same dE on every run.
+    - ``"split"`` in bf16: ``fused_ce_dh_tc`` (``.launches_dh_tc``) then
+      ``fused_ce_de_tc`` (``.launches_de_tc``), on tensor cores: the two
+      passes of ``fused_ce_bwd_tc``, launched one at a time;
+    - ``"split"`` in f32: ``fused_ce_dh`` (``.launches_dh``) then
+      ``fused_ce_de`` (``.launches_de``); each split pass keeps its
+      gradient on chip, no atomics: the same dE on every run.
 
     With atomics the summation order of that gradient varies from run to
     run; the accumulator is cast to the input dtype afterwards. A CPU
@@ -349,11 +355,20 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
                 lse.data_ptr(), g.data_ptr())
         shape = (n, v, d, KERNEL_DTYPES[hidden.dtype])
         f32 = dict(dtype=torch.float32, device=hidden.device)
-        if route == "tensor_core":
+        if route == "tensor_core" and variant == "b":
             dh, de = torch.empty_like(hidden), torch.empty_like(embed)
             _launch("fused_ce_bwd_tc", hidden.device, *args, dh.data_ptr(),
                     de.data_ptr(), n, v, d, source="fused_ce_tc")
             fused_ce_bwd.launches_tc += 1
+            return dh, de
+        if route == "tensor_core":      # "split"
+            dh, de = torch.empty_like(hidden), torch.empty_like(embed)
+            _launch("fused_ce_dh_tc", hidden.device, *args, dh.data_ptr(),
+                    n, v, d, source="fused_ce_tc")
+            fused_ce_bwd.launches_dh_tc += 1
+            _launch("fused_ce_de_tc", hidden.device, *args, de.data_ptr(),
+                    n, v, d, source="fused_ce_tc")
+            fused_ce_bwd.launches_de_tc += 1
             return dh, de
         if variant == "b":
             dh = torch.empty_like(hidden)
@@ -380,8 +395,10 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
 fused_ce_bwd.launches = 0       # "b", #7, f32 (CUDA cores)
 fused_ce_bwd.launches_tc = 0    # "b", #7, bf16 (tensor cores)
 fused_ce_bwd.launches_a = 0     # "a", #6
-fused_ce_bwd.launches_dh = 0    # "split", #5
-fused_ce_bwd.launches_de = 0    # "split", #8
+fused_ce_bwd.launches_dh = 0    # "split", #5, f32 (CUDA cores)
+fused_ce_bwd.launches_de = 0    # "split", #8, f32 (CUDA cores)
+fused_ce_bwd.launches_dh_tc = 0    # "split", #5, bf16 (tensor cores)
+fused_ce_bwd.launches_de_tc = 0    # "split", #8, bf16 (tensor cores)
 
 
 class FusedCrossEntropy(torch.autograd.Function):

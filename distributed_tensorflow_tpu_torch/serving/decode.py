@@ -11,8 +11,10 @@ Functions over the port's stacked parameter dict
   The JAX program pads prompts to a fixed ``(1, max_seq_len)`` shape so
   it compiles once, and then needs the length mask; eager PyTorch has
   no such reason, so the port's prefill attention is the unmasked
-  causal flash forward (the ``flash_fwd`` CUDA kernel on the card) —
-  the same function on every row that is ever read.
+  causal flash forward (a flash-forward CUDA kernel on the card) —
+  the same function on every row that is ever read — or, where
+  ``cfg.attention_impl`` is ``"reference"`` (``tiny()``), the unfused
+  ``mha_reference``.
 - :func:`make_decode_fn` — one token per running sequence: project
   q/k/v, write k/v into the sequence's current row, gather its block
   window and attend the single query against it. This attention stays
@@ -142,8 +144,10 @@ def model_forward(cfg: TransformerConfig, params, tokens, lengths=None, *,
     """Full-sequence forward over the canonical parameter dict — the
     serving-side twin of ``TransformerLM.forward``. ``lengths`` masks a
     right-padded batch with the factored rule; without it attention is
-    the flash forward. ``return_kv`` also returns the per-layer post-RoPE
-    K and V ``(L, B, H, S, hd)`` — what prefill writes into the cache.
+    the flash forward, or ``mha_reference`` where ``cfg.attention_impl``
+    is ``"reference"`` (as in ``TransformerLM.forward``). ``return_kv``
+    also returns the per-layer post-RoPE K and V ``(L, B, H, S, hd)`` —
+    what prefill writes into the cache.
     ``last_only`` projects only the final position onto the vocabulary
     (``(B, 1, V)`` logits)."""
     dt = cfg.dtype
@@ -159,10 +163,12 @@ def model_forward(cfg: TransformerConfig, params, tokens, lengths=None, *,
         k = rotary_embedding(project_heads(h, att["key"].to(dt)),
                              seq_axis=-2)
         v = project_heads(h, att["value"].to(dt))
-        if lengths is None:
-            o = flash_attention(q, k, v, causal=cfg.causal)
-        else:
+        if lengths is not None:
             o = mha_reference(q, k, v, causal=cfg.causal, lengths=lengths)
+        elif cfg.attention_impl == "reference":
+            o = mha_reference(q, k, v, causal=cfg.causal)
+        else:
+            o = flash_attention(q, k, v, causal=cfg.causal)
         x = x + merge_heads(o, att["out"].to(dt))
         h = _rms_norm(x, p["RMSNorm_1"]["scale"], dt)
         x = x + _mlp(h, p["mlp"], dt)

@@ -31,10 +31,10 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("dtype,hd,op,route", [
     (BF16, 64, "fwd", "tc"),
-    (BF16, 64, "dq", "cuda_cores"),
+    (BF16, 64, "dq", "tc"),
     (BF16, 64, "dkv", "tc"),
     (BF16, 128, "fwd", "tc"),
-    (BF16, 128, "dq", "cuda_cores"),
+    (BF16, 128, "dq", "tc"),
     (BF16, 128, "dkv", "tc"),
     (F32, 64, "fwd", "cuda_cores"),
     (F32, 64, "dq", "cuda_cores"),
@@ -64,6 +64,7 @@ def _counters():
     return (tattn.flash_attention_fwd.launches,
             tattn.flash_attention_fwd.launches_tc,
             tattn.flash_attention_bwd.launches_dq,
+            tattn.flash_attention_bwd.launches_dq_tc,
             tattn.flash_attention_bwd.launches_dkv,
             tattn.flash_attention_bwd.launches_dkv_tc)
 
@@ -94,6 +95,27 @@ def test_cpu_bf16_takes_the_plain_versions():
     tattn.flash_attention(*leaves, causal=True).backward(do)
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)
+    assert _counters() == before
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cpu_bf16_dq_counts_no_tc_launch(causal):
+    """bf16 dq, which a CUDA tensor takes to ``flash_bwd_dq_tc``, runs the
+    plain version on the CPU and moves neither dq counter; the kernel
+    wrapper itself refuses a CPU tensor rather than fall back."""
+    q, k, v, do = (torch.from_numpy(a).to(BF16)
+                   for a in _inputs(5, 1, 2, 70, 40, 64))
+    assert tattn.attention_route(BF16, 64, "dq") == "tc"
+    o, lse = tattn.flash_attention_fwd(q, k, v, causal=causal)
+    delta = (o.float() * do.float()).sum(-1)
+    before = _counters()
+    dq, _, _ = tattn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want, _, _ = tattn.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=causal, sm_scale=0.125)
+    assert dq.dtype == BF16 and torch.equal(dq, want)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tattn.launch_bwd_dq(q, k, v, do, lse, delta, sm_scale=0.125,
+                            causal=causal, causal_offset=40 - 70)
     assert _counters() == before
 
 

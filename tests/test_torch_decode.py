@@ -11,6 +11,8 @@ bits between the packages. ``_quantize_rows`` on identical inputs is
 exact.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -125,6 +127,40 @@ def test_model_forward_matches_jax(weights):
     last = tdec.model_forward(cfg, tparams, torch.from_numpy(toks).long(),
                               last_only=True)
     np.testing.assert_allclose(last[:, 0].numpy(), full[:, -1].numpy(),
+                               atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["reference", None],
+                         ids=["reference", "flash"])
+def test_prefill_attention_follows_attention_impl(weights, monkeypatch,
+                                                  impl):
+    """The prefill's full forward takes ``mha_reference`` where
+    ``cfg.attention_impl`` is ``"reference"`` (``tiny()``'s, as in JAX)
+    and ``flash_attention`` otherwise, once a layer; both give the JAX
+    prefill's last logits."""
+    jcfg, jparams, cfg, tparams = weights
+    cfg = dataclasses.replace(cfg, attention_impl=impl)
+    calls = []
+    real = tdec.flash_attention
+
+    def flash(*a, **kw):
+        if impl == "reference":
+            raise AssertionError("flash_attention called under 'reference'")
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tdec, "flash_attention", flash)
+    n = len(PROMPT)
+    tcc = tkv.CacheConfig.for_model(cfg, num_blocks=12, block_size=4)
+    tlast, _ = tdec.make_prefill_fn(cfg, tcc)(
+        tparams, tkv.init_pool(tcc, device="cpu"), torch.tensor([PROMPT]),
+        torch.arange(n))
+    assert len(calls) == (0 if impl == "reference" else cfg.n_layers)
+    toks = np.zeros((1, MAX_SEQ), np.int32)
+    toks[0, :n] = PROMPT
+    want = jdec.model_forward(jcfg, jparams, jnp.asarray(toks),
+                              jnp.asarray([n], np.int32))[0, n - 1]
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(want),
                                atol=2e-5, rtol=0)
 
 

@@ -86,6 +86,27 @@ def test_generate_matches_jax_engine(causal_weights, case):
         assert stats["preemptions"] == 0
 
 
+def test_tiny_streams_match_jax_without_flash(causal_weights, monkeypatch):
+    """At ``tiny()`` (``attention_impl="reference"``, as in JAX) the
+    engine never reaches the flash forward, and its greedy streams
+    still equal the JAX engine's."""
+    from distributed_tensorflow_tpu_torch.serving import decode as tdec
+
+    def flash(*a, **kw):
+        raise AssertionError("flash_attention reached at tiny()")
+
+    monkeypatch.setattr(tdec, "flash_attention", flash)
+    jcfg, jparams, cfg, tparams = causal_weights
+    assert cfg.attention_impl == "reference"
+    spec = ENGINE_CASES["plain"]
+    want = JEngine(jcfg, jparams, **spec["kw"]).generate(
+        spec["prompts"], max_new_tokens=spec["new"])
+    engine = InferenceEngine(cfg, tparams, device="cpu", **spec["kw"])
+    assert engine.generate(spec["prompts"],
+                           max_new_tokens=spec["new"]) == want
+    _conserved(engine)
+
+
 def test_eos_stops_at_first_occurrence(causal_weights):
     """EOS set to a token whose FIRST occurrence in the JAX stream is at
     a known index: both engines stop right after it."""

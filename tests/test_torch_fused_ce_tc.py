@@ -32,7 +32,10 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 1000, "b", "tensor_core"),
     (BF16, 4096, "fwd", "tensor_core"),     # the forward keeps no D on chip
     (BF16, 1024, "a", "cuda_core"),
-    (BF16, 1024, "split", "cuda_core"),
+    (BF16, 1024, "split", "tensor_core"),
+    (BF16, 1000, "split", "tensor_core"),
+    (F32, 1024, "split", "cuda_core"),
+    (F32, 1024, "a", "cuda_core"),
     (BF16, 12, "a", "cuda_core"),
     (F32, 1024, "fwd", "cuda_core"),
     (F32, 1024, "b", "cuda_core"),
@@ -49,6 +52,8 @@ def test_kernel_route(dtype, d, op, route):
     (BF16, 1032, "b", "1024"),              # dh no longer fits on chip
     (F32, 2048, "b", "1024"),
     (BF16, 2048, "split", "1024"),
+    (BF16, 1020, "split", "multiple of 8"),
+    (BF16, 1032, "split", "1024"),
     (torch.float16, 1024, "fwd", "dtype"),
     (BF16, 1024, "c", "op="),
 ])
@@ -146,3 +151,22 @@ def test_cpu_bf16_takes_plain_versions_and_counts_nothing():
     assert torch.equal(dh, pdh) and torch.equal(de, pde)
     assert (tce.fused_ce_fwd.launches_tc, tce.fused_ce_bwd.launches_tc,
             tce.fused_ce_fwd.launches, tce.fused_ce_bwd.launches) == before
+
+
+def test_cpu_bf16_split_takes_plain_versions_and_counts_nothing():
+    """bf16 ``"split"``, which a CUDA tensor takes to ``fused_ce_dh_tc``
+    and ``fused_ce_de_tc``, runs the plain dh and dE versions on the CPU
+    and moves no split counter."""
+    h, e, t = (torch.from_numpy(x) for x in _inputs(20, 300, 16, seed=8))
+    h, e = h.to(BF16), e.to(BF16)
+    assert tce.kernel_route(BF16, 16, "split") == "tensor_core"
+    names = ("launches_dh", "launches_de", "launches_dh_tc",
+             "launches_de_tc", "launches_tc")
+    before = [getattr(tce.fused_ce_bwd, n) for n in names]
+    lse, _ = tce.fused_ce_fwd(h, e, t)
+    g = torch.full((20,), 0.05)
+    dh, de = tce.fused_ce_bwd(h, e, t, lse, g, variant="split")
+    assert dh.dtype == de.dtype == BF16
+    assert torch.equal(dh, tce.fused_ce_dh_plain(h, e, t, lse, g))
+    assert torch.equal(de, tce.fused_ce_de_plain(h, e, t, lse, g))
+    assert [getattr(tce.fused_ce_bwd, n) for n in names] == before

@@ -104,7 +104,9 @@ def _jax_run(variant):
 
 def _port_run(variant, init):
     mu = torch.bfloat16 if variant.endswith("mu_bf16") else None
+    # the flash path, as the JAX side's attention_impl="interpret"
     cfg = ttf.TransformerConfig.tiny(max_seq_len=S, adam_mu_dtype=mu,
+                                     attention_impl=None,
                                      **_options(variant))
     model = ttf.TransformerLM(cfg, ttf.params_from_jax(cfg, init,
                                                        device="cpu"),

@@ -61,6 +61,15 @@ def test_logits_match_flax(scan_layers, causal):
     np.testing.assert_allclose(hidden, want_hidden, atol=2e-5, rtol=0)
 
 
+def test_tiny_attention_impl_follows_jax():
+    """``tiny()`` takes JAX's ``attention_impl`` (the unfused reference:
+    head dim 16, which no attention kernel takes); ``None`` still asks
+    for the flash path."""
+    assert TransformerConfig.tiny().attention_impl == \
+        JConfig.tiny().attention_impl == "reference"
+    assert TransformerConfig.tiny(attention_impl=None).attention_impl is None
+
+
 def test_params_from_jax_layouts_agree():
     """The unstacked ``layer_{i}`` tree converts to the same stacked dict
     as the equivalent ``layers`` tree."""

@@ -34,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 # device-kernel name fragments of each group, first match wins
 GROUPS = (("flash_fwd_tc", ("flash_fwd_tc_kernel",)),
           ("flash_fwd", ("flash_fwd_kernel",)),
+          ("flash_bwd_dq_tc", ("flash_bwd_dq_tc_kernel",)),
           ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
           ("flash_bwd_dkv_tc", ("flash_bwd_dkv_tc_kernel",)),
           ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
