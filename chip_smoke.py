@@ -10,7 +10,8 @@ printing one JSON line:
 1. ``device``  — the card's name and power limit (``nvidia-smi``).
 2. ``build``   — builds every CUDA kernel source with ``nvcc`` into
    ``build/torch_kernels/``, one ``nvcc`` per source, all started
-   together; reports each one's time, registers and spills.
+   together; reports each one's time, registers and spills, and fails
+   if a tensor-core kernel spills.
 3. ``kernels`` — each kernel's wrapper against its plain PyTorch
    version on the card, in bf16 and f32, at the main paths' shapes and
    at the edges (ragged tails, causal offsets, fully-masked rows, vocab
@@ -19,11 +20,13 @@ printing one JSON line:
    tensor-core kernels in bf16 (also at their tiling's edges: Sq < 64,
    Sk one past a multiple of 64, a causal offset no multiple of the
    tile, both tails ragged at hd 128, rows that see no key) and the
-   CUDA-core kernels in f32, also at BH = 65552 (past grid y's limit);
-   the cross-entropy forward, merged backward "b" and split backward
-   take the tensor-core kernels in bf16 (also at their tiling's edges:
-   N and V one off a multiple of 128, a vocab split whose last slice is
-   the ragged tail alone, targets on the slice boundaries) and the
+   CUDA-core kernels in f32, also at BH = 65552 (past grid y's limit)
+   and at head dims 32 and 80, which the wrappers zero-pad to 64 and
+   128; the cross-entropy forward and every backward variant take the
+   tensor-core kernels in bf16 (also at their tiling's edges: N and V
+   one off a multiple of 128, a vocab split whose last slice is the
+   ragged tail alone, targets on the slice boundaries, and d_model 12
+   and 1020, which the wrappers zero-pad to a multiple of 8) and the
    CUDA-core kernels in f32; the backward variants "a" and "split"
    through the public op ``fused_cross_entropy`` and autograd, each
    against its plain versions and against variant "b", their launches
@@ -34,8 +37,8 @@ printing one JSON line:
    ``F.linear_cross_entropy``, plain and chunked) timed at the train
    step's shapes with CUDA events, in turns plain, kernel, kernel,
    plain; the flash forward also at the serve shape, and the f32
-   CUDA-core attention and split cross-entropy kernels at the train
-   step's shapes in f32.
+   CUDA-core attention and cross-entropy "a" and "split" kernels at the
+   train step's shapes in f32; bf16 "a" also against "b", in turns.
 4. ``serve``   — ``InferenceEngine.generate`` at the full width of
    ``transformer_big`` in bf16 (random weights from seed 0), 8 requests
    × 32 new tokens. The launch counters are set to 0 just before and
@@ -178,6 +181,7 @@ KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "fused_ce_fwd": ("fused_ce.cu", "ops/fused_ce.py:75"),
     "fused_ce_dh_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:137"),
     "fused_ce_dh": ("fused_ce.cu", "ops/fused_ce.py:137"),
+    "fused_ce_bwd_a_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:159"),
     "fused_ce_bwd_a": ("fused_ce.cu", "ops/fused_ce.py:159"),
     "fused_ce_bwd_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:201"),
     "fused_ce_bwd": ("fused_ce.cu", "ops/fused_ce.py:201"),
@@ -191,6 +195,7 @@ KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
 # train step of train_parity (the CUDA-core attention and CE kernels take
 # f32)
 KERNEL_PATH = {"fused_ce_dh": "ce_variants", "fused_ce_bwd_a": "ce_variants",
+               "fused_ce_bwd_a_tc": "ce_variants",
                "fused_ce_de": "ce_variants", "fused_ce_dh_tc": "ce_variants",
                "fused_ce_de_tc": "ce_variants", "fused_adamw": "train_fused",
                "flash_fwd": "train_parity", "flash_bwd_dq": "train_parity",
@@ -329,6 +334,7 @@ def launch_counts() -> dict:
             "fused_ce_fwd": fused_ce.fused_ce_fwd.launches,
             "fused_ce_dh_tc": fused_ce.fused_ce_bwd.launches_dh_tc,
             "fused_ce_dh": fused_ce.fused_ce_bwd.launches_dh,
+            "fused_ce_bwd_a_tc": fused_ce.fused_ce_bwd.launches_a_tc,
             "fused_ce_bwd_a": fused_ce.fused_ce_bwd.launches_a,
             "fused_ce_bwd_tc": fused_ce.fused_ce_bwd.launches_tc,
             "fused_ce_bwd": fused_ce.fused_ce_bwd.launches,
@@ -347,8 +353,9 @@ def zero_launch_counts():
         setattr(attention.flash_attention_bwd, name, 0)
     fused_ce.fused_ce_fwd.launches = 0
     fused_ce.fused_ce_fwd.launches_tc = 0
-    for name in ("launches", "launches_tc", "launches_a", "launches_dh",
-                 "launches_de", "launches_dh_tc", "launches_de_tc"):
+    for name in ("launches", "launches_tc", "launches_a", "launches_a_tc",
+                 "launches_dh", "launches_de", "launches_dh_tc",
+                 "launches_de_tc"):
         setattr(fused_ce.fused_ce_bwd, name, 0)
     fused_adamw.fused_adamw_update.launches = 0
 
@@ -386,6 +393,13 @@ def phase_build(state):
         info = _build.build_info[name]
         out["sources"][name] = {"nvcc_s": round(info["seconds"], 3),
                                 "kernels": ptxas_report(info["log"])}
+    # the tensor-core kernels keep their tiles in registers: none may spill
+    spills = {f"{src}:{k}": r.get("spill_store_bytes")
+              for src in ("flash_tc", "fused_ce_tc")
+              for k, r in out["sources"][src]["kernels"].items()
+              if r.get("spill_store_bytes")}
+    if spills:
+        raise AssertionError(f"tensor-core kernels spill registers: {spills}")
     return out
 
 
@@ -513,6 +527,13 @@ def _check_flash_fwd(state, gen):
               ("bf16_causal_q1000_k1024", bf, 1, 16, 1000, 1024, 64, True),
               ("bf16_noncausal_hd128_q130_k200", bf, 1, 4, 130, 200, 128,
                False),
+              # head dims zero-padded for the kernels: 32 to 64, 80 to 128
+              ("bf16_causal_hd32_S200", bf, 1, 4, 200, 200, 32, True),
+              ("bf16_noncausal_hd80_q130_k90", bf, 1, 4, 130, 90, 80,
+               False),
+              ("f32_causal_hd32_S200", f32, 1, 4, 200, 200, 32, True),
+              ("f32_noncausal_hd80_q130_k90", f32, 1, 4, 130, 90, 80,
+               False),
               ("f32_causal_S300", f32, 1, 16, 300, 300, 64, True),
               ("f32_noncausal_hd128_q200_k130", f32, 1, 4, 200, 130, 128,
                False),
@@ -567,7 +588,10 @@ def _check_flash_bwd(state, gen):
              ("causal_q100_k40_masked_rows", 1, 4, 100, 40, 64, True),
              ("causal_hd128_S130", 1, 4, 130, 130, 128, True),
              ("noncausal_q150_k90", 1, 4, 150, 90, 64, False),
-             ("noncausal_hd128_q70_k200", 1, 2, 70, 200, 128, False)]
+             ("noncausal_hd128_q70_k200", 1, 2, 70, 200, 128, False),
+             # head dims zero-padded for the kernels: 32 to 64, 80 to 128
+             ("causal_hd32_S200", 1, 4, 200, 200, 32, True),
+             ("noncausal_hd80_q150_k90", 1, 4, 150, 90, 80, False)]
     runs = [(f"{tag}_{name}", dt, *shape)
             for tag, dt in (("bf16", bf), ("f32", f32))
             for name, *shape in cases]
@@ -786,6 +810,11 @@ def _check_fused_ce(state, gen):
              ("bf16_N255_V2049_D1000", torch.bfloat16, 255, 2049, 1000),
              ("bf16_N4095_V32767_D1024", torch.bfloat16, 4095, 32767, 1024),
              ("bf16_N4097_V32769_D1024", torch.bfloat16, 4097, 32769, 1024)]
+    # a d_model no multiple of 8, which bf16 zero-pads for the tensor
+    # cores, with V no multiple of 32 (the variant "a" kernel's vocab
+    # rows a block) and of 128
+    runs += [("bf16_N300_V1001_D12", torch.bfloat16, 300, 1001, 12),
+             ("bf16_N129_V1025_D1020", torch.bfloat16, 129, 1025, 1020)]
     runs.append(("bf16_train_chunk_N4096_V32768_D1024", torch.bfloat16,
                  4096, 32768, 1024))
     results, failures, main = [], [], None
@@ -916,12 +945,16 @@ def _check_fused_ce(state, gen):
 
 # (name, N, V, D): a ragged vocab tail (V = 1000, 15 tiles + 40), N no
 # multiple of the 32-row tile, the widest D, the train step's chunk, and
-# two 4096-row chunks of the public op
+# two 4096-row chunks of the public op; d_model no multiple of 8 (bf16
+# zero-pads it for the tensor cores) with a V no multiple of the 32
+# vocab rows of a block of "a"'s kernel
 CE_VARIANT_CASES = [("N300_V1000_D256", 300, 1000, 256),
                     ("N100_V1000_D1024", 100, 1000, 1024),
                     ("N4133_V1000_D64", 4133, 1000, 64),
                     ("train_chunk_N4096_V32768_D1024", 4096, 32768, 1024),
-                    ("two_chunks_N8192_V1000_D128", 8192, 1000, 128)]
+                    ("two_chunks_N8192_V1000_D128", 8192, 1000, 128),
+                    ("padded_N300_V1001_D12", 300, 1001, 12),
+                    ("padded_N129_V1025_D1020", 129, 1025, 1020)]
 
 
 def _ce_variant_grads(h, e, t, w, variant):
@@ -939,10 +972,11 @@ def _check_ce_variants(state, gen):
     """The backward variants "a" (#6) and "split" (#5, #8) through the
     public op, each against its plain versions and against variant "b"
     (#7) on the same inputs, in bf16 and f32; the variant kernels'
-    launches are counted over this run (bf16 "split" on the tensor
-    cores). Then #5, #6 and #8 timed at the train step's chunk against
-    their plain versions, in turns: bf16 "a", each bf16 "split" pass, and
-    the f32 "split" kernels in f32."""
+    launches are counted over this run (bf16 "a" and "split" on the
+    tensor cores, f32 on the CUDA cores). Then #5, #6 and #8 timed at the
+    train step's chunk against their plain versions, in turns: bf16 "a",
+    each bf16 "split" pass, and the f32 "a" and "split" kernels in f32;
+    and bf16 "a" against "b", in turns."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import fused_ce as ce
 
@@ -987,8 +1021,8 @@ def _check_ce_variants(state, gen):
             failures.append(name)
         if "train_chunk" in name:
             main = (h, e, t, w, {
-                "fused_ce_bwd_a": max(abs_err(got["a"][0], pdh),
-                                      abs_err(got["a"][1], pde)),
+                "fused_ce_bwd_a_tc": max(abs_err(got["a"][0], pdh),
+                                         abs_err(got["a"][1], pde)),
                 "fused_ce_dh_tc": abs_err(got["split"][0], want["split"][0]),
                 "fused_ce_de_tc": abs_err(got["split"][1],
                                           want["split"][1])})
@@ -1000,7 +1034,8 @@ def _check_ce_variants(state, gen):
     bf, f32 = chunks[torch.bfloat16], chunks[torch.float32]
     expected = {"fused_ce_fwd_tc": 3 * bf, "fused_ce_fwd": 3 * f32,
                 "fused_ce_bwd_tc": bf, "fused_ce_bwd": f32,
-                "fused_ce_bwd_a": bf + f32, "fused_ce_dh_tc": bf,
+                "fused_ce_bwd_a_tc": bf, "fused_ce_bwd_a": f32,
+                "fused_ce_dh_tc": bf,
                 "fused_ce_de_tc": bf, "fused_ce_dh": f32, "fused_ce_de": f32}
     if failures or counts != expected_counts(expected, 1):
         raise AssertionError(f"fused_ce variants: failures {failures}, "
@@ -1022,10 +1057,31 @@ def _check_ce_variants(state, gen):
                 g.data_ptr())
         source, dims = (("fused_ce_tc", (n, v, d)) if tc else
                         ("fused_ce", (n, v, d, ce.KERNEL_DTYPES[dt])))
+
+        def kernel_a():
+            return ce.fused_ce_bwd(h, e, t, lse, g, variant="a")
+
         if tc:
+            rows["fused_ce_bwd_a_tc"] = (dt, in_turns(
+                kernel_a, lambda: ce.fused_ce_bwd_plain(h, e, t, lse, g), 3),
+                "bwd")
+            a_b = in_turns(kernel_a, lambda: ce.fused_ce_bwd(h, e, t, lse, g),
+                           3)
+            a_against_b = {"a_ms": a_b["ms"], "a_ms_runs": a_b["ms_runs"],
+                           "b_ms": a_b["plain_ms"],
+                           "b_ms_runs": a_b["plain_ms_runs"]}
+        else:   # f32 "a" (CUDA cores) at the chunk against its plain version
+            gdh, gde = kernel_a()
+            wdh, wde = ce.fused_ce_bwd_plain(h, e, t, lse, g)
+            errs["fused_ce_bwd_a"] = max(abs_err(gdh, wdh), abs_err(gde, wde))
+            rel = max(rel_err(gdh, wdh), rel_err(gde, wde))
+            del gdh, gde, wdh, wde
+            if rel > GRAD_TOL["float32"]:
+                raise AssertionError(f"fused_ce_bwd_a f32 at the train "
+                                     f"chunk: rel err {rel}")
             rows["fused_ce_bwd_a"] = (dt, in_turns(
-                lambda: ce.fused_ce_bwd(h, e, t, lse, g, variant="a"),
-                lambda: ce.fused_ce_bwd_plain(h, e, t, lse, g), 3), "bwd")
+                kernel_a, lambda: ce.fused_ce_bwd_plain(h, e, t, lse, g), 2),
+                "bwd")
         for which, like in (("dh", h), ("de", e)):
             entry = f"fused_ce_{which}" + ("_tc" if tc else "")
             plain = getattr(ce, f"fused_ce_{which}_plain")
@@ -1073,7 +1129,7 @@ def _check_ce_variants(state, gen):
                             "flops": flops, "bytes": nbytes,
                             "dtype": str(dt)[6:], "achieved_tflops": tflops}
     return {"cases": results, "launches": counts, "shape": [n, v, d],
-            **shape_out,
+            **shape_out, "a_against_b_bf16": a_against_b,
             "split_ms": shape_out["fused_ce_dh_tc"]["ms"]
             + shape_out["fused_ce_de_tc"]["ms"],
             "split_ms_f32": shape_out["fused_ce_dh"]["ms"]

@@ -22,7 +22,9 @@ Port of ``distributed_tensorflow_tpu/ops/attention.py``. Layout is
   tensor cores), in f32 ``flash_bwd_dq`` and ``flash_bwd_dkv``
   (``csrc/flash_bwd.cu``, CUDA cores); on a CPU tensor
   :func:`flash_attention_bwd_plain`.
-  :func:`attention_route` states which kernel a CUDA call takes.
+  :func:`attention_route` states which kernel a CUDA call takes; a head
+  dim below 128 other than 64 is zero-padded to the next of the two the
+  kernels are built for (:func:`kernel_head_dim`).
 - :func:`flash_attention` — the public op, ``o`` only, differentiable
   through :class:`FlashAttention` (the counterpart of the JAX
   ``custom_vjp``).
@@ -36,7 +38,8 @@ import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-#: head dims the CUDA kernels are instantiated for
+#: head dims the CUDA kernels are instantiated for; flash_attention_fwd
+#: and flash_attention_bwd zero-pad any smaller one to the next of them
 KERNEL_HEAD_DIMS = (64, 128)
 #: input dtypes the CUDA kernels take (code passed to the C entry points)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -175,18 +178,47 @@ def attention_route(dtype, hd: int, op: str) -> str:
     - bf16 goes to the tensor cores, every op;
     - f32 stays on the CUDA cores, whose f32 products keep f32 parity
       (on tensor cores f32 would be TF32);
-    - any other dtype, a head dim outside :data:`KERNEL_HEAD_DIMS` or an
-      unknown ``op`` raises ValueError."""
+    - a head dim up to 128 is taken: :func:`flash_attention_fwd` and
+      :func:`flash_attention_bwd` zero-pad it to :func:`kernel_head_dim`;
+    - any other dtype, a head dim above 128 (the kernels keep a row of
+      the head in registers) or an unknown ``op`` raises ValueError."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"flash_attention: dtype {dtype} not in "
                          f"{sorted(map(str, KERNEL_DTYPES))}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+    kernel_head_dim(hd)
     if op not in ATTENTION_OPS:
         raise ValueError(f"flash_attention: op={op!r}; expected one of "
                          f"{ATTENTION_OPS}")
     return "tc" if dtype == torch.bfloat16 else "cuda_cores"
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head dim of :data:`KERNEL_HEAD_DIMS` that a head dim ``hd`` is
+    zero-padded to: the smallest that holds it. Exact: zero columns of q
+    and k add nothing to the scores, zero columns of v give zero columns
+    of o (so ``delta = rowsum(o · do)`` is unchanged), and the padded
+    columns of dq, dk and dv are dropped. ValueError above 128."""
+    for kd in KERNEL_HEAD_DIMS:
+        if 0 < hd <= kd:
+            return kd
+    raise ValueError(f"flash_attention: head_dim {hd} is not in 1.."
+                     f"{KERNEL_HEAD_DIMS[-1]}, the widest the kernels take")
+
+
+def with_padded_head(fn, tensors, *args, **kw):
+    """``fn(*tensors, *args, **kw)`` with the head dim (last dim) of each
+    of ``tensors`` zero-padded to :func:`kernel_head_dim`, and the
+    head-dim axis of its 4-D outputs (o, dq, dk, dv) sliced back; ``lse``
+    and ``delta`` have no head dim and pass as they are. Without padding
+    to do, ``fn`` runs on the tensors as they are."""
+    hd = tensors[0].shape[-1]
+    kd = kernel_head_dim(hd)
+    if kd == hd:
+        return fn(*tensors, *args, **kw)
+    out = fn(*(torch.nn.functional.pad(x, (0, kd - hd)) for x in tensors),
+             *args, **kw)
+    return tuple(x[..., :hd].contiguous() if x.ndim == 4 else x
+                 for x in out)
 
 
 def _check_kernel_inputs(q, k, v, op: str) -> str:
@@ -207,7 +239,12 @@ def _check_kernel_inputs(q, k, v, op: str) -> str:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
-    return attention_route(q.dtype, hd, op)
+    route = attention_route(q.dtype, hd, op)
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernels take head_dim "
+                         f"{KERNEL_HEAD_DIMS}, not {hd} (flash_attention_fwd"
+                         f" and flash_attention_bwd pad it)")
+    return route
 
 
 def _launch_kernel(q, k, v, sm_scale, causal, causal_offset):
@@ -249,16 +286,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     in bf16 ``flash_fwd_tc`` (tensor cores; one launch counted in
     ``flash_attention_fwd.launches_tc``), in f32 ``flash_fwd`` (CUDA
     cores; ``flash_attention_fwd.launches``). A CPU tensor goes through
-    :func:`flash_attention_plain`. Any other device raises. Gradients go
-    through :func:`flash_attention`."""
+    :func:`flash_attention_plain`. Any other device raises. A head dim
+    other than 64 and 128 (at most 128) is zero-padded to
+    :func:`kernel_head_dim` for the kernel and ``o`` sliced back
+    (:func:`with_padded_head`); ``sm_scale`` defaults to the true head
+    dim's. Gradients go through :func:`flash_attention`."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if causal_offset is None:
         causal_offset = k.shape[2] - q.shape[2]
     with torch.no_grad():
         if q.device.type == "cuda":
-            return _launch_kernel(q, k, v, float(sm_scale), causal,
-                                  causal_offset)
+            return with_padded_head(_launch_kernel, (q, k, v),
+                                    float(sm_scale), causal, causal_offset)
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, causal=causal,
                                          sm_scale=sm_scale,
@@ -390,6 +430,12 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
     return dk, dv
 
 
+def _launch_bwd_pair(q, k, v, do, lse, delta, **kw):
+    """``(dq, dk, dv)`` from the dq and the dk/dv kernel."""
+    return (launch_bwd_dq(q, k, v, do, lse, delta, **kw),
+            *launch_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                         sm_scale: float | None = None,
                         causal_offset: int | None = None):
@@ -414,10 +460,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
             # delta = rowsum(o · do) in f32 before the kernels, as in
             # JAX (:371)
             delta = (o.float() * do.float()).sum(-1)
-            kw = dict(sm_scale=float(sm_scale), causal=causal,
-                      causal_offset=causal_offset)
-            dq = launch_bwd_dq(q, k, v, do, lse, delta, **kw)
-            return (dq, *launch_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            return with_padded_head(
+                _launch_bwd_pair, (q, k, v, do), lse, delta,
+                sm_scale=float(sm_scale), causal=causal,
+                causal_offset=causal_offset)
         if q.device.type == "cpu":
             return flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale,

@@ -1,10 +1,8 @@
 // Fused cross-entropy against a tied embedding, for Hopper (sm_90a),
 // CUDA C++, CUDA cores: the (N, V) logits never reach device memory.
-// These kernels take f32, whose f32 products keep f32 parity (on tensor
-// cores f32 would be TF32), and bf16 for the variant "a" only; bf16
-// fused_ce_fwd, fused_ce_bwd, fused_ce_dh and fused_ce_de run on the
-// tensor cores of fused_ce_tc.cu instead, and return
-// cudaErrorInvalidValue here.
+// These kernels take f32 only, whose f32 products keep f32 parity (on
+// tensor cores f32 would be TF32); bf16 runs on the tensor cores of
+// fused_ce_tc.cu, and returns cudaErrorInvalidValue here.
 //
 // Replaces: distributed_tensorflow_tpu/ops/fused_ce.py
 // - fused_ce_fwd: _fwd_kernel (:75; _fwd_call :288, pl.pallas_call at
@@ -78,11 +76,10 @@
 // far (in f32, at 67 TFLOP/s on CUDA cores: 4.1, 12.3, 8.2 ms). These
 // kernels run f32 FMAs on CUDA cores and reach about 12 TFLOP/s, the
 // rate at which the shared-memory reads of a 2 x 4 register tile (6
-// loads for 8 FMAs) feed the FMA units; bf16 #4, #5, #7 and #8 moved to
-// the tensor cores (fused_ce_tc.cu), and bf16 #6 is to follow.
+// loads for 8 FMAs) feed the FMA units; bf16 runs, every kernel of it,
+// on the tensor cores (fused_ce_tc.cu).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
 namespace {
@@ -106,16 +103,9 @@ constexpr int PS = BV + 1;   // padded stride of the p_adj tile
 constexpr int MAX_D = 1024;  // dh accumulator: BN x D f32 in shared memory
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
@@ -537,16 +527,12 @@ cudaError_t launch_bwd(void (*kern)(const T*, const T*, const int*,
 }
 
 // variant: 0 = "b" (#7), 1 = dh of "split" (#5), 2 = dE of "split" (#8),
-// 3 = "a" (#6); each in f32, and "a" in bf16 too (bf16 "b" and "split"
-// run on the tensor cores, fused_ce_tc.cu)
+// 3 = "a" (#6); each in f32 (bf16 runs on the tensor cores,
+// fused_ce_tc.cu)
 cudaError_t launch_bwd_variant(int variant, int dtype, const void* h,
                                const void* E, const int* t, const float* lse,
                                const float* g, void* dA, float* dB, int N,
                                int V, int D, cudaStream_t stream) {
-  if (dtype == 1 && variant == 3)
-    return launch_bwd<__nv_bfloat16>(fused_ce_bwd_a_kernel<__nv_bfloat16>, V,
-                                     h, E, t, lse, g, dA, dB, N, V, D,
-                                     stream);
   if (dtype != 0) return cudaErrorInvalidValue;
   switch (variant) {
     case 0:
@@ -587,7 +573,8 @@ int bwd_entry(int variant, const void* h, const void* E, const void* t,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (fused_ce_bwd_a only). Each returns
+// dtype: 0 = float32 (1 = bfloat16 is refused: fused_ce_tc.cu). Each
+// returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype
 // or a D it does not take).
 int fused_ce_fwd(const void* h, const void* E, const void* t, void* lse,

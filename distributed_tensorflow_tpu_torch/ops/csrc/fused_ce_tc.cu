@@ -21,6 +21,12 @@
 //   rebuilt per tile as _p_adj does (:123), and one of the two products
 //   each, dh = p_adj E and dE = p_adj^T h. They are the two passes of
 //   fused_ce_bwd_tc, launched one at a time.
+// - fused_ce_bwd_a_tc: _bwd_merged_kernel (:159; call :356), the merged
+//   variant "a", in one pass: p_adj rounded to bf16 once (:180) and fed
+//   to both products, dE = p_adj^T h summed in f32 on chip and written
+//   once in bf16, dh = p_adj E added in f32 across vocab groups into an
+//   accumulator that the caller zeroes and casts, where the TPU kernel
+//   carries dh in an aliased HBM buffer (:355, :377).
 // The vocab tail past V and the token rows past N are zero-filled as they
 // are staged (cp.async with src-size 0), so no uninitialised row is read
 // (the role of _masked_e, :111), and masked out of the results. A row with
@@ -30,9 +36,9 @@
 // chunks, so two launches of each, a step): the forward does 2 N V D =
 // 275 GFLOP -> 0.278 ms at 989 TFLOP/s bf16, against 75.5 MB of h and E
 // (23 us at 3.35 TB/s); the backward function 6 N V D = 825 GFLOP ->
-// 0.834 ms. Both are bound by operations, by far. Each "split" pass
-// does 4 N V D = 550 GFLOP (the logits again, then its product) ->
-// 0.556 ms.
+// 0.834 ms ("a" does just that). Both are bound by operations, by far.
+// Each "split" pass does 4 N V D = 550 GFLOP (the logits again, then its
+// product) -> 0.556 ms.
 //
 // Forward design. One block (8 warps) owns 128 token rows and a slice of
 // the vocabulary; it walks the slice in tiles of 128 vocab rows and
@@ -74,6 +80,38 @@
 // token tiles (rows h, columns E) and a dE pass over vocab tiles (rows E,
 // columns h), each recomputing the logits: 8 N V D operations instead of
 // 6 (1.11 ms at peak), no atomics, and a dE that is the same on every
+// run.
+//
+// Variant "a" design. "a" keeps its trait: one pass, each (token tile,
+// vocab group)'s logits computed once for both products, dE on chip.
+// It is the dE pass (vocab rows, 32 a block, E's rows resident; h
+// streaming through in 64-token tiles) with a third product on each
+// tile: the 64 x D dh contribution p_adj^T (64 x 32) E_rows (32 x D),
+// p_adj^T read from the bf16 p_adj tile and E's rows from the resident
+// copy, both by ldmatrix.trans, in the dE product's 128-wide d_model
+// chunks. Its depth is only 32, so each 16 x 8 piece is done after two
+// mma.sync and goes straight from the accumulators to device memory as
+// a float4 atomicAdd (red.global.add.v4.f32): (V / 32) N D = 4.29e9 f32
+// adds a launch at the train chunk. tools/torch_ce_atomics_probe.py
+// measured the layouts of those adds alone (NVIDIA H100 80GB HBM3,
+// 700 W): with dh_acc row-major, a warp's adds cover 16 rows x 32 bytes
+// and ran at 8.63 ms (TMA bulk reduce-adds of staged 256-byte rows
+// 7.99 ms); thread-block clusters that pre-sum 2 or 4 blocks' chunks in
+// distributed shared memory (R = 64, 128 rows summed before the add)
+// took 14.9-23.1 ms, about 1 us a cluster barrier. So dh_acc is kept in
+// the fragments' order: each 16 x 8 tile is 512 contiguous bytes in
+// lane order, after one shuffle between lanes q and q ^ 1 a lane holds
+// 4 contiguous columns, and a warp's float4 add covers 512 contiguous
+// bytes: 5.63 ms alone (bulk from that order 5.72). The wrapper reads
+// dh_acc through a permuted view as it casts it to bf16. Each block
+// starts at its own token tile, so the blocks in flight add into
+// different rows. Inside the kernel the adds cost 2.8 ms of its 7.1
+// (4.3 ms with them switched off); every vocab group also reads all of
+// h from L2 (8.6 GB a launch), so L2 is the likely bound. Spreading the
+// adds over the chunk loop instead of a phase of their own saved
+// 0.3 ms, none of it in the adds' own cost. dh is summed in another
+// order on every run (the atomics), so it may differ by f32 rounding
+// before its bf16 cast; dE is written once and is the same on every
 // run.
 
 #include <cuda_runtime.h>
@@ -307,12 +345,18 @@ size_t bwd_smem_bytes(int D) {
 // / 2)), and the next tile's first logits step the rest, [L, KC). The
 // logits wait for the first lot before chunk 0 and for the rest before
 // chunk L: 7 barriers a tile at D = 1024.
-template <bool TOK_ROWS>
+// DH_ADD (the variant "a": vocab rows, A = E, B = h) adds a third
+// product on each tile, dB += p_adj^T A_rows into the f32 token
+// gradient dB (in fragment order, see fused_ce_bwd_a_tc), with float4
+// atomics, chunk by chunk beside the gradient product; the block walks
+// the tiles from its own, tile x % ntiles.
+template <bool TOK_ROWS, bool DH_ADD>
 __device__ __forceinline__ void bwd_tc_body(
     const bf16* __restrict__ A, const bf16* __restrict__ B,
     const int* __restrict__ t, const float* __restrict__ lse,
-    const float* __restrict__ g, bf16* __restrict__ dA, int NR, int NC,
-    int D, unsigned char* smem_raw) {
+    const float* __restrict__ g, bf16* __restrict__ dA,
+    float* __restrict__ dB, int NR, int NC, int D,
+    unsigned char* smem_raw) {
   const int KC = (D + B_DC - 1) / B_DC;
   const int ALD = KC * B_DC + 8;
   float* Red = reinterpret_cast<float*>(smem_raw);
@@ -325,6 +369,11 @@ __device__ __forceinline__ void bwd_tc_body(
   const int gr = lane >> 2, q = lane & 3;
   const int r0 = blockIdx.x * B_BR;
   const int ntiles = (NC + B_BC - 1) / B_BC;
+  // the column tile of step i: in order, or for DH_ADD from the block's
+  // own tile on, so that the blocks in flight add into different rows
+  auto tile_of = [&](int i) {
+    return DH_ADD ? (i + blockIdx.x) % ntiles : i;
+  };
 
   // the block's rows of A, zero past NR and D, and column tile 0: the
   // first cp.async group
@@ -349,7 +398,7 @@ __device__ __forceinline__ void bwd_tc_body(
                  p ? B + (size_t)(c0 + r) * D + d : B, p);
     }
   };
-  for (int c = 0; c < KC; ++c) load(0, c);
+  for (int c = 0; c < KC; ++c) load(tile_of(0), c);
   cp_async_commit();
   const int L = 2 * ((KC - 1) / 2);  // chunks refilled two at a time
 
@@ -376,7 +425,7 @@ __device__ __forceinline__ void bwd_tc_body(
       for (int k = 0; k < 4; ++k) acc[j][mi][k] = 0.f;
 
   for (int T = 0; T < ntiles; ++T) {
-    const int c0 = T * B_BC;
+    const int c0 = tile_of(T) * B_BC;
     // logits: 32 x 64, this warp's 16 columns over its k-half
     float sacc[2][2][4];
 #pragma unroll
@@ -391,7 +440,7 @@ __device__ __forceinline__ void bwd_tc_body(
         cp_async_wait<0>();
         __syncthreads();
         if (T > 0) {
-          for (int cc = L; cc < KC; ++cc) load(T, cc);
+          for (int cc = L; cc < KC; ++cc) load(tile_of(T), cc);
           cp_async_commit();
         }
       }
@@ -490,6 +539,27 @@ __device__ __forceinline__ void bwd_tc_body(
       for (int ks = 0; ks < 4; ++ks)
         ldsm_x4(pf[mi][ks], Ps + (mi * 16 + (lane & 15)) * B_PLD + ks * 16 +
                                 (lane >> 4) * 8);
+    // DH_ADD: dB[c0 + 0..63, :] += p_adj^T (64 x 32) A rows (32 x D),
+    // chunk by chunk beside the gradient product, so that the adds spread
+    // over the chunk loop. Warp w owns tokens 32 (w >> 2) + 16 mi and, of
+    // each 128-wide chunk, columns 32 (w & 3) + 8 nt. p_adj^T fragments
+    // by ldmatrix.trans of Ps (vocab-major), A's by ldmatrix.trans of As.
+    // dB is in fragment order: the 16 x 8 tile (slab, ct) at ((slab D / 8
+    // + ct) 32 + lane) 4, lane 4 gr + 2 qh + hf holding row 8 hf + gr,
+    // columns 4 qh .. 4 qh + 3.
+    const int wt = warp >> 2, wc = warp & 3;
+    uint32_t pt[2][2][4];  // [m tile][k step]
+    float* slab0 = nullptr;
+    if (DH_ADD) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+          ldsm_x4_t(pt[mi][ks],
+                    Ps + (ks * 16 + (lane & 7) + ((lane >> 4) << 3)) * B_PLD +
+                        wt * 32 + mi * 16 + ((lane >> 3) & 1) * 8);
+      slab0 = dB + (size_t)(c0 / 16 + wt * 2) * (D / 8) * 128 + lane * 4;
+    }
 
     // gradient: dA[:, 64 j + 8 warp + (0..7)] += p_adj B_tile[:, same]
 #pragma unroll
@@ -497,8 +567,8 @@ __device__ __forceinline__ void bwd_tc_body(
       if (c < KC) {
         if (c >= 2 && !(c & 1) && T + 1 < ntiles) {
           __syncthreads();  // slots c - 2, c - 1 read by every warp
-          load(T + 1, c - 2);
-          load(T + 1, c - 1);
+          load(tile_of(T + 1), c - 2);
+          load(tile_of(T + 1), c - 1);
           cp_async_commit();
         }
         const bf16* Bs = Bt + c * B_BC * B_LD;
@@ -514,6 +584,31 @@ __device__ __forceinline__ void bwd_tc_body(
               mma_bf16(acc[2 * c + jj][mi], pf[mi][2 * kp + 1], b[2], b[3]);
             }
           }
+        if (DH_ADD) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int ct = c * (B_DC / 8) + wc * 4 + nt;
+            if (ct * 8 >= D) continue;  // D % 8 == 0: all in or all out
+            uint32_t b[4];  // k steps 0 and 1 (vocab rows 0-15, 16-31)
+            ldsm_x4_t(b, As + lane * ALD + c * B_DC + wc * 32 + nt * 8);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              float h4[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16(h4, pt[mi][0], b[0], b[1]);
+              mma_bf16(h4, pt[mi][1], b[2], b[3]);
+              // lanes q, q ^ 1 swap a pair: 4 contiguous columns a lane
+              const bool odd = q & 1;
+              const float s0 = __shfl_xor_sync(0xffffffffu,
+                                               odd ? h4[0] : h4[2], 1);
+              const float s1 = __shfl_xor_sync(0xffffffffu,
+                                               odd ? h4[1] : h4[3], 1);
+              atomicAdd(reinterpret_cast<float4*>(
+                            slab0 + ((size_t)mi * (D / 8) + ct) * 128),
+                        odd ? make_float4(s0, s1, h4[2], h4[3])
+                            : make_float4(h4[0], h4[1], s0, s1));
+            }
+          }
+        }
       }
     }
   }
@@ -545,7 +640,8 @@ fused_ce_bwd_tc_dh_kernel(const bf16* __restrict__ h,
                           const float* __restrict__ g, bf16* __restrict__ dh,
                           int N, int V, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tc_body<true>(h, E, t, lse, g, dh, N, V, D, smem_raw);
+  bwd_tc_body<true, false>(h, E, t, lse, g, dh, nullptr, N, V, D,
+                           smem_raw);
 }
 
 __global__ void __launch_bounds__(B_THREADS, 1)
@@ -556,7 +652,21 @@ fused_ce_bwd_tc_de_kernel(const bf16* __restrict__ h,
                           const float* __restrict__ g, bf16* __restrict__ de,
                           int N, int V, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tc_body<false>(E, h, t, lse, g, de, V, N, D, smem_raw);
+  bwd_tc_body<false, false>(E, h, t, lse, g, de, nullptr, V, N, D,
+                            smem_raw);
+}
+
+// the variant "a": the dE pass body, which also adds dh
+__global__ void __launch_bounds__(B_THREADS, 1)
+fused_ce_bwd_a_tc_kernel(const bf16* __restrict__ h,
+                         const bf16* __restrict__ E,
+                         const int* __restrict__ t,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ g,
+                         float* __restrict__ dh_acc, bf16* __restrict__ de,
+                         int N, int V, int D) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_tc_body<false, true>(E, h, t, lse, g, de, dh_acc, V, N, D, smem_raw);
 }
 
 // One backward pass, the dh pass over the N token rows or the dE pass
@@ -642,6 +752,31 @@ int fused_ce_de_tc(const void* h, const void* E, const void* t,
                    int D, void* stream) {
   return (int)bwd_pass(false, h, E, t, lse, g, de, N, V, D,
                        static_cast<cudaStream_t>(stream));
+}
+
+// The variant "a", one pass: h (N, D), E (V, D) bf16 with D % 8 == 0 and
+// D <= 1024; t, lse, g (N,); de (V, D) bf16, written once; dh_acc f32,
+// zeroed by the caller, of ceil(N / 64) * 64 rows x D in fragment order
+// (the 16 x 8 tile of rows 16 s, columns 8 c at ((s D / 8 + c) 32 + l) 4,
+// l = 4 (r % 8) + 2 ((d % 8) / 4) + (r % 16) / 8 holding row r, columns
+// d .. d + 3 of it, d % 4 == 0), into which dh is added.
+int fused_ce_bwd_a_tc(const void* h, const void* E, const void* t,
+                      const void* lse, const void* g, void* dh_acc, void* de,
+                      int N, int V, int D, void* stream) {
+  if (N < 1 || V < 1 || D < 8 || D % 8 || D > B_MAX_D)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_bwd_a_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_ce_bwd_a_tc_kernel<<<(V + B_BR - 1) / B_BR, B_THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(E),
+      static_cast<const int*>(t), static_cast<const float*>(lse),
+      static_cast<const float*>(g), static_cast<float*>(dh_acc),
+      static_cast<bf16*>(de), N, V, D);
+  return (int)cudaGetLastError();
 }
 
 const char* kernel_error_string(int err) {

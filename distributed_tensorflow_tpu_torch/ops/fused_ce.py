@@ -19,10 +19,12 @@ device memory:
   ``csrc/fused_ce.cu``; for ``"split"`` (``_dh_kernel``, ``_de_kernel``)
   in bf16 ``fused_ce_dh_tc`` then ``fused_ce_de_tc`` of
   ``csrc/fused_ce_tc.cu``, in f32 ``fused_ce_dh`` then ``fused_ce_de`` of
-  ``csrc/fused_ce.cu``; for ``"a"`` ``fused_ce_bwd_a``
-  (``_bwd_merged_kernel``) of ``csrc/fused_ce.cu`` in either dtype.
-  :func:`kernel_route` states the rule. On a CPU tensor it runs
-  :func:`fused_ce_bwd_plain`, or for ``"split"``
+  ``csrc/fused_ce.cu``; for ``"a"`` (``_bwd_merged_kernel``) in bf16
+  ``fused_ce_bwd_a_tc`` of ``csrc/fused_ce_tc.cu``, in f32
+  ``fused_ce_bwd_a`` of ``csrc/fused_ce.cu``. :func:`kernel_route`
+  states the rule; bf16 inputs whose d_model is no multiple of 8 are
+  zero-padded for the tensor-core kernels (:func:`with_padded_d`). On a
+  CPU tensor it runs :func:`fused_ce_bwd_plain`, or for ``"split"``
   :func:`fused_ce_dh_plain` and :func:`fused_ce_de_plain`.
 - :func:`fused_cross_entropy` — the public op, differentiable in
   ``hidden`` and ``embed`` through :class:`FusedCrossEntropy`.
@@ -41,7 +43,7 @@ import torch
 #: input dtypes the CUDA kernels take (code passed to the C entry points)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: widest d_model the backward kernels take (each keeps a 32 x D f32
-#: gradient accumulator in shared memory)
+#: gradient accumulator on chip)
 KERNEL_MAX_D = 1024
 #: rows per chunk of :func:`fused_cross_entropy`, as in the JAX op
 ROW_CHUNK = 4096
@@ -61,7 +63,13 @@ CE_TC_ARGTYPES = {
     + [ctypes.c_void_p],
     **{name: [ctypes.c_void_p] * n + [ctypes.c_int] * 3 + [ctypes.c_void_p]
        for name, n in (("fused_ce_bwd_tc", 7), ("fused_ce_dh_tc", 6),
-                       ("fused_ce_de_tc", 6))}}
+                       ("fused_ce_de_tc", 6), ("fused_ce_bwd_a_tc", 7))}}
+#: the tensor-core kernels stage 16-byte rows: bf16 d_model is zero-padded
+#: to a multiple of this many columns
+TC_D_MULTIPLE = 8
+#: token rows of a tile of ``fused_ce_bwd_a_tc``, which adds all of a
+#: tile's rows into its dh accumulator (zeros past N)
+TC_A_TOKEN_TILE = 64
 #: token rows and vocab rows of a tile of ``fused_ce_fwd_tc``
 TC_FWD_TILE = 128
 #: (m, l) partials a row gets from each vocab slice of the forward
@@ -180,6 +188,22 @@ def merge_partials_plain(m, l):
     return mx + torch.log(w.sum(dim=0))
 
 
+def dh_from_fragment_order(acc, n: int, d: int, dtype):
+    """The ``(n, d)`` dh, cast to ``dtype``, from the flat f32 accumulator
+    of ``fused_ce_bwd_a_tc``, which keeps it in the order of its
+    ``mma.sync`` fragments so that a warp's float4 adds cover 512
+    contiguous bytes: the 16 x 8 tile of rows ``16 s`` and columns ``8 c``
+    lies at ``((s d / 8 + c) 32 + l) 4``, lane ``l = 4 (r % 8) + 2 qh +
+    (r % 16) // 8`` holding row ``r``, columns ``8 c + 4 qh`` to ``+ 3``
+    (``acc`` holds a multiple of 16 rows, those past ``n`` dropped). One
+    copy reads it through a permuted view and casts it."""
+    rows = acc.numel() // d
+    out = torch.empty((rows, d), dtype=dtype, device=acc.device)
+    out.view(rows // 16, 2, 8, d // 8, 2, 4).copy_(
+        acc.view(rows // 16, d // 8, 8, 2, 2, 4).permute(0, 4, 2, 1, 3, 5))
+    return out[:n]
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -190,13 +214,15 @@ def kernel_route(dtype, d: int, op: str) -> str:
     inputs of ``dtype`` and d_model ``d`` and ``op`` — ``"fwd"`` or a
     backward variant (``"b"``, ``"a"``, ``"split"``).
 
-    - bf16 forward, ``"b"`` and ``"split"`` go to the tensor cores, which
-      need 16-byte rows: ``d`` a multiple of 8, else ValueError;
+    - bf16 goes to the tensor cores, every op. Their kernels stage
+      16-byte rows, so :func:`fused_ce_fwd` and :func:`fused_ce_bwd`
+      zero-pad a ``d`` that is no multiple of 8 to the next one
+      (:func:`with_padded_d`), which is exact;
     - f32 stays on the CUDA cores, whose f32 products keep f32 parity
-      (on tensor cores f32 would be TF32), and so does ``"a"`` in either
-      dtype;
+      (on tensor cores f32 would be TF32), and takes any ``d``;
     - every backward keeps a ``32 x d`` f32 gradient on chip: ``d`` at
-      most :data:`KERNEL_MAX_D`, else ValueError."""
+      most :data:`KERNEL_MAX_D`, else ValueError; any other dtype raises
+      ValueError too."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ce: no kernel for dtype {dtype}")
     if op not in ("fwd", *BWD_VARIANTS):
@@ -205,13 +231,22 @@ def kernel_route(dtype, d: int, op: str) -> str:
     if op != "fwd" and d > KERNEL_MAX_D:
         raise ValueError(f"fused_ce_bwd: d_model {d} > {KERNEL_MAX_D}, the "
                          f"widest the kernel takes")
-    if dtype == torch.bfloat16 and op in ("fwd", "b", "split"):
-        if d % 8:
-            raise ValueError(f"fused_ce: bf16 d_model {d} is not a "
-                             f"multiple of 8 (the tensor-core kernels "
-                             f"stage 16-byte rows)")
-        return "tensor_core"
-    return "cuda_core"
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def with_padded_d(fn, hidden, embed, *args):
+    """``fn(hidden, embed, *args)`` with d_model zero-padded to the next
+    multiple of :data:`TC_D_MULTIPLE`, its 2-D outputs (dh, dE) sliced
+    back to D. Exact: the zero columns add exact zeros to every logit,
+    and their gradient columns are dropped. Without padding to do, ``fn``
+    runs on the inputs as they are."""
+    d = hidden.shape[1]
+    pad = -d % TC_D_MULTIPLE
+    if not pad:
+        return fn(hidden, embed, *args)
+    out = fn(torch.nn.functional.pad(hidden, (0, pad)),
+             torch.nn.functional.pad(embed, (0, pad)), *args)
+    return tuple(x[:, :d].contiguous() if x.ndim == 2 else x for x in out)
 
 
 def _check_kernel_inputs(hidden, embed, targets):
@@ -261,10 +296,11 @@ def fused_ce_fwd(hidden, embed, targets):
     """``(lse, tl)`` of ``hidden @ embed.T``, both ``(N,)`` f32.
 
     A CUDA tensor goes through the kernel :func:`kernel_route` names: in
-    bf16 ``fused_ce_fwd_tc`` (tensor cores; its forward and the merge of
-    its vocab slices counted as one launch in ``fused_ce_fwd.launches_tc``),
-    in f32 ``fused_ce_fwd`` (CUDA cores; ``fused_ce_fwd.launches``). A
-    CPU tensor goes through :func:`fused_ce_fwd_plain`; any other device
+    bf16 ``fused_ce_fwd_tc`` (tensor cores, d_model zero-padded to a
+    multiple of 8; its forward and the merge of its vocab slices counted
+    as one launch in ``fused_ce_fwd.launches_tc``), in f32
+    ``fused_ce_fwd`` (CUDA cores; ``fused_ce_fwd.launches``). A CPU
+    tensor goes through :func:`fused_ce_fwd_plain`; any other device
     raises."""
     with torch.no_grad():
         if hidden.device.type == "cpu":
@@ -287,18 +323,24 @@ def fused_ce_fwd(hidden, embed, targets):
                     tl.data_ptr(), n, v, d, KERNEL_DTYPES[hidden.dtype])
             fused_ce_fwd.launches += 1
             return lse, tl
-        per, slices = fwd_vocab_split(
-            n, v, torch.cuda.get_device_properties(
-                hidden.device).multi_processor_count)
-        tl = torch.zeros_like(lse)   # written only where a target lies
-        part = torch.empty((2, TC_FWD_PARTS * slices, n),
-                           dtype=torch.float32, device=hidden.device)
-        _launch("fused_ce_fwd_tc", hidden.device, hidden.data_ptr(),
-                embed.data_ptr(), t.data_ptr(), lse.data_ptr(),
-                tl.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), n, v,
-                d, per, slices, source="fused_ce_tc")
-        fused_ce_fwd.launches_tc += 1
-        return lse, tl
+        return with_padded_d(_fwd_tc, hidden, embed, t, lse)
+
+
+def _fwd_tc(hidden, embed, t, lse):
+    """``fused_ce_fwd_tc`` into ``lse``; D a multiple of 8."""
+    n, d = hidden.shape
+    v = embed.shape[0]
+    per, slices = fwd_vocab_split(n, v, torch.cuda.get_device_properties(
+        hidden.device).multi_processor_count)
+    tl = torch.zeros_like(lse)   # written only where a target lies
+    part = torch.empty((2, TC_FWD_PARTS * slices, n), dtype=torch.float32,
+                       device=hidden.device)
+    _launch("fused_ce_fwd_tc", hidden.device, hidden.data_ptr(),
+            embed.data_ptr(), t.data_ptr(), lse.data_ptr(), tl.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), n, v, d, per, slices,
+            source="fused_ce_tc")
+    fused_ce_fwd.launches_tc += 1
+    return lse, tl
 
 
 fused_ce_fwd.launches = 0       # f32, CUDA cores
@@ -310,7 +352,8 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
     (``(N,)`` f32), from the forward's ``lse``.
 
     A CUDA tensor goes through the kernels of ``variant`` (the rule:
-    :func:`kernel_route`), each launch counted on this function:
+    :func:`kernel_route`; bf16 d_model zero-padded to a multiple of 8),
+    each launch counted on this function:
 
     - ``"b"`` in bf16: ``fused_ce_bwd_tc`` (``.launches_tc``, one for its
       two passes), on tensor cores: a dh pass over token tiles, then a
@@ -318,8 +361,11 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
       no atomics;
     - ``"b"`` in f32: ``fused_ce_bwd`` (``.launches``) adds dE into an
       f32 ``(V, D)`` accumulator with atomics and keeps dh on chip;
-    - ``"a"``: ``fused_ce_bwd_a`` (``.launches_a``) adds dh into an f32
-      ``(N, D)`` accumulator with atomics and keeps dE on chip;
+    - ``"a"`` in bf16: ``fused_ce_bwd_a_tc`` (``.launches_a_tc``), on
+      tensor cores, one pass: dE on chip and written once, dh added into
+      an f32 ``(N, D)`` accumulator with atomics;
+    - ``"a"`` in f32: ``fused_ce_bwd_a`` (``.launches_a``), the same
+      split of the gradients on the CUDA cores;
     - ``"split"`` in bf16: ``fused_ce_dh_tc`` (``.launches_dh_tc``) then
       ``fused_ce_de_tc`` (``.launches_de_tc``), on tensor cores: the two
       passes of ``fused_ce_bwd_tc``, launched one at a time;
@@ -351,25 +397,12 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
         lse = _row_vector(lse, n, "lse", hidden.device)
         g = _row_vector(g, n, "g", hidden.device)
         t = targets.to(torch.int32).contiguous()
+        if route == "tensor_core":
+            return with_padded_d(_bwd_tc, hidden, embed, t, lse, g, variant)
         args = (hidden.data_ptr(), embed.data_ptr(), t.data_ptr(),
                 lse.data_ptr(), g.data_ptr())
         shape = (n, v, d, KERNEL_DTYPES[hidden.dtype])
         f32 = dict(dtype=torch.float32, device=hidden.device)
-        if route == "tensor_core" and variant == "b":
-            dh, de = torch.empty_like(hidden), torch.empty_like(embed)
-            _launch("fused_ce_bwd_tc", hidden.device, *args, dh.data_ptr(),
-                    de.data_ptr(), n, v, d, source="fused_ce_tc")
-            fused_ce_bwd.launches_tc += 1
-            return dh, de
-        if route == "tensor_core":      # "split"
-            dh, de = torch.empty_like(hidden), torch.empty_like(embed)
-            _launch("fused_ce_dh_tc", hidden.device, *args, dh.data_ptr(),
-                    n, v, d, source="fused_ce_tc")
-            fused_ce_bwd.launches_dh_tc += 1
-            _launch("fused_ce_de_tc", hidden.device, *args, de.data_ptr(),
-                    n, v, d, source="fused_ce_tc")
-            fused_ce_bwd.launches_de_tc += 1
-            return dh, de
         if variant == "b":
             dh = torch.empty_like(hidden)
             de_acc = torch.zeros((v, d), **f32)
@@ -392,9 +425,40 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
         return dh, de
 
 
+def _bwd_tc(hidden, embed, t, lse, g, variant):
+    """The bf16 tensor-core kernels of ``variant``; D a multiple of 8."""
+    n, d = hidden.shape
+    v = embed.shape[0]
+    args = (hidden.data_ptr(), embed.data_ptr(), t.data_ptr(),
+            lse.data_ptr(), g.data_ptr())
+    dev = hidden.device
+    if variant == "a":
+        rows = -(-n // TC_A_TOKEN_TILE) * TC_A_TOKEN_TILE
+        dh_acc = torch.zeros(rows * d, dtype=torch.float32, device=dev)
+        de = torch.empty_like(embed)
+        _launch("fused_ce_bwd_a_tc", dev, *args, dh_acc.data_ptr(),
+                de.data_ptr(), n, v, d, source="fused_ce_tc")
+        fused_ce_bwd.launches_a_tc += 1
+        return dh_from_fragment_order(dh_acc, n, d, hidden.dtype), de
+    dh, de = torch.empty_like(hidden), torch.empty_like(embed)
+    if variant == "b":
+        _launch("fused_ce_bwd_tc", dev, *args, dh.data_ptr(), de.data_ptr(),
+                n, v, d, source="fused_ce_tc")
+        fused_ce_bwd.launches_tc += 1
+        return dh, de
+    _launch("fused_ce_dh_tc", dev, *args, dh.data_ptr(), n, v, d,
+            source="fused_ce_tc")
+    fused_ce_bwd.launches_dh_tc += 1
+    _launch("fused_ce_de_tc", dev, *args, de.data_ptr(), n, v, d,
+            source="fused_ce_tc")
+    fused_ce_bwd.launches_de_tc += 1
+    return dh, de
+
+
 fused_ce_bwd.launches = 0       # "b", #7, f32 (CUDA cores)
 fused_ce_bwd.launches_tc = 0    # "b", #7, bf16 (tensor cores)
-fused_ce_bwd.launches_a = 0     # "a", #6
+fused_ce_bwd.launches_a = 0     # "a", #6, f32 (CUDA cores)
+fused_ce_bwd.launches_a_tc = 0  # "a", #6, bf16 (tensor cores)
 fused_ce_bwd.launches_dh = 0    # "split", #5, f32 (CUDA cores)
 fused_ce_bwd.launches_de = 0    # "split", #8, f32 (CUDA cores)
 fused_ce_bwd.launches_dh_tc = 0    # "split", #5, bf16 (tensor cores)

@@ -97,3 +97,17 @@ def test_library_path_follows_sources_and_headers(monkeypatch, tmp_path):
     (tmp_path / "k.cu").write_text('#include "helpers.cuh"\n// edit\n')
     assert _build.library_path("k") not in (first, second, third)
     assert os.path.basename(first).startswith("k-")
+
+
+def test_ce_tensor_core_entry_points():
+    """``fused_ce_tc.cu`` binds the bf16 forward, the "b" backward, the two
+    "split" passes and the one-pass "a" backward (h, E, t, lse, g, the
+    f32 dh accumulator, dE; N, V, D; stream), and ``fused_ce.cu`` keeps
+    only f32 kernels."""
+    assert sorted(CE_TC_ARGTYPES) == sorted(
+        ["fused_ce_fwd_tc", "fused_ce_bwd_tc", "fused_ce_dh_tc",
+         "fused_ce_de_tc", "fused_ce_bwd_a_tc"])
+    assert CE_TC_ARGTYPES["fused_ce_bwd_a_tc"] == (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with open(os.path.join(_build.CSRC, "fused_ce.cu")) as f:
+        assert "__nv_bfloat16" not in f.read()
