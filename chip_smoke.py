@@ -39,6 +39,11 @@ printing one JSON line:
    plain; the flash forward also at the serve shape, and the f32
    CUDA-core attention and cross-entropy "a" and "split" kernels at the
    train step's shapes in f32; bf16 "a" also against "b", in turns.
+   Last, BERT's shapes: #1, #2, #3 not causal at (32, 12, 512, 64)
+   bf16 against their plain versions and SDPA, and #4, #7 at a 4096-row
+   chunk of BERT's MLM loss (V 30522, D 768, 85 % of the rows unmasked
+   with a zero gradient, plus an all-unmasked chunk) against their plain
+   versions and the unfused ``F.cross_entropy(F.linear)``.
 4. ``serve``   — ``InferenceEngine.generate`` at the full width of
    ``transformer_big`` in bf16 (random weights from seed 0), 8 requests
    × 32 new tokens. The launch counters are set to 0 just before and
@@ -68,16 +73,43 @@ printing one JSON line:
    loss) from the same weights at full width, 2 layers, batch 2 × 256:
    loss, every gradient leaf, and the parameters after 3 AdamW steps.
 9. ``train_options`` — the same size, one step: ``remat=True`` with the
-   "nothing" and "dots" policies against ``remat=False``, and the
-   scan-chunked loss (8 chunks, both chunk policies) against full
-   logits: loss and every gradient leaf; then in bf16 the kernel loss
-   (the tensor-core kernels) against full logits from the same weights;
-   then ``TransformerConfig.tiny()`` (head dim 16, ``mha_reference`` as
-   in JAX) trains a step and serves two requests on the card, with no
-   attention kernel launched.
+   "nothing", "dots", "attn" and "dots_attn" policies against
+   ``remat=False`` (the flash forward twice a layer under the first two,
+   once under the "attn" ones, which save the registered flash op's
+   outputs), and the scan-chunked loss (8 chunks, both chunk policies)
+   against full logits: loss and every gradient leaf; then in bf16 the
+   kernel loss (the tensor-core kernels) against full logits from the
+   same weights; then ``TransformerConfig.tiny()`` (head dim 16,
+   ``mha_reference`` as in JAX) trains a step and serves two requests
+   on the card, with no attention kernel launched; then the headline
+   step under remat "nothing", "attn" and "dots_attn": step time, peak
+   memory and the forward's launches a step (24, 12, 12).
+10. ``bert_train`` — ``bench.py``'s ``run_bert`` recipe through
+    ``models/bert.py``'s train step: ``bert_base`` in bf16, batch
+    32 x 512, no remat, unrolled layers, full-logits MLM loss, f32 AdamW
+    moments, ``synthetic_corpus`` and random weights from seed 0; one
+    warm-up step and 5 timed (seqs/s, MFU, peak memory). Per step 12
+    non-causal ``flash_fwd_tc``, ``flash_bwd_dq_tc`` and
+    ``flash_bwd_dkv_tc`` launches and no CE kernel; the first loss within
+    1.0 of ln V, and falling.
+11. ``bert_train_kernel`` — the same with ``loss_impl="kernel"``: also 4
+    ``fused_ce_fwd_tc`` and 4 ``fused_ce_bwd_tc`` a step (one per
+    4096-row chunk); its first step against ``bert_train``'s (same
+    weights, corpus and masks): loss within 1e-2, gradients within the
+    bf16 rule of ``train_options``.
+12. ``bert_parity`` — f32, TF32 off, 2 layers at ``bert_base`` width,
+    batch 2 x 512: the kernel path (f32 CUDA-core kernels) against the
+    unfused reference from the same weights and masks, one step.
+13. ``bert_score`` — ``InferenceEngine`` at ``bert_base`` in bf16 scoring
+    8 prompts of seeded lengths 16-512 (``max_new_tokens=0``): 12
+    non-causal ``flash_fwd_tc`` a prompt, prefill ms per prompt; in f32
+    at 2 layers, each prompt's last-position logits against
+    ``TransformerLM.forward`` within 1e-3.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
-that runs it, error, measured times and the bound), the ``nvidia-smi``
+that runs it and on each BERT path, error, measured times and the
+bound, at the main path's shape and, where BERT runs it, at BERT's),
+the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
 device or a directory without the package. Imports nothing of JAX.
@@ -152,6 +184,23 @@ FUSED_LAUNCHES = {**TRAIN_LAUNCHES, "fused_adamw": 98}
 PARITY_LAUNCHES = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
                    "fused_ce_fwd": 1, "fused_ce_bwd": 1}
 TRAIN_PARITY_STEPS = 3
+# BERT (bench.py run_bert): bert_base, batch 32 x 512; per step one
+# non-causal flash forward, dq and dk/dv a layer, on the tensor cores
+BERT_BATCH = 32
+BERT_LAUNCHES = {"flash_fwd_tc": 12, "flash_bwd_dq_tc": 12,
+                 "flash_bwd_dkv_tc": 12}
+# with loss_impl="kernel" also the CE kernels once per 4096-row chunk of
+# fused_cross_entropy (ops/fused_ce.py ROW_CHUNK): 16384 tokens, 4 chunks
+BERT_KERNEL_LAUNCHES = {**BERT_LAUNCHES, "fused_ce_fwd_tc": 4,
+                        "fused_ce_bwd_tc": 4}
+# bert_parity's f32 kernel step, 2 layers, 1024 tokens (one row chunk)
+BERT_PARITY_LAUNCHES = {"flash_fwd": 2, "flash_bwd_dq": 2,
+                        "flash_bwd_dkv": 2, "fused_ce_fwd": 1,
+                        "fused_ce_bwd": 1}
+BERT_SCORE_REQUESTS = 8
+# remat policies timed at the headline shape in train_options
+REMAT_TIMED = ("nothing", "attn", "dots_attn")
+REMAT_TIMED_STEPS = 3
 # train_options' bf16 step, kernel loss against full logits from the same
 # weights. Loss, absolute: the full-logits path rounds every logit to bf16
 # (2^-9 relative, about 2e-3 at the init's |logit| <= 1) before its f32
@@ -1284,6 +1333,162 @@ def _check_fused_adamw(state, gen):
             "library_ms": library, "library_ms_events": library_events}
 
 
+def _check_bert_attention(state, gen):
+    """#1, #2 and #3 at BERT's train shape, (32, 12, 512, 64) bf16 not
+    causal (every k-tile visited, no tail masked): the forward and the
+    backward against their plain versions, one launch each; then each
+    kernel timed against its plain version in turns, and SDPA
+    (``is_causal=False``) by CUDA events and by device time."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain, launch_bwd_dkv, launch_bwd_dq)
+    b, h, s_, hd = BERT_BATCH, 12, 512, 64
+    q, k, v, do = (_rand((b, h, s_, hd), torch.bfloat16, gen)
+                   for _ in range(4))
+    sm = hd ** -0.5
+    before = launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal=False)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    calls = {c: after[c] - before[c] for c in after if after[c] != before[c]}
+    fwd = _fwd_errors(q, k, v, o, lse, False)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
+                                     sm_scale=sm)
+    errs = {f"d{n}": rel_err(g, w) for n, g, w in zip("qkv", got, want)}
+    ok = (fwd["ok"] and max(errs.values()) <= GRAD_TOL["bfloat16"]
+          and all(bool(torch.isfinite(g).all().item()) for g in got)
+          and calls == {"flash_fwd_tc": 1, "flash_bwd_dq_tc": 1,
+                        "flash_bwd_dkv_tc": 1})
+    check = {"shape": [b, h, s_, hd], "causal": False, "fwd": fwd,
+             "bwd_rel_err": errs, "launches": calls, "ok": ok}
+    if not ok:
+        raise AssertionError(f"attention at BERT's shape: {check}")
+    max_err = {"flash_fwd_tc": fwd["o_err"],
+               "flash_bwd_dq_tc": abs_err(got[0], want[0]),
+               "flash_bwd_dkv_tc": max(abs_err(got[1], want[1]),
+                                       abs_err(got[2], want[2]))}
+    del got, want
+
+    def sdpa():
+        torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=False, scale=sm)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out_sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=False, scale=sm)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out_sdpa, leaves, do, retain_graph=True)
+
+    lib = {"fwd": (time_ms(sdpa), device_ms(sdpa, 10)),
+           "bwd": (time_ms(sdpa_bwd), device_ms(sdpa_bwd, 10))}
+    del out_sdpa, leaves
+    delta = (o.float() * do.float()).sum(-1)
+    kw = dict(sm_scale=sm, causal=False, causal_offset=0)
+    def plain_fwd():
+        flash_attention_plain(q, k, v, causal=False, sm_scale=sm)
+
+    def plain_bwd():   # computes dq, dk and dv
+        flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
+                                  sm_scale=sm)
+
+    kernels = {
+        "flash_fwd_tc": ("fwd", lambda: flash_attention_fwd(q, k, v),
+                         plain_fwd),
+        "flash_bwd_dq_tc": ("dq", lambda: launch_bwd_dq(
+            q, k, v, do, lse, delta, **kw), plain_bwd),
+        "flash_bwd_dkv_tc": ("dkv", lambda: launch_bwd_dkv(
+            q, k, v, do, lse, delta, **kw), plain_bwd)}
+    rows = {}
+    for name, (op, kernel, plain) in kernels.items():
+        t = in_turns(kernel, plain, 10)
+        flops, nbytes = attention_work(q, k, False, 0, op)
+        lib_ms, lib_dev = lib["fwd" if op == "fwd" else "bwd"]
+        rows[name] = {**_flash_row(t, flops, nbytes, q.dtype, max_err[name],
+                                   lib_ms, q.shape),
+                      "plain_ms_runs": t["plain_ms_runs"],
+                      "device_ms": device_ms(kernel, 10),
+                      "library_device_ms": lib_dev,
+                      "library": "scaled_dot_product_attention(is_causal="
+                                 "False)" + ("" if op == "fwd" else
+                                             " backward (dq, dk, dv)")}
+    state.setdefault("bert_rows", {}).update(rows)
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return {"check": check, **rows}
+
+
+def _check_bert_ce(state, gen):
+    """#4 and #7 at the shape BERT's kernel loss gives each launch: a
+    4096-row chunk of its 16384 tokens (``ROW_CHUNK``), V 30522 (238
+    tiles of 128 and a 58-row tail; 476 of 64 and the same tail), D 768
+    (six 128-wide chunks), bf16. As in the MLM loss, 85 % of the rows
+    are unmasked (target 0, upstream gradient exactly 0) and add nothing
+    to dh or dE; an all-unmasked chunk (denominator 1, every gradient 0)
+    gives exact zeros. Against the plain versions, then timed in turns
+    and against the unfused ``F.cross_entropy(F.linear)``."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.fused_ce import (
+        ROW_CHUNK, fused_ce_bwd, fused_ce_bwd_plain, fused_ce_fwd,
+        fused_ce_fwd_plain)
+    n, v, d = ROW_CHUNK, 30522, 768
+    h = _rand((n, d), torch.bfloat16, gen)
+    e = _rand((v, d), torch.bfloat16, gen, 0.1)
+    masked = torch.rand(n, device="cuda", generator=gen) < 0.15
+    t = torch.randint(0, v, (n,), device="cuda", generator=gen)
+    rows_m = masked.nonzero()[:, 0]
+    edges = torch.tensor([v - 1, v - 58, v - 59, 128 * 238 - 1, 64 * 476],
+                         device="cuda")
+    t[rows_m[:len(edges)]] = edges
+    t = torch.where(masked, t, 0)
+    g = masked.float() / masked.sum().clamp_min(1)
+    before = launch_counts()
+    lse, tl = fused_ce_fwd(h, e, t)
+    dh, de = fused_ce_bwd(h, e, t, lse, g)
+    zdh, zde = fused_ce_bwd(h, e, t, lse, torch.zeros_like(g))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    calls = {c: after[c] - before[c] for c in after if after[c] != before[c]}
+    plse, ptl = fused_ce_fwd_plain(h, e, t)
+    pdh, pde = fused_ce_bwd_plain(h, e, t, plse, g)
+    errs = {"lse": abs_err(lse, plse), "tl": abs_err(tl, ptl),
+            "dh_rel": rel_err(dh, pdh), "de_rel": rel_err(de, pde)}
+    tol = GRAD_TOL["bfloat16"]
+    zero_rows = bool((dh[~masked] == 0).all().item())
+    all_zero = bool((zdh == 0).all().item() and (zde == 0).all().item())
+    ok = (errs["lse"] <= CE_ROW_TOL and errs["tl"] <= CE_ROW_TOL
+          and errs["dh_rel"] <= tol and errs["de_rel"] <= tol
+          and zero_rows and all_zero
+          and calls == {"fused_ce_fwd_tc": 1, "fused_ce_bwd_tc": 2}
+          and all(bool(torch.isfinite(x).all().item())
+                  for x in (lse, tl, dh, de)))
+    check = {"shape": [n, v, d], "masked_rows": int(masked.sum().item()),
+             "err": errs, "tol": {"row": CE_ROW_TOL, "grad_rel": tol},
+             "unmasked_dh_rows_zero": zero_rows,
+             "all_unmasked_grads_zero": all_zero, "launches": calls,
+             "ok": ok}
+    if not ok:
+        raise AssertionError(f"fused CE at BERT's shape: {check}")
+    fwd_err = max(errs["lse"], errs["tl"])
+    bwd_err = max(abs_err(dh, pdh), abs_err(de, pde))
+    del dh, de, zdh, zde, pdh, pde
+    t_fwd = in_turns(lambda: fused_ce_fwd(h, e, t),
+                     lambda: fused_ce_fwd_plain(h, e, t), 5)
+    t_bwd = in_turns(lambda: fused_ce_bwd(h, e, t, lse, g),
+                     lambda: fused_ce_bwd_plain(h, e, t, lse, g), 3)
+    lib = _ce_library(h, e, t, g)
+    rows = {}
+    for name, which, tm, err in (("fused_ce_fwd_tc", "fwd", t_fwd, fwd_err),
+                                 ("fused_ce_bwd_tc", "bwd", t_bwd, bwd_err)):
+        rows[name] = _ce_row(n, v, d, h.dtype, which, tm, err, lib)
+    state.setdefault("bert_rows", {}).update(rows)
+    del h, e, lse
+    torch.cuda.empty_cache()
+    return {"check": check, **rows, "library": lib}
+
+
 def phase_kernels(state):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1295,6 +1500,8 @@ def phase_kernels(state):
     torch.cuda.empty_cache()
     out["fused_adamw"] = _check_fused_adamw(state, gen)
     torch.cuda.empty_cache()
+    out["bert_attention"] = _check_bert_attention(state, gen)
+    out["bert_ce"] = _check_bert_ce(state, gen)
     return out
 
 
@@ -1512,22 +1719,28 @@ def _headline_config(**kw):
     import torch
     from distributed_tensorflow_tpu_torch.models.transformer import (
         TransformerConfig)
-    return TransformerConfig.transformer_big(
-        max_seq_len=1024, remat=False, scan_layers=False, loss_impl="kernel",
-        adam_mu_dtype=torch.bfloat16, **kw)
+    return TransformerConfig.transformer_big(**{
+        "max_seq_len": 1024, "remat": False, "scan_layers": False,
+        "loss_impl": "kernel", "adam_mu_dtype": torch.bfloat16, **kw})
 
 
-def _timed_train(cfg, per_step: dict, forbid_plain_step: bool):
+def _timed_train(cfg, per_step: dict, forbid_plain_step: bool,
+                 bert: bool = False):
     """One warm-up step of ``cfg``'s train step, then TRAIN_STEPS timed
     with CUDA events with the launch counters set to 0 before and read
     after; checks the launches, the first loss and that the loss falls.
     With ``forbid_plain_step`` the optimizer's own ``step`` raises if it
-    is ever reached."""
+    is ever reached. ``bert``: BERT's MLM step (:func:`_bert_setup`,
+    batch BERT_BATCH) in place of ``transformer_big``'s; the warm-up
+    step's gradients (at the seeded init, on step 0's masks) are
+    returned too, else None."""
     import numpy as np
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    model, opt, step, batch = _train_setup(cfg, 0, TRAIN_BATCH)
+    batch_size = BERT_BATCH if bert else TRAIN_BATCH
+    model, opt, step, batch = (_bert_setup if bert else _train_setup)(
+        cfg, 0, batch_size)
     if forbid_plain_step:
         def plain_step(*_a, **_k):
             raise AssertionError("the plain AdamW.step was reached")
@@ -1538,6 +1751,8 @@ def _timed_train(cfg, per_step: dict, forbid_plain_step: bool):
     st, metrics = step(st, batch)                       # warm-up
     first_loss = metrics["loss"].item()
     warmup_s = time.perf_counter() - t0
+    first_grads = (dict(_leaves(model.stacked_params(
+        lambda p: p.grad.clone()))) if bert else None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1574,19 +1789,23 @@ def _timed_train(cfg, per_step: dict, forbid_plain_step: bool):
         raise AssertionError("; ".join(problems))
     mean_s = float(np.mean(step_ms)) / 1e3
     median_s = float(np.median(step_ms)) / 1e3
-    tokens = TRAIN_BATCH * cfg.max_seq_len
-    flops = step_flops(cfg, TRAIN_BATCH, n_params)
-    return counts, {
+    tokens = batch_size * cfg.max_seq_len
+    flops = step_flops(cfg, batch_size, n_params)
+    out = {
         "note": "smoke run, not a benchmark",
-        "config": "transformer_big", "dtype": "bfloat16",
-        "batch": TRAIN_BATCH, "seq_len": cfg.max_seq_len,
-        "loss_impl": "kernel", "adam_mu_dtype": "bfloat16",
+        "config": "bert_base" if bert else "transformer_big",
+        "dtype": "bfloat16", "batch": batch_size,
+        "seq_len": cfg.max_seq_len, "loss_impl": cfg.loss_impl,
+        "adam_mu_dtype": str(cfg.adam_mu_dtype or torch.float32
+                             ).replace("torch.", ""),
         "fused_optimizer": cfg.fused_optimizer,
         "n_params": n_params, "warmup_step_s": warmup_s,
         "step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
         "step_ms_median": median_s * 1e3,
         "host_step_ms": host_ms, "tokens_per_s": tokens / mean_s,
         "tokens_per_s_median": tokens / median_s,
+        "seqs_per_s": batch_size / mean_s,
+        "seqs_per_s_median": batch_size / median_s,
         "step_flops": flops,
         "mfu": flops / mean_s / PEAK_FLOPS["bfloat16"],
         "mfu_median": flops / median_s / PEAK_FLOPS["bfloat16"],
@@ -1595,10 +1814,12 @@ def _timed_train(cfg, per_step: dict, forbid_plain_step: bool):
         "losses": losses, "launches": counts,
         "launches_per_step": per_step,
         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    return counts, out, first_grads
 
 
 def phase_train(state):
-    counts, out = _timed_train(_headline_config(), TRAIN_LAUNCHES, False)
+    counts, out, _ = _timed_train(_headline_config(), TRAIN_LAUNCHES,
+                                  False)
     state["train_launches"] = counts
     state["train_step_ms_median"] = out["step_ms_median"]
     return out
@@ -1607,8 +1828,8 @@ def phase_train(state):
 def phase_train_fused(state):
     import torch
     torch.cuda.empty_cache()
-    counts, out = _timed_train(_headline_config(fused_optimizer=True),
-                               FUSED_LAUNCHES, True)
+    counts, out, _ = _timed_train(_headline_config(fused_optimizer=True),
+                                  FUSED_LAUNCHES, True)
     state["train_fused_launches"] = counts
     out["train_step_ms_median"] = state["train_step_ms_median"]
     return out
@@ -1632,10 +1853,12 @@ def _grads_of_one_step(cfg, seed: int, batch: int):
 
 def phase_train_options(state):
     """f32, TF32 off, full width, 2 layers, batch 2 x 256, one step from
-    the same weights: ``remat=True`` with the "nothing" and "dots" policies
-    against ``remat=False`` (flash_fwd launched twice a layer under
-    recompute), and the scan-chunked loss (8 chunks, both chunk
-    policies) against full logits: loss and every gradient."""
+    the same weights: ``remat=True`` with each policy against
+    ``remat=False`` (flash_fwd launched twice a layer under "nothing" and
+    "dots", once under "attn" and "dots_attn"), and the scan-chunked loss
+    (8 chunks, both chunk policies) against full logits: loss and every
+    gradient. Then the bf16 kernel loss, ``tiny()`` and the remat
+    policies timed at the headline shape."""
     import torch
     from distributed_tensorflow_tpu_torch.models.transformer import (
         TransformerConfig)
@@ -1650,6 +1873,11 @@ def phase_train_options(state):
                           dict(loss_impl="kernel")),
         "remat_dots": (dict(loss_impl="kernel", remat=True,
                             remat_policy="dots"), dict(loss_impl="kernel")),
+        "remat_attn": (dict(loss_impl="kernel", remat=True,
+                            remat_policy="attn"), dict(loss_impl="kernel")),
+        "remat_dots_attn": (dict(loss_impl="kernel", remat=True,
+                                 remat_policy="dots_attn"),
+                            dict(loss_impl="kernel")),
         "loss_chunks8_recompute": (dict(loss_chunks=8), dict()),
         "loss_chunks8_save": (dict(loss_chunks=8,
                                    loss_chunk_policy="save"), dict()),
@@ -1666,7 +1894,10 @@ def phase_train_options(state):
                                       runs[tuple(sorted(ref_kw.items()))])
         grad_err = max(rel_err(g, rg[n]) for n, g in gg.items())
         fwd = {"got": gc["flash_fwd"], "reference": rc["flash_fwd"]}
-        want_fwd = (2 if name.startswith("remat") else 1) * base["n_layers"]
+        # the forward kernel runs again in the recompute unless the
+        # policy saves the registered flash op's outputs
+        want_fwd = (2 if name in ("remat_nothing", "remat_dots") else 1
+                    ) * base["n_layers"]
         ok = (abs(gl - rl) <= TRAIN_LOSS_TOL
               and grad_err <= GRAD_TOL["float32"] and len(gg) == 10
               and fwd["got"] == want_fwd
@@ -1708,12 +1939,55 @@ def phase_train_options(state):
     results["tiny_reference"] = tiny = _check_tiny()
     if not tiny["ok"]:
         failures.append("tiny_reference")
+    results["remat_headline"] = remat = _time_remat_policies()
+    if not remat["ok"]:
+        failures.append("remat_headline")
     out = {"config": "transformer_big, 2 layers", "dtype": "float32",
            "batch": 2, "seq_len": 256, "loss_tol": TRAIN_LOSS_TOL,
            "grad_tol": GRAD_TOL["float32"], **results}
     if failures:
         raise AssertionError(f"train options: {failures}: {json.dumps(out)}")
     return out
+
+
+def _time_remat_policies() -> dict:
+    """The headline step (``_headline_config``) with ``remat=True`` under
+    each of REMAT_TIMED: one warm-up step, then REMAT_TIMED_STEPS timed
+    with CUDA events; the peak memory over them and the flash forward's
+    launches a step (twice a layer under "nothing", once under "attn"
+    and "dots_attn")."""
+    import numpy as np
+    import torch
+    out, ok = {}, True
+    for policy in REMAT_TIMED:
+        torch.cuda.empty_cache()
+        cfg = _headline_config(remat=True, remat_policy=policy)
+        model, opt, step, batch = _train_setup(cfg, 0, TRAIN_BATCH)
+        st = {"model": model, "optimizer": opt, "step": 0}
+        st, _ = step(st, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        ms = []
+        for _ in range(REMAT_TIMED_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            st, metrics = step(st, batch)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        fwd = launch_counts()["flash_fwd_tc"] / REMAT_TIMED_STEPS
+        want = (2 if policy == "nothing" else 1) * cfg.n_layers
+        ok = ok and fwd == want and math.isfinite(metrics["loss"].item())
+        out[policy] = {"step_ms": ms, "step_ms_median": float(np.median(ms)),
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "flash_fwd_tc_per_step": fwd,
+                       "flash_fwd_tc_per_step_expected": want}
+        del model, opt, step, st
+    torch.cuda.empty_cache()
+    return {"config": "transformer_big, batch 8 x 1024, bf16, kernel CE",
+            **out, "ok": ok}
 
 
 def _check_tiny() -> dict:
@@ -1868,6 +2142,238 @@ def phase_train_parity(state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# BERT (models/bert.py)
+# ---------------------------------------------------------------------------
+
+def _bert_config(**kw):
+    """``bench.py``'s ``run_bert`` recipe (``bench.py:264-310``) in the
+    port: ``bert_base`` in bf16, no remat, unrolled layers, full-logits
+    MLM cross-entropy, AdamW with f32 moments. ``bench.py``'s
+    ``attn_block_q/k=512`` are Pallas tile sizes; the port's kernels fix
+    their own tiles, so its config has no such knob."""
+    from distributed_tensorflow_tpu_torch.models.bert import bert_config
+    return bert_config(**{"remat": False, "scan_layers": False, **kw})
+
+
+def _bert_setup(cfg, seed, batch):
+    """Model from the seeded init, ``make_optimizer`` AdamW, BERT's MLM
+    train step (masks from ``(seed, step)``) and ``synthetic_corpus``."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM, init_params, make_optimizer)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    model = TransformerLM(cfg, params, device="cuda")
+    del params
+    opt = make_optimizer(cfg, model.parameters())
+    step = bert.make_train_step(cfg, model, opt, seed=seed)
+    data = bert.synthetic_corpus(batch, cfg.max_seq_len, cfg.vocab_size,
+                                 seed=seed, device="cuda")
+    return model, opt, step, data
+
+
+def _bert_grads_of_one_step(cfg, seed: int, batch: int):
+    """Loss and every gradient leaf of step 0 of BERT's MLM objective
+    from the seeded weights, corpus and masks of :func:`_bert_setup`
+    (the train step's own masks), and the launches it made."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import bert
+    model, _, _, data = _bert_setup(cfg, seed, batch)
+    gen = torch.Generator(device="cuda").manual_seed(bert.mask_seed(seed, 0))
+    inputs, labels = bert.apply_mlm_masking(gen, data["tokens"],
+                                            vocab_size=cfg.vocab_size)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    loss = bert.make_loss_fn(cfg, model)(inputs, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    grads = dict(_leaves(model.stacked_params(lambda p: p.grad.clone())))
+    return loss.item(), grads, counts
+
+
+def phase_bert_train(state):
+    import torch
+    torch.cuda.empty_cache()
+    counts, out, grads = _timed_train(_bert_config(), BERT_LAUNCHES, False,
+                                      bert=True)
+    state["bert_train_launches"] = counts
+    state["bert_first"] = (out["first_loss"], grads)
+    return out
+
+
+def phase_bert_train_kernel(state):
+    """``bert_train`` with ``loss_impl="kernel"``; its first step (same
+    weights, corpus and masks) against ``bert_train``'s: loss within
+    BF16_TRAIN_LOSS_TOL, every gradient leaf within BF16_TRAIN_GRAD_TOL
+    plus twice its bf16 noise (the full-logits bf16 step's distance from
+    the f32 step of the same weights and masks)."""
+    import torch
+    torch.cuda.empty_cache()
+    counts, out, kg = _timed_train(_bert_config(loss_impl="kernel"),
+                                   BERT_KERNEL_LAUNCHES, False, bert=True)
+    state["bert_train_kernel_launches"] = counts
+    rl, rg = state.pop("bert_first")
+    torch.cuda.empty_cache()
+    fl, fg, _ = _bert_grads_of_one_step(_bert_config(dtype=torch.float32),
+                                        0, BERT_BATCH)
+    torch.cuda.empty_cache()
+    leaves = {}
+    for name, g in kg.items():
+        noise = rel_err(rg[name], fg[name])
+        leaves[name] = {"err": rel_err(g, rg[name]), "noise": noise,
+                        "tol": BF16_TRAIN_GRAD_TOL + 2 * noise}
+    kl = out["first_loss"]
+    ok = (abs(kl - rl) <= BF16_TRAIN_LOSS_TOL and len(kg) == 10
+          and all(x["err"] <= x["tol"] for x in leaves.values()))
+    out["against_full_logits"] = {
+        "loss": kl, "loss_full_logits": rl, "loss_f32": fl,
+        "abs_loss_err": abs(kl - rl), "loss_tol": BF16_TRAIN_LOSS_TOL,
+        "max_grad_rel_err": max(x["err"] for x in leaves.values()),
+        "leaves": leaves, "ok": ok}
+    if not ok:
+        raise AssertionError(f"bert kernel loss against full logits: "
+                             f"{json.dumps(out['against_full_logits'])}")
+    return out
+
+
+def phase_bert_parity(state):
+    """f32, TF32 off, 2 layers at ``bert_base`` width, batch 2 x 512, one
+    step from the same weights and masks: the kernel path (the f32
+    CUDA-core attention and CE kernels, whose launches it counts)
+    against the unfused reference (``mha_reference``, full logits):
+    loss and every gradient leaf."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dict(n_layers=2, dtype=torch.float32)
+    kl, kg, kc = _bert_grads_of_one_step(
+        _bert_config(**base, loss_impl="kernel"), 5, 2)
+    rl, rg, _ = _bert_grads_of_one_step(
+        _bert_config(**base, attention_impl="reference"), 5, 2)
+    grad_err = {n: rel_err(g, rg[n]) for n, g in kg.items()}
+    out = {"config": "bert_base, 2 layers", "dtype": "float32",
+           "batch": 2, "seq_len": _bert_config().max_seq_len,
+           "loss_kernel": kl,
+           "loss_reference": rl, "abs_loss_err": abs(kl - rl),
+           "loss_tol": TRAIN_LOSS_TOL, "grad_rel_err": grad_err,
+           "max_grad_rel_err": max(grad_err.values()),
+           "grad_tol": GRAD_TOL["float32"], "launches": kc}
+    state["bert_parity_launches"] = kc
+    if (abs(kl - rl) > TRAIN_LOSS_TOL or len(grad_err) != 10
+            or max(grad_err.values()) > GRAD_TOL["float32"]
+            or kc != expected_counts(BERT_PARITY_LAUNCHES, 1)):
+        raise AssertionError(f"bert parity: {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bert_engine(cfg, seed):
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        init_params)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    slots = BERT_SCORE_REQUESTS
+    engine = InferenceEngine(
+        cfg, params, device="cuda", block_size=SERVE_BLOCK, max_slots=slots,
+        num_blocks=slots * cfg.max_seq_len // SERVE_BLOCK + 1)
+    return engine, params
+
+
+def phase_bert_score(state):
+    """Scoring requests (``max_new_tokens=0``: one prefill each) through
+    ``InferenceEngine`` at ``bert_base``: in bf16 at full depth, the
+    non-causal tensor-core forward 12 times a prompt and no other kernel;
+    in f32 at 2 layers, each prompt's last-position prefill logits
+    against ``TransformerLM.forward`` on the prompt alone."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM)
+
+    cfg = _bert_config()
+    engine, params = _bert_engine(cfg, 0)
+    del params
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, cfg.max_seq_len + 1, BERT_SCORE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    engine.generate([prompts[0][:16]], max_new_tokens=0)      # warm-up
+    prefills0 = engine.prefills
+    prefill_ms, decode_ms = [], []
+    _instrument(engine, prefill_ms, decode_ms)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    prefills = engine.prefills - prefills0
+    acct = engine.block_accounting()
+    problems = []
+    if [len(o) for o in outs] != [1] * BERT_SCORE_REQUESTS or any(
+            not 0 <= o[0] < cfg.vocab_size for o in outs):
+        problems.append(f"scores {outs}")
+    if prefills != BERT_SCORE_REQUESTS or decode_ms:
+        problems.append(f"{prefills} prefills, {len(decode_ms)} decodes")
+    if counts != expected_counts({"flash_fwd_tc": cfg.n_layers}, prefills):
+        problems.append(f"launches {counts}")
+    if not acct["conserved"] or acct["free"] != acct["usable"]:
+        problems.append(f"block accounting at idle: {acct}")
+    state["bert_score_launches"] = counts
+    del engine
+    torch.cuda.empty_cache()
+
+    # f32, 2 layers: the engine's last-position prefill logits against
+    # the model's forward on each prompt alone
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = _bert_config(n_layers=2, dtype=torch.float32)
+    engine, params = _bert_engine(cfg32, 1)
+    model = TransformerLM(cfg32, params, device="cuda")
+    del params
+    recorded, prefill_fn = [], engine._prefill
+
+    def prefill(params_, pool, toks, rows):
+        last, pool = prefill_fn(params_, pool, toks, rows)
+        recorded.append((toks[0].tolist(), last.clone()))
+        return last, pool
+
+    engine._prefill = prefill
+    scores = engine.generate(prompts, max_new_tokens=0)
+    worst, mismatched = 0.0, []
+    with torch.no_grad():
+        for i, (toks, last) in enumerate(recorded):
+            ref = model(torch.tensor([toks], device="cuda"))[0, -1]
+            worst = max(worst, abs_err(last, ref))
+            top2 = torch.topk(ref, 2).values
+            if (top2[0] - top2[1]).item() > PARITY_GAP and \
+                    scores[prompts.index(toks)][0] != int(ref.argmax()):
+                mismatched.append(i)
+    if len(recorded) != BERT_SCORE_REQUESTS or worst > PARITY_LOGIT_TOL \
+            or mismatched:
+        problems.append(f"f32 prefill logits: max err {worst} (tol "
+                        f"{PARITY_LOGIT_TOL}), {len(recorded)} recorded, "
+                        f"score mismatches {mismatched}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    del engine, model
+    torch.cuda.empty_cache()
+    return {"config": "bert_base", "dtype": "bfloat16",
+            "requests": BERT_SCORE_REQUESTS,
+            "prompt_lens": [int(n) for n in lens], "wall_s": wall,
+            "prefill_ms": [[n, ms] for n, ms in prefill_ms],
+            "prefill_ms_mean": float(np.mean([ms for _, ms in prefill_ms])),
+            "prompts_per_s": BERT_SCORE_REQUESTS / wall,
+            "launches": counts, "block_accounting": acct,
+            "f32_parity": {"layers": 2, "max_abs_logit_err": worst,
+                           "tol": PARITY_LOGIT_TOL}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1886,7 +2392,11 @@ def main() -> int:
                      ("parity", phase_parity), ("train", phase_train),
                      ("train_fused", phase_train_fused),
                      ("train_parity", phase_train_parity),
-                     ("train_options", phase_train_options)):
+                     ("train_options", phase_train_options),
+                     ("bert_train", phase_bert_train),
+                     ("bert_train_kernel", phase_bert_train_kernel),
+                     ("bert_parity", phase_bert_parity),
+                     ("bert_score", phase_bert_score)):
         t0 = time.perf_counter()
         try:
             out = fn(state)
@@ -1921,6 +2431,14 @@ def main() -> int:
             # the same kernel on the serve path, at its longest prefill
             row["serve"] = {"launches": state["serve_launches"],
                             **k["serve"]}
+        # BERT's paths, each counted from 0 over its own run, and the
+        # kernel's numbers at the shape BERT gives it
+        row["bert_launches"] = {
+            path: state[f"{path}_launches"][name]
+            for path in ("bert_train", "bert_train_kernel", "bert_parity",
+                         "bert_score")}
+        if name in state["bert_rows"]:
+            row["bert"] = state["bert_rows"][name]
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

@@ -30,8 +30,10 @@ Training: :func:`next_token_loss` (full logits),
 :func:`kernel_next_token_loss` (the fused CE kernels),
 :func:`make_optimizer` (AdamW with optax's semantics), :func:`make_loss_fn`
 and :func:`make_train_step` (the optimizer's step, or the fused AdamW
-kernel with ``fused_optimizer=True``). ``remat`` recomputes each block in
-the backward. Mesh and MoE belong to later slices.
+kernel with ``fused_optimizer=True``; :func:`train_step_around` builds
+the same step around another objective). ``remat`` recomputes each
+block in the backward, keeping what ``remat_policy`` names
+(:data:`REMAT_POLICIES`). Mesh and MoE belong to later slices.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from distributed_tensorflow_tpu_torch.ops.attention import (
-    flash_attention, mha_reference)
+    FLASH_ATTENTION_OP, flash_attention, mha_reference)
 from distributed_tensorflow_tpu_torch.ops.fused_adamw import (
     fused_adamw_update)
 from distributed_tensorflow_tpu_torch.ops.fused_ce import (
@@ -61,16 +63,26 @@ from distributed_tensorflow_tpu_torch.ops.fused_ce import (
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _save_dots(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+def _saving(ops):
+    """``checkpoint``'s ``context_fn`` for selective checkpointing that
+    saves the outputs of ``ops`` and recomputes everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-#: ``remat_policy`` → ``checkpoint``'s ``context_fn``
+#: ``remat_policy`` → ``checkpoint``'s ``context_fn``. "attn" saves what
+#: JAX names ``attn_out`` (``save_only_these_names("attn_out")``): the
+#: outputs ``(o, lse)`` of the registered flash op, so the backward
+#: launches no forward kernel again; "dots_attn" saves those and the
+#: dots. Under ``attention_impl="reference"`` there is no such op: the
+#: ops of ``mha_reference`` are recomputed, with the same numbers.
 REMAT_POLICIES = {
     "nothing": noop_context_fn,
-    "dots": functools.partial(create_selective_checkpoint_contexts,
-                              _save_dots),
+    "dots": _saving(_DOTS),
+    "attn": _saving((FLASH_ATTENTION_OP,)),
+    "dots_attn": _saving(_DOTS + (FLASH_ATTENTION_OP,)),
 }
 
 
@@ -96,8 +108,9 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     causal: bool = True            # False -> bidirectional encoder (BERT)
     # remat: each Block under torch.utils.checkpoint while grad is
-    # enabled; remat_policy "nothing" saves nothing, "dots" saves the
-    # matmul outputs. scan_layers is accepted and numerically neutral:
+    # enabled; remat_policy "nothing" saves nothing, "dots" the matmul
+    # outputs, "attn" the flash attention's outputs, "dots_attn" both
+    # (REMAT_POLICIES). scan_layers is accepted and numerically neutral:
     # the port always loops over its layers in Python.
     remat: bool = True
     remat_policy: str = "nothing"
@@ -131,11 +144,6 @@ class TransformerConfig:
         if self.loss_chunk_policy not in ("recompute", "save"):
             raise ValueError(f"loss_chunk_policy={self.loss_chunk_policy!r}"
                              f"; expected 'recompute' or 'save'")
-        if self.remat_policy in ("attn", "dots_attn"):
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} saves the attention "
-                f"output by name, which needs the flash call visible to "
-                f"selective checkpointing (ROADMAP.md queue A item 2)")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={self.remat_policy!r}; expected "
                              f"one of {sorted(REMAT_POLICIES)}")
@@ -675,12 +683,24 @@ def make_train_step(cfg: TransformerConfig, model: TransformerLM,
     ``optimizer.step()``; the optimizer must be exactly
     ``make_optimizer(cfg, model.parameters())``, else ``ValueError``."""
     loss_fn = make_loss_fn(cfg, model)
+    return train_step_around(cfg, model, optimizer,
+                             lambda step, batch: loss_fn(batch["tokens"]))
+
+
+def train_step_around(cfg: TransformerConfig, model: TransformerLM,
+                      optimizer: torch.optim.Optimizer, loss_of_batch):
+    """The train step of :func:`make_train_step` around another objective
+    ``loss_of_batch(step, batch) -> scalar`` (``step`` the state's step
+    count): the gradients, then ``optimizer.step()`` or, with
+    ``cfg.fused_optimizer``, :meth:`AdamW.fused_step` (checked as there).
+    The counterpart of the JAX step's ``step_factory`` seam; BERT's MLM
+    step (``models/bert.py``) is built on it."""
     if cfg.fused_optimizer:
         _check_fused_optimizer(cfg, model, optimizer)
 
     def train_step(state, batch):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch["tokens"])
+        loss = loss_of_batch(state["step"], batch)
         loss.backward()
         if cfg.fused_optimizer:
             optimizer.fused_step()

@@ -25,9 +25,12 @@ Port of ``distributed_tensorflow_tpu/ops/attention.py``. Layout is
   :func:`attention_route` states which kernel a CUDA call takes; a head
   dim below 128 other than 64 is zero-padded to the next of the two the
   kernels are built for (:func:`kernel_head_dim`).
-- :func:`flash_attention` — the public op, ``o`` only, differentiable
-  through :class:`FlashAttention` (the counterpart of the JAX
-  ``custom_vjp``).
+- :func:`flash_attention_op` — the forward and its gradient as one
+  registered op, ``dtt_torch::flash_attention(q, k, v, causal,
+  sm_scale) -> (o, lse)`` (:data:`FLASH_ATTENTION_OP`), the counterpart
+  of the JAX ``custom_vjp``: selective activation checkpointing sees it
+  as one op, so the "attn" remat policies can save its outputs.
+- :func:`flash_attention` — the public function, ``o`` only.
 """
 
 from __future__ import annotations
@@ -477,33 +480,61 @@ flash_attention_bwd.launches_dkv = 0       # f32, CUDA cores
 flash_attention_bwd.launches_dkv_tc = 0    # bf16, tensor cores
 
 
-class FlashAttention(torch.autograd.Function):
-    """Flash attention with its gradient: the forward saves
-    ``(q, k, v, o, lse)`` and the backward recomputes ``p`` from them —
-    the counterpart of ``_flash_mha``'s ``custom_vjp`` (JAX
-    ``ops/attention.py:433-452``)."""
+@torch.library.custom_op("dtt_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, sm_scale: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention ``(o, lse)`` as one registered op: the body is
+    :func:`flash_attention_fwd` (the kernels on a CUDA tensor, counted
+    there; the plain version on a CPU tensor), the backward
+    :func:`flash_attention_bwd` from the saved ``(q, k, v, o, lse)``, as
+    ``_flash_mha``'s ``custom_vjp`` keeps ``lse`` among its residuals
+    (JAX ``ops/attention.py:433-452``). ``lse`` takes no gradient.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal,
-                                     sm_scale=sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return o
+    Selective activation checkpointing sees the call as the single op
+    :data:`FLASH_ATTENTION_OP`: a policy that saves it keeps ``(o, lse)``
+    and the recompute launches no forward kernel; the "attn" remat
+    policies of ``models/transformer.py`` do so."""
+    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-            sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, sm_scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:3],
+                                            dtype=torch.float32)
+
+
+def _flash_attention_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_attention_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                     causal=ctx.causal,
+                                     sm_scale=ctx.sm_scale)
+    return dq, dk, dv, None, None
+
+
+flash_attention_op.register_autograd(_flash_attention_backward,
+                                     setup_context=_flash_attention_setup)
+
+#: the op as selective checkpointing's policy functions see it
+FLASH_ATTENTION_OP = torch.ops.dtt_torch.flash_attention.default
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: float | None = None):
     """Fused attention. ``(b, h, s, d)`` in, ``(b, h, s, d)`` out;
-    differentiable in ``q``, ``k`` and ``v``."""
+    differentiable in ``q``, ``k`` and ``v`` through
+    :func:`flash_attention_op`. A tensor on another device than a CUDA
+    device or the CPU raises."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, causal, float(sm_scale))
+    return flash_attention_op(q, k, v, causal, float(sm_scale))[0]

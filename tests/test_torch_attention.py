@@ -148,3 +148,17 @@ def test_wrapper_dispatch_on_cpu():
     with pytest.raises(ValueError):
         tattn.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
+
+
+def test_registered_op_passes_opcheck():
+    """``dtt_torch::flash_attention`` as ``torch.library.opcheck`` checks
+    a custom op: schema, fake tensor, autograd registration; causal and
+    not, with a gradient and without."""
+    rng = np.random.default_rng(3)
+    for causal, grad in ((True, True), (False, True), (False, False)):
+        q, k, v = (torch.from_numpy(a).requires_grad_(grad)
+                   for a in _qkv(rng.integers(1 << 30), 1, 2, 12, 12, 16))
+        torch.library.opcheck(tattn.flash_attention_op,
+                              (q, k, v, causal, 0.25))
+    assert tattn.FLASH_ATTENTION_OP is \
+        torch.ops.dtt_torch.flash_attention.default

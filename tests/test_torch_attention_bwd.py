@@ -5,7 +5,7 @@
 The same numpy inputs and output cotangent go through both packages.
 The JAX flash kernels (forward and the dq/dkv backward) run in Pallas
 interpret mode with 32-row blocks, so the sequence tails are ragged
-there too; the port's ``FlashAttention`` function runs the plain
+there too; the port's registered ``flash_attention_op`` runs the plain
 versions, which is what its wrappers take for a CPU tensor. Tolerance
 1e-5 absolute (f32; blockwise vs whole-row reduction orders). The plain
 backward is also held to autograd through ``mha_reference`` at 1e-5,

@@ -48,7 +48,7 @@ print(json.dumps({"imported": names,
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for sub in ("ops.attention", "ops.fused_ce", "ops.fused_adamw",
                 "ops._build",
-                "models.transformer",
+                "models.transformer", "models.bert",
                 "serving.engine", "serving.decode", "serving.kv_cache",
                 "serving.scheduler", "telemetry.events"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]

@@ -6,8 +6,8 @@ Both start from the same flax init (through ``params_from_jax``) and
 take 5 AdamW steps on the same numpy token batch, in each variant of
 ``VARIANTS``: the kernel loss, full logits, the fused optimizer
 (``fused_optimizer=True``), the scan-chunked loss with both chunk
-policies, and ``remat`` with the "nothing" and "dots" policies; f32 or
-bf16 ``mu``. The JAX side runs its Pallas kernels in interpret mode
+policies, and ``remat`` with the "nothing", "dots", "attn" and
+"dots_attn" policies; f32 or bf16 ``mu``. The JAX side runs its Pallas kernels in interpret mode
 (``attention_impl="interpret"``, ``loss_kernel_impl="interpret"`` for
 the kernel loss, ``optimizer_impl="interpret"`` for the fused
 optimizer); the port runs the plain versions of its kernels, which is
@@ -67,6 +67,9 @@ VARIANTS = {
                         loss_chunk_policy="save"),
     "remat_nothing": dict(FULL_LOGITS, remat=True, remat_policy="nothing"),
     "remat_dots": dict(KERNEL_LOSS, remat=True, remat_policy="dots"),
+    "remat_attn": dict(KERNEL_LOSS, remat=True, remat_policy="attn"),
+    "remat_dots_attn": dict(FULL_LOGITS, remat=True,
+                            remat_policy="dots_attn"),
 }
 
 
@@ -188,17 +191,17 @@ def test_params_and_moments_after_adamw_steps(runs):
 
 
 def test_unported_options_raise():
-    """The options of slice 3 are accepted; the remat policies that need
-    the flash call visible to selective checkpointing, and bad values,
-    are refused where the config is made."""
+    """Every option of the single-device step is accepted, the "attn"
+    remat policies too; bad values are refused where the config is
+    made."""
     ttf.TransformerConfig.tiny(fused_optimizer=True)
     ttf.TransformerConfig.tiny(loss_chunks=4, loss_chunk_policy="save")
     ttf.TransformerConfig.tiny(loss_impl="kernel", loss_chunks=4)
     ttf.TransformerConfig.tiny(remat=True, remat_policy="dots",
                                scan_layers=False)
     for policy in ("attn", "dots_attn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttf.TransformerConfig.tiny(remat_policy=policy)
+        cfg = ttf.TransformerConfig.tiny(remat=True, remat_policy=policy)
+        assert cfg.remat_policy in ttf.REMAT_POLICIES
     with pytest.raises(ValueError, match="remat_policy"):
         ttf.TransformerConfig.tiny(remat_policy="everything")
     with pytest.raises(ValueError, match="loss_chunk_policy"):
@@ -285,3 +288,32 @@ def test_remat_only_while_grad_is_enabled(monkeypatch):
     out = model(tokens)
     assert calls == [ttf.REMAT_POLICIES["dots"]] * cfg.n_layers
     torch.testing.assert_close(out, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("remat, policy, per_layer", [
+    (False, "nothing", 1), (True, "nothing", 2), (True, "dots", 2),
+    (True, "attn", 1), (True, "dots_attn", 1)])
+def test_flash_forward_runs_per_policy(monkeypatch, remat, policy,
+                                       per_layer):
+    """One train step on the flash path runs the flash forward once a
+    layer, and again in the backward's recompute unless the policy saves
+    the registered op's outputs ("attn", "dots_attn"): the plain forward
+    (what a CPU tensor takes) counted by a wrapper."""
+    from distributed_tensorflow_tpu_torch.ops import attention as tattn
+    calls = []
+    real = tattn.flash_attention_plain
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention_plain", counting)
+    cfg = ttf.TransformerConfig.tiny(max_seq_len=S, attention_impl=None,
+                                     remat=remat, remat_policy=policy)
+    model = ttf.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    opt = ttf.make_optimizer(cfg, model.parameters())
+    step = ttf.make_train_step(cfg, model, opt)
+    step({"model": model, "optimizer": opt, "step": 0},
+         {"tokens": torch.from_numpy(_tokens()).long()})
+    assert len(calls) == per_layer * cfg.n_layers
