@@ -52,6 +52,34 @@ printing one JSON line:
 5. ``parity``  — the serving path in f32: decode logits at every
    generated position against ``TransformerLM`` full-sequence
    recompute, and greedy tokens wherever the top-2 gap is clear.
+5a. ``prefix_serve`` — prefix caching at ``transformer_big`` in bf16,
+   the serve phase's pool: 8 prompts sharing one seeded 512-token
+   prefix (suffixes of 16-256 tokens), the first alone (cold), then the
+   other seven (hits), a prompt whose match ends 9 tokens into a block
+   (copy-on-write), then the 8 again; the same prompts through an
+   engine without the cache. Prefill ms cold against hit, cached
+   tokens, 12 ``flash_fwd_tc`` launches a prefill (counted per prefill
+   and over the run), #1 at the hit shapes (Sq = the suffix, Sk = the
+   prompt, bottom-right offset = the cached tokens) against its plain
+   version, the largest timed with SDPA under a lower-right causal
+   mask; streams against the cold engine's: where they part, the cold
+   logits' top-2 margin there must not exceed twice the hit path's
+   measured logit error.
+5b. ``prefix_parity`` — f32, TF32 off, full depth: every suffix logit
+   of a hit against ``TransformerLM`` recompute (1e-3), streams equal to
+   the cold engine's, 12 ``flash_fwd`` a prefill.
+5c. ``spill`` — f32, a 24-block pool with a ``HostTier``: a long
+   generation evicts the first prompt's cached blocks to host memory,
+   the first prompt again re-adopts them; blocks and bytes each way,
+   the re-adopted rows bit-equal to the spilled ones, streams equal to
+   the run without a spill tier.
+5d. ``spec_serve`` — speculative decoding in bf16, k = 4 with the
+   default 6-layer truncated draft, on the serve phase's prompts,
+   against the same engine without it: acceptance, tokens/s, decode ms
+   per committed token, 6 ``flash_fwd_tc`` launches per draft call, and
+   the streams under ``prefix_serve``'s rule.
+5e. ``spec_parity`` — f32: streams equal to non-speculative decode,
+   every verify row's logits against recompute of its context (1e-3).
 6. ``train``   — the train step (``make_train_step``) of ``bench.py``'s
    headline row at the full width and depth of ``transformer_big`` in
    bf16: batch 8 × 1024, no remat, unrolled layers, kernel
@@ -108,7 +136,9 @@ printing one JSON line:
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
-bound, at the main path's shape and, where BERT runs it, at BERT's),
+bound, at the main path's shape and, where BERT runs it, at BERT's;
+the flash forward's rows also the launches of phases 5a-5e and, in
+bf16, its times at the largest suffix shape),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -144,6 +174,14 @@ CE_ROW_TOL = 1e-3
 CE_LOSS_TOL = 1e-5
 PARITY_LOGIT_TOL = 1e-3      # f32 decode logits vs full recompute
 PARITY_GAP = 1e-2            # greedy tokens compared where top-2 gap > this
+# prefix_serve / spec_serve (bf16): a path's logit error against an f32
+# recompute (the same bf16-rounded weights, TF32 off), at the positions it
+# shares with its reference path (the cold engine, plain decode) in one
+# context, at most this multiple of the reference path's own error there.
+# Both compute the same function in other shapes and orders, so their
+# errors are alike; it caps the parting rule (a margin above twice the
+# paths' difference is a fault) at (1 + this) times the reference's error.
+BF16_PATH_ERR_RATIO = 2.0
 # train_parity (f32, TF32 off): loss absolute; gradients as GRAD_TOL f32.
 # Parameters after 3 steps: Adam moves an element by lr times a function
 # of the ratios of its own gradients, so where the two runs' gradients of
@@ -169,6 +207,17 @@ SOURCES = ("flash_fwd", "flash_bwd", "flash_tc", "fused_ce", "fused_ce_tc",
            "fused_adamw")
 SERVE_SLOTS, SERVE_BLOCK, SERVE_REQUESTS, SERVE_NEW = 8, 16, 8, 32
 PARITY_REQUESTS, PARITY_NEW = 4, 16
+# prefix_serve: 8 prompts sharing one seeded 512-token prefix, seeded
+# suffixes of 16-256 tokens; prefix_parity (f32) a 256-token prefix
+PREFIX_LEN, PREFIX_SUFFIX = 512, (16, 256)
+PREFIX_PARITY_LEN, PREFIX_PARITY_SUFFIX = 256, (16, 128)
+# spill: f32, a 24-block pool; a 300-token prompt, a short prompt whose
+# 200-token generation evicts (spills) half of the first prompt's cached
+# blocks, then the first prompt again, which re-adopts them
+SPILL_BLOCKS, SPILL_PROMPT, SPILL_LONG_NEW = 25, 300, 200
+# spec_serve / spec_parity: draft k tokens with the default truncated
+# draft (the first half of the layers)
+SPEC_K = 4
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
 # kernels launched per train step of transformer_big at batch 8 x 1024:
 # one flash forward, dq and dkv a layer; one CE forward and backward per
@@ -1685,6 +1734,835 @@ def phase_parity(state):
             "token_mismatches": 0}
 
 
+# ---------------------------------------------------------------------------
+# prefix caching and speculative decoding
+# ---------------------------------------------------------------------------
+
+def _record(engine, prefills: list, logits: dict):
+    """Wrap ``engine``'s step functions to record, on the card and in
+    this run: per prefill its request, length, cached tokens, host ms and
+    kernel launches (``prefills``); and the logits the engine computes,
+    keyed by request id and position (``logits``): a cold prefill's last
+    position, every suffix position of a prefix hit, every decode row,
+    and verify row 0 of a speculative step (whose context is the
+    committed stream). ``logits["verify"]`` lists every verify row group
+    with its full context, for recompute."""
+    cur = {}
+    logits.setdefault("verify", [])
+    pre_one, dec_batch = engine._prefill_one, engine._decode_batch
+    spec_batch = engine._speculative_batch
+    prefill_fn, decode_fn, extend_fn = (engine._prefill, engine._decode,
+                                        engine._extend)
+
+    def prefill_one(seq):
+        cur["seq"] = seq
+        before = launch_counts()
+        t0 = time.perf_counter()
+        pre_one(seq)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        prefills.append({"id": seq.request.id, "len": seq.prompt_len,
+                         "cached": seq.cached_tokens, "ms": ms,
+                         "launches": {k: after[k] - before[k] for k in after
+                                      if after[k] != before[k]}})
+
+    def prefill(params_, pool, toks, rows):
+        last, pool = prefill_fn(params_, pool, toks, rows)
+        logits[(cur["seq"].request.id, toks.shape[1] - 1)] = last.clone()
+        return last, pool
+
+    def decode_batch(batch):
+        cur["batch"] = batch
+        dec_batch(batch)
+
+    def speculative_batch(batch):
+        cur["batch"] = batch
+        cur["hist"] = [list(q.request.tokens) + q.generated for q in batch]
+        return spec_batch(batch)
+
+    # one copy and at most a few host reads a call: the recording runs
+    # inside the timed steps, alike in the engines compared
+    def decode(params_, pool, tokens, positions, *rest):
+        out, pool = decode_fn(params_, pool, tokens, positions, *rest)
+        kept = out.clone()
+        for i, (seq, pos) in enumerate(zip(cur["batch"],
+                                           positions.tolist())):
+            logits[(seq.request.id, pos)] = kept[i]
+        return out, pool
+
+    def extend(params_, pool, tokens, positions, lengths, *rest):
+        out, pool = extend_fn(params_, pool, tokens, positions, lengths,
+                              *rest)
+        kept = out.clone()
+        if lengths is None:                    # a prefix hit's suffix
+            seq = cur["seq"]
+            for j in range(tokens.shape[1]):
+                logits[(seq.request.id, seq.cached_tokens + j)] = kept[0, j]
+        else:                                  # a speculative verify
+            toks = tokens.tolist()
+            for i, (seq, first, n) in enumerate(zip(
+                    cur["batch"], positions[:, 0].tolist(),
+                    lengths.tolist())):
+                logits[(seq.request.id, first)] = kept[i, 0]
+                logits["verify"].append((
+                    cur["hist"][i][:first] + toks[i][:n - first], first,
+                    kept[i, :n - first]))
+        return out, pool
+
+    engine._prefill_one, engine._decode_batch = prefill_one, decode_batch
+    engine._speculative_batch = speculative_batch
+    engine._prefill, engine._decode, engine._extend = prefill, decode, extend
+
+
+def _serve_rounds(engine, rounds) -> dict:
+    """Submit each round's ``{id: (prompt, new)}`` and run to idle;
+    ``{id: stream}``."""
+    from distributed_tensorflow_tpu_torch.serving.scheduler import Request
+    out = {}
+    for batch in rounds:
+        for rid, (prompt, new) in batch.items():
+            engine.submit(Request(id=rid, tokens=tuple(prompt),
+                                  max_new_tokens=new))
+        out.update({rid: rec["tokens"]
+                    for rid, rec in engine.run_until_idle().items()})
+    return out
+
+
+def _part(got: list, want: list):
+    """The first index where two streams differ (None: they are equal)."""
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None if len(got) == len(want) else min(len(got), len(want)))
+
+
+def _path_err(got_logits: dict, want_logits: dict, got: dict, want: dict,
+              prompts: dict) -> float:
+    """A path's measured logit error against its reference path: the
+    largest difference of the logits both computed at one position in
+    the same context, that is, at every position of each stream before
+    it parts from its reference stream."""
+    err = 0.0
+    for rid, w in want.items():
+        j = _part(got[rid], w)
+        first = len(prompts[rid]) - 1
+        for pos in range(first, first + (len(w) if j is None else j)):
+            if (rid, pos) in got_logits and (rid, pos) in want_logits:
+                err = max(err, abs_err(got_logits[(rid, pos)],
+                                       want_logits[(rid, pos)]))
+    return err
+
+
+def _first_divergences(got: dict, want: dict, prompts: dict,
+                       want_logits: dict, err: float) -> list:
+    """Where a stream parts from its reference stream: the index, both
+    tokens, and the top-2 margin of the reference's logits there. A
+    margin above twice the path's measured logit error ``err``
+    (:func:`_path_err`) is a fault, not rounding; it is flagged
+    ``"fault": True``."""
+    import torch
+    out = []
+    for rid, w in want.items():
+        g = got[rid]
+        j = _part(g, w)
+        if j is None:
+            continue
+        pos = len(prompts[rid]) - 1 + j
+        top2 = torch.topk(want_logits[(rid, pos)].float(), 2).values
+        margin = (top2[0] - top2[1]).item()
+        out.append({"id": rid, "index": j, "position": pos,
+                    "want": w[j] if j < len(w) else None,
+                    "got": g[j] if j < len(g) else None,
+                    "margin": margin, "fault": margin > 2 * err})
+    return out
+
+
+def _f32_recompute_errs(cfg, params, prompts: dict, want: dict,
+                        paths: dict) -> dict:
+    """Each bf16 path's logit error against an f32 recompute of the
+    model (``params`` rounded to bf16, TF32 off): the largest difference
+    at the positions that every path of ``paths`` (``{name: (streams,
+    logits)}``, the logits as :func:`_record` keeps them) computed in the
+    context of the reference streams ``want``, before any of its streams
+    parts from them. ``{name: err, ..., "positions": n}``."""
+    import dataclasses
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def rounded(node):
+        if isinstance(node, dict):
+            return {k: rounded(v) for k, v in node.items()}
+        return node.to(torch.bfloat16).float()
+
+    model = TransformerLM(dataclasses.replace(cfg, dtype=torch.float32),
+                          rounded(params), device="cuda")
+    errs, n = {name: 0.0 for name in paths}, 0
+    with torch.no_grad():
+        for rid, w in want.items():
+            first = len(prompts[rid]) - 1
+            end = first + min((len(w) if j is None else j) for j in (
+                _part(got[rid], w) for got, _ in paths.values()))
+            pos = [p for p in range(first, end)
+                   if all((rid, p) in lg for _, lg in paths.values())]
+            if not pos:
+                continue
+            ctx = list(prompts[rid]) + w[:pos[-1] - first]
+            ref = model(torch.tensor([ctx], device="cuda"))[0]
+            for name, (_, lg) in paths.items():
+                errs[name] = max(errs[name], max(
+                    abs_err(lg[(rid, p)], ref[p]) for p in pos))
+            n += len(pos)
+    del model
+    torch.cuda.empty_cache()
+    return {**errs, "positions": n}
+
+
+def _hold_path_err(errs: dict, path: str, ref: str) -> list:
+    """The problems of :data:`BF16_PATH_ERR_RATIO`'s rule."""
+    if not errs["positions"] or not errs[path] <= \
+            BF16_PATH_ERR_RATIO * errs[ref]:
+        return [f"the {path} path's logit error from an f32 recompute "
+                f"exceeds {BF16_PATH_ERR_RATIO} x the {ref} path's: {errs}"]
+    return []
+
+
+def _check_suffix_flash(shapes, dtype, gen) -> dict:
+    """#1 at the prefix-hit path's shapes (Sq = the suffix, Sk = the
+    prompt, bottom-right offset Sk - Sq = the cached tokens) against its
+    plain version; the first shape also timed in turns, with SDPA under a
+    lower-right causal mask and the bound of the work."""
+    import torch
+    from torch.nn.attention.bias import causal_lower_right
+    from distributed_tensorflow_tpu_torch.ops.attention import (
+        flash_attention_fwd, flash_attention_plain)
+    cases, timed = [], None
+    for sq, sk in shapes:
+        q = _rand((1, 16, sq, 64), dtype, gen)
+        k = _rand((1, 16, sk, 64), dtype, gen)
+        v = _rand((1, 16, sk, 64), dtype, gen)
+        before = launch_counts()
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        calls = {c: after[c] - before[c] for c in after
+                 if after[c] != before[c]}
+        res = {"sq": sq, "sk": sk, "offset": sk - sq,
+               **_fwd_errors(q, k, v, o, lse, True), "launches": calls}
+        res["ok"] = res["ok"] and calls == {_route_name(dtype, 64, "fwd"): 1}
+        cases.append(res)
+        if timed is None:
+            timed = (q, k, v, res["o_err"])
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"flash_fwd at the suffix shapes disagrees "
+                             f"with its plain version: {bad}")
+    q, k, v, err = timed
+    sq, sk = q.shape[2], k.shape[2]
+    sm = q.shape[-1] ** -0.5
+    mask = causal_lower_right(sq, sk)
+
+    def kernel():
+        flash_attention_fwd(q, k, v, causal=True)
+
+    def library():
+        torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=sm)
+
+    t = in_turns(kernel, lambda: flash_attention_plain(
+        q, k, v, causal=True, sm_scale=sm), 20)
+    flops, nbytes = attention_work(q, k, True, sk - sq, "fwd")
+    row = {**_flash_row(t, flops, nbytes, dtype, err, time_ms(library),
+                        q.shape),
+           "sk": sk, "causal_offset": sk - sq,
+           "device_ms": device_ms(kernel, 20),
+           "library_device_ms": device_ms(library, 20),
+           "library": "scaled_dot_product_attention(causal_lower_right)"}
+    return {"cases": cases, "timed": row}
+
+
+def _prefix_prompts(cfg, rng, prefix_len, suffix, n):
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len).tolist()
+    lens = rng.integers(suffix[0], suffix[1] + 1, n)
+    return [prefix + rng.integers(0, cfg.vocab_size, m).tolist()
+            for m in lens]
+
+
+def phase_prefix_serve(state):
+    """Prefix caching at ``transformer_big`` in bf16: the cold engine and
+    the caching engine on the same prompts; the hit path's prefill time,
+    its flash-forward launches (12 per prefill, at Sq = the suffix, Sk =
+    the prompt), and its streams against the cold engine's."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, init_params)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+
+    cfg = TransformerConfig.transformer_big()           # bf16
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    kw = dict(device="cuda", block_size=SERVE_BLOCK, max_slots=SERVE_SLOTS,
+              num_blocks=SERVE_SLOTS * cfg.max_seq_len // SERVE_BLOCK + 1)
+    cold = InferenceEngine(cfg, params, **kw)
+    hit = InferenceEngine(cfg, params, prefix_caching=True, **kw)
+    rng = np.random.default_rng(2)
+    prompts = _prefix_prompts(cfg, rng, PREFIX_LEN, PREFIX_SUFFIX,
+                              SERVE_REQUESTS)
+    # copy-on-write: a prompt whose match ends 9 tokens into prompt 0's
+    # 33rd block, so its one suffix token is written into a copy of it
+    cow = prompts[0][:PREFIX_LEN + 9] + [int(rng.integers(cfg.vocab_size))]
+    # the first prompt alone (cold), the other seven (hits on it), the
+    # copy-on-write prompt, then all eight again
+    rounds = [{"p0": (prompts[0], SERVE_NEW)},
+              {f"p{i}": (p, SERVE_NEW) for i, p in enumerate(prompts)
+               if i},
+              {"cow": (cow, SERVE_NEW)},
+              {f"q{i}": (p, SERVE_NEW) for i, p in enumerate(prompts)}]
+    by_id = {rid: p for r in rounds for rid, (p, _) in r.items()}
+    # warm-up, not counted: a cold prompt and a hit on it, per engine
+    warm = rng.integers(0, cfg.vocab_size, 80).tolist()
+    for eng in (cold, hit):
+        eng.generate([warm, warm[:64] + warm[:10]], max_new_tokens=2)
+        eng.generate([warm[:70]], max_new_tokens=2)
+    cold_pre, cold_logits = [], {}
+    _record(cold, cold_pre, cold_logits)
+    want = _serve_rounds(cold, [{rid: (p, SERVE_NEW)
+                                 for rid, p in by_id.items()}])
+    del cold
+    torch.cuda.empty_cache()
+
+    hit_pre, hit_logits = [], {}
+    _record(hit, hit_pre, hit_logits)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    got = _serve_rounds(hit, rounds)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    stats = hit.stats()["prefix_cache"]
+    acct = hit.block_accounting()
+
+    hits = [p for p in hit_pre if p["cached"]]
+    colds = [p for p in hit_pre if not p["cached"]]
+    problems = []
+    if len(hits) != 2 * SERVE_REQUESTS or len(colds) != 1:
+        problems.append(f"{len(hits)} hit and {len(colds)} cold prefills")
+    per = cfg.n_layers
+    if counts != expected_counts({"flash_fwd_tc": per}, len(hit_pre)):
+        problems.append(f"launches {counts}, expected {per} a prefill")
+    if any(p["launches"] != {"flash_fwd_tc": per} for p in hit_pre):
+        problems.append(f"a prefill launched other than {per} "
+                        f"flash_fwd_tc: {hit_pre}")
+    cow_pre = next(p for p in hit_pre if p["id"] == "cow")
+    if cow_pre["cached"] != PREFIX_LEN + 9:
+        problems.append(f"copy-on-write prompt matched {cow_pre['cached']}")
+    if not acct["conserved"] or acct["leaked_refs"] != 0 or \
+            acct["free"] + acct["cache_refs"] != acct["usable"]:
+        problems.append(f"block accounting at idle: {acct}")
+    want = {rid: want[rid] for rid in got}
+    err = _path_err(hit_logits, cold_logits, got, want, by_id)
+    div = _first_divergences(got, want, by_id, cold_logits, err)
+    if any(d["fault"] for d in div):
+        problems.append(f"streams part where the margin exceeds twice the "
+                        f"logit error {err}: {div}")
+    if any(len(s) != SERVE_NEW or not all(0 <= t < cfg.vocab_size
+                                          for t in s) for s in got.values()):
+        problems.append("incomplete or out-of-range streams")
+    shapes = sorted({(p["len"] - p["cached"], p["len"]) for p in hits},
+                    key=lambda s: -s[0] * s[1])
+    del hit
+    torch.cuda.empty_cache()
+    f32_errs = _f32_recompute_errs(cfg, params, by_id, want, {
+        "cold": (want, cold_logits), "hit": (got, hit_logits)})
+    problems += _hold_path_err(f32_errs, "hit", "cold")
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kernel = _check_suffix_flash([shapes[0], (1, cow_pre["len"])]
+                                 + shapes[1:4], torch.bfloat16, gen)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["prefix_launches"] = counts
+    state["flash_fwd_tc"]["prefix"] = {
+        "launches": counts["flash_fwd_tc"],
+        "hit_launches": sum(p["launches"]["flash_fwd_tc"] for p in hits),
+        "hit_prefills": len(hits), **kernel["timed"]}
+    cold_ms = [p["ms"] for p in cold_pre if p["id"].startswith("p")]
+    return {"config": "transformer_big", "dtype": "bfloat16",
+            "prefix_len": PREFIX_LEN,
+            "suffix_lens": [len(p) - PREFIX_LEN for p in prompts],
+            "cow_prompt": {"len": cow_pre["len"],
+                           "cached": cow_pre["cached"]},
+            "prefill_ms_cold": [[p["len"], p["ms"]] for p in cold_pre
+                                if p["id"].startswith("p")],
+            "prefill_ms_hit": [[p["len"], p["cached"], p["ms"]]
+                               for p in hits],
+            "prefill_ms_cold_mean": float(np.mean(cold_ms)),
+            "prefill_ms_hit_mean": float(np.mean([p["ms"] for p in hits])),
+            "prefill_ms_hit_round1_mean": float(np.mean(
+                [p["ms"] for p in hits if p["id"].startswith("p")])),
+            "prefill_ms_hit_round2_mean": float(np.mean(
+                [p["ms"] for p in hits if p["id"].startswith("q")])),
+            "cached_tokens": sum(p["cached"] for p in hits),
+            "prompt_tokens": sum(p["len"] for p in hit_pre),
+            "prefix_cache": stats, "launches": counts,
+            "hit_shapes_sq_sk": [[p["len"] - p["cached"], p["len"]]
+                                 for p in hits],
+            "suffix_kernel": kernel, "hit_logit_err": err,
+            "f32_recompute_err": f32_errs,
+            "err_ratio_max": BF16_PATH_ERR_RATIO,
+            "streams_equal": sum(got[r] == want[r] for r in got),
+            "streams": len(got), "divergences": div,
+            "block_accounting": acct}
+
+
+def _f32_big(seed):
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, init_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TransformerConfig.transformer_big(dtype=torch.float32)
+    return cfg, init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+
+
+def phase_prefix_parity(state):
+    """f32, TF32 off, full ``transformer_big``: every suffix logit of a
+    prefix hit against ``TransformerLM`` recompute of the whole prompt
+    (the CUDA-core flash forward, 12 a prefill), and the caching
+    engine's streams equal to the cold engine's."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+
+    cfg, params = _f32_big(4)
+    kw = dict(device="cuda", num_blocks=129, block_size=SERVE_BLOCK,
+              max_slots=4)
+    rng = np.random.default_rng(4)
+    prompts = _prefix_prompts(cfg, rng, PREFIX_PARITY_LEN,
+                              PREFIX_PARITY_SUFFIX, PARITY_REQUESTS)
+    cow = prompts[0][:PREFIX_PARITY_LEN + 5] + [7]
+    rounds = [{"p0": (prompts[0], PARITY_NEW)},
+              {f"p{i}": (p, PARITY_NEW) for i, p in enumerate(prompts)
+               if i},
+              {"cow": (cow, PARITY_NEW)}]
+    by_id = {rid: p for r in rounds for rid, (p, _) in r.items()}
+    want = _serve_rounds(InferenceEngine(cfg, params, **kw), rounds)
+    hit = InferenceEngine(cfg, params, prefix_caching=True, **kw)
+    pre, logits = [], {}
+    _record(hit, pre, logits)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    got = _serve_rounds(hit, rounds)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del hit
+    model = TransformerLM(cfg, params, device="cuda")
+    del params
+    worst, checked = 0.0, 0
+    hits = [p for p in pre if p["cached"]]
+    with torch.no_grad():
+        for p in hits:
+            toks = by_id[p["id"]]
+            ref = model(torch.tensor([toks], device="cuda"))[0]
+            for pos in range(p["cached"], p["len"]):
+                worst = max(worst, abs_err(logits[(p["id"], pos)], ref[pos]))
+                checked += 1
+    problems = []
+    if counts != expected_counts({"flash_fwd": cfg.n_layers}, len(pre)):
+        problems.append(f"launches {counts}")
+    if len(hits) != PARITY_REQUESTS:
+        problems.append(f"{len(hits)} hit prefills: {pre}")
+    if worst > PARITY_LOGIT_TOL:
+        problems.append(f"suffix logits {worst} from recompute (tol "
+                        f"{PARITY_LOGIT_TOL})")
+    if got != want:
+        problems.append(f"streams differ from the cold engine's: "
+                        f"{[r for r in want if got[r] != want[r]]}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    del model
+    torch.cuda.empty_cache()
+    state["prefix_parity_launches"] = counts
+    return {"config": "transformer_big", "dtype": "float32",
+            "prefix_len": PREFIX_PARITY_LEN,
+            "prompt_lens": [len(p) for p in by_id.values()],
+            "hits": [[p["len"], p["cached"]] for p in hits],
+            "suffix_positions_checked": checked,
+            "max_abs_logit_err": worst, "tol": PARITY_LOGIT_TOL,
+            "streams_equal_cold": True, "launches": counts}
+
+
+def phase_spill(state):
+    """The host spill tier, f32 (TF32 off) at ``transformer_big``: a
+    24-block pool, so a long generation evicts the first prompt's cached
+    blocks to host memory, and the first prompt again re-adopts them.
+    Blocks spilled and re-adopted, bytes moved each way and their host
+    time; the re-adopted rows equal the spilled bytes; the streams equal
+    the same run's without a spill tier."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_tensorflow_tpu_torch.serving.kv_cache import HostTier
+
+    cfg, params = _f32_big(5)
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, cfg.vocab_size, SPILL_PROMPT).tolist()
+    b = rng.integers(0, cfg.vocab_size, 2 * SERVE_BLOCK).tolist()
+    rounds = [{"a": (a, 8)}, {"b": (b, SPILL_LONG_NEW)}, {"a2": (a, 8)}]
+    kw = dict(device="cuda", num_blocks=SPILL_BLOCKS,
+              block_size=SERVE_BLOCK, max_slots=2, prefix_caching=True)
+    want = _serve_rounds(InferenceEngine(cfg, params, **kw), rounds)
+    tier = HostTier(64)
+    eng = InferenceEngine(cfg, params, spill_tier=tier, **kw)
+    del params
+    pc = eng.scheduler.prefix_cache
+    moved = {"out": [0, 0.0], "in": [0, 0.0]}
+    spilled = {}
+    extract, insert = pc._spill_extract, pc._spill_insert
+
+    def timed_extract(block):
+        t0 = time.perf_counter()
+        arrays = extract(block)
+        moved["out"][0] += sum(x.nbytes for x in arrays.values())
+        moved["out"][1] += (time.perf_counter() - t0) * 1e3
+        return arrays
+
+    def timed_insert(block, arrays):
+        t0 = time.perf_counter()
+        insert(block, arrays)
+        torch.cuda.synchronize()
+        moved["in"][0] += sum(x.nbytes for x in arrays.values())
+        moved["in"][1] += (time.perf_counter() - t0) * 1e3
+
+    put = tier.put
+
+    def recording_put(key, parent, tokens, arrays, epoch):
+        spilled[key] = arrays
+        put(key, parent, tokens, arrays, epoch)
+
+    pc._spill_extract, pc._spill_insert = timed_extract, timed_insert
+    tier.put = recording_put
+    pre = []
+    _record(eng, pre, {})
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    got = _serve_rounds(eng, rounds)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    st = tier.stats()
+    exact = all(np.array_equal(eng._extract_block(pc._entries[k].block)[n],
+                               arrays[n])
+                for k, arrays in spilled.items() if k in pc._entries
+                for n in arrays)
+    readopted_now = sum(k in pc._entries for k in spilled)
+    acct = eng.block_accounting()
+    problems = []
+    if st["spilled"] == 0 or st["readopted"] == 0:
+        problems.append(f"nothing spilled or re-adopted: {st}")
+    if not exact or readopted_now != st["readopted"]:
+        problems.append("re-adopted rows differ from the spilled bytes")
+    if got != want:
+        problems.append(f"streams differ from the run without a spill "
+                        f"tier: {got} vs {want}")
+    if got["a2"] != got["a"]:
+        problems.append("the re-adopted prompt's stream differs from its "
+                        "cold stream")
+    if counts != expected_counts({"flash_fwd": cfg.n_layers}, len(pre)):
+        problems.append(f"launches {counts}")
+    if not acct["conserved"] or acct["leaked_refs"] != 0:
+        problems.append(f"block accounting at idle: {acct}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    block_bytes = moved["out"][0] // max(1, st["spilled"])
+    del eng
+    torch.cuda.empty_cache()
+    state["spill_launches"] = counts
+    return {"config": "transformer_big", "dtype": "float32",
+            "usable_blocks": SPILL_BLOCKS - 1, "prompt_len": SPILL_PROMPT,
+            "spill_tier": st, "prefix_cache": pc.stats(),
+            "block_bytes": block_bytes,
+            "bytes_out": moved["out"][0], "bytes_in": moved["in"][0],
+            "host_ms_out": moved["out"][1], "host_ms_in": moved["in"][1],
+            "prefills": [[p["len"], p["cached"]] for p in pre],
+            "readopted_bit_exact": exact, "streams_equal_no_spill": True,
+            "launches": counts}
+
+
+def _time_batches(engine, log: list):
+    """Host ms and tokens committed of each decode or speculative step
+    (both end in a device-to-host read of the argmax)."""
+    dec, spec = engine._decode_batch, engine._speculative_batch
+
+    def timed_decode(batch):
+        t0 = time.perf_counter()
+        dec(batch)
+        log.append(((time.perf_counter() - t0) * 1e3, len(batch)))
+
+    def timed_spec(batch):
+        t0 = time.perf_counter()
+        n = spec(batch)
+        log.append(((time.perf_counter() - t0) * 1e3, n))
+        return n
+
+    engine._decode_batch, engine._speculative_batch = timed_decode, \
+        timed_spec
+
+
+def _count_draft(engine, per_call: list, keep: bool = False):
+    """Record each draft call of ``engine``: its kernel launches and the
+    width of the histories it was given; with ``keep`` also its inputs
+    and proposals (for :func:`_draft_agreement`)."""
+    draft = engine._draft
+
+    def counted(params_, tokens, lengths):
+        before = launch_counts()
+        out = draft(params_, tokens, lengths)
+        after = launch_counts()
+        rec = {"launches": {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]},
+               "width": int(tokens.shape[1])}
+        if keep:
+            rec.update(tokens=tokens.clone(), lengths=lengths.clone(),
+                       out=out.clone())
+        per_call.append(rec)
+        return out
+
+    engine._draft = counted
+
+
+def _draft_agreement(cfg, params, calls: list) -> dict:
+    """The draft's proposals on the card against the argmax of the
+    lengths-masked ``model_forward`` of the same draft (``mha_reference``,
+    no kernel) on the same histories, at each history's end; compared
+    where that forward's top-2 margin exceeds :data:`PARITY_GAP`."""
+    import torch
+    from distributed_tensorflow_tpu_torch.serving.decode import (
+        model_forward)
+    rows, compared, mismatched = 0, 0, []
+    with torch.no_grad():
+        for i, c in enumerate(calls):
+            lens = c["lengths"]
+            ref = model_forward(cfg, params, c["tokens"], lens)
+            last = ref[torch.arange(len(lens), device=ref.device),
+                       lens - 1]
+            top2 = torch.topk(last, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > PARITY_GAP
+            if bool((sure & (last.argmax(-1) != c["out"])).any()):
+                mismatched.append(i)
+            rows += len(lens)
+            compared += int(sure.sum())
+    return {"calls": len(calls), "rows": rows, "compared": compared,
+            "mismatched_calls": mismatched}
+
+
+def phase_spec_serve(state):
+    """Speculative decoding at ``transformer_big`` in bf16, k = 4 with
+    the default 6-layer truncated draft, against the same engine without
+    speculation on the serve phase's 8 prompts × 32 new tokens:
+    acceptance, tokens/s, decode ms per committed token, the draft's
+    flash-forward launches (6 a proposal), and the streams."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, init_params)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+
+    cfg = TransformerConfig.transformer_big()           # bf16
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    kw = dict(device="cuda", block_size=SERVE_BLOCK, max_slots=SERVE_SLOTS,
+              num_blocks=SERVE_SLOTS * cfg.max_seq_len // SERVE_BLOCK + 1)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, cfg.max_seq_len - SERVE_NEW + 1, SERVE_REQUESTS)
+    prompts = {f"s{i}": rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(lens)}
+    rounds = [{rid: (p, SERVE_NEW) for rid, p in prompts.items()}]
+    runs = {}
+    for name, extra in (("plain", {}), ("spec", {"speculative_k": SPEC_K})):
+        eng = InferenceEngine(cfg, params, **kw, **extra)
+        eng.generate([prompts["s0"][:16], prompts["s1"][:40]],
+                     max_new_tokens=6)                     # warm-up
+        pre, logits, steps, drafts = [], {}, [], []
+        _record(eng, pre, logits)
+        _time_batches(eng, steps)
+        if extra:
+            _count_draft(eng, drafts)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        out = _serve_rounds(eng, rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = {"out": out, "wall": wall, "pre": pre,
+                      "logits": logits, "steps": steps, "drafts": drafts,
+                      "counts": launch_counts(), "stats": eng.stats(),
+                      "acct": eng.block_accounting()}
+        del eng
+        torch.cuda.empty_cache()
+    plain, spec = runs["plain"], runs["spec"]
+    draft_layers = cfg.n_layers // 2
+    n_draft = len(spec["drafts"])
+    draft_tc = sum(d["launches"].get("flash_fwd_tc", 0)
+                   for d in spec["drafts"])
+    problems = []
+    if any(d["launches"] != {"flash_fwd_tc": draft_layers}
+           for d in spec["drafts"]):
+        problems.append(f"a draft call launched other than "
+                        f"{draft_layers} flash_fwd_tc")
+    want_counts = expected_counts({"flash_fwd_tc": cfg.n_layers},
+                                  len(spec["pre"]))
+    want_counts["flash_fwd_tc"] += draft_tc
+    if spec["counts"] != want_counts or n_draft == 0:
+        problems.append(f"launches {spec['counts']}, expected {want_counts}")
+    # verify row 0 (context = the committed stream) against plain decode
+    err = _path_err(spec["logits"], plain["logits"], spec["out"],
+                    plain["out"], prompts)
+    div = _first_divergences(spec["out"], plain["out"], prompts,
+                             plain["logits"], err)
+    if any(d["fault"] for d in div):
+        problems.append(f"streams part where the margin exceeds twice the "
+                        f"logit error {err}: {div}")
+    f32_errs = _f32_recompute_errs(cfg, params, prompts, plain["out"], {
+        "plain": (plain["out"], plain["logits"]),
+        "spec": (spec["out"], spec["logits"])})
+    del params
+    problems += _hold_path_err(f32_errs, "spec", "plain")
+    for name, r in runs.items():
+        a = r["acct"]
+        if not a["conserved"] or a["free"] != a["usable"]:
+            problems.append(f"{name} block accounting at idle: {a}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    def summary(r):
+        toks = sum(len(s) for s in r["out"].values())
+        ms = sum(m for m, _ in r["steps"])
+        committed = sum(n for _, n in r["steps"])
+        return {"wall_s": r["wall"], "tokens": toks,
+                "tokens_per_s": toks / r["wall"], "decode_steps":
+                len(r["steps"]), "decode_ms": ms,
+                "decode_committed": committed,
+                "ms_per_committed_token": ms / committed,
+                "prefill_ms_mean": float(np.mean([p["ms"]
+                                                  for p in r["pre"]]))}
+
+    state["spec_launches"] = spec["counts"]
+    state["flash_fwd_tc"]["spec"] = {
+        "launches": spec["counts"]["flash_fwd_tc"],
+        "draft_launches": draft_tc, "draft_calls": n_draft,
+        "draft_width_max": max(d["width"] for d in spec["drafts"])}
+    return {"config": "transformer_big", "dtype": "bfloat16", "k": SPEC_K,
+            "draft_layers": draft_layers,
+            "prompt_lens": [int(n) for n in lens],
+            "speculative": spec["stats"]["speculative"],
+            "plain": summary(plain), "spec": summary(spec),
+            "draft_calls": n_draft, "draft_flash_launches": draft_tc,
+            "launches": spec["counts"], "verify_logit_err": err,
+            "f32_recompute_err": f32_errs,
+            "err_ratio_max": BF16_PATH_ERR_RATIO,
+            "streams_equal": sum(spec["out"][r] == plain["out"][r]
+                                 for r in prompts),
+            "streams": len(prompts), "divergences": div}
+
+
+def phase_spec_parity(state):
+    """f32, TF32 off, full ``transformer_big``, k = 4, with the default
+    draft and with the target as its own draft: the streams exactly
+    those of non-speculative decode, every verify row's logits against
+    ``TransformerLM`` recompute of its context (the committed stream
+    plus the drafted tokens), every draft proposal against the argmax of
+    the masked forward (:func:`_draft_agreement`); the self-draft
+    accepts every proposal, so its steps commit several tokens and reuse
+    the K/V that their verify wrote."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+
+    cfg, params = _f32_big(1)
+    kw = dict(device="cuda", num_blocks=129, block_size=SERVE_BLOCK,
+              max_slots=4)
+    rng = np.random.default_rng(1)
+    lens = rng.integers(16, 201, PARITY_REQUESTS)
+    rounds = [{f"g{i}": (rng.integers(0, cfg.vocab_size, n).tolist(),
+                         PARITY_NEW) for i, n in enumerate(lens)}]
+    want = _serve_rounds(InferenceEngine(cfg, params, **kw), rounds)
+    runs, problems = {}, []
+    for name, extra in (("truncated", {}),
+                        ("self", {"draft_params": params, "draft_cfg": cfg})):
+        eng = InferenceEngine(cfg, params, speculative_k=SPEC_K, **kw,
+                              **extra)
+        pre, logits, drafts = [], {}, []
+        _record(eng, pre, logits)
+        _count_draft(eng, drafts, keep=True)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        got = _serve_rounds(eng, rounds)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        stats = eng.stats()["speculative"]
+        agree = _draft_agreement(eng.draft_cfg, eng._draft_params, drafts)
+        per = eng.draft_cfg.n_layers
+        del eng
+        want_counts = expected_counts({"flash_fwd": cfg.n_layers}, len(pre))
+        want_counts["flash_fwd"] += per * len(drafts)
+        if got != want:
+            problems.append(f"{name}: streams differ from non-speculative "
+                            f"decode: {[r for r in want if got[r] != want[r]]}")
+        if counts != want_counts or not drafts or any(
+                d["launches"] != {"flash_fwd": per} for d in drafts):
+            problems.append(f"{name}: launches {counts}, expected "
+                            f"{want_counts}")
+        if agree["mismatched_calls"] or not agree["compared"]:
+            problems.append(f"{name}: draft proposals differ from the "
+                            f"masked forward's argmax: {agree}")
+        if name == "self" and not 0 < stats["accepted"] == stats["proposed"]:
+            problems.append(f"self-draft acceptance below 1: {stats}")
+        runs[name] = {"counts": counts, "stats": stats, "agree": agree,
+                      "verify": logits["verify"],
+                      "draft_calls": len(drafts)}
+    model = TransformerLM(cfg, params, device="cuda")
+    del params
+    with torch.no_grad():
+        for name, r in runs.items():
+            worst, rows = 0.0, 0
+            for ctx, first, out in r["verify"]:
+                ref = model(torch.tensor([ctx], device="cuda"))[0]
+                worst = max(worst, abs_err(out, ref[first:first + len(out)]))
+                rows += len(out)
+            r.update(worst=worst, rows=rows)
+            if worst > PARITY_LOGIT_TOL or rows == 0:
+                problems.append(f"{name}: verify logits {worst} from "
+                                f"recompute over {rows} rows (tol "
+                                f"{PARITY_LOGIT_TOL})")
+    del model
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["spec_parity_launches"] = runs["truncated"]["counts"]
+    state["spec_parity_self_launches"] = runs["self"]["counts"]
+    return {"config": "transformer_big", "dtype": "float32", "k": SPEC_K,
+            "prompt_lens": [int(n) for n in lens],
+            "tol": PARITY_LOGIT_TOL, "streams_equal_plain": True,
+            **{name: {"speculative": r["stats"],
+                      "verify_rows_checked": r["rows"],
+                      "verify_calls": len(r["verify"]),
+                      "max_abs_logit_err": r["worst"],
+                      "draft_calls": r["draft_calls"],
+                      "draft_agreement": r["agree"],
+                      "launches": r["counts"]}
+               for name, r in runs.items()}}
+
+
 def step_flops(cfg, batch: int, n_params: int) -> float:
     """Model FLOPs per train step, the formula of the repository's
     headline benchmark (``bench.py`` ``step_flops``): 6 N per token plus
@@ -2389,7 +3267,13 @@ def main() -> int:
     state: dict = {}
     for name, fn in (("device", phase_device), ("build", phase_build),
                      ("kernels", phase_kernels), ("serve", phase_serve),
-                     ("parity", phase_parity), ("train", phase_train),
+                     ("parity", phase_parity),
+                     ("prefix_serve", phase_prefix_serve),
+                     ("prefix_parity", phase_prefix_parity),
+                     ("spill", phase_spill),
+                     ("spec_serve", phase_spec_serve),
+                     ("spec_parity", phase_spec_parity),
+                     ("train", phase_train),
                      ("train_fused", phase_train_fused),
                      ("train_parity", phase_train_parity),
                      ("train_options", phase_train_options),
@@ -2428,9 +3312,20 @@ def main() -> int:
             if key in k:
                 row[key] = k[key]
         if name == "flash_fwd_tc":
-            # the same kernel on the serve path, at its longest prefill
+            # the same kernel on the serve path, at its longest prefill;
+            # on the prefix-hit path (the suffix shape) and the
+            # speculative path (prefills and the draft)
             row["serve"] = {"launches": state["serve_launches"],
                             **k["serve"]}
+            row["prefix"] = k["prefix"]
+            row["spec"] = k["spec"]
+        if name == "flash_fwd":
+            # f32: the prefix-hit, spill and speculative parity paths
+            row["prefix"] = {"launches": state["prefix_parity_launches"][
+                name], "spill_launches": state["spill_launches"][name]}
+            row["spec"] = {"launches": state["spec_parity_launches"][name],
+                           "self_draft_launches": state[
+                               "spec_parity_self_launches"][name]}
         # BERT's paths, each counted from 0 over its own run, and the
         # kernel's numbers at the shape BERT gives it
         row["bert_launches"] = {

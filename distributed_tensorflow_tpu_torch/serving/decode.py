@@ -21,6 +21,22 @@ Functions over the port's stacked parameter dict
   plain PyTorch (:func:`~distributed_tensorflow_tpu_torch.ops.attention.
   mha_reference` with the factored length mask), as it is plain jnp in
   the JAX package.
+- :func:`make_extend_fn` — E new tokens per sequence at explicit
+  absolute positions, written into the pool and then attended against
+  the sequence's block window. Two callers: the prefix-cache *suffix
+  prefill* (a prompt whose first C tokens matched cached blocks runs
+  only its last S tokens; no length mask, so its attention is the
+  causal flash forward at ``Sq = S``, ``Sk = C + S``, offset C — the
+  flash-forward kernel on the card) and the speculative *verify* (the
+  target scores the banked token plus k draft proposals; ragged spans,
+  so the masked ``mha_reference``, as in JAX).
+- :func:`make_draft_fn` — the speculative proposal: greedy next token
+  at each sequence's end by full recompute of a small draft model
+  (default :func:`truncated_draft`, the target's first half of
+  layers), at the width of the longest sequence; causal, so it needs
+  no length mask and its attention is the flash forward too.
+- :func:`kv_quantization_probe` — the logit error of a quantized pool
+  against an f32 one along one greedy trajectory.
 
 The pool is one dict (``{"k", "v"}`` plus ``{"k_scale", "v_scale"}``
 for int8) updated IN PLACE (index assignment), where the JAX programs
@@ -30,6 +46,9 @@ the way out (:func:`_pool_write` / :func:`_pool_window`).
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch.models.transformer import (
@@ -55,6 +74,35 @@ def canonical_params(cfg: TransformerConfig, params) -> dict:
                             for n in layers[0][g]}
                         for g in layers[0]}
     return params
+
+
+def to_compute(params, dtype, device) -> dict:
+    """The parameter dict on ``device`` as the serving math reads it:
+    matrices in the compute ``dtype``, norm scales f32."""
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        dt = torch.float32 if name == "scale" else dtype
+        return node.to(device=device, dtype=dt)
+    return walk(params, None)
+
+
+def truncated_draft(cfg: TransformerConfig, params, n_layers=None):
+    """Self-speculation draft: the target's FIRST ``n_layers`` layers
+    (default half, at least one) plus the shared embedding and final
+    norm — a draft model that costs nothing to obtain, and the engine's
+    default when ``speculative_k > 0`` with no explicit draft. Returns
+    ``(draft_cfg, draft_params)`` in the canonical layout; the layer
+    tensors are slices of the target's, not copies. Raises outside
+    ``[1, cfg.n_layers]``."""
+    n = n_layers if n_layers is not None else max(1, cfg.n_layers // 2)
+    if not 1 <= n <= cfg.n_layers:
+        raise ValueError(f"truncated_draft: n_layers={n} outside "
+                         f"[1, {cfg.n_layers}]")
+    p = canonical_params(cfg, params)
+    p["layers"] = {g: {name: a[:n] for name, a in leaves.items()}
+                   for g, leaves in p["layers"].items()}
+    return dataclasses.replace(cfg, n_layers=n), p
 
 
 def _layer(params, l: int) -> dict:
@@ -150,6 +198,20 @@ def model_forward(cfg: TransformerConfig, params, tokens, lengths=None, *,
     what prefill writes into the cache.
     ``last_only`` projects only the final position onto the vocabulary
     (``(B, 1, V)`` logits)."""
+    x, kv = _hidden(cfg, params, tokens, lengths, return_kv)
+    if last_only:
+        x = x[:, -1:]
+    logits = _logits(params, x, cfg.dtype)
+    if return_kv:
+        return logits, kv
+    return logits
+
+
+def _hidden(cfg: TransformerConfig, params, tokens, lengths=None,
+            return_kv: bool = False):
+    """The full forward up to the final norm: ``(x (B, S, D), kv)``,
+    ``kv`` the per-layer K and V stacks when ``return_kv`` (else None).
+    Attention as :func:`model_forward` says."""
     dt = cfg.dtype
     embed = params["embed"].to(dt)
     x = embed[tokens]                                    # (B, S, D)
@@ -175,13 +237,13 @@ def model_forward(cfg: TransformerConfig, params, tokens, lengths=None, *,
         if return_kv:
             ks.append(k)
             vs.append(v)
-    if last_only:
-        x = x[:, -1:]
+    return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
+
+
+def _logits(params, x, dt):
+    """Final norm and the tied-embedding projection, in f32."""
     x = _rms_norm(x, params["final_norm"]["scale"], dt)
-    logits = (x @ embed.T).float()
-    if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
-    return logits
+    return (x @ params["embed"].to(dt).T).float()
 
 
 def _mlp(h, mlp, dt):
@@ -253,3 +315,155 @@ def make_decode_fn(cfg: TransformerConfig, cache_cfg=None):
         return (x @ embed.T).float(), pool
 
     return decode
+
+
+def make_extend_fn(cfg: TransformerConfig, cache_cfg=None):
+    """``extend(params, pool, tokens, positions, lengths, write_rows,
+    window_rows)`` → ``(logits, pool)`` — E tokens per sequence in one
+    cache-aware forward.
+
+    ``tokens`` (B, E) the new tokens, ``positions`` (B, E) their
+    absolute cache positions, ``write_rows`` (B, E) the flat pool rows
+    their K/V land in (padded entries at the trash block),
+    ``window_rows`` (B, W) the block-window gather index. Every layer
+    writes the new K/V, then gathers the window, so query ``i`` sees
+    the keys of the span before it. Returns f32 logits ``(B, E, V)`` for
+    all E positions: row ``i`` is the next-token distribution after the
+    token at ``positions[:, i]``.
+
+    ``lengths`` picks the attention:
+
+    - ``None`` — the prefix-cache suffix prefill: each row's E tokens
+      are the last E positions of its window (``window_rows`` covers
+      exactly positions ``0..W-1``), with no padding, so the rule is
+      plain bottom-right causal, offset ``W - E``. It runs the flash
+      forward (the kernel on the card), or ``mha_reference`` where
+      ``cfg.attention_impl`` is ``"reference"``, as the prefill does.
+    - ``(B,)`` visible lengths — the speculative verify (ragged spans;
+      padded entries have positions at or past ``lengths`` so the
+      factored mask zeroes them): ``mha_reference(lengths=,
+      q_positions=)``, as :func:`make_decode_fn`.
+
+    The pool is updated in place."""
+    if not cfg.causal:
+        raise ValueError("extend requires a causal model; serve "
+                         "bidirectional (BERT) configs through the "
+                         "prefill/scoring path")
+    quantized = cache_cfg.quantized if cache_cfg is not None else False
+
+    @torch.no_grad()
+    def extend(params, pool, tokens, positions, lengths, write_rows,
+               window_rows):
+        dt = cfg.dtype
+        b, e = tokens.shape
+        x = params["embed"].to(dt)[tokens]               # (B, E, D)
+        rows = write_rows.reshape(-1)                    # (B*E,)
+        for l in range(cfg.n_layers):
+            p = _layer(params, l)
+            h = _rms_norm(x, p["RMSNorm_0"]["scale"], dt)
+            att = p["attn"]
+            q = rotary_at(project_heads(h, att["query"].to(dt)), positions)
+            k = rotary_at(project_heads(h, att["key"].to(dt)), positions)
+            v = project_heads(h, att["value"].to(dt))    # (B, H, E, hd)
+            # write THEN gather: query i must see keys 0..i of the span
+            _pool_write(pool, l, rows, k.transpose(1, 2).flatten(0, 1),
+                        v.transpose(1, 2).flatten(0, 1), quantized)
+            kw, vw = _pool_window(pool, l, window_rows, dt, quantized)
+            if lengths is not None:
+                o = mha_reference(q, kw, vw, causal=True, lengths=lengths,
+                                  q_positions=positions)
+            elif cfg.attention_impl == "reference":
+                o = mha_reference(q, kw, vw, causal=True)
+            else:
+                o = flash_attention(q, kw.contiguous(), vw.contiguous(),
+                                    causal=True)
+            x = x + merge_heads(o, att["out"].to(dt))
+            h = _rms_norm(x, p["RMSNorm_1"]["scale"], dt)
+            x = x + _mlp(h, p["mlp"], dt)
+        return _logits(params, x, dt), pool
+
+    return extend
+
+
+def make_draft_fn(cfg: TransformerConfig):
+    """``draft(params, tokens, lengths)`` → (B,) int64 greedy next token
+    at each sequence's end — the speculative proposal step, batched over
+    the decode batch, by full recompute (the draft keeps no cache state
+    to invalidate on preemption).
+
+    ``tokens`` (B, W) right-padded histories, ``lengths`` (B,) their
+    lengths; the caller makes W the longest length, not
+    ``max_seq_len``. A causal draft's forward has no length mask: a
+    padded key lies after every valid query, so a valid row's logits
+    are those of the masked forward (JAX's), and the attention can be
+    the flash forward (the kernel on the card). A bidirectional draft
+    keeps the mask."""
+    mask = not cfg.causal
+
+    @torch.no_grad()
+    def draft(params, tokens, lengths):
+        x, _ = _hidden(cfg, params, tokens, lengths if mask else None)
+        last = x[torch.arange(tokens.shape[0], device=x.device),
+                 lengths.clamp_min(1) - 1]                  # (B, D)
+        return torch.argmax(_logits(params, last, cfg.dtype), dim=-1)
+
+    return draft
+
+
+def kv_quantization_probe(cfg: TransformerConfig, params, prompt,
+                          kv_dtype: str = "int8", *, n_steps: int = 8,
+                          num_blocks: int = 16, block_size: int = 8,
+                          device="cuda") -> dict:
+    """Measured logit error of a quantized KV pool against the f32
+    reference: the same prompt and greedy continuation through two
+    pools (f32 and ``kv_dtype``), the f32 path's tokens fed to both so
+    the trajectories stay aligned; returns the worst absolute logit
+    difference and how many argmaxes flipped, over the prefill and
+    ``n_steps`` decode positions. ``params`` is the port's parameter
+    dict."""
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        resolve_device)
+    from distributed_tensorflow_tpu_torch.serving.kv_cache import (
+        BlockAllocator, BlockTable, CacheConfig, init_pool)
+
+    device = resolve_device(device)
+    prompt = [int(t) for t in prompt]
+    params = to_compute(canonical_params(cfg, params), cfg.dtype, device)
+    state = {}
+    for name, dtype in (("ref", "f32"), ("q", kv_dtype)):
+        cc = CacheConfig.for_model(cfg, num_blocks=num_blocks,
+                                   block_size=block_size, kv_dtype=dtype)
+        table = BlockTable(cc, max_blocks=cc.usable_blocks)
+        table.ensure_room(len(prompt) + n_steps + 1,
+                          BlockAllocator(cc.num_blocks))
+        rows = torch.from_numpy(
+            table.rows(np.arange(len(prompt))).astype(np.int64)).to(device)
+        pool = init_pool(cc, device)
+        last, pool = make_prefill_fn(cfg, cc)(
+            params, pool, torch.tensor([prompt], device=device), rows)
+        table.length = len(prompt)
+        state[name] = [table, pool, make_decode_fn(cfg, cc), last]
+    ref, q = state["ref"][3], state["q"][3]
+    max_err = (ref - q).abs().max().item()
+    argmax_flips = int(ref.argmax() != q.argmax())
+    token = int(ref.argmax())                 # the f32 path drives both
+    for _ in range(n_steps):
+        outs = {}
+        for name, st in state.items():
+            table, pool, decode, _ = st
+            pos = table.length
+            table.length += 1
+            win = torch.from_numpy(
+                table.window_rows()[None].astype(np.int64)).to(device)
+            logits, st[1] = decode(
+                params, pool, torch.tensor([token], device=device),
+                torch.tensor([pos], device=device),
+                torch.tensor([pos + 1], device=device),
+                torch.tensor([table.row_of(pos)], device=device), win)
+            outs[name] = logits[0]
+        max_err = max(max_err, (outs["ref"] - outs["q"]).abs().max().item())
+        argmax_flips += int(outs["ref"].argmax() != outs["q"].argmax())
+        token = int(outs["ref"].argmax())
+    return {"kv_dtype": kv_dtype, "max_abs_logit_err": max_err,
+            "argmax_flips": argmax_flips,
+            "positions_checked": n_steps + 1}

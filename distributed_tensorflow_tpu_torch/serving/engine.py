@@ -22,14 +22,38 @@ one device:
   / ``serve.step`` / ``serve.request`` events with the JAX engine's
   fields, and the same ``inference/`` and ``serving/`` instruments.
 
-Mesh placement, checkpoint restore and hot-swap, prefix caching,
-speculative decoding, prefill-only roles, KV migration, the host spill
-tier, the ``serve.step`` fault site and the goodput ledger belong to
-later slices.
+Two serving-speed features stack on the same step loop, each off by
+default and each OUTPUT-INVARIANT (greedy tokens are identical with the
+feature on or off), as in the JAX engine:
+
+- **Prefix caching** (``prefix_caching=True``) — committed prompt
+  prefixes are content-indexed in the scheduler's
+  :class:`~distributed_tensorflow_tpu_torch.serving.kv_cache.PrefixCache`;
+  a later request whose prompt matches adopts the cached blocks
+  (refcounted) and prefill runs only over the unmatched suffix, through
+  the multi-token ``extend`` forward (the flash forward at ``Sq`` = the
+  suffix, ``Sk`` = the whole prompt). Shared blocks are copied on write
+  before any divergent append; eviction is LRU over cached blocks no
+  sequence references. ``spill_tier`` (a
+  :class:`~distributed_tensorflow_tpu_torch.serving.kv_cache.HostTier`,
+  or its capacity in blocks) keeps evicted blocks in host memory and
+  re-adopts them on a later hit.
+- **Speculative decoding** (``speculative_k=k`` with a draft model,
+  default the target's own first half of layers —
+  ``decode.truncated_draft``) — the draft proposes up to k greedy tokens per
+  sequence, the target verifies all k+1 positions in ONE cache-aware
+  ``extend`` forward, the longest agreeing prefix commits (plus the
+  target's own next token), and the first rejection truncates.
+
+Mesh placement, checkpoint restore and hot-swap, prefill-only roles, KV
+migration, the ``serve.step`` fault site and the goodput ledger belong
+to later slices.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import time
 import zlib
 
@@ -41,9 +65,12 @@ from distributed_tensorflow_tpu_torch.models.transformer import (
     TransformerConfig, resolve_device)
 from distributed_tensorflow_tpu_torch.serving import decode as decode_lib
 from distributed_tensorflow_tpu_torch.serving.kv_cache import (
-    CacheConfig, init_pool)
+    CacheConfig, HostTier, init_pool)
 from distributed_tensorflow_tpu_torch.serving.scheduler import (
     AdmissionQueue, ContinuousBatchingScheduler, Request, Sequence)
+
+_pool_epochs = itertools.count()
+
 
 def request_span_id(request_id: str) -> str:
     """Deterministic per-request trace span id (the same across
@@ -70,16 +97,6 @@ def params_digest(params) -> str:
     return f"{crc & 0xFFFFFFFF:08x}"
 
 
-def _to_compute(params, dtype, device):
-    """Matrices in the compute dtype on ``device``; norm scales f32."""
-    def walk(node, name):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        dt = torch.float32 if name == "scale" else dtype
-        return node.to(device=device, dtype=dt)
-    return walk(params, None)
-
-
 class InferenceEngine:
     """Continuous-batching greedy inference over a transformer.
 
@@ -89,7 +106,15 @@ class InferenceEngine:
     iteration-level fairness). ``max_seq_len`` bounds prompt+generation
     per sequence (default: the model's). ``kv_dtype`` in
     {"f32", "bf16", "int8"} picks the pool's storage dtype (default the
-    model's compute dtype)."""
+    model's compute dtype).
+
+    Serving-speed knobs (the module docstring has the semantics; both
+    output-invariant): ``prefix_caching=True`` shares committed prompt
+    prefixes across requests, and ``spill_tier`` backs its evictions
+    with host memory; ``speculative_k=k`` drafts k tokens per sequence
+    and verifies them in one forward (``draft_params`` — the port's
+    parameter dict, e.g. from ``params_from_jax`` — with ``draft_cfg``
+    override the default truncated-target draft)."""
 
     def __init__(self, cfg: TransformerConfig, params, *, device="cuda",
                  num_blocks: int = 64, block_size: int = 16,
@@ -98,9 +123,29 @@ class InferenceEngine:
                  max_seq_len: int | None = None,
                  queue_capacity: int = 256,
                  queue_policy: str = "reject",
-                 kv_dtype: str | None = None):
+                 kv_dtype: str | None = None,
+                 prefix_caching: bool = False,
+                 speculative_k: int = 0,
+                 draft_params=None, draft_cfg=None,
+                 spill_tier: "HostTier | int | None" = None):
         self.device = resolve_device(device)
+        if speculative_k and not cfg.causal:
+            raise ValueError("speculative decoding requires a causal "
+                             "model")
+        if prefix_caching and not cfg.causal:
+            raise ValueError("prefix caching requires a causal model (a "
+                             "bidirectional prompt's K/V depend on the "
+                             "tokens after them)")
+        if speculative_k and draft_params is not None and draft_cfg is None:
+            raise ValueError("draft_params requires draft_cfg")
+        if spill_tier is not None and spill_tier is not False \
+                and not prefix_caching:
+            raise ValueError("spill_tier requires prefix_caching=True "
+                             "(the tier backs prefix-cache eviction)")
         self.cfg = cfg
+        #: fences host-tier spills: unique per engine incarnation, never
+        #: equal across restarts
+        self.pool_epoch = f"{os.getpid()}-{next(_pool_epochs)}"
         self.max_slots = max_slots
         self.max_seq_len = min(max_seq_len or cfg.max_seq_len,
                                cfg.max_seq_len)
@@ -114,14 +159,17 @@ class InferenceEngine:
         max_blocks_per_seq = cache_cfg.blocks_for(self.max_seq_len)
         self.cache_cfg = cache_cfg
         self.window = max_blocks_per_seq * block_size
+        self.prefix_caching = bool(prefix_caching)
         self.scheduler = ContinuousBatchingScheduler(
             cache_cfg, max_slots=max_slots,
             max_blocks_per_seq=max_blocks_per_seq,
             token_budget=self.token_budget,
-            queue=AdmissionQueue(queue_capacity, queue_policy))
+            queue=AdmissionQueue(queue_capacity, queue_policy),
+            prefix_caching=self.prefix_caching)
 
-        self.params = _to_compute(decode_lib.canonical_params(cfg, params),
-                                  cfg.dtype, self.device)
+        self.params = decode_lib.to_compute(
+            decode_lib.canonical_params(cfg, params), cfg.dtype,
+            self.device)
         #: model-version identity stamped on serve.prefill/serve.request:
         #: snapshot step (0 = weights passed in directly) @ digest
         self.weights_step = 0
@@ -130,6 +178,23 @@ class InferenceEngine:
         self._prefill = decode_lib.make_prefill_fn(cfg, cache_cfg)
         self._decode = (decode_lib.make_decode_fn(cfg, cache_cfg)
                         if cfg.causal else None)
+        self._extend = (decode_lib.make_extend_fn(cfg, cache_cfg)
+                        if cfg.causal else None)
+        self._copy = decode_lib.make_copy_fn()
+
+        self.spec_k = int(speculative_k)
+        if self.spec_k:
+            if draft_params is None:
+                # default draft: the target's own first half of layers,
+                # slices of the target's weights
+                draft_cfg, self._draft_params = decode_lib.truncated_draft(
+                    cfg, self.params)
+            else:
+                self._draft_params = decode_lib.to_compute(
+                    decode_lib.canonical_params(draft_cfg, draft_params),
+                    draft_cfg.dtype, self.device)
+            self.draft_cfg = draft_cfg
+            self._draft = decode_lib.make_draft_fn(draft_cfg)
 
         # shared inference namespace (process-wide instruments)
         reg = telemetry.get_registry()
@@ -152,7 +217,16 @@ class InferenceEngine:
         self._m_preempt = reg.counter("serving/preemptions")
         self._m_prompt_tokens = reg.counter(
             "serving/prefix_prompt_tokens",
-            "prompt tokens submitted to prefill")
+            "prompt tokens submitted to prefix-cache lookup")
+        self._m_cached_tokens = reg.counter(
+            "serving/prefix_cached_tokens",
+            "prompt tokens served from the prefix cache (prefill "
+            "skipped)")
+        self._m_cache_blocks = reg.gauge("serving/prefix_cache_blocks")
+        self._m_spec_proposed = reg.counter(
+            "serving/draft_tokens_proposed")
+        self._m_spec_accepted = reg.counter(
+            "serving/draft_tokens_accepted")
 
         self._step_idx = 0
         self._submitted: dict[str, float] = {}      # id -> wall arrival
@@ -164,11 +238,53 @@ class InferenceEngine:
         self.completed = 0
         self.tokens_generated = 0
         self._preempt_seen = 0
+        self._spec_proposed_n = 0
+        self._spec_accepted_n = 0
+
+        self.spill_tier: HostTier | None = None
+        if spill_tier is not None and spill_tier is not False:
+            tier = (spill_tier if isinstance(spill_tier, HostTier)
+                    else HostTier(int(spill_tier)))
+            self.scheduler.prefix_cache.attach_spill(
+                tier, extract=self._extract_block,
+                insert=self._insert_block, epoch=self._cache_epoch())
+            self.spill_tier = tier
 
     @property
     def weights_version(self) -> str:
         """``<step>@<digest>`` — the identity stamped on serving events."""
         return f"{self.weights_step}@{self.weights_digest}"
+
+    def _cache_epoch(self) -> str:
+        """Spill epoch = incarnation × weights version: a host-tier
+        block is re-adopted only while both match."""
+        return f"{self.pool_epoch}/{self.weights_version}"
+
+    # -- host spill tier ---------------------------------------------------
+    def _block_rows(self, block: int) -> torch.Tensor:
+        bs = self.cache_cfg.block_size
+        return torch.arange(block * bs, (block + 1) * bs,
+                            device=self.device)
+
+    def _extract_block(self, block: int) -> dict:
+        """One block's rows of every pool array (scales included) as host
+        numpy; bf16 rows travel as their int16 bit patterns, which numpy
+        can hold."""
+        rows = self._block_rows(block)
+        out = {}
+        for name, a in self.pool.items():
+            t = a[:, rows].cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            out[name] = t.numpy()
+        return out
+
+    def _insert_block(self, block: int, arrays: dict):
+        """Write :meth:`_extract_block`'s arrays back into ``block``."""
+        rows = self._block_rows(block)
+        for name, a in self.pool.items():
+            a[:, rows] = torch.from_numpy(arrays[name]).to(
+                self.device).view(a.dtype)
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, request: Request, *,
@@ -208,33 +324,67 @@ class InferenceEngine:
                         queued=len(self.scheduler.queue))
         return evicted
 
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+
+    def _apply_copies(self, copies):
+        """Execute ``BlockTable.ensure_writable``'s copy-on-write
+        instructions on the pool (values and quantisation scales) before
+        the divergent write they protect."""
+        if not copies:
+            return
+        src = np.concatenate([np.arange(s, s + n) for s, _, n in copies])
+        dst = np.concatenate([np.arange(d, d + n) for _, d, n in copies])
+        self.pool = self._copy(self.pool, self._tensor(src),
+                               self._tensor(dst))
+
     def _prefill_one(self, seq: Sequence):
         """Run one admitted sequence's prompt (a preempted sequence's
         replayed prompt includes its generated tokens) through prefill
-        at its exact length and bank its first greedy token."""
+        and bank its first greedy token.
+
+        Cold: the whole prompt at its exact length through the full
+        forward. Prefix-cache hit (``seq.cached_tokens`` = C > 0): only
+        the suffix of S = L - C tokens, through ``extend`` against the
+        window of the prompt's L positions, whose first C rows are the
+        adopted blocks."""
         rid = seq.request.id
         submit_mono = self._submit_mono.get(rid)
         queue_wait = (seq.admitted_s - submit_mono
                       if submit_mono is not None else None)
+        C, n = seq.cached_tokens, seq.prompt_len
         with telemetry.span(
                 "serve.prefill", id=rid, span_id=request_span_id(rid),
                 model_version=self.weights_version,
-                prompt_tokens=seq.prompt_len, cached_tokens=None,
+                prompt_tokens=n, cached_tokens=C or None,
                 queue_wait_s=(round(queue_wait, 6)
                               if queue_wait is not None else None),
                 replayed=len(seq.request.generated_prefix) or None):
-            n = seq.prompt_len
-            toks = torch.tensor([seq.request.tokens], dtype=torch.long,
-                                device=self.device)
-            rows = torch.from_numpy(
-                seq.table.rows(np.arange(n)).astype(np.int64)
-            ).to(self.device)
-            last, self.pool = self._prefill(self.params, self.pool, toks,
-                                            rows)
+            if C:
+                # a partially-matched tail block is SHARED: copy it
+                # before the suffix writes into it (and before the row
+                # indices below are read from the table)
+                self._apply_copies(seq.table.ensure_writable(
+                    C, n, self.scheduler.allocator))
+                suffix = np.arange(C, n)
+                logits, self.pool = self._extend(
+                    self.params, self.pool,
+                    self._tensor([seq.request.tokens[C:]]),
+                    self._tensor(suffix[None]), None,
+                    self._tensor(seq.table.rows(suffix)[None]),
+                    self._tensor(seq.table.window_rows(n)[None]))
+                last = logits[0, -1]
+            else:
+                last, self.pool = self._prefill(
+                    self.params, self.pool,
+                    self._tensor([seq.request.tokens]),
+                    self._tensor(seq.table.rows(np.arange(n))))
             self.scheduler.commit_prefill(seq)
             first = int(torch.argmax(last))
         self.prefills += 1
-        self._m_prompt_tokens.increment(seq.prompt_len)
+        self._m_prompt_tokens.increment(n)
+        if C:
+            self._m_cached_tokens.increment(C)
         if seq.request.max_new_tokens > 0:
             self.scheduler.append_token(seq, first)
         else:
@@ -265,6 +415,12 @@ class InferenceEngine:
         write_rows = np.zeros(B, np.int64)
         window_rows = np.zeros((B, W), np.int64)
         for i, seq in enumerate(batch):
+            if self.prefix_caching:
+                # the write at position length-1 must not land in a
+                # block a prefix-cache sibling shares: copy-on-write
+                # first (without a cache no block is ever shared)
+                self._apply_copies(seq.table.ensure_writable(
+                    seq.length - 1, seq.length, self.scheduler.allocator))
             # feed the last banked token at position length-1 (appended
             # by the previous prefill/decode step)
             tokens[i] = seq.last_token
@@ -272,11 +428,7 @@ class InferenceEngine:
             lengths[i] = seq.length
             write_rows[i] = seq.table.row_of(seq.length - 1)
             window_rows[i] = seq.table.window_rows(W)
-        dev = self.device
-
-        def t(a):
-            return torch.from_numpy(a).to(dev)
-
+        t = self._tensor
         logits, self.pool = self._decode(
             self.params, self.pool, t(tokens), t(positions), t(lengths),
             t(write_rows), t(window_rows))
@@ -287,6 +439,98 @@ class InferenceEngine:
             self.scheduler.append_token(seq, int(nxt[i]))
             if emit:
                 self._emit_token(seq)
+
+    # -- speculative decoding ---------------------------------------------
+    def _spec_span(self, seq: Sequence) -> int:
+        """How many draft tokens speculating on ``seq`` can possibly
+        commit this step: capped by k, by the request's remaining output
+        budget (committing j drafts + 1 target token needs remaining >=
+        j + 1), and by the sequence-length ceiling."""
+        remaining = seq.request.max_new_tokens - len(seq.generated)
+        return max(0, min(self.spec_k, remaining - 1,
+                          self.max_seq_len - seq.length))
+
+    def _speculative_batch(self, batch: list[Sequence]) -> int:
+        """Draft-then-verify for the whole decode batch (Leviathan et
+        al.): the draft proposes up to k greedy tokens per sequence, the
+        target scores all k+1 positions in ONE cache-aware extend
+        forward, and each sequence commits the longest prefix on which
+        the draft agreed with the target — plus the target's own next
+        token (the bonus on full acceptance, the correction on the first
+        rejection). Every committed token is the target's argmax in its
+        true greedy context, so outputs are exactly the
+        non-speculative ones. Returns tokens committed."""
+        k, B, S = self.spec_k, len(batch), self.max_seq_len
+        spans = [self._spec_span(seq) for seq in batch]
+        t = self._tensor
+
+        # 1. draft proposals: one batched greedy step by full recompute
+        #    per token the widest span can commit (none when every span
+        #    is 0; proposals past a span are never read), each at the
+        #    width of the longest history
+        lens = np.asarray([seq.length for seq in batch], np.int64)
+        toks = np.zeros((B, int(lens.max()) + k), np.int64)
+        for i, seq in enumerate(batch):
+            toks[i, :lens[i]] = list(seq.request.tokens) + seq.generated
+        proposals = np.zeros((B, k), np.int64)
+        for j in range(max(spans)):
+            nxt = self._draft(self._draft_params,
+                              t(toks[:, :int(lens.max())]),
+                              t(lens)).cpu().numpy()
+            proposals[:, j] = nxt
+            can = lens < S
+            toks[np.arange(B)[can], lens[can]] = nxt[can]
+            lens[can] += 1
+
+        # 2. verify all k+1 positions in one extend forward
+        for i, seq in enumerate(batch):
+            if self.prefix_caching:
+                self._apply_copies(seq.table.ensure_writable(
+                    seq.length - 1, seq.length + spans[i],
+                    self.scheduler.allocator))
+        W = max(len(s.table.blocks) for s in batch) \
+            * self.cache_cfg.block_size
+        E = k + 1
+        tokens = np.zeros((B, E), np.int64)
+        positions = np.full((B, E), W, np.int64)   # pad -> masked query
+        lengths = np.zeros(B, np.int64)
+        write_rows = np.zeros((B, E), np.int64)    # pad -> trash row
+        window_rows = np.zeros((B, W), np.int64)
+        for i, seq in enumerate(batch):
+            L, ke = seq.length, spans[i]
+            tokens[i, 0] = seq.last_token
+            tokens[i, 1:ke + 1] = proposals[i, :ke]
+            positions[i, :ke + 1] = np.arange(L - 1, L + ke)
+            lengths[i] = L + ke
+            write_rows[i, :ke + 1] = seq.table.rows(np.arange(L - 1,
+                                                              L + ke))
+            window_rows[i] = seq.table.window_rows(W)
+        logits, self.pool = self._extend(
+            self.params, self.pool, t(tokens), t(positions), t(lengths),
+            t(write_rows), t(window_rows))
+        target_next = torch.argmax(logits, dim=-1).cpu().numpy()  # (B, E)
+        self.decode_steps += 1
+
+        # 3. commit the agreeing prefix + the target's next token
+        emit = telemetry.enabled()
+        committed_total = 0
+        for i, seq in enumerate(batch):
+            ke = spans[i]
+            j = 0
+            while j < ke and proposals[i, j] == target_next[i, j]:
+                j += 1
+            self._m_spec_proposed.increment(ke)
+            self._m_spec_accepted.increment(j)
+            self._spec_proposed_n += ke
+            self._spec_accepted_n += j
+            for tok in target_next[i, :j + 1]:
+                self.scheduler.append_token(seq, int(tok))
+                committed_total += 1
+                if emit:
+                    self._emit_token(seq)
+                if seq.done:
+                    break
+        return committed_total
 
     def step(self) -> list[dict]:
         """One continuous-batching iteration; returns completion records
@@ -307,7 +551,18 @@ class InferenceEngine:
             for seq in list(sched.finished()):
                 finished.append(self._complete(seq))
             batch = []
-            if self._decode is not None:
+            if self._decode is None:
+                pass
+            elif self.spec_k:
+                proposed0 = self._spec_proposed_n
+                accepted0 = self._spec_accepted_n
+                batch = sched.grow_for_decode(
+                    lambda s: self._spec_span(s) + 1)
+                if batch:
+                    self._speculative_batch(batch)
+                sp["proposed_drafts"] = self._spec_proposed_n - proposed0
+                sp["accepted_drafts"] = self._spec_accepted_n - accepted0
+            else:
                 batch = sched.grow_for_decode()
                 if batch:
                     self._decode_batch(batch)
@@ -320,6 +575,11 @@ class InferenceEngine:
                 sp["deferred_prefill"] = sched.deferred_prefill - defer_p0
             if sched.deferred_blocks > defer_b0:
                 sp["deferred_blocks"] = sched.deferred_blocks - defer_b0
+            cached = sum(s.cached_tokens for s in admitted)
+            if cached:
+                sp["cached_tokens"] = cached
+            if sched.prefix_cache is not None:
+                self._m_cache_blocks.set(len(sched.prefix_cache))
         self._step_idx += 1
         self._m_step.record(time.monotonic() - t0)
         self._m_running.set(len(sched.running))
@@ -373,20 +633,22 @@ class InferenceEngine:
 
     def block_accounting(self) -> dict:
         """Allocator conservation audit: every live reference is owned by
-        a running sequence's table, and free + allocated equals the
-        usable pool."""
+        a running sequence's table or a prefix-cache entry, and free +
+        allocated equals the usable pool."""
         sched = self.scheduler
         alloc = sched.allocator
         seq_refs = sum(len(s.table.blocks)
                        for s in sched.running.values())
+        cache_refs = (len(sched.prefix_cache)
+                      if sched.prefix_cache is not None else 0)
         return {
             "free": alloc.num_free,
             "allocated": alloc.num_allocated,
             "usable": self.cache_cfg.usable_blocks,
             "total_refs": alloc.total_refs,
             "seq_refs": seq_refs,
-            "cache_refs": 0,
-            "leaked_refs": alloc.total_refs - seq_refs,
+            "cache_refs": cache_refs,
+            "leaked_refs": alloc.total_refs - seq_refs - cache_refs,
             "conserved": (alloc.num_free + alloc.num_allocated
                           == self.cache_cfg.usable_blocks),
         }
@@ -417,7 +679,7 @@ class InferenceEngine:
 
     def stats(self) -> dict:
         sched = self.scheduler
-        return {
+        out = {
             "steps": self._step_idx,
             "running": len(sched.running),
             "queued": len(sched.queue),
@@ -437,3 +699,17 @@ class InferenceEngine:
             "weights_step": self.weights_step,
             "weights_version": self.weights_version,
         }
+        if sched.prefix_cache is not None:
+            out["prefix_cache"] = sched.prefix_cache.stats()
+        if self.spill_tier is not None:
+            out["spill_tier"] = self.spill_tier.stats()
+        if self.spec_k:
+            prop = self._spec_proposed_n
+            out["speculative"] = {
+                "k": self.spec_k,
+                "proposed": prop,
+                "accepted": self._spec_accepted_n,
+                "accepted_rate": (self._spec_accepted_n / prop
+                                  if prop else 0.0),
+            }
+        return out

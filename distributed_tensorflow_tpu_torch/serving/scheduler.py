@@ -11,14 +11,26 @@ step boundaries. Each engine step the scheduler
    the whole prompt);
 3. hands the engine the prefill list and the decode batch.
 
-When a running sequence cannot grow into a new block, the most recently
-admitted sequence is preempted, newest first: pushed back to the FRONT
-of the admission queue with its blocks freed; its generated tokens are
-kept and replayed as part of the prompt on re-admission, so greedy
-outputs are unchanged and the oldest requests always finish first.
+Cache pressure is handled in two stages: first the prefix cache (when
+one is attached) evicts unreferenced cached blocks LRU-first, then the
+most recently admitted sequence is preempted, newest first: pushed back
+to the FRONT of the admission queue with its blocks freed; its
+generated tokens are kept and replayed as part of the prompt on
+re-admission, so greedy outputs are unchanged and the oldest requests
+always finish first.
 
-Pure host logic, call-for-call the JAX scheduler's. The prefix-cache
-and KV-migration hooks belong to later slices.
+**Prefix caching** (``prefix_caching=True``): at admission each
+request's prompt is matched against the
+:class:`~distributed_tensorflow_tpu_torch.serving.kv_cache.PrefixCache`;
+matched blocks are adopted (refcounted — the engine then prefills only
+the unmatched suffix, and the token budget is charged only for it), and
+at prefill commit the prompt's full blocks are registered for later
+requests. A preempted sequence's cached prompt blocks survive its
+release (the cache keeps its reference), so replay usually re-admits
+onto warm blocks.
+
+Pure host logic, call-for-call the JAX scheduler's. The KV-migration
+hooks belong to a later slice.
 """
 
 from __future__ import annotations
@@ -30,7 +42,8 @@ from typing import Iterable
 
 from distributed_tensorflow_tpu_torch import telemetry
 from distributed_tensorflow_tpu_torch.serving.kv_cache import (
-    BlockAllocator, BlockTable, CacheConfig, OutOfBlocksError)
+    BlockAllocator, BlockTable, CacheConfig, OutOfBlocksError,
+    PrefixCache)
 
 
 class QueueOverflowError(RuntimeError):
@@ -64,10 +77,14 @@ class Request:
 class Sequence:
     """Runtime state of one admitted request."""
 
-    def __init__(self, request: Request, slot: int, table: BlockTable):
+    def __init__(self, request: Request, slot: int, table: BlockTable,
+                 cached_tokens: int = 0):
         self.request = request
         self.slot = slot
         self.table = table
+        #: leading prompt tokens adopted from the prefix cache — the
+        #: engine prefills only positions cached_tokens..prompt_len-1
+        self.cached_tokens = cached_tokens
         self.generated: list[int] = []
         self.prefilled = False
         self.admitted_s = time.monotonic()
@@ -167,7 +184,8 @@ class ContinuousBatchingScheduler:
 
     def __init__(self, cache_cfg: CacheConfig, *, max_slots: int,
                  max_blocks_per_seq: int, token_budget: int,
-                 queue: AdmissionQueue | None = None):
+                 queue: AdmissionQueue | None = None,
+                 prefix_caching: bool = False):
         self.cache_cfg = cache_cfg
         self.allocator = BlockAllocator(cache_cfg.num_blocks)
         self.queue = queue if queue is not None else AdmissionQueue()
@@ -188,39 +206,58 @@ class ContinuousBatchingScheduler:
         self._m_deferred_blocks = reg.counter(
             "serving/deferred_blocks_total",
             "admissions deferred by pool exhaustion")
+        self.prefix_cache = (PrefixCache(self.allocator,
+                                         cache_cfg.block_size)
+                             if prefix_caching else None)
 
     # -- admission --------------------------------------------------------
     def admit(self) -> list[Sequence]:
         """Admit queued requests for this step under the token budget
-        (``token_budget`` minus one decode token per running sequence;
-        each admission consumes its prompt). Stops at the first request
-        that does not fit, preserving FIFO order."""
+        (``token_budget`` minus one decode token per running sequence);
+        each admission consumes the prompt tokens prefill will actually
+        compute — the unmatched suffix when the prefix cache hits.
+        Stops at the first request that does not fit, preserving FIFO
+        order; a deferred request hands its match references back."""
         budget = self.token_budget - len(self.running)
         admitted: list[Sequence] = []
         while self._free_slots and self.queue.peek() is not None:
             req = self.queue.peek()
-            need = len(req.tokens)
+            cached, cblocks = (self.prefix_cache.match(req.tokens)
+                               if self.prefix_cache is not None
+                               else (0, []))
+            need = len(req.tokens) - cached     # prefill computes this
             if need > budget and (admitted or self.running):
+                if cblocks:                 # hand the match refs back
+                    self.allocator.free(cblocks)
                 self.deferred_prefill += 1
                 self._m_deferred_prefill.increment()
                 break                       # never starves: alone it runs
             blocks_needed = self.cache_cfg.blocks_for(len(req.tokens) + 1)
             if blocks_needed > self.max_blocks_per_seq:
                 # can never fit: fail the request rather than wedge FIFO
+                if cblocks:
+                    self.allocator.free(cblocks)
                 self.queue.pop()
                 raise OutOfBlocksError(
                     f"request {req.id}: prompt of {len(req.tokens)} "
                     f"tokens needs {blocks_needed} blocks > "
                     f"max_blocks_per_seq={self.max_blocks_per_seq}")
-            if blocks_needed > self.allocator.num_free:
-                self.deferred_blocks += 1
-                self._m_deferred_blocks.increment()
-                break                       # wait for blocks to free up
+            grow = blocks_needed - len(cblocks)
+            if grow > self.allocator.num_free:
+                if self.prefix_cache is not None:
+                    self.prefix_cache.evict(grow - self.allocator.num_free)
+                if grow > self.allocator.num_free:
+                    if cblocks:
+                        self.allocator.free(cblocks)
+                    self.deferred_blocks += 1
+                    self._m_deferred_blocks.increment()
+                    break                   # wait for blocks to free up
             self.queue.pop()
             slot = self._free_slots.pop()
             table = BlockTable(self.cache_cfg, self.max_blocks_per_seq)
+            table.blocks = list(cblocks)    # match()'s refs transfer here
             table.ensure_room(len(req.tokens) + 1, self.allocator)
-            seq = Sequence(req, slot, table)
+            seq = Sequence(req, slot, table, cached_tokens=cached)
             self.running[slot] = seq
             admitted.append(seq)
             budget -= need
@@ -230,12 +267,39 @@ class ContinuousBatchingScheduler:
     def commit_prefill(self, seq: Sequence):
         seq.table.length = seq.prompt_len
         seq.prefilled = True
+        if self.prefix_cache is not None:
+            # index the prompt's full blocks for later requests; the
+            # table holds post-copy-on-write private blocks, so every
+            # registered block really contains these tokens' K/V
+            self.prefix_cache.register(seq.request.tokens,
+                                       seq.table.blocks)
 
-    def grow_for_decode(self, n_tokens: int = 1) -> list[Sequence]:
-        """Make room for ``n_tokens`` more tokens in every running
-        prefilled sequence; a sequence that cannot grow triggers
-        newest-first preemption until the growth fits. Returns the
-        decode batch, in slot order."""
+    def _ensure_room(self, table: BlockTable, n_tokens: int):
+        """``table.ensure_room`` with prefix-cache pressure relief:
+        when the pool is short, evict unreferenced cached blocks before
+        giving up (the caller then falls back to preemption)."""
+        need = self.cache_cfg.blocks_for(table.length + n_tokens)
+        while True:
+            try:
+                table.ensure_room(n_tokens, self.allocator)
+                return
+            except OutOfBlocksError:
+                grow = need - len(table.blocks)
+                if (need <= table.max_blocks
+                        and self.prefix_cache is not None
+                        and grow > self.allocator.num_free
+                        and self.prefix_cache.evict(
+                            grow - self.allocator.num_free) > 0):
+                    continue
+                raise
+
+    def grow_for_decode(self, n_tokens=1) -> list[Sequence]:
+        """Make room for ``n_tokens`` more tokens (an int, or a
+        callable(seq) -> int — speculative decode reserves its span + 1
+        per sequence) in every running prefilled sequence; a sequence
+        that cannot grow evicts unreferenced cached blocks first, then
+        triggers newest-first preemption until the growth fits. Returns
+        the decode batch, in slot order."""
         batch = [s for s in self.running.values() if s.prefilled
                  and not s.done]
         batch.sort(key=lambda s: s.slot)
@@ -244,9 +308,10 @@ class ContinuousBatchingScheduler:
                 # preempted by an earlier grower this very step: its
                 # table is released — growing it would leak blocks
                 continue
+            n = n_tokens(seq) if callable(n_tokens) else n_tokens
             while True:
                 try:
-                    seq.table.ensure_room(n_tokens, self.allocator)
+                    self._ensure_room(seq.table, n)
                     break
                 except OutOfBlocksError:
                     victim = self._preempt_newest(exclude=seq)

@@ -2,15 +2,25 @@
 """Where a serving step's time goes in the PyTorch port, on one GPU.
 
     python3 tools/torch_serve_profile.py [--prompt-len 512] [--slots 8]
+        [--prefix-len 0] [--speculative-k 0]
 
 Builds the port's ``InferenceEngine`` at the full width of
 ``transformer_big`` in bf16 (random weights from seed 0) and traces two
 windows with ``torch.profiler``:
 
 - ``prefill`` — one request with a ``--prompt-len`` prompt and one new
-  token (prefill only);
+  token (prefill only). With ``--prefix-len P`` the engine caches
+  prefixes and the prompt shares its first P tokens with a prompt
+  served in the warm-up, so the window is one prefix hit's suffix
+  prefill (``prefill_hit``: ``--prompt-len`` - P tokens against the
+  whole prompt). Before it, untraced, the line's ``host_ms`` times a
+  hit of that shape at its first use and again, and a cold prefill of
+  the whole prompt's length again (each one request, host clock);
 - ``decode``  — ``--steps`` steps of a full decode batch of ``--slots``
-  sequences (prompts of ``--decode-prompt-len``), no admissions.
+  sequences (prompts of ``--decode-prompt-len``), no admissions. With
+  ``--speculative-k k`` each step is a speculative one (``spec_decode``:
+  up to k proposals of the default truncated draft, as many as the
+  widest span can commit, then one verify).
 
 For each window it prints one JSON line: host wall time per step, the
 device's busy time (union of kernel intervals) and idle share, kernel
@@ -110,7 +120,11 @@ def main() -> int:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--decode-prompt-len", type=int, default=256)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--prefix-len", type=int, default=0)
+    ap.add_argument("--speculative-k", type=int, default=0)
     args = ap.parse_args()
+    if not 0 <= args.prefix_len < args.prompt_len:
+        ap.error("--prefix-len must lie in [0, --prompt-len)")
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -125,26 +139,53 @@ def main() -> int:
                          device="cuda")
     engine = InferenceEngine(
         cfg, params, device="cuda", max_slots=args.slots, block_size=16,
-        num_blocks=args.slots * cfg.max_seq_len // 16 + 1)
+        num_blocks=args.slots * cfg.max_seq_len // 16 + 1,
+        prefix_caching=args.prefix_len > 0,
+        speculative_k=args.speculative_k)
     del params
     rng = np.random.default_rng(0)
 
     def prompt(n):
         return rng.integers(0, cfg.vocab_size, n).tolist()
 
-    engine.generate([prompt(64), prompt(args.prompt_len)],
+    def timed_ms(tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate([tokens], max_new_tokens=1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    shared = prompt(args.prompt_len)
+    engine.generate([prompt(64), shared],
                     max_new_tokens=4)                      # warm-up
+    host_ms = {}
+    if args.prefix_len:      # the hit path: its shape's first use, again
+        def hit():
+            return (shared[:args.prefix_len]
+                    + prompt(args.prompt_len - args.prefix_len))
+        for key in ("hit_first_use", "hit_again"):
+            host_ms[key] = timed_ms(hit())
+        host_ms["cold_again"] = timed_ms(prompt(args.prompt_len))
+        target = hit()
+    else:
+        target = prompt(args.prompt_len)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "torch": torch.__version__}), flush=True)
 
+    hits0 = engine.stats().get("prefix_cache", {}).get("hit_tokens", 0)
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.generate([prompt(args.prompt_len)], max_new_tokens=1)
+        engine.generate([target], max_new_tokens=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(json.dumps(summarize("prefill", prof, wall, 1)), flush=True)
+    window = "prefill_hit" if args.prefix_len else "prefill"
+    print(json.dumps({**summarize(window, prof, wall, 1),
+                      "prompt_len": args.prompt_len, "host_ms": host_ms,
+                      "cached_tokens": engine.stats().get(
+                          "prefix_cache", {}).get("hit_tokens", 0) - hits0}),
+          flush=True)
 
     for i in range(args.slots):
         engine.submit(Request(id=f"d{i}", tokens=prompt(
@@ -159,8 +200,11 @@ def main() -> int:
             engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(json.dumps(summarize(f"decode_batch{args.slots}", prof, wall,
-                               args.steps)), flush=True)
+    window = "spec_decode" if args.speculative_k else "decode"
+    print(json.dumps({**summarize(f"{window}_batch{args.slots}", prof,
+                                  wall, args.steps),
+                      **({"speculative": engine.stats()["speculative"]}
+                         if args.speculative_k else {})}), flush=True)
     engine.run_until_idle()
     return 0
 
