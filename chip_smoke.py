@@ -80,6 +80,32 @@ printing one JSON line:
    the streams under ``prefix_serve``'s rule.
 5e. ``spec_parity`` — f32: streams equal to non-speculative decode,
    every verify row's logits against recompute of its context (1e-3).
+5f. ``disagg_serve`` — ``DisaggregatedEngine`` at ``transformer_big`` in
+   bf16: 1 prefill and 2 decode replicas, each with the serve pool,
+   every payload through the wire format, on the serve phase's prompts
+   against the monolithic engine: migrations, bytes (blocks × 786,432),
+   migration ms p50/p99, tokens/s of both; 12 ``flash_fwd_tc`` launches
+   a prefill, all on the prefill replica, none on the decode replicas;
+   block accounting conserved; a live ``GoodputLedger`` whose fresh
+   tokens equal the tokens generated, with ``kv_migrate`` above 0; the
+   streams under ``prefix_serve``'s rule.
+5g. ``disagg_parity`` — f32, TF32 off, full depth: the serve prompts
+   through ``DisaggregatedEngine`` with streams equal to the monolithic
+   engine's, again with decode pools of 94 blocks (at least one rescue
+   and one replay preemption), and once with ``kv_dtype="int8"``; every
+   payload survives ``pack``/``unpack`` and a ``FileKV`` publish/fetch
+   bit for bit; 12 ``flash_fwd`` a prefill on whichever replica runs it.
+5h. ``swap_chaos`` — f32, TF32 off: an engine with ``prefix_caching``
+   serves under weights A and, after 3 steps, ``install_version`` flips
+   it to weights B (seed 1): every completion on B's version,
+   ``requeued`` equal to the sequences running at the flip, streams
+   equal to a fresh B engine's, ``cache_dropped`` above 0 and no later
+   hit on a block registered before the flip; then a seeded
+   ``FaultSchedule`` raising at ``serve.step`` with probability 0.2 on
+   the ``DisaggregatedEngine`` under ``run_until_idle(retry_faults=
+   True)``: streams equal to the fault-free run's, no request lost,
+   firings counted equal to ``faults.events()`` and above 0, accounting
+   conserved.
 6. ``train``   — the train step (``make_train_step``) of ``bench.py``'s
    headline row at the full width and depth of ``transformer_big`` in
    bf16: batch 8 × 1024, no remat, unrolled layers, kernel
@@ -137,7 +163,7 @@ printing one JSON line:
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
 bound, at the main path's shape and, where BERT runs it, at BERT's;
-the flash forward's rows also the launches of phases 5a-5e and, in
+the flash forward's rows also the launches of phases 5a-5h and, in
 bf16, its times at the largest suffix shape),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
@@ -218,6 +244,11 @@ SPILL_BLOCKS, SPILL_PROMPT, SPILL_LONG_NEW = 25, 300, 200
 # spec_serve / spec_parity: draft k tokens with the default truncated
 # draft (the first half of the layers)
 SPEC_K = 4
+# disagg_*: one prefill and two decode replicas; disagg_parity's
+# pressure run gives each replica 94 blocks, which on the serve prompts
+# forces a rescue and a replay preemption
+DISAGG_DECODE, DISAGG_PRESSURE_BLOCKS = 2, 94
+SWAP_AFTER_STEPS, CHAOS_P = 3, 0.2
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
 # kernels launched per train step of transformer_big at batch 8 x 1024:
 # one flash forward, dq and dkv a layer; one CE forward and backward per
@@ -1811,7 +1842,9 @@ def _record(engine, prefills: list, logits: dict):
 
     engine._prefill_one, engine._decode_batch = prefill_one, decode_batch
     engine._speculative_batch = speculative_batch
-    engine._prefill, engine._decode, engine._extend = prefill, decode, extend
+    # a prefill-only replica has no decode function, and keeps none
+    engine._prefill, engine._extend = prefill, extend
+    engine._decode = decode if decode_fn is not None else None
 
 
 def _serve_rounds(engine, rounds) -> dict:
@@ -2563,6 +2596,491 @@ def phase_spec_parity(state):
                for name, r in runs.items()}}
 
 
+# ---------------------------------------------------------------------------
+# disaggregated serving, hot-swap, chaos
+# ---------------------------------------------------------------------------
+
+def _serve_prompts(cfg, n_new):
+    """The serve phase's prompts, by id, and one round of them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, cfg.max_seq_len - SERVE_NEW + 1, SERVE_REQUESTS)
+    prompts = {f"s{i}": rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(lens)}
+    return prompts, [{rid: (p, n_new) for rid, p in prompts.items()}]
+
+
+def _block_bytes(cfg, kv_bytes: int) -> int:
+    """Pool bytes of one block: K and V, every layer, 16 rows."""
+    hd = cfg.d_model // cfg.n_heads
+    return 2 * cfg.n_layers * SERVE_BLOCK * cfg.n_heads * hd * kv_bytes
+
+
+def _replicas(dis) -> list:
+    return [dis.prefill] + list(dis.decoders)
+
+
+def _acct_problems(name, acct) -> list:
+    """The problems of an engine's (or each replica's) block accounting
+    at idle: every block free, none leaked, conserved."""
+    per = [v for v in acct.values() if isinstance(v, dict)] or [acct]
+    if not acct["conserved"] or acct["leaked_refs"] or any(
+            v["free"] != v["usable"] or v["leaked_refs"] for v in per):
+        return [f"{name}: block accounting at idle: {acct}"]
+    return []
+
+
+def phase_disagg_serve(state):
+    """``DisaggregatedEngine`` (1 prefill, 2 decode replicas, the serve
+    pool each, ``wire=True``) at ``transformer_big`` in bf16 against the
+    monolithic engine on the serve phase's prompts: migrations, bytes,
+    migration ms, tokens/s; the flash forward only on the prefill
+    replica, 12 a prefill; the live goodput ledger; the streams under
+    ``prefix_serve``'s rule."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, init_params)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_tensorflow_tpu_torch.serving.migrate import (
+        DisaggregatedEngine)
+    from distributed_tensorflow_tpu_torch.telemetry import goodput
+
+    cfg = TransformerConfig.transformer_big()           # bf16
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    kw = dict(device="cuda", block_size=SERVE_BLOCK, max_slots=SERVE_SLOTS,
+              num_blocks=SERVE_SLOTS * cfg.max_seq_len // SERVE_BLOCK + 1)
+    prompts, rounds = _serve_prompts(cfg, SERVE_NEW)
+    warm = [prompts["s0"][:16], prompts["s1"][:40]]
+    runs = {}
+    for name in ("mono", "disagg"):
+        eng = (InferenceEngine(cfg, params, **kw) if name == "mono" else
+               DisaggregatedEngine(cfg, params, num_decode=DISAGG_DECODE,
+                                   wire=True, **kw))
+        eng.generate(warm, max_new_tokens=2)               # warm-up
+        engines = [eng] if name == "mono" else _replicas(eng)
+        pre, logits, decode_launches = [], {}, {}
+        parts = {"export": [], "adopt": []}
+        for e in engines:
+            _record(e, pre, logits)
+        if name == "disagg":
+            eng.migrations.clear()
+            # each migration's export (gather, device to host) and adopt
+            # (host to device, scatter, synchronised) on the host clock;
+            # the rest of its time is the wire format's pack and unpack
+            for e in engines:
+                def timed_export(seq, reason="migrate",
+                                 export=e.export_sequence):
+                    t0 = time.perf_counter()
+                    payload = export(seq, reason=reason)
+                    parts["export"].append((time.perf_counter() - t0) * 1e3)
+                    return payload
+
+                def timed_adopt(payload, adopt=e.adopt_sequence, **kw):
+                    t0 = time.perf_counter()
+                    seq = adopt(payload, **kw)
+                    torch.cuda.synchronize()
+                    parts["adopt"].append((time.perf_counter() - t0) * 1e3)
+                    return seq
+                e.export_sequence, e.adopt_sequence = timed_export, \
+                    timed_adopt
+            for d in eng.decoders:
+                step = d.step
+
+                def counted(step=step):
+                    before = launch_counts()
+                    out = step()
+                    after = launch_counts()
+                    for k in after:
+                        decode_launches[k] = (decode_launches.get(k, 0)
+                                              + after[k] - before[k])
+                    return out
+                d.step = counted
+        prefills0 = [e.prefills for e in engines]
+        ledger = goodput.GoodputLedger(register=False)
+        prev = goodput.activate(ledger)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        out = _serve_rounds(eng, rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        goodput.activate(prev)
+        runs[name] = {"out": out, "wall": wall, "pre": pre,
+                      "logits": logits, "counts": launch_counts(),
+                      "prefills": [e.prefills - p0 for e, p0 in
+                                   zip(engines, prefills0)],
+                      "decode_launches": decode_launches,
+                      "ledger": ledger, "acct": eng.block_accounting(),
+                      "parts": parts,
+                      "stats": eng.stats(),
+                      "migrations": list(getattr(eng, "migrations", []))}
+        del eng, engines
+        torch.cuda.empty_cache()
+    mono, dis = runs["mono"], runs["disagg"]
+    per = cfg.n_layers
+    block_bytes = _block_bytes(cfg, 2)
+    migs = dis["migrations"]
+    tokens = sum(len(s) for s in dis["out"].values())
+    snap = dis["ledger"].snapshot()
+    problems = []
+    if dis["prefills"] != [SERVE_REQUESTS] + [0] * DISAGG_DECODE:
+        problems.append(f"prefills by replica {dis['prefills']}")
+    if dis["counts"] != expected_counts({"flash_fwd_tc": per},
+                                        SERVE_REQUESTS) or any(
+            p["launches"] != {"flash_fwd_tc": per} for p in dis["pre"]):
+        problems.append(f"launches {dis['counts']}, expected {per} "
+                        f"flash_fwd_tc a prefill")
+    if any(dis["decode_launches"].values()):
+        problems.append(f"a kernel ran on a decode replica: "
+                        f"{dis['decode_launches']}")
+    if len(migs) != SERVE_REQUESTS or any(
+            m["kind"] != "prefill" or m["bytes"] != m["blocks"] * block_bytes
+            for m in migs):
+        problems.append(f"migrations {migs}")
+    problems += _acct_problems("disagg", dis["acct"])
+    problems += _acct_problems("mono", mono["acct"])
+    if dis["ledger"]._fresh != tokens or dis["ledger"]._replayed or \
+            not snap["badput_s"]["kv_migrate"] > 0:
+        problems.append(f"goodput ledger: fresh {dis['ledger']._fresh} "
+                        f"of {tokens} tokens, {snap}")
+    if any(len(s) != SERVE_NEW or not all(0 <= t < cfg.vocab_size
+                                          for t in s)
+           for s in dis["out"].values()) or len(dis["out"]) != \
+            SERVE_REQUESTS:
+        problems.append("incomplete or out-of-range streams")
+    err = _path_err(dis["logits"], mono["logits"], dis["out"], mono["out"],
+                    prompts)
+    div = _first_divergences(dis["out"], mono["out"], prompts,
+                             mono["logits"], err)
+    if any(d["fault"] for d in div):
+        problems.append(f"streams part where the margin exceeds twice the "
+                        f"logit error {err}: {div}")
+    f32_errs = _f32_recompute_errs(cfg, params, prompts, mono["out"], {
+        "mono": (mono["out"], mono["logits"]),
+        "disagg": (dis["out"], dis["logits"])})
+    del params
+    problems += _hold_path_err(f32_errs, "disagg", "mono")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    ms = sorted(m["ms"] for m in migs)
+    state["disagg_launches"] = dis["counts"]
+    state["flash_fwd_tc"]["disagg"] = {
+        "launches": dis["counts"]["flash_fwd_tc"],
+        "prefills": SERVE_REQUESTS,
+        "decode_replica_launches": sum(dis["decode_launches"].values())}
+    blocks = sum(m["blocks"] for m in migs)
+    return {"config": "transformer_big", "dtype": "bfloat16",
+            "replicas": {"prefill": 1, "decode": DISAGG_DECODE},
+            "num_blocks_each": kw["num_blocks"],
+            "prompt_lens": [len(p) for p in prompts.values()],
+            "new_tokens": SERVE_NEW,
+            "migrations": len(migs), "migrated_blocks": blocks,
+            "migrated_bytes": sum(m["bytes"] for m in migs),
+            "block_bytes": block_bytes,
+            "migrate_ms": [[m["blocks"], m["ms"]] for m in migs],
+            "migrate_parts_ms": {
+                "export": dis["parts"]["export"],
+                "adopt": dis["parts"]["adopt"],
+                "pack_unpack": [m["ms"] - x - a for m, x, a in zip(
+                    migs, dis["parts"]["export"], dis["parts"]["adopt"])]},
+            "migrate_ms_p50": dis["stats"]["migrate_p50_ms"],
+            "migrate_ms_p99": dis["stats"]["migrate_p99_ms"],
+            "migrate_ms_max": ms[-1],
+            "migrate_gb_per_s": (sum(m["bytes"] for m in migs) / 1e6
+                                 / sum(ms)),
+            "tokens": tokens,
+            "tokens_per_s": tokens / dis["wall"], "wall_s": dis["wall"],
+            "mono_tokens_per_s": sum(len(s) for s in mono["out"].values())
+            / mono["wall"], "mono_wall_s": mono["wall"],
+            "prefill_ms": [[p["len"], p["ms"]] for p in dis["pre"]],
+            "mono_prefill_ms": [[p["len"], p["ms"]] for p in mono["pre"]],
+            "prefill_ms_mean": float(np.mean([p["ms"] for p in dis["pre"]])),
+            "mono_prefill_ms_mean": float(np.mean(
+                [p["ms"] for p in mono["pre"]])),
+            "launches": dis["counts"],
+            "decode_replica_launches": dis["decode_launches"],
+            "goodput": {"fresh_tokens": dis["ledger"]._fresh,
+                        "replayed_tokens": dis["ledger"]._replayed,
+                        "serve_s": dis["ledger"]._serve_s, **snap},
+            "logit_err": err, "f32_recompute_err": f32_errs,
+            "err_ratio_max": BF16_PATH_ERR_RATIO,
+            "streams_equal": sum(dis["out"][r] == mono["out"][r]
+                                 for r in prompts),
+            "streams": len(prompts), "divergences": div,
+            "block_accounting": dis["acct"]}
+
+
+def _check_wire(payload) -> int:
+    """``payload`` through ``pack``/``unpack`` and a ``FileKV``
+    publish/fetch (in a temporary directory): both must give back the
+    blob bit for bit. Returns the blob's length."""
+    import tempfile
+    import torch
+    from distributed_tensorflow_tpu_torch.serving.migrate import (
+        FileKV, fetch_payload, pack_payload, publish_payload,
+        unpack_payload)
+    blob = pack_payload(payload)
+    back = unpack_payload(blob)
+    with tempfile.TemporaryDirectory() as tmp:
+        agent = FileKV(tmp)
+        publish_payload(agent, "mig", payload)
+        fetched = fetch_payload(agent, "mig", timeout_s=10.0)
+    for got in (back, fetched):
+        same = pack_payload(got) == blob and all(
+            torch.equal(got.arrays[n].view(torch.uint8).reshape(-1),
+                        a.contiguous().view(torch.uint8).reshape(-1))
+            for n, a in payload.arrays.items())
+        if not same:
+            raise AssertionError(f"payload {payload.request_id} changed on "
+                                 f"the wire")
+    return len(blob)
+
+
+def phase_disagg_parity(state):
+    """f32, TF32 off, full ``transformer_big``: ``DisaggregatedEngine``
+    streams equal to the monolithic engine's on the serve prompts —
+    plainly, under decode pools small enough to force a rescue and a
+    replay preemption, and with ``kv_dtype="int8"`` — every payload
+    bit-exact through ``pack``/``unpack`` and a ``FileKV`` directory."""
+    import torch
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_tensorflow_tpu_torch.serving.migrate import (
+        DisaggregatedEngine)
+
+    cfg, params = _f32_big(0)
+    prompts, rounds = _serve_prompts(cfg, SERVE_NEW)
+    full = SERVE_SLOTS * cfg.max_seq_len // SERVE_BLOCK + 1
+    base = dict(device="cuda", block_size=SERVE_BLOCK,
+                max_slots=SERVE_SLOTS)
+    cases = {"plain": ({}, full), "pressure": ({}, DISAGG_PRESSURE_BLOCKS),
+             "int8": ({"kv_dtype": "int8"}, full)}
+    out, problems, want, launches = {}, [], {}, {}
+    for name, (extra, blocks) in cases.items():
+        key = extra.get("kv_dtype", "f32")
+        if key not in want:
+            want[key] = _serve_rounds(InferenceEngine(
+                cfg, params, num_blocks=full, **base, **extra), rounds)
+            torch.cuda.empty_cache()
+        dis = DisaggregatedEngine(cfg, params, num_decode=DISAGG_DECODE,
+                                  wire=True, num_blocks=blocks, **base,
+                                  **extra)
+        wire = []
+        for e in _replicas(dis):
+            export = e.export_sequence
+
+            def checked(seq, reason="migrate", export=export):
+                p = export(seq, reason=reason)
+                wire.append(_check_wire(p))
+                return p
+            e.export_sequence = checked
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        got = _serve_rounds(dis, rounds)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches = {k: launches.get(k, 0) + n for k, n in counts.items()}
+        st = dis.stats()
+        prefills = sum(e.prefills for e in _replicas(dis))
+        preempted = sum(r["preemptions"] for r in st["decode"])
+        acct = dis.block_accounting()
+        del dis
+        torch.cuda.empty_cache()
+        if got != want[key]:
+            problems.append(f"{name}: streams differ from the "
+                            f"monolithic engine's: "
+                            f"{[r for r in got if got[r] != want[key][r]]}")
+        if counts != expected_counts({"flash_fwd": cfg.n_layers},
+                                     prefills):
+            problems.append(f"{name}: launches {counts}")
+        if len(wire) != st["migrations"] or not wire:
+            problems.append(f"{name}: {len(wire)} payloads checked of "
+                            f"{st['migrations']}")
+        if name == "pressure" and not (st["migrations_rescue"] >= 1
+                                       and preempted >= 1):
+            problems.append(f"pressure: {st['migrations_rescue']} "
+                            f"rescues, {preempted} replay preemptions")
+        problems += _acct_problems(name, acct)
+        out[name] = {"num_blocks_each": blocks,
+                     "kv_dtype": st["prefill"]["kv_dtype"],
+                     "migrations": st["migrations"],
+                     "rescues": st["migrations_rescue"],
+                     "replay_preemptions": preempted,
+                     "migrated_bytes": st["migrated_bytes"],
+                     "payloads_checked": len(wire),
+                     "blob_bytes": sum(wire), "prefills": prefills,
+                     "launches": counts["flash_fwd"],
+                     "streams_equal_mono": got == want[key]}
+    del params
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["disagg_parity_launches"] = launches
+    return {"config": "transformer_big", "dtype": "float32",
+            "layers": cfg.n_layers, "depth_cut": False,
+            "prompt_lens": [len(p) for p in prompts.values()],
+            "new_tokens": SERVE_NEW, **out}
+
+
+def phase_swap_chaos(state):
+    """f32, TF32 off, full ``transformer_big``. **swap**: a prefix-caching
+    engine flipped from weights A to B by ``install_version`` after
+    :data:`SWAP_AFTER_STEPS` steps; every completion on B's version and
+    equal to a fresh B engine's, ``requeued`` the sequences running at
+    the flip, the cache fenced. **chaos**: ``serve.step`` raising with
+    probability :data:`CHAOS_P` on the ``DisaggregatedEngine`` under
+    ``run_until_idle(retry_faults=True)``: streams equal to the
+    fault-free run's, no request lost, firings counted."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch import telemetry
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        init_params)
+    from distributed_tensorflow_tpu_torch.resilience import faults
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_tensorflow_tpu_torch.serving.migrate import (
+        DisaggregatedEngine)
+    from distributed_tensorflow_tpu_torch.serving.scheduler import Request
+
+    cfg, pa = _f32_big(0)
+    pb = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                     device="cuda")
+    rng = np.random.default_rng(7)
+    shared = _prefix_prompts(cfg, rng, PREFIX_PARITY_LEN,
+                             PREFIX_PARITY_SUFFIX, PARITY_REQUESTS)
+    # the prompts twice: the second copies hit the first's cached blocks
+    swap_rounds = [{f"{c}{i}": (p, PARITY_NEW) for c in "pq"
+                    for i, p in enumerate(shared)}]
+    kw = dict(device="cuda", num_blocks=129, block_size=SERVE_BLOCK,
+              max_slots=PARITY_REQUESTS, prefix_caching=True)
+    want = _serve_rounds(InferenceEngine(cfg, pb, **kw), swap_rounds)
+    torch.cuda.empty_cache()
+    eng = InferenceEngine(cfg, pa, snapshot_step=1, **kw)
+    pc = eng.scheduler.prefix_cache
+    log = {"swapped": False, "post_registered": set(), "post_hits": [],
+           "pre_registered": 0}
+    register, match = pc.register, pc.match
+
+    def logged_register(tokens, blocks):
+        register(tokens, blocks)
+        if log["swapped"]:
+            log["post_registered"].update(int(b) for b in blocks)
+        else:
+            log["pre_registered"] += 1
+
+    def logged_match(tokens):
+        n, blocks = match(tokens)
+        if log["swapped"] and n:
+            log["post_hits"].append((n, [int(b) for b in blocks]))
+        return n, blocks
+
+    pc.register, pc.match = logged_register, logged_match
+    for rid, (p, new) in swap_rounds[0].items():
+        eng.submit(Request(id=rid, tokens=tuple(p), max_new_tokens=new))
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    got, info, steps, running = {}, None, 0, None
+    while not eng.scheduler.idle:
+        for rec in eng.step():
+            got[rec["id"]] = rec
+        steps += 1
+        if steps == SWAP_AFTER_STEPS:
+            running = len(eng.scheduler.running)
+            info = eng.install_version(pb, step=2)
+            log["swapped"] = True
+    torch.cuda.synchronize()
+    swap_counts = launch_counts()
+    swap_prefills = eng.prefills
+    cache = pc.stats()
+    acct = eng.block_accounting()
+    del eng, pa
+    torch.cuda.empty_cache()
+    problems = []
+    if {r["model_version"].split("@")[0] for r in got.values()} != {"2"}:
+        problems.append(f"completions off B's version: "
+                        f"{[r['model_version'] for r in got.values()]}")
+    if info is None or not info["requeued"] == running > 0 or \
+            not info["cache_dropped"] > 0:
+        problems.append(f"swap {info}, {running} running at the flip")
+    streams = {rid: r["tokens"] for rid, r in got.items()}
+    if streams != want:
+        problems.append(f"streams differ from a fresh B engine's: "
+                        f"{[r for r in want if streams.get(r) != want[r]]}")
+    stale = [h for h in log["post_hits"]
+             if not set(h[1]) <= log["post_registered"]]
+    if stale or not log["post_hits"] or cache["fences"] != 1:
+        problems.append(f"post-swap hits {log['post_hits']} on blocks not "
+                        f"registered after the flip; cache {cache}")
+    if swap_counts != expected_counts({"flash_fwd": cfg.n_layers},
+                                      swap_prefills):
+        problems.append(f"swap launches {swap_counts}")
+    if not acct["conserved"] or acct["leaked_refs"]:
+        problems.append(f"swap block accounting {acct}")
+
+    # chaos: the serve prompts on the disaggregated engine
+    prompts, rounds = _serve_prompts(cfg, PARITY_NEW)
+    dkw = dict(device="cuda", block_size=SERVE_BLOCK, max_slots=SERVE_SLOTS,
+               num_blocks=SERVE_SLOTS * cfg.max_seq_len // SERVE_BLOCK + 1,
+               num_decode=DISAGG_DECODE, wire=True)
+    clean = _serve_rounds(DisaggregatedEngine(cfg, pb, **dkw), rounds)
+    torch.cuda.empty_cache()
+    dis = DisaggregatedEngine(cfg, pb, **dkw)
+    del pb
+    schedule = faults.FaultSchedule(seed=0, rules=(faults.FaultRule(
+        site="serve.step", probability=CHAOS_P),))
+    fired = telemetry.get_registry().counter("resilience/faults_fired")
+    fired0 = fired.value
+    for rid, (p, new) in rounds[0].items():
+        dis.submit(Request(id=rid, tokens=tuple(p), max_new_tokens=new))
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    with faults.inject(schedule):
+        done = dis.run_until_idle(retry_faults=True)
+        events = faults.events()
+    torch.cuda.synchronize()
+    chaos_counts = launch_counts()
+    chaos_prefills = sum(e.prefills for e in _replicas(dis))
+    n_fired = fired.value - fired0
+    dacct = dis.block_accounting()
+    del dis
+    torch.cuda.empty_cache()
+    chaos_streams = {rid: r["tokens"] for rid, r in done.items()}
+    if chaos_streams != clean:
+        problems.append(f"chaos streams differ from the fault-free run's "
+                        f"or lost a request: {sorted(chaos_streams)}")
+    if not n_fired > 0 or n_fired != len(events):
+        problems.append(f"{n_fired} firings counted, {len(events)} logged")
+    if chaos_counts != expected_counts({"flash_fwd": cfg.n_layers},
+                                       chaos_prefills):
+        problems.append(f"chaos launches {chaos_counts}")
+    problems += _acct_problems("chaos", dacct)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["swap_launches"] = swap_counts
+    state["chaos_launches"] = chaos_counts
+    return {"config": "transformer_big", "dtype": "float32",
+            "swap": {"prompts": len(swap_rounds[0]),
+                     "prefix_len": PREFIX_PARITY_LEN,
+                     "after_steps": SWAP_AFTER_STEPS,
+                     "running_at_flip": running, **info,
+                     "completions_on_b": len(got),
+                     "streams_equal_fresh_b": True,
+                     "pre_swap_registrations": log["pre_registered"],
+                     "post_swap_hits": len(log["post_hits"]),
+                     "prefix_cache": cache, "prefills": swap_prefills,
+                     "launches": swap_counts["flash_fwd"]},
+            "chaos": {"p": CHAOS_P, "seed": 0, "requests": len(done),
+                      "fired": n_fired, "events": len(events),
+                      "fired_tags": [e[1] for e in events],
+                      "streams_equal_fault_free": True,
+                      "prefills": chaos_prefills,
+                      "launches": chaos_counts["flash_fwd"]}}
+
+
 def step_flops(cfg, batch: int, n_params: int) -> float:
     """Model FLOPs per train step, the formula of the repository's
     headline benchmark (``bench.py`` ``step_flops``): 6 N per token plus
@@ -3273,6 +3791,9 @@ def main() -> int:
                      ("spill", phase_spill),
                      ("spec_serve", phase_spec_serve),
                      ("spec_parity", phase_spec_parity),
+                     ("disagg_serve", phase_disagg_serve),
+                     ("disagg_parity", phase_disagg_parity),
+                     ("swap_chaos", phase_swap_chaos),
                      ("train", phase_train),
                      ("train_fused", phase_train_fused),
                      ("train_parity", phase_train_parity),
@@ -3319,6 +3840,8 @@ def main() -> int:
                             **k["serve"]}
             row["prefix"] = k["prefix"]
             row["spec"] = k["spec"]
+            # the disaggregated run: on the prefill replica only
+            row["disagg"] = k["disagg"]
         if name == "flash_fwd":
             # f32: the prefix-hit, spill and speculative parity paths
             row["prefix"] = {"launches": state["prefix_parity_launches"][
@@ -3326,6 +3849,11 @@ def main() -> int:
             row["spec"] = {"launches": state["spec_parity_launches"][name],
                            "self_draft_launches": state[
                                "spec_parity_self_launches"][name]}
+            # f32: the disaggregated parity runs, the hot-swap and chaos
+            row["disagg"] = {
+                "launches": state["disagg_parity_launches"][name],
+                "swap_launches": state["swap_launches"][name],
+                "chaos_launches": state["chaos_launches"][name]}
         # BERT's paths, each counted from 0 over its own run, and the
         # kernel's numbers at the shape BERT gives it
         row["bert_launches"] = {

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of ``distributed_tensorflow_tpu`` for NVIDIA Hopper.
 
 The package mirrors the JAX package's module layout (``ops/``,
-``models/``, ``serving/``, ``telemetry/``) so each ported module sits at
+``models/``, ``serving/``, ``telemetry/``, ``resilience/``,
+``checkpoint/``) so each ported module sits at
 the same relative path as the module it is held against. It imports
 torch, numpy and the standard library only — never jax, flax, optax or
 anything of the JAX package.
@@ -17,4 +18,5 @@ Importing this package imports no submodule: import what you use, e.g.
 InferenceEngine``.
 """
 
-__all__ = ["ops", "models", "serving", "telemetry"]
+__all__ = ["ops", "models", "serving", "telemetry", "resilience",
+           "checkpoint"]

@@ -21,6 +21,24 @@ one device:
 - **Telemetry** — ``serve.admit`` / ``serve.prefill`` / ``serve.token``
   / ``serve.step`` / ``serve.request`` events with the JAX engine's
   fields, and the same ``inference/`` and ``serving/`` instruments.
+  Steps, tokens, migrations and swaps also feed the live goodput ledger
+  (``telemetry/goodput.py``) when one is active, replayed tokens priced
+  as ``preempt_replay`` badput.
+- **Chaos** — each step fires the ``serve.step`` injection site
+  (``resilience/faults.py``) before it changes any scheduler state, so
+  an injected failure is retryable (``run_until_idle(retry_faults=
+  True)``) and no request is lost.
+- **Roles and KV migration** — ``role="prefill"`` builds no decode
+  function: :meth:`step` admits and prefills only, and the
+  disaggregated runtime (``serving/migrate.py``) moves each prefilled
+  sequence to a decode replica: :meth:`export_sequence` gathers its
+  block rows to host memory and releases it, :meth:`adopt_sequence`
+  scatters them into another engine's pool, and decode continues there
+  with nothing replayed.
+- **Hot-swap** — :meth:`install_version` flips the weights in place at
+  a step boundary: running requests are re-queued pristine, the prefix
+  cache is fenced by the new weights version, and no completion mixes
+  two versions.
 
 Two serving-speed features stack on the same step loop, each off by
 default and each OUTPUT-INVARIANT (greedy tokens are identical with the
@@ -45,8 +63,8 @@ feature on or off), as in the JAX engine:
   ``extend`` forward, the longest agreeing prefix commits (plus the
   target's own next token), and the first rejection truncates.
 
-Mesh placement, checkpoint restore and hot-swap, prefill-only roles, KV
-migration, the ``serve.step`` fault site and the goodput ledger belong
+Mesh placement and the checkpoint-restore entry points
+(``from_checkpoint``, ``load_version``, ``begin_load_version``) belong
 to later slices.
 """
 
@@ -63,11 +81,13 @@ import torch
 from distributed_tensorflow_tpu_torch import telemetry
 from distributed_tensorflow_tpu_torch.models.transformer import (
     TransformerConfig, resolve_device)
+from distributed_tensorflow_tpu_torch.resilience import faults
 from distributed_tensorflow_tpu_torch.serving import decode as decode_lib
 from distributed_tensorflow_tpu_torch.serving.kv_cache import (
-    CacheConfig, HostTier, init_pool)
+    CacheConfig, HostTier, dtype_name, init_pool)
 from distributed_tensorflow_tpu_torch.serving.scheduler import (
     AdmissionQueue, ContinuousBatchingScheduler, Request, Sequence)
+from distributed_tensorflow_tpu_torch.telemetry import goodput as _goodput
 
 _pool_epochs = itertools.count()
 
@@ -78,22 +98,30 @@ def request_span_id(request_id: str) -> str:
     return f"req/{request_id}"
 
 
+def migrate_span_id(request_id: str) -> str:
+    """Span id shared by both halves of one KV migration (the source's
+    export and the destination's adopt)."""
+    return f"kvmig/{request_id}"
+
+
+def _leaves(node, prefix=""):
+    """``{path: tensor}`` of a parameter dict, in key order."""
+    if isinstance(node, dict):
+        out = {}
+        for k in sorted(node):
+            out.update(_leaves(node[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: node}
+
+
 def params_digest(params) -> str:
     """crc32 over every parameter's raw bytes, in key order — the
     content half of the ``weights_version`` stamped on serving events."""
     crc = 0
-
-    def walk(node, prefix):
-        nonlocal crc
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], f"{prefix}/{k}")
-            return
-        crc = zlib.crc32(prefix.encode(), crc)
-        t = node.detach().contiguous().cpu()
+    for path, t in _leaves(params).items():
+        crc = zlib.crc32(path.encode(), crc)
+        t = t.detach().contiguous().cpu()
         crc = zlib.crc32(t.view(torch.uint8).numpy().tobytes(), crc)
-
-    walk(params, "")
     return f"{crc & 0xFFFFFFFF:08x}"
 
 
@@ -114,7 +142,12 @@ class InferenceEngine:
     with host memory; ``speculative_k=k`` drafts k tokens per sequence
     and verifies them in one forward (``draft_params`` — the port's
     parameter dict, e.g. from ``params_from_jax`` — with ``draft_cfg``
-    override the default truncated-target draft)."""
+    override the default truncated-target draft).
+
+    ``role="prefill"`` makes a prefill-only replica (no decode
+    function; ``serving/migrate.py`` moves its sequences on);
+    ``snapshot_step`` is the weights' step in ``weights_version``
+    (default 0: weights passed in directly)."""
 
     def __init__(self, cfg: TransformerConfig, params, *, device="cuda",
                  num_blocks: int = 64, block_size: int = 16,
@@ -127,7 +160,12 @@ class InferenceEngine:
                  prefix_caching: bool = False,
                  speculative_k: int = 0,
                  draft_params=None, draft_cfg=None,
-                 spill_tier: "HostTier | int | None" = None):
+                 role: str = "both",
+                 spill_tier: "HostTier | int | None" = None,
+                 snapshot_step: int | None = None):
+        if role not in ("both", "prefill"):
+            raise ValueError(f"role={role!r}; expected 'both' or "
+                             f"'prefill'")
         self.device = resolve_device(device)
         if speculative_k and not cfg.causal:
             raise ValueError("speculative decoding requires a causal "
@@ -143,6 +181,10 @@ class InferenceEngine:
             raise ValueError("spill_tier requires prefix_caching=True "
                              "(the tier backs prefix-cache eviction)")
         self.cfg = cfg
+        #: "prefill" builds no decode function: step() admits and
+        #: prefills only, and the disaggregated runtime exports each
+        #: prefilled sequence to a decode replica (migrate.py)
+        self.role = role
         #: fences host-tier spills: unique per engine incarnation, never
         #: equal across restarts
         self.pool_epoch = f"{os.getpid()}-{next(_pool_epochs)}"
@@ -171,18 +213,24 @@ class InferenceEngine:
             decode_lib.canonical_params(cfg, params), cfg.dtype,
             self.device)
         #: model-version identity stamped on serve.prefill/serve.request:
-        #: snapshot step (0 = weights passed in directly) @ digest
-        self.weights_step = 0
+        #: snapshot step (0 = weights passed in directly) @ digest;
+        #: rotated by install_version
+        self.weights_step = (int(snapshot_step)
+                             if snapshot_step is not None else 0)
         self.weights_digest = params_digest(self.params)
+        self.swaps = 0
         self.pool = init_pool(cache_cfg, self.device)
         self._prefill = decode_lib.make_prefill_fn(cfg, cache_cfg)
         self._decode = (decode_lib.make_decode_fn(cfg, cache_cfg)
-                        if cfg.causal else None)
+                        if cfg.causal and role != "prefill" else None)
         self._extend = (decode_lib.make_extend_fn(cfg, cache_cfg)
                         if cfg.causal else None)
         self._copy = decode_lib.make_copy_fn()
 
         self.spec_k = int(speculative_k)
+        #: the draft is the default truncated target, re-derived from
+        #: the new weights on every hot-swap
+        self._draft_default = bool(self.spec_k) and draft_params is None
         if self.spec_k:
             if draft_params is None:
                 # default draft: the target's own first half of layers,
@@ -227,6 +275,12 @@ class InferenceEngine:
             "serving/draft_tokens_proposed")
         self._m_spec_accepted = reg.counter(
             "serving/draft_tokens_accepted")
+        self._m_model_version = reg.gauge(
+            "serving/model_version",
+            "snapshot step of the weights currently serving")
+        self._m_model_version.set(self.weights_step)
+        self._m_swaps = reg.counter(
+            "serving/weight_swaps", "in-place weight hot-swaps completed")
 
         self._step_idx = 0
         self._submitted: dict[str, float] = {}      # id -> wall arrival
@@ -240,6 +294,9 @@ class InferenceEngine:
         self._preempt_seen = 0
         self._spec_proposed_n = 0
         self._spec_accepted_n = 0
+        self.migrations_out = 0
+        self.migrations_in = 0
+        self.migrated_bytes = 0
 
         self.spill_tier: HostTier | None = None
         if spill_tier is not None and spill_tier is not False:
@@ -260,11 +317,81 @@ class InferenceEngine:
         block is re-adopted only while both match."""
         return f"{self.pool_epoch}/{self.weights_version}"
 
+    def install_version(self, params, *, step: int | None = None,
+                        published_wall: "float | None" = None,
+                        mode: str = "swap",
+                        started_mono: "float | None" = None) -> dict:
+        """Flip the serving weights in place at a step boundary. The new
+        parameter dict must have the current one's names and shapes
+        (else ``ValueError``); it is cast to the compute dtype as at
+        construction.
+
+        In order: (1) every running sequence is released and its
+        pristine request re-queued at the front — tokens generated
+        under the old weights are discarded, and queued preemption
+        replays are made pristine too, so no completion mixes versions;
+        (2) the weights flip (the default truncated draft is re-derived
+        from them); (3) the prefix cache is fenced by the new
+        ``weights_version`` (device entries dropped, host-tier spills
+        epoch-fenced); (4) a ``serve.swap`` event is emitted, and the
+        transition is priced as ``rollout`` badput. No request is
+        dropped: the latency clock keys on the request id."""
+        t0 = started_mono if started_mono is not None \
+            else time.monotonic()
+        new = decode_lib.to_compute(
+            decode_lib.canonical_params(self.cfg, params), self.cfg.dtype,
+            self.device)
+        old_l, new_l = _leaves(self.params), _leaves(new)
+        if old_l.keys() != new_l.keys() or any(
+                old_l[k].shape != new_l[k].shape for k in old_l):
+            raise ValueError(
+                "install_version: parameter tree mismatch — hot-swap "
+                "requires the same TransformerConfig (identical names "
+                "and shapes); rebuild the engine for an architecture "
+                "change")
+        previous = self.weights_version
+        requeued = self.scheduler.requeue_running()
+        self.params = new
+        if self._draft_default:
+            self.draft_cfg, self._draft_params = decode_lib.truncated_draft(
+                self.cfg, self.params)
+        self.weights_step = (int(step) if step is not None
+                             else self.weights_step + 1)
+        self.weights_digest = params_digest(self.params)
+        dropped = 0
+        if self.scheduler.prefix_cache is not None:
+            dropped = self.scheduler.prefix_cache.fence(self._cache_epoch())
+        self.swaps += 1
+        self._m_swaps.increment()
+        self._m_model_version.set(self.weights_step)
+        dur = time.monotonic() - t0
+        freshness = (max(0.0, time.time() - published_wall)
+                     if published_wall is not None else None)
+        telemetry.event(
+            "serve.swap", step=self.weights_step,
+            version=self.weights_version, previous=previous,
+            mode=mode, requeued=requeued, cache_dropped=dropped,
+            dur_s=round(dur, 6),
+            freshness_s=(round(freshness, 6)
+                         if freshness is not None else None))
+        ledger = _goodput.active_ledger()
+        if ledger is not None:
+            ledger.record("rollout", dur)
+        return {"step": self.weights_step,
+                "version": self.weights_version,
+                "previous": previous, "requeued": requeued,
+                "cache_dropped": dropped, "dur_s": dur}
+
     # -- host spill tier ---------------------------------------------------
-    def _block_rows(self, block: int) -> torch.Tensor:
+    def _rows_of(self, blocks) -> torch.Tensor:
+        """The pool rows of ``blocks``, in order."""
         bs = self.cache_cfg.block_size
-        return torch.arange(block * bs, (block + 1) * bs,
-                            device=self.device)
+        b = torch.as_tensor(list(blocks), dtype=torch.int64)
+        rows = (b[:, None] * bs + torch.arange(bs)).reshape(-1)
+        return rows.to(self.device)
+
+    def _block_rows(self, block: int) -> torch.Tensor:
+        return self._rows_of([block])
 
     def _extract_block(self, block: int) -> dict:
         """One block's rows of every pool array (scales included) as host
@@ -536,6 +663,9 @@ class InferenceEngine:
         """One continuous-batching iteration; returns completion records
         for every request finished this step."""
         t0 = time.monotonic()
+        # chaos site first: an injected raise leaves scheduler and cache
+        # state untouched, so the caller can simply retry the step
+        faults.fire("serve.step", tag=self._step_idx)
         sched = self.scheduler
         finished: list[dict] = []
         with telemetry.span("serve.step", step=self._step_idx) as sp:
@@ -581,7 +711,11 @@ class InferenceEngine:
             if sched.prefix_cache is not None:
                 self._m_cache_blocks.set(len(sched.prefix_cache))
         self._step_idx += 1
-        self._m_step.record(time.monotonic() - t0)
+        step_s = time.monotonic() - t0
+        self._m_step.record(step_s)
+        ledger = _goodput.active_ledger()
+        if ledger is not None:
+            ledger.serve_step(step_s)
         self._m_running.set(len(sched.running))
         self._m_queued.set(len(sched.queue))
         self._m_blocks_free.set(sched.allocator.num_free)
@@ -614,6 +748,9 @@ class InferenceEngine:
         self.tokens_generated += len(seq.generated)
         if replayed:
             self._m_replayed.increment(replayed)
+        ledger = _goodput.active_ledger()
+        if ledger is not None:
+            ledger.tokens(fresh=len(seq.generated), replayed=replayed)
         telemetry.event(
             "serve.request", id=req.id, dur_s=round(latency, 6),
             span_id=request_span_id(req.id),
@@ -630,6 +767,134 @@ class InferenceEngine:
                 "latency_s": latency, "ttft_s": ttft,
                 "replayed_tokens": replayed,
                 "preemptions": seq.preemptions}
+
+    # -- KV-block migration ------------------------------------------------
+    def pool_fingerprint(self) -> dict:
+        """What a migration payload must match to be adopted here: the
+        pool's storage dtype (the JAX package's names: ``"float32"``,
+        ``"bfloat16"``, ``"int8"``, so payloads move between the
+        packages), block size and per-row shape."""
+        c = self.cache_cfg
+        return {"kv_dtype": dtype_name(c.dtype),
+                "block_size": c.block_size, "n_layers": c.n_layers,
+                "n_heads": c.n_heads, "head_dim": c.head_dim}
+
+    def export_sequence(self, seq: Sequence, *, reason: str = "migrate"):
+        """Gather a prefilled sequence's KV block rows to host memory
+        (one indexed read per pool array, int8 scales included) and
+        return a :class:`~distributed_tensorflow_tpu_torch.serving.
+        migrate.MigrationPayload` with everything another replica needs
+        to continue it: the rows, the request, the tokens generated so
+        far (live state, so the adopter replays nothing) and the latency
+        provenance. The sequence's slot (unless the scheduler's
+        preemption already freed it) and blocks are released here.
+
+        The rows include position ``length-1``'s not yet written row:
+        the next decode step writes it before any read, as in the
+        monolithic step."""
+        rid = seq.request.id
+        sched = self.scheduler
+        if not seq.prefilled:
+            raise ValueError(f"export {rid}: sequence not prefilled "
+                             f"(nothing in the cache to migrate)")
+        from distributed_tensorflow_tpu_torch.serving import (
+            migrate as _migrate)
+        blocks = list(seq.table.blocks)
+        t0 = time.monotonic()
+        with telemetry.span("kv.migrate", id=rid,
+                            span_id=migrate_span_id(rid),
+                            direction="export", reason=reason,
+                            blocks=len(blocks)) as sp:
+            rows = self._rows_of(blocks)
+            arrays = {n: a[:, rows].cpu() for n, a in self.pool.items()}
+            ttft = ((seq.first_token_s - seq.admitted_s)
+                    if seq.first_token_s is not None else None)
+            payload = _migrate.MigrationPayload(
+                request_id=rid, tokens=tuple(seq.request.tokens),
+                max_new_tokens=seq.request.max_new_tokens,
+                eos_id=seq.request.eos_id,
+                generated_prefix=tuple(seq.request.generated_prefix),
+                generated=tuple(seq.generated), length=seq.length,
+                fingerprint=self.pool_fingerprint(),
+                pool_epoch=self.pool_epoch,
+                arrival_wall=self._submitted.get(rid),
+                ttft_s=ttft, preemptions=seq.preemptions,
+                arrays=arrays)
+            sp["bytes"] = payload.nbytes
+            if sched.running.get(seq.slot) is seq:
+                del sched.running[seq.slot]
+                sched._free_slots.append(seq.slot)
+                sched._free_slots.sort(reverse=True)
+            seq.table.release(sched.allocator)
+            self._submitted.pop(rid, None)
+            self._submit_mono.pop(rid, None)
+        ledger = _goodput.active_ledger()
+        if ledger is not None:
+            ledger.record("kv_migrate", time.monotonic() - t0)
+        self.migrations_out += 1
+        self.migrated_bytes += payload.nbytes
+        return payload
+
+    def can_adopt(self, payload) -> bool:
+        """A free slot and enough free blocks for ``payload`` (adoption
+        never preempts to make room)."""
+        n_blocks = payload.arrays["k"].shape[1] \
+            // self.cache_cfg.block_size
+        return (bool(self.scheduler._free_slots)
+                and self.scheduler.allocator.num_free >= n_blocks)
+
+    def adopt_sequence(self, payload, *,
+                       arrival_wall: "float | None" = None) -> Sequence:
+        """Install a migrated-in sequence: allocate blocks, scatter the
+        payload's rows into this pool (one indexed write per array) and
+        register it as prefilled and running, keeping the source's TTFT.
+        Decode continues where the source stopped, with nothing
+        replayed. Raises ``ValueError`` on a pool-fingerprint mismatch
+        and ``OutOfBlocksError`` when capacity is short (see
+        :meth:`can_adopt`); either way nothing leaks."""
+        rid = payload.request_id
+        fp = self.pool_fingerprint()
+        if payload.fingerprint != fp:
+            raise ValueError(
+                f"adopt {rid}: pool fingerprint mismatch "
+                f"(payload {payload.fingerprint} vs engine {fp})")
+        sched = self.scheduler
+        n_blocks = payload.arrays["k"].shape[1] // self.cache_cfg.block_size
+        t0 = time.monotonic()
+        with telemetry.span("kv.migrate", id=rid,
+                            span_id=migrate_span_id(rid),
+                            direction="adopt", blocks=n_blocks,
+                            bytes=payload.nbytes):
+            blocks = sched.allocator.alloc(n_blocks)
+            try:
+                req = Request(id=rid, tokens=payload.tokens,
+                              max_new_tokens=payload.max_new_tokens,
+                              eos_id=payload.eos_id,
+                              generated_prefix=tuple(
+                                  payload.generated_prefix))
+                seq = sched.adopt(req, blocks, payload.length,
+                                  payload.generated)
+            except Exception:
+                sched.allocator.free(blocks)
+                raise
+            rows = self._rows_of(blocks)
+            for n, a in self.pool.items():
+                a[:, rows] = payload.arrays[n].to(self.device)
+            seq.preemptions = payload.preemptions
+            if payload.ttft_s is not None:
+                # keep the source-measured time to first token
+                seq.first_token_s = seq.admitted_s + payload.ttft_s
+            self._submitted[rid] = (
+                arrival_wall if arrival_wall is not None
+                else payload.arrival_wall
+                if payload.arrival_wall is not None else time.time())
+            self._submit_mono[rid] = time.monotonic()
+        ledger = _goodput.active_ledger()
+        if ledger is not None:
+            ledger.record("kv_migrate", time.monotonic() - t0)
+        self.migrations_in += 1
+        self.migrated_bytes += payload.nbytes
+        return seq
 
     def block_accounting(self) -> dict:
         """Allocator conservation audit: every live reference is owned by
@@ -654,15 +919,21 @@ class InferenceEngine:
         }
 
     # -- convenience -------------------------------------------------------
-    def run_until_idle(self, *, max_steps: int = 100000) -> dict:
+    def run_until_idle(self, *, max_steps: int = 100000,
+                       retry_faults: bool = False) -> dict:
         """Drive :meth:`step` until queue and slots drain; returns
-        ``{request_id: completion record}``."""
+        ``{request_id: completion record}``. ``retry_faults=True``
+        re-runs a step whose ``serve.step`` chaos site raised."""
         out: dict[str, dict] = {}
         for _ in range(max_steps):
             if self.scheduler.idle:
                 break
-            for rec in self.step():
-                out[rec["id"]] = rec
+            try:
+                for rec in self.step():
+                    out[rec["id"]] = rec
+            except faults.FaultInjected:
+                if not retry_faults:
+                    raise
         return out
 
     def generate(self, prompts, *, max_new_tokens: int = 16,
@@ -688,6 +959,10 @@ class InferenceEngine:
             "preemptions": sched.preemptions,
             "deferred_prefill": sched.deferred_prefill,
             "deferred_blocks": sched.deferred_blocks,
+            "migrated_out": sched.migrated_out,
+            "migrations_out": self.migrations_out,
+            "migrations_in": self.migrations_in,
+            "migrated_bytes": self.migrated_bytes,
             "queue_rejected": sched.queue.rejected,
             "queue_evicted": sched.queue.evicted,
             "requests_completed": self.completed,
@@ -695,9 +970,10 @@ class InferenceEngine:
             "prefills": self.prefills,
             "decode_steps": self.decode_steps,
             "serve_time_s": self._m_step.export().get("sum", 0.0),
-            "kv_dtype": str(self.cache_cfg.dtype).replace("torch.", ""),
+            "kv_dtype": dtype_name(self.cache_cfg.dtype),
             "weights_step": self.weights_step,
             "weights_version": self.weights_version,
+            "swaps": self.swaps,
         }
         if sched.prefix_cache is not None:
             out["prefix_cache"] = sched.prefix_cache.stats()

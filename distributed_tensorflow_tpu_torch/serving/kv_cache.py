@@ -50,6 +50,13 @@ KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
              "int8": torch.int8}
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``"float32"``, ``"bfloat16"``,
+    ``"int8"``): the name the JAX package writes in ``stats()``, pool
+    fingerprints and migration payloads."""
+    return str(dtype).replace("torch.", "")
+
+
 class OutOfBlocksError(RuntimeError):
     """The pool cannot satisfy an allocation (admission must wait or a
     running sequence must be preempted)."""

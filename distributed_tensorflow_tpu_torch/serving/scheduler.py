@@ -29,8 +29,14 @@ requests. A preempted sequence's cached prompt blocks survive its
 release (the cache keeps its reference), so replay usually re-admits
 onto warm blocks.
 
-Pure host logic, call-for-call the JAX scheduler's. The KV-migration
-hooks belong to a later slice.
+**Migration and hot-swap hooks**: ``preempt_hook`` lets the
+disaggregated engine (``serving/migrate.py``) take a preemption victim
+— migrating its live KV to a sibling replica — instead of the replay
+requeue; :meth:`ContinuousBatchingScheduler.adopt` installs a sequence
+whose KV migrated in; :meth:`ContinuousBatchingScheduler.requeue_running`
+re-queues every running request pristine for a weight hot-swap.
+
+Pure host logic, call-for-call the JAX scheduler's.
 """
 
 from __future__ import annotations
@@ -206,6 +212,12 @@ class ContinuousBatchingScheduler:
         self._m_deferred_blocks = reg.counter(
             "serving/deferred_blocks_total",
             "admissions deferred by pool exhaustion")
+        #: optional callable(victim: Sequence) -> bool installed by the
+        #: disaggregated engine: True takes ownership of a preemption
+        #: victim (its live KV migrated to another replica) instead of
+        #: the replay requeue. See _preempt_newest.
+        self.preempt_hook = None
+        self.migrated_out = 0
         self.prefix_cache = (PrefixCache(self.allocator,
                                          cache_cfg.block_size)
                              if prefix_caching else None)
@@ -329,6 +341,13 @@ class ContinuousBatchingScheduler:
         del self.running[victim.slot]
         self._free_slots.append(victim.slot)
         self._free_slots.sort(reverse=True)
+        if self.preempt_hook is not None and victim.prefilled \
+                and self.preempt_hook(victim):
+            # the hook took ownership: the victim's live KV migrated to
+            # another replica (its blocks were released by the export),
+            # so nothing is requeued and this is no replay preemption
+            self.migrated_out += 1
+            return victim
         victim.table.release(self.allocator)
         # generated tokens become prompt suffix: greedy decode replays
         # them identically on re-admission, and generated_prefix
@@ -343,6 +362,65 @@ class ContinuousBatchingScheduler:
         victim.preemptions += 1
         self.preemptions += 1
         return victim
+
+    @staticmethod
+    def _pristine(req: Request) -> Request:
+        """Undo the preemption-replay rewriting: the original request,
+        its generated tokens stripped from the prompt and its budget
+        restored."""
+        n = len(req.generated_prefix)
+        if n == 0:
+            return req
+        return dataclasses.replace(
+            req, tokens=req.tokens[:len(req.tokens) - n],
+            max_new_tokens=req.max_new_tokens + n,
+            generated_prefix=())
+
+    def requeue_running(self) -> int:
+        """Release every running sequence and re-queue its pristine
+        request at the front of the queue, oldest first — the hot-swap
+        primitive: tokens generated under the old weights are discarded,
+        not replayed, so no completion mixes two versions. Queued replay
+        requests (a non-empty ``generated_prefix``) are made pristine
+        too. Returns the number of running sequences re-queued."""
+        seqs = sorted(self.running.values(),
+                      key=lambda s: s.admitted_s, reverse=True)
+        for seq in seqs:
+            del self.running[seq.slot]
+            self._free_slots.append(seq.slot)
+            seq.table.release(self.allocator)
+            self.queue.push_front(self._pristine(seq.request))
+        self._free_slots.sort(reverse=True)
+        for i, req in enumerate(self.queue._q):
+            if req.generated_prefix:
+                self.queue._q[i] = self._pristine(req)
+        return len(seqs)
+
+    def adopt(self, request: Request, blocks: list[int], length: int,
+              generated) -> Sequence:
+        """Install an already-prefilled sequence whose KV migrated in:
+        ``blocks`` (allocated on this scheduler's allocator; the caller's
+        references transfer to the table) hold its first ``length``
+        cache rows, and ``generated`` stays live generation state, so
+        nothing is replayed. Raises :class:`OutOfBlocksError` with no
+        free slot or more blocks than a sequence may hold."""
+        if not self._free_slots:
+            raise OutOfBlocksError(
+                f"adopt({request.id}): no free slot "
+                f"(max_slots={self.max_slots})")
+        if len(blocks) > self.max_blocks_per_seq:
+            raise OutOfBlocksError(
+                f"adopt({request.id}): {len(blocks)} blocks > "
+                f"max_blocks_per_seq={self.max_blocks_per_seq}")
+        slot = self._free_slots.pop()
+        table = BlockTable(self.cache_cfg, self.max_blocks_per_seq)
+        table.blocks = list(blocks)
+        table.length = length
+        seq = Sequence(request, slot, table)
+        seq.generated = [int(t) for t in generated]
+        seq.prefilled = True
+        self.running[slot] = seq
+        return seq
 
     def append_token(self, seq: Sequence, token: int):
         seq.table.length += 1

@@ -1,6 +1,7 @@
 """Telemetry for the port: the metrics registry and structured events
 that the serving engine and scheduler record into (same instrument
-names, event names and JSONL fields as the JAX package). Off by
+names, event names and JSONL fields as the JAX package), and the
+goodput ledger (:mod:`goodput`, imported on its own). Off by
 default: with no event log configured, call sites cost one None check.
 
     from distributed_tensorflow_tpu_torch import telemetry
@@ -23,6 +24,7 @@ from distributed_tensorflow_tpu_torch.telemetry.events import (
     event,
     event_log_path,
     read_events,
+    read_run,
     shutdown,
     span,
 )
@@ -31,5 +33,5 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "get_registry",
     "EventLog", "configure", "enabled", "event",
-    "event_log_path", "read_events", "shutdown", "span",
+    "event_log_path", "read_events", "read_run", "shutdown", "span",
 ]

@@ -151,3 +151,17 @@ def read_events(path: str) -> list[dict]:
             if i != len(lines) - 1:
                 raise
     return out
+
+
+def read_run(logdir: str) -> dict:
+    """Every per-process event file under ``logdir``:
+    ``{process_id: [events...]}``, keyed by the id in the file name
+    (numeric ids as ints)."""
+    import glob
+    import re
+    out: dict = {}
+    for path in sorted(glob.glob(os.path.join(logdir, "events-*.jsonl"))):
+        m = re.search(r"events-([A-Za-z0-9_]+)\.jsonl$", path)
+        suffix = m.group(1) if m else str(len(out))
+        out[int(suffix) if suffix.isdigit() else suffix] = read_events(path)
+    return out

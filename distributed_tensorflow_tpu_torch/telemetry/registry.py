@@ -2,8 +2,10 @@
 
 The port's own copy of ``distributed_tensorflow_tpu/telemetry/
 registry.py`` — the instruments the serving engine and scheduler
-record into, with the same names, types and export dicts. Collectors
-and delta export belong to the fleet-telemetry slice.
+record into, with the same names, types and export dicts, and the
+collectors (``register_collector``) through which the goodput ledger
+exports its breakdown. Delta export belongs to the fleet-telemetry
+slice.
 """
 
 from __future__ import annotations
@@ -121,6 +123,7 @@ class MetricsRegistry:
 
     def __init__(self):
         self._instruments: dict[str, object] = {}
+        self._collectors: dict[str, object] = {}
         self._lock = threading.Lock()
 
     def _instrument(self, cls, name: str, description: str = "", **kw):
@@ -147,11 +150,32 @@ class MetricsRegistry:
         return self._instrument(Histogram, name, description,
                                 window=window)
 
+    def register_collector(self, prefix: str, fn):
+        """``fn() -> {name: value}``; merged into every snapshot under
+        ``<prefix>/<name>`` as gauge entries (for instrument sets that
+        keep their own storage, e.g. the goodput ledger)."""
+        with self._lock:
+            self._collectors[prefix] = fn
+
+    def unregister_collector(self, prefix: str):
+        with self._lock:
+            self._collectors.pop(prefix, None)
+
     def snapshot(self) -> dict:
-        """All instruments as one JSON-ready dict {name: export-dict}."""
+        """All instruments as one JSON-ready dict {name: export-dict},
+        plus every collector's values as gauges."""
         with self._lock:
             instruments = dict(self._instruments)
-        return {name: inst.export() for name, inst in instruments.items()}
+            collectors = dict(self._collectors)
+        out = {name: inst.export() for name, inst in instruments.items()}
+        for prefix, fn in collectors.items():
+            try:
+                collected = fn()
+            except Exception:          # a broken collector must not
+                continue               # take down metric export
+            for name, value in collected.items():
+                out[f"{prefix}/{name}"] = {"type": "gauge", "value": value}
+        return out
 
 
 _default = MetricsRegistry()

@@ -1,6 +1,6 @@
 """The port stands alone: ``distributed_tensorflow_tpu_torch``,
 ``chip_smoke.py`` and ``tools/torch_*.py`` import neither JAX (nor
-flax/optax) nor anything of the JAX package
+flax/optax/ml_dtypes) nor anything of the JAX package
 ``distributed_tensorflow_tpu``."""
 
 import ast
@@ -13,7 +13,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "distributed_tensorflow_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distributed_tensorflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
+             "distributed_tensorflow_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -50,7 +51,9 @@ print(json.dumps({"imported": names,
                 "ops._build",
                 "models.transformer", "models.bert",
                 "serving.engine", "serving.decode", "serving.kv_cache",
-                "serving.scheduler", "telemetry.events"):
+                "serving.scheduler", "serving.migrate",
+                "telemetry.events", "telemetry.goodput",
+                "resilience.faults", "checkpoint.peer_snapshot"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []
 
