@@ -160,6 +160,29 @@ printing one JSON line:
     at 2 layers, each prompt's last-position logits against
     ``TransformerLM.forward`` within 1e-3.
 
+14. ``dp_train`` — data-parallel training of the headline step (phase
+    6's config, 8 × 1024 tokens a rank) on one rank per visible card,
+    spawned through ``testing/multi_process_runner`` on NCCL: the
+    bucketed step (``_make_bucketed_dp_train_step``; ``make_sharded_
+    train_step`` above one card), ``grad_sync="none"``, ``zero=1`` and
+    ``zero=2``, 1 warm-up and 3 timed steps each. Each rank reports step
+    ms (CUDA events), tokens/s, the bucket plan, collectives issued a
+    step (counted at ``torch.distributed``), every kernel's launches (12
+    ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``, 2
+    ``fused_ce_fwd_tc``, ``fused_ce_bwd_tc`` a step, no ``fused_adamw``:
+    the data-parallel steps run the plain ``AdamW.step`` as JAX's run
+    optax's), the persistent state (parameters and AdamW moments)
+    against ``zero_state_bytes`` and the peak memory; the loss falls,
+    and after each synced run the ranks' parameter checksums agree
+    (all-gathered). A failed rank fails the phase.
+15. ``dp_parity`` — f32, TF32 off, deterministic algorithms, 2 layers at
+    ``transformer_big`` width, 2 rows × 256 tokens a rank, full-logits
+    loss (the f32 cross-entropy kernel's dE atomics add in a varying
+    order, which no bitwise check survives): the bucketed, ZeRO-1 and
+    ZeRO-2 steps against single-device ``make_train_step`` on the
+    global batch, 2 steps; ``torch.equal`` at one card; above it the
+    rule beside ``DP_PARITY_TOL``.
+
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
 bound, at the main path's shape and, where BERT runs it, at BERT's;
@@ -298,6 +321,19 @@ BF16_TRAIN_GRAD_TOL = 2e-2
 # as the plain version does); a bf16 mu the same value or its neighbour
 ADAMW_ULP = 2
 ADAMW_MU_BF16_ULP = 1
+# dp_train: per rank, the headline batch (bench.py's scaling row, 8 a
+# device); one warm-up and DP_STEPS timed steps a variant
+DP_STEPS = 3
+DP_VARIANTS = ("bucketed", "none", "zero1", "zero2")
+# dp_parity: f32 at transformer_big width, 2 layers, 2 rows x 256 tokens a
+# rank, 2 steps. One rank: bitwise. Above one rank the reductions add in
+# another order: the loss and every gradient of the bucketed step within
+# 1e-5 (tests/test_torch_train_step.py's tolerance), its parameters by
+# train_parity's rule (the flat 1e-5 read 1.5e-4 at world 4 on elements
+# whose |g| is f32 noise, which Adam moves by up to lr a step); ZeRO-1
+# bitwise equal to the bucketed run of the same world, ZeRO-2 by the
+# share of elements beyond TRAIN_PARAM_TOL of it
+DP_PARITY_ROWS, DP_PARITY_SEQ, DP_PARITY_STEPS, DP_PARITY_TOL = 2, 256, 2, 1e-5
 
 KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd_tc": ("flash_tc.cu", "ops/attention.py:135"),
@@ -3539,6 +3575,331 @@ def phase_train_parity(state):
 
 
 # ---------------------------------------------------------------------------
+# data parallelism (models/transformer.py make_sharded_train_step)
+# ---------------------------------------------------------------------------
+
+def _count_collectives() -> dict:
+    """Count every collective this process issues from here on, by name
+    (wrapping the ``torch.distributed`` functions the port calls)."""
+    import torch.distributed as dist
+    counts: dict = {}
+    for name in ("all_reduce", "reduce_scatter_tensor",
+                 "all_gather_into_tensor", "broadcast"):
+        real = getattr(dist, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _real(*a, **k)
+        setattr(dist, name, counted)
+    return counts
+
+
+def _dp_step(cfg, variant: str, global_batch: int, world: int, **kw):
+    """``(state, step)`` of one data-parallel variant over all ranks."""
+    from distributed_tensorflow_tpu_torch.cluster import topology
+    from distributed_tensorflow_tpu_torch.models import transformer as tf
+    mesh = topology.make_mesh({"dp": world}, device="cuda")
+    if variant in ("bucketed", "none") and world == 1:
+        # make_sharded_train_step takes the bucketed path above 1 device
+        return tf._make_bucketed_dp_train_step(
+            cfg, mesh, global_batch, sync=variant == "bucketed", **kw)
+    extra = {"bucketed": {}, "none": {"grad_sync": "none"},
+             "zero1": {"zero": 1}, "zero2": {"zero": 2}}[variant]
+    return tf.make_sharded_train_step(cfg, mesh, global_batch, **extra, **kw)
+
+
+def _checksum_agree(model) -> tuple:
+    """This rank's parameter checksum (a float64 sum) and whether every
+    rank's equals it (all-gathered)."""
+    import torch
+    import torch.distributed as dist
+    total = torch.stack([p.detach().double().sum()
+                         for p in model.parameters()]).sum()
+    every = [torch.zeros_like(total) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, total)
+    return total.item(), all(torch.equal(t, total) for t in every)
+
+
+def _dp_train_rank(variants) -> dict:
+    """One rank of ``dp_train``: each variant's warm-up and timed steps
+    on this rank's card."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.parallel.zero import (
+        zero_state_bytes)
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    coll = _count_collectives()
+
+    def state_bytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+    cfg = _headline_config()
+    global_batch = TRAIN_BATCH * world
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (global_batch, cfg.max_seq_len))).to("cuda")
+    out = {"rank": rank, "world": world,
+           "device": torch.cuda.get_device_name(), "variants": {}}
+    for variant in variants:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier variants left allocated (0 unless one leaked)
+        mem_before = torch.cuda.memory_allocated() - tokens.numel() * 8
+        state, step = _dp_step(cfg, variant, global_batch, world, seed=0)
+        model, opt = state["model"], state["optimizer"]
+        grad_bytes = []
+        real_step = opt.step
+
+        def measured_step(_real=real_step, _opt=opt, _model=model):
+            # the gradients held when the update runs, by unique storage
+            grads = {g.untyped_storage().data_ptr(): g.untyped_storage()
+                     .nbytes() for g in
+                     [p.grad for p in _model.parameters()]
+                     + [p.grad for grp in _opt.param_groups
+                        for p in grp["params"]] if g is not None}
+            grad_bytes.append(sum(grads.values()))
+            return _real()
+        opt.step = measured_step
+        state, m = step(state, {"tokens": tokens})          # warm-up
+        losses = [m["loss"].item()]
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        coll.clear()
+        step_ms = []
+        for _ in range(DP_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, m = step(state, {"tokens": tokens})
+            e1.record()
+            e1.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+            losses.append(m["loss"].item())
+        counts = launch_counts()
+        issued = {k: v / DP_STEPS for k, v in coll.items()}
+        n_params = sum(p.numel() for p in model.parameters())
+        level = {"zero1": 1, "zero2": 2}.get(variant, 0)
+        moments = [t for st in opt.state.values() for t in st.values()
+                   if isinstance(t, torch.Tensor)]
+        # parameters, ZeRO's parameter shards and the AdamW moments
+        held = {t.untyped_storage().data_ptr(): t for t in
+                [*model.parameters(),
+                 *(p for grp in opt.param_groups for p in grp["params"]),
+                 *moments]}
+        plan = getattr(step, "plan", None)
+        if plan is None:       # ZeRO: the partition's buckets
+            part = step.partition
+            plan = [{"leaves": len(b), "bytes": part.bucket_sizes[i] * 4,
+                     "dtype": "float32"} for i, b in enumerate(part.buckets)]
+        checksum, agree = _checksum_agree(model)
+        mean_s = float(np.mean(step_ms)) / 1e3
+        out["variants"][variant] = {
+            "step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+            "tokens_per_s": global_batch * cfg.max_seq_len / mean_s,
+            "losses": losses, "n_buckets": len(plan),
+            "bucket_bytes": [b["bytes"] for b in plan],
+            "collectives_per_step": issued,
+            "collectives_per_step_total": sum(issued.values()),
+            "launches": counts,
+            "param_bytes": state_bytes(model.parameters()),
+            "moment_bytes": state_bytes(moments),
+            "persistent_state_bytes": state_bytes(held.values()),
+            "zero_state_bytes_no_grads": zero_state_bytes(
+                n_params, world, level, slot_bytes=6, grad_bytes=0),
+            "grad_bytes_at_update": grad_bytes[-1],
+            "zero_state_bytes": zero_state_bytes(n_params, world, level,
+                                                 slot_bytes=6),
+            "n_params": n_params,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "mem_before_bytes": mem_before,
+            "param_checksum": checksum, "ranks_agree": agree}
+        if getattr(step, "partition", None) is not None:
+            out["variants"][variant]["partition"] = (
+                step.partition.summary())
+        # every name that holds the variant's model or optimizer goes
+        # before the next variant measures what is left allocated
+        del state, step, model, opt, moments, held, m, measured_step, \
+            real_step
+        gc.collect()
+    bootstrap.shutdown()
+    return out
+
+
+def phase_dp_train(state):
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(
+        _dp_train_rank, world, args=(DP_VARIANTS,), device="cuda",
+        timeout=900).return_values
+    per_step = TRAIN_LAUNCHES
+    problems = []
+    for r in ranks:
+        for variant, v in r["variants"].items():
+            want = expected_counts(per_step, DP_STEPS)
+            if v["launches"] != want:
+                problems.append(f"rank {r['rank']} {variant}: launches "
+                                f"{v['launches']} != {want}")
+            if not all(math.isfinite(x) for x in v["losses"]) or \
+                    not v["losses"][-1] < v["losses"][0]:
+                problems.append(f"rank {r['rank']} {variant}: losses do "
+                                f"not fall: {v['losses']}")
+            if variant != "none" and not v["ranks_agree"]:
+                problems.append(f"rank {r['rank']} {variant}: parameters "
+                                f"differ between ranks")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    r0 = ranks[0]["variants"]
+    state["dp_launches"] = {v: r0[v]["launches"] for v in r0}
+    out = {"world": world, "config": "transformer_big (bench.py headline)",
+           "batch_per_rank": TRAIN_BATCH, "seq_len": 1024,
+           "steps": DP_STEPS, "launches_per_step": per_step,
+           "ranks": ranks}
+    if "none" in r0 and "bucketed" in r0:
+        out["exposed_sync_ms"] = (r0["bucketed"]["step_ms_mean"]
+                                  - r0["none"]["step_ms_mean"])
+    return out
+
+
+def _dp_parity_rank() -> dict:
+    """One rank of ``dp_parity``: the bucketed, ZeRO-1 and ZeRO-2 steps
+    against single-device ``make_train_step`` on the global batch."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg = TransformerConfig.transformer_big(
+        n_layers=2, max_seq_len=DP_PARITY_SEQ, dtype=torch.float32,
+        remat=False, scan_layers=False, loss_impl="scan")
+    global_batch = DP_PARITY_ROWS * world
+    model, opt, step, _ = _train_setup(cfg, 0, global_batch)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (global_batch, cfg.max_seq_len))).to("cuda")
+    st = {"model": model, "optimizer": opt, "step": 0}
+    want_losses, want_grads = [], []
+    for _ in range(DP_PARITY_STEPS):
+        st, m = step(st, {"tokens": tokens})
+        want_losses.append(m["loss"].item())
+        want_grads.append([p.grad.clone() for p in model.parameters()])
+    want = [p.detach().clone() for p in model.parameters()]
+    del model, opt, step, st
+    out = {"rank": rank, "world": world, "variants": {}}
+    runs = {}
+    for variant in ("bucketed", "zero1", "zero2"):
+        state, dstep = _dp_step(cfg, variant, global_batch, world, seed=0)
+        model = state["model"]
+        losses, grads = [], []
+        for _ in range(DP_PARITY_STEPS):
+            state, m = dstep(state, {"tokens": tokens})
+            losses.append(m["loss"].item())
+            if variant == "bucketed":      # ZeRO frees its gradients
+                grads.append([p.grad.clone() for p in model.parameters()])
+        got = [p.detach().clone() for p in model.parameters()]
+        runs[variant] = (losses, got)
+        res = {"losses": losses,
+               "max_abs_loss_err": max(abs(a - b) for a, b in
+                                       zip(losses, want_losses)),
+               "max_abs_param_err": max((g - w).abs().max().item()
+                                        for g, w in zip(got, want)),
+               "params_equal": all(torch.equal(g, w)
+                                   for g, w in zip(got, want)),
+               "losses_equal": losses == want_losses}
+        if grads:
+            res["max_abs_grad_err"] = max(
+                (g - w).abs().max().item() for gs, ws in zip(grads,
+                                                             want_grads)
+                for g, w in zip(gs, ws))
+            res["grads_equal"] = all(
+                torch.equal(g, w) for gs, ws in zip(grads, want_grads)
+                for g, w in zip(gs, ws))
+            res.update(_adam_param_rule(got, want, grads, want_grads))
+        else:
+            # against the bucketed run of this world (same plan, sums)
+            b_losses, b_params = runs["bucketed"]
+            res["params_equal_bucketed"] = all(
+                torch.equal(g, w) for g, w in zip(got, b_params))
+            res["losses_equal_bucketed"] = losses == b_losses
+            res["beyond_tol_vs_bucketed"] = sum(
+                int(((g - w).abs() > TRAIN_PARAM_TOL).sum().item())
+                for g, w in zip(got, b_params))
+        out["variants"][variant] = res
+        del state, dstep, model
+        torch.cuda.empty_cache()
+    out["n_params"] = sum(w.numel() for w in want)
+    bootstrap.shutdown()
+    return out
+
+
+def _adam_param_rule(got, want, got_grads, want_grads) -> dict:
+    """``train_parity``'s rule for parameters after AdamW steps: an
+    element whose two runs' gradients agree to GRAD_AGREE (relative) at
+    every step is held to TRAIN_PARAM_TOL; elements below that noise
+    floor (|g| within f32 noise of 0, which Adam divides by its own
+    size) are counted, and at most TRAIN_PARAM_FRAC of all elements may
+    lie beyond TRAIN_PARAM_TOL."""
+    import torch
+    held, over, exempt = 0.0, 0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g - w).abs()
+        gap = torch.stack([(gs[i] - ws[i]).abs() / ws[i].abs()
+                           for gs, ws in zip(got_grads, want_grads)]
+                          ).nan_to_num(0.0).amax(0)
+        free = gap > GRAD_AGREE
+        exempt += int(free.sum().item())
+        over += int((diff > TRAIN_PARAM_TOL).sum().item())
+        if (~free).any():
+            held = max(held, diff[~free].max().item())
+    return {"max_abs_param_err_held": held, "params_below_noise_floor":
+            exempt, "params_off_by_more_than_tol": over}
+
+
+def phase_dp_parity(state):
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(
+        _dp_parity_rank, world, device="cuda", timeout=600,
+        env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}).return_values
+    problems = []
+    for r in ranks:
+        allowed = TRAIN_PARAM_FRAC * r["n_params"]
+        for variant, v in r["variants"].items():
+            if world == 1:
+                ok = v["params_equal"] and v["losses_equal"] and v.get(
+                    "grads_equal", True)
+            elif variant == "bucketed":
+                ok = (v["max_abs_loss_err"] <= DP_PARITY_TOL
+                      and v["max_abs_grad_err"] <= DP_PARITY_TOL
+                      and v["max_abs_param_err_held"] <= TRAIN_PARAM_TOL
+                      and v["params_off_by_more_than_tol"] <= allowed)
+            elif variant == "zero1":
+                ok = v["params_equal_bucketed"] and v["losses_equal_bucketed"]
+            else:
+                ok = (v["max_abs_loss_err"] <= DP_PARITY_TOL
+                      and v["beyond_tol_vs_bucketed"] <= allowed)
+            if not ok:
+                problems.append(f"rank {r['rank']} {variant}: {v}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": world, "rule": ("torch.equal" if world == 1 else
+                                     "train_parity's"),
+            "config": "transformer_big width, 2 layers, f32, full logits",
+            "rows_per_rank": DP_PARITY_ROWS, "seq_len": DP_PARITY_SEQ,
+            "steps": DP_PARITY_STEPS, "ranks": ranks}
+
+
+# ---------------------------------------------------------------------------
 # BERT (models/bert.py)
 # ---------------------------------------------------------------------------
 
@@ -3801,7 +4162,9 @@ def main() -> int:
                      ("bert_train", phase_bert_train),
                      ("bert_train_kernel", phase_bert_train_kernel),
                      ("bert_parity", phase_bert_parity),
-                     ("bert_score", phase_bert_score)):
+                     ("bert_score", phase_bert_score),
+                     ("dp_train", phase_dp_train),
+                     ("dp_parity", phase_dp_parity)):
         t0 = time.perf_counter()
         try:
             out = fn(state)
@@ -3862,6 +4225,9 @@ def main() -> int:
                          "bert_score")}
         if name in state["bert_rows"]:
             row["bert"] = state["bert_rows"][name]
+        # the data-parallel runs of dp_train (rank 0), each from 0
+        row["dp_launches"] = {v: c[name]
+                              for v, c in state["dp_launches"].items()}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

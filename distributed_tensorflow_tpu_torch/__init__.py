@@ -2,8 +2,9 @@
 
 The package mirrors the JAX package's module layout (``ops/``,
 ``models/``, ``serving/``, ``telemetry/``, ``resilience/``,
-``checkpoint/``) so each ported module sits at
-the same relative path as the module it is held against. It imports
+``checkpoint/``, ``cluster/``, ``parallel/``, ``testing/``) so each
+ported module sits at the same relative path as the module it is held
+against. It imports
 torch, numpy and the standard library only — never jax, flax, optax or
 anything of the JAX package.
 
@@ -19,4 +20,4 @@ InferenceEngine``.
 """
 
 __all__ = ["ops", "models", "serving", "telemetry", "resilience",
-           "checkpoint"]
+           "checkpoint", "cluster", "parallel", "testing"]

@@ -80,24 +80,28 @@ def apply_mlm_masking(generator: torch.Generator, tokens, *,
     return inputs, labels
 
 
-def _masked_mean(losses, labels):
+def _masked_mean(losses, labels, count=None):
     """``sum(losses · mask) / max(mask.sum(), 1)`` over the positions
-    whose label is not ``IGNORE_LABEL``, in f32."""
+    whose label is not ``IGNORE_LABEL``, in f32; ``count`` replaces the
+    denominator (a data shard's share of the global batch's mean)."""
     mask = labels != IGNORE_LABEL
-    return (losses * mask).sum() / mask.sum().clamp_min(1)
+    if count is None:
+        count = mask.sum().clamp_min(1)
+    return (losses * mask).sum() / count
 
 
-def mlm_loss(logits, labels):
+def mlm_loss(logits, labels, count=None):
     """Cross-entropy over masked positions only (JAX ``:54-61``): f32 CE
     of ``logits`` against the labels (0 where ignored), averaged over the
-    masked positions; 0 for a batch with none."""
+    masked positions (or divided by ``count``); 0 for a batch with
+    none."""
     safe = torch.where(labels != IGNORE_LABEL, labels, 0)
     logits = logits.float()
     tl = logits.gather(-1, safe[..., None])[..., 0]
-    return _masked_mean(torch.logsumexp(logits, dim=-1) - tl, labels)
+    return _masked_mean(torch.logsumexp(logits, dim=-1) - tl, labels, count)
 
 
-def kernel_mlm_loss(hidden, embed, labels, *, compute_dtype):
+def kernel_mlm_loss(hidden, embed, labels, *, compute_dtype, count=None):
     """:func:`mlm_loss` of ``hidden @ embed.T`` through the fused CE
     kernels (:func:`~distributed_tensorflow_tpu_torch.ops.fused_ce.
     fused_cross_entropy`), hidden and the tied embedding cast to
@@ -108,19 +112,19 @@ def kernel_mlm_loss(hidden, embed, labels, *, compute_dtype):
     losses = fused_cross_entropy(
         hidden.reshape(B * S, D).to(compute_dtype),
         embed.to(compute_dtype), safe.reshape(B * S))
-    return _masked_mean(losses.reshape(B, S), labels)
+    return _masked_mean(losses.reshape(B, S), labels, count)
 
 
 def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
-    """``loss_fn(inputs, labels) -> scalar``: :func:`kernel_mlm_loss` on
-    the model's hidden states for ``loss_impl="kernel"``, else
-    :func:`mlm_loss` on its full logits."""
-    def loss_fn(inputs, labels):
+    """``loss_fn(inputs, labels, count=None) -> scalar``:
+    :func:`kernel_mlm_loss` on the model's hidden states for
+    ``loss_impl="kernel"``, else :func:`mlm_loss` on its full logits."""
+    def loss_fn(inputs, labels, count=None):
         if cfg.loss_impl == "kernel":
             hidden = model(inputs, return_hidden=True)
             return kernel_mlm_loss(hidden, model.embed, labels,
-                                   compute_dtype=cfg.dtype)
-        return mlm_loss(model(inputs), labels)
+                                   compute_dtype=cfg.dtype, count=count)
+        return mlm_loss(model(inputs), labels, count)
 
     return loss_fn
 
@@ -162,3 +166,38 @@ def make_train_step(cfg: TransformerConfig, model: TransformerLM,
         return loss_fn(*masking(step, batch["tokens"]))
 
     return train_step_around(cfg, model, optimizer, loss_of_batch)
+
+
+def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
+                            seed: int = 0, *, params=None):
+    """Data-parallel BERT MLM (JAX ``:121``): the transformer's
+    :func:`~distributed_tensorflow_tpu_torch.models.transformer.
+    make_sharded_train_step` with the MLM step through ``step_factory``.
+    Every rank draws the masks of the **global** batch from the ``(seed,
+    step)`` generator and takes its own rows; its loss is its masked
+    sum over the global batch's masked count, times the shard count, so
+    the meaned gradients and loss are the single-device step's on the
+    global batch."""
+    if cfg.causal:
+        raise ValueError("BERT requires causal=False (encoder mode)")
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        make_sharded_train_step as _transformer_sharded_step)
+
+    def factory(cfg, model, optimizer, shard):
+        device = model.embed.device
+        loss_fn = make_loss_fn(cfg, model)
+
+        def loss_of_batch(step, batch):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(mask_seed(seed, step))
+            inputs, labels = apply_mlm_masking(gen, batch["tokens"],
+                                               vocab_size=cfg.vocab_size)
+            count = (labels != IGNORE_LABEL).sum().clamp_min(1)
+            return loss_fn(inputs[shard.rows], labels[shard.rows],
+                           count) * shard.n_shards
+
+        return train_step_around(cfg, model, optimizer, loss_of_batch,
+                                 sync_grads=shard.sync_grads)
+
+    return _transformer_sharded_step(cfg, mesh, global_batch, seed=seed,
+                                     step_factory=factory, params=params)

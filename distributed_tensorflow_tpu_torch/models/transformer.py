@@ -33,7 +33,13 @@ and :func:`make_train_step` (the optimizer's step, or the fused AdamW
 kernel with ``fused_optimizer=True``; :func:`train_step_around` builds
 the same step around another objective). ``remat`` recomputes each
 block in the backward, keeping what ``remat_policy`` names
-(:data:`REMAT_POLICIES`). Mesh and MoE belong to later slices.
+(:data:`REMAT_POLICIES`).
+
+Data parallelism: :func:`make_sharded_train_step` over a ``dp`` or
+``dcn``×``dp`` mesh — the bucketed gradient all-reduce overlapped on
+the backward, ``grad_sync="none"`` and ``"gspmd"``, and ZeRO-1/2.
+Tensor, pipeline and sequence parallelism and MoE belong to later
+slices.
 """
 
 from __future__ import annotations
@@ -688,10 +694,12 @@ def make_train_step(cfg: TransformerConfig, model: TransformerLM,
 
 
 def train_step_around(cfg: TransformerConfig, model: TransformerLM,
-                      optimizer: torch.optim.Optimizer, loss_of_batch):
+                      optimizer: torch.optim.Optimizer, loss_of_batch,
+                      sync_grads=None):
     """The train step of :func:`make_train_step` around another objective
     ``loss_of_batch(step, batch) -> scalar`` (``step`` the state's step
-    count): the gradients, then ``optimizer.step()`` or, with
+    count): the gradients, ``sync_grads()`` when given (the data-parallel
+    steps' gradient reduction), then ``optimizer.step()`` or, with
     ``cfg.fused_optimizer``, :meth:`AdamW.fused_step` (checked as there).
     The counterpart of the JAX step's ``step_factory`` seam; BERT's MLM
     step (``models/bert.py``) is built on it."""
@@ -702,6 +710,8 @@ def train_step_around(cfg: TransformerConfig, model: TransformerLM,
         optimizer.zero_grad(set_to_none=True)
         loss = loss_of_batch(state["step"], batch)
         loss.backward()
+        if sync_grads is not None:
+            sync_grads()
         if cfg.fused_optimizer:
             optimizer.fused_step()
         else:
@@ -710,3 +720,381 @@ def train_step_around(cfg: TransformerConfig, model: TransformerLM,
                 {"loss": loss.detach()})
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training (JAX :762-1076)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """What a ``step_factory`` step needs of its place in the data
+    parallelism: ``rows``, this rank's slice of the global batch (in
+    the order of ``P(data_axes)``); ``n_shards``, the number of data
+    shards; ``sync_grads()``, the gradient reduction to run after the
+    backward, before the update."""
+    rows: slice
+    n_shards: int
+    sync_grads: Any
+
+
+def jax_leaf_params(cfg: TransformerConfig, model: TransformerLM
+                    ) -> list[list[nn.Parameter]]:
+    """The model's parameters in the JAX parameter tree's flattened leaf
+    order (``jax.tree_util`` sorts dict keys): one list a leaf, holding
+    the parameter, or with ``scan_layers=True`` the stacked leaf's
+    per-layer parameters in layer order (the flat bytes of JAX's
+    stacked ravel). With ``scan_layers=False`` the layers sort as
+    ``layer_0, layer_1, layer_10, layer_11, layer_2, ...``."""
+    groups = param_shapes(cfg)["layers"]
+
+    def layer_tree(blocks):
+        return {g: {n: [getattr(getattr(b, g), n) for b in blocks]
+                    for n in names} for g, names in groups.items()}
+
+    tree = {"embed": [model.embed],
+            "final_norm": {"scale": [model.final_norm.scale]}}
+    if cfg.scan_layers:
+        tree["layers"] = layer_tree(model.layers)
+    else:
+        for i, block in enumerate(model.layers):
+            tree[f"layer_{i}"] = layer_tree([block])
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(node[k])
+        else:
+            yield node
+
+    return list(walk(tree))
+
+
+def _leaf_metas(leaves) -> list[torch.Tensor]:
+    """Shape-only stand-ins of stacked leaves, for planning."""
+    return [torch.empty((len(ps),) + tuple(ps[0].shape) if len(ps) > 1
+                        else tuple(ps[0].shape), dtype=ps[0].dtype,
+                        device="meta") for ps in leaves]
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _replicated_model(cfg: TransformerConfig, mesh, seed: int, params
+                      ) -> TransformerLM:
+    """The model on this rank: from ``params``, or initialised from
+    ``seed`` and broadcast from rank 0 so the replicas start equal."""
+    import torch.distributed as dist
+    device = _mesh_device(mesh)
+    if params is not None:
+        return TransformerLM(cfg, params, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = TransformerLM(cfg, device=device, generator=gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            dist.broadcast(p, src=0)
+    return model
+
+
+def _data_rows(mesh, global_batch: int) -> slice:
+    from distributed_tensorflow_tpu_torch.cluster.topology import (
+        data_axes, data_shard_index, mesh_axis_size)
+    n = mesh_axis_size(mesh, *data_axes(mesh))
+    if global_batch % n:
+        raise ValueError(f"global_batch={global_batch} not divisible by "
+                         f"{n} data shards of {_shape(mesh)}")
+    b = global_batch // n
+    i = data_shard_index(mesh)
+    return slice(i * b, (i + 1) * b)
+
+
+def _shape(mesh) -> dict:
+    from distributed_tensorflow_tpu_torch.cluster.topology import mesh_shape
+    return mesh_shape(mesh)
+
+
+def _global_tokens(batch, global_batch: int, device) -> torch.Tensor:
+    tokens = torch.as_tensor(batch["tokens"]).to(device)
+    if tokens.shape[0] != global_batch:
+        raise ValueError(f"batch of {tokens.shape[0]} rows; this step "
+                         f"takes the global batch of {global_batch}")
+    return tokens
+
+
+def _write_grads(leaves, reduced):
+    """Reduced leaf gradients (1-D a leaf) back into ``.grad``."""
+    for ps, flat in zip(leaves, reduced):
+        off = 0
+        for p in ps:
+            p.grad = flat[off:off + p.numel()].view_as(p)
+            off += p.numel()
+
+
+def _leaf_grads(leaves) -> list[torch.Tensor]:
+    """Each leaf's gradient as one 1-D tensor (zeros where none came)."""
+    return [torch.cat([(p.grad if p.grad is not None
+                        else torch.zeros_like(p)).reshape(-1) for p in ps])
+            for ps in leaves]
+
+
+#: the ROADMAP item that brings each mesh axis this slice lacks
+_LATER_AXES = {"fsdp": "A-3", "tp": "A-3", "pp": "A-4", "sp": "A-5",
+               "ep": "A-5"}
+
+
+def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
+                            seed: int = 0, step_factory=None,
+                            grad_sync: str = "auto", zero: int = 0, *,
+                            params=None):
+    """Data-parallel state and step over ``mesh`` (a ``DeviceMesh`` of
+    :mod:`~distributed_tensorflow_tpu_torch.cluster.topology`; JAX
+    ``:762``). Returns ``(state, step)`` with ``state = {"model",
+    "optimizer", "step"}``; ``step(state, {"tokens": (global_batch,
+    S)})`` takes every rank's copy of the global batch, trains on this
+    rank's rows (``P(data_axes)`` order, dcn-major on a hybrid mesh) and
+    returns ``(state, {"loss"})``, the loss meaned over the data axes.
+    ``params`` (the port's parameter dict) seeds every replica; without
+    it rank 0 initialises from ``seed`` and broadcasts.
+
+    ``grad_sync`` (JAX's values and validation):
+
+    - ``"bucketed"`` (``"auto"`` on a pure-dp mesh of more than one
+      device, no ``step_factory``): the reverse-order bucketed MEAN
+      all-reduce launched from the backward
+      (:meth:`~distributed_tensorflow_tpu_torch.parallel.collectives.
+      GradientBucketer.backward_sync`), hierarchical on a ``("dcn",
+      "dp")`` mesh, then the plain ``AdamW.step`` — as in JAX, whatever
+      ``cfg.fused_optimizer`` says;
+    - ``"none"``: the same step without the collectives (measurement
+      only: the replicas part);
+    - ``"gspmd"`` (and ``"auto"`` otherwise, and every
+      ``step_factory``): one post-backward reduction, one bucket a dtype
+      run, then the step's own update (``fused_optimizer`` honoured).
+
+    ``step_factory(cfg, model, optimizer, shard: DataShard) -> step``
+    builds a step that takes the global batch and runs
+    ``shard.sync_grads()`` after its backward (BERT's MLM step).
+    ``zero=1|2`` shards AdamW's moments (and with 2 the gradients) over
+    ``"dp"`` (:func:`_make_zero_dp_train_step`). Meshes with axes other
+    than ``dcn``/``dp``, and ``zero`` on a mesh other than ``("dp",)``,
+    raise ``NotImplementedError`` naming the ROADMAP item that brings
+    them; the port's config has no MoE fields (A-5)."""
+    shape = _shape(mesh)
+    size = 1
+    for v in shape.values():
+        size *= v
+    pure_dp = (set(shape) <= {"dcn", "dp"} and size > 1
+               and step_factory is None)
+    if grad_sync not in ("auto", "bucketed", "gspmd", "none"):
+        raise ValueError(f"grad_sync={grad_sync!r}; expected auto/"
+                         f"bucketed/gspmd/none")
+    if zero not in (0, 1, 2):
+        raise ValueError(f"zero={zero!r}; expected 0, 1, or 2")
+    if zero:
+        if step_factory is not None:
+            raise ValueError("zero= is not supported with step_factory")
+        if cfg.fused_optimizer:
+            raise ValueError("zero= replaces the optimizer update; set "
+                             "fused_optimizer=False")
+        if grad_sync != "auto":
+            raise ValueError("zero= owns the gradient sync schedule; "
+                             "leave grad_sync='auto'")
+        if tuple(mesh.mesh_dim_names) == ("dp",):
+            return _make_zero_dp_train_step(cfg, mesh, global_batch, seed,
+                                            level=zero, params=params)
+        raise NotImplementedError(
+            f"zero= on a {tuple(mesh.mesh_dim_names)} mesh (the dp×tp ZeRO "
+            f"path) comes with ROADMAP item A-3")
+    if grad_sync in ("bucketed", "none") and not pure_dp:
+        raise ValueError(
+            f"grad_sync={grad_sync!r} needs a pure data-parallel mesh "
+            f"(axes ⊆ {{dcn, dp}}, >1 device, no MoE); got {shape}")
+    if pure_dp and grad_sync != "gspmd":
+        return _make_bucketed_dp_train_step(cfg, mesh, global_batch, seed,
+                                            sync=grad_sync != "none",
+                                            params=params)
+    later = sorted({_LATER_AXES[a] for a in shape if a in _LATER_AXES})
+    if later or not set(shape) <= {"dcn", "dp"}:
+        raise NotImplementedError(
+            f"a {shape} mesh needs the GSPMD sharding of ROADMAP "
+            f"item(s) {', '.join(later) or 'A-3'}; this slice runs meshes "
+            f"of dcn and dp only")
+    return _make_post_sync_train_step(cfg, mesh, global_batch, seed,
+                                      step_factory, params)
+
+
+def _hybrid_axes(mesh, axes):
+    shape = _shape(mesh)
+    if len(axes) == 2 and all(shape[a] > 1 for a in axes):
+        return axes                     # ("dcn", "dp"): outer, inner
+    return None, None
+
+
+def _make_bucketed_dp_train_step(cfg: TransformerConfig, mesh,
+                                 global_batch: int, seed: int = 0, *,
+                                 sync: bool = True, params=None):
+    """Pure data-parallel step with the gradient reduction overlapped on
+    the backward (JAX ``:881``): each bucket's collective launches from
+    the parameters' post-accumulate-grad hooks once it and every bucket
+    planned before it are ready, over JAX's leaf order
+    (:func:`jax_leaf_params`); all are waited for before the plain
+    ``AdamW.step``. ``sync=False`` drops the collectives
+    (``grad_sync="none"``). Callable at one rank. The step carries
+    ``plan``, the bucket plan summary."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        GradientBucketer, ReduceOp, all_reduce)
+    axes = data_axes(mesh)
+    rows = _data_rows(mesh, global_batch)
+    model = _replicated_model(cfg, mesh, seed, params)
+    optimizer = make_optimizer(cfg, model.parameters())
+    loss_fn = make_loss_fn(cfg, model)
+    outer, inner = _hybrid_axes(mesh, axes)
+    bucketer = GradientBucketer(mesh, axes, outer_axis=outer,
+                                inner_axis=inner)
+    leaves = jax_leaf_params(cfg, model)
+    bsync = bucketer.backward_sync(leaves, ReduceOp.MEAN) if sync else None
+    device = _mesh_device(mesh)
+
+    def step(state, batch):
+        tokens = _global_tokens(batch, global_batch, device)
+        optimizer.zero_grad(set_to_none=True)
+        if bsync is not None:
+            bsync.begin()
+        loss = loss_fn(tokens[rows])
+        loss.backward()
+        loss = loss.detach()
+        if bsync is not None:
+            bsync.finish()
+            loss = all_reduce(loss, mesh, axes, ReduceOp.MEAN)
+        optimizer.step()
+        return {**state, "step": state["step"] + 1}, {"loss": loss}
+
+    step.plan = bucketer.plan_summary(_leaf_metas(leaves))
+    return {"model": model, "optimizer": optimizer, "step": 0}, step
+
+
+def _make_zero_dp_train_step(cfg: TransformerConfig, mesh,
+                             global_batch: int, seed: int = 0, *,
+                             level: int = 1, params=None):
+    """Pure data-parallel step with ZeRO-sharded AdamW state (JAX
+    ``:971``): the moments exist only for this rank's 1/N of the packed
+    parameter buckets (:class:`~distributed_tensorflow_tpu_torch.
+    parallel.zero.ZeroPartition` over :func:`jax_leaf_params`). Level 1
+    reduces the gradients with the overlapped bucketed all-reduce, then
+    slices them; level 2 reduce-scatters the packed buckets after the
+    backward. The port's ``AdamW`` steps the flat shards, and an
+    all-gather over dp rebuilds the parameters. ``state["optimizer"]``
+    is the AdamW over the shards; the step carries ``partition``."""
+    from distributed_tensorflow_tpu_torch import telemetry
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        GradientBucketer, ReduceOp, all_reduce)
+    from distributed_tensorflow_tpu_torch.parallel.zero import (
+        ZeroPartition, zero_opt_state)
+    if tuple(mesh.mesh_dim_names) != ("dp",):
+        raise ValueError(f"ZeRO explicit dp path needs a ('dp',) mesh, "
+                         f"got {tuple(mesh.mesh_dim_names)}")
+    rows = _data_rows(mesh, global_batch)
+    n_shards = _shape(mesh)["dp"]
+    rank = mesh.get_local_rank("dp")
+    model = _replicated_model(cfg, mesh, seed, params)
+    loss_fn = make_loss_fn(cfg, model)
+    leaves = jax_leaf_params(cfg, model)
+    partition = ZeroPartition(_leaf_metas(leaves), n_shards)
+    bsync = (GradientBucketer(mesh, ("dp",)).backward_sync(leaves)
+             if level == 1 else None)
+    with torch.no_grad():
+        p_shards = partition.shard(partition.pack(leaves), rank)
+    optimizer, shards = zero_opt_state(
+        lambda ps: make_optimizer(cfg, ps), partition, p_shards)
+    telemetry.event("zero.partition", axis="dp", level=int(level),
+                    **partition.summary())
+    device = _mesh_device(mesh)
+
+    def step(state, batch):
+        tokens = _global_tokens(batch, global_batch, device)
+        for p in model.parameters():
+            p.grad = None
+        if bsync is not None:
+            bsync.begin()
+        loss = loss_fn(tokens[rows])
+        loss.backward()
+        loss = all_reduce(loss.detach(), mesh, ("dp",), ReduceOp.MEAN)
+        with torch.no_grad():
+            if bsync is not None:
+                bsync.finish()
+                g_shards = [g.clone() for g in partition.shard(
+                    partition.pack(_leaf_grads(leaves)), rank)]
+            else:
+                g_shards = partition.reduce_scatter_mean(
+                    _leaf_grads(leaves), mesh, "dp")
+            # the full gradients go before the update: only the shards
+            # stay
+            for p in model.parameters():
+                p.grad = None
+            for shard, g in zip(shards, g_shards):
+                shard.grad = g
+            optimizer.step()
+            flats = partition.all_gather_flats(shards, mesh, "dp")
+            for ps, full in zip(leaves, partition.unpack(flats)):
+                if len(ps) == 1:
+                    ps[0].copy_(full)
+                else:
+                    for p, layer in zip(ps, full):
+                        p.copy_(layer)
+        return {**state, "step": state["step"] + 1}, {"loss": loss}
+
+    step.partition = partition
+    return {"model": model, "optimizer": optimizer, "step": 0}, step
+
+
+def _lm_step_factory(cfg, model, optimizer, shard: DataShard):
+    """The next-token step on this rank's rows of the global batch."""
+    loss_fn = make_loss_fn(cfg, model)
+    return train_step_around(
+        cfg, model, optimizer,
+        lambda step, batch: loss_fn(batch["tokens"][shard.rows]),
+        sync_grads=shard.sync_grads)
+
+
+def _make_post_sync_train_step(cfg: TransformerConfig, mesh,
+                               global_batch: int, seed: int, step_factory,
+                               params):
+    """The ``"gspmd"`` counterpart: the factory's step with one gradient
+    reduction after the backward — ``GradientBucketer(bytes_per_pack=0)``
+    over every data axis, one bucket a dtype run, no hooks."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        GradientBucketer, ReduceOp, all_reduce)
+    axes = data_axes(mesh)
+    rows = _data_rows(mesh, global_batch)
+    n = 1
+    for a in axes:
+        n *= _shape(mesh)[a]
+    model = _replicated_model(cfg, mesh, seed, params)
+    optimizer = make_optimizer(cfg, model.parameters())
+    bucketer = GradientBucketer(mesh, axes, bytes_per_pack=0)
+    leaves = jax_leaf_params(cfg, model)
+
+    def sync_grads():
+        with torch.no_grad():
+            _write_grads(leaves, bucketer.all_reduce(_leaf_grads(leaves),
+                                                     ReduceOp.MEAN))
+
+    inner = (step_factory or _lm_step_factory)(
+        cfg, model, optimizer, DataShard(rows, n, sync_grads))
+    device = _mesh_device(mesh)
+
+    def step(state, batch):
+        tokens = _global_tokens(batch, global_batch, device)
+        state, metrics = inner(state, {**batch, "tokens": tokens})
+        loss = all_reduce(metrics["loss"].detach(), mesh, axes,
+                          ReduceOp.MEAN)
+        return state, {**metrics, "loss": loss}
+
+    step.plan = bucketer.plan_summary(_leaf_metas(leaves))
+    return {"model": model, "optimizer": optimizer, "step": 0}, step

@@ -19,12 +19,14 @@ from distributed_tensorflow_tpu_torch.telemetry.registry import (
 )
 from distributed_tensorflow_tpu_torch.telemetry.events import (
     EventLog,
+    EventLogCorruptError,
     configure,
     enabled,
     event,
     event_log_path,
     read_events,
     read_run,
+    rotated_segments,
     shutdown,
     span,
 )
@@ -32,6 +34,7 @@ from distributed_tensorflow_tpu_torch.telemetry.events import (
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "get_registry",
-    "EventLog", "configure", "enabled", "event",
-    "event_log_path", "read_events", "read_run", "shutdown", "span",
+    "EventLog", "EventLogCorruptError", "configure", "enabled", "event",
+    "event_log_path", "read_events", "read_run", "rotated_segments",
+    "shutdown", "span",
 ]

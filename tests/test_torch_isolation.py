@@ -53,7 +53,10 @@ print(json.dumps({"imported": names,
                 "serving.engine", "serving.decode", "serving.kv_cache",
                 "serving.scheduler", "serving.migrate",
                 "telemetry.events", "telemetry.goodput",
-                "resilience.faults", "checkpoint.peer_snapshot"):
+                "resilience.faults", "checkpoint.peer_snapshot",
+                "cluster.bootstrap", "cluster.topology",
+                "parallel.collectives", "parallel.zero", "telemetry.trace",
+                "testing.multi_process_runner"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []
 
