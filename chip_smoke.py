@@ -334,6 +334,17 @@ DP_VARIANTS = ("bucketed", "none", "zero1", "zero2")
 # bitwise equal to the bucketed run of the same world, ZeRO-2 by the
 # share of elements beyond TRAIN_PARAM_TOL of it
 DP_PARITY_ROWS, DP_PARITY_SEQ, DP_PARITY_STEPS, DP_PARITY_TOL = 2, 256, 2, 1e-5
+# tp_shards: the headline's 16 heads and 32768 vocab rows at tp 2 and 4
+TP_SIZES, TP_SHARD_HEADS = (2, 4), (8, 4)
+# tp_train: per data shard the headline batch; one warm-up and TP_STEPS
+# timed steps a mesh and variant: (config kwargs, step kwargs). Per rank
+# the path launches TRAIN_LAUNCHES a step (the attention at H/tp heads,
+# the CE on V/tp vocab rows), and FUSED_LAUNCHES with the fused AdamW
+TP_STEPS = 3
+TP_VARIANTS = {"plain": ({}, {}), "fused": ({"fused_optimizer": True}, {}),
+               "zero1": ({}, {"zero": 1})}
+# tp_parity: dp_parity's f32 config, 2 rows x 256 tokens a data shard
+TP_PARITY_ROWS, TP_PARITY_SEQ, TP_PARITY_STEPS = 2, 256, 2
 
 KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd_tc": ("flash_tc.cu", "ops/attention.py:135"),
@@ -4131,6 +4142,643 @@ def phase_bert_score(state):
                            "tol": PARITY_LOGIT_TOL}}
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (models/transformer.py on a mesh with "tp")
+# ---------------------------------------------------------------------------
+
+def _plain_calls() -> dict:
+    """Count every call of a kernel's plain version from here on (the
+    wrappers reach them through their modules' globals)."""
+    from distributed_tensorflow_tpu_torch.ops import (
+        attention, fused_adamw, fused_ce)
+    counts: dict = {}
+    for mod, name in ((attention, "flash_attention_plain"),
+                      (attention, "flash_attention_bwd_plain"),
+                      (fused_ce, "fused_ce_fwd_plain"),
+                      (fused_ce, "fused_ce_bwd_plain"),
+                      (fused_ce, "fused_ce_dh_plain"),
+                      (fused_ce, "fused_ce_de_plain"),
+                      (fused_adamw, "adamw_reference")):
+        real = getattr(mod, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _real(*a, **k)
+        setattr(mod, name, counted)
+    return counts
+
+
+def _tp_attention_rows(h: int, gen) -> dict:
+    """#1-#3 at one tp shard of the headline's attention, ``(8, h, 1024,
+    64)`` bf16 causal: each against its plain version, timed in turns,
+    with its bound and SDPA (forward; backward alone) at the same
+    shape."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        launch_bwd_dkv, launch_bwd_dq)
+    bf = torch.bfloat16
+    q, k, v, do = (_rand((8, h, 1024, 64), bf, gen) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    fwd = _fwd_errors(q, k, v, o, lse, True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                     sm_scale=0.125)
+    errs = {f"d{n}": rel_err(g, w) for n, g, w in zip("qkv", got, want)}
+    if not fwd["ok"] or max(errs.values()) > GRAD_TOL["bfloat16"]:
+        raise AssertionError(f"attention at H{h}: {fwd} {errs}")
+    rows = {"flash_fwd_tc": _time_flash_fwd(q, k, v, fwd["o_err"])}
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=0.125)
+    lib = time_ms(lambda: torch.autograd.grad(sdpa, leaves, do,
+                                              retain_graph=True))
+    delta = (o.float() * do.float()).sum(-1)
+    kw = dict(sm_scale=0.125, causal=True, causal_offset=0)
+
+    def plain():
+        flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                  sm_scale=0.125)
+    for op, fn, err in (("dq", launch_bwd_dq, abs_err(got[0], want[0])),
+                        ("dkv", launch_bwd_dkv,
+                         max(abs_err(got[1], want[1]),
+                             abs_err(got[2], want[2])))):
+        t = in_turns(lambda: fn(q, k, v, do, lse, delta, **kw), plain, 10)
+        flops, nbytes = attention_work(q, k, True, 0, op)
+        rows[f"flash_bwd_{op}_tc"] = {
+            **_flash_row(t, flops, nbytes, bf, err, lib, q.shape),
+            "library": "scaled_dot_product_attention backward (dq, dk, dv)",
+            "rel_err": errs}
+    del sdpa, leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _ce_shard_library(h, e, t, g) -> dict:
+    """The unfused pair ``F.cross_entropy(F.linear(h, e), t)`` on one
+    vocab shard (targets another shard owns are −1, ignored), forward
+    and its backward alone: the same work as the shard's kernels. No
+    single library call computes a shard's ``(lse, tl)``."""
+    import torch
+    import torch.nn.functional as F
+    hl, el = (x.detach().clone().requires_grad_() for x in (h, e))
+
+    def fwd():
+        return F.cross_entropy(F.linear(hl, el), t, reduction="none",
+                               ignore_index=-1)
+    loss = fwd()
+    return {"unfused_fwd_ms": time_ms(fwd, 5),
+            "unfused_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                loss, (hl, el), g.to(loss.dtype), retain_graph=True), 5),
+            "library_fwd_ms": None, "library_bwd_ms": None}
+
+
+def _tp_ce_rows(gen) -> tuple:
+    """#4 and #7 on each vocab slice of the headline embedding (N 4096,
+    V 32768, D 1024, bf16) at tp 2 and 4, targets another shard owns
+    set to −1: each shard against its plain version; the merged lse
+    (:func:`merge_vocab_shards`) and the summed dh / stacked dE against
+    whole-vocab #4/#7 and the plain versions; shard 0 timed in turns
+    with its bound and the unfused pair."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.fused_ce import (
+        fused_ce_bwd, fused_ce_bwd_plain, fused_ce_fwd, fused_ce_fwd_plain,
+        local_targets, merge_vocab_shards)
+    bf = torch.bfloat16
+    n, vocab, d = 4096, 32768, 1024
+    h = _rand((n, d), bf, gen)
+    e = _rand((vocab, d), bf, gen, 0.1)
+    t, _ = _ce_targets(n, vocab, gen)
+    g = torch.rand(n, device="cuda", generator=gen) / n
+    wlse, wtl = fused_ce_fwd(h, e, t)
+    wdh, wde = fused_ce_bwd(h, e, t, wlse, g)
+    plse, ptl = fused_ce_fwd_plain(h, e, t)
+    pdh, pde = fused_ce_bwd_plain(h, e, t, plse, g)
+    checks, rows = {}, {}
+    for tp in (2, 4):
+        per = vocab // tp
+        shards = [(e[r * per:(r + 1) * per], local_targets(t, per, r))
+                  for r in range(tp)]
+        shard_err, parts = 0.0, []
+        for er, tr in shards:
+            lse_r, tl_r = fused_ce_fwd(h, er, tr)
+            ql, qt = fused_ce_fwd_plain(h, er, tr)
+            shard_err = max(shard_err, abs_err(lse_r, ql), abs_err(tl_r, qt))
+            parts.append((lse_r, tl_r))
+        lse, tl = merge_vocab_shards(torch.stack([p[0] for p in parts]),
+                                     torch.stack([p[1] for p in parts]))
+        dh, des, bwd_err = None, [], 0.0
+        for er, tr in shards:
+            dh_r, de_r = fused_ce_bwd(h, er, tr, lse, g)
+            qdh, qde = fused_ce_bwd_plain(h, er, tr, lse, g)
+            bwd_err = max(bwd_err, rel_err(dh_r, qdh), rel_err(de_r, qde))
+            dh = dh_r.float() if dh is None else dh + dh_r.float()
+            des.append(de_r)
+        de = torch.cat(des)
+        c = {"shard_fwd_err": shard_err, "shard_bwd_rel_err": bwd_err,
+             "merged_lse_err_kernel": abs_err(lse, wlse),
+             "merged_tl_err_kernel": abs_err(tl, wtl),
+             "merged_lse_err_plain": abs_err(lse, plse),
+             "merged_tl_err_plain": abs_err(tl, ptl),
+             "dh_rel_err_kernel": rel_err(dh, wdh),
+             "de_rel_err_kernel": rel_err(de, wde),
+             "dh_rel_err_plain": rel_err(dh, pdh),
+             "de_rel_err_plain": rel_err(de, pde)}
+        checks[f"tp{tp}"] = c
+        if (max(v for k, v in c.items() if "rel" not in k) > CE_ROW_TOL
+                or max(v for k, v in c.items() if "rel" in k)
+                > GRAD_TOL["bfloat16"]):
+            raise AssertionError(f"CE over tp {tp} vocab shards: {c}")
+        er, tr = shards[0]
+        t_fwd = in_turns(lambda: fused_ce_fwd(h, er, tr),
+                         lambda: fused_ce_fwd_plain(h, er, tr), 5)
+        t_bwd = in_turns(lambda: fused_ce_bwd(h, er, tr, lse, g),
+                         lambda: fused_ce_bwd_plain(h, er, tr, lse, g), 3)
+        lib = _ce_shard_library(h, er, tr, g)
+        rows[f"tp{tp}"] = {
+            "fused_ce_fwd_tc": _ce_row(n, per, d, bf, "fwd", t_fwd,
+                                       c["shard_fwd_err"], lib),
+            "fused_ce_bwd_tc": _ce_row(n, per, d, bf, "bwd", t_bwd,
+                                       c["shard_bwd_rel_err"], lib)}
+        for r in rows[f"tp{tp}"].values():
+            r["library"] = ("none computes a shard's (lse, tl); unfused_ms: "
+                            "F.cross_entropy(F.linear(h, E_r), t_r, "
+                            "ignore_index=-1)")
+    del h, e, wdh, wde, pdh, pde
+    torch.cuda.empty_cache()
+    return checks, rows
+
+
+def phase_tp_shards(state):
+    """One process: the tp kernels' call pattern on one card — #1-#3 at
+    the per-shard head counts of the headline (H 8 at tp 2, H 4 at tp 4)
+    and #4/#7 on each vocab shard at tp 2 and 4 with the merge."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    attn = {f"H{h}": _tp_attention_rows(h, gen) for h in TP_SHARD_HEADS}
+    ce_checks, ce_rows = _tp_ce_rows(gen)
+    tp_rows: dict = {}
+    for tp, h in zip(TP_SIZES, TP_SHARD_HEADS):
+        for name, row in attn[f"H{h}"].items():
+            tp_rows.setdefault(name, {})[f"tp{tp}"] = row
+        for name, row in ce_rows[f"tp{tp}"].items():
+            tp_rows.setdefault(name, {})[f"tp{tp}"] = row
+    state["tp_rows"] = tp_rows
+    return {"attention": attn, "ce_checks": ce_checks, "ce": ce_rows}
+
+
+def _tp_meshes(world: int) -> list:
+    meshes = [{"tp": world}]
+    if world == 4:
+        meshes.append({"dp": 2, "tp": 2})
+    return meshes
+
+
+def _gathered_checksum(cfg, model, mesh) -> tuple:
+    """The checksum (float64 sum) of the gathered full parameters on this
+    rank, and whether every rank's equals it."""
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        gather_params)
+    full = gather_params(cfg, model.stacked_params(), mesh)
+    total = torch.stack([t.double().sum() for t in
+                         torch.utils._pytree.tree_leaves(full)]).sum()
+    every = [torch.zeros_like(total) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, total)
+    del full
+    return total.item(), all(torch.equal(t, total) for t in every)
+
+
+def _group_collectives(groups: dict) -> dict:
+    """Count every collective this process issues from here on, by the
+    group it runs on (``groups``: name → process group; "world"
+    otherwise) and by op, with the bytes of the tensor it carries."""
+    import torch.distributed as dist
+    counts: dict = {}
+    names = {tuple(dist.get_process_group_ranks(g)): n
+             for n, g in groups.items()}
+    for op in ("all_reduce", "reduce_scatter_tensor",
+               "all_gather_into_tensor", "broadcast", "all_gather"):
+        real = getattr(dist, op)
+
+        def counted(*a, _real=real, _op=op, **k):
+            group = k.get("group")
+            t = a[1] if _op in ("reduce_scatter_tensor",
+                                "all_gather_into_tensor") else a[0]
+            nbytes = (t.numel() * t.element_size()
+                      if hasattr(t, "numel") else 0)
+            name = ("world" if group is None else names.get(
+                tuple(dist.get_process_group_ranks(group)), "world"))
+            c = counts.setdefault(name, {}) \
+                .setdefault(_op, {"calls": 0, "bytes": 0})
+            c["calls"] += 1
+            c["bytes"] += nbytes
+            return _real(*a, **k)
+        setattr(dist, op, counted)
+    return counts
+
+
+def _tp_train_rank(variants) -> dict:
+    """One rank of ``tp_train``: each mesh and variant's warm-up and
+    TP_STEPS timed steps at the headline config on this rank's card."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        make_sharded_train_step)
+    from distributed_tensorflow_tpu_torch.parallel.zero import (
+        zero_state_bytes)
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    plain = _plain_calls()
+    cfg_base = _headline_config()
+    out = {"rank": rank, "world": world,
+           "device": torch.cuda.get_device_name(), "meshes": {}}
+    for axes in _tp_meshes(world):
+        mesh = topology.make_mesh(axes, device="cuda")
+        coll = _group_collectives({n: mesh.get_group(n) for n in axes})
+        n_dp = axes.get("dp", 1)
+        global_batch = TRAIN_BATCH * n_dp
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg_base.vocab_size, (global_batch, cfg_base.max_seq_len))
+        ).to("cuda")
+        res = {}
+        for variant in variants:
+            cfg_kw, kw = TP_VARIANTS[variant]
+            cfg = _headline_config(**cfg_kw)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state, step = make_sharded_train_step(cfg, mesh, global_batch,
+                                                  seed=0, **kw)
+            model, opt = state["model"], state["optimizer"]
+            state, m = step(state, {"tokens": tokens})          # warm-up
+            losses = [m["loss"].item()]
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            coll.clear()
+            plain.clear()
+            step_ms = []
+            for _ in range(TP_STEPS):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                state, m = step(state, {"tokens": tokens})
+                e1.record()
+                e1.synchronize()
+                step_ms.append(e0.elapsed_time(e1))
+                losses.append(m["loss"].item())
+            counts = launch_counts()
+            issued = {grp: {op: {k: v / TP_STEPS for k, v in c.items()}
+                            for op, c in ops.items()}
+                      for grp, ops in coll.items()}
+            plain_calls = dict(plain)
+            n_local = sum(p.numel() for p in model.parameters())
+            level = kw.get("zero", 0)
+            moments = [t for st in opt.state.values() for t in st.values()
+                       if isinstance(t, torch.Tensor)]
+            held = {t.untyped_storage().data_ptr(): t for t in
+                    [*model.parameters(),
+                     *(p for grp in opt.param_groups for p in grp["params"]),
+                     *moments]}
+            checksum, agree = _gathered_checksum(cfg, model, mesh)
+            mean_s = float(np.mean(step_ms)) / 1e3
+            res[variant] = {
+                "step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+                "tokens_per_s": global_batch * cfg.max_seq_len / mean_s,
+                "losses": losses, "collectives_per_step": issued,
+                "launches": counts, "plain_calls": plain_calls,
+                "local_params": n_local,
+                "param_bytes": sum(p.numel() * p.element_size()
+                                   for p in model.parameters()),
+                "moment_bytes": sum(t.numel() * t.element_size()
+                                    for t in moments),
+                "persistent_state_bytes": sum(
+                    t.numel() * t.element_size() for t in held.values()),
+                "analytic_state_bytes_no_grads": zero_state_bytes(
+                    n_local, n_dp, level, slot_bytes=6, grad_bytes=0),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "param_checksum": checksum, "ranks_agree": agree}
+            if hasattr(step, "partition"):
+                res[variant]["partition"] = step.partition.summary()
+            del state, step, model, opt, moments, held, m
+            gc.collect()
+        out["meshes"]["x".join(f"{k}{v}" for k, v in axes.items())] = res
+        del tokens
+    bootstrap.shutdown()
+    return out
+
+
+def phase_tp_train(state):
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(
+        _tp_train_rank, world, args=(tuple(TP_VARIANTS),), device="cuda",
+        timeout=900).return_values
+    problems = []
+    for r in ranks:
+        for mesh, res in r["meshes"].items():
+            for variant, v in res.items():
+                per_step = (FUSED_LAUNCHES if variant == "fused"
+                            else TRAIN_LAUNCHES)
+                want = expected_counts(per_step, TP_STEPS)
+                tag = f"rank {r['rank']} {mesh} {variant}"
+                if v["launches"] != want:
+                    problems.append(f"{tag}: launches {v['launches']} != "
+                                    f"{want}")
+                if v["plain_calls"]:
+                    problems.append(f"{tag}: plain versions ran: "
+                                    f"{v['plain_calls']}")
+                if not all(math.isfinite(x) for x in v["losses"]) or \
+                        not v["losses"][-1] < v["losses"][0]:
+                    problems.append(f"{tag}: losses do not fall: "
+                                    f"{v['losses']}")
+                if not v["ranks_agree"]:
+                    problems.append(f"{tag}: gathered parameters differ "
+                                    f"between ranks")
+                if v["losses"] != ranks[0]["meshes"][mesh][variant][
+                        "losses"]:
+                    problems.append(f"{tag}: loss differs from rank 0's")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    r0 = ranks[0]["meshes"]
+    state["tp_launches"] = {f"{mesh}_{variant}": v["launches"]
+                            for mesh, res in r0.items()
+                            for variant, v in res.items()}
+    return {"world": world, "config": "transformer_big (bench.py headline)",
+            "batch_per_data_shard": TRAIN_BATCH, "seq_len": 1024,
+            "steps": TP_STEPS, "launches_per_step": TRAIN_LAUNCHES,
+            "fused_launches_per_step": FUSED_LAUNCHES, "ranks": ranks}
+
+
+def _tp_parity_rank() -> dict:
+    """One rank of ``tp_parity``: the tp (and at world 4 the dp×tp and
+    its ZeRO-1) steps against single-device ``make_train_step`` on the
+    global batch, after ``gather_params``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, gather_params, init_params,
+        make_sharded_train_step)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg = TransformerConfig.transformer_big(
+        n_layers=2, max_seq_len=TP_PARITY_SEQ, dtype=torch.float32,
+        remat=False, scan_layers=False, loss_impl="scan")
+    out = {"rank": rank, "world": world, "runs": {}}
+    runs = [("tp", {"tp": world}, {})]
+    if world == 4:
+        runs += [("dp_tp", {"dp": 2, "tp": 2}, {}),
+                 ("dp_tp_zero1", {"dp": 2, "tp": 2}, {"zero": 1})]
+    refs: dict = {}
+    for name, axes, kw in runs:
+        n_dp = axes.get("dp", 1)
+        global_batch = TP_PARITY_ROWS * n_dp
+        if global_batch not in refs:
+            model, opt, step, _ = _train_setup(cfg, 0, global_batch)
+            tokens = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (global_batch, cfg.max_seq_len))
+            ).to("cuda")
+            st = {"model": model, "optimizer": opt, "step": 0}
+            losses, grads = [], []
+            for _ in range(TP_PARITY_STEPS):
+                st, m = step(st, {"tokens": tokens})
+                losses.append(m["loss"].item())
+                grads.append(dict(_leaves(model.stacked_params(
+                    lambda p: p.grad.clone()))))
+            refs[global_batch] = (tokens, losses, dict(_leaves(
+                model.stacked_params(lambda p: p.detach().clone()))), grads)
+            del model, opt, step, st
+        tokens, want_losses, want, want_grads = refs[global_batch]
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), device="cuda")
+        mesh = topology.make_mesh(axes, device="cuda")
+        state, step = make_sharded_train_step(cfg, mesh, global_batch,
+                                              params=params, **kw)
+        del params
+        model = state["model"]
+        losses, grads = [], []
+        for _ in range(TP_PARITY_STEPS):
+            state, m = step(state, {"tokens": tokens})
+            losses.append(m["loss"].item())
+            if not kw:      # ZeRO frees its gradients
+                grads.append(dict(_leaves(gather_params(
+                    cfg, model.stacked_params(lambda p: p.grad), mesh))))
+        got = dict(_leaves(gather_params(cfg, model.stacked_params(),
+                                         mesh)))
+        res = {"losses": losses, "want_losses": want_losses,
+               "max_abs_loss_err": max(abs(a - b) for a, b in
+                                       zip(losses, want_losses)),
+               "max_abs_param_err": max((got[k] - w).abs().max().item()
+                                        for k, w in want.items()),
+               "params_equal": all(torch.equal(got[k], w)
+                                   for k, w in want.items()),
+               "losses_equal": losses == want_losses}
+        if grads:
+            res["max_abs_grad_err"] = max(
+                (g[k] - w).abs().max().item()
+                for g, ws in zip(grads, want_grads) for k, w in ws.items())
+            res["grads_equal"] = all(
+                torch.equal(g[k], w)
+                for g, ws in zip(grads, want_grads) for k, w in ws.items())
+            keys = sorted(want)
+            res.update(_adam_param_rule(
+                [got[k] for k in keys], [want[k] for k in keys],
+                [[g[k] for k in keys] for g in grads],
+                [[w[k] for k in keys] for w in want_grads]))
+        out["runs"][name] = res
+        if name == "dp_tp":
+            out["dp_tp_params"] = got
+        elif name == "dp_tp_zero1":
+            base = out.pop("dp_tp_params")
+            res["params_equal_dp_tp"] = all(torch.equal(got[k], v)
+                                            for k, v in base.items())
+            res["losses_equal_dp_tp"] = losses == out["runs"]["dp_tp"][
+                "losses"]
+        del state, step, model, got
+        torch.cuda.empty_cache()
+    out.pop("dp_tp_params", None)
+    out["n_params"] = sum(w.numel() for w in refs[TP_PARITY_ROWS][2].values())
+    bootstrap.shutdown()
+    return out
+
+
+def phase_tp_parity(state):
+    """f32, TF32 off, 2 layers at ``transformer_big`` width: the tp step
+    (and at four cards the dp×tp step and its ZeRO-1) against
+    single-device ``make_train_step`` on the global batch. One card:
+    ``torch.equal`` (the tp model at tp 1 rounds as the single-device
+    one). Above one: ``dp_parity``'s rule — the loss and every step's
+    gradients within DP_PARITY_TOL, the parameters by ``train_parity``'s
+    rule; ZeRO-1 bitwise the dp×tp step of the same world."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(
+        _tp_parity_rank, world, device="cuda", timeout=600,
+        env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}).return_values
+    problems = []
+    for r in ranks:
+        allowed = TRAIN_PARAM_FRAC * r["n_params"]
+        for name, v in r["runs"].items():
+            if world == 1:
+                ok = (v["params_equal"] and v["losses_equal"]
+                      and v.get("grads_equal", True))
+            elif name == "dp_tp_zero1":
+                ok = v["params_equal_dp_tp"] and v["losses_equal_dp_tp"]
+            else:
+                ok = (v["max_abs_loss_err"] <= DP_PARITY_TOL
+                      and v["max_abs_grad_err"] <= DP_PARITY_TOL
+                      and v["max_abs_param_err_held"] <= TRAIN_PARAM_TOL
+                      and v["params_off_by_more_than_tol"] <= allowed)
+            if not ok:
+                problems.append(f"rank {r['rank']} {name}: {v}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": world, "rule": ("torch.equal" if world == 1 else
+                                     "dp_parity's"),
+            "config": "transformer_big width, 2 layers, f32, full logits",
+            "rows_per_data_shard": TP_PARITY_ROWS, "seq_len": TP_PARITY_SEQ,
+            "steps": TP_PARITY_STEPS, "ranks": ranks}
+
+
+def _tp_serve_rank() -> dict:
+    """One rank of ``tp_serve``: ``InferenceEngine(mesh={"tp": world})``
+    at ``transformer_big`` bf16 on the serve phase's prompts (tokens/s,
+    #1's launches); in f32 at 2 layers, TF32 off, the greedy streams and
+    one export's payload against the single-device engine on this
+    rank's card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, init_params)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_tensorflow_tpu_torch.serving.scheduler import Request
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = topology.make_mesh({"tp": world}, device="cuda")
+    plain = _plain_calls()
+    cfg = TransformerConfig.transformer_big()           # bf16
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    num_blocks = SERVE_SLOTS * cfg.max_seq_len // SERVE_BLOCK + 1
+    engine = InferenceEngine(cfg, params, mesh=mesh, num_blocks=num_blocks,
+                             block_size=SERVE_BLOCK, max_slots=SERVE_SLOTS)
+    del params
+    prompts, _ = _serve_prompts(cfg, SERVE_NEW)
+    prompts = list(prompts.values())
+    engine.generate([prompts[0][:16], prompts[1][:40]], max_new_tokens=2)
+    prefills0 = engine.prefills
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    plain.clear()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    prefills = engine.prefills - prefills0
+    acct = engine.block_accounting()
+    pool_bytes = sum(a.numel() * a.element_size()
+                     for a in engine.pool.values())
+    out = {"rank": rank, "world": world, "launches": counts,
+           "n_layers": cfg.n_layers,
+           "plain_calls": dict(plain), "prefills": prefills,
+           "wall_s": wall, "tokens": sum(len(o) for o in outs),
+           "tokens_per_s": sum(len(o) for o in outs) / wall,
+           "outputs": outs, "block_accounting": acct,
+           "local_pool_bytes": pool_bytes,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del engine
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = TransformerConfig.transformer_big(n_layers=2,
+                                              dtype=torch.float32)
+    params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        1), device="cuda")
+    kw = dict(num_blocks=num_blocks, block_size=SERVE_BLOCK,
+              max_slots=SERVE_SLOTS)
+    streams, payloads = {}, {}
+    for tag, m in (("mesh", mesh), ("single", None)):
+        eng = InferenceEngine(cfg32, params, mesh=m, device="cuda", **kw)
+        streams[tag] = eng.generate(prompts[:PARITY_REQUESTS],
+                                    max_new_tokens=PARITY_NEW)
+        eng.submit(Request(id="m", tokens=tuple(prompts[0]),
+                           max_new_tokens=PARITY_NEW))
+        for _ in range(3):
+            eng.step()
+        seq = next(iter(eng.scheduler.running.values()))
+        payloads[tag] = eng.export_sequence(seq)
+        del eng
+    a, b = payloads["mesh"], payloads["single"]
+    n = a.length - 1            # the rows written so far
+    out["f32"] = {
+        "streams_equal": streams["mesh"] == streams["single"],
+        "payload_bytes": [a.nbytes, b.nbytes],
+        "payload_shapes_equal": all(
+            a.arrays[k].shape == b.arrays[k].shape for k in b.arrays),
+        "fingerprint_equal": a.fingerprint == b.fingerprint,
+        "payload_kv_max_abs_err": max(
+            (a.arrays[k][:, :n] - b.arrays[k][:, :n]).abs().max().item()
+            for k in ("k", "v"))}
+    bootstrap.shutdown()
+    return out
+
+
+def phase_tp_serve(state):
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(
+        _tp_serve_rank, world, device="cuda", timeout=600).return_values
+    problems = []
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        want = expected_counts({"flash_fwd_tc": r["n_layers"]},
+                               r["prefills"])
+        if r["launches"] != want or not r["prefills"]:
+            problems.append(f"{tag}: launches {r['launches']} != {want}")
+        if r["plain_calls"]:
+            problems.append(f"{tag}: plain versions ran: {r['plain_calls']}")
+        if r["outputs"] != ranks[0]["outputs"] or any(
+                len(o) != SERVE_NEW for o in r["outputs"]):
+            problems.append(f"{tag}: streams differ from rank 0's")
+        acct = r["block_accounting"]
+        if not acct["conserved"] or acct["free"] != acct["usable"]:
+            problems.append(f"{tag}: block accounting at idle: {acct}")
+        f = r["f32"]
+        if not (f["streams_equal"] and f["payload_shapes_equal"]
+                and f["fingerprint_equal"]
+                and f["payload_bytes"][0] == f["payload_bytes"][1]
+                and f["payload_kv_max_abs_err"] <= PARITY_LOGIT_TOL):
+            problems.append(f"{tag}: f32 against the single-device "
+                            f"engine: {f}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["tp_serve_launches"] = ranks[0]["launches"]
+    for r in ranks:
+        r.pop("outputs")
+    return {"world": world, "mesh": {"tp": world},
+            "config": "transformer_big", "dtype": "bfloat16",
+            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+            "f32_layers": 2, "ranks": ranks}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4164,7 +4812,11 @@ def main() -> int:
                      ("bert_parity", phase_bert_parity),
                      ("bert_score", phase_bert_score),
                      ("dp_train", phase_dp_train),
-                     ("dp_parity", phase_dp_parity)):
+                     ("dp_parity", phase_dp_parity),
+                     ("tp_shards", phase_tp_shards),
+                     ("tp_train", phase_tp_train),
+                     ("tp_parity", phase_tp_parity),
+                     ("tp_serve", phase_tp_serve)):
         t0 = time.perf_counter()
         try:
             out = fn(state)
@@ -4228,6 +4880,14 @@ def main() -> int:
         # the data-parallel runs of dp_train (rank 0), each from 0
         row["dp_launches"] = {v: c[name]
                               for v, c in state["dp_launches"].items()}
+        # the tensor-parallel runs of tp_train (rank 0), each from 0, and
+        # the kernel at the tp shard shapes of tp_shards
+        row["tp_launches"] = {v: c[name]
+                              for v, c in state["tp_launches"].items()}
+        if name in state["tp_rows"]:
+            row["tp"] = state["tp_rows"][name]
+        if name == "flash_fwd_tc":
+            row["tp_serve_launches"] = state["tp_serve_launches"][name]
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

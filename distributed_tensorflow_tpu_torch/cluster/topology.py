@@ -104,8 +104,11 @@ def make_hybrid_mesh(dcn_axes: Mapping[str, int],
                             mesh_dim_names=dcn_names + ici_names)
 
 
-def mesh_shape(mesh: DeviceMesh) -> dict:
-    """``{name: size}`` in dim order (JAX's ``mesh.shape``)."""
+def mesh_shape(mesh) -> dict:
+    """``{name: size}`` in dim order (JAX's ``mesh.shape``), of a
+    ``DeviceMesh`` or of such a mapping itself."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
     return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
 
 
@@ -115,7 +118,7 @@ def mesh_axis_size(mesh: DeviceMesh, *names: str) -> int:
     return math.prod(shape[n] for n in names if n in shape)
 
 
-def data_axes(mesh: DeviceMesh) -> tuple:
+def data_axes(mesh) -> tuple:
     """The subset of DATA_AXES present on ``mesh``, in DATA_AXES order."""
     shape = mesh_shape(mesh)
     return tuple(a for a in DATA_AXES if a in shape)
@@ -129,3 +132,26 @@ def data_shard_index(mesh: DeviceMesh) -> int:
     for a in data_axes(mesh):
         idx = idx * shape[a] + mesh.get_local_rank(a)
     return idx
+
+
+def attention_shard_spec(mesh) -> tuple:
+    """Which mesh axes shard each dim of a ``(B, H, S, hd)`` attention
+    operand (JAX ``:200``): batch over the data axes (a tuple, or None
+    without any), heads over ``tp`` (or None), sequence and head dim
+    local. A rank holds the block ``(B / n_batch, H / tp, S, hd)``."""
+    shape = mesh_shape(mesh)
+    batch = data_axes(shape)
+    return (batch or None, TENSOR_AXIS if TENSOR_AXIS in shape else None,
+            None, None)
+
+
+def tp_size(mesh) -> int:
+    """The mesh's ``tp`` size, 1 without the axis."""
+    return mesh_shape(mesh).get(TENSOR_AXIS, 1)
+
+
+def tp_index(mesh: DeviceMesh) -> int:
+    """This rank's index along ``tp``, 0 without the axis."""
+    if TENSOR_AXIS not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(TENSOR_AXIS)

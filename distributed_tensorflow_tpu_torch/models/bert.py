@@ -18,8 +18,9 @@ with the masked-language-model machinery: the synthetic corpus, dynamic
 - :func:`make_loss_fn` / :func:`make_train_step` — the step, fresh masks
   each step from a generator seeded by ``(seed, step)``.
 
-The sharded step (JAX ``make_sharded_train_step``) belongs to the
-multi-GPU slice.
+- :func:`make_sharded_train_step` — the transformer's sharded step
+  with the MLM step: data-parallel, and on a mesh with ``tp``
+  tensor-parallel, the losses then over the vocab-sharded embedding.
 """
 
 from __future__ import annotations
@@ -28,9 +29,8 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch.models.transformer import (
-    TransformerConfig, TransformerLM, resolve_device, train_step_around)
-from distributed_tensorflow_tpu_torch.ops.fused_ce import (
-    fused_cross_entropy)
+    TransformerConfig, TransformerLM, fused_ce_losses, resolve_device,
+    softmax_cross_entropy, train_step_around)
 
 MASK_TOKEN = 1           # convention: [MASK] id
 IGNORE_LABEL = -100
@@ -90,41 +90,43 @@ def _masked_mean(losses, labels, count=None):
     return (losses * mask).sum() / count
 
 
-def mlm_loss(logits, labels, count=None):
+def mlm_loss(logits, labels, count=None, tp=None):
     """Cross-entropy over masked positions only (JAX ``:54-61``): f32 CE
     of ``logits`` against the labels (0 where ignored), averaged over the
     masked positions (or divided by ``count``); 0 for a batch with
-    none."""
+    none. ``tp``: the logits are this rank's vocab columns."""
     safe = torch.where(labels != IGNORE_LABEL, labels, 0)
-    logits = logits.float()
-    tl = logits.gather(-1, safe[..., None])[..., 0]
-    return _masked_mean(torch.logsumexp(logits, dim=-1) - tl, labels, count)
+    return _masked_mean(softmax_cross_entropy(logits.float(), safe, tp),
+                        labels, count)
 
 
-def kernel_mlm_loss(hidden, embed, labels, *, compute_dtype, count=None):
+def kernel_mlm_loss(hidden, embed, labels, *, compute_dtype, count=None,
+                    tp=None):
     """:func:`mlm_loss` of ``hidden @ embed.T`` through the fused CE
-    kernels (:func:`~distributed_tensorflow_tpu_torch.ops.fused_ce.
-    fused_cross_entropy`), hidden and the tied embedding cast to
-    ``compute_dtype``: the ``(B, S, V)`` logits never exist (JAX
-    ``:76-97``)."""
-    B, S, D = hidden.shape
+    kernels (:func:`~distributed_tensorflow_tpu_torch.models.
+    transformer.fused_ce_losses`; with ``tp`` the vocab-sharded op),
+    hidden and the tied embedding cast to ``compute_dtype``: the ``(B,
+    S, V)`` logits never exist (JAX ``:76-97``)."""
     safe = torch.where(labels != IGNORE_LABEL, labels, 0)
-    losses = fused_cross_entropy(
-        hidden.reshape(B * S, D).to(compute_dtype),
-        embed.to(compute_dtype), safe.reshape(B * S))
-    return _masked_mean(losses.reshape(B, S), labels, count)
+    losses = fused_ce_losses(hidden, embed, safe,
+                             compute_dtype=compute_dtype, tp=tp)
+    return _masked_mean(losses.reshape(labels.shape), labels, count)
 
 
 def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
     """``loss_fn(inputs, labels, count=None) -> scalar``:
     :func:`kernel_mlm_loss` on the model's hidden states for
-    ``loss_impl="kernel"``, else :func:`mlm_loss` on its full logits."""
+    ``loss_impl="kernel"``, else :func:`mlm_loss` on its full logits
+    (vocab-parallel on a tensor-parallel model)."""
+    tp = model.tp
+
     def loss_fn(inputs, labels, count=None):
         if cfg.loss_impl == "kernel":
             hidden = model(inputs, return_hidden=True)
             return kernel_mlm_loss(hidden, model.embed, labels,
-                                   compute_dtype=cfg.dtype, count=count)
-        return mlm_loss(model(inputs), labels, count)
+                                   compute_dtype=cfg.dtype, count=count,
+                                   tp=tp)
+        return mlm_loss(model(inputs), labels, count, tp)
 
     return loss_fn
 
@@ -169,15 +171,16 @@ def make_train_step(cfg: TransformerConfig, model: TransformerLM,
 
 
 def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
-                            seed: int = 0, *, params=None):
-    """Data-parallel BERT MLM (JAX ``:121``): the transformer's
+                            seed: int = 0, *, params=None, masking=None):
+    """Sharded BERT MLM (JAX ``:121``): the transformer's
     :func:`~distributed_tensorflow_tpu_torch.models.transformer.
     make_sharded_train_step` with the MLM step through ``step_factory``.
     Every rank draws the masks of the **global** batch from the ``(seed,
     step)`` generator and takes its own rows; its loss is its masked
     sum over the global batch's masked count, times the shard count, so
     the meaned gradients and loss are the single-device step's on the
-    global batch."""
+    global batch. ``masking(step, tokens) -> (inputs, labels)`` over the
+    global batch replaces the generator, as in :func:`make_train_step`."""
     if cfg.causal:
         raise ValueError("BERT requires causal=False (encoder mode)")
     from distributed_tensorflow_tpu_torch.models.transformer import (
@@ -188,10 +191,13 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
         loss_fn = make_loss_fn(cfg, model)
 
         def loss_of_batch(step, batch):
-            gen = torch.Generator(device=device)
-            gen.manual_seed(mask_seed(seed, step))
-            inputs, labels = apply_mlm_masking(gen, batch["tokens"],
-                                               vocab_size=cfg.vocab_size)
+            if masking is not None:
+                inputs, labels = masking(step, batch["tokens"])
+            else:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(mask_seed(seed, step))
+                inputs, labels = apply_mlm_masking(
+                    gen, batch["tokens"], vocab_size=cfg.vocab_size)
             count = (labels != IGNORE_LABEL).sum().clamp_min(1)
             return loss_fn(inputs[shard.rows], labels[shard.rows],
                            count) * shard.n_shards

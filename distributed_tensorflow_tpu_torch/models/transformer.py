@@ -38,7 +38,17 @@ block in the backward, keeping what ``remat_policy`` names
 Data parallelism: :func:`make_sharded_train_step` over a ``dp`` or
 ``dcn``×``dp`` mesh — the bucketed gradient all-reduce overlapped on
 the backward, ``grad_sync="none"`` and ``"gspmd"``, and ZeRO-1/2.
-Tensor, pipeline and sequence parallelism and MoE belong to later
+
+Tensor parallelism: on a mesh with ``tp`` (``("tp",)``, ``("dp",
+"tp")``, ``("dcn", "dp", "tp")``) the model holds this rank's shards
+of the parameters by JAX's logical-axis rules (:data:`LOGICAL_AXIS_RULES`,
+:func:`param_specs`): heads, ``d_ff`` and the vocabulary over ``tp``.
+:func:`shard_params` / :func:`gather_params` carry the full dict to a
+rank's shards and back. Each block enters its column-parallel weights
+through ``tp_copy`` (after the RMSNorm) and leaves its row-parallel
+ones through ``tp_reduce``; the embedding lookup is vocab-parallel and
+the losses are the vocab-sharded cross-entropies. Fully-sharded data
+parallelism, pipeline and sequence parallelism and MoE belong to later
 slices.
 """
 
@@ -57,11 +67,19 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from distributed_tensorflow_tpu_torch.ops.attention import (
-    FLASH_ATTENTION_OP, flash_attention, mha_reference)
+    FLASH_ATTENTION_OP, flash_attention, mha_reference,
+    sharded_flash_attention)
 from distributed_tensorflow_tpu_torch.ops.fused_adamw import (
     fused_adamw_update)
 from distributed_tensorflow_tpu_torch.ops.fused_ce import (
-    fused_cross_entropy)
+    fused_cross_entropy, sharded_fused_cross_entropy)
+from distributed_tensorflow_tpu_torch.parallel.collectives import (
+    tp_copy, tp_reduce)
+from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel, check_divisible, vocab_parallel_cross_entropy,
+    vocab_parallel_embed)
+from distributed_tensorflow_tpu_torch.parallel.zero import (
+    leaf_metas as _leaf_metas)
 
 #: matrix products without batch dimensions: the outputs that the
 #: "dots" policies save (jax.checkpoint_policies.
@@ -240,10 +258,17 @@ class RMSNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    """Rotary MHA; with ``tp`` this rank's ``n_heads / tp`` heads (the
+    projections column-parallel, ``out`` row-parallel: the caller
+    reduces its partial output)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
-        D, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        self.tp = tp
+        D, hd = cfg.d_model, cfg.head_dim
+        H = cfg.n_heads // (tp.size if tp else 1)
         for name in ("query", "key", "value"):
             setattr(self, name, nn.Parameter(torch.empty(D, H, hd,
                                                          device=device)))
@@ -260,18 +285,25 @@ class MultiHeadAttention(nn.Module):
             o = mha_reference(q, k, v, causal=cfg.causal, lengths=lengths)
         elif cfg.attention_impl == "reference":
             o = mha_reference(q, k, v, causal=cfg.causal)
+        elif self.tp is not None:
+            o = sharded_flash_attention(q, k, v, self.tp.mesh,
+                                        n_heads=cfg.n_heads,
+                                        causal=cfg.causal)
         else:
             o = flash_attention(q, k, v, causal=cfg.causal)
         return merge_heads(o, self.out.to(dt))
 
 
 class MLP(nn.Module):
-    """SwiGLU feed-forward."""
+    """SwiGLU feed-forward; with ``tp`` this rank's ``d_ff / tp`` hidden
+    units: ``wi`` holds its columns of ``gate`` and then its columns of
+    ``up`` (:func:`shard_params`), so ``silu(gate) · up`` stays local."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
-        D, Fd = cfg.d_model, cfg.d_ff
+        D, Fd = cfg.d_model, cfg.d_ff // (tp.size if tp else 1)
         self.wi = nn.Parameter(torch.empty(D, 2 * Fd, device=device))
         self.wo = nn.Parameter(torch.empty(Fd, D, device=device))
 
@@ -281,16 +313,28 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    """Pre-norm block. With ``tp`` each branch enters through
+    ``tp_copy`` placed after its RMSNorm (so the replicated norm scales
+    get the whole gradient on every rank) and leaves through
+    ``tp_reduce``."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 tp: TensorParallel | None = None):
         super().__init__()
+        self.tp = tp
         self.RMSNorm_0 = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = MultiHeadAttention(cfg, device)
+        self.attn = MultiHeadAttention(cfg, device, tp)
         self.RMSNorm_1 = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, tp)
 
     def forward(self, x, lengths=None):
-        x = x + self.attn(self.RMSNorm_0(x), lengths)
-        return x + self.mlp(self.RMSNorm_1(x))
+        if self.tp is None:
+            x = x + self.attn(self.RMSNorm_0(x), lengths)
+            return x + self.mlp(self.RMSNorm_1(x))
+        g = self.tp.group
+        x = x + tp_reduce(self.attn(tp_copy(self.RMSNorm_0(x), g), lengths),
+                          g)
+        return x + tp_reduce(self.mlp(tp_copy(self.RMSNorm_1(x), g)), g)
 
 
 class TransformerLM(nn.Module):
@@ -298,20 +342,31 @@ class TransformerLM(nn.Module):
 
     ``params`` (the port's parameter dict) is loaded when given; else
     the module is initialised by :func:`init_params` from
-    ``generator``."""
+    ``generator``. With ``tp`` (a :class:`~distributed_tensorflow_tpu_
+    torch.parallel.tensor_parallel.TensorParallel`) the module holds
+    this rank's shards: ``params`` is then this rank's shard dict
+    (:func:`shard_params`), and a fresh init makes the full parameters
+    and keeps the shard."""
 
     def __init__(self, cfg: TransformerConfig, params=None, *,
-                 device="cuda", generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None,
+                 tp: TensorParallel | None = None):
         super().__init__()
         device = resolve_device(device)
+        if tp is not None:
+            check_divisible(cfg, tp.size)
         self.cfg = cfg
-        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
-                                              device=device))
-        self.layers = nn.ModuleList(Block(cfg, device)
+        self.tp = tp
+        self.embed = nn.Parameter(torch.empty(
+            cfg.vocab_size // (tp.size if tp else 1), cfg.d_model,
+            device=device))
+        self.layers = nn.ModuleList(Block(cfg, device, tp)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, device)
         if params is None:
             params = init_params(cfg, generator, device)
+            if tp is not None:
+                params = shard_params_at(cfg, params, tp.rank, tp.size)
         self.load_params(params)
 
     @torch.no_grad()
@@ -344,11 +399,14 @@ class TransformerLM(nn.Module):
         """``lengths`` (B,) marks a right-padded mixed-length batch: every
         layer's attention masks padded keys with the factored rule
         (:func:`~distributed_tensorflow_tpu_torch.ops.attention.
-        length_valid_mask`); None runs the flash forward."""
+        length_valid_mask`); None runs the flash forward. With ``tp`` the
+        logits are this rank's vocab columns ``(B, S, V/tp)``, for the
+        vocab-parallel losses."""
         cfg = self.cfg
         dt = cfg.dtype
         emb = self.embed.to(dt)
-        x = emb[tokens]
+        tp = self.tp
+        x = vocab_parallel_embed(emb, tokens, tp) if tp else emb[tokens]
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.layers:
             if remat:
@@ -359,6 +417,8 @@ class TransformerLM(nn.Module):
         x = self.final_norm(x)
         if return_hidden:
             return x
+        if tp is not None:
+            x = tp_copy(x, tp.group)
         return (x @ emb.T).float()
 
 
@@ -381,6 +441,173 @@ def param_shapes(cfg: TransformerConfig) -> dict:
         },
         "final_norm": {"scale": (D,)},
     }
+
+
+#: logical axis name → mesh axes (JAX ``:62-75``); "batch" and "seq"
+#: name activation dims, the rest parameter dims
+LOGICAL_AXIS_RULES = (
+    ("batch", ("dcn", "dp", "fsdp")),
+    ("seq", "sp"),
+    ("embed", "fsdp"),
+    ("heads", "tp"),
+    ("kv", None),
+    ("mlp", "tp"),
+    ("vocab", "tp"),
+    ("layers", None),
+    ("norm", None),
+    ("expert", "ep"),
+    ("expert_mlp", "tp"),
+    ("expert_embed", None),
+)
+
+#: each leaf's logical axes, as the flax model's ``param_with_axes``
+#: names them (stacked leaves lead with "layers")
+PARAM_LOGICAL_AXES = {
+    "embed": ("vocab", "embed"),
+    "layers": {
+        "RMSNorm_0": {"scale": ("layers", "norm")},
+        "attn": {"query": ("layers", "embed", "heads", "kv"),
+                 "key": ("layers", "embed", "heads", "kv"),
+                 "value": ("layers", "embed", "heads", "kv"),
+                 "out": ("layers", "heads", "kv", "embed")},
+        "RMSNorm_1": {"scale": ("layers", "norm")},
+        "mlp": {"wi": ("layers", "embed", "mlp"),
+                "wo": ("layers", "mlp", "embed")},
+    },
+    "final_norm": {"scale": ("norm",)},
+}
+
+
+def mesh_axis_rules(mesh, rules=LOGICAL_AXIS_RULES) -> list:
+    """The rules restricted to the axes ``mesh`` has (JAX ``:705``):
+    ``mesh`` a ``DeviceMesh`` or a ``{name: size}`` mapping."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import mesh_shape
+    shape = mesh_shape(mesh)
+    out = []
+    for logical, target in rules:
+        if target is None:
+            out.append((logical, None))
+        elif isinstance(target, tuple):
+            kept = tuple(a for a in target if a in shape)
+            out.append((logical, kept if kept else None))
+        else:
+            out.append((logical, target if target in shape else None))
+    return out
+
+
+def param_specs(cfg: TransformerConfig, mesh) -> dict:
+    """Each leaf of the port's stacked parameter dict → the mesh axis
+    (or None) of each of its dims, a tuple like JAX's ``PartitionSpec``:
+    ``tuple(ns.spec)`` of ``state_shardings_for(...)["params"]`` (JAX
+    ``:735``). A mesh axis already used by an earlier dim of the leaf
+    leaves a later dim unsharded."""
+    rules = dict(mesh_axis_rules(mesh))
+
+    def spec(axes):
+        used, out = set(), []
+        for logical in axes:
+            target = rules.get(logical)
+            names = (() if target is None else
+                     (target,) if isinstance(target, str) else target)
+            if not names or used & set(names):
+                out.append(None)
+                continue
+            used |= set(names)
+            out.append(target)
+        return tuple(out)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return spec(node)
+
+    del cfg     # every config has the same leaves
+    return walk(PARAM_LOGICAL_AXES)
+
+
+def _tp_dim(spec) -> int | None:
+    return spec.index("tp") if "tp" in spec else None
+
+
+def _map_leaves(fn, *trees, path=()):
+    """``fn(path, *leaves)`` over dicts of the same structure."""
+    if isinstance(trees[0], dict):
+        return {k: _map_leaves(fn, *(t[k] for t in trees), path=path + (k,))
+                for k in trees[0]}
+    return fn(path, *trees)
+
+
+def shard_params_at(cfg: TransformerConfig, params, rank: int,
+                    size: int) -> dict:
+    """Shard ``rank`` of ``size`` of the full parameter dict along
+    ``tp`` (:func:`param_specs`): each sharded leaf's ``rank``-th
+    contiguous block of its ``tp`` dim, a contiguous tensor of its own.
+    ``wi`` (D, 2F) is the exception: GSPMD would cut its 2F axis
+    contiguously (all of ``gate`` on the first ranks), so rank r takes
+    ``gate[:, rF/tp:(r+1)F/tp]`` and ``up[:, rF/tp:(r+1)F/tp]`` side by
+    side, and ``silu(gate) · up`` needs no exchange. The numbers are
+    JAX's; only the placement of the columns differs."""
+    check_divisible(cfg, size)
+    specs = param_specs(cfg, {"tp": size})
+
+    def shard(path, full, spec):
+        dim = _tp_dim(spec)
+        if dim is None:
+            return full.clone()
+        if path[-1] == "wi":
+            gate, up = full.chunk(2, dim)
+            return torch.cat([gate.chunk(size, dim)[rank],
+                              up.chunk(size, dim)[rank]], dim)
+        return full.chunk(size, dim)[rank].clone(
+            memory_format=torch.contiguous_format)
+
+    return _map_leaves(shard, params, specs)
+
+
+def unshard_params(cfg: TransformerConfig, shards: list) -> dict:
+    """The full parameter dict from every rank's shard dict in ``tp``
+    order — the inverse of :func:`shard_params_at`, bitwise."""
+    size = len(shards)
+    specs = param_specs(cfg, {"tp": size})
+
+    def unshard(path, spec, *parts):
+        dim = _tp_dim(spec)
+        if dim is None:
+            return parts[0].clone()
+        if path[-1] == "wi":
+            halves = [p.chunk(2, dim) for p in parts]
+            return torch.cat([h[0] for h in halves]
+                             + [h[1] for h in halves], dim)
+        return torch.cat(parts, dim)
+
+    return _map_leaves(unshard, specs, *shards)
+
+
+def shard_params(cfg: TransformerConfig, params, mesh) -> dict:
+    """This rank's shard dict of the full ``params`` on ``mesh``
+    (:func:`shard_params_at` at its ``tp`` index; a copy without
+    ``tp``)."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import (
+        tp_index, tp_size)
+    return shard_params_at(cfg, params, tp_index(mesh), tp_size(mesh))
+
+
+def gather_params(cfg: TransformerConfig, shards, mesh) -> dict:
+    """The full parameter dict on every rank from each rank's
+    ``shards`` (:func:`shard_params`): an all-gather over ``tp``, then
+    :func:`unshard_params`."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import (
+        TENSOR_AXIS, tp_size)
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        all_gather)
+    if TENSOR_AXIS not in mesh.mesh_dim_names:
+        return _map_leaves(lambda path, t: t.detach().clone(), shards)
+    n = tp_size(mesh)
+    stacked = _map_leaves(
+        lambda path, t: all_gather(t.detach(), mesh, TENSOR_AXIS,
+                                   tiled=False), shards)
+    return unshard_params(cfg, [_map_leaves(lambda path, t: t[i], stacked)
+                                for i in range(n)])
 
 
 def init_params(cfg: TransformerConfig,
@@ -456,27 +683,41 @@ def params_from_jax(cfg: TransformerConfig, tree, device="cuda") -> dict:
 # Training step
 # ---------------------------------------------------------------------------
 
-def next_token_loss(logits, tokens):
+def softmax_cross_entropy(logits, targets, tp=None):
+    """Per-position CE of f32 ``logits`` ``(..., V)`` against integer
+    ``targets`` (``optax.softmax_cross_entropy_with_integer_labels``);
+    with ``tp`` the logits are this rank's vocab columns and the CE is
+    :func:`~distributed_tensorflow_tpu_torch.parallel.tensor_parallel.
+    vocab_parallel_cross_entropy`."""
+    if tp is not None:
+        return vocab_parallel_cross_entropy(logits, targets, tp)
+    logits = logits.float()
+    tl = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - tl
+
+
+def next_token_loss(logits, tokens, tp=None):
     """Shifted next-token cross-entropy over full f32 logits (ignores the
-    final position): ``optax.softmax_cross_entropy_with_integer_labels``
-    averaged."""
-    targets = tokens[:, 1:].long()
-    logits = logits[:, :-1].float()
-    tl = logits.gather(-1, targets[..., None])[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - tl).mean()
+    final position), averaged; ``tp``: vocab-sharded logits
+    (:func:`softmax_cross_entropy`)."""
+    return softmax_cross_entropy(logits[:, :-1].float(), tokens[:, 1:],
+                                 tp).mean()
 
 
-def _chunk_loss(xc, emb, tc, mc):
+def _chunk_loss(xc, emb, tc, mc, tp=None):
     """Summed masked CE of one sequence chunk: its ``(B, C, V)`` logits in
-    ``emb``'s dtype (one matrix product), then f32."""
-    logits = (xc.to(emb.dtype) @ emb.T).float()
-    tl = logits.gather(-1, tc.long()[..., None])[..., 0]
-    return ((torch.logsumexp(logits, dim=-1) - tl) * mc).sum()
+    ``emb``'s dtype (one matrix product), then f32; with ``tp`` this
+    rank's vocab columns of them, the chunk entering through
+    ``tp_copy``."""
+    xc = xc.to(emb.dtype)
+    if tp is not None:
+        xc = tp_copy(xc, tp.group)
+    return (softmax_cross_entropy((xc @ emb.T).float(), tc, tp) * mc).sum()
 
 
 def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
                           compute_dtype=torch.bfloat16,
-                          chunk_policy: str = "recompute"):
+                          chunk_policy: str = "recompute", tp=None):
     """Chunked next-token CE over the tied embedding (JAX
     ``:459-510``): ``next_token_loss(hidden @ embed.T, tokens)`` without
     the ``(B, S, V)`` f32 logits. Each of ``num_chunks`` sequence chunks
@@ -485,7 +726,8 @@ def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
     does. ``chunk_policy="recompute"`` keeps nothing of a chunk, so the
     backward recomputes its logits; ``"save"`` keeps the logits in
     ``compute_dtype`` (the output of the chunk's matrix product) and
-    recomputes only what follows them."""
+    recomputes only what follows them. ``tp``: ``embed`` is this rank's
+    vocab shard."""
     B, S, D = hidden.shape
     if S % num_chunks:
         raise ValueError(f"seq len {S} not divisible by loss "
@@ -502,7 +744,8 @@ def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
     for c in range(0, S, C):
         total = total + checkpoint(
             _chunk_loss, hidden[:, c:c + C], emb, targets[:, c:c + C],
-            mask[:, c:c + C], use_reentrant=False, context_fn=context_fn)
+            mask[:, c:c + C], tp, use_reentrant=False,
+            context_fn=context_fn)
     return total / (B * (S - 1))
 
 
@@ -518,18 +761,31 @@ def _shifted_targets_and_mask(tokens):
     return targets, mask
 
 
+def fused_ce_losses(hidden, embed, targets, *, compute_dtype, tp=None):
+    """Per-token CE ``(N,)`` of ``hidden`` ``(..., D)`` against the tied
+    ``embed`` through the fused CE kernels, both cast to
+    ``compute_dtype``: :func:`~distributed_tensorflow_tpu_torch.ops.
+    fused_ce.fused_cross_entropy`, or with ``tp`` (``embed`` this rank's
+    vocab shard) :func:`~distributed_tensorflow_tpu_torch.ops.fused_ce.
+    sharded_fused_cross_entropy`, which reduces dh over tp itself."""
+    h = hidden.reshape(-1, hidden.shape[-1]).to(compute_dtype)
+    e = embed.to(compute_dtype)
+    t = targets.reshape(-1)
+    if tp is not None:
+        return sharded_fused_cross_entropy(h, e, t, tp)
+    return fused_cross_entropy(h, e, t)
+
+
 def kernel_next_token_loss(hidden, embed, tokens, *,
-                           compute_dtype=torch.bfloat16):
+                           compute_dtype=torch.bfloat16, tp=None):
     """Shifted next-token CE through the fused CE kernels
-    (:func:`~distributed_tensorflow_tpu_torch.ops.fused_ce.
-    fused_cross_entropy`): the ``(B, S, V)`` logits never exist. The
+    (:func:`fused_ce_losses`): the ``(B, S, V)`` logits never exist. The
     hidden state and the tied embedding are cast to ``compute_dtype``
     first."""
     B, S, D = hidden.shape
     targets, mask = _shifted_targets_and_mask(tokens)
-    losses = fused_cross_entropy(
-        hidden.reshape(B * S, D).to(compute_dtype),
-        embed.to(compute_dtype), targets.reshape(B * S))
+    losses = fused_ce_losses(hidden, embed, targets,
+                             compute_dtype=compute_dtype, tp=tp)
     return (losses * mask.reshape(B * S)).sum() / (B * (S - 1))
 
 
@@ -640,17 +896,20 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
         while scan_chunks < 8 and cfg.max_seq_len % (scan_chunks * 2) == 0:
             scan_chunks *= 2
 
+    tp = model.tp
+
     def loss_fn(tokens):
         if cfg.loss_impl == "kernel":
             hidden = model(tokens, return_hidden=True)
             return kernel_next_token_loss(hidden, model.embed, tokens,
-                                          compute_dtype=cfg.dtype)
+                                          compute_dtype=cfg.dtype, tp=tp)
         if cfg.loss_chunks > 0:
             hidden = model(tokens, return_hidden=True)
             return fused_next_token_loss(
                 hidden, model.embed, tokens, num_chunks=scan_chunks,
-                compute_dtype=cfg.dtype, chunk_policy=cfg.loss_chunk_policy)
-        return next_token_loss(model(tokens), tokens)
+                compute_dtype=cfg.dtype, chunk_policy=cfg.loss_chunk_policy,
+                tp=tp)
+        return next_token_loss(model(tokens), tokens, tp)
 
     return loss_fn
 
@@ -770,13 +1029,6 @@ def jax_leaf_params(cfg: TransformerConfig, model: TransformerLM
     return list(walk(tree))
 
 
-def _leaf_metas(leaves) -> list[torch.Tensor]:
-    """Shape-only stand-ins of stacked leaves, for planning."""
-    return [torch.empty((len(ps),) + tuple(ps[0].shape) if len(ps) > 1
-                        else tuple(ps[0].shape), dtype=ps[0].dtype,
-                        device="meta") for ps in leaves]
-
-
 def _mesh_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
@@ -798,6 +1050,30 @@ def _replicated_model(cfg: TransformerConfig, mesh, seed: int, params
         for p in model.parameters():
             dist.broadcast(p, src=0)
     return model
+
+
+def _sharded_model(cfg: TransformerConfig, mesh, seed: int, params
+                   ) -> TransformerLM:
+    """The model on this rank: on a mesh without ``tp``
+    :func:`_replicated_model`; with it, this rank's shards of the full
+    parameters — ``params``, or those made from ``seed`` and broadcast
+    from rank 0 — in a tensor-parallel module."""
+    import torch.distributed as dist
+    tp = TensorParallel.from_mesh(mesh)
+    if tp is None:
+        return _replicated_model(cfg, mesh, seed, params)
+    check_divisible(cfg, tp.size)
+    device = _mesh_device(mesh)
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = init_params(cfg, gen, device)
+        with torch.no_grad():
+            _map_leaves(lambda path, t: dist.broadcast(t, src=0), params)
+    else:
+        params = _map_leaves(lambda path, t: t.to(device), params)
+    return TransformerLM(cfg, shard_params(cfg, params, mesh),
+                         device=device, tp=tp)
 
 
 def _data_rows(mesh, global_batch: int) -> slice:
@@ -841,24 +1117,36 @@ def _leaf_grads(leaves) -> list[torch.Tensor]:
             for ps in leaves]
 
 
-#: the ROADMAP item that brings each mesh axis this slice lacks
-_LATER_AXES = {"fsdp": "A-3", "tp": "A-3", "pp": "A-4", "sp": "A-5",
-               "ep": "A-5"}
+#: the ROADMAP item that brings each mesh axis the port lacks
+_LATER_AXES = {"fsdp": "A-3b", "pp": "A-4", "sp": "A-5", "ep": "A-5"}
+
+
+def _check_axes(shape: dict):
+    later = sorted({_LATER_AXES[a] for a in shape if a in _LATER_AXES})
+    if later or not set(shape) <= {"dcn", "dp", "tp"}:
+        raise NotImplementedError(
+            f"a {shape} mesh needs ROADMAP item(s) "
+            f"{', '.join(later) or 'A-3b'}; the port runs meshes of dcn, "
+            f"dp and tp")
 
 
 def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
                             seed: int = 0, step_factory=None,
                             grad_sync: str = "auto", zero: int = 0, *,
                             params=None):
-    """Data-parallel state and step over ``mesh`` (a ``DeviceMesh`` of
+    """Sharded state and step over ``mesh`` (a ``DeviceMesh`` of
     :mod:`~distributed_tensorflow_tpu_torch.cluster.topology`; JAX
     ``:762``). Returns ``(state, step)`` with ``state = {"model",
     "optimizer", "step"}``; ``step(state, {"tokens": (global_batch,
     S)})`` takes every rank's copy of the global batch, trains on this
     rank's rows (``P(data_axes)`` order, dcn-major on a hybrid mesh) and
-    returns ``(state, {"loss"})``, the loss meaned over the data axes.
-    ``params`` (the port's parameter dict) seeds every replica; without
-    it rank 0 initialises from ``seed`` and broadcasts.
+    returns ``(state, {"loss"})``, the loss meaned over the data axes
+    (the same on every rank). ``params`` (the port's full parameter
+    dict) seeds every replica; without it rank 0 initialises from
+    ``seed`` and broadcasts. On a mesh with ``tp`` the model holds this
+    rank's shards (:func:`shard_params`; :func:`gather_params` reads
+    the full dict back), and ``n_heads``, ``d_ff`` and ``vocab_size``
+    must divide by ``tp`` (else ``ValueError``).
 
     ``grad_sync`` (JAX's values and validation):
 
@@ -871,18 +1159,21 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
       ``cfg.fused_optimizer`` says;
     - ``"none"``: the same step without the collectives (measurement
       only: the replicas part);
-    - ``"gspmd"`` (and ``"auto"`` otherwise, and every
-      ``step_factory``): one post-backward reduction, one bucket a dtype
-      run, then the step's own update (``fused_optimizer`` honoured).
+    - ``"gspmd"`` (and ``"auto"`` otherwise — every mesh with ``tp`` —
+      and every ``step_factory``): one post-backward reduction over the
+      data axes only, one bucket a dtype run, then the step's own update
+      (``fused_optimizer`` honoured: the fused AdamW on each local
+      shard).
 
     ``step_factory(cfg, model, optimizer, shard: DataShard) -> step``
     builds a step that takes the global batch and runs
     ``shard.sync_grads()`` after its backward (BERT's MLM step).
     ``zero=1|2`` shards AdamW's moments (and with 2 the gradients) over
-    ``"dp"`` (:func:`_make_zero_dp_train_step`). Meshes with axes other
-    than ``dcn``/``dp``, and ``zero`` on a mesh other than ``("dp",)``,
-    raise ``NotImplementedError`` naming the ROADMAP item that brings
-    them; the port's config has no MoE fields (A-5)."""
+    ``"dp"``: on a ``("dp",)`` mesh :func:`_make_zero_dp_train_step`,
+    elsewhere :func:`_make_zero_gspmd_train_step` (moments only, both
+    levels). Meshes with axes other than ``dcn``/``dp``/``tp`` raise
+    ``NotImplementedError`` naming the ROADMAP item that brings them;
+    the port's config has no MoE fields (A-5)."""
     shape = _shape(mesh)
     size = 1
     for v in shape.values():
@@ -906,9 +1197,9 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
         if tuple(mesh.mesh_dim_names) == ("dp",):
             return _make_zero_dp_train_step(cfg, mesh, global_batch, seed,
                                             level=zero, params=params)
-        raise NotImplementedError(
-            f"zero= on a {tuple(mesh.mesh_dim_names)} mesh (the dp×tp ZeRO "
-            f"path) comes with ROADMAP item A-3")
+        _check_axes(shape)
+        return _make_zero_gspmd_train_step(cfg, mesh, global_batch, seed,
+                                           params=params)
     if grad_sync in ("bucketed", "none") and not pure_dp:
         raise ValueError(
             f"grad_sync={grad_sync!r} needs a pure data-parallel mesh "
@@ -917,12 +1208,7 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
         return _make_bucketed_dp_train_step(cfg, mesh, global_batch, seed,
                                             sync=grad_sync != "none",
                                             params=params)
-    later = sorted({_LATER_AXES[a] for a in shape if a in _LATER_AXES})
-    if later or not set(shape) <= {"dcn", "dp"}:
-        raise NotImplementedError(
-            f"a {shape} mesh needs the GSPMD sharding of ROADMAP "
-            f"item(s) {', '.join(later) or 'A-3'}; this slice runs meshes "
-            f"of dcn and dp only")
+    _check_axes(shape)
     return _make_post_sync_train_step(cfg, mesh, global_batch, seed,
                                       step_factory, params)
 
@@ -990,29 +1276,22 @@ def _make_zero_dp_train_step(cfg: TransformerConfig, mesh,
     backward. The port's ``AdamW`` steps the flat shards, and an
     all-gather over dp rebuilds the parameters. ``state["optimizer"]``
     is the AdamW over the shards; the step carries ``partition``."""
-    from distributed_tensorflow_tpu_torch import telemetry
     from distributed_tensorflow_tpu_torch.parallel.collectives import (
         GradientBucketer, ReduceOp, all_reduce)
     from distributed_tensorflow_tpu_torch.parallel.zero import (
-        ZeroPartition, zero_opt_state)
+        make_zero_update)
     if tuple(mesh.mesh_dim_names) != ("dp",):
         raise ValueError(f"ZeRO explicit dp path needs a ('dp',) mesh, "
                          f"got {tuple(mesh.mesh_dim_names)}")
     rows = _data_rows(mesh, global_batch)
-    n_shards = _shape(mesh)["dp"]
-    rank = mesh.get_local_rank("dp")
     model = _replicated_model(cfg, mesh, seed, params)
     loss_fn = make_loss_fn(cfg, model)
     leaves = jax_leaf_params(cfg, model)
-    partition = ZeroPartition(_leaf_metas(leaves), n_shards)
     bsync = (GradientBucketer(mesh, ("dp",)).backward_sync(leaves)
              if level == 1 else None)
-    with torch.no_grad():
-        p_shards = partition.shard(partition.pack(leaves), rank)
-    optimizer, shards = zero_opt_state(
-        lambda ps: make_optimizer(cfg, ps), partition, p_shards)
-    telemetry.event("zero.partition", axis="dp", level=int(level),
-                    **partition.summary())
+    optimizer, update = make_zero_update(
+        lambda ps: make_optimizer(cfg, ps), mesh, leaves, level=level)
+    partition, rank = update.partition, update.rank
     device = _mesh_device(mesh)
 
     def step(state, batch):
@@ -1036,16 +1315,61 @@ def _make_zero_dp_train_step(cfg: TransformerConfig, mesh,
             # stay
             for p in model.parameters():
                 p.grad = None
-            for shard, g in zip(shards, g_shards):
-                shard.grad = g
-            optimizer.step()
-            flats = partition.all_gather_flats(shards, mesh, "dp")
-            for ps, full in zip(leaves, partition.unpack(flats)):
-                if len(ps) == 1:
-                    ps[0].copy_(full)
-                else:
-                    for p, layer in zip(ps, full):
-                        p.copy_(layer)
+            update(g_shards)
+        return {**state, "step": state["step"] + 1}, {"loss": loss}
+
+    step.partition = partition
+    return {"model": model, "optimizer": optimizer, "step": 0}, step
+
+
+def _make_zero_gspmd_train_step(cfg: TransformerConfig, mesh,
+                                global_batch: int, seed: int = 0, *,
+                                params=None):
+    """ZeRO on any other mesh (``("dp", "tp")``, ``("tp",)``, dcn
+    hybrids; JAX ``:1078`` with ``parallel/zero.py make_zero_update``):
+    the gradients are those of the non-ZeRO step — one post-backward
+    reduction over the data axes — and the partition is over this
+    rank's tp-local leaves (:class:`~distributed_tensorflow_tpu_torch.
+    parallel.zero.ZeroPartition` of their local shapes, JAX's
+    ``_local_shape``), sliced over ``dp`` only: each dp rank updates its
+    1/N and an all-gather over ``dp`` rebuilds the local blocks. As in
+    JAX, levels 1 and 2 are the same step here (the moments sharded,
+    the gradients synced whole); the update
+    (:func:`~distributed_tensorflow_tpu_torch.parallel.zero.
+    make_zero_update`) is the plain ``AdamW.step`` on the flat shards,
+    bitwise the non-ZeRO step's."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        GradientBucketer, ReduceOp, all_reduce)
+    from distributed_tensorflow_tpu_torch.parallel.zero import (
+        make_zero_update)
+    axes = data_axes(mesh)
+    rows = _data_rows(mesh, global_batch)
+    model = _sharded_model(cfg, mesh, seed, params)
+    loss_fn = make_loss_fn(cfg, model)
+    leaves = jax_leaf_params(cfg, model)
+    bucketer = GradientBucketer(mesh, axes, bytes_per_pack=0)
+    optimizer, update = make_zero_update(
+        lambda ps: make_optimizer(cfg, ps), mesh, leaves)
+    partition, rank = update.partition, update.rank
+    device = _mesh_device(mesh)
+
+    def step(state, batch):
+        tokens = _global_tokens(batch, global_batch, device)
+        for p in model.parameters():
+            p.grad = None
+        loss = loss_fn(tokens[rows])
+        loss.backward()
+        loss = all_reduce(loss.detach(), mesh, axes, ReduceOp.MEAN)
+        with torch.no_grad():
+            grads = _leaf_grads(leaves)
+            if axes:
+                grads = bucketer.all_reduce(grads, ReduceOp.MEAN)
+            g_shards = [g.clone() for g in partition.shard(
+                partition.pack(grads), rank)]
+            for p in model.parameters():
+                p.grad = None
+            update(g_shards)
         return {**state, "step": state["step"] + 1}, {"loss": loss}
 
     step.partition = partition
@@ -1066,7 +1390,10 @@ def _make_post_sync_train_step(cfg: TransformerConfig, mesh,
                                params):
     """The ``"gspmd"`` counterpart: the factory's step with one gradient
     reduction after the backward — ``GradientBucketer(bytes_per_pack=0)``
-    over every data axis, one bucket a dtype run, no hooks."""
+    over every data axis (none on a ``("tp",)`` mesh), one bucket a
+    dtype run, no hooks. On a mesh with ``tp`` the model is
+    tensor-parallel (:func:`_sharded_model`): its leaves are local
+    shards, and ``tp`` takes no part in the gradient reduction."""
     from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
     from distributed_tensorflow_tpu_torch.parallel.collectives import (
         GradientBucketer, ReduceOp, all_reduce)
@@ -1075,7 +1402,7 @@ def _make_post_sync_train_step(cfg: TransformerConfig, mesh,
     n = 1
     for a in axes:
         n *= _shape(mesh)[a]
-    model = _replicated_model(cfg, mesh, seed, params)
+    model = _sharded_model(cfg, mesh, seed, params)
     optimizer = make_optimizer(cfg, model.parameters())
     bucketer = GradientBucketer(mesh, axes, bytes_per_pack=0)
     leaves = jax_leaf_params(cfg, model)
@@ -1086,7 +1413,8 @@ def _make_post_sync_train_step(cfg: TransformerConfig, mesh,
                                                      ReduceOp.MEAN))
 
     inner = (step_factory or _lm_step_factory)(
-        cfg, model, optimizer, DataShard(rows, n, sync_grads))
+        cfg, model, optimizer,
+        DataShard(rows, n, sync_grads if axes else None))
     device = _mesh_device(mesh)
 
     def step(state, batch):

@@ -31,6 +31,8 @@ Port of ``distributed_tensorflow_tpu/ops/attention.py``. Layout is
   of the JAX ``custom_vjp``: selective activation checkpointing sees it
   as one op, so the "attn" remat policies can save its outputs.
 - :func:`flash_attention` — the public function, ``o`` only.
+- :func:`sharded_flash_attention` — the same on this rank's block of
+  operands sharded over the batch and head (``tp``) axes.
 """
 
 from __future__ import annotations
@@ -538,3 +540,27 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return flash_attention_op(q, k, v, causal, float(sm_scale))[0]
+
+
+def sharded_flash_attention(q, k, v, mesh, *, n_heads: int,
+                            causal: bool = False,
+                            sm_scale: float | None = None):
+    """:func:`flash_attention` on this rank's block of ``(B, H, S, hd)``
+    operands sharded as :func:`~distributed_tensorflow_tpu_torch.
+    cluster.topology.attention_shard_spec` says: batch over the data
+    axes, heads over ``tp`` (JAX ``:475``). Attention is independent
+    over batch and heads, so the registered op runs on the local block
+    with no collective (#1 forward, #2/#3 backward, on the card). Raises
+    unless ``q``, ``k`` and ``v`` are each such a block: ``n_heads / tp``
+    heads."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import (
+        attention_shard_spec, mesh_shape)
+    head_axis = attention_shard_spec(mesh)[1]
+    tp = mesh_shape(mesh)[head_axis] if head_axis else 1
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.ndim != 4 or t.shape[1] * tp != n_heads:
+            raise ValueError(
+                f"sharded_flash_attention: {name} {tuple(t.shape)} is not "
+                f"a (B, {n_heads}/{tp}, S, hd) block of {n_heads} heads "
+                f"over tp={tp}")
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)

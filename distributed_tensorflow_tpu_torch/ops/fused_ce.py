@@ -1,7 +1,6 @@
 """Fused vocab-tiled cross-entropy against a tied embedding.
 
-Port of ``distributed_tensorflow_tpu/ops/fused_ce.py`` (the single-device
-op; the sharded op belongs to the multi-GPU slice). Per-token losses of
+Port of ``distributed_tensorflow_tpu/ops/fused_ce.py``. Per-token losses of
 ``hidden @ embed.T`` against ``targets`` without the ``(N, V)`` logits in
 device memory:
 
@@ -28,6 +27,12 @@ device memory:
   :func:`fused_ce_dh_plain` and :func:`fused_ce_de_plain`.
 - :func:`fused_cross_entropy` — the public op, differentiable in
   ``hidden`` and ``embed`` through :class:`FusedCrossEntropy`.
+- :func:`sharded_fused_cross_entropy` — the op on a vocab sharded over
+  a tensor-parallel group (:class:`ShardedFusedCrossEntropy`): the same
+  kernels on each rank's vocab rows, targets another shard owns mapped
+  to −1 (:func:`local_targets`), the per-shard ``(lse, tl)`` merged
+  exactly (:func:`merge_vocab_shards`), and dh all-reduced over the
+  group in the backward.
 
 Any device other than CUDA and CPU raises, and so does a failed build or
 launch: nothing falls back to the plain version on a CUDA tensor.
@@ -511,3 +516,89 @@ def fused_cross_entropy(hidden, embed, targets, *, bwd_variant: str = "b"):
         FusedCrossEntropy.apply(hidden[i:i + ROW_CHUNK], embed,
                                 targets[i:i + ROW_CHUNK], bwd_variant)
         for i in range(0, n, ROW_CHUNK)])
+
+
+# ---------------------------------------------------------------------------
+# Vocab sharded over a tensor-parallel group (JAX :578-739)
+# ---------------------------------------------------------------------------
+
+def local_targets(targets, rows: int, rank: int):
+    """Global target ids in the row space of vocab shard ``rank`` of
+    ``rows`` rows (JAX ``_local_targets``, ``:578``): ids another shard
+    owns become −1, which matches no column, so they add 0 to this
+    shard's target logit and its one-hot correction."""
+    t = targets.long() - rank * rows
+    return torch.where((t >= 0) & (t < rows), t, torch.full_like(t, -1))
+
+
+def merge_vocab_shards(lse, tl):
+    """The row ``(lse, tl)`` of the whole vocabulary from per-shard
+    ``(lse, tl)`` stacked ``(tp, N)``, in shard order (JAX ``:623-625``):
+    ``m = max lse``, ``lse = m + log Σ exp(lse − m)``, ``tl = Σ tl`` (one
+    shard owns each target, the others hold 0). Pure: the distributed op
+    runs it on the gathered stacks, so every rank gets the same bits."""
+    m = lse.max(dim=0).values
+    return m + torch.log(torch.exp(lse - m).sum(dim=0)), tl.sum(dim=0)
+
+
+def _gather_rows(x, group):
+    """``(N,)`` from every rank of ``group`` → ``(size, N)``."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    out = x.new_empty((n * x.shape[0],))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out.view(n, x.shape[0])
+
+
+class ShardedFusedCrossEntropy(torch.autograd.Function):
+    """Per-token losses over a vocab sharded on a tensor-parallel group
+    (JAX ``_sharded_ce``, ``:588-680``). ``embed`` is this rank's
+    ``(V/tp, D)`` rows, ``hidden`` and ``targets`` every rank's same
+    tokens. Forward: :func:`fused_ce_fwd` on the local rows against
+    :func:`local_targets`, the per-shard ``(lse, tl)`` all-gathered and
+    merged by :func:`merge_vocab_shards`. Backward: :func:`fused_ce_bwd`
+    on the local rows with the merged lse, dh summed over the group in
+    f32 (JAX ``:663-665``); dE stays this shard's. That all-reduce is
+    the only tp reduction of the loss's input, so no copy op may stand
+    on ``hidden`` before this op."""
+
+    @staticmethod
+    def forward(ctx, hidden, embed, targets, group, rank, variant):
+        t = local_targets(targets, embed.shape[0], rank)
+        lse, tl = fused_ce_fwd(hidden, embed, t)
+        lse, tl = merge_vocab_shards(_gather_rows(lse, group),
+                                     _gather_rows(tl, group))
+        ctx.save_for_backward(hidden, embed, t, lse)
+        ctx.group, ctx.variant = group, variant
+        return lse - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        hidden, embed, t, lse = ctx.saved_tensors
+        dh, de = fused_ce_bwd(hidden, embed, t, lse, g.float().contiguous(),
+                              variant=ctx.variant)
+        dh = dh.float()
+        dist.all_reduce(dh, group=ctx.group)
+        return dh.to(hidden.dtype), de, None, None, None, None
+
+
+def sharded_fused_cross_entropy(hidden, embed, targets, tp, *,
+                                bwd_variant: str = "b"):
+    """:func:`fused_cross_entropy` with ``embed`` this rank's vocab shard
+    on ``tp`` (a :class:`~distributed_tensorflow_tpu_torch.parallel.
+    tensor_parallel.TensorParallel`: ``group``, ``rank``): per-token
+    losses ``(N,)`` f32 of the whole vocabulary, the same on every rank
+    of the group (JAX ``sharded_fused_cross_entropy``, ``:683``). Rows
+    are cut into chunks of 4096 as there; each chunk merges its own
+    forward."""
+    if bwd_variant not in BWD_VARIANTS:
+        raise ValueError(f"sharded_fused_cross_entropy: bwd_variant="
+                         f"{bwd_variant!r}; expected one of {BWD_VARIANTS}")
+    n = hidden.shape[0]
+    step = n if (n <= ROW_CHUNK or n % ROW_CHUNK) else ROW_CHUNK
+    return torch.cat([
+        ShardedFusedCrossEntropy.apply(hidden[i:i + step], embed,
+                                       targets[i:i + step], tp.group,
+                                       tp.rank, bwd_variant)
+        for i in range(0, n, step)])

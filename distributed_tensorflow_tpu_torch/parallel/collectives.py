@@ -57,8 +57,8 @@ def _names(axis_names: AxisName) -> tuple:
 
 def axis_group(mesh: DeviceMesh, axis_names: AxisName):
     """The process group of one mesh dim, or of all of them (the world
-    the mesh spans). Other subsets of several dims belong to later
-    slices."""
+    the mesh spans). A reduction over another subset of several dims
+    runs dim by dim (:func:`all_reduce`)."""
     names = _names(axis_names)
     dims = tuple(mesh.mesh_dim_names)
     if len(names) == 1:
@@ -70,19 +70,33 @@ def axis_group(mesh: DeviceMesh, axis_names: AxisName):
         f"dim or all of them")
 
 
+def _reduce_groups(mesh: DeviceMesh, axis_names: AxisName) -> list:
+    """The groups a reduction over ``axis_names`` runs on in turn: one
+    for a single dim or for all of them, else one a dim (the data axes
+    ``("dcn", "dp")`` of a ``("dcn", "dp", "tp")`` mesh)."""
+    names = _names(axis_names)
+    if len(names) == 1 or sorted(names) == sorted(mesh.mesh_dim_names):
+        return [axis_group(mesh, names)]
+    return [mesh.get_group(n) for n in names]
+
+
 def axis_size(mesh: DeviceMesh, axis_names: AxisName) -> int:
-    return dist.get_world_size(axis_group(mesh, axis_names))
+    n = 1
+    for name in _names(axis_names):
+        n *= mesh.size(tuple(mesh.mesh_dim_names).index(name))
+    return n
 
 
 def all_reduce(x: torch.Tensor, mesh: DeviceMesh, axis_names: AxisName,
                op: ReduceOp | str = ReduceOp.SUM) -> torch.Tensor:
-    """REDUCTION over ``axis_names`` (JAX ``:146``)."""
+    """REDUCTION over ``axis_names`` (JAX ``:146``); over no axes, a
+    copy."""
     op = ReduceOp.from_any(op)
-    group = axis_group(mesh, axis_names)
     out = x.clone()
-    dist.all_reduce(out, op=_DIST_OP[op], group=group)
+    for group in _reduce_groups(mesh, axis_names):
+        dist.all_reduce(out, op=_DIST_OP[op], group=group)
     if op is ReduceOp.MEAN:
-        out = out / dist.get_world_size(group)
+        out = out / axis_size(mesh, axis_names)
     return out
 
 
@@ -93,10 +107,14 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
     group = axis_group(mesh, axis_name)
     n = dist.get_world_size(group)
     src = x.movedim(axis, 0).contiguous() if tiled else x.contiguous()
-    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:])
-                        if tiled else (n,) + tuple(src.shape))
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.movedim(0, axis) if tiled else out
+    # gathered into one concatenation (gloo takes no stacked output),
+    # viewed as the stack when untiled
+    flat = src if src.ndim else src.reshape(1)
+    out = flat.new_empty((n * flat.shape[0],) + tuple(flat.shape[1:]))
+    dist.all_gather_into_tensor(out, flat, group=group)
+    if tiled:
+        return out.movedim(0, axis)
+    return out.view((n,) + tuple(src.shape))
 
 
 def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
@@ -118,6 +136,54 @@ def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
     if op is ReduceOp.MEAN:
         out = out / n
     return out.movedim(0, axis)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel boundaries (the f / g pair of Megatron-LM)
+# ---------------------------------------------------------------------------
+
+class CopyToGroup(torch.autograd.Function):
+    """Identity forward, SUM all-reduce of the gradient over ``group``
+    backward: where a replicated activation enters column-parallel
+    weights, each rank's gradient of it is a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """SUM all-reduce over ``group`` forward, identity backward: where
+    row-parallel weights' partial outputs become one replicated
+    activation, whose gradient every rank already holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`CopyToGroup` over ``group`` (the mesh's ``tp`` group)."""
+    return CopyToGroup.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`ReduceFromGroup` over ``group`` (the mesh's ``tp``
+    group)."""
+    return ReduceFromGroup.apply(x, group)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ The parameters pack into the same dtype-pure buckets the gradient sync
 plans (:func:`~distributed_tensorflow_tpu_torch.parallel.collectives.
 plan_buckets`), and the port's AdamW is elementwise given the shared
 step count, so the sliced update gives each element the bits the
-replicated update gives it.
+replicated update gives it. :func:`make_zero_update` builds that update
+over any mesh's local parameter blocks (tp-sharded ones included),
+sliced over ``dp`` only.
 """
 
 from __future__ import annotations
@@ -145,6 +147,66 @@ def zero_opt_state(make_optimizer, partition: ZeroPartition,
                         "ZeRO sharding supports optimizers whose initial "
                         "state is all-zero (AdamW)")
     return opt, shards
+
+
+def leaf_metas(leaves) -> list[torch.Tensor]:
+    """Shape-only stand-ins of leaves given as lists of parameters (a
+    stacked leaf's layers), for planning."""
+    return [torch.empty((len(ps),) + tuple(ps[0].shape) if len(ps) > 1
+                        else tuple(ps[0].shape), dtype=ps[0].dtype,
+                        device="meta") for ps in leaves]
+
+
+def make_zero_update(make_optimizer, mesh: DeviceMesh, leaves: Sequence,
+                     *, axis_name: str = "dp", level: int | None = None):
+    """The ZeRO-sharded optimizer update for parameters that live as this
+    rank's mesh-local blocks (JAX ``:186``). ``leaves``: one list of
+    parameters a leaf (a tensor, or a stacked leaf's layers, in order),
+    local shapes — tp-sharded blocks on a mesh with ``tp``. The
+    partition is over those local leaves and slices only ``axis_name``:
+    each rank of it owns 1/N of every packed bucket, and ``make_optimizer``
+    (shards) holds moments for that slice alone. Without ``axis_name``
+    on the mesh the partition is trivial (one shard) and the update a
+    plain optimizer step over flat buckets.
+
+    Returns ``(optimizer, update)``. ``update(g_shards)`` takes this
+    rank's gradient slice of every bucket (from gradients already
+    reduced over the data axes, or a reduce-scatter), steps the
+    optimizer on the flat shards, rebuilds the local blocks with an
+    all-gather over ``axis_name`` and copies them into the parameters.
+    ``update.partition`` is the :class:`ZeroPartition`, ``update.rank``
+    this rank's index on ``axis_name``. The ``zero.partition`` event
+    carries ``level`` where given (the pure-dp step's, as JAX's)."""
+    from distributed_tensorflow_tpu_torch import telemetry
+    names = tuple(mesh.mesh_dim_names)
+    has_axis = axis_name in names
+    n = mesh.size(names.index(axis_name)) if has_axis else 1
+    rank = mesh.get_local_rank(axis_name) if has_axis else 0
+    partition = ZeroPartition(leaf_metas(leaves), n)
+    with torch.no_grad():
+        p_shards = partition.shard(partition.pack(leaves), rank)
+    optimizer, shards = zero_opt_state(make_optimizer, partition, p_shards)
+    telemetry.event("zero.partition", axis=axis_name,
+                    **({} if level is None else {"level": int(level)}),
+                    **partition.summary())
+
+    @torch.no_grad()
+    def update(g_shards):
+        for shard, g in zip(shards, g_shards):
+            shard.grad = g
+        optimizer.step()
+        flats = (partition.all_gather_flats(shards, mesh, axis_name)
+                 if has_axis else shards)
+        for ps, full in zip(leaves, partition.unpack(flats)):
+            if len(ps) == 1:
+                ps[0].copy_(full)
+            else:
+                for p, layer in zip(ps, full):
+                    p.copy_(layer)
+
+    update.partition = partition
+    update.rank = rank
+    return optimizer, update
 
 
 def zero_state_bytes(n_params: int, n_shards: int, level: int,

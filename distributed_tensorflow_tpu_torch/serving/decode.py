@@ -42,6 +42,18 @@ The pool is one dict (``{"k", "v"}`` plus ``{"k_scale", "v_scale"}``
 for int8) updated IN PLACE (index assignment), where the JAX programs
 return a new pool: writes quantize on the way in, gathers dequantize on
 the way out (:func:`_pool_write` / :func:`_pool_window`).
+
+On a serving mesh (JAX's placement, :func:`param_shardings` and
+``kv_cache.pool_shardings``) each function takes ``tp``, this rank's
+place on the ``tp`` dim (:class:`~distributed_tensorflow_tpu_torch.
+parallel.tensor_parallel.TensorParallel`): the parameters and the pool
+hold ``n_heads / tp`` heads, ``d_ff / tp`` hidden units and ``V / tp``
+vocab rows; the embedding lookup is vocab-parallel, each block's
+outputs are all-reduced over ``tp`` and the logits all-gathered. The
+decode and speculative-verify functions also take ``dp``: each data
+rank runs its contiguous share of the batch's rows and the new K/V rows
+are all-gathered over ``dp`` before the write, so every rank's pool
+holds every row (rows replicated, as in JAX).
 """
 
 from __future__ import annotations
@@ -52,10 +64,51 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch.models.transformer import (
-    TransformerConfig, merge_heads, project_heads, rms_norm,
+    TransformerConfig, merge_heads, param_specs, project_heads, rms_norm,
     rotary_embedding, swiglu)
 from distributed_tensorflow_tpu_torch.ops.attention import (
     flash_attention, mha_reference)
+from distributed_tensorflow_tpu_torch.parallel.collectives import (
+    all_gather, tp_reduce)
+from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+    vocab_parallel_embed)
+
+
+def param_shardings(cfg: TransformerConfig, mesh) -> dict:
+    """Each leaf of the canonical serving parameter dict → its sharded
+    mesh axes (JAX ``:465``): the training rules
+    (:func:`~distributed_tensorflow_tpu_torch.models.transformer.
+    param_specs`), heads, ``d_ff`` and the vocabulary over ``tp``."""
+    return param_specs(cfg, mesh)
+
+
+def _embed(params, tokens, dt, tp):
+    """The token embeddings: a lookup, vocab-parallel with ``tp``."""
+    emb = params["embed"].to(dt)
+    return emb[tokens] if tp is None else vocab_parallel_embed(emb, tokens,
+                                                               tp)
+
+
+def _reduce(x, tp):
+    """A row-parallel output summed over ``tp`` (as is without)."""
+    return x if tp is None else tp_reduce(x, tp.group)
+
+
+def _gather(x, axis_handle, dim: int):
+    """``x`` all-gathered over the handle's mesh dim along ``dim``."""
+    if axis_handle is None:
+        return x
+    return all_gather(x.contiguous(), axis_handle.mesh, axis_handle.axis,
+                      axis=dim)
+
+
+def _dp_rows(dp, n: int) -> slice:
+    """This data rank's contiguous share of ``n`` rows (all without
+    ``dp``; ``n`` a multiple of its size)."""
+    if dp is None:
+        return slice(0, n)
+    per = n // dp.size
+    return slice(dp.rank * per, (dp.rank + 1) * per)
 
 
 def canonical_params(cfg: TransformerConfig, params) -> dict:
@@ -188,7 +241,8 @@ def make_copy_fn():
 
 
 def model_forward(cfg: TransformerConfig, params, tokens, lengths=None, *,
-                  return_kv: bool = False, last_only: bool = False):
+                  return_kv: bool = False, last_only: bool = False,
+                  tp=None):
     """Full-sequence forward over the canonical parameter dict — the
     serving-side twin of ``TransformerLM.forward``. ``lengths`` masks a
     right-padded batch with the factored rule; without it attention is
@@ -197,24 +251,24 @@ def model_forward(cfg: TransformerConfig, params, tokens, lengths=None, *,
     also returns the per-layer post-RoPE K and V ``(L, B, H, S, hd)`` —
     what prefill writes into the cache.
     ``last_only`` projects only the final position onto the vocabulary
-    (``(B, 1, V)`` logits)."""
-    x, kv = _hidden(cfg, params, tokens, lengths, return_kv)
+    (``(B, 1, V)`` logits). ``tp``: this rank's shards (the module
+    docstring); K and V are its heads, the logits whole."""
+    x, kv = _hidden(cfg, params, tokens, lengths, return_kv, tp)
     if last_only:
         x = x[:, -1:]
-    logits = _logits(params, x, cfg.dtype)
+    logits = _logits(params, x, cfg.dtype, tp)
     if return_kv:
         return logits, kv
     return logits
 
 
 def _hidden(cfg: TransformerConfig, params, tokens, lengths=None,
-            return_kv: bool = False):
+            return_kv: bool = False, tp=None):
     """The full forward up to the final norm: ``(x (B, S, D), kv)``,
     ``kv`` the per-layer K and V stacks when ``return_kv`` (else None).
     Attention as :func:`model_forward` says."""
     dt = cfg.dtype
-    embed = params["embed"].to(dt)
-    x = embed[tokens]                                    # (B, S, D)
+    x = _embed(params, tokens, dt, tp)                   # (B, S, D)
     ks, vs = [], []
     for l in range(cfg.n_layers):
         p = _layer(params, l)
@@ -231,26 +285,27 @@ def _hidden(cfg: TransformerConfig, params, tokens, lengths=None,
             o = mha_reference(q, k, v, causal=cfg.causal)
         else:
             o = flash_attention(q, k, v, causal=cfg.causal)
-        x = x + merge_heads(o, att["out"].to(dt))
+        x = x + _reduce(merge_heads(o, att["out"].to(dt)), tp)
         h = _rms_norm(x, p["RMSNorm_1"]["scale"], dt)
-        x = x + _mlp(h, p["mlp"], dt)
+        x = x + _reduce(_mlp(h, p["mlp"], dt), tp)
         if return_kv:
             ks.append(k)
             vs.append(v)
     return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
 
 
-def _logits(params, x, dt):
-    """Final norm and the tied-embedding projection, in f32."""
+def _logits(params, x, dt, tp=None):
+    """Final norm and the tied-embedding projection, in f32; with ``tp``
+    each rank's vocab columns all-gathered into the whole row."""
     x = _rms_norm(x, params["final_norm"]["scale"], dt)
-    return (x @ params["embed"].to(dt).T).float()
+    return _gather((x @ params["embed"].to(dt).T).float(), tp, -1)
 
 
 def _mlp(h, mlp, dt):
     return swiglu(h, mlp["wi"].to(dt), mlp["wo"].to(dt))
 
 
-def make_prefill_fn(cfg: TransformerConfig, cache_cfg=None):
+def make_prefill_fn(cfg: TransformerConfig, cache_cfg=None, tp=None):
     """``prefill(params, pool, tokens, write_rows)`` → ``(last_logits,
     pool)``.
 
@@ -263,7 +318,8 @@ def make_prefill_fn(cfg: TransformerConfig, cache_cfg=None):
     @torch.no_grad()
     def prefill(params, pool, tokens, write_rows):
         logits, (ks, vs) = model_forward(cfg, params, tokens,
-                                         return_kv=True, last_only=True)
+                                         return_kv=True, last_only=True,
+                                         tp=tp)
         for l in range(cfg.n_layers):
             # (1, H, n, hd) -> (n, H, hd)
             _pool_write(pool, l, write_rows, ks[l, 0].transpose(0, 1),
@@ -273,7 +329,8 @@ def make_prefill_fn(cfg: TransformerConfig, cache_cfg=None):
     return prefill
 
 
-def make_decode_fn(cfg: TransformerConfig, cache_cfg=None):
+def make_decode_fn(cfg: TransformerConfig, cache_cfg=None, tp=None,
+                   dp=None):
     """``decode(params, pool, tokens, positions, lengths, write_rows,
     window_rows)`` → ``(logits, pool)``.
 
@@ -281,7 +338,8 @@ def make_decode_fn(cfg: TransformerConfig, cache_cfg=None):
     (B,) the token being fed, ``positions`` (B,) its absolute position,
     ``lengths`` (B,) the post-append visible length, ``write_rows`` (B,)
     the flat pool row this token's K/V lands in, ``window_rows`` (B, W)
-    each sequence's block-window gather index."""
+    each sequence's block-window gather index. With ``dp`` (B a multiple
+    of its size) the logits are this data rank's rows only."""
     if not cfg.causal:
         raise ValueError("incremental decode requires a causal model; "
                          "serve bidirectional (BERT) configs through the "
@@ -292,8 +350,10 @@ def make_decode_fn(cfg: TransformerConfig, cache_cfg=None):
     def decode(params, pool, tokens, positions, lengths, write_rows,
                window_rows):
         dt = cfg.dtype
-        embed = params["embed"].to(dt)
-        x = embed[tokens]                                # (B, D)
+        mine = _dp_rows(dp, tokens.shape[0])
+        tokens, positions, lengths, window_rows = (
+            a[mine] for a in (tokens, positions, lengths, window_rows))
+        x = _embed(params, tokens, dt, tp)               # (B, D)
         pos_q = positions[:, None]                       # (B, 1)
         for l in range(cfg.n_layers):
             p = _layer(params, l)
@@ -302,22 +362,23 @@ def make_decode_fn(cfg: TransformerConfig, cache_cfg=None):
             q = rotary_at(project_heads(h, att["query"].to(dt)), pos_q)
             k = rotary_at(project_heads(h, att["key"].to(dt)), pos_q)
             v = project_heads(h, att["value"].to(dt))    # (B, H, 1, hd)
-            # write THEN gather: the query must see its own position
-            _pool_write(pool, l, write_rows, k[:, :, 0], v[:, :, 0],
-                        quantized)
+            # write THEN gather: the query must see its own position;
+            # every data rank writes every row
+            _pool_write(pool, l, write_rows, _gather(k[:, :, 0], dp, 0),
+                        _gather(v[:, :, 0], dp, 0), quantized)
             kw, vw = _pool_window(pool, l, window_rows, dt, quantized)
             o = mha_reference(q, kw, vw, causal=True, lengths=lengths,
                               q_positions=positions)     # (B, H, 1, hd)
-            x = x + merge_heads(o, att["out"].to(dt))[:, 0]
+            x = x + _reduce(merge_heads(o, att["out"].to(dt))[:, 0], tp)
             h = _rms_norm(x, p["RMSNorm_1"]["scale"], dt)
-            x = x + _mlp(h, p["mlp"], dt)
-        x = _rms_norm(x, params["final_norm"]["scale"], dt)
-        return (x @ embed.T).float(), pool
+            x = x + _reduce(_mlp(h, p["mlp"], dt), tp)
+        return _logits(params, x, dt, tp), pool
 
     return decode
 
 
-def make_extend_fn(cfg: TransformerConfig, cache_cfg=None):
+def make_extend_fn(cfg: TransformerConfig, cache_cfg=None, tp=None,
+                   dp=None):
     """``extend(params, pool, tokens, positions, lengths, write_rows,
     window_rows)`` → ``(logits, pool)`` — E tokens per sequence in one
     cache-aware forward.
@@ -342,7 +403,8 @@ def make_extend_fn(cfg: TransformerConfig, cache_cfg=None):
     - ``(B,)`` visible lengths — the speculative verify (ragged spans;
       padded entries have positions at or past ``lengths`` so the
       factored mask zeroes them): ``mha_reference(lengths=,
-      q_positions=)``, as :func:`make_decode_fn`.
+      q_positions=)``, as :func:`make_decode_fn`; with ``dp`` each data
+      rank runs its share of the rows, as there, and gets their logits.
 
     The pool is updated in place."""
     if not cfg.causal:
@@ -355,8 +417,13 @@ def make_extend_fn(cfg: TransformerConfig, cache_cfg=None):
     def extend(params, pool, tokens, positions, lengths, write_rows,
                window_rows):
         dt = cfg.dtype
-        b, e = tokens.shape
-        x = params["embed"].to(dt)[tokens]               # (B, E, D)
+        split = dp if lengths is not None else None
+        mine = _dp_rows(split, tokens.shape[0])
+        tokens, positions, window_rows = (
+            a[mine] for a in (tokens, positions, window_rows))
+        if lengths is not None:
+            lengths = lengths[mine]
+        x = _embed(params, tokens, dt, tp)               # (B, E, D)
         rows = write_rows.reshape(-1)                    # (B*E,)
         for l in range(cfg.n_layers):
             p = _layer(params, l)
@@ -366,8 +433,10 @@ def make_extend_fn(cfg: TransformerConfig, cache_cfg=None):
             k = rotary_at(project_heads(h, att["key"].to(dt)), positions)
             v = project_heads(h, att["value"].to(dt))    # (B, H, E, hd)
             # write THEN gather: query i must see keys 0..i of the span
-            _pool_write(pool, l, rows, k.transpose(1, 2).flatten(0, 1),
-                        v.transpose(1, 2).flatten(0, 1), quantized)
+            _pool_write(pool, l, rows,
+                        _gather(k.transpose(1, 2).flatten(0, 1), split, 0),
+                        _gather(v.transpose(1, 2).flatten(0, 1), split, 0),
+                        quantized)
             kw, vw = _pool_window(pool, l, window_rows, dt, quantized)
             if lengths is not None:
                 o = mha_reference(q, kw, vw, causal=True, lengths=lengths,
@@ -377,15 +446,15 @@ def make_extend_fn(cfg: TransformerConfig, cache_cfg=None):
             else:
                 o = flash_attention(q, kw.contiguous(), vw.contiguous(),
                                     causal=True)
-            x = x + merge_heads(o, att["out"].to(dt))
+            x = x + _reduce(merge_heads(o, att["out"].to(dt)), tp)
             h = _rms_norm(x, p["RMSNorm_1"]["scale"], dt)
-            x = x + _mlp(h, p["mlp"], dt)
-        return _logits(params, x, dt), pool
+            x = x + _reduce(_mlp(h, p["mlp"], dt), tp)
+        return _logits(params, x, dt, tp), pool
 
     return extend
 
 
-def make_draft_fn(cfg: TransformerConfig):
+def make_draft_fn(cfg: TransformerConfig, tp=None):
     """``draft(params, tokens, lengths)`` → (B,) int64 greedy next token
     at each sequence's end — the speculative proposal step, batched over
     the decode batch, by full recompute (the draft keeps no cache state
@@ -402,10 +471,11 @@ def make_draft_fn(cfg: TransformerConfig):
 
     @torch.no_grad()
     def draft(params, tokens, lengths):
-        x, _ = _hidden(cfg, params, tokens, lengths if mask else None)
+        x, _ = _hidden(cfg, params, tokens, lengths if mask else None,
+                       tp=tp)
         last = x[torch.arange(tokens.shape[0], device=x.device),
                  lengths.clamp_min(1) - 1]                  # (B, D)
-        return torch.argmax(_logits(params, last, cfg.dtype), dim=-1)
+        return torch.argmax(_logits(params, last, cfg.dtype, tp), dim=-1)
 
     return draft
 

@@ -63,9 +63,19 @@ feature on or off), as in the JAX engine:
   ``extend`` forward, the longest agreeing prefix commits (plus the
   target's own next token), and the first rejection truncates.
 
-Mesh placement and the checkpoint-restore entry points
-(``from_checkpoint``, ``load_version``, ``begin_load_version``) belong
-to later slices.
+Mesh placement (JAX ``:10-14``): ``mesh=`` a ``("tp",)``, ``("dp",)``
+or ``("dp", "tp")`` ``DeviceMesh`` over every rank, one engine a rank.
+Heads, ``d_ff`` and the vocabulary shard over ``tp`` by the training
+rules (``decode.param_shardings``), the pool's heads follow
+(``kv_cache.pool_shardings``), and the decode batch's rows split over
+``dp``. Every rank steps the same scheduler over the same requests
+(host logic, deterministic), so every rank's scheduler sees every
+stream: the chosen tokens are all-gathered over ``dp``. A migration
+payload gathers the heads over ``tp`` (the single-device engine's
+layout, byte for byte) and adoption scatters them.
+
+The checkpoint-restore entry points (``from_checkpoint``,
+``load_version``, ``begin_load_version``) belong to a later slice.
 """
 
 from __future__ import annotations
@@ -80,7 +90,11 @@ import torch
 
 from distributed_tensorflow_tpu_torch import telemetry
 from distributed_tensorflow_tpu_torch.models.transformer import (
-    TransformerConfig, resolve_device)
+    TransformerConfig, _mesh_device, resolve_device, shard_params_at)
+from distributed_tensorflow_tpu_torch.parallel.collectives import (
+    all_gather)
+from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel, check_divisible)
 from distributed_tensorflow_tpu_torch.resilience import faults
 from distributed_tensorflow_tpu_torch.serving import decode as decode_lib
 from distributed_tensorflow_tpu_torch.serving.kv_cache import (
@@ -147,9 +161,15 @@ class InferenceEngine:
     ``role="prefill"`` makes a prefill-only replica (no decode
     function; ``serving/migrate.py`` moves its sequences on);
     ``snapshot_step`` is the weights' step in ``weights_version``
-    (default 0: weights passed in directly)."""
+    (default 0: weights passed in directly).
+
+    ``mesh`` (a ``DeviceMesh`` of dims ``dp`` and/or ``tp``; the module
+    docstring) places this rank's shard of the full ``params`` on its
+    device, which replaces ``device``; ``n_heads``, ``d_ff`` and
+    ``vocab_size`` must divide by ``tp`` (else ``ValueError``)."""
 
     def __init__(self, cfg: TransformerConfig, params, *, device="cuda",
+                 mesh=None,
                  num_blocks: int = 64, block_size: int = 16,
                  max_slots: int = 8, max_prompt_len: int | None = None,
                  token_budget: int | None = None,
@@ -166,7 +186,20 @@ class InferenceEngine:
         if role not in ("both", "prefill"):
             raise ValueError(f"role={role!r}; expected 'both' or "
                              f"'prefill'")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            extra = set(mesh.mesh_dim_names) - {"dp", "tp"}
+            if extra:
+                raise ValueError(f"a serving mesh has dims dp and tp; got "
+                                 f"{tuple(mesh.mesh_dim_names)}")
+            self.device = _mesh_device(mesh)
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
+        #: this rank on the mesh's tp and dp dims (None without them)
+        self.tp = TensorParallel.from_mesh(mesh)
+        self.dp = TensorParallel.from_mesh(mesh, "dp")
+        if self.tp is not None:
+            check_divisible(cfg, self.tp.size)
         if speculative_k and not cfg.causal:
             raise ValueError("speculative decoding requires a causal "
                              "model")
@@ -209,21 +242,19 @@ class InferenceEngine:
             queue=AdmissionQueue(queue_capacity, queue_policy),
             prefix_caching=self.prefix_caching)
 
-        self.params = decode_lib.to_compute(
-            decode_lib.canonical_params(cfg, params), cfg.dtype,
-            self.device)
         #: model-version identity stamped on serve.prefill/serve.request:
-        #: snapshot step (0 = weights passed in directly) @ digest;
-        #: rotated by install_version
+        #: snapshot step (0 = weights passed in directly) @ digest of the
+        #: full weights; rotated by install_version
+        self.params, self.weights_digest = self._place(cfg, params)
         self.weights_step = (int(snapshot_step)
                              if snapshot_step is not None else 0)
-        self.weights_digest = params_digest(self.params)
         self.swaps = 0
-        self.pool = init_pool(cache_cfg, self.device)
-        self._prefill = decode_lib.make_prefill_fn(cfg, cache_cfg)
-        self._decode = (decode_lib.make_decode_fn(cfg, cache_cfg)
+        self.pool = init_pool(cache_cfg, self.device, mesh=mesh)
+        tp, dp = self.tp, self.dp
+        self._prefill = decode_lib.make_prefill_fn(cfg, cache_cfg, tp)
+        self._decode = (decode_lib.make_decode_fn(cfg, cache_cfg, tp, dp)
                         if cfg.causal and role != "prefill" else None)
-        self._extend = (decode_lib.make_extend_fn(cfg, cache_cfg)
+        self._extend = (decode_lib.make_extend_fn(cfg, cache_cfg, tp, dp)
                         if cfg.causal else None)
         self._copy = decode_lib.make_copy_fn()
 
@@ -238,11 +269,11 @@ class InferenceEngine:
                 draft_cfg, self._draft_params = decode_lib.truncated_draft(
                     cfg, self.params)
             else:
-                self._draft_params = decode_lib.to_compute(
-                    decode_lib.canonical_params(draft_cfg, draft_params),
-                    draft_cfg.dtype, self.device)
+                if self.tp is not None:
+                    check_divisible(draft_cfg, self.tp.size)
+                self._draft_params, _ = self._place(draft_cfg, draft_params)
             self.draft_cfg = draft_cfg
-            self._draft = decode_lib.make_draft_fn(draft_cfg)
+            self._draft = decode_lib.make_draft_fn(draft_cfg, tp)
 
         # shared inference namespace (process-wide instruments)
         reg = telemetry.get_registry()
@@ -307,6 +338,42 @@ class InferenceEngine:
                 insert=self._insert_block, epoch=self._cache_epoch())
             self.spill_tier = tier
 
+    def _place(self, cfg, params) -> tuple:
+        """``(this rank's compute-dtype parameters on its device, digest
+        of the full ones)``: the canonical dict cast as at construction,
+        and on a ``tp`` mesh its shard (``shard_params_at``)."""
+        full = decode_lib.to_compute(decode_lib.canonical_params(
+            cfg, params), cfg.dtype, self.device)
+        digest = params_digest(full)
+        if self.tp is not None:
+            full = shard_params_at(cfg, full, self.tp.rank, self.tp.size)
+        return full, digest
+
+    def _pick(self, logits) -> np.ndarray:
+        """The greedy tokens of every row of the batch, on the host: the
+        argmax of this rank's rows, all-gathered over ``dp``."""
+        nxt = torch.argmax(logits, dim=-1)
+        if self.dp is not None:
+            nxt = all_gather(nxt, self.mesh, "dp")
+        return nxt.cpu().numpy()
+
+    def _padded(self, n: int) -> int:
+        """``n`` rows rounded up to a multiple of the ``dp`` size (the
+        extra rows feed token 0 and write the trash block)."""
+        k = self.dp.size if self.dp is not None else 1
+        return -(-n // k) * k
+
+    def _heads(self, a, gather: bool):
+        """A pool array's rows ``(L, R, H_local, ...)`` → all heads over
+        ``tp`` (``gather``), or all heads → this rank's (else); as is
+        without ``tp``."""
+        if self.tp is None:
+            return a
+        if gather:
+            return all_gather(a, self.mesh, "tp", axis=2)
+        h = a.shape[2] // self.tp.size
+        return a[:, :, self.tp.rank * h:(self.tp.rank + 1) * h]
+
     @property
     def weights_version(self) -> str:
         """``<step>@<digest>`` — the identity stamped on serving events."""
@@ -338,9 +405,7 @@ class InferenceEngine:
         dropped: the latency clock keys on the request id."""
         t0 = started_mono if started_mono is not None \
             else time.monotonic()
-        new = decode_lib.to_compute(
-            decode_lib.canonical_params(self.cfg, params), self.cfg.dtype,
-            self.device)
+        new, digest = self._place(self.cfg, params)
         old_l, new_l = _leaves(self.params), _leaves(new)
         if old_l.keys() != new_l.keys() or any(
                 old_l[k].shape != new_l[k].shape for k in old_l):
@@ -357,7 +422,7 @@ class InferenceEngine:
                 self.cfg, self.params)
         self.weights_step = (int(step) if step is not None
                              else self.weights_step + 1)
-        self.weights_digest = params_digest(self.params)
+        self.weights_digest = digest
         dropped = 0
         if self.scheduler.prefix_cache is not None:
             dropped = self.scheduler.prefix_cache.fence(self._cache_epoch())
@@ -535,7 +600,7 @@ class InferenceEngine:
         masked, so neither choice changes any row's result."""
         bs = self.cache_cfg.block_size
         W = max(len(s.table.blocks) for s in batch) * bs
-        B = len(batch)
+        B = self._padded(len(batch))
         tokens = np.zeros(B, np.int64)
         positions = np.zeros(B, np.int64)
         lengths = np.zeros(B, np.int64)
@@ -559,7 +624,7 @@ class InferenceEngine:
         logits, self.pool = self._decode(
             self.params, self.pool, t(tokens), t(positions), t(lengths),
             t(write_rows), t(window_rows))
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = self._pick(logits)
         self.decode_steps += 1
         emit = telemetry.enabled()
         for i, seq in enumerate(batch):
@@ -618,11 +683,12 @@ class InferenceEngine:
         W = max(len(s.table.blocks) for s in batch) \
             * self.cache_cfg.block_size
         E = k + 1
-        tokens = np.zeros((B, E), np.int64)
-        positions = np.full((B, E), W, np.int64)   # pad -> masked query
-        lengths = np.zeros(B, np.int64)
-        write_rows = np.zeros((B, E), np.int64)    # pad -> trash row
-        window_rows = np.zeros((B, W), np.int64)
+        rows_b = self._padded(B)
+        tokens = np.zeros((rows_b, E), np.int64)
+        positions = np.full((rows_b, E), W, np.int64)  # pad -> masked
+        lengths = np.zeros(rows_b, np.int64)
+        write_rows = np.zeros((rows_b, E), np.int64)   # pad -> trash row
+        window_rows = np.zeros((rows_b, W), np.int64)
         for i, seq in enumerate(batch):
             L, ke = seq.length, spans[i]
             tokens[i, 0] = seq.last_token
@@ -635,7 +701,7 @@ class InferenceEngine:
         logits, self.pool = self._extend(
             self.params, self.pool, t(tokens), t(positions), t(lengths),
             t(write_rows), t(window_rows))
-        target_next = torch.argmax(logits, dim=-1).cpu().numpy()  # (B, E)
+        target_next = self._pick(logits)                     # (B, E)
         self.decode_steps += 1
 
         # 3. commit the agreeing prefix + the target's next token
@@ -806,7 +872,8 @@ class InferenceEngine:
                             direction="export", reason=reason,
                             blocks=len(blocks)) as sp:
             rows = self._rows_of(blocks)
-            arrays = {n: a[:, rows].cpu() for n, a in self.pool.items()}
+            arrays = {n: self._heads(a[:, rows], True).cpu()
+                      for n, a in self.pool.items()}
             ttft = ((seq.first_token_s - seq.admitted_s)
                     if seq.first_token_s is not None else None)
             payload = _migrate.MigrationPayload(
@@ -879,7 +946,8 @@ class InferenceEngine:
                 raise
             rows = self._rows_of(blocks)
             for n, a in self.pool.items():
-                a[:, rows] = payload.arrays[n].to(self.device)
+                a[:, rows] = self._heads(payload.arrays[n], False).to(
+                    self.device)
             seq.preemptions = payload.preemptions
             if payload.ttft_s is not None:
                 # keep the source-measured time to first token

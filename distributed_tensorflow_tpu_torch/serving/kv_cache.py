@@ -615,17 +615,33 @@ class PrefixCache:
         }
 
 
-def init_pool(cache_cfg: CacheConfig, device="cuda") -> dict:
+def pool_shardings(mesh, cache_cfg: CacheConfig | None = None) -> dict:
+    """Each pool array → the mesh axis (or None) of each of its dims
+    (JAX ``:676``): heads over ``tp``, as training shards them; rows
+    replicated (``dp`` shards the decode batch's slots, and any slot's
+    window may touch any row); int8 scales follow their pool's heads.
+    ``mesh`` a ``DeviceMesh`` or a ``{name: size}`` mapping."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import mesh_shape
+    head = "tp" if "tp" in mesh_shape(mesh) else None
+    out = {"k": (None, None, head, None), "v": (None, None, head, None)}
+    if cache_cfg is not None and cache_cfg.quantized:
+        out["k_scale"] = out["v_scale"] = (None, None, head)
+    return out
+
+
+def init_pool(cache_cfg: CacheConfig, device="cuda", mesh=None) -> dict:
     """Zero-initialized ``{"k", "v"}`` pools on ``device`` (plus
     ``k_scale`` / ``v_scale`` per-(row, head) f32 scales when the config
-    is int8-quantized)."""
+    is int8-quantized). With ``mesh``, this rank's block of them by
+    :func:`pool_shardings`: ``n_heads / tp`` heads, every row."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import tp_size
     from distributed_tensorflow_tpu_torch.models.transformer import (
         resolve_device)
 
     device = resolve_device(device)
     rows = cache_cfg.num_blocks * cache_cfg.block_size
-    shape = (cache_cfg.n_layers, rows, cache_cfg.n_heads,
-             cache_cfg.head_dim)
+    heads = cache_cfg.n_heads // (tp_size(mesh) if mesh is not None else 1)
+    shape = (cache_cfg.n_layers, rows, heads, cache_cfg.head_dim)
     pool = {"k": torch.zeros(shape, dtype=cache_cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cache_cfg.dtype, device=device)}
     if cache_cfg.quantized:

@@ -252,8 +252,9 @@ class DisaggregatedEngine:
 
     ``submit`` / ``step`` / ``run_until_idle`` / ``generate`` /
     ``stats`` / ``idle`` / ``block_accounting`` mirror the monolithic
-    engine. ``engine_kwargs`` go to every replica (``device``,
-    ``kv_dtype``, pool sizes, ...)."""
+    engine. ``engine_kwargs`` go to every replica (``device``, ``mesh``,
+    ``kv_dtype``, pool sizes, ...); on a ``mesh`` every replica is
+    placed on it, and each payload carries every head."""
 
     def __init__(self, cfg, params, *, num_decode: int = 1,
                  wire: bool = False, rescue: bool = True,

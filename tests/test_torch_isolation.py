@@ -55,7 +55,8 @@ print(json.dumps({"imported": names,
                 "telemetry.events", "telemetry.goodput",
                 "resilience.faults", "checkpoint.peer_snapshot",
                 "cluster.bootstrap", "cluster.topology",
-                "parallel.collectives", "parallel.zero", "telemetry.trace",
+                "parallel.collectives", "parallel.zero",
+                "parallel.tensor_parallel", "telemetry.trace",
                 "testing.multi_process_runner"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []

@@ -188,7 +188,9 @@ def dp_train_rank(params: dict, tokens: np.ndarray, steps: int,
         state, losses = _run_steps(step, state, tok, steps)
         out[name] = {"losses": losses, "params": _np_params(state["model"])}
     meshes = {"dp": dp, "hybrid": hybrid,
-              "dp_tp": topology.make_mesh({"dp": 2, "tp": 2}, device="cpu")}
+              "dp_tp": topology.make_mesh({"dp": 2, "tp": 2}, device="cpu"),
+              "dp_fsdp": topology.make_mesh({"dp": 2, "fsdp": 2},
+                                            device="cpu")}
     out["refusals"] = []
     for mesh_name, cfg_kw, kw in refusals:
         kw = {k: (_never_built if v == "dummy" else v) for k, v in kw.items()}

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Data-parallel training of the PyTorch port across GPUs, with the phase
-breakdown of ``bench.py``'s ``transformer_phase_breakdown``.
+"""Data- and tensor-parallel training of the PyTorch port across GPUs,
+with the phase breakdown of ``bench.py``'s ``transformer_phase_breakdown``.
 
-    python3 tools/torch_dp_run.py --world 4 [--mesh dp|dcn2xdp2]
-        [--zero 0|1|2] [--grad-sync auto|none|gspmd]
+    python3 tools/torch_dp_run.py --world 4
+        [--mesh dp|dcn2xdp2|tp4|dp2xtp2] [--zero 0|1|2]
+        [--grad-sync auto|none|gspmd]
         [--workload transformer|bert] [--device cuda|cpu] [--tiny]
 
 Spawns one rank a device through the port's ``testing/
@@ -19,9 +20,18 @@ warm-up step of:
 
 - the full step;
 - the same compute without the gradient sync (``grad_sync="none"``;
-  for BERT, and at one rank, the step on the rank's rows alone);
+  for BERT, and at one rank, the step on the rank's rows alone; on a
+  mesh with ``tp``, the tensor-parallel step with its data-axes
+  reduction left out, none for BERT);
 - the bucketed all-reduce alone on a gradient-shaped list of tensors
-  (serial: nothing to hide behind), chained.
+  (serial: nothing to hide behind), chained;
+- on a mesh with ``tp`` (``tp4``: ``{"tp": world}``; ``dp2xtp2``:
+  ``{"dp": 2, "tp": world / 2}``, 8 × 1024 tokens a data shard): the
+  step's tp collectives alone, chained on tensors of their shapes —
+  per layer two forward and two backward all-reduces of the ``(rows,
+  S, D)`` activation in the compute dtype, the embedding's one, and per
+  4096-row CE chunk the f32 dh all-reduce and the two all-gathers of
+  its ``(lse, tl)`` (``tp_serial_ms``, with their count and bytes).
 
 Rank 0 prints one JSON line with ``bench.py``'s fields: ``compute_frac``
 (no-sync over full), ``collective_frac`` (exposed over full, exposed =
@@ -100,6 +110,42 @@ def _launches() -> dict:
             "fused_ce_bwd_tc": fused_ce.fused_ce_bwd.launches_tc}
 
 
+def _tp_serial(mesh, cfg, rows, device, timed, args) -> dict:
+    """The train step's tp collectives alone, on tensors of their shapes,
+    chained (one after another on the tp group): per layer 4 all-reduces
+    of the ``(rows, S, D)`` activation in the compute dtype (two forward,
+    two backward), one for the embedding lookup, and per 4096-row chunk
+    of the CE one f32 dh all-reduce and two all-gathers of ``N`` f32."""
+    import torch
+    import torch.distributed as dist
+    group = mesh.get_group("tp")
+    n = dist.get_world_size(group)
+    tokens = rows * cfg.max_seq_len
+    act = torch.zeros((rows, cfg.max_seq_len, cfg.d_model),
+                      dtype=cfg.dtype, device=device)
+    chunk = 4096 if tokens > 4096 and tokens % 4096 == 0 else tokens
+    dh = torch.zeros((chunk, cfg.d_model), dtype=torch.float32,
+                     device=device)
+    row = torch.zeros(chunk, dtype=torch.float32, device=device)
+    gathered = torch.zeros(chunk * n, dtype=torch.float32, device=device)
+    n_act = 4 * cfg.n_layers + 1
+    n_chunks = tokens // chunk if cfg.loss_impl == "kernel" else 0
+
+    def chain():
+        for _ in range(n_act):
+            dist.all_reduce(act, group=group)
+        for _ in range(n_chunks):
+            dist.all_reduce(dh, group=group)
+            dist.all_gather_into_tensor(gathered, row, group=group)
+            dist.all_gather_into_tensor(gathered, row, group=group)
+    return {"tp": n, "tp_serial_ms": _best(timed, chain, args.iters,
+                                            args.reps) * 1e3,
+            "tp_collectives_per_step": n_act + 3 * n_chunks,
+            "tp_bytes_per_step": (n_act * act.numel() * act.element_size()
+                                  + n_chunks * (dh.numel() * 4
+                                                + 2 * row.numel() * 4))}
+
+
 def _rank(args) -> dict:
     import gc
     import numpy as np
@@ -115,11 +161,17 @@ def _rank(args) -> dict:
     if args.mesh == "dcn2xdp2":
         mesh = topology.make_hybrid_mesh({"dcn": 2}, {"dp": -1},
                                          device=args.device)
+    elif args.mesh == "tp4":
+        mesh = topology.make_mesh({"tp": world}, device=args.device)
+    elif args.mesh == "dp2xtp2":
+        mesh = topology.make_mesh({"dp": 2, "tp": -1}, device=args.device)
     else:
         mesh = topology.make_mesh({"dp": world}, device=args.device)
+    tp = topology.tp_size(mesh)
     cfg = _config(args.workload, args.tiny)
     rows = BATCH[args.workload]
-    gb = rows * world
+    n_data = topology.mesh_axis_size(mesh, *topology.data_axes(mesh))
+    gb = rows * n_data
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         2, cfg.vocab_size, (gb, cfg.max_seq_len))).to(device)
     batch = {"tokens": tokens}
@@ -157,7 +209,16 @@ def _rank(args) -> dict:
         torch.cuda.empty_cache()
 
     # the same compute without the sync
-    if args.workload == "transformer" and world > 1 and \
+    if tp > 1 or "tp" in mesh.mesh_dim_names:
+        nstep = None
+        if args.workload == "transformer":
+            def no_sync(cfg_, model_, opt_, shard):
+                return tf._lm_step_factory(cfg_, model_, opt_, tf.DataShard(
+                    shard.rows, shard.n_shards, None))
+            nstate, nstep = tf._make_post_sync_train_step(
+                cfg, mesh, gb, 0, no_sync, None)
+            local = batch
+    elif args.workload == "transformer" and world > 1 and \
             args.mesh in ("dp", "dcn2xdp2"):
         nstate, nstep = tf.make_sharded_train_step(cfg, mesh, gb,
                                                    grad_sync="none")
@@ -172,35 +233,45 @@ def _rank(args) -> dict:
                  else tf.make_train_step(cfg, model, opt))
         nstate = {"model": model, "optimizer": opt, "step": 0}
         local = {"tokens": tokens[rank * rows:(rank + 1) * rows]}
-    nbox = {"state": nstate}
+    dt_nosync = None
+    if nstep is not None:
+        nbox = {"state": nstate}
 
-    def nosync():
-        nbox["state"], _ = nstep(nbox["state"], local)
-    dt_nosync = _best(timed, nosync, args.iters, args.reps)
-    del nbox, nstate, nstep
+        def nosync():
+            nbox["state"], _ = nstep(nbox["state"], local)
+        dt_nosync = _best(timed, nosync, args.iters, args.reps)
+        del nbox, nstate, nstep
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     # the bucketed all-reduce alone, chained on a gradient-shaped list
     axes = topology.data_axes(mesh)
-    outer, inner = tf._hybrid_axes(mesh, axes)
-    bucketer = GradientBucketer(mesh, axes, outer_axis=outer,
-                                inner_axis=inner)
-    gbox = {"g": grads}
+    dt_coll, plan = 0.0, []
+    if axes:
+        outer, inner = tf._hybrid_axes(mesh, axes)
+        bucketer = GradientBucketer(mesh, axes, outer_axis=outer,
+                                    inner_axis=inner)
+        gbox = {"g": grads}
 
-    def collective():
-        gbox["g"] = bucketer.all_reduce(gbox["g"], ReduceOp.MEAN)
-    dt_coll = _best(timed, collective, args.iters, args.reps)
-    plan = bucketer.plan_summary(grads)
+        def collective():
+            gbox["g"] = bucketer.all_reduce(gbox["g"], ReduceOp.MEAN)
+        dt_coll = _best(timed, collective, args.iters, args.reps)
+        plan = bucketer.plan_summary(grads)
+    if "tp" in mesh.mesh_dim_names:
+        out.update(_tp_serial(mesh, cfg, rows, device, timed, args))
     bootstrap.shutdown()
 
+    if dt_nosync is None:
+        dt_nosync = dt_full
+        out["nosync_note"] = "no step without the data sync was timed"
     exposed = max(0.0, dt_full - dt_nosync)
     eff = (None if dt_coll <= 0 else
            max(0.0, min(1.0, 1.0 - exposed / dt_coll)))
     out.update({
         "step_ms": dt_full * 1e3,
         "tokens_per_s": gb * cfg.max_seq_len / dt_full,
+        "mesh_shape": topology.mesh_shape(mesh),
         "compute_frac": min(1.0, dt_nosync / dt_full),
         "collective_frac": exposed / dt_full,
         "infeed_wait_frac": 0.0,
@@ -217,7 +288,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every visible card)")
-    ap.add_argument("--mesh", choices=("dp", "dcn2xdp2"), default="dp")
+    ap.add_argument("--mesh", choices=("dp", "dcn2xdp2", "tp4", "dp2xtp2"),
+                    default="dp")
     ap.add_argument("--zero", type=int, choices=(0, 1, 2), default=0)
     ap.add_argument("--grad-sync", default="auto",
                     choices=("auto", "none", "gspmd", "bucketed"))
@@ -250,7 +322,7 @@ def main() -> int:
     line = {"workload": args.workload, "world": world, "mesh": args.mesh,
             "zero": args.zero, "grad_sync": args.grad_sync,
             "device": args.device, "tiny": args.tiny,
-            "rows_per_rank": BATCH[args.workload],
+            "rows_per_data_shard": BATCH[args.workload],
             "iters": args.iters, "reps": args.reps, "nvidia_smi": smi,
             **{k: v for k, v in r0.items() if k != "rank"},
             "ranks": [{k: r[k] for k in ("rank", "step_ms",
