@@ -182,6 +182,39 @@ printing one JSON line:
     ZeRO-2 steps against single-device ``make_train_step`` on the
     global batch, 2 steps; ``torch.equal`` at one card; above it the
     rule beside ``DP_PARITY_TOL``.
+16. ``tp_shards``, ``tp_train``, ``tp_parity``, ``tp_serve`` — tensor
+    parallelism (the constants beside ``TP_STEPS`` say what each runs).
+17. ``pp_kernels`` — #1-#3 at the pipelined step's microbatch, ``(1,
+    16, 1024, 64)`` bf16 causal, against their plain versions, with
+    their bounds and SDPA (the kernels line's ``pp`` rows).
+18. ``pp_train`` — ``make_pipelined_train_step`` at ``bench.py``'s
+    ``transformer-pp`` row (``transformer_big``, 12 layers, 1024 tokens,
+    bf16, remat, full-logits head; 8 rows a data shard in 8
+    microbatches) on one rank a card through ``multi_process_runner``
+    on NCCL: at one card pp 1 with GPipe, 1F1B and interleaved v=3 (the
+    measured bubble's base); at four cards pp4 with GPipe, 1F1B,
+    interleaved v=3 and 1F1B with the stash offloaded (``True``,
+    ``"device"``), and dp2×pp2 with 1F1B, interleaved v=2 and ZeRO-2.
+    One warm-up and 3 timed steps a run: step ms, tokens/s, the analytic
+    and the measured bubble (``1 − T(pp1) / (pp · T(pp))``), P2P sends
+    and receives a step with their bytes, peak memory and spilled bytes
+    a rank; #1-#3 launched a step exactly as ``pp_expected_launches``
+    derives, no plain version, no other kernel; the loss falls, equal on
+    every rank, and the gathered parameters agree.
+19. ``pp_parity`` — f32, TF32 off, deterministic, 8 layers at
+    ``transformer_big`` width, 4 rows × 256 tokens a data shard in 4
+    microbatches, 2 steps: each schedule against single-device
+    ``make_train_step`` on the global batch and against the same step
+    with each data shard's gradients accumulated over its rows of the 4
+    microbatches, meaned over the shards (losses and
+    gradients within ``PP_PARITY_TOL`` of both, parameters by the rule
+    beside ``PP_PARITY_TOL``); offload on against ``"device"`` and
+    interleaved v=1 against 1F1B ``torch.equal``. At one card pp 1; at
+    four pp4 and dp2×pp2.
+
+``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
+named phases after ``device`` and ``build`` (the four-card runs), and
+prints no kernels line.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -345,6 +378,46 @@ TP_VARIANTS = {"plain": ({}, {}), "fused": ({"fused_optimizer": True}, {}),
                "zero1": ({}, {"zero": 1})}
 # tp_parity: dp_parity's f32 config, 2 rows x 256 tokens a data shard
 TP_PARITY_ROWS, TP_PARITY_SEQ, TP_PARITY_STEPS = 2, 256, 2
+# pp_train: bench.py's transformer-pp row (:635-665) — 8 rows a data
+# shard in 8 microbatches, one warm-up and PP_STEPS timed steps a run; a
+# mesh name → (axes, runs of (schedule, step kwargs)). At one card pp 1
+# with each schedule (the bubble's base); at four pp4 and dp2×pp2
+PP_ROWS, PP_MICRO, PP_STEPS = 8, 8, 3
+PP_RUNS = {
+    1: {"pp1": ({"pp": 1}, (("gpipe", {}), ("1f1b", {}),
+                            ("interleaved", {"interleave": 3})))},
+    4: {"pp4": ({"pp": 4}, (("gpipe", {}), ("1f1b", {}),
+                            ("interleaved", {"interleave": 3}),
+                            ("1f1b", {"offload_activations": True}),
+                            ("1f1b", {"offload_activations": "device"}))),
+        "dp2pp2": ({"dp": 2, "pp": 2}, (("1f1b", {}),
+                                        ("interleaved", {"interleave": 2}),
+                                        ("1f1b", {"zero": 2})))}}
+# pp_parity: f32, 8 layers at transformer_big width (pp4 x v2 divides),
+# 4 rows x 256 tokens a data shard in 4 microbatches, 2 steps, against
+# single-device make_train_step on the global batch and against the same
+# single-device step with each data shard's gradients accumulated over
+# its rows of the 4 microbatches, then meaned over the shards (what the
+# pipelined step sums): losses and gradients within PP_PARITY_TOL of both,
+# parameters by dp_parity's rule against the accumulation; against the
+# whole-batch step the elements beyond TRAIN_PARAM_TOL may number what
+# the accumulation itself shows against it (on an H100, microbatching
+# alone moves ~22.6k of 134M f32 elements whose |g| is noise) plus that
+# rule's share. The offload arms, and interleaved v=1 against 1F1B,
+# bitwise
+PP_PARITY_LAYERS, PP_PARITY_SEQ, PP_PARITY_ROWS = 8, 256, 4
+PP_PARITY_MICRO, PP_PARITY_STEPS, PP_PARITY_TOL = 4, 2, 1e-5
+_PP_PARITY_SCHEDULES = (("gpipe", {}), ("1f1b", {}),
+                        ("interleaved", {"interleave": 2}),
+                        ("interleaved", {"interleave": 1}),
+                        ("1f1b", {"offload_activations": True}),
+                        ("1f1b", {"offload_activations": "device"}))
+PP_PARITY_RUNS = {
+    1: {"pp1": ({"pp": 1}, _PP_PARITY_SCHEDULES)},
+    4: {"pp4": ({"pp": 4}, _PP_PARITY_SCHEDULES),
+        "dp2pp2": ({"dp": 2, "pp": 2}, _PP_PARITY_SCHEDULES[:3])}}
+PP_PARITY_BITWISE = (("offload", "offload_device"),
+                     ("interleaved_v1", "1f1b"))
 
 KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd_tc": ("flash_tc.cu", "ops/attention.py:135"),
@@ -4168,17 +4241,17 @@ def _plain_calls() -> dict:
     return counts
 
 
-def _tp_attention_rows(h: int, gen) -> dict:
-    """#1-#3 at one tp shard of the headline's attention, ``(8, h, 1024,
-    64)`` bf16 causal: each against its plain version, timed in turns,
-    with its bound and SDPA (forward; backward alone) at the same
-    shape."""
+def _attention_rows(b: int, h: int, gen) -> dict:
+    """#1-#3 at ``(b, h, 1024, 64)`` bf16 causal (a tp shard of the
+    headline's attention, or a pipeline microbatch): each against its
+    plain version, timed in turns, with its bound and SDPA (forward;
+    backward alone) at the same shape."""
     import torch
     from distributed_tensorflow_tpu_torch.ops.attention import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         launch_bwd_dkv, launch_bwd_dq)
     bf = torch.bfloat16
-    q, k, v, do = (_rand((8, h, 1024, 64), bf, gen) for _ in range(4))
+    q, k, v, do = (_rand((b, h, 1024, 64), bf, gen) for _ in range(4))
     o, lse = flash_attention_fwd(q, k, v, causal=True)
     fwd = _fwd_errors(q, k, v, o, lse, True)
     got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
@@ -4186,7 +4259,7 @@ def _tp_attention_rows(h: int, gen) -> dict:
                                      sm_scale=0.125)
     errs = {f"d{n}": rel_err(g, w) for n, g, w in zip("qkv", got, want)}
     if not fwd["ok"] or max(errs.values()) > GRAD_TOL["bfloat16"]:
-        raise AssertionError(f"attention at H{h}: {fwd} {errs}")
+        raise AssertionError(f"attention at B{b} H{h}: {fwd} {errs}")
     rows = {"flash_fwd_tc": _time_flash_fwd(q, k, v, fwd["o_err"])}
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention(
@@ -4315,7 +4388,7 @@ def phase_tp_shards(state):
     and #4/#7 on each vocab shard at tp 2 and 4 with the merge."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(12)
-    attn = {f"H{h}": _tp_attention_rows(h, gen) for h in TP_SHARD_HEADS}
+    attn = {f"H{h}": _attention_rows(8, h, gen) for h in TP_SHARD_HEADS}
     ce_checks, ce_rows = _tp_ce_rows(gen)
     tp_rows: dict = {}
     for tp, h in zip(TP_SIZES, TP_SHARD_HEADS):
@@ -4779,7 +4852,411 @@ def phase_tp_serve(state):
             "f32_layers": 2, "ranks": ranks}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (models/transformer.py make_pipelined_train_step)
+# ---------------------------------------------------------------------------
+
+def _pp_config(**kw):
+    """``bench.py``'s ``transformer-pp`` row (``:635-665``) in the port:
+    ``transformer_big`` at 1024 tokens in bf16 with the config's defaults
+    (every layer checkpointed, the stacked layer tree the pipelined step
+    requires), the full-logits head of JAX's pipelined step."""
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+    return TransformerConfig.transformer_big(**{"max_seq_len": 1024, **kw})
+
+
+def pp_expected_launches(cfg, pp: int, schedule: str, n_micro: int) -> dict:
+    """#1-#3 launched a step by one rank of a pp-``pp`` step: each of its
+    ``n_layers / pp`` layers runs per microbatch one dq and one dk/dv
+    and the flash forward once under autograd, again in the backward
+    when remat recomputes it, and for 1F1B once more in the forward unit
+    without autograd (JAX's body runs the stage forward, then
+    ``jax.vjp`` of it)."""
+    per_rank = cfg.n_layers // pp * n_micro
+    fwd = (1 + cfg.remat) + (schedule != "gpipe")
+    return {"flash_fwd_tc": fwd * per_rank, "flash_bwd_dq_tc": per_rank,
+            "flash_bwd_dkv_tc": per_rank}
+
+
+def _pp_run_name(mesh: str, schedule: str, kw: dict) -> str:
+    tail = {"offload_activations": {True: "offload",
+                                    "device": "offload_device"},
+            "zero": {1: "zero1", 2: "zero2"}}
+    for key, names in tail.items():
+        if kw.get(key):
+            return f"{mesh}_{names[kw[key]]}"
+    return f"{mesh}_{schedule}"
+
+
+def _pp_gathered_checksum(step) -> tuple:
+    """The checksum (float64 sum) of the gathered parameters on this
+    rank, and whether every rank's equals it."""
+    import torch
+    import torch.distributed as dist
+    full = step.gather_params()
+    total = torch.stack([t.double().sum() for t in
+                         torch.utils._pytree.tree_leaves(full)]).sum()
+    every = [torch.zeros_like(total) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, total)
+    return total.item(), all(torch.equal(t, total) for t in every)
+
+
+def _pp_train_rank(runs: dict) -> dict:
+    """One rank of ``pp_train``: each mesh's runs (schedule, step kwargs)
+    at the pp config, one warm-up and PP_STEPS timed steps each."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        make_pipelined_train_step)
+    from distributed_tensorflow_tpu_torch.parallel.pipeline import (
+        bubble_fraction)
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    plain = _plain_calls()
+    cfg = _pp_config()
+    out = {"rank": rank, "world": world,
+           "device": torch.cuda.get_device_name(), "runs": {}}
+    for mesh_name, (axes, variants) in runs.items():
+        mesh = topology.make_mesh(axes, device="cuda")
+        pp, n_dp = axes.get("pp", 1), axes.get("dp", 1)
+        global_batch = PP_ROWS * n_dp
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (global_batch, cfg.max_seq_len))).to("cuda")
+        for schedule, kw in variants:
+            name = _pp_run_name(mesh_name, schedule, kw)
+            torch.cuda.empty_cache()
+            state, step = make_pipelined_train_step(
+                cfg, mesh, global_batch, PP_MICRO, seed=0,
+                schedule=schedule, **kw)
+            # the steps' peak, not the build's (the full parameters are
+            # made on every rank before each keeps its stage's)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state, m = step(state, {"tokens": tokens})          # warm-up
+            losses = [m["loss"].item()]
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            plain.clear()
+            step_ms = []
+            for _ in range(PP_STEPS):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                state, m = step(state, {"tokens": tokens})
+                e1.record()
+                e1.synchronize()
+                step_ms.append(e0.elapsed_time(e1))
+                losses.append(m["loss"].item())
+            counts = launch_counts()
+            plain_calls = dict(plain)
+            peak = torch.cuda.max_memory_allocated()
+            checksum, agree = _pp_gathered_checksum(step)
+            v = kw.get("interleave", 1) if schedule == "interleaved" else 1
+            mean_s = float(np.mean(step_ms)) / 1e3
+            out["runs"][name] = {
+                "mesh": axes, "schedule": schedule,
+                "kwargs": {k: str(x) for k, x in kw.items()},
+                "step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+                "tokens_per_s": global_batch * cfg.max_seq_len / mean_s,
+                "bubble_analytic": bubble_fraction(pp, PP_MICRO, schedule,
+                                                   interleave=v),
+                "losses": losses, "launches": counts,
+                "launches_per_step": {k: c / PP_STEPS for k, c in
+                                      counts.items() if c},
+                "expected_per_step": pp_expected_launches(
+                    cfg, pp, schedule, PP_MICRO),
+                "plain_calls": plain_calls, "p2p": step.last_stats["p2p"],
+                "offload": step.last_stats["offload"],
+                "local_params": sum(p.numel() for p in
+                                    state["model"].parameters()),
+                "peak_mem_bytes": peak,
+                "param_checksum": checksum, "ranks_agree": agree}
+            del state, step, m
+            gc.collect()
+        del tokens
+    bootstrap.shutdown()
+    return out
+
+
+def _pp_base(name: str, base: dict) -> dict:
+    """The pp-1 run a pipelined run's bubble is measured against: the same
+    schedule at one card, 1F1B for the offload and ZeRO variants."""
+    schedule = name.split("_", 1)[1]
+    return base.get(f"pp1_{schedule}", base["pp1_1f1b"])
+
+
+def phase_pp_train(state):
+    """``pp_train``: the pp config's runs at one card (pp 1: each
+    schedule, the bubble's base), then at four cards (pp4 and dp2×pp2)
+    when four are visible; each run's launches, P2P, memory and the
+    measured bubble ``1 − T(pp1) / (pp · T(pp))``: with one card a
+    stage the ideal step is the pp-1 step over pp."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    worlds = [1] + ([world] if world in PP_RUNS and world > 1 else [])
+    spawns = [multi_process_runner.run(
+        _pp_train_rank, n, args=(PP_RUNS[n],), device="cuda",
+        timeout=900).return_values for n in worlds]
+    problems = []
+    for ranks in spawns:
+        for r in ranks:
+            for name, v in r["runs"].items():
+                tag = f"rank {r['rank']} of {r['world']} {name}"
+                want = expected_counts(v["expected_per_step"], PP_STEPS)
+                if v["launches"] != want:
+                    problems.append(f"{tag}: launches {v['launches']} != "
+                                    f"{want}")
+                if v["plain_calls"]:
+                    problems.append(f"{tag}: plain versions ran: "
+                                    f"{v['plain_calls']}")
+                if not all(math.isfinite(x) for x in v["losses"]) or \
+                        not v["losses"][-1] < v["losses"][0]:
+                    problems.append(f"{tag}: losses do not fall: "
+                                    f"{v['losses']}")
+                if v["losses"] != ranks[0]["runs"][name]["losses"]:
+                    problems.append(f"{tag}: loss differs from rank 0's")
+                if not v["ranks_agree"]:
+                    problems.append(f"{tag}: gathered parameters differ")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    base = spawns[0][0]["runs"]
+    summary = {}
+    for ranks in spawns:
+        for name, v in ranks[0]["runs"].items():
+            pp = v["mesh"].get("pp", 1)
+            t1 = _pp_base(name, base)["step_ms_mean"]
+            summary[name] = {
+                "step_ms_mean": v["step_ms_mean"],
+                "step_ms_ranks": [r["runs"][name]["step_ms_mean"]
+                                  for r in ranks],
+                "tokens_per_s": v["tokens_per_s"],
+                "bubble_analytic": v["bubble_analytic"],
+                "bubble_measured": (1 - t1 / (pp * v["step_ms_mean"])
+                                    if pp > 1 else 0.0),
+                "p2p_per_step_ranks": [r["runs"][name]["p2p"]
+                                       for r in ranks],
+                "peak_mem_bytes_ranks": [r["runs"][name]["peak_mem_bytes"]
+                                         for r in ranks],
+                "spilled_bytes_ranks": [
+                    (r["runs"][name]["offload"] or {}).get("spilled_bytes")
+                    for r in ranks],
+                "launches_per_step": v["launches_per_step"],
+                "losses": v["losses"]}
+    # rank 0's launches over each run's timed steps
+    state["pp_launches"] = {name: v["launches"] for ranks in spawns
+                            for name, v in ranks[0]["runs"].items()}
+    return {"world": world, "config": "transformer_big, 1024 tokens, "
+            "bf16, remat, full-logits head (bench.py transformer-pp)",
+            "rows_per_data_shard": PP_ROWS, "microbatches": PP_MICRO,
+            "steps": PP_STEPS, "summary": summary,
+            "ranks": [r for ranks in spawns for r in ranks]}
+
+
+def _flat_leaves(tree) -> list:
+    """A parameter (or gradient) dict's leaves in one fixed order."""
+    import torch
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def _pp_parity_reference(cfg, params, tokens, n_micro: int = 1,
+                         n_shards: int = 1) -> tuple:
+    """Single-device AdamW steps on ``tokens`` from ``params``:
+    ``make_train_step`` on the whole batch (the defaults), or each of
+    ``n_shards`` data shards' gradients accumulated over its rows of
+    ``n_micro`` microbatches (each loss over ``n_micro``), then the
+    shards' sum over ``n_shards`` (the pipelined step's dp mean) before
+    ``AdamW.step``. Each step's loss and gradients, and the parameters
+    after the last."""
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM, make_loss_fn, make_optimizer, make_train_step)
+    model = TransformerLM(cfg, params, device="cuda")
+    opt = make_optimizer(cfg, model.parameters())
+    step = make_train_step(cfg, model, opt)
+    loss_fn = make_loss_fn(cfg, model)
+    mb = tokens.shape[0] // n_micro
+    rows = mb // n_shards
+    st = {"model": model, "step": 0}
+    losses, grads = [], []
+    for _ in range(PP_PARITY_STEPS):
+        if n_micro == n_shards == 1:
+            st, m = step(st, {"tokens": tokens})
+            losses.append(m["loss"].item())
+        else:
+            shard_grads, total = [], 0.0
+            for d in range(n_shards):
+                opt.zero_grad(set_to_none=True)
+                for i in range(n_micro):
+                    lo = i * mb + d * rows
+                    loss = loss_fn(tokens[lo:lo + rows]) / n_micro
+                    loss.backward()
+                    total += loss.item() / n_shards
+                shard_grads.append([p.grad for p in model.parameters()])
+            for p, *gs in zip(model.parameters(), *shard_grads):
+                p.grad = sum(gs[1:], gs[0]) / n_shards
+            opt.step()
+            losses.append(total)
+        grads.append([g.clone() for g in _flat_leaves(
+            model.stacked_params(lambda p: p.grad))])
+    return losses, grads, [p.detach().clone() for p in _flat_leaves(
+        model.stacked_params())]
+
+
+def _pp_parity_rank(runs: dict) -> dict:
+    """One rank of ``pp_parity``: each mesh's runs against single-device
+    ``make_train_step`` on the same global batch from the same weights
+    (f32, TF32 off, deterministic), PP_PARITY_STEPS steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, init_params,
+        make_optimizer, make_pipelined_train_step, make_train_step)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg = TransformerConfig.transformer_big(
+        n_layers=PP_PARITY_LAYERS, max_seq_len=PP_PARITY_SEQ,
+        dtype=torch.float32, loss_impl="scan")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    for t in _flat_leaves(params):
+        dist.broadcast(t, src=0)
+    out = {"rank": rank, "world": world, "runs": {}}
+    finals = {}
+    for mesh_name, (axes, variants) in runs.items():
+        mesh = topology.make_mesh(axes, device="cuda")
+        global_batch = PP_PARITY_ROWS * axes.get("dp", 1)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (global_batch, cfg.max_seq_len))).to("cuda")
+        want_losses, want_grads, want = _pp_parity_reference(
+            cfg, params, tokens)
+        acc_losses, acc_grads, acc = _pp_parity_reference(
+            cfg, params, tokens, PP_PARITY_MICRO, axes.get("dp", 1))
+        # the microbatching's own spread: accumulation against the step
+        acc_rule = _adam_param_rule(acc, want, acc_grads, want_grads)
+        out.setdefault("accum_vs_step", {})[mesh_name] = acc_rule
+        for schedule, kw in variants:
+            name = _pp_run_name(mesh_name, schedule, kw)
+            if schedule == "interleaved":
+                name += f"_v{kw['interleave']}"
+            state, step = make_pipelined_train_step(
+                cfg, mesh, global_batch, PP_PARITY_MICRO,
+                schedule=schedule, params=params, **kw)
+            losses, grads = [], []
+            for _ in range(PP_PARITY_STEPS):
+                state, m = step(state, {"tokens": tokens})
+                losses.append(m["loss"].item())
+                grads.append(_flat_leaves(step.gather_params(
+                    lambda p: p.grad)))
+            got = _flat_leaves(step.gather_params())
+            finals[name] = (losses, got)
+            res = {"losses": losses}
+            for ref, (r_losses, r_grads, r_params) in (
+                    ("step", (want_losses, want_grads, want)),
+                    ("accum", (acc_losses, acc_grads, acc))):
+                res[ref] = {
+                    "max_abs_loss_err": max(abs(a - b) for a, b in
+                                            zip(losses, r_losses)),
+                    "max_abs_grad_err": max(
+                        (g - w).abs().max().item() for gs, ws in
+                        zip(grads, r_grads) for g, w in zip(gs, ws)),
+                    "max_abs_param_err": max(
+                        (g - w).abs().max().item()
+                        for g, w in zip(got, r_params)),
+                    **_adam_param_rule(got, r_params, grads, r_grads)}
+            res["step"]["allowed_beyond_tol"] = (
+                acc_rule["params_off_by_more_than_tol"])
+            out["runs"][name] = res
+            del state, step
+            torch.cuda.empty_cache()
+    out["n_params"] = sum(t.numel() for t in _flat_leaves(params))
+    out["bitwise"] = {}
+    for a, b in PP_PARITY_BITWISE:
+        for mesh_name in runs:
+            ka, kb = f"{mesh_name}_{a}", f"{mesh_name}_{b}"
+            if ka in finals and kb in finals:
+                (la, pa), (lb, pb) = finals[ka], finals[kb]
+                out["bitwise"][f"{ka}=={kb}"] = la == lb and all(
+                    torch.equal(x, y) for x, y in zip(pa, pb))
+    bootstrap.shutdown()
+    return out
+
+
+def phase_pp_parity(state):
+    """``pp_parity``: at one card the pp-1 runs, then at four cards pp4
+    and dp2×pp2 when four are visible; losses and gradients within
+    PP_PARITY_TOL of the single-device step, parameters by
+    ``train_parity``'s rule, the offload arms and interleaved v=1
+    against 1F1B bitwise."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    ranks = multi_process_runner.run(
+        _pp_parity_rank, 1, args=(PP_PARITY_RUNS[1],), device="cuda",
+        timeout=600, env=env).return_values
+    if world in PP_PARITY_RUNS and world > 1:
+        ranks += multi_process_runner.run(
+            _pp_parity_rank, world, args=(PP_PARITY_RUNS[world],),
+            device="cuda", timeout=600, env=env).return_values
+    problems = []
+    for r in ranks:
+        allowed = TRAIN_PARAM_FRAC * r["n_params"]
+        for name, v in r["runs"].items():
+            ok = all(v[ref]["max_abs_loss_err"] <= PP_PARITY_TOL
+                     and v[ref]["max_abs_grad_err"] <= PP_PARITY_TOL
+                     and v[ref]["max_abs_param_err_held"] <= TRAIN_PARAM_TOL
+                     for ref in ("step", "accum"))
+            # dp_parity's rule against the same microbatches; against
+            # the whole-batch step the microbatching's own spread more
+            ok = ok and v["accum"]["params_off_by_more_than_tol"] <= allowed
+            ok = ok and v["step"]["params_off_by_more_than_tol"] <= (
+                v["step"]["allowed_beyond_tol"] + allowed)
+            if not ok:
+                problems.append(f"rank {r['rank']} of {r['world']} {name}: "
+                                f"{v}")
+        for pair, ok in r["bitwise"].items():
+            if not ok:
+                problems.append(f"rank {r['rank']} of {r['world']} {pair}: "
+                                f"not bitwise")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": world, "config": "transformer_big width, "
+            f"{PP_PARITY_LAYERS} layers, f32, full logits",
+            "rows_per_data_shard": PP_PARITY_ROWS, "seq_len": PP_PARITY_SEQ,
+            "microbatches": PP_PARITY_MICRO, "steps": PP_PARITY_STEPS,
+            "ranks": ranks}
+
+
+def phase_pp_kernels(state):
+    """#1-#3 at the pipelined step's microbatch, ``(1, 16, 1024, 64)``
+    bf16 causal (one row a microbatch), against their plain versions,
+    with their bounds and SDPA (the "at pp" rows)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    state["pp_rows"] = _attention_rows(PP_ROWS // PP_MICRO, 16, gen)
+    return {"attention": state["pp_rows"]}
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases (comma-separated) after "
+                         "device and build, and no kernels line")
+    args = ap.parse_args(argv)
+    only = (None if args.phases is None
+            else {"device", "build", *args.phases.split(",")})
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4816,7 +5293,12 @@ def main() -> int:
                      ("tp_shards", phase_tp_shards),
                      ("tp_train", phase_tp_train),
                      ("tp_parity", phase_tp_parity),
-                     ("tp_serve", phase_tp_serve)):
+                     ("tp_serve", phase_tp_serve),
+                     ("pp_kernels", phase_pp_kernels),
+                     ("pp_train", phase_pp_train),
+                     ("pp_parity", phase_pp_parity)):
+        if only and name not in only:
+            continue
         t0 = time.perf_counter()
         try:
             out = fn(state)
@@ -4827,6 +5309,12 @@ def main() -> int:
             return 1
         emit({"phase": name, "ok": True,
               "seconds": round(time.perf_counter() - t0, 3), **out})
+    if only:
+        print(state["smi"], flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": state["kind"],
+            "count": torch.cuda.device_count()}})
+        return 0
     summary = []
     for name, (source, replaces) in KERNELS.items():
         k = state[name]
@@ -4888,6 +5376,12 @@ def main() -> int:
             row["tp"] = state["tp_rows"][name]
         if name == "flash_fwd_tc":
             row["tp_serve_launches"] = state["tp_serve_launches"][name]
+        # the pipelined runs of pp_train (rank 0, over each run's timed
+        # steps), and the kernel at the pipeline's microbatch shape
+        row["pp_launches"] = {run: c[name]
+                              for run, c in state["pp_launches"].items()}
+        if name in state["pp_rows"]:
+            row["pp"] = state["pp_rows"][name]
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

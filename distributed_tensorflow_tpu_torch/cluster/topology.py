@@ -155,3 +155,28 @@ def tp_index(mesh: DeviceMesh) -> int:
     if TENSOR_AXIS not in mesh.mesh_dim_names:
         return 0
     return mesh.get_local_rank(TENSOR_AXIS)
+
+
+def pp_index(mesh: DeviceMesh) -> int:
+    """This rank's worker index along ``pp`` (its pipeline stage without
+    interleaving), 0 without the axis."""
+    if PIPELINE_AXIS not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(PIPELINE_AXIS)
+
+
+def pp_group_ranks(mesh: DeviceMesh) -> list:
+    """The global ranks of this rank's ``pp`` group in worker order: its
+    neighbours are the entries beside :func:`pp_index` (wrapping, as
+    JAX's ``ppermute`` ring), ``[rank]`` without the axis."""
+    if PIPELINE_AXIS not in (mesh.mesh_dim_names or ()):
+        return [dist.get_rank()]
+    return dist.get_process_group_ranks(mesh.get_group(PIPELINE_AXIS))
+
+
+def pp_rows(mesh: DeviceMesh) -> list:
+    """Every ``pp`` group of the mesh, as lists of global ranks in worker
+    order, in one order on every rank."""
+    dim = tuple(mesh.mesh_dim_names).index(PIPELINE_AXIS)
+    return mesh.mesh.movedim(dim, -1).reshape(
+        -1, mesh.size(dim)).tolist()

@@ -47,9 +47,13 @@ of the parameters by JAX's logical-axis rules (:data:`LOGICAL_AXIS_RULES`,
 rank's shards and back. Each block enters its column-parallel weights
 through ``tp_copy`` (after the RMSNorm) and leaves its row-parallel
 ones through ``tp_reduce``; the embedding lookup is vocab-parallel and
-the losses are the vocab-sharded cross-entropies. Fully-sharded data
-parallelism, pipeline and sequence parallelism and MoE belong to later
-slices.
+the losses are the vocab-sharded cross-entropies.
+
+Pipeline parallelism: :func:`make_pipelined_train_step` over a ``pp``
+or ``dp``×``pp`` mesh — GPipe, 1F1B and interleaved 1F1B
+(:mod:`~distributed_tensorflow_tpu_torch.parallel.pipeline`), with the
+1F1B stash offloaded to the host on request. Fully-sharded data
+parallelism, sequence parallelism and MoE belong to later slices.
 """
 
 from __future__ import annotations
@@ -337,6 +341,20 @@ class Block(nn.Module):
         return x + tp_reduce(self.mlp(tp_copy(self.RMSNorm_1(x), g)), g)
 
 
+def run_blocks(cfg: TransformerConfig, blocks, x, lengths=None):
+    """``blocks`` in turn on ``x``; each under ``torch.utils.checkpoint``
+    with ``cfg.remat_policy`` when ``cfg.remat`` and autograd is on
+    (JAX's ``nn.remat`` of a block, and the pipeline's ``stage_fn``)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for block in blocks:
+        if remat:
+            x = checkpoint(block, x, lengths, use_reentrant=False,
+                           context_fn=REMAT_POLICIES[cfg.remat_policy])
+        else:
+            x = block(x, lengths)
+    return x
+
+
 class TransformerLM(nn.Module):
     """Decoder-only LM (``cfg.causal=True``) or bidirectional encoder.
 
@@ -407,13 +425,7 @@ class TransformerLM(nn.Module):
         emb = self.embed.to(dt)
         tp = self.tp
         x = vocab_parallel_embed(emb, tokens, tp) if tp else emb[tokens]
-        remat = cfg.remat and torch.is_grad_enabled()
-        for block in self.layers:
-            if remat:
-                x = checkpoint(block, x, lengths, use_reentrant=False,
-                               context_fn=REMAT_POLICIES[cfg.remat_policy])
-            else:
-                x = block(x, lengths)
+        x = run_blocks(cfg, self.layers, x, lengths)
         x = self.final_norm(x)
         if return_hidden:
             return x
@@ -1058,22 +1070,28 @@ def _sharded_model(cfg: TransformerConfig, mesh, seed: int, params
     :func:`_replicated_model`; with it, this rank's shards of the full
     parameters — ``params``, or those made from ``seed`` and broadcast
     from rank 0 — in a tensor-parallel module."""
-    import torch.distributed as dist
     tp = TensorParallel.from_mesh(mesh)
     if tp is None:
         return _replicated_model(cfg, mesh, seed, params)
     check_divisible(cfg, tp.size)
-    device = _mesh_device(mesh)
-    if params is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        params = init_params(cfg, gen, device)
-        with torch.no_grad():
-            _map_leaves(lambda path, t: dist.broadcast(t, src=0), params)
-    else:
-        params = _map_leaves(lambda path, t: t.to(device), params)
+    params = _full_params(cfg, mesh, seed, params)
     return TransformerLM(cfg, shard_params(cfg, params, mesh),
-                         device=device, tp=tp)
+                         device=_mesh_device(mesh), tp=tp)
+
+
+def _full_params(cfg: TransformerConfig, mesh, seed: int, params) -> dict:
+    """The full parameter dict on this rank's device: ``params``, or
+    those made from ``seed`` and broadcast from rank 0."""
+    import torch.distributed as dist
+    device = _mesh_device(mesh)
+    if params is not None:
+        return _map_leaves(lambda path, t: t.to(device), params)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, device)
+    with torch.no_grad():
+        _map_leaves(lambda path, t: dist.broadcast(t, src=0), params)
+    return params
 
 
 def _data_rows(mesh, global_batch: int) -> slice:
@@ -1118,10 +1136,14 @@ def _leaf_grads(leaves) -> list[torch.Tensor]:
 
 
 #: the ROADMAP item that brings each mesh axis the port lacks
-_LATER_AXES = {"fsdp": "A-3b", "pp": "A-4", "sp": "A-5", "ep": "A-5"}
+_LATER_AXES = {"fsdp": "A-3b", "sp": "A-5", "ep": "A-5"}
 
 
 def _check_axes(shape: dict):
+    if "pp" in shape:
+        raise NotImplementedError(
+            f"a {shape} mesh has a pipeline axis: its step is "
+            f"make_pipelined_train_step's")
     later = sorted({_LATER_AXES[a] for a in shape if a in _LATER_AXES})
     if later or not set(shape) <= {"dcn", "dp", "tp"}:
         raise NotImplementedError(
@@ -1425,4 +1447,234 @@ def _make_post_sync_train_step(cfg: TransformerConfig, mesh,
         return state, {**metrics, "loss": loss}
 
     step.plan = bucketer.plan_summary(_leaf_metas(leaves))
+    return {"model": model, "optimizer": optimizer, "step": 0}, step
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (JAX :1153-1478)
+# ---------------------------------------------------------------------------
+
+def make_pipelined_train_step(cfg: TransformerConfig, mesh,
+                              global_batch: int, num_microbatches: int,
+                              seed: int = 0, schedule: str = "gpipe",
+                              interleave: int = 2, zero: int = 0,
+                              offload_activations=False, *, params=None):
+    """Pipeline-parallel state and step over a ``pp`` or ``dp``×``pp``
+    mesh (JAX ``:1153``), one process a pp rank. ``schedule`` is
+    "gpipe", "1f1b" or "interleaved" (``interleave`` chunks a rank),
+    run by :func:`~distributed_tensorflow_tpu_torch.parallel.pipeline.
+    run_schedule` from the schedule's table; the refusals are JAX's, with
+    its exception types.
+
+    - The layer stack regroups as JAX's ``(L, ...) → (pp, L/pp, ...)``
+      (interleaved: ``(pp, v, L/(pp·v), ...)``, model stage ``j·pp + k``
+      on rank k's chunk j), and a rank holds only its stage's layers
+      (``state["model"]``, a :class:`TransformerLM` of those layers);
+      ``embed`` and ``final_norm`` are on every rank, as JAX's ``P()``.
+    - Model stage 0 looks the microbatch up in the embedding; the last
+      runs JAX's head, full logits through :func:`next_token_loss` a
+      microbatch (no fused CE, as in JAX). Each layer of a stage is
+      checkpointed by ``cfg.remat`` / ``remat_policy``
+      (:func:`run_blocks`).
+    - Microbatch rows split over ``dp`` (JAX's ``mb_spec``); the loss is
+      the microbatches' mean, psummed over ``pp`` and meaned over
+      ``dp``. The tied ``embed`` gradient (the lookup's on stage 0, the
+      head's on the last stage) and ``final_norm``'s are summed over
+      ``pp``, then every gradient is meaned over ``dp``.
+    - The update is the plain ``AdamW.step`` whatever
+      ``cfg.fused_optimizer`` says (JAX's step calls ``tx.update``), or
+      with ``zero=1|2`` :func:`~distributed_tensorflow_tpu_torch.
+      parallel.zero.make_zero_update` over ``dp``.
+    - ``offload_activations`` (1F1B only): ``True`` spills the stash to
+      pinned host memory (:class:`~distributed_tensorflow_tpu_torch.
+      parallel.offload.ActivationSpillStore`), ``"device"`` runs the
+      same loop with the stash on the card; one ``offload.step`` event a
+      step.
+
+    ``params`` is the port's full parameter dict (e.g. JAX's converted
+    by :func:`params_from_jax`); without it rank 0 initialises from
+    ``seed`` and broadcasts. Returns ``(state, step)``, ``state =
+    {"model", "optimizer", "step"}``; ``step(state, {"tokens":
+    (global_batch, S)})`` returns ``(state, {"loss"})``, the loss the
+    same on every rank. ``step.gather_params()`` returns the whole
+    parameter dict on every rank (``of=``: its gradients);
+    ``step.last_stats`` holds the last step's P2P counts (``"p2p"``)
+    and offload stats (``"offload"``).
+    Meshes with axes other than ``dp`` and ``pp`` raise
+    ``NotImplementedError``; GPipe microbatches whose rows ``dp`` does not
+    divide raise ``ValueError`` when built, where JAX's raises it at the
+    first step."""
+    from distributed_tensorflow_tpu_torch import telemetry
+    from distributed_tensorflow_tpu_torch.cluster import topology
+    from distributed_tensorflow_tpu_torch.parallel import pipeline as pl
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        GradientBucketer, ReduceOp, all_gather, all_reduce)
+    from distributed_tensorflow_tpu_torch.parallel.offload import (
+        ActivationSpillStore)
+    from distributed_tensorflow_tpu_torch.parallel.zero import (
+        make_zero_update)
+
+    if schedule not in ("gpipe", "1f1b", "interleaved"):
+        raise ValueError(f"schedule={schedule!r}; expected 'gpipe', "
+                         f"'1f1b', or 'interleaved'")
+    if offload_activations not in (False, True, "device"):
+        raise ValueError(f"offload_activations={offload_activations!r}; "
+                         f"expected False, True, or 'device'")
+    if offload_activations and schedule != "1f1b":
+        raise ValueError(
+            "offload_activations requires schedule='1f1b': GPipe keeps "
+            "O(M) activations alive inside autograd and the interleaved "
+            "stash is not host-realized")
+    if not cfg.scan_layers:
+        raise ValueError("pipeline path requires scan_layers=True")
+    shape = _shape(mesh)
+    n_stages = shape.get("pp", 1)
+    n_chunks = int(interleave) if schedule == "interleaved" else 1
+    if n_chunks < 1:
+        raise ValueError(f"interleave must be >= 1, got {interleave}")
+    if cfg.n_layers % (n_stages * n_chunks):
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"pp*interleave={n_stages * n_chunks}")
+    if global_batch % num_microbatches:
+        raise ValueError(f"global_batch={global_batch} not divisible by "
+                         f"num_microbatches={num_microbatches}")
+    mb = global_batch // num_microbatches
+    n_dp = shape.get("dp", 1)
+    if mb % n_dp:
+        # JAX raises the same for GPipe, at its first step (shard_map)
+        raise ValueError(
+            f"schedule={schedule!r} needs the microbatch size "
+            f"(global_batch/num_microbatches = {mb}) divisible by "
+            f"dp={n_dp}; raise global_batch or lower num_microbatches")
+    if schedule == "interleaved" and num_microbatches % n_stages:
+        raise ValueError(
+            f"schedule='interleaved' needs num_microbatches "
+            f"({num_microbatches}) divisible by pp={n_stages} "
+            f"(microbatches flow in groups of pp per chunk)")
+    if zero not in (0, 1, 2):
+        raise ValueError(f"zero={zero!r}; expected 0, 1, or 2")
+    if not set(shape) <= {"dp", "pp"}:
+        raise NotImplementedError(
+            f"make_pipelined_train_step runs meshes of dp and pp, not "
+            f"{shape}")
+    telemetry.event("pipeline.schedule", schedule=schedule,
+                    n_stages=int(n_stages), n_micro=int(num_microbatches),
+                    interleave=int(n_chunks),
+                    offload=bool(offload_activations),
+                    bubble_fraction=round(pl.bubble_fraction(
+                        n_stages, num_microbatches, schedule,
+                        interleave=n_chunks), 6))
+
+    # this rank's layers: chunk j holds model stage j * pp + k
+    per = cfg.n_layers // (n_stages * n_chunks)
+    k = topology.pp_index(mesh)
+    device = _mesh_device(mesh)
+    full = _full_params(cfg, mesh, seed, params)
+    idx = torch.tensor([(j * n_stages + k) * per + i
+                        for j in range(n_chunks) for i in range(per)],
+                       device=device)
+    local_cfg = dataclasses.replace(cfg, n_layers=per * n_chunks)
+    model = TransformerLM(local_cfg, {
+        "embed": full["embed"], "final_norm": full["final_norm"],
+        "layers": _map_leaves(lambda path, t: t[idx], full["layers"])},
+        device=device)
+    del full
+    leaves = jax_leaf_params(local_cfg, model)
+    if zero:
+        optimizer, zero_update = make_zero_update(
+            lambda ps: make_optimizer(cfg, ps), mesh, leaves)
+    else:
+        optimizer = make_optimizer(cfg, model.parameters())
+
+    # this data shard's rows of every microbatch
+    n_rows = mb // n_dp
+    lo = n_rows * (mesh.get_local_rank("dp") if "dp" in shape else 0)
+    links = pl.StageLinks(mesh)
+    dp_sync = (GradientBucketer(mesh, ("dp",), bytes_per_pack=0)
+               if n_dp > 1 else None)
+    dt = cfg.dtype
+    box: dict = {}
+
+    def rows(m):
+        return box["tokens"][m * mb + lo:m * mb + lo + n_rows]
+
+    def input_fn(m):
+        return model.embed.to(dt)[rows(m)]
+
+    def stage_fn(j, x):
+        return run_blocks(cfg, model.layers[j * per:(j + 1) * per], x)
+
+    def head_fn(m, y):
+        logits = (model.final_norm(y) @ model.embed.to(dt).T).float()
+        return next_token_loss(logits, rows(m))
+
+    def step(state, batch):
+        tokens = _global_tokens(batch, global_batch, device)
+        box["tokens"] = tokens
+        for p in model.parameters():
+            p.grad = None
+        links.reset_counts()
+        store = (ActivationSpillStore(spill=offload_activations is True)
+                 if offload_activations else None)
+        loss_sum = pl.run_schedule(
+            links, schedule, num_microbatches, stage_fn=stage_fn,
+            head_fn=head_fn, input_fn=input_fn,
+            act_shape=(n_rows, tokens.shape[1], cfg.d_model), act_dtype=dt,
+            device=device, interleave=n_chunks, stash=store)
+        box.clear()
+        step.last_stats = {"p2p": dict(links.counts), "offload": None}
+        if store is not None:
+            step.last_stats["offload"] = store.stats(
+                num_microbatches + 2 * (n_stages - 1))
+            telemetry.event("offload.step", spill=store.spill,
+                            **step.last_stats["offload"])
+        with torch.no_grad():
+            grads = _leaf_grads(leaves)
+            if n_stages > 1:
+                # embed and final_norm (JAX's leaves 0 and 1) and the
+                # loss live on the first and last stages: psum over pp
+                flat = all_reduce(torch.cat([grads[0], grads[1],
+                                             loss_sum.reshape(1)]),
+                                  mesh, "pp")
+                n0 = grads[0].numel()
+                grads[0], grads[1] = flat[:n0], flat[n0:-1]
+                loss_sum = flat[-1]
+            loss = loss_sum / num_microbatches
+            if dp_sync is not None:
+                grads = dp_sync.all_reduce(grads, ReduceOp.MEAN)
+                loss = all_reduce(loss, mesh, "dp", ReduceOp.MEAN)
+            if zero:
+                part = zero_update.partition
+                g_shards = [g.clone() for g in part.shard(
+                    part.pack(grads), zero_update.rank)]
+                for p in model.parameters():
+                    p.grad = None
+                zero_update(g_shards)
+            else:
+                _write_grads(leaves, grads)
+                optimizer.step()
+        return {**state, "step": state["step"] + 1}, {"loss": loss}
+
+    def gather_params(of=None) -> dict:
+        """The whole parameter dict (JAX's layer order) on every rank;
+        ``of`` as :meth:`TransformerLM.stacked_params`'s (``lambda p:
+        p.grad``: the last step's synced gradients, not under ZeRO)."""
+        with torch.no_grad():
+            local = model.stacked_params(of)
+
+            def whole(path, t):
+                t = t.detach()
+                g = (all_gather(t, mesh, "pp", tiled=False)
+                     if n_stages > 1 else t[None])
+                return g.reshape(n_stages, n_chunks, per, *t.shape[1:]) \
+                    .transpose(0, 1).reshape(cfg.n_layers, *t.shape[1:])
+            return {"embed": local["embed"].detach().clone(),
+                    "layers": _map_leaves(whole, local["layers"]),
+                    "final_norm": {"scale": local["final_norm"]["scale"]
+                                   .detach().clone()}}
+
+    step.gather_params = gather_params
+    step.last_stats = {}
+    if zero:
+        step.partition = zero_update.partition
     return {"model": model, "optimizer": optimizer, "step": 0}, step

@@ -12,12 +12,18 @@ A site consults the installed :class:`FaultSchedule`; a matching
 With no schedule installed — the default — ``fire`` is one module-global
 ``None`` check.
 
-The port's one instrumented site is ``serve.step``
-(``serving/engine.InferenceEngine.step``, tag = the step index): it
-fires before any scheduler or cache state changes, so a ``raise``
-models a transient serving-step failure that
-``run_until_idle(retry_faults=True)`` retries without losing or
-double-serving a request.
+The port's instrumented sites:
+
+- ``serve.step`` (``serving/engine.InferenceEngine.step``, tag = the
+  step index): it fires before any scheduler or cache state changes,
+  so a ``raise`` models a transient serving-step failure that
+  ``run_until_idle(retry_faults=True)`` retries without losing or
+  double-serving a request;
+- ``offload.spill`` (``parallel/offload.ActivationSpillStore.put``,
+  once per spilled 1F1B stage input, tag ``c<cycle>``): a ``raise``
+  fails the device→host copy; the store retries once, and a double
+  failure surfaces as ``OffloadSpillError`` at the backward that needs
+  the lost input.
 
 Determinism: hit counters are kept per ``(site, tag)`` and per site; a
 rule with ``tag`` set counts per tag, one without per site.

@@ -22,8 +22,10 @@ which initialises the process group itself::
 path). A child that raises comes back as :class:`SubprocessError` with
 its traceback; one that dies without reporting, or does not finish
 within ``timeout``, as :class:`UnexpectedSubprocessExitError` (the
-others are killed). ``restart``, ``reform`` and ``terminate`` belong to
-a later slice.
+others are killed). A rank that has reported stays up until every rank
+has (or one has failed): rank 0 hosts the rendezvous store, which a
+slower peer may still need to build its process groups. ``restart``,
+``reform`` and ``terminate`` belong to a later slice.
 """
 
 from __future__ import annotations
@@ -118,8 +120,16 @@ def _child_main(env: dict, payload: bytes, conn, stdout_path: str,
     # plain pickle bytes: the connection's own pickler would hand tensors
     # over as shared-memory handles, which die with this process
     conn.send_bytes(reply)
-    conn.close()
     out_f.flush()
+    # stay up until the parent releases every rank: rank 0 hosts the
+    # rendezvous store, and a peer that is still building its process
+    # groups (a mesh dim rank 0 is no member of) needs it after rank 0
+    # has finished
+    try:
+        conn.recv_bytes()
+    except (EOFError, OSError):
+        pass
+    conn.close()
     # skip interpreter teardown: a peer that died can leave a collective
     # library's shutdown waiting on it
     os._exit(exitcode)
@@ -160,6 +170,17 @@ def run(fn: Callable, num_workers: int, *, args: tuple = (),
         procs[rank], conns[rank] = p, parent_conn
     replies: dict[int, tuple] = {}
     deadline = time.monotonic() + timeout
+    released = False
+
+    def release():
+        # every rank may exit now: all have reported, or one failed (its
+        # exit then ends the peers' waits on it, as a crash would)
+        for conn in conns.values():
+            try:
+                conn.send_bytes(b"exit")
+            except (BrokenPipeError, OSError):
+                pass
+
     try:
         # read each reply as it comes: a child blocks in send() until
         # its value is read, so waiting for exits first could deadlock
@@ -174,6 +195,12 @@ def run(fn: Callable, num_workers: int, *, args: tuple = (),
                         replies[rank] = ("died", None)
                 elif procs[rank].exitcode is not None and not conn.poll(0):
                     replies[rank] = ("died", None)
+                if (not released and rank in replies
+                        and replies[rank][0] != "ok"):
+                    release()
+                    released = True
+        if not released:
+            release()
         for p in procs.values():
             p.join(max(0.0, deadline - time.monotonic()) + 5.0)
     finally:

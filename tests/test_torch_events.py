@@ -65,8 +65,27 @@ def test_rotated_log_reads_21_events_in_both(tmp_path, writer):
         jgoodput.ledger_from_run(str(tmp_path))
 
 
-def test_writers_rotate_alike(tmp_path):
+class _FixedClock:
+    """Both writers' clock at one instant: a line's length (where a log
+    rotates) then depends on its fields alone, not on how many digits
+    the timestamps happen to print."""
+
+    @staticmethod
+    def monotonic():
+        return 100.0
+
+    @staticmethod
+    def time():
+        return 1750000000.5
+
+    @staticmethod
+    def perf_counter():
+        return 100.0
+
+
+def test_writers_rotate_alike(tmp_path, monkeypatch):
     for name, pkg in PACKAGES.items():
+        monkeypatch.setattr(pkg, "time", _FixedClock)
         _write_rotated(pkg, tmp_path / name)
     names = {n: sorted(os.listdir(tmp_path / n)) for n in PACKAGES}
     assert names["port"] == names["jax"]

@@ -56,7 +56,8 @@ print(json.dumps({"imported": names,
                 "resilience.faults", "checkpoint.peer_snapshot",
                 "cluster.bootstrap", "cluster.topology",
                 "parallel.collectives", "parallel.zero",
-                "parallel.tensor_parallel", "telemetry.trace",
+                "parallel.tensor_parallel", "parallel.pipeline",
+                "parallel.offload", "telemetry.trace",
                 "testing.multi_process_runner"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []

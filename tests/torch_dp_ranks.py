@@ -11,9 +11,9 @@ import numpy as np
 import torch
 
 
-def _init():
+def _init(timeout_s: float = 300.0):
     from distributed_tensorflow_tpu_torch.cluster import bootstrap
-    return bootstrap.initialize(device="cpu")
+    return bootstrap.initialize(device="cpu", timeout_s=timeout_s)
 
 
 def _np_params(model) -> dict:
@@ -220,3 +220,34 @@ def bert_rank(params: dict, tokens: np.ndarray, steps: int) -> dict:
                                                                    params))
     state, losses = _run_steps(step, state, torch.from_numpy(tokens), steps)
     return {"losses": losses, "params": _np_params(state["model"])}
+
+
+def late_group_rank(delay: float) -> dict:
+    """Rank 0 finishes first while ranks 2 and 3, ``delay`` seconds
+    behind, still build a group of their own through the rendezvous
+    store that rank 0 hosts (as a mesh dim rank 0 is no member of)."""
+    import time
+    import torch.distributed as dist
+    _init()
+    rank = dist.get_rank()
+    dist.new_group([0, 1])
+    if rank >= 2:
+        time.sleep(delay)
+    group = dist.new_group([2, 3])
+    out = {"rank": rank}
+    if rank >= 2:
+        t = torch.ones(1)
+        dist.all_reduce(t, group=group)
+        out["sum"] = float(t)
+    return out
+
+
+def failing_rank() -> int:
+    """Rank 1 raises after the group is up; rank 0 waits on it in a
+    collective, which the failed rank's exit ends."""
+    import torch.distributed as dist
+    _init()
+    if dist.get_rank() == 1:
+        return 1 // 0
+    dist.all_reduce(torch.ones(1))
+    return 0

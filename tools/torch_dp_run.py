@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Data- and tensor-parallel training of the PyTorch port across GPUs,
-with the phase breakdown of ``bench.py``'s ``transformer_phase_breakdown``.
+"""Data-, tensor- and pipeline-parallel training of the PyTorch port
+across GPUs, with the phase breakdown of ``bench.py``'s
+``transformer_phase_breakdown``.
 
     python3 tools/torch_dp_run.py --world 4
-        [--mesh dp|dcn2xdp2|tp4|dp2xtp2] [--zero 0|1|2]
+        [--mesh dp|dcn2xdp2|tp4|dp2xtp2|pp4|dp2xpp2] [--zero 0|1|2]
         [--grad-sync auto|none|gspmd]
+        [--schedule gpipe|1f1b|interleaved] [--interleave v] [--offload]
         [--workload transformer|bert] [--device cuda|cpu] [--tiny]
 
 Spawns one rank a device through the port's ``testing/
@@ -32,6 +34,19 @@ warm-up step of:
   S, D)`` activation in the compute dtype, the embedding's one, and per
   4096-row CE chunk the f32 dh all-reduce and the two all-gathers of
   its ``(lse, tl)`` (``tp_serial_ms``, with their count and bytes).
+
+On a pipeline mesh (``pp4``: ``{"pp": world}``; ``dp2xpp2``: ``{"dp":
+2, "pp": world / 2}``) the step is ``make_pipelined_train_step`` at
+``bench.py``'s ``transformer-pp`` row (``transformer_big``, 1024
+tokens, remat, the full-logits head; 8 rows a data shard in
+``--microbatches`` 8) with ``--schedule``, ``--interleave``,
+``--offload`` (the 1F1B stash spilled to the host) and ``--zero``;
+first one rank alone runs the same schedule at pp 1 (the base of the
+measured bubble, ``1 − T(pp1) / (pp · T)``), then every rank times the
+full step and the step's point-to-point sends and receives alone,
+replayed in its schedule's order on tensors of their shape
+(``p2p_serial_ms``), and reports the analytic bubble, the P2P counts
+and bytes a step, the peak memory and the kernels' launches.
 
 Rank 0 prints one JSON line with ``bench.py``'s fields: ``compute_frac``
 (no-sync over full), ``collective_frac`` (exposed over full, exposed =
@@ -144,6 +159,131 @@ def _tp_serial(mesh, cfg, rows, device, timed, args) -> dict:
             "tp_bytes_per_step": (n_act * act.numel() * act.element_size()
                                   + n_chunks * (dh.numel() * 4
                                                 + 2 * row.numel() * 4))}
+
+
+def _pp_config(tiny: bool):
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+    if tiny:
+        return TransformerConfig.tiny(n_layers=12, max_seq_len=64)
+    return TransformerConfig.transformer_big(max_seq_len=1024)
+
+
+def _p2p_chain(links, schedule: str, n_micro: int, v: int, shape, dtype,
+               device):
+    """The step's sends and receives alone, in the order
+    ``run_schedule`` issues them, on tensors of their shape."""
+    import torch
+    from distributed_tensorflow_tpu_torch.parallel import pipeline as pl
+    W = links.size
+    mine = pl.rank_units(W, links.index, n_micro, schedule, v)
+    last = W * v - 1
+    buf = torch.zeros(shape, dtype=dtype, device=device)
+
+    def chain():
+        for e in mine:
+            s = e["stage"]
+            if e["lane"] == "bwd":
+                if s < last:
+                    links.recv(shape, dtype, device, (s + 1) % W, pl.BWD)
+                if s > 0:
+                    links.send(buf, (s - 1) % W, pl.BWD)
+                continue
+            if s > 0:
+                links.recv(shape, dtype, device, (s - 1) % W, pl.FWD)
+            if s < last:
+                links.send(buf, (s + 1) % W, pl.FWD)
+        links.finish()
+    return chain
+
+
+def _pp_rank(args, axes: dict) -> dict:
+    """One rank of a pipelined run on ``axes``: the full step, then (on
+    more than one stage) its P2P alone."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models import transformer as tf
+    from distributed_tensorflow_tpu_torch.parallel import pipeline as pl
+    rt = bootstrap.initialize(device=args.device)
+    rank, device = dist.get_rank(), rt.device
+    axes = {k: (dist.get_world_size() // 2 if v == -1 else v)
+            for k, v in axes.items()}
+    mesh = topology.make_mesh(axes, device=args.device)
+    cfg = _pp_config(args.tiny)
+    n_dp, pp = axes.get("dp", 1), axes.get("pp", 1)
+    gb = BATCH["transformer"] * n_dp
+    v = args.interleave if args.schedule == "interleaved" else 1
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (gb, cfg.max_seq_len))).to(device)
+    timed = _timer(device)
+    kw = {"offload_activations": True} if args.offload else {}
+    state, step = tf.make_pipelined_train_step(
+        cfg, mesh, gb, args.microbatches, schedule=args.schedule,
+        interleave=v, zero=args.zero, **kw)
+    if device.type == "cuda":
+        # the steps' peak, not the build's
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    box = {"state": state}
+
+    def full():
+        box["state"], m = step(box["state"], {"tokens": tokens})
+        box["loss"] = m["loss"]
+    full()
+    before = _launches()
+    dt_full = _best(timed, full, args.iters, args.reps)
+    after = _launches()
+    n_steps = 1 + args.iters * args.reps
+    out = {"rank": rank, "mesh_shape": axes, "schedule": args.schedule,
+           "interleave": v, "offload": bool(args.offload),
+           "device": (torch.cuda.get_device_name()
+                      if device.type == "cuda" else "cpu"),
+           "step_ms": dt_full * 1e3,
+           "tokens_per_s": gb * cfg.max_seq_len / dt_full,
+           "bubble_analytic": pl.bubble_fraction(
+               pp, args.microbatches, args.schedule, interleave=v),
+           "launches_per_step": {k: (after[k] - before[k]) / n_steps
+                                 for k in after},
+           "loss": float(box["loss"]), "p2p_per_step": step.last_stats[
+               "p2p"], "offload_stats": step.last_stats["offload"],
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                              if device.type == "cuda" else None)}
+    del box, state, step
+    if pp > 1:
+        links = pl.StageLinks(mesh)
+        shape = (BATCH["transformer"] // args.microbatches,
+                 cfg.max_seq_len, cfg.d_model)
+        out["p2p_serial_ms"] = _best(timed, _p2p_chain(
+            links, args.schedule, args.microbatches, v, shape, cfg.dtype,
+            device), args.iters, args.reps) * 1e3
+    bootstrap.shutdown()
+    return out
+
+
+def _pp_main(args, world: int) -> dict:
+    """The pp-1 base on one rank, then the run on ``world`` ranks; rank
+    0's line with the measured bubble and every rank's times."""
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    axes = ({"pp": world} if args.mesh == "pp4"
+            else {"dp": 2, "pp": -1})
+    base = multi_process_runner.run(_pp_rank, 1, args=(args, {"pp": 1}),
+                                    device=args.device,
+                                    timeout=1800).return_values[0]
+    ranks = multi_process_runner.run(_pp_rank, world, args=(args, axes),
+                                     device=args.device,
+                                     timeout=1800).return_values
+    r0 = ranks[0]
+    pp = r0["mesh_shape"]["pp"]
+    return {**{k: v for k, v in r0.items() if k != "rank"},
+            "pp1_step_ms": base["step_ms"],
+            "bubble_measured": 1 - base["step_ms"] / (pp * r0["step_ms"]),
+            "ranks": [{k: r.get(k) for k in ("rank", "step_ms",
+                                             "p2p_serial_ms", "loss",
+                                             "p2p_per_step",
+                                             "peak_mem_bytes")}
+                      for r in ranks]}
 
 
 def _rank(args) -> dict:
@@ -288,8 +428,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every visible card)")
-    ap.add_argument("--mesh", choices=("dp", "dcn2xdp2", "tp4", "dp2xtp2"),
-                    default="dp")
+    ap.add_argument("--mesh", choices=("dp", "dcn2xdp2", "tp4", "dp2xtp2",
+                                       "pp4", "dp2xpp2"), default="dp")
+    ap.add_argument("--schedule", choices=("gpipe", "1f1b", "interleaved"),
+                    default="1f1b", help="pipeline meshes")
+    ap.add_argument("--interleave", type=int, default=2)
+    ap.add_argument("--offload", action="store_true",
+                    help="1F1B's stash spilled to the host")
+    ap.add_argument("--microbatches", type=int, default=8)
     ap.add_argument("--zero", type=int, choices=(0, 1, 2), default=0)
     ap.add_argument("--grad-sync", default="auto",
                     choices=("auto", "none", "gspmd", "bucketed"))
@@ -309,15 +455,25 @@ def main() -> int:
         return 2
     world = args.world or (torch.cuda.device_count()
                            if args.device == "cuda" else 2)
-    ranks = multi_process_runner.run(_rank, world, args=(args,),
-                                     device=args.device,
-                                     timeout=1800).return_values
+    pipelined = args.mesh in ("pp4", "dp2xpp2")
+    if not pipelined:
+        ranks = multi_process_runner.run(_rank, world, args=(args,),
+                                         device=args.device,
+                                         timeout=1800).return_values
     smi = ""
     if args.device == "cuda":
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
+    if pipelined:
+        line = {"workload": "transformer-pp", "world": world,
+                "mesh": args.mesh, "zero": args.zero, "device": args.device,
+                "tiny": args.tiny, "microbatches": args.microbatches,
+                "rows_per_data_shard": BATCH["transformer"],
+                "iters": args.iters, "reps": args.reps, "nvidia_smi": smi,
+                **_pp_main(args, world)}
+        return _print(line, args.out)
     r0 = ranks[0]
     line = {"workload": args.workload, "world": world, "mesh": args.mesh,
             "zero": args.zero, "grad_sync": args.grad_sync,
@@ -329,12 +485,15 @@ def main() -> int:
                                          "nosync_step_ms",
                                          "collective_serial_ms", "loss")}
                       for r in ranks]}
+    return _print(line, args.out)
+
+
+def _print(line: dict, path) -> int:
     text = json.dumps(line)
     print(text, flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
             f.write(text + "\n")
     return 0
 
