@@ -212,15 +212,46 @@ printing one JSON line:
     interleaved v=1 against 1F1B ``torch.equal``. At one card pp 1; at
     four pp4 and dp2×pp2.
 
+20. ``sp_kernels`` — the sequence-parallel ring's own block calls at
+    full width, in one process over 4 virtual ranks: ``transformer_big``'s
+    attention of a 32,768-token sequence at sp 4, blocks ``(1, 16, 8192,
+    64)`` bf16. For each ``(me, src)`` the port's step-block functions
+    (``parallel/sequence_parallel.py``) of the contiguous causal ring, the
+    non-causal ring and the striped ring (causal offsets 0 and −1), each
+    block's ``(o, lse)`` and, against the merged ring's global ``(o,
+    lse)``, its ``(dq, dk, dv)`` held against the plain versions; rows
+    that see no key ``o = 0``, ``lse = +inf``; no launch for a skipped
+    future block; the merged rings against whole-sequence flash (#1-#3
+    over the 32,768 tokens), and at f32 and ``(1, 4, 256, 64)`` blocks
+    against ``mha_reference``. Each virtual rank's kernel time for its
+    blocks (the imbalance of contiguous against striped), and #1-#3 at
+    each kind of block (diagonal, full, strict) timed against their
+    plain versions and SDPA (the kernels line's ``sp`` rows).
+21. ``sp_train`` — ``make_sharded_train_step`` at ``transformer_big``,
+    bf16, remat, kernel CE, bf16 mu, every rank holding 8,192 tokens: at
+    one card ``{"sp": 1}`` (the plain flash path, as JAX's at sp 1); at
+    four cards sp4 at 32,768 tokens under each ``sp_impl``, dp2×sp2 and
+    sp2×tp2 at 16,384. One warm-up and 3 timed steps a run: step ms,
+    tokens/s, peak memory, the ring's sends and bytes a step, each
+    rank's #1-#3 and CE launches exactly as ``sp_expected_launches``
+    derives, no plain version; the loss falls, equal on every rank, and
+    the gathered parameters agree.
+22. ``sp_parity`` — ``pp_parity``'s f32 config (8 layers, 4 rows × 256 a
+    data shard, 2 steps) against single-device ``make_train_step``: sp 1
+    bitwise at one card; at four cards sp4 under each ``sp_impl``,
+    dp2×sp2 and sp2×tp2 by ``dp_parity``'s rule.
+
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
-named phases after ``device`` and ``build`` (the four-card runs), and
-prints no kernels line.
+named phases after ``device`` and ``build`` (the four-card runs: also
+``--phases sp_train,sp_parity``), and prints no kernels line.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
 bound, at the main path's shape and, where BERT runs it, at BERT's;
 the flash forward's rows also the launches of phases 5a-5h and, in
-bf16, its times at the largest suffix shape),
+bf16, its times at the largest suffix shape; every row's
+``sp_launches`` each ``sp_train`` run's, and #1-#3's ``sp`` their times
+at the ring's block shape, each kind of block),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -418,6 +449,37 @@ PP_PARITY_RUNS = {
         "dp2pp2": ({"dp": 2, "pp": 2}, _PP_PARITY_SCHEDULES[:3])}}
 PP_PARITY_BITWISE = (("offload", "offload_device"),
                      ("interleaved_v1", "1f1b"))
+# sp_kernels: transformer_big's attention of a 32,768-token sequence at
+# sp 4 (tools/sp_bench.py's default chunk): blocks (1, 16, 8192, 64)
+# bf16 over SP_N virtual ranks in one process; the kinds of block the
+# rings launch, (causal, causal_offset): the diagonal, a past chunk
+# (contiguous) and striped's strict block; the f32 check's block
+# against mha_reference
+SP_N, SP_BLOCK, SP_F32_BLOCK = 4, (1, 16, 8192, 64), (1, 4, 256, 64)
+SP_BLOCK_KINDS = {"diagonal": (True, 0), "full": (False, 0),
+                  "strict": (True, -1)}
+# sp_train: name → (axes, sequence, global batch, config kwargs) by
+# world; every rank holds 8,192 tokens, as a rank of dp4's headline step
+# (8 x 1024). One warm-up and SP_STEPS timed steps a run
+SP_STEPS = 3
+SP_RUNS = {
+    1: {"sp1": ({"sp": 1}, 8192, 1, {})},
+    4: {"sp4_ring": ({"sp": 4}, 32768, 1, {"sp_impl": "ring"}),
+        "sp4_striped": ({"sp": 4}, 32768, 1, {"sp_impl": "striped"}),
+        "sp4_ulysses": ({"sp": 4}, 32768, 1, {"sp_impl": "ulysses"}),
+        "dp2sp2": ({"dp": 2, "sp": 2}, 16384, 2, {}),
+        "sp2tp2": ({"sp": 2, "tp": 2}, 16384, 1, {})}}
+# sp_parity: pp_parity's f32 config (8 layers, 4 rows x 256 tokens a data
+# shard, 2 steps); name → (axes, config kwargs) by world. Held to the
+# single-device step: bitwise at one card; at four, dp_parity's rule
+# with pp_parity's allowance (phase_sp_parity says why)
+SP_PARITY_RUNS = {
+    1: {"sp1": ({"sp": 1}, {})},
+    4: {"sp4_ring": ({"sp": 4}, {"sp_impl": "ring"}),
+        "sp4_striped": ({"sp": 4}, {"sp_impl": "striped"}),
+        "sp4_ulysses": ({"sp": 4}, {"sp_impl": "ulysses"}),
+        "dp2sp2": ({"dp": 2, "sp": 2}, {}),
+        "sp2tp2": ({"sp": 2, "tp": 2}, {})}}
 
 KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd_tc": ("flash_tc.cu", "ops/attention.py:135"),
@@ -676,15 +738,18 @@ def _rand(shape, dtype, gen, scale=1.0):
             ).to(dtype)
 
 
-def _fwd_errors(q, k, v, o, lse, causal: bool) -> dict:
+def _fwd_errors(q, k, v, o, lse, causal: bool,
+                causal_offset: int | None = None) -> dict:
     """``flash_fwd``'s ``(o, lse)`` against ``flash_attention_plain`` on
-    the same inputs: errors, fully-masked rows (``lse = +inf`` and
-    ``o = 0`` where the plain version has them) and the verdict."""
+    the same inputs (``causal_offset`` None: bottom-right): errors,
+    fully-masked rows (``lse = +inf`` and ``o = 0`` where the plain
+    version has them) and the verdict."""
     import torch
     from distributed_tensorflow_tpu_torch.ops.attention import (
         flash_attention_plain)
     po, plse = flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=q.shape[-1] ** -0.5)
+                                     sm_scale=q.shape[-1] ** -0.5,
+                                     causal_offset=causal_offset)
     inf_k, inf_p = torch.isinf(lse), torch.isinf(plse)
     fin = ~inf_p
     o_err = abs_err(o, po)
@@ -5248,6 +5313,653 @@ def phase_pp_kernels(state):
     return {"attention": state["pp_rows"]}
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism (parallel/sequence_parallel.py)
+# ---------------------------------------------------------------------------
+
+def _sp_layout(t, n: int, schedule: str) -> list:
+    """``t``'s ``n`` sequence chunks as the ranks of ``schedule`` hold
+    them: contiguous, or (striped) rank r's positions r, r + n, ..."""
+    from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+        stripe_layout)
+    if schedule == "striped":
+        t = stripe_layout(t, n)
+    return [c.contiguous() for c in t.chunk(n, dim=2)]
+
+
+def _sp_whole(chunks: list, n: int, schedule: str):
+    """The inverse of :func:`_sp_layout`: the whole sequence."""
+    import torch
+    from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+        unstripe_layout)
+    t = torch.cat(chunks, dim=2)
+    return unstripe_layout(t, n) if schedule == "striped" else t
+
+
+def _sp_block_mask(schedule: str, causal: bool, src: int, me: int):
+    """The block's masking ``(launched, causal, causal_offset)``: the
+    contiguous ring skips a future chunk under ``causal``; striped is
+    causal at offset −1 where ``src > me``, else 0."""
+    if schedule == "striped":
+        return True, True, -1 if src > me else 0
+    if causal and src > me:
+        return False, True, 0
+    return True, causal and src == me, 0
+
+
+def _virtual_ring(q, k, v, do, n: int, schedule: str, causal: bool,
+                  check: bool) -> dict:
+    """A whole ring's blocks in this process, over ``n`` virtual ranks:
+    the port's step-block functions for each ``(me, src)``, merged by
+    its ``_combine_stats``, then each rank's backward blocks against
+    the merged (global) ``(o, lse)`` with ``delta`` computed once, dk/dv
+    summed at their owners. With ``check`` each launched block's ``(o,
+    lse)`` and ``(dq, dk, dv)`` are held against the plain versions on
+    the same inputs, and the rows that see no key must come out ``o =
+    0``, ``lse = +inf``. Returns the whole-sequence ``o``, ``lse``,
+    ``(dq, dk, dv)``, the launches of each pass and the block errors."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.attention import (
+        flash_attention_bwd_plain)
+    from distributed_tensorflow_tpu_torch.parallel import (
+        sequence_parallel as sp)
+    sm = q.shape[-1] ** -0.5
+    fwd, bwd = sp.block_functions(
+        "striped" if schedule == "striped" else "contiguous", causal, sm)
+    qs, ks, vs, dos = (_sp_layout(t, n, schedule) for t in (q, k, v, do))
+    kvs = [torch.stack((ks[s], vs[s])) for s in range(n)]
+    dt = str(q.dtype).replace("torch.", "")
+    errs = {"fwd": [], "bwd": []}
+    problems = []
+    before = launch_counts()
+    outs = []
+    for me in range(n):
+        o_acc = lse_acc = None
+        for step in range(n):
+            src = (me - step) % n
+            launched, blk_causal, off = _sp_block_mask(schedule, causal,
+                                                       src, me)
+            o_b, lse_b = fwd(qs[me], kvs[src], src, me)
+            if check and launched:
+                e = _fwd_errors(qs[me], ks[src], vs[src], o_b, lse_b,
+                                blk_causal, off)
+                errs["fwd"].append({"me": me, "src": src, "offset": off,
+                                    "causal": blk_causal, **e})
+                if not e["ok"]:
+                    problems.append(f"fwd block ({me}, {src}): {e}")
+                if off == -1 and not (bool(torch.isposinf(
+                        lse_b[..., 0]).all()) and bool(
+                        (o_b[..., 0, :] == 0).all())):
+                    problems.append(f"block ({me}, {src}) at offset -1: "
+                                    f"row 0 not o = 0, lse = +inf")
+            if not launched and not (bool(torch.isneginf(lse_b).all())
+                                     and bool((o_b == 0).all())):
+                problems.append(f"skipped block ({me}, {src}) not "
+                                f"o = 0, lse = -inf")
+            if step == 0:
+                o_acc = o_b.float()
+                lse_acc = torch.where(torch.isposinf(lse_b),
+                                      float("-inf"), lse_b)
+            else:
+                o_acc, lse_acc = sp._combine_stats(o_acc, lse_acc, o_b,
+                                                   lse_b)
+        outs.append((o_acc.to(q.dtype), lse_acc))
+    mid = launch_counts()
+    dq = [torch.zeros(t.shape, device=t.device) for t in qs]
+    dk = [torch.zeros(t.shape, device=t.device) for t in ks]
+    dv = [torch.zeros(t.shape, device=t.device) for t in vs]
+    for me in range(n):
+        o, lse = outs[me]
+        delta = (o.float() * dos[me].float()).sum(-1)
+        for step in range(n):
+            src = (me - step) % n
+            launched, blk_causal, off = _sp_block_mask(schedule, causal,
+                                                       src, me)
+            g = bwd(qs[me], kvs[src], src, me, o, lse, dos[me], delta)
+            if (g is None) == launched:
+                problems.append(f"bwd block ({me}, {src}): launched "
+                                f"{g is not None}, expected {launched}")
+            if g is None:
+                continue
+            if check:
+                want = flash_attention_bwd_plain(
+                    qs[me], ks[src], vs[src], o, lse, dos[me],
+                    causal=blk_causal, sm_scale=sm, causal_offset=off,
+                    delta=delta)
+                e = {f"d{x}": rel_err(a, b) for x, a, b in
+                     zip("qkv", g, want)}
+                errs["bwd"].append({"me": me, "src": src, "offset": off,
+                                    "causal": blk_causal, **e})
+                if max(e.values()) > GRAD_TOL[dt]:
+                    problems.append(f"bwd block ({me}, {src}): {e}")
+                del want
+            dq[me] += g[0].float()
+            dk[src] += g[1].float()
+            dv[src] += g[2].float()
+    after = launch_counts()
+    return {"o": _sp_whole([o for o, _ in outs], n, schedule),
+            "lse": _sp_whole([lse[..., None] for _, lse in outs], n,
+                             schedule)[..., 0],
+            "grads": [_sp_whole([t.to(q.dtype) for t in g], n, schedule)
+                      for g in (dq, dk, dv)],
+            "fwd_launches": {x: mid[x] - before[x] for x in mid
+                             if mid[x] != before[x]},
+            "bwd_launches": {x: after[x] - mid[x] for x in after
+                             if after[x] != mid[x]},
+            "errors": errs, "problems": problems}
+
+
+def _sp_rank_times(q, k, v, do, n: int, schedule: str) -> dict:
+    """Each virtual rank's kernel time for its blocks of one attention
+    call (the forward's, then the backward's), timed with CUDA events
+    at the block shape, and the load imbalance: the slowest rank's time
+    over the ranks' mean (the ring waits for its slowest rank)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.parallel import (
+        sequence_parallel as sp)
+    fwd, bwd = sp.block_functions(
+        "striped" if schedule == "striped" else "contiguous", True,
+        q.shape[-1] ** -0.5)
+    qs, ks, vs, dos = (_sp_layout(t, n, schedule) for t in (q, k, v, do))
+    kvs = [torch.stack((ks[s], vs[s])) for s in range(n)]
+    lse = torch.zeros(qs[0].shape[:3], device=q.device)
+    delta = torch.zeros_like(lse)
+    out = {"fwd_ms": [], "bwd_ms": []}
+    for me in range(n):
+        srcs = [(me - step) % n for step in range(n)]
+        out["fwd_ms"].append(time_ms(lambda: [fwd(qs[me], kvs[s], s, me)
+                                              for s in srcs], 10))
+        out["bwd_ms"].append(time_ms(lambda: [
+            bwd(qs[me], kvs[s], s, me, qs[me], lse, dos[me], delta)
+            for s in srcs], 10))
+    for key in ("fwd_ms", "bwd_ms"):
+        t = out[key]
+        out[key.replace("_ms", "_imbalance")] = max(t) / (sum(t) / n)
+    return out
+
+
+def _sp_block_rows(gen) -> dict:
+    """#1-#3 at the ring's block shape ``SP_BLOCK`` bf16, for each kind
+    of block the ring launches: the diagonal (causal, offset 0), a past
+    chunk (full) and striped's strict block (causal, offset −1): each
+    against its plain version in turns, with its bound and SDPA on the
+    same block (forward; backward alone; the strict block through a
+    boolean mask)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.attention import (
+        flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain, launch_bwd_dkv, launch_bwd_dq)
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    q, k, v, do = (_rand(SP_BLOCK, bf, gen) for _ in range(4))
+    sm = q.shape[-1] ** -0.5
+    s = q.shape[2]
+    rows = {"flash_fwd_tc": {}, "flash_bwd_dq_tc": {},
+            "flash_bwd_dkv_tc": {}}
+    for kind, (causal, off) in SP_BLOCK_KINDS.items():
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm,
+                                     causal_offset=off)
+        fwd = _fwd_errors(q, k, v, o, lse, causal, off)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         sm_scale=sm, causal_offset=off)
+        delta = (o.float() * do.float()).sum(-1)
+        kw = dict(sm_scale=sm, causal=causal, causal_offset=off)
+        got = (launch_bwd_dq(q, k, v, do, lse, delta, **kw),
+               *launch_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        errs = {f"d{x}": rel_err(a, b) for x, a, b in zip("qkv", got, want)}
+        if not fwd["ok"] or max(errs.values()) > GRAD_TOL["bfloat16"]:
+            raise AssertionError(f"sp block {kind}: {fwd} {errs}")
+        mask = (None if causal is False or off == 0 else
+                torch.ones(s, s, dtype=torch.bool,
+                           device="cuda").tril(off))
+        sdpa_kw = (dict(is_causal=causal) if mask is None
+                   else dict(attn_mask=mask))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=sm, **sdpa_kw), 10)
+        t = in_turns(lambda: flash_attention_fwd(
+            q, k, v, causal=causal, sm_scale=sm, causal_offset=off),
+            lambda: flash_attention_plain(q, k, v, causal=causal,
+                                          sm_scale=sm, causal_offset=off),
+            5)
+        flops, nbytes = attention_work(q, k, causal, off, "fwd")
+        rows["flash_fwd_tc"][kind] = {
+            **_flash_row(t, flops, nbytes, bf, fwd["o_err"], lib, q.shape),
+            "causal": causal, "causal_offset": off,
+            "masked_rows": fwd["masked_rows"],
+            "library": "scaled_dot_product_attention" + (
+                "" if mask is None else " (boolean mask)")}
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        ref = F.scaled_dot_product_attention(*leaves, scale=sm, **sdpa_kw)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            ref, leaves, do, retain_graph=True), 5)
+        del ref, leaves
+
+        def plain():
+            flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                      sm_scale=sm, causal_offset=off)
+        for op, fn, err in (
+                ("dq", launch_bwd_dq, abs_err(got[0], want[0])),
+                ("dkv", launch_bwd_dkv, max(abs_err(got[1], want[1]),
+                                            abs_err(got[2], want[2])))):
+            t = in_turns(lambda: fn(q, k, v, do, lse, delta, **kw), plain,
+                         5)
+            flops, nbytes = attention_work(q, k, causal, off, op)
+            rows[f"flash_bwd_{op}_tc"][kind] = {
+                **_flash_row(t, flops, nbytes, bf, err, lib_bwd, q.shape),
+                "causal": causal, "causal_offset": off, "rel_err": errs,
+                "library": "scaled_dot_product_attention backward "
+                           "(dq, dk, dv)"}
+        del want, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sp_kernels(state):
+    """``sp_kernels``: the ring's own block calls at full width, in one
+    process over SP_N virtual ranks — ``transformer_big``'s attention of
+    a 32,768-token sequence at sp 4 (blocks ``SP_BLOCK``, bf16): every
+    block of the contiguous causal ring, the non-causal ring and the
+    striped ring (offsets 0 and −1) against the plain versions, the
+    merged rings against whole-sequence flash (#1-#3 over 32,768
+    tokens), the same at f32 and ``SP_F32_BLOCK`` against
+    ``mha_reference``; each rank's block time (the imbalance of
+    contiguous against striped), and #1-#3 timed at each block kind
+    against SDPA (the "at sp" rows)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd, mha_reference)
+    from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+        attention_blocks)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n = SP_N
+    b, h, s, d = SP_BLOCK
+    out = {"block": list(SP_BLOCK), "n": n, "rings": {}}
+    problems = []
+    whole = (b, h, s * n, d)
+    for dtype, shape in ((torch.bfloat16, whole),
+                         (torch.float32, (SP_F32_BLOCK[0], SP_F32_BLOCK[1],
+                                          SP_F32_BLOCK[2] * n,
+                                          SP_F32_BLOCK[3]))):
+        dt = str(dtype).replace("torch.", "")
+        q, k, v, do = (_rand(shape, dtype, gen) for _ in range(4))
+        refs = {}
+        for causal in (True, False):
+            if dtype == torch.bfloat16:
+                o, lse = flash_attention_fwd(q, k, v, causal=causal)
+                refs[causal] = (o, lse, flash_attention_bwd(
+                    q, k, v, o, lse, do, causal=causal))
+            else:
+                leaves = [x.detach().clone().requires_grad_()
+                          for x in (q, k, v)]
+                o = mha_reference(*leaves, causal=causal)
+                refs[causal] = (o.detach(), None, torch.autograd.grad(
+                    o, leaves, do))
+        for schedule, causal in (("ring", True), ("ring", False),
+                                 ("striped", True)):
+            name = f"{dt}_{schedule}_{'causal' if causal else 'full'}"
+            r = _virtual_ring(q, k, v, do, n, schedule, causal,
+                              check=dtype == torch.bfloat16)
+            problems += [f"{name}: {p}" for p in r["problems"]]
+            want_o, want_lse, want_g = refs[causal]
+            res = {"o_err": abs_err(r["o"], want_o),
+                   "grad_rel_err": {f"d{x}": rel_err(a, w) for x, a, w in
+                                    zip("qkv", r["grads"], want_g)},
+                   "fwd_launches": r["fwd_launches"],
+                   "bwd_launches": r["bwd_launches"]}
+            if want_lse is not None:
+                res["lse_err"] = abs_err(r["lse"], want_lse)
+            want_blocks = sum(attention_blocks(
+                "striped" if schedule == "striped" else "ring", n, me,
+                causal) for me in range(n))
+            fwd_name = _route_name(dtype, d, "fwd")
+            if r["fwd_launches"] != {fwd_name: want_blocks} or \
+                    r["bwd_launches"] != {_route_name(dtype, d, "dq"):
+                                          want_blocks,
+                                          _route_name(dtype, d, "dkv"):
+                                          want_blocks}:
+                problems.append(f"{name}: launches {r['fwd_launches']} "
+                                f"{r['bwd_launches']}, expected "
+                                f"{want_blocks} blocks each")
+            tol = TOL[dt]
+            if res["o_err"] > tol["o"] or res.get("lse_err", 0) > \
+                    tol["lse"] or max(res["grad_rel_err"].values()) > \
+                    GRAD_TOL[dt] or not bool(torch.isfinite(r["o"]).all()):
+                problems.append(f"{name}: merged ring against the whole "
+                                f"sequence: {res}")
+            if r["errors"]["fwd"]:
+                res["block_o_err_max"] = max(e["o_err"] for e in
+                                             r["errors"]["fwd"])
+                res["block_grad_rel_err_max"] = max(
+                    max(e["dq"], e["dk"], e["dv"])
+                    for e in r["errors"]["bwd"])
+                res["blocks_checked"] = [len(r["errors"]["fwd"]),
+                                         len(r["errors"]["bwd"])]
+                res["rows_without_key"] = sum(
+                    e["masked_rows"] for e in r["errors"]["fwd"])
+            out["rings"][name] = res
+            del r
+        del q, k, v, do, refs
+        torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    q, k, v, do = (_rand(whole, torch.bfloat16, gen) for _ in range(4))
+    out["rank_times"] = {sch: _sp_rank_times(q, k, v, do, n, sch)
+                         for sch in ("ring", "striped")}
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    state["sp_rows"] = _sp_block_rows(gen)
+    out["attention"] = state["sp_rows"]
+    return out
+
+
+def _sp_config(seq: int, **kw):
+    """``transformer_big`` at ``seq`` tokens in bf16, remat (the config's
+    "nothing"), kernel cross-entropy, bf16 first moment."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+    return TransformerConfig.transformer_big(
+        max_seq_len=seq, loss_impl="kernel", adam_mu_dtype=torch.bfloat16,
+        **kw)
+
+
+def sp_expected_launches(cfg, axes: dict, sp_index: int, rows: int
+                         ) -> dict:
+    """A rank's kernels a step: per layer and attention pass its ring's
+    #1 blocks (``attention_blocks``: contiguous causal ``index + 1``,
+    striped ``n``, Ulysses 1; one flash call at sp 1), the forward twice
+    under remat "nothing" (the recompute), #2 and #3 once a block; the
+    CE kernels once a 4096-row chunk of its ``rows · S/sp`` tokens."""
+    from distributed_tensorflow_tpu_torch.ops.fused_ce import ROW_CHUNK
+    from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+        attention_blocks)
+    n = axes.get("sp", 1)
+    blocks = (attention_blocks(cfg.sp_impl, n, sp_index, cfg.causal)
+              if n > 1 else 1) * cfg.n_layers
+    tokens = rows * cfg.max_seq_len // n
+    chunks = (tokens // ROW_CHUNK if tokens > ROW_CHUNK
+              and tokens % ROW_CHUNK == 0 else 1)
+    return {"flash_fwd_tc": blocks * (1 + cfg.remat),
+            "flash_bwd_dq_tc": blocks, "flash_bwd_dkv_tc": blocks,
+            "fused_ce_fwd_tc": chunks, "fused_ce_bwd_tc": chunks}
+
+
+def _sp_train_rank(runs: dict) -> dict:
+    """One rank of ``sp_train``: each run (mesh, sequence, global batch,
+    config kwargs) at the sp config, one warm-up and SP_STEPS timed
+    steps."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        make_sharded_train_step)
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        RingExchange)
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    plain = _plain_calls()
+    out = {"rank": rank, "world": world,
+           "device": torch.cuda.get_device_name(), "runs": {}}
+    for name, (axes, seq, global_batch, kw) in runs.items():
+        mesh = topology.make_mesh(axes, device="cuda")
+        cfg = _sp_config(seq, **kw)
+        seq = cfg.max_seq_len
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (global_batch, seq))).to("cuda")
+        torch.cuda.empty_cache()
+        state, step = make_sharded_train_step(cfg, mesh, global_batch,
+                                              seed=0)
+        # the steps' peak, not the build's
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, {"tokens": tokens})              # warm-up
+        losses = [m["loss"].item()]
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        plain.clear()
+        sends = (RingExchange.sends, RingExchange.bytes)
+        step_ms = []
+        for _ in range(SP_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, m = step(state, {"tokens": tokens})
+            e1.record()
+            e1.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+            losses.append(m["loss"].item())
+        counts = launch_counts()
+        plain_calls = dict(plain)
+        peak = torch.cuda.max_memory_allocated()
+        index = topology.sp_index(mesh)
+        rows = global_batch // topology.mesh_axis_size(
+            mesh, *topology.data_axes(mesh))
+        checksum, agree = _gathered_checksum(cfg, state["model"], mesh)
+        mean_s = float(np.mean(step_ms)) / 1e3
+        out["runs"][name] = {
+            "mesh": axes, "seq_len": seq, "global_batch": global_batch,
+            "sp_impl": cfg.sp_impl, "sp_index": index,
+            "step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+            "tokens_per_s": global_batch * seq / mean_s,
+            "losses": losses, "launches": counts,
+            "launches_per_step": {x: c / SP_STEPS for x, c in
+                                  counts.items() if c},
+            "expected_per_step": sp_expected_launches(cfg, axes, index,
+                                                      rows),
+            "ring_sends_per_step": (RingExchange.sends - sends[0])
+            / SP_STEPS,
+            "ring_bytes_per_step": (RingExchange.bytes - sends[1])
+            / SP_STEPS,
+            "plain_calls": plain_calls, "peak_mem_bytes": peak,
+            "param_checksum": checksum, "ranks_agree": agree}
+        del state, step, m, tokens
+        gc.collect()
+    bootstrap.shutdown()
+    return out
+
+
+def phase_sp_train(state):
+    """``sp_train``: the sp config at one card (``{"sp": 1}``, 8,192
+    tokens: the plain flash path, as JAX takes at sp 1), then at four
+    cards sp4 under each ``sp_impl``, dp2×sp2 and sp2×tp2 when four are
+    visible (every rank holds 8,192 tokens); each rank's launches
+    against ``sp_expected_launches``, no plain version, the ring's sends
+    and bytes, step ms, tokens/s and peak memory; the loss falls, equal
+    on every rank, and the gathered parameters agree. The imbalance of
+    contiguous against striped: each rank's #1 blocks a layer a pass,
+    and the two sp4 steps' times."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    worlds = [1] + ([world] if world in SP_RUNS and world > 1 else [])
+    spawns = [multi_process_runner.run(
+        _sp_train_rank, w, args=(SP_RUNS[w],), device="cuda",
+        timeout=900).return_values for w in worlds]
+    problems = []
+    for ranks in spawns:
+        for r in ranks:
+            for name, v in r["runs"].items():
+                tag = f"rank {r['rank']} of {r['world']} {name}"
+                want = expected_counts(v["expected_per_step"], SP_STEPS)
+                if v["launches"] != want:
+                    problems.append(f"{tag}: launches {v['launches']} != "
+                                    f"{want}")
+                if v["plain_calls"]:
+                    problems.append(f"{tag}: plain versions ran: "
+                                    f"{v['plain_calls']}")
+                if not all(math.isfinite(x) for x in v["losses"]) or \
+                        not v["losses"][-1] < v["losses"][0]:
+                    problems.append(f"{tag}: losses do not fall: "
+                                    f"{v['losses']}")
+                if v["losses"] != ranks[0]["runs"][name]["losses"]:
+                    problems.append(f"{tag}: loss differs from rank 0's")
+                if not v["ranks_agree"]:
+                    problems.append(f"{tag}: gathered parameters differ")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    summary = {}
+    for ranks in spawns:
+        for name, v in ranks[0]["runs"].items():
+            blocks = [r["runs"][name]["expected_per_step"]["flash_bwd_dq_tc"]
+                      for r in ranks]
+            summary[name] = {
+                "mesh": v["mesh"], "seq_len": v["seq_len"],
+                "step_ms_mean": v["step_ms_mean"],
+                "tokens_per_s": v["tokens_per_s"],
+                "tokens_per_s_per_card": v["tokens_per_s"] / len(ranks),
+                "launches_per_step_ranks": [r["runs"][name][
+                    "launches_per_step"] for r in ranks],
+                "ring_sends_per_step_ranks": [r["runs"][name][
+                    "ring_sends_per_step"] for r in ranks],
+                "ring_bytes_per_step_ranks": [r["runs"][name][
+                    "ring_bytes_per_step"] for r in ranks],
+                "attention_blocks_imbalance": max(blocks) / (
+                    sum(blocks) / len(blocks)),
+                "peak_mem_bytes_ranks": [r["runs"][name]["peak_mem_bytes"]
+                                         for r in ranks],
+                "losses": v["losses"]}
+    if "sp4_ring" in summary and "sp4_striped" in summary:
+        summary["contiguous_over_striped_step"] = (
+            summary["sp4_ring"]["step_ms_mean"]
+            / summary["sp4_striped"]["step_ms_mean"])
+    # rank 0's launches over each run's timed steps
+    state["sp_launches"] = {name: v["launches"] for ranks in spawns
+                            for name, v in ranks[0]["runs"].items()}
+    return {"world": world, "config": "transformer_big, bf16, remat, "
+            "kernel CE, bf16 mu; 8,192 tokens a rank", "steps": SP_STEPS,
+            "summary": summary,
+            "ranks": [r for ranks in spawns for r in ranks]}
+
+
+def _sp_parity_rank(runs: dict) -> dict:
+    """One rank of ``sp_parity``: each run against single-device
+    ``make_train_step`` on the same global batch from the same weights
+    (f32, TF32 off, deterministic), PP_PARITY_STEPS steps: losses, the
+    gathered gradients and parameters."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, gather_params, init_params,
+        make_sharded_train_step)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg = TransformerConfig.transformer_big(
+        n_layers=PP_PARITY_LAYERS, max_seq_len=PP_PARITY_SEQ,
+        dtype=torch.float32, loss_impl="scan")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    for t in _flat_leaves(params):
+        dist.broadcast(t, src=0)
+    out = {"rank": rank, "world": world, "runs": {}}
+    refs = {}
+    for name, (axes, kw) in runs.items():
+        mesh = topology.make_mesh(axes, device="cuda")
+        global_batch = PP_PARITY_ROWS * axes.get("dp", 1)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (global_batch, cfg.max_seq_len))).to("cuda")
+        if global_batch not in refs:
+            want_ref = _pp_parity_reference(cfg, params, tokens)
+            # the step's own spread: the same step with its sums in
+            # another order (each data shard's gradients accumulated
+            # over PP_PARITY_MICRO microbatches)
+            acc_losses, acc_grads, acc = _pp_parity_reference(
+                cfg, params, tokens, PP_PARITY_MICRO, axes.get("dp", 1))
+            refs[global_batch] = (*want_ref, _adam_param_rule(
+                acc, want_ref[2], acc_grads, want_ref[1]))
+            out.setdefault("accum_vs_step", {})[global_batch] = \
+                refs[global_batch][3]
+        want_losses, want_grads, want, spread = refs[global_batch]
+        run_cfg = dataclasses.replace(cfg, **kw)
+        state, step = make_sharded_train_step(run_cfg, mesh, global_batch,
+                                              params=params)
+        model = state["model"]
+        losses, grads = [], []
+        for _ in range(PP_PARITY_STEPS):
+            state, m = step(state, {"tokens": tokens})
+            losses.append(m["loss"].item())
+            grads.append(_flat_leaves(gather_params(
+                cfg, model.stacked_params(lambda p: p.grad), mesh)))
+        got = _flat_leaves(gather_params(cfg, model.stacked_params(), mesh))
+        out["runs"][name] = {
+            "losses": losses,
+            "max_abs_loss_err": max(abs(a - b) for a, b in
+                                    zip(losses, want_losses)),
+            "max_abs_grad_err": max((g - w).abs().max().item()
+                                    for gs, ws in zip(grads, want_grads)
+                                    for g, w in zip(gs, ws)),
+            "max_abs_param_err": max((g - w).abs().max().item()
+                                     for g, w in zip(got, want)),
+            "bitwise": (losses == want_losses and all(
+                torch.equal(g, w) for gs, ws in zip(grads, want_grads)
+                for g, w in zip(gs, ws)) and all(
+                torch.equal(g, w) for g, w in zip(got, want))),
+            **_adam_param_rule(got, want, grads, want_grads),
+            "allowed_beyond_tol": spread["params_off_by_more_than_tol"]}
+        del state, step, model
+        torch.cuda.empty_cache()
+    out["n_params"] = sum(t.numel() for t in _flat_leaves(params))
+    bootstrap.shutdown()
+    return out
+
+
+def phase_sp_parity(state):
+    """``sp_parity``: at one card sp 1 against single-device
+    ``make_train_step`` bitwise, then at four cards (when visible) sp4
+    under each ``sp_impl``, dp2×sp2 and sp2×tp2: losses and gradients
+    within DP_PARITY_TOL, parameters by ``train_parity``'s rule, and the
+    elements beyond TRAIN_PARAM_TOL at most the step's own spread (the
+    same step with its sums reordered by microbatch accumulation, as
+    ``pp_parity`` allows) plus that rule's share. At this size any
+    reordering of the f32 sums moves ~22.6k of 167.8M elements whose
+    |g| is noise (Adam divides it by itself), and the sequence split
+    reorders every weight gradient's sum."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    ranks = multi_process_runner.run(
+        _sp_parity_rank, 1, args=(SP_PARITY_RUNS[1],), device="cuda",
+        timeout=600, env=env).return_values
+    if world in SP_PARITY_RUNS and world > 1:
+        ranks += multi_process_runner.run(
+            _sp_parity_rank, world, args=(SP_PARITY_RUNS[world],),
+            device="cuda", timeout=600, env=env).return_values
+    problems = []
+    for r in ranks:
+        allowed = TRAIN_PARAM_FRAC * r["n_params"]
+        for name, v in r["runs"].items():
+            # dp_parity's rule, with pp_parity's allowance: the elements
+            # the step's own reordering moves beyond TRAIN_PARAM_TOL
+            ok = v["bitwise"] if r["world"] == 1 else (
+                v["max_abs_loss_err"] <= DP_PARITY_TOL
+                and v["max_abs_grad_err"] <= DP_PARITY_TOL
+                and v["max_abs_param_err_held"] <= TRAIN_PARAM_TOL
+                and v["params_off_by_more_than_tol"]
+                <= v["allowed_beyond_tol"] + allowed)
+            if not ok:
+                problems.append(f"rank {r['rank']} of {r['world']} {name}: "
+                                f"{v}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": world, "config": "transformer_big width, "
+            f"{PP_PARITY_LAYERS} layers, f32, full logits",
+            "rows_per_data_shard": PP_PARITY_ROWS,
+            "seq_len": PP_PARITY_SEQ, "steps": PP_PARITY_STEPS,
+            "rule": "torch.equal at one card; at four dp_parity's with "
+                    "pp_parity's allowance",
+            "ranks": ranks}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5296,7 +6008,10 @@ def main(argv=None) -> int:
                      ("tp_serve", phase_tp_serve),
                      ("pp_kernels", phase_pp_kernels),
                      ("pp_train", phase_pp_train),
-                     ("pp_parity", phase_pp_parity)):
+                     ("pp_parity", phase_pp_parity),
+                     ("sp_kernels", phase_sp_kernels),
+                     ("sp_train", phase_sp_train),
+                     ("sp_parity", phase_sp_parity)):
         if only and name not in only:
             continue
         t0 = time.perf_counter()
@@ -5382,6 +6097,13 @@ def main(argv=None) -> int:
                               for run, c in state["pp_launches"].items()}
         if name in state["pp_rows"]:
             row["pp"] = state["pp_rows"][name]
+        # the sequence-parallel runs of sp_train (rank 0, over each run's
+        # timed steps), and the kernel at the ring's block shape, each
+        # kind of block it launches
+        row["sp_launches"] = {run: c[name]
+                              for run, c in state["sp_launches"].items()}
+        if name in state["sp_rows"]:
+            row["sp"] = state["sp_rows"][name]
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

@@ -157,6 +157,19 @@ def tp_index(mesh: DeviceMesh) -> int:
     return mesh.get_local_rank(TENSOR_AXIS)
 
 
+def sp_size(mesh) -> int:
+    """The mesh's ``sp`` size, 1 without the axis."""
+    return mesh_shape(mesh).get(SEQUENCE_AXIS, 1)
+
+
+def sp_index(mesh: DeviceMesh) -> int:
+    """This rank's index along ``sp`` (its sequence chunk), 0 without
+    the axis."""
+    if SEQUENCE_AXIS not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(SEQUENCE_AXIS)
+
+
 def pp_index(mesh: DeviceMesh) -> int:
     """This rank's worker index along ``pp`` (its pipeline stage without
     interleaving), 0 without the axis."""

@@ -20,7 +20,8 @@ with the masked-language-model machinery: the synthetic corpus, dynamic
 
 - :func:`make_sharded_train_step` — the transformer's sharded step
   with the MLM step: data-parallel, and on a mesh with ``tp``
-  tensor-parallel, the losses then over the vocab-sharded embedding.
+  tensor-parallel, the losses then over the vocab-sharded embedding; on
+  a mesh with ``sp`` each rank runs its chunk of the sequence.
 """
 
 from __future__ import annotations
@@ -176,9 +177,11 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
     :func:`~distributed_tensorflow_tpu_torch.models.transformer.
     make_sharded_train_step` with the MLM step through ``step_factory``.
     Every rank draws the masks of the **global** batch from the ``(seed,
-    step)`` generator and takes its own rows; its loss is its masked
-    sum over the global batch's masked count, times the shard count, so
-    the meaned gradients and loss are the single-device step's on the
+    step)`` generator and takes its own rows (and on a mesh with ``sp``
+    its chunk of their positions, through the non-causal ring); its loss
+    is its masked sum over the global batch's masked count, times the
+    shard count, so the gradients and loss, summed over ``sp`` and
+    meaned over the data shards, are the single-device step's on the
     global batch. ``masking(step, tokens) -> (inputs, labels)`` over the
     global batch replaces the generator, as in :func:`make_train_step`."""
     if cfg.causal:
@@ -199,7 +202,8 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
                 inputs, labels = apply_mlm_masking(
                     gen, batch["tokens"], vocab_size=cfg.vocab_size)
             count = (labels != IGNORE_LABEL).sum().clamp_min(1)
-            return loss_fn(inputs[shard.rows], labels[shard.rows],
+            rows, cols = shard.rows, shard.cols(inputs.shape[1])
+            return loss_fn(inputs[rows, cols], labels[rows, cols],
                            count) * shard.n_shards
 
         return train_step_around(cfg, model, optimizer, loss_of_batch,

@@ -52,8 +52,15 @@ the losses are the vocab-sharded cross-entropies.
 Pipeline parallelism: :func:`make_pipelined_train_step` over a ``pp``
 or ``dp``×``pp`` mesh — GPipe, 1F1B and interleaved 1F1B
 (:mod:`~distributed_tensorflow_tpu_torch.parallel.pipeline`), with the
-1F1B stash offloaded to the host on request. Fully-sharded data
-parallelism, sequence parallelism and MoE belong to later slices.
+1F1B stash offloaded to the host on request.
+
+Sequence parallelism: on a mesh with ``sp`` (``{"sp": n}``, with
+``dp``/``dcn`` and ``tp``) the model holds a
+:class:`~distributed_tensorflow_tpu_torch.parallel.sequence_parallel.
+SequenceParallel`: each rank runs its chunk of the sequence, rotary at
+global positions, attention the ring (or striped, or Ulysses) over
+``sp``, the losses over the chunk with targets from the whole rows.
+Fully-sharded data parallelism and MoE belong to later slices.
 """
 
 from __future__ import annotations
@@ -79,6 +86,8 @@ from distributed_tensorflow_tpu_torch.ops.fused_ce import (
     fused_cross_entropy, sharded_fused_cross_entropy)
 from distributed_tensorflow_tpu_torch.parallel.collectives import (
     tp_copy, tp_reduce)
+from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+    RING_ATTENTION_OP, SequenceParallel, check_impl, resolve_attn_impl)
 from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
     TensorParallel, check_divisible, vocab_parallel_cross_entropy,
     vocab_parallel_embed)
@@ -100,17 +109,24 @@ def _saving(ops):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
+#: the registered attention ops whose outputs JAX names ``attn_out``:
+#: the flash op and the flash ring (contiguous and striped)
+_ATTN = (FLASH_ATTENTION_OP, RING_ATTENTION_OP)
+
 #: ``remat_policy`` → ``checkpoint``'s ``context_fn``. "attn" saves what
 #: JAX names ``attn_out`` (``save_only_these_names("attn_out")``): the
-#: outputs ``(o, lse)`` of the registered flash op, so the backward
-#: launches no forward kernel again; "dots_attn" saves those and the
-#: dots. Under ``attention_impl="reference"`` there is no such op: the
-#: ops of ``mha_reference`` are recomputed, with the same numbers.
+#: outputs ``(o, lse)`` of the registered flash op or flash ring, so the
+#: backward launches no forward kernel and sends no ring shift again;
+#: "dots_attn" saves those and the dots. Under
+#: ``attention_impl="reference"`` there is no such op: the ops of
+#: ``mha_reference`` are recomputed, with the same numbers; so are the
+#: unfused ring's (its shifts sent again) and Ulysses' all-to-alls
+#: around the flash op.
 REMAT_POLICIES = {
     "nothing": noop_context_fn,
     "dots": _saving(_DOTS),
-    "attn": _saving((FLASH_ATTENTION_OP,)),
-    "dots_attn": _saving(_DOTS + (FLASH_ATTENTION_OP,)),
+    "attn": _saving(_ATTN),
+    "dots_attn": _saving(_DOTS + _ATTN),
 }
 
 
@@ -127,6 +143,14 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
+    """Every field of JAX's ``TransformerConfig`` (``:78-155``), in its
+    order, with its name and default, so that a JAX config's keyword
+    arguments build the port's. The port's kernels choose their own
+    tiles, so ``attn_block_q``, ``attn_block_k``, ``loss_block_n``,
+    ``loss_block_v``, ``loss_kernel_impl`` and ``optimizer_impl`` are
+    accepted and ignored; ``mesh`` is accepted, and the port's steps
+    take the mesh as an argument. ``moe_experts > 0`` raises
+    ``NotImplementedError`` (MoE is ROADMAP item A-5b)."""
     vocab_size: int = 32000
     d_model: int = 1024
     n_layers: int = 12
@@ -146,20 +170,38 @@ class TransformerConfig:
     # None: flash attention (the CUDA kernels on a card, their plain
     # versions on the CPU); "reference": the unfused mha_reference
     attention_impl: str | None = None
+    attn_block_q: int = 512
+    attn_block_k: int = 1024
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    mesh: Any = None
+    # on a mesh with sp > 1 attention is the sequence-parallel ring
+    # (parallel/sequence_parallel.py): "ring" | "ulysses" | "striped"
+    # (causal); per-block compute "flash" | "unfused" | "interpret" (the
+    # flash ring through the plain versions, CPU only), None: "flash" on
+    # a CUDA mesh, "unfused" elsewhere
+    sp_impl: str = "ring"
+    sp_attn_impl: str | None = None
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
     # "kernel": the fused CE kernels (ops/fused_ce.py); "scan": full
     # (B, S, V) logits and next_token_loss with loss_chunks=0, else
     # fused_next_token_loss over loss_chunks sequence chunks, whose
     # backward recomputes ("recompute") or keeps ("save") each chunk's
     # logits
-    loss_impl: str = "scan"
     loss_chunks: int = 0
     loss_chunk_policy: str = "recompute"
-    learning_rate: float = 3e-4
-    weight_decay: float = 0.01
+    loss_impl: str = "scan"
+    loss_block_n: int = 512
+    loss_block_v: int = 1024
+    loss_kernel_impl: str | None = None
     # AdamW first-moment storage dtype (None = the parameters' f32)
     adam_mu_dtype: Any = None
     # one fused_adamw_update over the AdamW state in place of its step
     fused_optimizer: bool = False
+    optimizer_impl: str | None = None
 
     def __post_init__(self):
         # the one place where options are checked
@@ -175,6 +217,14 @@ class TransformerConfig:
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={self.remat_policy!r}; expected "
                              f"one of {sorted(REMAT_POLICIES)}")
+        # as make_ring_attention checks them
+        check_impl(self.sp_impl)
+        if self.sp_attn_impl is not None:
+            resolve_attn_impl(self.sp_attn_impl, "cpu")
+        if self.moe_experts > 0:
+            raise NotImplementedError(
+                f"moe_experts={self.moe_experts}: mixture-of-experts is "
+                f"ROADMAP item A-5b, not ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -214,11 +264,16 @@ def rms_norm(x, scale, dtype, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps) * scale).to(dtype)
 
 
-def rotary_embedding(x, *, base: float = 10000.0, seq_axis: int = -3):
+def rotary_embedding(x, *, base: float = 10000.0, seq_axis: int = -3,
+                     offset: int = 0):
     """RoPE with the sequence axis at ``seq_axis`` and head_dim last;
-    angles in f32, result in ``x``'s dtype."""
+    angles in f32, result in ``x``'s dtype. ``offset`` is the global
+    position of ``x``'s first row (a sequence-parallel rank's chunk); the
+    positions are exact integers in f32, so a chunk's angles are those
+    of its rows of the whole sequence, bit for bit."""
     seq, d = x.shape[seq_axis], x.shape[-1]
-    pos = torch.arange(seq, dtype=torch.float32, device=x.device)
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=x.device)
     inv_freq = 1.0 / (base ** (torch.arange(0, d, 2, dtype=torch.float32,
                                             device=x.device) / d))
     angles = pos[:, None] * inv_freq[None, :]              # (seq, d/2)
@@ -264,13 +319,19 @@ class RMSNorm(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Rotary MHA; with ``tp`` this rank's ``n_heads / tp`` heads (the
     projections column-parallel, ``out`` row-parallel: the caller
-    reduces its partial output)."""
+    reduces its partial output); with ``sp`` (a
+    :class:`~distributed_tensorflow_tpu_torch.parallel.sequence_parallel.
+    SequenceParallel`) the input is this rank's chunk of the sequence,
+    rotated at its global positions, and attention is the ring over
+    ``sp``."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 tp: TensorParallel | None = None):
+                 tp: TensorParallel | None = None,
+                 sp: SequenceParallel | None = None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
+        self.sp = sp
         D, hd = cfg.d_model, cfg.head_dim
         H = cfg.n_heads // (tp.size if tp else 1)
         for name in ("query", "key", "value"):
@@ -279,14 +340,21 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Parameter(torch.empty(H, hd, D, device=device))
 
     def forward(self, x, lengths=None):
-        cfg, dt = self.cfg, self.cfg.dtype
-        q = rotary_embedding(project_heads(x, self.query.to(dt)), seq_axis=-2)
-        k = rotary_embedding(project_heads(x, self.key.to(dt)), seq_axis=-2)
+        cfg, dt, sp = self.cfg, self.cfg.dtype, self.sp
+        offset = sp.index * x.shape[1] if sp is not None else 0
+        q = rotary_embedding(project_heads(x, self.query.to(dt)), seq_axis=-2,
+                             offset=offset)
+        k = rotary_embedding(project_heads(x, self.key.to(dt)), seq_axis=-2,
+                             offset=offset)
         v = project_heads(x, self.value.to(dt))
+        # JAX's order (:255-292): lengths, then the ring on an sp mesh
+        # (under attention_impl="reference" too), then the rest
         if lengths is not None:
             # right-padded mixed-length batch: the factored length mask
             # (the flash kernel takes no per-row length)
             o = mha_reference(q, k, v, causal=cfg.causal, lengths=lengths)
+        elif sp is not None:
+            o = sp.attn(q, k, v)
         elif cfg.attention_impl == "reference":
             o = mha_reference(q, k, v, causal=cfg.causal)
         elif self.tp is not None:
@@ -323,11 +391,12 @@ class Block(nn.Module):
     ``tp_reduce``."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 tp: TensorParallel | None = None):
+                 tp: TensorParallel | None = None,
+                 sp: SequenceParallel | None = None):
         super().__init__()
         self.tp = tp
         self.RMSNorm_0 = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = MultiHeadAttention(cfg, device, tp)
+        self.attn = MultiHeadAttention(cfg, device, tp, sp)
         self.RMSNorm_1 = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.mlp = MLP(cfg, device, tp)
 
@@ -364,21 +433,26 @@ class TransformerLM(nn.Module):
     torch.parallel.tensor_parallel.TensorParallel`) the module holds
     this rank's shards: ``params`` is then this rank's shard dict
     (:func:`shard_params`), and a fresh init makes the full parameters
-    and keeps the shard."""
+    and keeps the shard. With ``sp`` (a :class:`~distributed_tensorflow_
+    tpu_torch.parallel.sequence_parallel.SequenceParallel`) the module
+    takes this rank's chunk of the sequence (the parameters are
+    replicated over ``sp``)."""
 
     def __init__(self, cfg: TransformerConfig, params=None, *,
                  device="cuda", generator: torch.Generator | None = None,
-                 tp: TensorParallel | None = None):
+                 tp: TensorParallel | None = None,
+                 sp: SequenceParallel | None = None):
         super().__init__()
         device = resolve_device(device)
         if tp is not None:
             check_divisible(cfg, tp.size)
         self.cfg = cfg
         self.tp = tp
+        self.sp = sp
         self.embed = nn.Parameter(torch.empty(
             cfg.vocab_size // (tp.size if tp else 1), cfg.d_model,
             device=device))
-        self.layers = nn.ModuleList(Block(cfg, device, tp)
+        self.layers = nn.ModuleList(Block(cfg, device, tp, sp)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, device)
         if params is None:
@@ -708,12 +782,21 @@ def softmax_cross_entropy(logits, targets, tp=None):
     return torch.logsumexp(logits, dim=-1) - tl
 
 
-def next_token_loss(logits, tokens, tp=None):
+def next_token_loss(logits, tokens, tp=None, cols=None):
     """Shifted next-token cross-entropy over full f32 logits (ignores the
     final position), averaged; ``tp``: vocab-sharded logits
-    (:func:`softmax_cross_entropy`)."""
-    return softmax_cross_entropy(logits[:, :-1].float(), tokens[:, 1:],
-                                 tp).mean()
+    (:func:`softmax_cross_entropy`). ``cols``: the logits are those of
+    the positions ``cols`` of ``tokens``' rows (a sequence-parallel
+    rank's chunk), whose targets come from the whole rows; the result is
+    the chunk's share of the rows' mean (the chunks' results sum to
+    it)."""
+    if cols is None:
+        return softmax_cross_entropy(logits[:, :-1].float(), tokens[:, 1:],
+                                     tp).mean()
+    B, S = tokens.shape
+    targets, mask = _shifted_targets_and_mask(tokens, cols)
+    return ((softmax_cross_entropy(logits.float(), targets, tp) * mask).sum()
+            / (B * (S - 1)))
 
 
 def _chunk_loss(xc, emb, tc, mc, tp=None):
@@ -729,7 +812,8 @@ def _chunk_loss(xc, emb, tc, mc, tp=None):
 
 def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
                           compute_dtype=torch.bfloat16,
-                          chunk_policy: str = "recompute", tp=None):
+                          chunk_policy: str = "recompute", tp=None,
+                          cols=None):
     """Chunked next-token CE over the tied embedding (JAX
     ``:459-510``): ``next_token_loss(hidden @ embed.T, tokens)`` without
     the ``(B, S, V)`` f32 logits. Each of ``num_chunks`` sequence chunks
@@ -739,21 +823,24 @@ def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
     backward recomputes its logits; ``"save"`` keeps the logits in
     ``compute_dtype`` (the output of the chunk's matrix product) and
     recomputes only what follows them. ``tp``: ``embed`` is this rank's
-    vocab shard."""
-    B, S, D = hidden.shape
-    if S % num_chunks:
-        raise ValueError(f"seq len {S} not divisible by loss "
+    vocab shard. ``cols``: ``hidden`` holds the positions ``cols`` of
+    ``tokens``' rows, as in :func:`next_token_loss`; the chunks then cut
+    those positions."""
+    B, S = tokens.shape
+    Sh = hidden.shape[1]
+    if Sh % num_chunks:
+        raise ValueError(f"seq len {Sh} not divisible by loss "
                          f"num_chunks={num_chunks}")
     if chunk_policy not in ("recompute", "save"):
         raise ValueError(f"chunk_policy={chunk_policy!r}; expected "
                          f"'recompute' or 'save'")
-    C = S // num_chunks
-    targets, mask = _shifted_targets_and_mask(tokens)
+    C = Sh // num_chunks
+    targets, mask = _shifted_targets_and_mask(tokens, cols)
     emb = embed.to(compute_dtype)
     context_fn = REMAT_POLICIES["dots" if chunk_policy == "save"
                                 else "nothing"]
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c in range(0, S, C):
+    for c in range(0, Sh, C):
         total = total + checkpoint(
             _chunk_loss, hidden[:, c:c + C], emb, targets[:, c:c + C],
             mask[:, c:c + C], tp, use_reentrant=False,
@@ -761,15 +848,20 @@ def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
     return total / (B * (S - 1))
 
 
-def _shifted_targets_and_mask(tokens):
+def _shifted_targets_and_mask(tokens, cols=None):
     """Next-token shift shared by the fused-loss paths: position t
     predicts token t+1; the final position has no target (pad target 0,
-    mask 0), as in ``next_token_loss``."""
+    mask 0), as in ``next_token_loss``. ``cols`` keeps those positions
+    of the whole rows' shift: a sequence-parallel rank's last position
+    targets the next rank's first token, and only the sequence's last
+    position is masked (JAX ``:513``, where GSPMD moves the halo)."""
     B, S = tokens.shape
     targets = torch.cat([tokens[:, 1:],
                          tokens.new_zeros((B, 1))], dim=1)
     mask = torch.cat([torch.ones((B, S - 1), device=tokens.device),
                       torch.zeros((B, 1), device=tokens.device)], dim=1)
+    if cols is not None:
+        targets, mask = targets[:, cols], mask[:, cols]
     return targets, mask
 
 
@@ -789,16 +881,18 @@ def fused_ce_losses(hidden, embed, targets, *, compute_dtype, tp=None):
 
 
 def kernel_next_token_loss(hidden, embed, tokens, *,
-                           compute_dtype=torch.bfloat16, tp=None):
+                           compute_dtype=torch.bfloat16, tp=None,
+                           cols=None):
     """Shifted next-token CE through the fused CE kernels
     (:func:`fused_ce_losses`): the ``(B, S, V)`` logits never exist. The
     hidden state and the tied embedding are cast to ``compute_dtype``
-    first."""
-    B, S, D = hidden.shape
-    targets, mask = _shifted_targets_and_mask(tokens)
+    first. ``cols`` as in :func:`next_token_loss` (the kernels then run
+    over the rank's ``B · S_local`` rows)."""
+    B, S = tokens.shape
+    targets, mask = _shifted_targets_and_mask(tokens, cols)
     losses = fused_ce_losses(hidden, embed, targets,
                              compute_dtype=compute_dtype, tp=tp)
-    return (losses * mask.reshape(B * S)).sum() / (B * (S - 1))
+    return (losses * mask.reshape(-1)).sum() / (B * (S - 1))
 
 
 class AdamW(torch.optim.Optimizer):
@@ -896,7 +990,11 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
     """``loss_fn(tokens) -> scalar`` for ``cfg``/``model`` (JAX
     ``:580-631``): the fused CE kernels for ``loss_impl="kernel"``;
     :func:`fused_next_token_loss` for ``loss_impl="scan"`` with
-    ``loss_chunks > 0``; else full logits and :func:`next_token_loss`."""
+    ``loss_chunks > 0``; else full logits and :func:`next_token_loss`.
+    On a sequence-parallel model (``model.sp``) ``tokens`` are whole
+    rows: the model runs on this rank's chunk and the loss is the
+    chunk's share of the rows' mean (``loss_chunks`` must divide the
+    chunk)."""
     if cfg.loss_chunks > 0:
         scan_chunks = cfg.loss_chunks
     else:
@@ -908,20 +1006,25 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
         while scan_chunks < 8 and cfg.max_seq_len % (scan_chunks * 2) == 0:
             scan_chunks *= 2
 
-    tp = model.tp
+    tp, sp = model.tp, model.sp
 
     def loss_fn(tokens):
+        # on a sequence-parallel model the rows are whole: the model
+        # takes this rank's chunk, the targets come from the whole rows
+        cols = sp.chunk(tokens.shape[1]) if sp is not None else None
+        x = tokens if cols is None else tokens[:, cols]
         if cfg.loss_impl == "kernel":
-            hidden = model(tokens, return_hidden=True)
+            hidden = model(x, return_hidden=True)
             return kernel_next_token_loss(hidden, model.embed, tokens,
-                                          compute_dtype=cfg.dtype, tp=tp)
+                                          compute_dtype=cfg.dtype, tp=tp,
+                                          cols=cols)
         if cfg.loss_chunks > 0:
-            hidden = model(tokens, return_hidden=True)
+            hidden = model(x, return_hidden=True)
             return fused_next_token_loss(
                 hidden, model.embed, tokens, num_chunks=scan_chunks,
                 compute_dtype=cfg.dtype, chunk_policy=cfg.loss_chunk_policy,
-                tp=tp)
-        return next_token_loss(model(tokens), tokens, tp)
+                tp=tp, cols=cols)
+        return next_token_loss(model(x), tokens, tp, cols)
 
     return loss_fn
 
@@ -1003,10 +1106,19 @@ class DataShard:
     parallelism: ``rows``, this rank's slice of the global batch (in
     the order of ``P(data_axes)``); ``n_shards``, the number of data
     shards; ``sync_grads()``, the gradient reduction to run after the
-    backward, before the update."""
+    backward, before the update (summed over ``sp``, meaned over the
+    data axes); ``sp``, the model's sequence parallelism (None without
+    it). The step's loss is this rank's share: the data shard's mean
+    over its rows and the whole sequence is its sum over ``sp``."""
     rows: slice
     n_shards: int
     sync_grads: Any
+    sp: SequenceParallel | None = None
+
+    def cols(self, seq_len: int) -> slice:
+        """This rank's positions of a ``seq_len`` sequence: its ``sp``
+        chunk, or all of them."""
+        return self.sp.chunk(seq_len) if self.sp is not None else slice(None)
 
 
 def jax_leaf_params(cfg: TransformerConfig, model: TransformerLM
@@ -1050,14 +1162,16 @@ def _mesh_device(mesh) -> torch.device:
 def _replicated_model(cfg: TransformerConfig, mesh, seed: int, params
                       ) -> TransformerLM:
     """The model on this rank: from ``params``, or initialised from
-    ``seed`` and broadcast from rank 0 so the replicas start equal."""
+    ``seed`` and broadcast from rank 0 so the replicas start equal; on a
+    mesh with ``sp > 1``, over this rank's sequence chunk."""
     import torch.distributed as dist
     device = _mesh_device(mesh)
+    sp = SequenceParallel.from_mesh(mesh, cfg)
     if params is not None:
-        return TransformerLM(cfg, params, device=device)
+        return TransformerLM(cfg, params, device=device, sp=sp)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    model = TransformerLM(cfg, device=device, generator=gen)
+    model = TransformerLM(cfg, device=device, generator=gen, sp=sp)
     with torch.no_grad():
         for p in model.parameters():
             dist.broadcast(p, src=0)
@@ -1076,7 +1190,8 @@ def _sharded_model(cfg: TransformerConfig, mesh, seed: int, params
     check_divisible(cfg, tp.size)
     params = _full_params(cfg, mesh, seed, params)
     return TransformerLM(cfg, shard_params(cfg, params, mesh),
-                         device=_mesh_device(mesh), tp=tp)
+                         device=_mesh_device(mesh), tp=tp,
+                         sp=SequenceParallel.from_mesh(mesh, cfg))
 
 
 def _full_params(cfg: TransformerConfig, mesh, seed: int, params) -> dict:
@@ -1092,6 +1207,13 @@ def _full_params(cfg: TransformerConfig, mesh, seed: int, params) -> dict:
     with torch.no_grad():
         _map_leaves(lambda path, t: dist.broadcast(t, src=0), params)
     return params
+
+
+def _data_size(mesh) -> int:
+    """The number of data shards: the product of the data axes."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import (
+        data_axes, mesh_axis_size)
+    return mesh_axis_size(mesh, *data_axes(mesh))
 
 
 def _data_rows(mesh, global_batch: int) -> slice:
@@ -1135,8 +1257,45 @@ def _leaf_grads(leaves) -> list[torch.Tensor]:
             for ps in leaves]
 
 
+def _check_seq(mesh, seq_len: int):
+    """``ValueError`` unless ``sp`` divides ``seq_len`` (JAX's GSPMD would
+    pad; the port cuts equal chunks)."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import sp_size
+    n = sp_size(mesh)
+    if seq_len % n:
+        raise ValueError(f"sequence length {seq_len} is not divisible by "
+                         f"sp={n}; sequence parallelism splits it into "
+                         f"equal chunks")
+
+
+def _sp_axes(mesh) -> tuple:
+    """``("sp",)`` on a mesh with the axis, else ``()``."""
+    return ("sp",) if "sp" in mesh.mesh_dim_names else ()
+
+
+def _reduce_grads(bucketer, grads, n_data: int, sp: bool):
+    """Gradients (or a loss) meaned over the data axes and, on an ``sp``
+    mesh, summed over ``sp`` (each rank's loss is its chunk's share):
+    ``bucketer`` spans the data axes and ``sp``."""
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        ReduceOp)
+    if not sp:
+        return bucketer.all_reduce(grads, ReduceOp.MEAN)
+    out = bucketer.all_reduce(grads, ReduceOp.SUM)
+    return [g / n_data for g in out] if n_data > 1 else out
+
+
+def _reduce_loss(loss, mesh, axes):
+    """The reported loss: summed over ``sp``, meaned over ``axes``."""
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        ReduceOp, all_reduce)
+    if _sp_axes(mesh):
+        loss = all_reduce(loss, mesh, "sp")
+    return all_reduce(loss, mesh, axes, ReduceOp.MEAN)
+
+
 #: the ROADMAP item that brings each mesh axis the port lacks
-_LATER_AXES = {"fsdp": "A-3b", "sp": "A-5", "ep": "A-5"}
+_LATER_AXES = {"fsdp": "A-3b", "ep": "A-5b"}
 
 
 def _check_axes(shape: dict):
@@ -1145,11 +1304,11 @@ def _check_axes(shape: dict):
             f"a {shape} mesh has a pipeline axis: its step is "
             f"make_pipelined_train_step's")
     later = sorted({_LATER_AXES[a] for a in shape if a in _LATER_AXES})
-    if later or not set(shape) <= {"dcn", "dp", "tp"}:
+    if later or not set(shape) <= {"dcn", "dp", "sp", "tp"}:
         raise NotImplementedError(
             f"a {shape} mesh needs ROADMAP item(s) "
             f"{', '.join(later) or 'A-3b'}; the port runs meshes of dcn, "
-            f"dp and tp")
+            f"dp, sp and tp")
 
 
 def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
@@ -1193,9 +1352,15 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
     ``zero=1|2`` shards AdamW's moments (and with 2 the gradients) over
     ``"dp"``: on a ``("dp",)`` mesh :func:`_make_zero_dp_train_step`,
     elsewhere :func:`_make_zero_gspmd_train_step` (moments only, both
-    levels). Meshes with axes other than ``dcn``/``dp``/``tp`` raise
-    ``NotImplementedError`` naming the ROADMAP item that brings them;
-    the port's config has no MoE fields (A-5)."""
+    levels). On a mesh with ``sp`` (alone or with ``dp``/``dcn`` and
+    ``tp``; the post-sync or the ZeRO step, as in JAX) each rank trains
+    on its rows and its ``sp`` chunk of their positions, attention is
+    the ring over ``sp`` (``cfg.sp_impl``, ``cfg.sp_attn_impl``), and
+    the loss and gradients are summed over ``sp`` and meaned over the
+    data axes; ``sp`` must divide ``max_seq_len`` (``ValueError``, where
+    JAX's GSPMD pads). Meshes with axes other than ``dcn``, ``dp``,
+    ``sp`` and ``tp`` raise ``NotImplementedError`` naming the ROADMAP
+    item that brings them (``fsdp`` A-3b, ``ep`` A-5b)."""
     shape = _shape(mesh)
     size = 1
     for v in shape.values():
@@ -1348,9 +1513,10 @@ def _make_zero_gspmd_train_step(cfg: TransformerConfig, mesh,
                                 global_batch: int, seed: int = 0, *,
                                 params=None):
     """ZeRO on any other mesh (``("dp", "tp")``, ``("tp",)``, dcn
-    hybrids; JAX ``:1078`` with ``parallel/zero.py make_zero_update``):
-    the gradients are those of the non-ZeRO step — one post-backward
-    reduction over the data axes — and the partition is over this
+    hybrids, meshes with ``sp``; JAX ``:1078`` with ``parallel/zero.py
+    make_zero_update``): the gradients are those of the non-ZeRO step —
+    one post-backward reduction over the data axes (and ``sp``, summed)
+    — and the partition is over this
     rank's tp-local leaves (:class:`~distributed_tensorflow_tpu_torch.
     parallel.zero.ZeroPartition` of their local shapes, JAX's
     ``_local_shape``), sliced over ``dp`` only: each dp rank updates its
@@ -1362,15 +1528,18 @@ def _make_zero_gspmd_train_step(cfg: TransformerConfig, mesh,
     bitwise the non-ZeRO step's."""
     from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
     from distributed_tensorflow_tpu_torch.parallel.collectives import (
-        GradientBucketer, ReduceOp, all_reduce)
+        GradientBucketer)
     from distributed_tensorflow_tpu_torch.parallel.zero import (
         make_zero_update)
     axes = data_axes(mesh)
     rows = _data_rows(mesh, global_batch)
+    _check_seq(mesh, cfg.max_seq_len)
+    n_data = _data_size(mesh)
     model = _sharded_model(cfg, mesh, seed, params)
     loss_fn = make_loss_fn(cfg, model)
     leaves = jax_leaf_params(cfg, model)
-    bucketer = GradientBucketer(mesh, axes, bytes_per_pack=0)
+    sync = axes + _sp_axes(mesh)
+    bucketer = GradientBucketer(mesh, sync, bytes_per_pack=0)
     optimizer, update = make_zero_update(
         lambda ps: make_optimizer(cfg, ps), mesh, leaves)
     partition, rank = update.partition, update.rank
@@ -1382,11 +1551,12 @@ def _make_zero_gspmd_train_step(cfg: TransformerConfig, mesh,
             p.grad = None
         loss = loss_fn(tokens[rows])
         loss.backward()
-        loss = all_reduce(loss.detach(), mesh, axes, ReduceOp.MEAN)
+        loss = _reduce_loss(loss.detach(), mesh, axes)
         with torch.no_grad():
             grads = _leaf_grads(leaves)
-            if axes:
-                grads = bucketer.all_reduce(grads, ReduceOp.MEAN)
+            if sync:
+                grads = _reduce_grads(bucketer, grads, n_data,
+                                      bool(_sp_axes(mesh)))
             g_shards = [g.clone() for g in partition.shard(
                 partition.pack(grads), rank)]
             for p in model.parameters():
@@ -1412,38 +1582,42 @@ def _make_post_sync_train_step(cfg: TransformerConfig, mesh,
                                params):
     """The ``"gspmd"`` counterpart: the factory's step with one gradient
     reduction after the backward — ``GradientBucketer(bytes_per_pack=0)``
-    over every data axis (none on a ``("tp",)`` mesh), one bucket a
-    dtype run, no hooks. On a mesh with ``tp`` the model is
-    tensor-parallel (:func:`_sharded_model`): its leaves are local
-    shards, and ``tp`` takes no part in the gradient reduction."""
+    over every data axis (none on a ``("tp",)`` mesh) and ``sp``, one
+    bucket a dtype run, no hooks: meaned over the data axes and summed
+    over ``sp``, whose ranks each hold their chunk's share of the loss
+    (the parameters are replicated over ``sp``, and the ring's backward
+    has already brought every chunk's dk/dv home). On a mesh with ``tp``
+    the model is tensor-parallel (:func:`_sharded_model`): its leaves
+    are local shards, and ``tp`` takes no part in the gradient
+    reduction."""
     from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
     from distributed_tensorflow_tpu_torch.parallel.collectives import (
-        GradientBucketer, ReduceOp, all_reduce)
+        GradientBucketer)
     axes = data_axes(mesh)
     rows = _data_rows(mesh, global_batch)
-    n = 1
-    for a in axes:
-        n *= _shape(mesh)[a]
+    _check_seq(mesh, cfg.max_seq_len)
+    n = _data_size(mesh)
+    sp = bool(_sp_axes(mesh))
     model = _sharded_model(cfg, mesh, seed, params)
     optimizer = make_optimizer(cfg, model.parameters())
-    bucketer = GradientBucketer(mesh, axes, bytes_per_pack=0)
+    sync = axes + _sp_axes(mesh)
+    bucketer = GradientBucketer(mesh, sync, bytes_per_pack=0)
     leaves = jax_leaf_params(cfg, model)
 
     def sync_grads():
         with torch.no_grad():
-            _write_grads(leaves, bucketer.all_reduce(_leaf_grads(leaves),
-                                                     ReduceOp.MEAN))
+            _write_grads(leaves, _reduce_grads(bucketer, _leaf_grads(leaves),
+                                               n, sp))
 
     inner = (step_factory or _lm_step_factory)(
         cfg, model, optimizer,
-        DataShard(rows, n, sync_grads if axes else None))
+        DataShard(rows, n, sync_grads if sync else None, model.sp))
     device = _mesh_device(mesh)
 
     def step(state, batch):
         tokens = _global_tokens(batch, global_batch, device)
         state, metrics = inner(state, {**batch, "tokens": tokens})
-        loss = all_reduce(metrics["loss"].detach(), mesh, axes,
-                          ReduceOp.MEAN)
+        loss = _reduce_loss(metrics["loss"].detach(), mesh, axes)
         return state, {**metrics, "loss": loss}
 
     step.plan = bucketer.plan_summary(_leaf_metas(leaves))

@@ -321,13 +321,15 @@ flash_attention_fwd.launches_tc = 0    # bf16, tensor cores
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool,
                               sm_scale: float,
-                              causal_offset: int | None = None):
+                              causal_offset: int | None = None,
+                              delta=None):
     """Plain PyTorch version of the flash backward: ``(dq, dk, dv)`` in
     the inputs' dtypes.
 
     ``p = exp(q kᵀ · sm_scale − lse)`` is recomputed from the forward's
     row logsumexp (``p = 0`` on masked pairs and on rows with
-    ``lse = +inf``), ``delta = rowsum(o · do)`` in f32 and
+    ``lse = +inf``), ``delta = rowsum(o · do)`` in f32 (or the ``(B, H,
+    Sq)`` ``delta`` given) and
     ``ds = p ⊙ (do vᵀ − delta) · sm_scale``. As in the Pallas kernels,
     ``ds`` is rounded to the input dtype before ``dq = ds k`` and
     ``dk = dsᵀ q``, and ``p`` before ``dv = pᵀ do``; products accumulate
@@ -337,7 +339,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool,
         causal_offset = sk - sq
     dt = q.dtype
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
-    delta = (o.float() * do32).sum(-1, keepdim=True)
+    delta = ((o.float() * do32).sum(-1, keepdim=True) if delta is None
+             else delta[..., None])
     s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * sm_scale
     p = torch.exp(s - lse[..., None])
     if causal:
@@ -443,9 +446,12 @@ def _launch_bwd_pair(q, k, v, do, lse, delta, **kw):
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                         sm_scale: float | None = None,
-                        causal_offset: int | None = None):
+                        causal_offset: int | None = None, delta=None):
     """Flash-attention backward ``(dq, dk, dv)`` from the forward's
-    ``(o, lse)`` and the output cotangent ``do``.
+    ``(o, lse)`` and the output cotangent ``do``. ``delta`` (f32 ``(B,
+    H, Sq)``) is ``rowsum(o · do)`` computed once by a caller that runs
+    many blocks against one ``(o, lse)`` (the ring's backward); without
+    it, it is computed here.
 
     A CUDA tensor goes through the dq and the dk/dv kernels
     :func:`attention_route` names (counting one launch each in
@@ -464,7 +470,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                                  f"shape {tuple(q.shape)} on {q.device}")
             # delta = rowsum(o · do) in f32 before the kernels, as in
             # JAX (:371)
-            delta = (o.float() * do.float()).sum(-1)
+            if delta is None:
+                delta = (o.float() * do.float()).sum(-1)
             return with_padded_head(
                 _launch_bwd_pair, (q, k, v, do), lse, delta,
                 sm_scale=float(sm_scale), causal=causal,
@@ -472,7 +479,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
         if q.device.type == "cpu":
             return flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale,
-                causal_offset=causal_offset)
+                causal_offset=causal_offset, delta=delta)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 

@@ -15,10 +15,18 @@ reduces a list of gradients one bucket at a time, and
 :meth:`GradientBucketer.backward_sync` launches each bucket's
 collective from inside the backward pass, as soon as that bucket and
 every bucket planned before it have their gradients.
+
+Sequence parallelism's collectives: :class:`Ring` and
+:class:`RingExchange` (JAX's ``ppermute`` round a mesh dim: one
+``batch_isend_irecv`` a shift), :func:`ring_shift` (differentiable, its
+gradient the reverse shift), :func:`all_to_all` (``jax.lax.all_to_all``
+with ``tiled=True``, differentiable) and :class:`AllToAllV` (uneven
+blocks, for the striped relayout).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import weakref
 from typing import Sequence
@@ -184,6 +192,162 @@ def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """:class:`ReduceFromGroup` over ``group`` (the mesh's ``tp``
     group)."""
     return ReduceFromGroup.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel collectives: the ring shift (JAX's ppermute over "sp")
+# and the all-to-all, each with its transpose as its gradient
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Ring:
+    """A mesh dim as a ring: ``ranks``, the global ranks of this rank's
+    dim group in index order, and ``index``, this rank's place among
+    them. Index ``i`` sends to ``i + 1`` and receives from ``i − 1``
+    (mod the size), as JAX's ``ppermute`` with ``perm = [(i, (i + 1) %
+    n)]``. The sends go over the default group, to global ranks."""
+    ranks: tuple
+    index: int
+
+    @classmethod
+    def of(cls, mesh: DeviceMesh, axis: str) -> "Ring":
+        return cls(tuple(dist.get_process_group_ranks(mesh.get_group(axis))),
+                   mesh.get_local_rank(axis))
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def peer(self, shift: int) -> int:
+        """The global rank ``shift`` places along the ring."""
+        return self.ranks[(self.index + shift) % self.size]
+
+
+class RingExchange:
+    """Tensors in flight around a :class:`Ring`: each sent ``shift``
+    places on and its counterpart received from ``shift`` places back,
+    all in one ``dist.batch_isend_irecv`` (two blocking calls would
+    deadlock on NCCL at size 2, where next and previous are one rank).
+    :meth:`wait` returns the received tensors. ``tag`` numbers the
+    messages (gloo matches by it; NCCL by order, the same on every
+    rank). At size 1 nothing is sent and the tensors come back as
+    they are."""
+
+    def __init__(self, tensors, ring: Ring, shift: int = 1, tag: int = 0):
+        self.works = []
+        if ring.size == 1:
+            self.out = list(tensors)
+            return
+        self.out = [torch.empty_like(t) for t in tensors]
+        ops = []
+        for i, (t, r) in enumerate(zip(tensors, self.out)):
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  ring.peer(shift), tag=tag + i))
+            ops.append(dist.P2POp(dist.irecv, r, ring.peer(-shift),
+                                  tag=tag + i))
+        self.works = dist.batch_isend_irecv(ops)
+        RingExchange.sends += len(tensors)
+        RingExchange.bytes += sum(t.numel() * t.element_size()
+                                  for t in tensors)
+
+    def wait(self) -> list:
+        for w in self.works:
+            w.wait()
+        self.works = []
+        return self.out
+
+
+#: tensors sent and their bytes, counted by every exchange that sends
+#: (a plain count, as the kernels' launch counters)
+RingExchange.sends = 0
+RingExchange.bytes = 0
+
+
+class RingShift(torch.autograd.Function):
+    """:class:`RingExchange` of one tensor as an op: forward shifts by
+    ``shift``, backward shifts the gradient back by ``-shift`` (JAX's
+    transpose of ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, x, ring, shift):
+        ctx.ring, ctx.shift = ring, shift
+        return RingExchange([x], ring, shift).wait()[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return RingExchange([g], ctx.ring, -ctx.shift).wait()[0], None, None
+
+
+def ring_shift(x: torch.Tensor, mesh: DeviceMesh, axis: str = "sp",
+               shift: int = 1) -> torch.Tensor:
+    """``x`` of the rank ``shift`` places back along ``axis``'s dim group
+    (this rank's goes ``shift`` places on): JAX's ``ppermute`` over the
+    ring; differentiable (:class:`RingShift`)."""
+    return RingShift.apply(x, Ring.of(mesh, axis), shift)
+
+
+def _all_to_all(x, group, split_axis: int, concat_axis: int):
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of shape "
+                         f"{tuple(x.shape)} does not divide by {n} ranks")
+    if n == 1:
+        return x.clone()
+    inp = torch.stack(x.chunk(n, dim=split_axis))
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    return torch.cat(out.unbind(0), dim=concat_axis)
+
+
+class AllToAll(torch.autograd.Function):
+    """The tiled all-to-all over ``group``; its gradient is the inverse
+    all-to-all (split and concatenation axes swapped), as JAX's
+    transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = group, concat_axis, split_axis
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
+               split_axis: int, concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis_name, split_axis, concat_axis,
+    tiled=True)``: ``x`` split into n blocks along ``split_axis``, block
+    j sent to rank j of the dim group, and the blocks received
+    concatenated along ``concat_axis`` in rank order. Differentiable
+    (:class:`AllToAll`)."""
+    return AllToAll.apply(x, axis_group(mesh, axis_name), split_axis,
+                          concat_axis)
+
+
+def _all_to_all_v(x, group, send_counts, recv_counts):
+    if dist.get_world_size(group) == 1:
+        return x.clone()
+    out = x.new_empty((sum(recv_counts),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), list(recv_counts),
+                           list(send_counts), group=group)
+    return out
+
+
+class AllToAllV(torch.autograd.Function):
+    """The all-to-all of uneven blocks along dim 0: ``send_counts[j]``
+    rows to rank j, ``recv_counts[i]`` rows from rank i, concatenated in
+    rank order; its gradient is the same exchange with the counts
+    swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, send_counts, recv_counts):
+        ctx.args = group, recv_counts, send_counts
+        return _all_to_all_v(x, group, send_counts, recv_counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_v(g, *ctx.args), None, None, None
 
 
 # ---------------------------------------------------------------------------

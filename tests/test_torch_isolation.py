@@ -57,6 +57,7 @@ print(json.dumps({"imported": names,
                 "cluster.bootstrap", "cluster.topology",
                 "parallel.collectives", "parallel.zero",
                 "parallel.tensor_parallel", "parallel.pipeline",
+                "parallel.sequence_parallel",
                 "parallel.offload", "telemetry.trace",
                 "testing.multi_process_runner"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]

@@ -13,8 +13,9 @@ from the same converted parameters on the same tokens.
   raise JAX's ``ValueError``; ``n_heads``, ``d_ff`` or ``vocab_size``
   that tp does not divide raise ``ValueError`` naming the dim (JAX pads
   or falls back to replicated execution there); an ``fsdp`` mesh
-  raises ``NotImplementedError`` naming ROADMAP item A-3b, an ``sp``
-  mesh A-5.
+  raises ``NotImplementedError`` naming ROADMAP item A-3b, an ``ep``
+  mesh A-5b (``sp`` meshes train since A-5a:
+  ``tests/test_torch_sp_train.py``).
 """
 
 import numpy as np
@@ -42,7 +43,7 @@ PORT_REFUSALS = [
     (TP2, {"d_ff": 129}, {}, "ValueError", "d_ff"),
     (TP2, {"vocab_size": 255}, {}, "ValueError", "vocab_size"),
     ({"fsdp": 2}, {}, {}, "NotImplementedError", "A-3b"),
-    ({"dp": 1, "sp": 2}, {}, {}, "NotImplementedError", "A-5"),
+    ({"dp": 1, "ep": 2}, {}, {}, "NotImplementedError", "A-5b"),
 ]
 
 

@@ -4,9 +4,10 @@ across GPUs, with the phase breakdown of ``bench.py``'s
 ``transformer_phase_breakdown``.
 
     python3 tools/torch_dp_run.py --world 4
-        [--mesh dp|dcn2xdp2|tp4|dp2xtp2|pp4|dp2xpp2] [--zero 0|1|2]
-        [--grad-sync auto|none|gspmd]
+        [--mesh dp|dcn2xdp2|tp4|dp2xtp2|pp4|dp2xpp2|sp4|dp2xsp2|sp2xtp2]
+        [--zero 0|1|2] [--grad-sync auto|none|gspmd]
         [--schedule gpipe|1f1b|interleaved] [--interleave v] [--offload]
+        [--sp-impl ring|striped|ulysses]
         [--workload transformer|bert] [--device cuda|cpu] [--tiny]
 
 Spawns one rank a device through the port's ``testing/
@@ -34,6 +35,21 @@ warm-up step of:
   S, D)`` activation in the compute dtype, the embedding's one, and per
   4096-row CE chunk the f32 dh all-reduce and the two all-gathers of
   its ``(lse, tl)`` (``tp_serial_ms``, with their count and bytes).
+
+On a sequence-parallel mesh (``sp4``: ``{"sp": world}`` at 32,768
+tokens, one row; ``dp2xsp2``: ``{"dp": 2, "sp": 2}`` at 16,384 tokens,
+one row a data shard; ``sp2xtp2``: ``{"sp": 2, "tp": 2}`` at 16,384
+tokens, one row) the step is ``make_sharded_train_step`` at
+``transformer_big`` with remat, kernel cross-entropy and a bf16 first
+moment, attention the ring over ``sp`` by ``--sp-impl``: each rank holds
+8,192 tokens, as a rank of the headline dp step. Besides what the other
+meshes report, each rank reports the ring's sends and bytes a step
+(``RingExchange``), the all-to-alls' bytes, ``sp_serial_ms`` (the
+step's sequence-parallel sends and all-to-alls alone, replayed chained
+in the step's order on tensors of their shapes), and its #1-#3
+launches a step against the schedule's count
+(``sequence_parallel.attention_blocks`` a layer a pass: the forward
+twice under remat).
 
 On a pipeline mesh (``pp4``: ``{"pp": world}``; ``dp2xpp2``: ``{"dp":
 2, "pp": world / 2}``) the step is ``make_pipelined_train_step`` at
@@ -133,11 +149,13 @@ def _tp_serial(mesh, cfg, rows, device, timed, args) -> dict:
     of the CE one f32 dh all-reduce and two all-gathers of ``N`` f32."""
     import torch
     import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import topology
     group = mesh.get_group("tp")
     n = dist.get_world_size(group)
-    tokens = rows * cfg.max_seq_len
-    act = torch.zeros((rows, cfg.max_seq_len, cfg.d_model),
-                      dtype=cfg.dtype, device=device)
+    seq = cfg.max_seq_len // topology.sp_size(mesh)   # this rank's chunk
+    tokens = rows * seq
+    act = torch.zeros((rows, seq, cfg.d_model), dtype=cfg.dtype,
+                      device=device)
     chunk = 4096 if tokens > 4096 and tokens % 4096 == 0 else tokens
     dh = torch.zeros((chunk, cfg.d_model), dtype=torch.float32,
                      device=device)
@@ -159,6 +177,141 @@ def _tp_serial(mesh, cfg, rows, device, timed, args) -> dict:
             "tp_bytes_per_step": (n_act * act.numel() * act.element_size()
                                   + n_chunks * (dh.numel() * 4
                                                 + 2 * row.numel() * 4))}
+
+
+#: sequence-parallel meshes: name → (axes, sequence length) at four
+#: ranks; one row a data shard, 8,192 tokens a rank
+SP_MESHES = {"sp4": ({"sp": 4}, 32768), "dp2xsp2": ({"dp": 2, "sp": 2},
+                                                     16384),
+             "sp2xtp2": ({"sp": 2, "tp": 2}, 16384)}
+
+
+def _sp_config(args):
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+    seq = SP_MESHES[args.mesh][1]
+    if args.tiny:
+        # the flash ring through the plain versions on the CPU
+        return TransformerConfig.tiny(
+            max_seq_len=seq // 512, sp_impl=args.sp_impl,
+            sp_attn_impl="interpret" if args.device == "cpu" else None)
+    return TransformerConfig.transformer_big(
+        max_seq_len=seq, loss_impl="kernel", adam_mu_dtype=torch.bfloat16,
+        sp_impl=args.sp_impl)
+
+
+class _SpRecorder:
+    """The sequence-parallel sends of one step, as issued: each
+    ``batch_isend_irecv`` (its ops' kinds, shapes, dtypes, peers and
+    tags) and each ``all_to_all_single`` (shapes, dtype, splits,
+    group), recorded while :meth:`recording` is on; :meth:`chain` replays
+    them in order on zero tensors of their shapes."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist = dist
+        self.calls: list = []
+
+    def recording(self):
+        import contextlib
+        dist = self.dist
+        real_p2p, real_a2a = dist.batch_isend_irecv, dist.all_to_all_single
+
+        def p2p(ops):
+            self.calls.append(("p2p", [(o.op, tuple(o.tensor.shape),
+                                        o.tensor.dtype, o.peer, o.tag)
+                                       for o in ops]))
+            return real_p2p(ops)
+
+        def a2a(out, inp, out_splits=None, in_splits=None, group=None,
+                **kw):
+            self.calls.append(("a2a", (tuple(out.shape), tuple(inp.shape),
+                                       inp.dtype, out_splits, in_splits,
+                                       group)))
+            return real_a2a(out, inp, out_splits, in_splits, group=group,
+                            **kw)
+
+        @contextlib.contextmanager
+        def ctx():
+            dist.batch_isend_irecv, dist.all_to_all_single = p2p, a2a
+            try:
+                yield self
+            finally:
+                dist.batch_isend_irecv = real_p2p
+                dist.all_to_all_single = real_a2a
+        return ctx()
+
+    def bytes(self) -> dict:
+        import torch
+        out = {"p2p_sends": 0, "p2p_bytes": 0, "a2a_calls": 0,
+               "a2a_bytes": 0}
+        for kind, rec in self.calls:
+            if kind == "p2p":
+                for op, shape, dtype, _, _ in rec:
+                    if op is self.dist.isend:
+                        out["p2p_sends"] += 1
+                        out["p2p_bytes"] += (torch.Size(shape).numel()
+                                             * dtype.itemsize)
+            else:
+                out["a2a_calls"] += 1
+                out["a2a_bytes"] += (torch.Size(rec[1]).numel()
+                                     * rec[2].itemsize)
+        return out
+
+    def chain(self, device):
+        import torch
+        dist = self.dist
+        calls = []
+        for kind, rec in self.calls:
+            if kind == "p2p":
+                calls.append(("p2p", [
+                    dist.P2POp(op, torch.zeros(shape, dtype=dtype,
+                                               device=device), peer, tag=tag)
+                    for op, shape, dtype, peer, tag in rec]))
+            else:
+                oshape, ishape, dtype, osp, isp, group = rec
+                calls.append(("a2a", (
+                    torch.empty(oshape, dtype=dtype, device=device),
+                    torch.zeros(ishape, dtype=dtype, device=device), osp,
+                    isp, group)))
+
+        def run():
+            for kind, rec in calls:
+                if kind == "p2p":
+                    for w in dist.batch_isend_irecv(rec):
+                        w.wait()
+                else:
+                    out, inp, osp, isp, group = rec
+                    dist.all_to_all_single(out, inp, osp, isp, group=group)
+        return run
+
+
+def _sp_report(args, cfg, mesh, full, timed, device, sends, n_steps
+               ) -> dict:
+    """A sequence-parallel rank's extras: its #1-#3 launches a step by
+    the schedule's rule, the ring's sends and bytes a step, the step's
+    sends and all-to-alls recorded over one more step and replayed
+    alone (``sp_serial_ms``)."""
+    from distributed_tensorflow_tpu_torch.cluster import topology
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        RingExchange)
+    from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+        attention_blocks)
+    n, me = topology.sp_size(mesh), topology.sp_index(mesh)
+    blocks = attention_blocks(cfg.sp_impl, n, me, cfg.causal) * cfg.n_layers
+    out = {"sp": n, "sp_index": me, "sp_impl": cfg.sp_impl,
+           "ring_sends_per_step": (RingExchange.sends - sends[0]) / n_steps,
+           "ring_bytes_per_step": (RingExchange.bytes - sends[1]) / n_steps}
+    rec = _SpRecorder()
+    with rec.recording():
+        full()
+    return {**out, "sp_recorded_per_step": rec.bytes(),
+            "expected_launches_per_step": {
+                "flash_fwd_tc": blocks * (1 + cfg.remat),
+                "flash_bwd_dq_tc": blocks, "flash_bwd_dkv_tc": blocks},
+            "sp_serial_ms": _best(timed, rec.chain(device), args.iters,
+                                  args.reps) * 1e3}
 
 
 def _pp_config(tiny: bool):
@@ -295,7 +448,7 @@ def _rank(args) -> dict:
     from distributed_tensorflow_tpu_torch.models import bert as tbert
     from distributed_tensorflow_tpu_torch.models import transformer as tf
     from distributed_tensorflow_tpu_torch.parallel.collectives import (
-        GradientBucketer, ReduceOp)
+        GradientBucketer, ReduceOp, RingExchange)
     rt = bootstrap.initialize(device=args.device)
     world, rank, device = dist.get_world_size(), dist.get_rank(), rt.device
     if args.mesh == "dcn2xdp2":
@@ -305,11 +458,15 @@ def _rank(args) -> dict:
         mesh = topology.make_mesh({"tp": world}, device=args.device)
     elif args.mesh == "dp2xtp2":
         mesh = topology.make_mesh({"dp": 2, "tp": -1}, device=args.device)
+    elif args.mesh in SP_MESHES:
+        mesh = topology.make_mesh(SP_MESHES[args.mesh][0],
+                                  device=args.device)
     else:
         mesh = topology.make_mesh({"dp": world}, device=args.device)
     tp = topology.tp_size(mesh)
-    cfg = _config(args.workload, args.tiny)
-    rows = BATCH[args.workload]
+    sp = args.mesh in SP_MESHES
+    cfg = _sp_config(args) if sp else _config(args.workload, args.tiny)
+    rows = 1 if sp else BATCH[args.workload]
     n_data = topology.mesh_axis_size(mesh, *topology.data_axes(mesh))
     gb = rows * n_data
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -331,14 +488,23 @@ def _rank(args) -> dict:
         box["state"], m = step(box["state"], batch)
         box["loss"] = m["loss"]
     full()
-    from distributed_tensorflow_tpu_torch.ops import attention, fused_ce
+    if device.type == "cuda":
+        # the steps' peak, not the build's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     before = _launches()
+    sends = (RingExchange.sends, RingExchange.bytes)
     dt_full = _best(timed, full, args.iters, args.reps)
     after = _launches()
     n_steps = 1 + args.iters * args.reps
     out["launches_per_step"] = {k: (after[k] - before[k]) / n_steps
                                 for k in after}
     out["loss"] = float(box["loss"])
+    if device.type == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if sp:
+        out.update(_sp_report(args, cfg, mesh, full, timed, device,
+                              sends, n_steps))
     model = box["state"]["model"]
     leaves = tf.jax_leaf_params(cfg, model)
     grads = [torch.cat([p.detach().reshape(-1) for p in ps])
@@ -349,12 +515,12 @@ def _rank(args) -> dict:
         torch.cuda.empty_cache()
 
     # the same compute without the sync
-    if tp > 1 or "tp" in mesh.mesh_dim_names:
+    if tp > 1 or "tp" in mesh.mesh_dim_names or sp:
         nstep = None
         if args.workload == "transformer":
             def no_sync(cfg_, model_, opt_, shard):
                 return tf._lm_step_factory(cfg_, model_, opt_, tf.DataShard(
-                    shard.rows, shard.n_shards, None))
+                    shard.rows, shard.n_shards, None, shard.sp))
             nstate, nstep = tf._make_post_sync_train_step(
                 cfg, mesh, gb, 0, no_sync, None)
             local = batch
@@ -429,7 +595,10 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every visible card)")
     ap.add_argument("--mesh", choices=("dp", "dcn2xdp2", "tp4", "dp2xtp2",
-                                       "pp4", "dp2xpp2"), default="dp")
+                                       "pp4", "dp2xpp2", *SP_MESHES),
+                    default="dp")
+    ap.add_argument("--sp-impl", choices=("ring", "striped", "ulysses"),
+                    default="ring", help="sequence-parallel meshes")
     ap.add_argument("--schedule", choices=("gpipe", "1f1b", "interleaved"),
                     default="1f1b", help="pipeline meshes")
     ap.add_argument("--interleave", type=int, default=2)
@@ -447,6 +616,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    if args.mesh in SP_MESHES and args.workload != "transformer":
+        ap.error("the sequence-parallel meshes run --workload transformer")
 
     import torch
     from distributed_tensorflow_tpu_torch.testing import multi_process_runner
@@ -478,12 +649,15 @@ def main() -> int:
     line = {"workload": args.workload, "world": world, "mesh": args.mesh,
             "zero": args.zero, "grad_sync": args.grad_sync,
             "device": args.device, "tiny": args.tiny,
-            "rows_per_data_shard": BATCH[args.workload],
+            "rows_per_data_shard": (1 if args.mesh in SP_MESHES
+                                    else BATCH[args.workload]),
             "iters": args.iters, "reps": args.reps, "nvidia_smi": smi,
             **{k: v for k, v in r0.items() if k != "rank"},
-            "ranks": [{k: r[k] for k in ("rank", "step_ms",
-                                         "nosync_step_ms",
-                                         "collective_serial_ms", "loss")}
+            "ranks": [{k: r.get(k) for k in (
+                "rank", "step_ms", "nosync_step_ms", "collective_serial_ms",
+                "loss", "sp_index", "sp_serial_ms", "ring_sends_per_step",
+                "ring_bytes_per_step", "launches_per_step",
+                "expected_launches_per_step", "peak_mem_bytes")}
                       for r in ranks]}
     return _print(line, args.out)
 
