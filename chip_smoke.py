@@ -240,10 +240,38 @@ printing one JSON line:
     data shard, 2 steps) against single-device ``make_train_step``: sp 1
     bitwise at one card; at four cards sp4 under each ``sp_impl``,
     dp2×sp2 and sp2×tp2 by ``dp_parity``'s rule.
+23. ``moe_train`` — the headline step with 8 experts a layer (the MoE
+    layer replaces the MLP; about 889 M parameters): at one card the
+    single-device step top-1 (capacity 1.25), top-2 (capacity 2.0) and
+    top-1 under remat "nothing", and top-1 on ``{"ep": 1}`` with
+    ``fused_optimizer=True``; at four cards ``make_sharded_train_step``
+    on ep4 (also fused), dp2×ep2 and ep2×tp2. Step ms, tokens/s, MFU (the dense FLOPs
+    plus 12 D F a kept routed token a layer), dropped share, expert load
+    max/mean, aux, the state a rank holds and peak memory, the boundary
+    all-reduces and routing count gathers a step with bytes; #1-#4 and
+    #7 launch exactly the headline's a step (#9 once a local parameter
+    tensor in the fused runs), no plain version; the loss falls, equal
+    on every rank.
+24. ``moe_parity`` — ``pp_parity``'s f32 config with 8 experts: ``{"ep":
+    1}`` bitwise against the single-device step; the single-device step
+    (top-1 and top-2) against the same model whose MoE layers are JAX's
+    unfused formulation in plain PyTorch (loss, gradients, parameters,
+    and each layer's dropped rows on the same input exactly the
+    reference's zero rows); at four cards ep4, dp2×ep2, ep2×tp2 by
+    ``sp_parity``'s rule, each rank's dropped rows the single device's.
+25. ``fsdp_train`` — the headline step, 8 × 1024 a data shard, on
+    ``{"fsdp": 1}`` and at four cards fsdp4, dp2×fsdp2, fsdp2×tp2, and
+    ``{"fsdp": 1}`` and fsdp4 with ``fused_optimizer=True``: step ms,
+    tokens/s, the state a rank holds, the all-gathers and
+    reduce-scatters a step with bytes; the headline's kernels, and #9
+    once a local shard a step in the fused runs.
+26. ``fsdp_parity`` — as ``sp_parity`` on ``{"fsdp": 1}`` (bitwise) and
+    fsdp4, dp2×fsdp2, fsdp2×tp2.
 
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
-``--phases sp_train,sp_parity``), and prints no kernels line.
+``--phases sp_train,sp_parity``, ``--phases moe_train,moe_parity,
+fsdp_train,fsdp_parity``), and prints no kernels line.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -251,7 +279,8 @@ bound, at the main path's shape and, where BERT runs it, at BERT's;
 the flash forward's rows also the launches of phases 5a-5h and, in
 bf16, its times at the largest suffix shape; every row's
 ``sp_launches`` each ``sp_train`` run's, and #1-#3's ``sp`` their times
-at the ring's block shape, each kind of block),
+at the ring's block shape, each kind of block; ``moe_launches`` and
+``fsdp_launches`` each ``moe_train`` and ``fsdp_train`` run's),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -481,6 +510,67 @@ SP_PARITY_RUNS = {
         "dp2sp2": ({"dp": 2, "sp": 2}, {}),
         "sp2tp2": ({"sp": 2, "tp": 2}, {})}}
 
+# moe_train: the headline row with 8 experts a layer (about 889 M
+# parameters, 805 M of them in experts); name → (axes, global batch,
+# config kwargs) by world. One card: the single-device step (axes None)
+# top-1 at JAX's defaults (capacity 1.25), top-2 at capacity 2.0 (JAX's
+# flagship MoE test) and top-1 under remat "nothing"; four cards: ep4
+# (ep is no data axis: one data shard, the dense part on every rank),
+# dp2×ep2 and ep2×tp2 at 8 × 1024 a data shard. The MoE layer launches
+# no kernel: a step launches the headline's #1-#3 and CE kernels (#1
+# twice a layer under remat "nothing"). The "_fused" runs take
+# fused_optimizer=True on the sharded (post-sync) step: #9 once a local
+# parameter tensor a step, router, wi and wo among them (E/ep experts a
+# rank at ep4). One warm-up and MOE_STEPS timed steps a run
+MOE_STEPS = 3
+MOE_TOP1 = {"moe_experts": 8}
+MOE_TOP2 = {"moe_experts": 8, "moe_top_k": 2, "moe_capacity_factor": 2.0}
+FUSED = {"fused_optimizer": True}
+MOE_RUNS = {
+    1: {"top1": (None, 8, MOE_TOP1), "top2": (None, 8, MOE_TOP2),
+        "top1_remat": (None, 8, {**MOE_TOP1, "remat": True,
+                                 "remat_policy": "nothing"}),
+        "ep1_fused": ({"ep": 1}, 8, {**MOE_TOP1, **FUSED})},
+    4: {"ep4": ({"ep": 4}, 8, MOE_TOP1),
+        "ep4_fused": ({"ep": 4}, 8, {**MOE_TOP1, **FUSED}),
+        "dp2ep2": ({"dp": 2, "ep": 2}, 16, MOE_TOP1),
+        "ep2tp2": ({"ep": 2, "tp": 2}, 8, MOE_TOP1)}}
+# moe_parity: pp_parity's f32 config (8 layers, 4 rows x 256 tokens a
+# data shard, 2 steps) with 8 experts; name → (axes, config kwargs) by
+# world. One card: {"ep": 1} bitwise against single-device
+# make_train_step, and the single-device step against the same model
+# whose MoE layers are JAX's unfused formulation ((T, E, C) one-hot
+# dispatch and combine, four einsums, in plain PyTorch): loss within
+# TRAIN_LOSS_TOL, the first step's gradients within GRAD_TOL f32 of each
+# leaf's largest magnitude, parameters by train_parity's rule, and each
+# layer's dropped rows on the same input exactly the reference's zero
+# rows (top-1, and top-2 at capacity 2.0). Four cards: ep4, dp2×ep2,
+# ep2×tp2 by sp_parity's rule
+MOE_PARITY_RUNS = {
+    1: {"ep1": ({"ep": 1}, MOE_TOP1)},
+    4: {"ep4": ({"ep": 4}, MOE_TOP1),
+        "dp2ep2": ({"dp": 2, "ep": 2}, MOE_TOP1),
+        "ep2tp2": ({"ep": 2, "tp": 2}, MOE_TOP1)}}
+# fsdp_train: the headline row at 8 x 1024 a data shard; name → (axes,
+# global batch, config kwargs) by world: {"fsdp": 1} at one card; fsdp4, dp2×fsdp2 and
+# fsdp2×tp2 at four. Per step a rank gathers the six weights of each
+# layer and the embedding twice (the lookup, the kernel loss's head):
+# 74 all-gathers and 74 reduce-scatters; the kernels as the headline's,
+# and in the "_fused" runs #9 once a local shard a step
+FSDP_STEPS = 3
+FSDP_RUNS = {
+    1: {"fsdp1": ({"fsdp": 1}, 8, {}),
+        "fsdp1_fused": ({"fsdp": 1}, 8, FUSED)},
+    4: {"fsdp4": ({"fsdp": 4}, 32, {}),
+        "fsdp4_fused": ({"fsdp": 4}, 32, FUSED),
+        "dp2fsdp2": ({"dp": 2, "fsdp": 2}, 32, {}),
+        "fsdp2tp2": ({"fsdp": 2, "tp": 2}, 16, {})}}
+# fsdp_parity: pp_parity's f32 config; {"fsdp": 1} bitwise at one card,
+# fsdp4, dp2×fsdp2, fsdp2×tp2 by sp_parity's rule at four
+FSDP_PARITY_RUNS = {
+    1: {"fsdp1": ({"fsdp": 1}, {})},
+    4: {"fsdp4": ({"fsdp": 4}, {}), "dp2fsdp2": ({"dp": 2, "fsdp": 2}, {}),
+        "fsdp2tp2": ({"fsdp": 2, "tp": 2}, {})}}
 KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd_tc": ("flash_tc.cu", "ops/attention.py:135"),
     "flash_fwd": ("flash_fwd.cu", "ops/attention.py:135"),
@@ -5960,6 +6050,585 @@ def phase_sp_parity(state):
             "ranks": ranks}
 
 
+def _routing_stats(model, tokens) -> dict:
+    """The MoE layers' routing of one forward without gradients on
+    ``tokens`` (this rank's rows; every rank of a mesh runs it): kept
+    routed tokens (global, summed over layers), each layer's dropped
+    share of its ``T · k`` assignments and its expert load max over
+    mean, and this rank's aux losses summed."""
+    import torch
+    from distributed_tensorflow_tpu_torch.parallel import moe
+    with torch.no_grad(), moe.routing_log() as log:
+        model(tokens)
+    per = []
+    for e in log:
+        a = e["assigned"].double()
+        kept = a.clamp(max=e["capacity"]).sum().item()
+        per.append({"kept": kept, "dropped_share": 1 - kept / a.sum().item(),
+                    "load_max_over_mean": (a.max() / a.mean()).item(),
+                    "aux": e["aux"].item()})
+    return {"layers": len(per), "capacity": log[0]["capacity"],
+            "kept_routed_tokens": sum(p["kept"] for p in per),
+            "dropped_share_mean": sum(p["dropped_share"] for p in per)
+            / len(per),
+            "dropped_share_max": max(p["dropped_share"] for p in per),
+            "load_max_over_mean_mean": sum(p["load_max_over_mean"]
+                                           for p in per) / len(per),
+            "load_max_over_mean_max": max(p["load_max_over_mean"]
+                                          for p in per),
+            "aux_sum_rank": sum(p["aux"] for p in per)}
+
+
+def moe_step_flops(cfg, batch: int, kept: int) -> float:
+    """Model FLOPs of one MoE step: :func:`step_flops` of the dense
+    parameters (every leaf but the experts' ``wi``/``wo``) plus 12 D F a
+    kept routed token a layer (``kept`` summed over layers: 4 D F
+    forward, twice that backward)."""
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        param_shapes)
+    dense = sum(math.prod(s) for k, s in _leaves(param_shapes(cfg))
+                if k not in ("layers/moe/wi", "layers/moe/wo"))
+    return (step_flops(cfg, batch, dense)
+            + 12 * cfg.d_model * cfg.d_ff * kept)
+
+
+def _boundary_counts() -> tuple:
+    from distributed_tensorflow_tpu_torch.parallel import collectives as C
+    from distributed_tensorflow_tpu_torch.parallel import moe
+    return (C.CopyToGroup.calls + C.ReduceFromGroup.calls,
+            C.CopyToGroup.bytes + C.ReduceFromGroup.bytes,
+            moe.STATS["count_gathers"], moe.STATS["count_gather_bytes"],
+            C.FsdpGather.calls, C.FsdpGather.bytes, C.FsdpGather.scatters,
+            C.FsdpGather.scatter_bytes)
+
+
+_BOUNDARY_KEYS = ("boundary_all_reduces", "boundary_all_reduce_bytes",
+                  "moe_count_gathers", "moe_count_gather_bytes",
+                  "fsdp_all_gathers", "fsdp_all_gather_bytes",
+                  "fsdp_reduce_scatters", "fsdp_reduce_scatter_bytes")
+
+
+def _shard_train_rank(runs: dict, steps: int) -> dict:
+    """One rank of ``moe_train`` / ``fsdp_train``: each run (axes or None
+    for the single-device step, global batch, config kwargs) at the
+    headline config, one warm-up and ``steps`` timed steps: step ms,
+    launches, the tp/ep boundary all-reduces, MoE count gathers and
+    fsdp gathers and reduce-scatters a step with bytes, the state a rank
+    holds and peak memory, and with MoE the routing of the batch after
+    the steps."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        _data_rows, make_sharded_train_step, param_shapes)
+    from distributed_tensorflow_tpu_torch.parallel.zero import (
+        held_state_bytes)
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    plain = _plain_calls()
+    out = {"rank": rank, "world": world,
+           "device": torch.cuda.get_device_name(), "runs": {}}
+    for name, (axes, gb, kw) in runs.items():
+        cfg = _headline_config(**kw)
+        torch.cuda.empty_cache()
+        if axes is None:
+            model, opt, step, batch = _train_setup(cfg, 0, gb)
+            state, mesh, rows = ({"model": model, "optimizer": opt,
+                                  "step": 0}, None, slice(None))
+        else:
+            mesh = topology.make_mesh(axes, device="cuda")
+            state, step = make_sharded_train_step(cfg, mesh, gb, seed=0)
+            batch = {"tokens": torch.from_numpy(np.random.default_rng(
+                0).integers(0, cfg.vocab_size, (gb, cfg.max_seq_len))
+            ).to("cuda")}
+            rows = _data_rows(mesh, gb)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batch)                       # warm-up
+        losses = [m["loss"].item()]
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        plain.clear()
+        before = _boundary_counts()
+        step_ms = []
+        for _ in range(steps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, m = step(state, batch)
+            e1.record()
+            e1.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+            losses.append(m["loss"].item())
+        counts = launch_counts()
+        plain_calls = dict(plain)
+        per_step = {k: (a - b) / steps for k, a, b in
+                    zip(_BOUNDARY_KEYS, _boundary_counts(), before)}
+        peak = torch.cuda.max_memory_allocated()
+        model = state["model"]
+        expected = {**TRAIN_LAUNCHES, "flash_fwd_tc": 12 * (1 + cfg.remat)}
+        if cfg.fused_optimizer:
+            # one launch a local parameter tensor (a shard on a mesh)
+            expected["fused_adamw"] = sum(1 for _ in model.parameters())
+        run = {"mesh": axes, "global_batch": gb, "config": kw,
+               "step_ms": step_ms,
+               "step_ms_mean": float(np.mean(step_ms)),
+               "step_ms_median": float(np.median(step_ms)),
+               "losses": losses, "launches": counts,
+               "expected_per_step": expected,
+               "plain_calls": plain_calls, "peak_mem_bytes": peak,
+               "collectives_per_step": per_step,
+               "n_params_rank": sum(p.numel() for p in model.parameters()),
+               **held_state_bytes(model, state["optimizer"])}
+        mean_s = run["step_ms_mean"] / 1e3
+        run["tokens_per_s"] = gb * cfg.max_seq_len / mean_s
+        run["tokens_per_s_median"] = (gb * cfg.max_seq_len
+                                      / run["step_ms_median"] * 1e3)
+        if cfg.moe_experts:
+            run["routing"] = _routing_stats(model, batch["tokens"][rows])
+            flops = moe_step_flops(cfg, gb, run["routing"][
+                "kept_routed_tokens"])
+        else:
+            flops = step_flops(cfg, gb, sum(
+                math.prod(s) for _, s in _leaves(param_shapes(cfg))))
+        run["step_flops"] = flops
+        run["mfu"] = flops / mean_s / (PEAK_FLOPS["bfloat16"] * world)
+        run["param_checksum"], run["ranks_agree"] = (
+            _gathered_checksum(cfg, model, mesh) if mesh is not None
+            else (None, True))
+        out["runs"][name] = run
+        del state, step, model, m, batch
+        gc.collect()
+    bootstrap.shutdown()
+    return out
+
+
+def _shard_train(runs_by_world: dict, steps: int) -> tuple:
+    """Spawn :func:`_shard_train_rank` at one card, then at every visible
+    card when ``runs_by_world`` has that world; check every rank's
+    launches (exactly the path's, no plain version), the falling loss,
+    equal on every rank, and the gathered parameters' agreement."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    worlds = [1] + ([world] if world in runs_by_world and world > 1
+                    else [])
+    spawns = [multi_process_runner.run(
+        _shard_train_rank, w, args=(runs_by_world[w], steps),
+        device="cuda", timeout=900).return_values for w in worlds]
+    problems = []
+    for ranks in spawns:
+        for r in ranks:
+            for name, v in r["runs"].items():
+                tag = f"rank {r['rank']} of {r['world']} {name}"
+                want = expected_counts(v["expected_per_step"], steps)
+                if v["launches"] != want:
+                    problems.append(f"{tag}: launches {v['launches']} != "
+                                    f"{want}")
+                if v["plain_calls"]:
+                    problems.append(f"{tag}: plain versions ran: "
+                                    f"{v['plain_calls']}")
+                if not all(math.isfinite(x) for x in v["losses"]) or \
+                        not v["losses"][-1] < v["losses"][0]:
+                    problems.append(f"{tag}: losses do not fall: "
+                                    f"{v['losses']}")
+                if v["losses"] != ranks[0]["runs"][name]["losses"]:
+                    problems.append(f"{tag}: loss differs from rank 0's")
+                if not v["ranks_agree"]:
+                    problems.append(f"{tag}: gathered parameters differ")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    summary = {}
+    for ranks in spawns:
+        for name, v in ranks[0]["runs"].items():
+            summary[name] = {
+                k: v[k] for k in ("mesh", "global_batch", "config",
+                                  "step_ms", "step_ms_mean",
+                                  "step_ms_median", "tokens_per_s",
+                                  "tokens_per_s_median", "mfu", "losses",
+                                  "routing") if k in v}
+            summary[name].update({
+                "tokens_per_s_per_card": v["tokens_per_s"] / len(ranks),
+                "launches_per_step": {k: c / steps for k, c in
+                                      v["launches"].items() if c},
+                "collectives_per_step_ranks": [
+                    r["runs"][name]["collectives_per_step"] for r in ranks],
+                "state_bytes_ranks": [r["runs"][name]["state_bytes"]
+                                      for r in ranks],
+                "n_params_ranks": [r["runs"][name]["n_params_rank"]
+                                   for r in ranks],
+                "peak_mem_bytes_ranks": [r["runs"][name]["peak_mem_bytes"]
+                                         for r in ranks]})
+    launches = {name: v["launches"] for ranks in spawns
+                for name, v in ranks[0]["runs"].items()}
+    return world, summary, launches, [r for ranks in spawns for r in ranks]
+
+
+def phase_moe_train(state):
+    """``moe_train``: the headline step with 8 experts a layer — at one
+    card the single-device step top-1 (capacity 1.25), top-2 (capacity
+    2.0) and top-1 under remat "nothing" (the aux loss leaves the
+    checkpoint), and ``{"ep": 1}`` with the fused AdamW; at four cards
+    ep4 (also fused), dp2×ep2 and ep2×tp2. Step ms, tokens/s, MFU (the
+    dense FLOPs plus 12 D F a kept routed token a layer), dropped share,
+    expert load max/mean, aux, state a rank and peak memory, the
+    boundary all-reduces and count gathers a step with bytes; #1-#4 and
+    #7 launches exactly the headline's a step, #9 one a local parameter
+    tensor in the fused runs."""
+    world, summary, launches, ranks = _shard_train(MOE_RUNS, MOE_STEPS)
+    single = summary["top1"]["state_bytes_ranks"][0]
+    for name, v in summary.items():
+        v["state_over_single_card"] = [b / single
+                                       for b in v["state_bytes_ranks"]]
+    state["moe_launches"] = launches
+    return {"world": world, "config": "transformer_big, bf16, no remat "
+            "unless named, kernel CE, bf16 mu, 8 experts a layer",
+            "steps": MOE_STEPS, "summary": summary, "ranks": ranks}
+
+
+def phase_fsdp_train(state):
+    """``fsdp_train``: the headline step, 8 × 1024 a data shard, on
+    ``{"fsdp": 1}`` at one card and fsdp4, dp2×fsdp2 and fsdp2×tp2 at
+    four, ``{"fsdp": 1}`` and fsdp4 also with the fused AdamW: step ms,
+    tokens/s, the state a rank holds (against dp4's whole replica, the
+    one-card run's), the fsdp all-gathers and reduce-scatters a step
+    with bytes; the headline's kernels a step, #9 one a local shard in
+    the fused runs."""
+    world, summary, launches, ranks = _shard_train(FSDP_RUNS, FSDP_STEPS)
+    whole = summary["fsdp1"]["state_bytes_ranks"][0]
+    for name, v in summary.items():
+        v["state_over_replica"] = [b / whole for b in v["state_bytes_ranks"]]
+    state["fsdp_launches"] = launches
+    return {"world": world, "config": "transformer_big, bf16, no remat, "
+            "kernel CE, bf16 mu; 8 x 1024 a data shard",
+            "steps": FSDP_STEPS, "summary": summary, "ranks": ranks}
+
+
+def _moe_unfused(params, x, cfg):
+    """JAX's ``MoELayer`` formulation in plain PyTorch: ``(T, E, C)``
+    one-hot combine and dispatch tensors, ``torch.topk`` routing, four
+    einsums — an implementation of the layer independent of the port's.
+    Returns ``(out, aux)``."""
+    import torch
+    from torch.nn import functional as F
+    B, S, D = x.shape
+    E, K, T = cfg.num_experts, cfg.top_k, B * S
+    C = max(1, int(cfg.capacity_factor * T * K / E))
+    tokens = x.reshape(T, D)
+    probs = torch.softmax(tokens.float() @ params["router"], dim=-1)
+    gate_vals, idx = torch.topk(probs, K)
+    combine = torch.zeros(T, E, C, device=x.device)
+    frac = torch.zeros(E, device=x.device)
+    prior = torch.zeros(E, device=x.device)
+    slots = torch.arange(C, device=x.device)
+    for k in range(K):
+        onehot = F.one_hot(idx[:, k], E).float()
+        pos = ((torch.cumsum(onehot, 0) - 1.0 + prior[None]) * onehot).sum(-1)
+        prior = prior + onehot.sum(0)
+        gate = gate_vals[:, k] * (pos < C)
+        pos_oh = (pos.long()[:, None] == slots[None]).float()
+        combine = combine + (gate[:, None, None] * onehot[:, :, None]
+                             * pos_oh[:, None, :])
+        frac = frac + onehot.mean(0)
+    dispatch = (combine > 0).to(x.dtype)
+    aux = (cfg.aux_loss_weight * E
+           * torch.sum(frac / K * probs.mean(0)))
+    dt = cfg.dtype
+    h = F.gelu(torch.einsum("ecd,edf->ecf", torch.einsum(
+        "td,tec->ecd", tokens, dispatch), params["wi"].to(dt)),
+        approximate="tanh")
+    out = torch.einsum("ecd,tec->td", torch.einsum(
+        "ecf,efd->ecd", h, params["wo"].to(dt)), combine.to(dt))
+    return out.reshape(B, S, D), aux
+
+
+def _unfused_model(cfg, params):
+    """``TransformerLM`` of ``params`` whose MoE layers run
+    :func:`_moe_unfused`."""
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM)
+    model = TransformerLM(cfg, params, device="cuda")
+    for block in model.layers:
+        layer = block.moe
+        layer.forward = (lambda x, m=layer: _moe_unfused(
+            {"router": m.router, "wi": m.wi, "wo": m.wo}, x, m.cfg))
+    return model
+
+
+def _steps_of(cfg, model, tokens) -> tuple:
+    """PP_PARITY_STEPS of ``make_train_step`` on ``model``: each step's
+    loss and gradients, and the parameters after the last."""
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        make_optimizer, make_train_step)
+    step = make_train_step(cfg, model, make_optimizer(
+        cfg, model.parameters()))
+    st, losses, grads = {"model": model, "step": 0}, [], []
+    for _ in range(PP_PARITY_STEPS):
+        st, m = step(st, {"tokens": tokens})
+        losses.append(m["loss"].item())
+        grads.append([g.clone() for g in _flat_leaves(
+            model.stacked_params(lambda p: p.grad))])
+    return losses, grads, [p.detach().clone() for p in _flat_leaves(
+        model.stacked_params())]
+
+
+def _moe_reference_check(cfg, params, tokens) -> dict:
+    """The single-device MoE step against :func:`_unfused_model` from the
+    same weights: losses, the first step's gradients (each leaf's
+    largest error over its largest magnitude: both at the same weights,
+    as train_parity holds them; later steps start from weights Adam has
+    moved apart by up to lr where |g| is noise, so they are held by the
+    parameters), parameters by train_parity's rule; and each layer's
+    dropped rows against the unfused layer's zero rows on the same
+    input."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM)
+    from distributed_tensorflow_tpu_torch.parallel import moe
+    model = TransformerLM(cfg, params, device="cuda")
+    inputs = []
+    hooks = [b.moe.register_forward_pre_hook(
+        lambda m, a: inputs.append((m, a[0]))) for b in model.layers]
+    with torch.no_grad(), moe.routing_log() as log:
+        model(tokens)
+    for h in hooks:
+        h.remove()
+    dropped, equal = 0, True
+    with torch.no_grad():
+        for (m, x), entry in zip(inputs, log):
+            out, _ = _moe_unfused({"router": m.router, "wi": m.wi,
+                                   "wo": m.wo}, x, m.cfg)
+            zero = out.abs().sum(-1) == 0
+            equal &= torch.equal(zero, entry["dropped"])
+            dropped += int(entry["dropped"].sum())
+    got = _steps_of(cfg, model, tokens)
+    want = _steps_of(cfg, _unfused_model(cfg, params), tokens)
+    grad_err = [max(rel_err(g, w) for g, w in zip(gs, ws))
+                for gs, ws in zip(got[1], want[1])]
+    return {"losses": got[0], "losses_unfused": want[0],
+            "max_abs_loss_err": max(abs(a - b) for a, b in
+                                    zip(got[0], want[0])),
+            "max_grad_rel_err": grad_err[0],
+            "max_grad_rel_err_by_step": grad_err,
+            "dropped_rows_equal": bool(equal), "dropped_rows": dropped,
+            "layers": len(log), "tokens": tokens.numel(),
+            **_adam_param_rule(got[2], want[2], got[1], want[1]),
+            "_run": (got, want)}
+
+
+def _shard_parity_rank(runs: dict, base_kw: dict) -> dict:
+    """One rank of ``moe_parity`` / ``fsdp_parity``: pp_parity's f32
+    config with ``base_kw``, each run against single-device
+    ``make_train_step`` on the same global batch from the same weights
+    (TF32 off, deterministic), PP_PARITY_STEPS steps: losses, gathered
+    gradients and parameters. The step's own spread: dense, the same
+    step with each data shard's gradients accumulated over microbatches
+    (pp_parity's); MoE, whose routing is the whole batch's, the same
+    model with JAX's unfused MoE layers (:func:`_moe_reference_check`,
+    also reported). With MoE each rank's dropped rows at the init equal
+    the single-device model's on its rows."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, _data_rows, gather_params,
+        init_params, make_sharded_train_step)
+    from distributed_tensorflow_tpu_torch.parallel import moe
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg = TransformerConfig.transformer_big(
+        n_layers=PP_PARITY_LAYERS, max_seq_len=PP_PARITY_SEQ,
+        dtype=torch.float32, loss_impl="scan", **base_kw)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    for t in _flat_leaves(params):
+        dist.broadcast(t, src=0)
+    out = {"rank": rank, "world": world, "runs": {}}
+    refs = {}
+    for name, (axes, kw) in runs.items():
+        mesh = topology.make_mesh(axes, device="cuda")
+        n_data = topology.mesh_axis_size(mesh, *topology.data_axes(mesh))
+        global_batch = PP_PARITY_ROWS * n_data
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (global_batch, cfg.max_seq_len))).to("cuda")
+        if global_batch not in refs:
+            if cfg.moe_experts:
+                check = _moe_reference_check(cfg, params, tokens)
+                want_ref, (_, acc_grads, acc) = check.pop("_run")
+                out.setdefault("unfused_check", {})[global_batch] = check
+                single = TransformerLM(cfg, params, device="cuda")
+                with torch.no_grad(), moe.routing_log() as log:
+                    single(tokens)
+                dropped = torch.stack([e["dropped"] for e in log])
+                del single
+            else:
+                want_ref = _pp_parity_reference(cfg, params, tokens)
+                _, acc_grads, acc = _pp_parity_reference(
+                    cfg, params, tokens, PP_PARITY_MICRO, n_data)
+                dropped = None
+            refs[global_batch] = (*want_ref, _adam_param_rule(
+                acc, want_ref[2], acc_grads, want_ref[1]), dropped)
+            out.setdefault("spread_vs_step", {})[global_batch] = \
+                refs[global_batch][3]
+        want_losses, want_grads, want, spread, dropped = refs[global_batch]
+        run_cfg = dataclasses.replace(cfg, **kw)
+        state, step = make_sharded_train_step(run_cfg, mesh, global_batch,
+                                              params=params)
+        model = state["model"]
+        run = {}
+        if dropped is not None:
+            rows = _data_rows(mesh, global_batch)
+            with torch.no_grad(), moe.routing_log() as log:
+                model(tokens[rows])
+            run["dropped_rows_equal_single"] = torch.equal(
+                torch.stack([e["dropped"] for e in log]), dropped[:, rows])
+        losses, grads = [], []
+        for _ in range(PP_PARITY_STEPS):
+            state, m = step(state, {"tokens": tokens})
+            losses.append(m["loss"].item())
+            grads.append(_flat_leaves(gather_params(
+                cfg, model.stacked_params(lambda p: p.grad), mesh)))
+        got = _flat_leaves(gather_params(cfg, model.stacked_params(), mesh))
+        out["runs"][name] = {
+            **run, "losses": losses,
+            "max_abs_loss_err": max(abs(a - b) for a, b in
+                                    zip(losses, want_losses)),
+            "max_abs_grad_err": max((g - w).abs().max().item()
+                                    for gs, ws in zip(grads, want_grads)
+                                    for g, w in zip(gs, ws)),
+            "max_abs_param_err": max((g - w).abs().max().item()
+                                     for g, w in zip(got, want)),
+            "bitwise": (losses == want_losses and all(
+                torch.equal(g, w) for gs, ws in zip(grads, want_grads)
+                for g, w in zip(gs, ws)) and all(
+                torch.equal(g, w) for g, w in zip(got, want))),
+            **_adam_param_rule(got, want, grads, want_grads),
+            "allowed_beyond_tol": spread["params_off_by_more_than_tol"]}
+        del state, step, model
+        torch.cuda.empty_cache()
+    out["n_params"] = sum(t.numel() for t in _flat_leaves(params))
+    bootstrap.shutdown()
+    return out
+
+
+def _shard_parity(runs_by_world: dict, base_kw: dict) -> tuple:
+    """:func:`_shard_parity_rank` at one card (bitwise against the
+    single-device step), then at every visible card when
+    ``runs_by_world`` has that world (sp_parity's rule); with MoE also
+    the unfused reference and the dropped rows."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    ranks = multi_process_runner.run(
+        _shard_parity_rank, 1, args=(runs_by_world[1], base_kw),
+        device="cuda", timeout=600, env=env).return_values
+    if world in runs_by_world and world > 1:
+        ranks += multi_process_runner.run(
+            _shard_parity_rank, world, args=(runs_by_world[world], base_kw),
+            device="cuda", timeout=600, env=env).return_values
+    problems = []
+    for r in ranks:
+        allowed = TRAIN_PARAM_FRAC * r["n_params"]
+        for name, v in r["runs"].items():
+            ok = v["bitwise"] if r["world"] == 1 else (
+                v["max_abs_loss_err"] <= DP_PARITY_TOL
+                and v["max_abs_grad_err"] <= DP_PARITY_TOL
+                and v["max_abs_param_err_held"] <= TRAIN_PARAM_TOL
+                and v["params_off_by_more_than_tol"]
+                <= v["allowed_beyond_tol"] + allowed)
+            if not v.get("dropped_rows_equal_single", True):
+                ok = False
+            if not ok:
+                problems.append(f"rank {r['rank']} of {r['world']} {name}: "
+                                f"{v}")
+        for gb, c in r.get("unfused_check", {}).items():
+            if not (c["dropped_rows_equal"] and c["dropped_rows"] > 0
+                    and c["max_abs_loss_err"] <= TRAIN_LOSS_TOL
+                    and c["max_grad_rel_err"] <= GRAD_TOL["float32"]
+                    and c["max_abs_param_err_held"] <= TRAIN_PARAM_TOL
+                    and c["params_off_by_more_than_tol"] <= allowed):
+                problems.append(f"rank {r['rank']} of {r['world']}: the "
+                                f"MoE step against the unfused layers "
+                                f"at batch {gb}: {c}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return world, ranks
+
+
+def phase_moe_parity(state):
+    """``moe_parity``: pp_parity's f32 config with 8 experts a layer
+    (top-1, capacity 1.25). At one card ``{"ep": 1}`` bitwise against
+    the single-device step, and the single-device step against the
+    unfused MoE layers (JAX's formulation): losses, gradients,
+    parameters and every layer's dropped rows exact; at four cards ep4,
+    dp2×ep2 and ep2×tp2 by sp_parity's rule, the step's own spread
+    being the unfused reference's, and each rank's dropped rows the
+    single-device model's."""
+    world, ranks = _shard_parity(MOE_PARITY_RUNS, MOE_TOP1)
+    top2 = _moe_top2_reference()
+    return {"world": world, "config": "transformer_big width, "
+            f"{PP_PARITY_LAYERS} layers, f32, full logits, 8 experts",
+            "rows_per_data_shard": PP_PARITY_ROWS,
+            "seq_len": PP_PARITY_SEQ, "steps": PP_PARITY_STEPS,
+            "top2_unfused_check": top2,
+            "rule": "torch.equal at one card; at four dp_parity's with "
+                    "the unfused reference's spread", "ranks": ranks}
+
+
+def _moe_top2_reference() -> dict:
+    """The single-device top-2 (capacity 2.0) step against the unfused
+    layers, in this process (f32, TF32 off)."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, init_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig.transformer_big(
+        n_layers=PP_PARITY_LAYERS, max_seq_len=PP_PARITY_SEQ,
+        dtype=torch.float32, loss_impl="scan", **MOE_TOP2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PP_PARITY_ROWS, cfg.max_seq_len))).to("cuda")
+    check = _moe_reference_check(cfg, params, tokens)
+    check.pop("_run")
+    n = sum(t.numel() for t in _flat_leaves(params))
+    ok = (check["dropped_rows_equal"]
+          and check["max_abs_loss_err"] <= TRAIN_LOSS_TOL
+          and check["max_grad_rel_err"] <= GRAD_TOL["float32"]
+          and check["max_abs_param_err_held"] <= TRAIN_PARAM_TOL
+          and check["params_off_by_more_than_tol"] <= TRAIN_PARAM_FRAC * n)
+    del params
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"top-2 MoE step against the unfused layers: "
+                             f"{check}")
+    return check
+
+
+def phase_fsdp_parity(state):
+    """``fsdp_parity``: pp_parity's f32 config; ``{"fsdp": 1}`` bitwise
+    against the single-device step at one card, fsdp4, dp2×fsdp2 and
+    fsdp2×tp2 by sp_parity's rule at four."""
+    world, ranks = _shard_parity(FSDP_PARITY_RUNS, {})
+    return {"world": world, "config": "transformer_big width, "
+            f"{PP_PARITY_LAYERS} layers, f32, full logits",
+            "rows_per_data_shard": PP_PARITY_ROWS,
+            "seq_len": PP_PARITY_SEQ, "steps": PP_PARITY_STEPS,
+            "rule": "torch.equal at one card; at four dp_parity's with "
+                    "pp_parity's allowance", "ranks": ranks}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6011,7 +6680,11 @@ def main(argv=None) -> int:
                      ("pp_parity", phase_pp_parity),
                      ("sp_kernels", phase_sp_kernels),
                      ("sp_train", phase_sp_train),
-                     ("sp_parity", phase_sp_parity)):
+                     ("sp_parity", phase_sp_parity),
+                     ("moe_train", phase_moe_train),
+                     ("moe_parity", phase_moe_parity),
+                     ("fsdp_train", phase_fsdp_train),
+                     ("fsdp_parity", phase_fsdp_parity)):
         if only and name not in only:
             continue
         t0 = time.perf_counter()
@@ -6104,6 +6777,11 @@ def main(argv=None) -> int:
                               for run, c in state["sp_launches"].items()}
         if name in state["sp_rows"]:
             row["sp"] = state["sp_rows"][name]
+        # the MoE and fully-sharded runs of moe_train and fsdp_train
+        # (rank 0, over each run's timed steps)
+        for path in ("moe", "fsdp"):
+            row[f"{path}_launches"] = {
+                run: c[name] for run, c in state[f"{path}_launches"].items()}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

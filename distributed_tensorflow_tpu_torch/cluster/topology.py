@@ -170,6 +170,32 @@ def sp_index(mesh: DeviceMesh) -> int:
     return mesh.get_local_rank(SEQUENCE_AXIS)
 
 
+def ep_size(mesh) -> int:
+    """The mesh's ``ep`` size, 1 without the axis."""
+    return mesh_shape(mesh).get(EXPERT_AXIS, 1)
+
+
+def ep_index(mesh: DeviceMesh) -> int:
+    """This rank's index along ``ep`` (its block of the experts), 0
+    without the axis."""
+    if EXPERT_AXIS not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(EXPERT_AXIS)
+
+
+def fsdp_size(mesh) -> int:
+    """The mesh's ``fsdp`` size, 1 without the axis."""
+    return mesh_shape(mesh).get(FSDP_AXIS, 1)
+
+
+def fsdp_index(mesh: DeviceMesh) -> int:
+    """This rank's index along ``fsdp`` (its block of every ``embed``
+    dim), 0 without the axis."""
+    if FSDP_AXIS not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(FSDP_AXIS)
+
+
 def pp_index(mesh: DeviceMesh) -> int:
     """This rank's worker index along ``pp`` (its pipeline stage without
     interleaving), 0 without the axis."""

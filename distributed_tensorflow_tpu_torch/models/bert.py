@@ -124,7 +124,7 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
     def loss_fn(inputs, labels, count=None):
         if cfg.loss_impl == "kernel":
             hidden = model(inputs, return_hidden=True)
-            return kernel_mlm_loss(hidden, model.embed, labels,
+            return kernel_mlm_loss(hidden, model.embed_weight(), labels,
                                    compute_dtype=cfg.dtype, count=count,
                                    tp=tp)
         return mlm_loss(model(inputs), labels, count, tp)

@@ -60,7 +60,22 @@ Sequence parallelism: on a mesh with ``sp`` (``{"sp": n}``, with
 SequenceParallel`: each rank runs its chunk of the sequence, rotary at
 global positions, attention the ring (or striped, or Ulysses) over
 ``sp``, the losses over the chunk with targets from the whole rows.
-Fully-sharded data parallelism and MoE belong to later slices.
+
+Mixture-of-experts: ``moe_experts > 0`` replaces every block's MLP with
+a :class:`~distributed_tensorflow_tpu_torch.parallel.moe.MoELayer`
+(``layers/moe/{router, wi, wo}``), whose aux losses the LM loss adds
+(JAX's ``"losses"`` collection). On a mesh with ``ep`` a rank holds
+``E/ep`` experts (and the router's ``E/ep`` columns); the tokens are
+replicated over ``ep`` (no data axis), routing repeats on every ``ep``
+rank and the experts' partial outputs sum over ``ep`` (and ``tp``).
+
+Fully-sharded data parallelism: on a mesh with ``fsdp`` every leaf with
+a d_model (``"embed"``) dim is stored ``1/fsdp`` on it, gathered where
+it is used (:func:`~distributed_tensorflow_tpu_torch.parallel.
+collectives.fsdp_gather`: the Block's projections, ``wi``/``wo``, the
+embedding before the lookup and the tied head) and its gradient
+reduce-scattered; ``fsdp`` is a data axis, so the batch splits over
+``dcn × dp × fsdp``.
 """
 
 from __future__ import annotations
@@ -85,7 +100,9 @@ from distributed_tensorflow_tpu_torch.ops.fused_adamw import (
 from distributed_tensorflow_tpu_torch.ops.fused_ce import (
     fused_cross_entropy, sharded_fused_cross_entropy)
 from distributed_tensorflow_tpu_torch.parallel.collectives import (
-    tp_copy, tp_reduce)
+    fsdp_gather, tp_copy, tp_reduce)
+from distributed_tensorflow_tpu_torch.parallel.moe import (
+    PARAM_LOGICAL_AXES as _MOE_AXES, ExpertParallel, MoEConfig, MoELayer)
 from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
     RING_ATTENTION_OP, SequenceParallel, check_impl, resolve_attn_impl)
 from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
@@ -149,8 +166,9 @@ class TransformerConfig:
     tiles, so ``attn_block_q``, ``attn_block_k``, ``loss_block_n``,
     ``loss_block_v``, ``loss_kernel_impl`` and ``optimizer_impl`` are
     accepted and ignored; ``mesh`` is accepted, and the port's steps
-    take the mesh as an argument. ``moe_experts > 0`` raises
-    ``NotImplementedError`` (MoE is ROADMAP item A-5b)."""
+    take the mesh as an argument. ``moe_experts > 0`` replaces every
+    block's MLP with the MoE layer (``moe_top_k``,
+    ``moe_capacity_factor``, ``moe_aux_weight``)."""
     vocab_size: int = 32000
     d_model: int = 1024
     n_layers: int = 12
@@ -221,10 +239,6 @@ class TransformerConfig:
         check_impl(self.sp_impl)
         if self.sp_attn_impl is not None:
             resolve_attn_impl(self.sp_attn_impl, "cpu")
-        if self.moe_experts > 0:
-            raise NotImplementedError(
-                f"moe_experts={self.moe_experts}: mixture-of-experts is "
-                f"ROADMAP item A-5b, not ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -316,6 +330,23 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.scale, self.dtype, self.eps)
 
 
+def _weight(p, dt, fsdp, dim):
+    """``p`` as a layer uses it: cast to ``dt``, or on an ``fsdp`` mesh
+    with ``dim`` its sharded dim, gathered whole
+    (:func:`~distributed_tensorflow_tpu_torch.parallel.collectives.
+    fsdp_gather`)."""
+    if fsdp is None or dim is None:
+        return p.to(dt)
+    return fsdp_gather(p, dt, fsdp.group, dim)
+
+
+def _parameters(module, shapes: dict, device):
+    """One empty parameter a name of ``shapes`` on ``module``."""
+    for name, shape in shapes.items():
+        setattr(module, name, nn.Parameter(torch.empty(shape,
+                                                       device=device)))
+
+
 class MultiHeadAttention(nn.Module):
     """Rotary MHA; with ``tp`` this rank's ``n_heads / tp`` heads (the
     projections column-parallel, ``out`` row-parallel: the caller
@@ -323,30 +354,33 @@ class MultiHeadAttention(nn.Module):
     :class:`~distributed_tensorflow_tpu_torch.parallel.sequence_parallel.
     SequenceParallel`) the input is this rank's chunk of the sequence,
     rotated at its global positions, and attention is the ring over
-    ``sp``."""
+    ``sp``; with ``fsdp`` each projection is stored cut along its
+    d_model dim and gathered at use. ``shapes``: the local parameter
+    shapes, ``fsdp_dims`` each one's ``fsdp`` dim (or None)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None,
+    def __init__(self, cfg: TransformerConfig, shapes: dict, device=None,
                  tp: TensorParallel | None = None,
-                 sp: SequenceParallel | None = None):
+                 sp: SequenceParallel | None = None,
+                 fsdp: TensorParallel | None = None, fsdp_dims=None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
         self.sp = sp
-        D, hd = cfg.d_model, cfg.head_dim
-        H = cfg.n_heads // (tp.size if tp else 1)
-        for name in ("query", "key", "value"):
-            setattr(self, name, nn.Parameter(torch.empty(D, H, hd,
-                                                         device=device)))
-        self.out = nn.Parameter(torch.empty(H, hd, D, device=device))
+        self.fsdp, self.fsdp_dims = fsdp, fsdp_dims or {}
+        _parameters(self, shapes, device)
+
+    def _w(self, name):
+        return _weight(getattr(self, name), self.cfg.dtype, self.fsdp,
+                       self.fsdp_dims.get(name))
 
     def forward(self, x, lengths=None):
-        cfg, dt, sp = self.cfg, self.cfg.dtype, self.sp
+        cfg, sp = self.cfg, self.sp
         offset = sp.index * x.shape[1] if sp is not None else 0
-        q = rotary_embedding(project_heads(x, self.query.to(dt)), seq_axis=-2,
+        q = rotary_embedding(project_heads(x, self._w("query")), seq_axis=-2,
                              offset=offset)
-        k = rotary_embedding(project_heads(x, self.key.to(dt)), seq_axis=-2,
+        k = rotary_embedding(project_heads(x, self._w("key")), seq_axis=-2,
                              offset=offset)
-        v = project_heads(x, self.value.to(dt))
+        v = project_heads(x, self._w("value"))
         # JAX's order (:255-292): lengths, then the ring on an sp mesh
         # (under attention_impl="reference" too), then the rest
         if lengths is not None:
@@ -363,65 +397,100 @@ class MultiHeadAttention(nn.Module):
                                         causal=cfg.causal)
         else:
             o = flash_attention(q, k, v, causal=cfg.causal)
-        return merge_heads(o, self.out.to(dt))
+        return merge_heads(o, self._w("out"))
 
 
 class MLP(nn.Module):
     """SwiGLU feed-forward; with ``tp`` this rank's ``d_ff / tp`` hidden
     units: ``wi`` holds its columns of ``gate`` and then its columns of
-    ``up`` (:func:`shard_params`), so ``silu(gate) · up`` stays local."""
+    ``up`` (:func:`shard_params`), so ``silu(gate) · up`` stays local;
+    with ``fsdp`` ``wi``/``wo`` gathered at use."""
 
-    def __init__(self, cfg: TransformerConfig, device=None,
-                 tp: TensorParallel | None = None):
+    def __init__(self, cfg: TransformerConfig, shapes: dict, device=None,
+                 fsdp: TensorParallel | None = None, fsdp_dims=None):
         super().__init__()
         self.cfg = cfg
-        D, Fd = cfg.d_model, cfg.d_ff // (tp.size if tp else 1)
-        self.wi = nn.Parameter(torch.empty(D, 2 * Fd, device=device))
-        self.wo = nn.Parameter(torch.empty(Fd, D, device=device))
+        self.fsdp, self.fsdp_dims = fsdp, fsdp_dims or {}
+        _parameters(self, shapes, device)
 
     def forward(self, x):
         dt = self.cfg.dtype
-        return swiglu(x, self.wi.to(dt), self.wo.to(dt))
+        return swiglu(x, *(_weight(getattr(self, n), dt, self.fsdp,
+                                   self.fsdp_dims.get(n))
+                           for n in ("wi", "wo")))
+
+
+def moe_config(cfg: TransformerConfig) -> MoEConfig:
+    """The MoE layer's config of a transformer config (JAX ``:369``)."""
+    return MoEConfig(num_experts=cfg.moe_experts, d_model=cfg.d_model,
+                     d_ff=cfg.d_ff, capacity_factor=cfg.moe_capacity_factor,
+                     top_k=cfg.moe_top_k, aux_loss_weight=cfg.moe_aux_weight,
+                     dtype=cfg.dtype)
 
 
 class Block(nn.Module):
     """Pre-norm block. With ``tp`` each branch enters through
     ``tp_copy`` placed after its RMSNorm (so the replicated norm scales
     get the whole gradient on every rank) and leaves through
-    ``tp_reduce``."""
+    ``tp_reduce``. With ``cfg.moe_experts > 0`` the MLP is the MoE layer
+    (``moe``, an :class:`~distributed_tensorflow_tpu_torch.parallel.moe.
+    ExpertParallel` on a mesh; it places its own boundaries) and the
+    block returns ``(x, aux)``."""
 
-    def __init__(self, cfg: TransformerConfig, device=None,
-                 tp: TensorParallel | None = None,
-                 sp: SequenceParallel | None = None):
+    def __init__(self, cfg: TransformerConfig, shapes: dict, fsdp_dims: dict,
+                 device=None, tp: TensorParallel | None = None,
+                 sp: SequenceParallel | None = None,
+                 fsdp: TensorParallel | None = None,
+                 moe: ExpertParallel | None = None):
         super().__init__()
         self.tp = tp
         self.RMSNorm_0 = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = MultiHeadAttention(cfg, device, tp, sp)
+        self.attn = MultiHeadAttention(cfg, shapes["attn"], device, tp, sp,
+                                       fsdp, fsdp_dims.get("attn"))
         self.RMSNorm_1 = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp = MLP(cfg, device, tp)
+        if cfg.moe_experts > 0:
+            self.moe = MoELayer(moe_config(cfg), {
+                n: torch.empty(s, device=device)
+                for n, s in shapes["moe"].items()}, group=moe, device=device)
+        else:
+            self.mlp = MLP(cfg, shapes["mlp"], device, fsdp,
+                           fsdp_dims.get("mlp"))
 
     def forward(self, x, lengths=None):
         if self.tp is None:
             x = x + self.attn(self.RMSNorm_0(x), lengths)
+        else:
+            g = self.tp.group
+            x = x + tp_reduce(self.attn(tp_copy(self.RMSNorm_0(x), g),
+                                        lengths), g)
+        if hasattr(self, "moe"):
+            out, aux = self.moe(self.RMSNorm_1(x))
+            return x + out, aux
+        if self.tp is None:
             return x + self.mlp(self.RMSNorm_1(x))
         g = self.tp.group
-        x = x + tp_reduce(self.attn(tp_copy(self.RMSNorm_0(x), g), lengths),
-                          g)
         return x + tp_reduce(self.mlp(tp_copy(self.RMSNorm_1(x), g)), g)
 
 
 def run_blocks(cfg: TransformerConfig, blocks, x, lengths=None):
     """``blocks`` in turn on ``x``; each under ``torch.utils.checkpoint``
     with ``cfg.remat_policy`` when ``cfg.remat`` and autograd is on
-    (JAX's ``nn.remat`` of a block, and the pipeline's ``stage_fn``)."""
+    (JAX's ``nn.remat`` of a block, and the pipeline's ``stage_fn``).
+    With ``cfg.moe_experts > 0`` returns ``(x, aux)``, the blocks' aux
+    losses summed (an output of each checkpoint, so every policy keeps
+    it)."""
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = None
     for block in blocks:
         if remat:
             x = checkpoint(block, x, lengths, use_reentrant=False,
                            context_fn=REMAT_POLICIES[cfg.remat_policy])
         else:
             x = block(x, lengths)
-    return x
+        if cfg.moe_experts > 0:
+            x, a = x
+            aux = a if aux is None else aux + a
+    return x if cfg.moe_experts == 0 else (x, aux)
 
 
 class TransformerLM(nn.Module):
@@ -429,36 +498,52 @@ class TransformerLM(nn.Module):
 
     ``params`` (the port's parameter dict) is loaded when given; else
     the module is initialised by :func:`init_params` from
-    ``generator``. With ``tp`` (a :class:`~distributed_tensorflow_tpu_
-    torch.parallel.tensor_parallel.TensorParallel`) the module holds
-    this rank's shards: ``params`` is then this rank's shard dict
-    (:func:`shard_params`), and a fresh init makes the full parameters
-    and keeps the shard. With ``sp`` (a :class:`~distributed_tensorflow_
-    tpu_torch.parallel.sequence_parallel.SequenceParallel`) the module
-    takes this rank's chunk of the sequence (the parameters are
-    replicated over ``sp``)."""
+    ``generator``. With ``tp``, ``fsdp`` (:class:`~distributed_
+    tensorflow_tpu_torch.parallel.tensor_parallel.TensorParallel`
+    handles of those dims) or ``moe`` (an :class:`~distributed_
+    tensorflow_tpu_torch.parallel.moe.ExpertParallel`, with ``ep``) the
+    module holds this rank's shards: ``params`` is then this rank's
+    shard dict (:func:`shard_params`), and a fresh init makes the full
+    parameters and keeps the shard. With ``sp`` (a :class:`~distributed_
+    tensorflow_tpu_torch.parallel.sequence_parallel.SequenceParallel`)
+    the module takes this rank's chunk of the sequence (the parameters
+    are replicated over ``sp``)."""
 
     def __init__(self, cfg: TransformerConfig, params=None, *,
                  device="cuda", generator: torch.Generator | None = None,
                  tp: TensorParallel | None = None,
-                 sp: SequenceParallel | None = None):
+                 sp: SequenceParallel | None = None,
+                 fsdp: TensorParallel | None = None,
+                 moe: ExpertParallel | None = None):
         super().__init__()
         device = resolve_device(device)
-        if tp is not None:
-            check_divisible(cfg, tp.size)
+        coords = {a: (h.rank, h.size) for a, h in
+                  (("tp", tp), ("fsdp", fsdp),
+                   ("ep", moe.ep if moe is not None else None))
+                  if h is not None}
+        sizes = {a: n for a, (_, n) in coords.items()}
+        check_shardable(cfg, sizes)
         self.cfg = cfg
         self.tp = tp
         self.sp = sp
-        self.embed = nn.Parameter(torch.empty(
-            cfg.vocab_size // (tp.size if tp else 1), cfg.d_model,
-            device=device))
-        self.layers = nn.ModuleList(Block(cfg, device, tp, sp)
-                                    for _ in range(cfg.n_layers))
+        self.fsdp = fsdp
+        shapes = local_param_shapes(cfg, sizes)
+        specs = param_specs(cfg, sizes)
+        dims = _fsdp_dims(specs)
+        self.embed = nn.Parameter(torch.empty(shapes["embed"],
+                                              device=device))
+        layer_shapes = {g: {n: s[1:] for n, s in leaves.items()}
+                        for g, leaves in shapes["layers"].items()}
+        self.layers = nn.ModuleList(
+            Block(cfg, layer_shapes, dims["layers"], device, tp, sp, fsdp,
+                  moe) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, device)
         if params is None:
             params = init_params(cfg, generator, device)
-            if tp is not None:
-                params = shard_params_at(cfg, params, tp.rank, tp.size)
+            if sizes:
+                params = shard_params_at(
+                    cfg, params, {a: r for a, (r, _) in coords.items()},
+                    sizes)
         self.load_params(params)
 
     @torch.no_grad()
@@ -487,25 +572,38 @@ class TransformerLM(nn.Module):
         return {"embed": of(self.embed), "layers": layers,
                 "final_norm": {"scale": of(self.final_norm.scale)}}
 
-    def forward(self, tokens, return_hidden: bool = False, lengths=None):
+    def embed_weight(self) -> torch.Tensor:
+        """The tied embedding as the lookup and the head use it: the
+        parameter, or on an ``fsdp`` mesh its shard gathered along D in
+        ``cfg.dtype`` (one gather a use: the lookup's and the loss's)."""
+        if self.fsdp is None:
+            return self.embed
+        return fsdp_gather(self.embed, self.cfg.dtype, self.fsdp.group, 1)
+
+    def forward(self, tokens, return_hidden: bool = False, lengths=None,
+                return_aux: bool = False):
         """``lengths`` (B,) marks a right-padded mixed-length batch: every
         layer's attention masks padded keys with the factored rule
         (:func:`~distributed_tensorflow_tpu_torch.ops.attention.
         length_valid_mask`); None runs the flash forward. With ``tp`` the
         logits are this rank's vocab columns ``(B, S, V/tp)``, for the
-        vocab-parallel losses."""
+        vocab-parallel losses. ``return_aux`` (a MoE config): ``(out,
+        aux)``, the layers' aux losses summed."""
         cfg = self.cfg
         dt = cfg.dtype
-        emb = self.embed.to(dt)
+        emb = self.embed_weight().to(dt)
         tp = self.tp
         x = vocab_parallel_embed(emb, tokens, tp) if tp else emb[tokens]
         x = run_blocks(cfg, self.layers, x, lengths)
+        aux = None
+        if cfg.moe_experts > 0:
+            x, aux = x
         x = self.final_norm(x)
-        if return_hidden:
-            return x
-        if tp is not None:
-            x = tp_copy(x, tp.group)
-        return (x @ emb.T).float()
+        if not return_hidden:
+            if tp is not None:
+                x = tp_copy(x, tp.group)
+            x = (x @ emb.T).float()
+        return (x, aux) if return_aux else x
 
 
 # ---------------------------------------------------------------------------
@@ -513,20 +611,24 @@ class TransformerLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 def param_shapes(cfg: TransformerConfig) -> dict:
-    """Shapes of the port's stacked parameter dict."""
+    """Shapes of the port's stacked parameter dict; with
+    ``cfg.moe_experts > 0`` the layers' ``mlp`` group is ``moe``:
+    ``router (L, D, E)``, ``wi (L, E, D, F)``, ``wo (L, E, F, D)``."""
     L, V, D, H, hd, Fd = (cfg.n_layers, cfg.vocab_size, cfg.d_model,
                           cfg.n_heads, cfg.head_dim, cfg.d_ff)
-    return {
-        "embed": (V, D),
-        "layers": {
-            "RMSNorm_0": {"scale": (L, D)},
-            "attn": {"query": (L, D, H, hd), "key": (L, D, H, hd),
-                     "value": (L, D, H, hd), "out": (L, H, hd, D)},
-            "RMSNorm_1": {"scale": (L, D)},
-            "mlp": {"wi": (L, D, 2 * Fd), "wo": (L, Fd, D)},
-        },
-        "final_norm": {"scale": (D,)},
+    E = cfg.moe_experts
+    layers = {
+        "RMSNorm_0": {"scale": (L, D)},
+        "attn": {"query": (L, D, H, hd), "key": (L, D, H, hd),
+                 "value": (L, D, H, hd), "out": (L, H, hd, D)},
+        "RMSNorm_1": {"scale": (L, D)},
     }
+    if E > 0:
+        layers["moe"] = {"router": (L, D, E), "wi": (L, E, D, Fd),
+                         "wo": (L, E, Fd, D)}
+    else:
+        layers["mlp"] = {"wi": (L, D, 2 * Fd), "wo": (L, Fd, D)}
+    return {"embed": (V, D), "layers": layers, "final_norm": {"scale": (D,)}}
 
 
 #: logical axis name → mesh axes (JAX ``:62-75``); "batch" and "seq"
@@ -547,7 +649,8 @@ LOGICAL_AXIS_RULES = (
 )
 
 #: each leaf's logical axes, as the flax model's ``param_with_axes``
-#: names them (stacked leaves lead with "layers")
+#: names them (stacked leaves lead with "layers"), for a dense config
+#: (:func:`param_logical_axes` for any)
 PARAM_LOGICAL_AXES = {
     "embed": ("vocab", "embed"),
     "layers": {
@@ -562,6 +665,17 @@ PARAM_LOGICAL_AXES = {
     },
     "final_norm": {"scale": ("norm",)},
 }
+
+
+def param_logical_axes(cfg: TransformerConfig) -> dict:
+    """:data:`PARAM_LOGICAL_AXES` of ``cfg``'s leaves: with MoE the
+    ``moe`` group's axes (``parallel/moe.py``) in place of ``mlp``'s."""
+    if cfg.moe_experts == 0:
+        return PARAM_LOGICAL_AXES
+    layers = {g: v for g, v in PARAM_LOGICAL_AXES["layers"].items()
+              if g != "mlp"}
+    layers["moe"] = {n: ("layers",) + axes for n, axes in _MOE_AXES.items()}
+    return {**PARAM_LOGICAL_AXES, "layers": layers}
 
 
 def mesh_axis_rules(mesh, rules=LOGICAL_AXIS_RULES) -> list:
@@ -607,12 +721,49 @@ def param_specs(cfg: TransformerConfig, mesh) -> dict:
             return {k: walk(v) for k, v in node.items()}
         return spec(node)
 
-    del cfg     # every config has the same leaves
-    return walk(PARAM_LOGICAL_AXES)
+    return walk(param_logical_axes(cfg))
 
 
-def _tp_dim(spec) -> int | None:
-    return spec.index("tp") if "tp" in spec else None
+#: the mesh axes that cut parameters, in the order they are applied
+_SHARD_AXES = ("tp", "fsdp", "ep")
+
+
+def check_shardable(cfg: TransformerConfig, sizes: dict):
+    """Raise ``ValueError`` naming the dim a mesh of ``sizes`` does not
+    divide: ``n_heads``, ``d_ff`` or ``vocab_size`` by ``tp``
+    (:func:`~distributed_tensorflow_tpu_torch.parallel.tensor_parallel.
+    check_divisible`), ``d_model`` by ``fsdp``, ``moe_experts`` by
+    ``ep``. (The JAX package pads there; the port cuts equal blocks.)"""
+    if "tp" in sizes:
+        check_divisible(cfg, sizes["tp"])
+    for axis, name in (("fsdp", "d_model"), ("ep", "moe_experts")):
+        n = sizes.get(axis, 1)
+        value = getattr(cfg, name)
+        if value % n:
+            raise ValueError(f"{name}={value} is not divisible by "
+                             f"{axis}={n}; the port cuts it into equal "
+                             f"blocks over {axis}")
+
+
+def local_param_shapes(cfg: TransformerConfig, sizes: dict) -> dict:
+    """The shapes of a rank's shard dict on a mesh of ``sizes``
+    (``{axis: size}``): each dim :func:`param_specs` cuts, divided by its
+    axis' size (JAX's ``_local_shape``)."""
+    def local(shape, spec):
+        return tuple(n // sizes[a] if a in sizes else n
+                     for n, a in zip(shape, spec))
+    return _map_leaves(lambda path, shape, spec: local(shape, spec),
+                       param_shapes(cfg), param_specs(cfg, sizes))
+
+
+def _fsdp_dims(specs: dict) -> dict:
+    """Each leaf's ``fsdp`` dim of one layer's (or the embedding's)
+    tensor, None where it is not cut over ``fsdp``."""
+    def dim(path, spec):
+        if "fsdp" not in spec:
+            return None
+        return spec.index("fsdp") - (path[0] == "layers")
+    return _map_leaves(dim, specs)
 
 
 def _map_leaves(fn, *trees, path=()):
@@ -623,77 +774,122 @@ def _map_leaves(fn, *trees, path=()):
     return fn(path, *trees)
 
 
-def shard_params_at(cfg: TransformerConfig, params, rank: int,
-                    size: int) -> dict:
-    """Shard ``rank`` of ``size`` of the full parameter dict along
-    ``tp`` (:func:`param_specs`): each sharded leaf's ``rank``-th
-    contiguous block of its ``tp`` dim, a contiguous tensor of its own.
-    ``wi`` (D, 2F) is the exception: GSPMD would cut its 2F axis
-    contiguously (all of ``gate`` on the first ranks), so rank r takes
-    ``gate[:, rF/tp:(r+1)F/tp]`` and ``up[:, rF/tp:(r+1)F/tp]`` side by
-    side, and ``silu(gate) · up`` needs no exchange. The numbers are
-    JAX's; only the placement of the columns differs."""
-    check_divisible(cfg, size)
-    specs = param_specs(cfg, {"tp": size})
+def _is_wi_split(path, axis) -> bool:
+    """The dense ``wi`` (D, 2F) cut over ``tp``: gate and up halves cut
+    separately (:func:`shard_params_at`)."""
+    return axis == "tp" and tuple(path[-2:]) == ("mlp", "wi")
+
+
+def _coords(rank, size) -> tuple:
+    if isinstance(size, int):
+        return {"tp": rank}, {"tp": size}
+    return dict(rank), dict(size)
+
+
+def shard_params_at(cfg: TransformerConfig, params, rank, size) -> dict:
+    """Shard ``rank`` of ``size`` of the full parameter dict: ``rank`` and
+    ``size`` ints (this rank's index along ``tp`` and its size) or
+    ``{axis: index}`` / ``{axis: size}`` over ``tp``, ``fsdp`` and
+    ``ep`` (:func:`param_specs`). Each cut leaf takes its index's
+    contiguous block of each dim an axis cuts, a contiguous tensor of
+    its own. ``wi`` (D, 2F) is the exception on ``tp``: GSPMD would cut
+    its 2F axis contiguously (all of ``gate`` on the first ranks), so
+    rank r takes ``gate[:, rF/tp:(r+1)F/tp]`` and ``up[:,
+    rF/tp:(r+1)F/tp]`` side by side, and ``silu(gate) · up`` needs no
+    exchange. The numbers are JAX's; only the placement of the columns
+    differs."""
+    coords, sizes = _coords(rank, size)
+    check_shardable(cfg, sizes)
+    specs = param_specs(cfg, sizes)
 
     def shard(path, full, spec):
-        dim = _tp_dim(spec)
-        if dim is None:
-            return full.clone()
-        if path[-1] == "wi":
-            gate, up = full.chunk(2, dim)
-            return torch.cat([gate.chunk(size, dim)[rank],
-                              up.chunk(size, dim)[rank]], dim)
-        return full.chunk(size, dim)[rank].clone(
-            memory_format=torch.contiguous_format)
+        t = full
+        for axis in _SHARD_AXES:
+            if axis not in spec:
+                continue
+            dim, n, r = spec.index(axis), sizes[axis], coords[axis]
+            if _is_wi_split(path, axis):
+                gate, up = t.chunk(2, dim)
+                t = torch.cat([gate.chunk(n, dim)[r], up.chunk(n, dim)[r]],
+                              dim)
+            else:
+                t = t.chunk(n, dim)[r]
+        return t.clone(memory_format=torch.contiguous_format)
 
     return _map_leaves(shard, params, specs)
 
 
-def unshard_params(cfg: TransformerConfig, shards: list) -> dict:
-    """The full parameter dict from every rank's shard dict in ``tp``
-    order — the inverse of :func:`shard_params_at`, bitwise."""
-    size = len(shards)
-    specs = param_specs(cfg, {"tp": size})
+def unshard_params(cfg: TransformerConfig, shards: list,
+                   shape: dict | None = None) -> dict:
+    """The full parameter dict from every rank's shard dict — the inverse
+    of :func:`shard_params_at`, bitwise. ``shape`` (``{axis: size}``,
+    outermost first; default ``{"tp": len(shards)}``) orders ``shards``
+    row-major over its axes, as a mesh's ranks."""
+    shape = {"tp": len(shards)} if shape is None else dict(shape)
+    specs = param_specs(cfg, shape)
+    names = list(shape)
 
     def unshard(path, spec, *parts):
-        dim = _tp_dim(spec)
-        if dim is None:
-            return parts[0].clone()
-        if path[-1] == "wi":
-            halves = [p.chunk(2, dim) for p in parts]
-            return torch.cat([h[0] for h in halves]
-                             + [h[1] for h in halves], dim)
-        return torch.cat(parts, dim)
+        parts = list(parts)
+        for axis in reversed(names):        # innermost first
+            n = shape[axis]
+            parts = [_join(path, spec, axis, parts[i:i + n])
+                     for i in range(0, len(parts), n)]
+        return parts[0].clone()
 
     return _map_leaves(unshard, specs, *shards)
 
 
+def _join(path, spec, axis, parts):
+    """One leaf's blocks along ``axis`` made whole (the first where the
+    axis does not cut it)."""
+    if axis not in spec:
+        return parts[0]
+    dim = spec.index(axis)
+    if _is_wi_split(path, axis):
+        halves = [p.chunk(2, dim) for p in parts]
+        return torch.cat([h[0] for h in halves] + [h[1] for h in halves],
+                         dim)
+    return torch.cat(parts, dim)
+
+
+def _mesh_coords(mesh) -> tuple:
+    """``({axis: index}, {axis: size})`` of this rank over the axes of
+    ``mesh`` that cut parameters."""
+    from distributed_tensorflow_tpu_torch.cluster import topology as t
+    of = {"tp": (t.tp_index, t.tp_size), "fsdp": (t.fsdp_index, t.fsdp_size),
+          "ep": (t.ep_index, t.ep_size)}
+    axes = [a for a in _SHARD_AXES if a in _shape(mesh)]
+    return ({a: of[a][0](mesh) for a in axes},
+            {a: of[a][1](mesh) for a in axes})
+
+
 def shard_params(cfg: TransformerConfig, params, mesh) -> dict:
     """This rank's shard dict of the full ``params`` on ``mesh``
-    (:func:`shard_params_at` at its ``tp`` index; a copy without
-    ``tp``)."""
-    from distributed_tensorflow_tpu_torch.cluster.topology import (
-        tp_index, tp_size)
-    return shard_params_at(cfg, params, tp_index(mesh), tp_size(mesh))
+    (:func:`shard_params_at` at its ``tp``, ``fsdp`` and ``ep`` indices;
+    a copy without them)."""
+    return shard_params_at(cfg, params, *_mesh_coords(mesh))
 
 
 def gather_params(cfg: TransformerConfig, shards, mesh) -> dict:
     """The full parameter dict on every rank from each rank's
-    ``shards`` (:func:`shard_params`): an all-gather over ``tp``, then
-    :func:`unshard_params`."""
-    from distributed_tensorflow_tpu_torch.cluster.topology import (
-        TENSOR_AXIS, tp_size)
+    ``shards`` (:func:`shard_params`): each cut dim all-gathered over
+    its axis (``wi``'s halves rejoined as :func:`unshard_params` does)."""
     from distributed_tensorflow_tpu_torch.parallel.collectives import (
         all_gather)
-    if TENSOR_AXIS not in mesh.mesh_dim_names:
-        return _map_leaves(lambda path, t: t.detach().clone(), shards)
-    n = tp_size(mesh)
-    stacked = _map_leaves(
-        lambda path, t: all_gather(t.detach(), mesh, TENSOR_AXIS,
-                                   tiled=False), shards)
-    return unshard_params(cfg, [_map_leaves(lambda path, t: t[i], stacked)
-                                for i in range(n)])
+    _, sizes = _mesh_coords(mesh)
+    specs = param_specs(cfg, mesh)
+
+    def gather(path, t, spec):
+        t = t.detach()
+        for axis in sizes:
+            if axis not in spec:
+                continue
+            parts = all_gather(t, mesh, axis, tiled=False)
+            t = _join(path, spec, axis, list(parts.unbind(0)))
+        return t.clone(memory_format=torch.contiguous_format)
+
+    return _map_leaves(gather, shards, specs)
 
 
 def init_params(cfg: TransformerConfig,
@@ -701,14 +897,15 @@ def init_params(cfg: TransformerConfig,
                 device="cuda") -> dict:
     """Fresh f32 parameters with the flax model's init distributions:
     embed N(0, 0.02), query/key/value/out and ``wi`` N(0, D^-1/2),
-    ``wo`` N(0, F^-1/2), norm scales 1. ``generator`` must live on
+    ``wo`` N(0, F^-1/2), norm scales 1; the MoE ``router`` N(0, 0.02),
+    its ``wi``/``wo`` as the MLP's. ``generator`` must live on
     ``device`` (a CPU generator for ``device="cpu"``); the numbers
     differ from ``jax.random``'s for the same seed."""
     device = resolve_device(device)
     D, Fd = cfg.d_model, cfg.d_ff
     std = {"embed": 0.02, "query": D ** -0.5, "key": D ** -0.5,
            "value": D ** -0.5, "out": D ** -0.5, "wi": D ** -0.5,
-           "wo": Fd ** -0.5}
+           "wo": Fd ** -0.5, "router": 0.02}
 
     def make(name, shape):
         if name == "scale":
@@ -994,7 +1191,9 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
     On a sequence-parallel model (``model.sp``) ``tokens`` are whole
     rows: the model runs on this rank's chunk and the loss is the
     chunk's share of the rows' mean (``loss_chunks`` must divide the
-    chunk)."""
+    chunk). With MoE the layers' aux losses are added (JAX
+    ``:633-640``). The tied head takes ``model.embed_weight()`` (on an
+    ``fsdp`` mesh the gathered embedding)."""
     if cfg.loss_chunks > 0:
         scan_chunks = cfg.loss_chunks
     else:
@@ -1007,26 +1206,30 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
             scan_chunks *= 2
 
     tp, sp = model.tp, model.sp
+    moe = cfg.moe_experts > 0
 
-    def loss_fn(tokens):
+    def objective(tokens):
         # on a sequence-parallel model the rows are whole: the model
         # takes this rank's chunk, the targets come from the whole rows
         cols = sp.chunk(tokens.shape[1]) if sp is not None else None
         x = tokens if cols is None else tokens[:, cols]
+        hidden = cfg.loss_impl == "kernel" or cfg.loss_chunks > 0
+        out, aux = (model(x, return_hidden=hidden, return_aux=True) if moe
+                    else (model(x, return_hidden=hidden), None))
         if cfg.loss_impl == "kernel":
-            hidden = model(x, return_hidden=True)
-            return kernel_next_token_loss(hidden, model.embed, tokens,
+            loss = kernel_next_token_loss(out, model.embed_weight(), tokens,
                                           compute_dtype=cfg.dtype, tp=tp,
                                           cols=cols)
-        if cfg.loss_chunks > 0:
-            hidden = model(x, return_hidden=True)
-            return fused_next_token_loss(
-                hidden, model.embed, tokens, num_chunks=scan_chunks,
+        elif cfg.loss_chunks > 0:
+            loss = fused_next_token_loss(
+                out, model.embed_weight(), tokens, num_chunks=scan_chunks,
                 compute_dtype=cfg.dtype, chunk_policy=cfg.loss_chunk_policy,
                 tp=tp, cols=cols)
-        return next_token_loss(model(x), tokens, tp, cols)
+        else:
+            loss = next_token_loss(out, tokens, tp, cols)
+        return loss if aux is None else loss + aux
 
-    return loss_fn
+    return objective
 
 
 def _check_fused_optimizer(cfg: TransformerConfig, model: TransformerLM,
@@ -1159,19 +1362,20 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _replicated_model(cfg: TransformerConfig, mesh, seed: int, params
-                      ) -> TransformerLM:
+def _replicated_model(cfg: TransformerConfig, mesh, seed: int, params,
+                      moe: ExpertParallel | None = None) -> TransformerLM:
     """The model on this rank: from ``params``, or initialised from
     ``seed`` and broadcast from rank 0 so the replicas start equal; on a
-    mesh with ``sp > 1``, over this rank's sequence chunk."""
+    mesh with ``sp > 1``, over this rank's sequence chunk; ``moe``: the
+    MoE layers' routing over the mesh."""
     import torch.distributed as dist
     device = _mesh_device(mesh)
     sp = SequenceParallel.from_mesh(mesh, cfg)
     if params is not None:
-        return TransformerLM(cfg, params, device=device, sp=sp)
+        return TransformerLM(cfg, params, device=device, sp=sp, moe=moe)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    model = TransformerLM(cfg, device=device, generator=gen, sp=sp)
+    model = TransformerLM(cfg, device=device, generator=gen, sp=sp, moe=moe)
     with torch.no_grad():
         for p in model.parameters():
             dist.broadcast(p, src=0)
@@ -1180,18 +1384,22 @@ def _replicated_model(cfg: TransformerConfig, mesh, seed: int, params
 
 def _sharded_model(cfg: TransformerConfig, mesh, seed: int, params
                    ) -> TransformerLM:
-    """The model on this rank: on a mesh without ``tp``
-    :func:`_replicated_model`; with it, this rank's shards of the full
-    parameters — ``params``, or those made from ``seed`` and broadcast
-    from rank 0 — in a tensor-parallel module."""
+    """The model on this rank: on a mesh that cuts no parameter (no
+    ``tp``, ``fsdp``, or ``ep`` with MoE) :func:`_replicated_model`;
+    else this rank's shards of the full parameters — ``params``, or
+    those made from ``seed`` and broadcast from rank 0 — in a sharded
+    module."""
     tp = TensorParallel.from_mesh(mesh)
-    if tp is None:
-        return _replicated_model(cfg, mesh, seed, params)
-    check_divisible(cfg, tp.size)
+    fsdp = TensorParallel.from_mesh(mesh, "fsdp")
+    moe = ExpertParallel.from_mesh(mesh) if cfg.moe_experts > 0 else None
+    if tp is None and fsdp is None and (moe is None or moe.ep is None):
+        return _replicated_model(cfg, mesh, seed, params, moe)
+    check_shardable(cfg, _mesh_coords(mesh)[1])
     params = _full_params(cfg, mesh, seed, params)
     return TransformerLM(cfg, shard_params(cfg, params, mesh),
                          device=_mesh_device(mesh), tp=tp,
-                         sp=SequenceParallel.from_mesh(mesh, cfg))
+                         sp=SequenceParallel.from_mesh(mesh, cfg),
+                         fsdp=fsdp, moe=moe)
 
 
 def _full_params(cfg: TransformerConfig, mesh, seed: int, params) -> dict:
@@ -1285,6 +1493,62 @@ def _reduce_grads(bucketer, grads, n_data: int, sp: bool):
     return [g / n_data for g in out] if n_data > 1 else out
 
 
+def _leaf_specs(cfg: TransformerConfig, mesh, model) -> dict:
+    """``id(parameter)`` → its leaf's :func:`param_specs` entry."""
+    specs = param_specs(cfg, mesh)
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            out[id(p)] = specs["layers"][parts[2]][parts[3]]
+        elif parts[0] == "embed":
+            out[id(p)] = specs["embed"]
+        else:
+            out[id(p)] = specs[parts[0]][parts[1]]
+    return out
+
+
+def _grad_sync(cfg: TransformerConfig, mesh, model, leaves):
+    """``(sync, bucketer)``: ``sync(grads)`` reduces each leaf's 1-D
+    gradient after the backward (None where nothing is reduced: no data
+    axis and no ``sp``). Every leaf is meaned over the data axes and
+    summed over ``sp`` (:func:`_reduce_grads`), but on an ``fsdp`` mesh a
+    leaf cut over ``fsdp`` arrives summed over it by its gather's
+    reduce-scatter: it is summed over the other data axes and ``sp``
+    and divided by the number of data shards."""
+    from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        GradientBucketer, ReduceOp)
+    axes, sp = data_axes(mesh), _sp_axes(mesh)
+    n = _data_size(mesh)
+    bucketer = GradientBucketer(mesh, axes + sp, bytes_per_pack=0)
+    if not axes + sp:
+        return None, bucketer
+    specs = _leaf_specs(cfg, mesh, model)
+    cut = [i for i, ps in enumerate(leaves) if "fsdp" in specs[id(ps[0])]]
+    if not cut:
+        return (lambda grads: _reduce_grads(bucketer, grads, n, bool(sp)),
+                bucketer)
+    rest = [i for i in range(len(leaves)) if i not in set(cut)]
+    others = tuple(a for a in axes if a != "fsdp") + sp
+    cut_bucketer = (GradientBucketer(mesh, others, bytes_per_pack=0)
+                    if others else None)
+
+    def sync(grads):
+        out = list(grads)
+        for i, g in zip(rest, _reduce_grads(
+                bucketer, [grads[i] for i in rest], n, bool(sp))):
+            out[i] = g
+        part = [grads[i] for i in cut]
+        if cut_bucketer is not None:
+            part = cut_bucketer.all_reduce(part, ReduceOp.SUM)
+        for i, g in zip(cut, part):
+            out[i] = g / n
+        return out
+
+    return sync, bucketer
+
+
 def _reduce_loss(loss, mesh, axes):
     """The reported loss: summed over ``sp``, meaned over ``axes``."""
     from distributed_tensorflow_tpu_torch.parallel.collectives import (
@@ -1294,21 +1558,15 @@ def _reduce_loss(loss, mesh, axes):
     return all_reduce(loss, mesh, axes, ReduceOp.MEAN)
 
 
-#: the ROADMAP item that brings each mesh axis the port lacks
-_LATER_AXES = {"fsdp": "A-3b", "ep": "A-5b"}
-
-
 def _check_axes(shape: dict):
     if "pp" in shape:
         raise NotImplementedError(
             f"a {shape} mesh has a pipeline axis: its step is "
             f"make_pipelined_train_step's")
-    later = sorted({_LATER_AXES[a] for a in shape if a in _LATER_AXES})
-    if later or not set(shape) <= {"dcn", "dp", "sp", "tp"}:
+    if not set(shape) <= {"dcn", "dp", "fsdp", "sp", "tp", "ep"}:
         raise NotImplementedError(
-            f"a {shape} mesh needs ROADMAP item(s) "
-            f"{', '.join(later) or 'A-3b'}; the port runs meshes of dcn, "
-            f"dp, sp and tp")
+            f"a {shape} mesh: the step runs meshes of dcn, dp, fsdp, sp, "
+            f"tp and ep")
 
 
 def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
@@ -1358,15 +1616,25 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
     the ring over ``sp`` (``cfg.sp_impl``, ``cfg.sp_attn_impl``), and
     the loss and gradients are summed over ``sp`` and meaned over the
     data axes; ``sp`` must divide ``max_seq_len`` (``ValueError``, where
-    JAX's GSPMD pads). Meshes with axes other than ``dcn``, ``dp``,
-    ``sp`` and ``tp`` raise ``NotImplementedError`` naming the ROADMAP
-    item that brings them (``fsdp`` A-3b, ``ep`` A-5b)."""
+    JAX's GSPMD pads).
+
+    On a mesh with ``fsdp`` (a data axis: the batch splits over ``dcn ×
+    dp × fsdp``) every leaf with a d_model dim is stored ``1/fsdp`` on
+    it and gathered at use; ``d_model`` must divide by ``fsdp``
+    (``ValueError``). ZeRO there slices the fsdp-local leaves over
+    ``dp``. With ``cfg.moe_experts > 0`` the step is the post-sync one
+    on every mesh (``ep`` alone or with ``dp``/``dcn``, ``tp``, ``sp``,
+    ``fsdp``): ``grad_sync="bucketed"``/``"none"`` raise ``ValueError``
+    and ``zero=`` ``NotImplementedError``, as in JAX; a rank holds
+    ``E/ep`` experts and ``moe_experts`` must divide by ``ep``. A mesh
+    with ``pp`` raises ``NotImplementedError``
+    (:func:`make_pipelined_train_step` is its step)."""
     shape = _shape(mesh)
     size = 1
     for v in shape.values():
         size *= v
     pure_dp = (set(shape) <= {"dcn", "dp"} and size > 1
-               and step_factory is None)
+               and cfg.moe_experts == 0 and step_factory is None)
     if grad_sync not in ("auto", "bucketed", "gspmd", "none"):
         raise ValueError(f"grad_sync={grad_sync!r}; expected auto/"
                          f"bucketed/gspmd/none")
@@ -1375,6 +1643,8 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
     if zero:
         if step_factory is not None:
             raise ValueError("zero= is not supported with step_factory")
+        if cfg.moe_experts > 0:
+            raise NotImplementedError("zero= with MoE is not supported")
         if cfg.fused_optimizer:
             raise ValueError("zero= replaces the optimizer update; set "
                              "fused_optimizer=False")
@@ -1513,11 +1783,12 @@ def _make_zero_gspmd_train_step(cfg: TransformerConfig, mesh,
                                 global_batch: int, seed: int = 0, *,
                                 params=None):
     """ZeRO on any other mesh (``("dp", "tp")``, ``("tp",)``, dcn
-    hybrids, meshes with ``sp``; JAX ``:1078`` with ``parallel/zero.py
-    make_zero_update``): the gradients are those of the non-ZeRO step —
-    one post-backward reduction over the data axes (and ``sp``, summed)
-    — and the partition is over this
-    rank's tp-local leaves (:class:`~distributed_tensorflow_tpu_torch.
+    hybrids, meshes with ``sp`` or ``fsdp``; JAX ``:1078`` with
+    ``parallel/zero.py make_zero_update``): the gradients are those of
+    the non-ZeRO step — one post-backward reduction over the data axes
+    (and ``sp``, summed; :func:`_grad_sync`) — and the partition is over
+    this rank's tp- and fsdp-local leaves
+    (:class:`~distributed_tensorflow_tpu_torch.
     parallel.zero.ZeroPartition` of their local shapes, JAX's
     ``_local_shape``), sliced over ``dp`` only: each dp rank updates its
     1/N and an all-gather over ``dp`` rebuilds the local blocks. As in
@@ -1527,19 +1798,15 @@ def _make_zero_gspmd_train_step(cfg: TransformerConfig, mesh,
     make_zero_update`) is the plain ``AdamW.step`` on the flat shards,
     bitwise the non-ZeRO step's."""
     from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
-    from distributed_tensorflow_tpu_torch.parallel.collectives import (
-        GradientBucketer)
     from distributed_tensorflow_tpu_torch.parallel.zero import (
         make_zero_update)
     axes = data_axes(mesh)
     rows = _data_rows(mesh, global_batch)
     _check_seq(mesh, cfg.max_seq_len)
-    n_data = _data_size(mesh)
     model = _sharded_model(cfg, mesh, seed, params)
     loss_fn = make_loss_fn(cfg, model)
     leaves = jax_leaf_params(cfg, model)
-    sync = axes + _sp_axes(mesh)
-    bucketer = GradientBucketer(mesh, sync, bytes_per_pack=0)
+    sync, _ = _grad_sync(cfg, mesh, model, leaves)
     optimizer, update = make_zero_update(
         lambda ps: make_optimizer(cfg, ps), mesh, leaves)
     partition, rank = update.partition, update.rank
@@ -1555,8 +1822,7 @@ def _make_zero_gspmd_train_step(cfg: TransformerConfig, mesh,
         with torch.no_grad():
             grads = _leaf_grads(leaves)
             if sync:
-                grads = _reduce_grads(bucketer, grads, n_data,
-                                      bool(_sp_axes(mesh)))
+                grads = sync(grads)
             g_shards = [g.clone() for g in partition.shard(
                 partition.pack(grads), rank)]
             for p in model.parameters():
@@ -1589,25 +1855,23 @@ def _make_post_sync_train_step(cfg: TransformerConfig, mesh,
     has already brought every chunk's dk/dv home). On a mesh with ``tp``
     the model is tensor-parallel (:func:`_sharded_model`): its leaves
     are local shards, and ``tp`` takes no part in the gradient
-    reduction."""
+    reduction; nor does ``ep`` (the dense leaves and the router are the
+    same on every ``ep`` rank, an expert is on one). On an ``fsdp`` mesh
+    the leaves cut over it arrive reduce-scattered (:func:`_grad_sync`).
+    """
     from distributed_tensorflow_tpu_torch.cluster.topology import data_axes
-    from distributed_tensorflow_tpu_torch.parallel.collectives import (
-        GradientBucketer)
     axes = data_axes(mesh)
     rows = _data_rows(mesh, global_batch)
     _check_seq(mesh, cfg.max_seq_len)
     n = _data_size(mesh)
-    sp = bool(_sp_axes(mesh))
     model = _sharded_model(cfg, mesh, seed, params)
     optimizer = make_optimizer(cfg, model.parameters())
-    sync = axes + _sp_axes(mesh)
-    bucketer = GradientBucketer(mesh, sync, bytes_per_pack=0)
     leaves = jax_leaf_params(cfg, model)
+    sync, bucketer = _grad_sync(cfg, mesh, model, leaves)
 
     def sync_grads():
         with torch.no_grad():
-            _write_grads(leaves, _reduce_grads(bucketer, _leaf_grads(leaves),
-                                               n, sp))
+            _write_grads(leaves, sync(_leaf_grads(leaves)))
 
     inner = (step_factory or _lm_step_factory)(
         cfg, model, optimizer,
@@ -1701,6 +1965,10 @@ def make_pipelined_train_step(cfg: TransformerConfig, mesh,
             "stash is not host-realized")
     if not cfg.scan_layers:
         raise ValueError("pipeline path requires scan_layers=True")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "MoE under pipeline parallelism is not supported (as in the "
+            "JAX package): use make_sharded_train_step on a dp×ep mesh")
     shape = _shape(mesh)
     n_stages = shape.get("pp", 1)
     n_chunks = int(interleave) if schedule == "interleaved" else 1

@@ -16,6 +16,11 @@ reduces a list of gradients one bucket at a time, and
 collective from inside the backward pass, as soon as that bucket and
 every bucket planned before it have their gradients.
 
+The tensor-parallel boundaries :func:`tp_copy` / :func:`tp_reduce`
+(also the MoE layer's over ``ep``), :func:`fsdp_gather` (a weight
+sharded over ``fsdp`` gathered on use, its gradient reduce-scattered)
+and :func:`gather_keep_shard` (the MoE router over ``ep``).
+
 Sequence parallelism's collectives: :class:`Ring` and
 :class:`RingExchange` (JAX's ``ppermute`` round a mesh dim: one
 ``batch_isend_irecv`` a shift), :func:`ring_shift` (differentiable, its
@@ -150,6 +155,11 @@ def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
 # Tensor-parallel boundaries (the f / g pair of Megatron-LM)
 # ---------------------------------------------------------------------------
 
+def _count(cls, t: torch.Tensor):
+    cls.calls += 1
+    cls.bytes += t.numel() * t.element_size()
+
+
 class CopyToGroup(torch.autograd.Function):
     """Identity forward, SUM all-reduce of the gradient over ``group``
     backward: where a replicated activation enters column-parallel
@@ -164,6 +174,7 @@ class CopyToGroup(torch.autograd.Function):
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(g, group=ctx.group)
+        _count(CopyToGroup, g)
         return g, None
 
 
@@ -176,6 +187,7 @@ class ReduceFromGroup(torch.autograd.Function):
     def forward(ctx, x, group):
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
+        _count(ReduceFromGroup, out)
         return out
 
     @staticmethod
@@ -192,6 +204,94 @@ def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """:class:`ReduceFromGroup` over ``group`` (the mesh's ``tp``
     group)."""
     return ReduceFromGroup.apply(x, group)
+
+
+#: all-reduces each boundary ran (the copy's in the backward, the
+#: reduction's in the forward) and their bytes (a plain count, as the
+#: kernels' launch counters)
+CopyToGroup.calls = CopyToGroup.bytes = 0
+ReduceFromGroup.calls = ReduceFromGroup.bytes = 0
+
+
+# ---------------------------------------------------------------------------
+# Gathered weights: fully-sharded data parallelism's gather on use, and
+# the gather of a shard whose full gradient every rank holds
+# ---------------------------------------------------------------------------
+
+def _gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class FsdpGather(torch.autograd.Function):
+    """A weight stored sharded along ``dim`` over ``group`` (the mesh's
+    ``fsdp`` dim) made whole where it is used. Forward: the shard cast
+    to ``dtype``, all-gathered (the cast commutes with the gather bit
+    for bit, and a bf16 gather moves half the bytes). Backward: the
+    whole weight's gradient in f32, reduce-scattered (SUM) back to the
+    shard — each rank's shard then holds its slice of the gradient
+    summed over the group's data shards. Under remat the gather runs
+    again in the recompute, so a rank holds one layer's whole weights
+    at a time."""
+
+    @staticmethod
+    def forward(ctx, shard, dtype, group, dim):
+        ctx.group, ctx.dim = group, dim
+        out = _gather_dim(shard.to(dtype), group, dim)
+        _count(FsdpGather, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        src = g.float().movedim(ctx.dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=ctx.group)
+        FsdpGather.scatters += 1
+        FsdpGather.scatter_bytes += src.numel() * src.element_size()
+        return out.movedim(0, ctx.dim).contiguous(), None, None, None
+
+
+#: all-gathers (``calls``, ``bytes`` gathered) and reduce-scatters
+#: (``scatters``, ``scatter_bytes`` of the whole gradients) run
+FsdpGather.calls = FsdpGather.bytes = 0
+FsdpGather.scatters = FsdpGather.scatter_bytes = 0
+
+
+def fsdp_gather(shard: torch.Tensor, dtype, group, dim: int
+                ) -> torch.Tensor:
+    """:class:`FsdpGather`: ``shard`` cast to ``dtype`` and all-gathered
+    along ``dim`` over ``group``; its gradient reduce-scattered in
+    f32."""
+    return FsdpGather.apply(shard, dtype, group, dim)
+
+
+class GatherKeepShard(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group`` forward; backward keeps
+    this rank's slice of the gradient. For a weight stored sharded whose
+    whole gradient every rank of the group computes identically (the
+    MoE router over ``ep``: routing repeats on every rank), so each
+    keeps its own slice: no reduction, not a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, shard, group, dim):
+        ctx.dim, ctx.n = dim, shard.shape[dim]
+        ctx.start = dist.get_rank(group) * ctx.n
+        return _gather_dim(shard, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.n).contiguous(), None, None
+
+
+def gather_keep_shard(shard: torch.Tensor, group, dim: int
+                      ) -> torch.Tensor:
+    """:class:`GatherKeepShard` of ``shard`` along ``dim`` over
+    ``group``."""
+    return GatherKeepShard.apply(shard, group, dim)
 
 
 # ---------------------------------------------------------------------------

@@ -224,3 +224,17 @@ def zero_state_bytes(n_params: int, n_shards: int, level: int,
               else n_params * grad_bytes)
     return total
 
+
+def held_state_bytes(model: torch.nn.Module, optimizer) -> dict:
+    """The bytes a rank holds of parameters, gradients and optimizer
+    state (its tensors: AdamW's moments and count), measured on the live
+    tensors, next to the analytic :func:`zero_state_bytes`."""
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    grads = sum(p.grad.numel() * p.grad.element_size()
+                for p in model.parameters() if p.grad is not None)
+    moments = sum(t.numel() * t.element_size()
+                  for st in optimizer.state.values() for t in st.values()
+                  if isinstance(t, torch.Tensor))
+    return {"param_bytes": params, "grad_bytes": grads,
+            "moment_bytes": moments,
+            "state_bytes": params + grads + moments}

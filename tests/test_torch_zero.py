@@ -22,9 +22,10 @@ import torch
 
 from distributed_tensorflow_tpu.parallel.zero import (
     ZeroPartition as JZeroPartition, zero_state_bytes as jzero_state_bytes)
-from distributed_tensorflow_tpu_torch.models.transformer import AdamW
+from distributed_tensorflow_tpu_torch.models.transformer import (
+    AdamW, TransformerConfig, TransformerLM, make_optimizer)
 from distributed_tensorflow_tpu_torch.parallel.zero import (
-    ZeroPartition, zero_opt_state, zero_state_bytes)
+    ZeroPartition, held_state_bytes, zero_opt_state, zero_state_bytes)
 from distributed_tensorflow_tpu_torch.testing import multi_process_runner
 
 import torch_dp_ranks
@@ -63,6 +64,27 @@ def test_zero_state_bytes_equals_jax(n, level):
             jzero_state_bytes(234906624, n, level, **kw)
     with pytest.raises(ValueError):
         zero_state_bytes(10, n, 3)
+
+
+@pytest.mark.parametrize("mu_dtype,slot_bytes",
+                         [(None, 8), (torch.bfloat16, 6)])
+def test_held_state_bytes_matches_analytic(mu_dtype, slot_bytes):
+    cfg = TransformerConfig.tiny(adam_mu_dtype=mu_dtype)
+    model = TransformerLM(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer(cfg, model.parameters())
+    n = sum(p.numel() for p in model.parameters())
+    before = held_state_bytes(model, opt)
+    assert before == {"param_bytes": 4 * n, "grad_bytes": 0,
+                      "moment_bytes": 0, "state_bytes": 4 * n}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, cfg.max_seq_len)))
+    model(tokens).float().mean().backward()
+    opt.step()
+    held = held_state_bytes(model, opt)
+    assert held["state_bytes"] == zero_state_bytes(
+        n, 1, 0, slot_bytes=slot_bytes)
+    assert held["grad_bytes"] == 4 * n
 
 
 def test_zero_opt_state_refuses_nonzero_init():

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Data-, tensor- and pipeline-parallel training of the PyTorch port
-across GPUs, with the phase breakdown of ``bench.py``'s
+"""Data-, tensor-, pipeline-, sequence-, expert- and fully-sharded
+parallel training of the PyTorch port across GPUs, with the phase breakdown of ``bench.py``'s
 ``transformer_phase_breakdown``.
 
     python3 tools/torch_dp_run.py --world 4
-        [--mesh dp|dcn2xdp2|tp4|dp2xtp2|pp4|dp2xpp2|sp4|dp2xsp2|sp2xtp2]
+        [--mesh dp|dcn2xdp2|tp4|dp2xtp2|pp4|dp2xpp2|sp4|dp2xsp2|sp2xtp2
+                |ep4|dp2xep2|ep2xtp2|fsdp4|dp2xfsdp2|fsdp2xtp2]
+        [--moe-experts E] [--moe-top-k k]
         [--zero 0|1|2] [--grad-sync auto|none|gspmd]
         [--schedule gpipe|1f1b|interleaved] [--interleave v] [--offload]
         [--sp-impl ring|striped|ulysses]
@@ -24,8 +26,10 @@ warm-up step of:
 - the full step;
 - the same compute without the gradient sync (``grad_sync="none"``;
   for BERT, and at one rank, the step on the rank's rows alone; on a
-  mesh with ``tp``, the tensor-parallel step with its data-axes
-  reduction left out, none for BERT);
+  mesh with ``tp``, ``sp``, ``ep`` or ``fsdp``, the post-sync step with
+  its post-backward reduction left out, none for BERT: the ep
+  boundary all-reduces and the fsdp gathers and reduce-scatters stay
+  in it, so there the exposed time is the post-backward sync's alone);
 - the bucketed all-reduce alone on a gradient-shaped list of tensors
   (serial: nothing to hide behind), chained;
 - on a mesh with ``tp`` (``tp4``: ``{"tp": world}``; ``dp2xtp2``:
@@ -50,6 +54,20 @@ in the step's order on tensors of their shapes), and its #1-#3
 launches a step against the schedule's count
 (``sequence_parallel.attention_blocks`` a layer a pass: the forward
 twice under remat).
+
+On an expert-parallel mesh (``ep4``: ``{"ep": world}``; ``dp2xep2``;
+``ep2xtp2``) the config takes ``--moe-experts`` (required there)
+and ``--moe-top-k``, at JAX's default capacity factor 1.25; ``ep``
+is no data axis, so ``ep4`` runs one data shard of 8 × 1024 (the dense
+part repeats on every rank, as in JAX's layout: a memory row, not a
+throughput one). On a fully-sharded mesh (``fsdp4``, ``dp2xfsdp2``,
+``fsdp2xtp2``) every d_model dim is cut over ``fsdp``, 8 × 1024 tokens a
+data shard. Both report every collective of one step by mesh axis and
+kind (all-reduces, all-gathers, reduce-scatters: count and bytes),
+replayed alone and chained on tensors of their shapes
+(``ep_serial_ms``, ``fsdp_serial_ms``), the MoE count tables'
+all-gathers, and the state a rank holds (parameters, gradients, AdamW
+moments).
 
 On a pipeline mesh (``pp4``: ``{"pp": world}``; ``dp2xpp2``: ``{"dp":
 2, "pp": world / 2}``) the step is ``make_pipelined_train_step`` at
@@ -77,6 +95,7 @@ rehearsal; its numbers are no device's). Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -314,6 +333,120 @@ def _sp_report(args, cfg, mesh, full, timed, device, sends, n_steps
                                   args.reps) * 1e3}
 
 
+#: expert-parallel and fully-sharded meshes at four ranks
+SHARD_MESHES = {"ep4": {"ep": 4}, "dp2xep2": {"dp": 2, "ep": 2},
+                "ep2xtp2": {"ep": 2, "tp": 2}, "fsdp4": {"fsdp": 4},
+                "dp2xfsdp2": {"dp": 2, "fsdp": 2},
+                "fsdp2xtp2": {"fsdp": 2, "tp": 2}}
+
+
+class _CollectiveRecorder:
+    """Every all-reduce, all-gather and reduce-scatter one step issues on
+    a mesh dim's group, recorded while :meth:`recording` is on (kind,
+    shapes, dtype, axis); :meth:`chain` replays an axis' calls in order
+    on zero tensors of their shapes."""
+
+    KINDS = {"all_reduce": 1, "all_gather_into_tensor": 2,
+             "reduce_scatter_tensor": 2}
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        self.dist = dist
+        self.groups = {mesh.get_group(a): a for a in mesh.mesh_dim_names}
+        # a reduction over every dim of a mesh of several runs on the
+        # world (a one-dim mesh's dim group is the world itself)
+        self.groups.setdefault(dist.group.WORLD, "world")
+        self.calls: list = []
+
+    def recording(self):
+        import contextlib
+        dist = self.dist
+        real = {k: getattr(dist, k) for k in self.KINDS}
+
+        def wrap(kind):
+            def call(*args, group=None, **kw):
+                axis = self.groups.get(group)
+                if axis is not None:
+                    self.calls.append((kind, axis, [
+                        (tuple(a.shape), a.dtype)
+                        for a in args[:self.KINDS[kind]]]))
+                return real[kind](*args, group=group, **kw)
+            return call
+
+        @contextlib.contextmanager
+        def ctx():
+            for k in self.KINDS:
+                setattr(dist, k, wrap(k))
+            try:
+                yield self
+            finally:
+                for k, f in real.items():
+                    setattr(dist, k, f)
+        return ctx()
+
+    def summary(self) -> dict:
+        """``{"axis/kind": {"calls", "bytes"}}``, the bytes of the whole
+        tensor (a gather's output, a reduce-scatter's input)."""
+        import math
+        out: dict = {}
+        for kind, axis, tensors in self.calls:
+            row = out.setdefault(f"{axis}/{kind}", {"calls": 0, "bytes": 0})
+            row["calls"] += 1
+            row["bytes"] += max(math.prod(shape) * dtype.itemsize
+                                for shape, dtype in tensors)
+        return out
+
+    def chain(self, axes, device, mesh, kinds=KINDS):
+        import torch
+        dist = self.dist
+        calls = [(kind, (dist.group.WORLD if axis == "world"
+                         else mesh.get_group(axis)),
+                  [torch.zeros(shape, dtype=dtype, device=device)
+                   for shape, dtype in tensors])
+                 for kind, axis, tensors in self.calls
+                 if axis in axes and kind in kinds]
+
+        def run():
+            for kind, group, tensors in calls:
+                getattr(dist, kind)(*tensors, group=group)
+        return run, len(calls)
+
+
+def _shard_report(args, mesh, full, box, timed, device) -> dict:
+    """An ep or fsdp rank's extras: the state it holds, one step's
+    collectives by axis and kind, the MoE count gathers a step, and the
+    ep and fsdp collectives replayed alone (``ep_serial_ms``,
+    ``fsdp_serial_ms``)."""
+    from distributed_tensorflow_tpu_torch.cluster import topology
+    from distributed_tensorflow_tpu_torch.parallel import moe
+    from distributed_tensorflow_tpu_torch.parallel.zero import (
+        held_state_bytes)
+    out = held_state_bytes(box["state"]["model"],
+                           box["state"]["optimizer"])
+    rec = _CollectiveRecorder(mesh)
+    stats = dict(moe.STATS)
+    with rec.recording():
+        full()
+    out["collectives_per_step"] = rec.summary()
+    out["moe_count_gathers_per_step"] = (moe.STATS["count_gathers"]
+                                         - stats["count_gathers"])
+    out["moe_count_gather_bytes_per_step"] = (
+        moe.STATS["count_gather_bytes"] - stats["count_gather_bytes"])
+    for axis in ("ep", "fsdp"):
+        if axis in mesh.mesh_dim_names:
+            run, n = rec.chain((axis,), device, mesh)
+            out[f"{axis}_collectives_per_step"] = n
+            out[f"{axis}_serial_ms"] = _best(timed, run, args.iters,
+                                             args.reps) * 1e3
+    # the step's post-backward gradient reduction: its all-reduces over
+    # the data axes (on fsdp the cut leaves' reduce-scatters are above)
+    run, n = rec.chain(topology.data_axes(mesh) + ("world",), device, mesh,
+                       ("all_reduce",))
+    out["data_sync_serial_ms"] = (_best(timed, run, args.iters, args.reps)
+                                  * 1e3 if n else 0.0)
+    return out
+
+
 def _pp_config(tiny: bool):
     from distributed_tensorflow_tpu_torch.models.transformer import (
         TransformerConfig)
@@ -461,11 +594,17 @@ def _rank(args) -> dict:
     elif args.mesh in SP_MESHES:
         mesh = topology.make_mesh(SP_MESHES[args.mesh][0],
                                   device=args.device)
+    elif args.mesh in SHARD_MESHES:
+        mesh = topology.make_mesh(SHARD_MESHES[args.mesh],
+                                  device=args.device)
     else:
         mesh = topology.make_mesh({"dp": world}, device=args.device)
     tp = topology.tp_size(mesh)
     sp = args.mesh in SP_MESHES
     cfg = _sp_config(args) if sp else _config(args.workload, args.tiny)
+    if args.moe_experts:
+        cfg = dataclasses.replace(
+            cfg, moe_experts=args.moe_experts, moe_top_k=args.moe_top_k)
     rows = 1 if sp else BATCH[args.workload]
     n_data = topology.mesh_axis_size(mesh, *topology.data_axes(mesh))
     gb = rows * n_data
@@ -505,6 +644,8 @@ def _rank(args) -> dict:
     if sp:
         out.update(_sp_report(args, cfg, mesh, full, timed, device,
                               sends, n_steps))
+    if args.mesh in SHARD_MESHES:
+        out.update(_shard_report(args, mesh, full, box, timed, device))
     model = box["state"]["model"]
     leaves = tf.jax_leaf_params(cfg, model)
     grads = [torch.cat([p.detach().reshape(-1) for p in ps])
@@ -515,7 +656,8 @@ def _rank(args) -> dict:
         torch.cuda.empty_cache()
 
     # the same compute without the sync
-    if tp > 1 or "tp" in mesh.mesh_dim_names or sp:
+    if (tp > 1 or "tp" in mesh.mesh_dim_names or sp
+            or args.mesh in SHARD_MESHES or cfg.moe_experts):
         nstep = None
         if args.workload == "transformer":
             def no_sync(cfg_, model_, opt_, shard):
@@ -554,7 +696,11 @@ def _rank(args) -> dict:
     # the bucketed all-reduce alone, chained on a gradient-shaped list
     axes = topology.data_axes(mesh)
     dt_coll, plan = 0.0, []
-    if axes:
+    if args.mesh in SHARD_MESHES:
+        # the step's own data-axis all-reduces (fsdp-cut leaves take
+        # none), replayed by _shard_report
+        dt_coll = out["data_sync_serial_ms"] / 1e3
+    elif axes:
         outer, inner = tf._hybrid_axes(mesh, axes)
         bucketer = GradientBucketer(mesh, axes, outer_axis=outer,
                                     inner_axis=inner)
@@ -595,8 +741,13 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every visible card)")
     ap.add_argument("--mesh", choices=("dp", "dcn2xdp2", "tp4", "dp2xtp2",
-                                       "pp4", "dp2xpp2", *SP_MESHES),
+                                       "pp4", "dp2xpp2", *SP_MESHES,
+                                       *SHARD_MESHES),
                     default="dp")
+    ap.add_argument("--moe-experts", type=int, default=0,
+                    help="mixture-of-experts layers (required on the ep "
+                         "meshes)")
+    ap.add_argument("--moe-top-k", type=int, default=1)
     ap.add_argument("--sp-impl", choices=("ring", "striped", "ulysses"),
                     default="ring", help="sequence-parallel meshes")
     ap.add_argument("--schedule", choices=("gpipe", "1f1b", "interleaved"),
@@ -618,6 +769,8 @@ def main() -> int:
     args = ap.parse_args()
     if args.mesh in SP_MESHES and args.workload != "transformer":
         ap.error("the sequence-parallel meshes run --workload transformer")
+    if args.mesh.startswith(("ep", "dp2xep")) and not args.moe_experts:
+        ap.error(f"--mesh {args.mesh} needs --moe-experts")
 
     import torch
     from distributed_tensorflow_tpu_torch.testing import multi_process_runner
@@ -648,6 +801,7 @@ def main() -> int:
     r0 = ranks[0]
     line = {"workload": args.workload, "world": world, "mesh": args.mesh,
             "zero": args.zero, "grad_sync": args.grad_sync,
+            "moe_experts": args.moe_experts, "moe_top_k": args.moe_top_k,
             "device": args.device, "tiny": args.tiny,
             "rows_per_data_shard": (1 if args.mesh in SP_MESHES
                                     else BATCH[args.workload]),
@@ -657,7 +811,8 @@ def main() -> int:
                 "rank", "step_ms", "nosync_step_ms", "collective_serial_ms",
                 "loss", "sp_index", "sp_serial_ms", "ring_sends_per_step",
                 "ring_bytes_per_step", "launches_per_step",
-                "expected_launches_per_step", "peak_mem_bytes")}
+                "expected_launches_per_step", "peak_mem_bytes",
+                "state_bytes", "ep_serial_ms", "fsdp_serial_ms")}
                       for r in ranks]}
     return _print(line, args.out)
 
