@@ -268,10 +268,42 @@ printing one JSON line:
 26. ``fsdp_parity`` — as ``sp_parity`` on ``{"fsdp": 1}`` (bitwise) and
     fsdp4, dp2×fsdp2, fsdp2×tp2.
 
+``tp_train`` also runs ``bert_train``'s config on ``{"tp": world}`` (at
+four cards bert_base's V 30522, which 4 does not divide, padded to 7,631
+rows a rank), and ``tp_parity`` its 2-layer f32 step there against the
+single-device BERT step by ``dp_parity``'s rule.
+
+27. ``resnet_train`` — ``bench.py run_resnet50``'s configuration through
+    ``models/resnet.py``: ResNet-50 in bf16, batch 128 at 224², two
+    warm-up and 8 timed steps: step ms, images/s, MFU (the FLOPs counted
+    from the conv and dense shapes, ×3), peak memory, the device time by
+    kernel group and the idle share, a falling loss; none of #1-#9 runs.
+28. ``resnet_parity`` — f32, TF32 off, ResNet-50 at batch 8 of 128²: one
+    step on the card against the port on the CPU from the same converted
+    variables: eval and train logits, loss, every gradient, the
+    BatchNorm statistics and the parameters' update (``RESNET_PARITY_
+    TOL``).
+29. ``resnet_dp`` — ``resnet.make_sharded_train_step`` on ``{"dp":
+    world}``, one rank a card: bf16 at 128 a card (images/s), then f32
+    at 8 a card of 128² (each rank's rows a different mean) against one
+    card on the global batch (BatchNorm's statistics the global batch's).
+30. ``mnist_train`` — the MNIST CNN at batch 128: step ms, images/s.
+31. ``wide_deep_train`` — DLRM (``dlrm_like``: 26 × 100,000 × 64 f32,
+    "dot") at batch 4096 through ``make_train_step`` and
+    ``make_embedding_train_step``: step ms, examples/s, the state held,
+    peak memory, the device time by kernel group, a falling loss.
+32. ``wide_deep_parity`` — f32 at 1,000 rows a table, both paths, two
+    steps on the card against the CPU (``WD_PARITY_TOL``).
+33. ``wide_deep_tp`` — both paths on ``{"tp": world}`` and at four
+    cards ``{"dp": 2, "tp": 2}`` with a first vocabulary of 100,001 (no
+    tp divides it): timed at 4096 a data shard, then f32 at 1,000 rows a
+    table against the single card on the global batch.
+
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
 ``--phases sp_train,sp_parity``, ``--phases moe_train,moe_parity,
-fsdp_train,fsdp_parity``), and prints no kernels line.
+fsdp_train,fsdp_parity``, ``--phases resnet_dp,wide_deep_tp,tp_train,
+tp_parity``), and prints no kernels line.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -280,7 +312,8 @@ the flash forward's rows also the launches of phases 5a-5h and, in
 bf16, its times at the largest suffix shape; every row's
 ``sp_launches`` each ``sp_train`` run's, and #1-#3's ``sp`` their times
 at the ring's block shape, each kind of block; ``moe_launches`` and
-``fsdp_launches`` each ``moe_train`` and ``fsdp_train`` run's),
+``fsdp_launches`` each ``moe_train`` and ``fsdp_train`` run's;
+``other_workload_launches`` phases 27-33's, all 0),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -571,6 +604,45 @@ FSDP_PARITY_RUNS = {
     1: {"fsdp1": ({"fsdp": 1}, {})},
     4: {"fsdp4": ({"fsdp": 4}, {}), "dp2fsdp2": ({"dp": 2, "fsdp": 2}, {}),
         "fsdp2tp2": ({"fsdp": 2, "tp": 2}, {})}}
+# resnet_train: bench.py run_resnet50 (:224-262), ResNet-50 at batch 128
+# of 224², bf16; two warm-up and RESNET_STEPS timed steps. JAX's recipe
+# (lr 0.1 from step 0, no warm-up) sends the loss from 8.6 up to ~55 in
+# the first steps before it falls (below the first by step 7 on the
+# card), so the phase runs 10 steps and holds the last below the first
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 128, 224, 8
+# resnet_parity / resnet_dp's parity: f32, TF32 off, ResNet-50 at batch 8
+# of 128² (a card); card against CPU (resnet_parity) or dp against one
+# card on the global batch (resnet_dp). The logits are O(1); "grads_rel"
+# is the gradients' error over their norm and "update_rel" the step's
+# update error over the update, both as vectors over every parameter
+# (``_vec_rel``). The recipe's first step is violent (lr 0.1 at step 0
+# on a fresh init), and the BatchNorms between the loss and the stem
+# amplify reordered f32 sums into the gradients, more so the fewer
+# values a channel's statistics see (hence 128², not 64²): these phases
+# measured the update 2.2-2.3 % apart (card against CPU, and dp4 against
+# one card) with the losses within 3.8e-6 and the statistics within
+# 7.4e-6 (NVIDIA H100 80GB HBM3, 700.00 W). The tolerances leave room
+# above that spread
+RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE = 8, 128
+RESNET_PARITY_TOL = {"logits": 1e-3, "loss": 2e-4, "grads_rel": 0.1,
+                     "stats": 1e-4, "update_rel": 0.1}
+# one parity step: the recipe's first update (lr 0.1, no warm-up) sends
+# the loss from 8.6 to ~37 (resnet_train), where a second step's values
+# part far more between two orders of f32 sums
+RESNET_DP_STEPS, RESNET_DP_PARITY_STEPS = 8, 1
+# mnist_train: batch 128, MNIST_STEPS timed steps
+MNIST_BATCH, MNIST_STEPS = 128, 20
+# wide_deep_train: dlrm_like (26 tables x 100,000 x 64, "dot") at batch
+# 4096, WD_STEPS timed steps a path; wide_deep_tp: the same with a first
+# vocabulary no tp divides
+WD_BATCH, WD_STEPS = 4096, 5
+WD_TP_VOCABS = (100_001,) + (100_000,) * 25
+# wide_deep_parity: f32, TF32 off, WD_PARITY_VOCAB rows a table, batch
+# 512, 2 steps of each path: card against CPU (and in wide_deep_tp the
+# mesh against one card)
+WD_PARITY_VOCAB, WD_PARITY_BATCH, WD_PARITY_STEPS = 1000, 512, 2
+WD_PARITY_TOL = 1e-5
+
 KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "flash_fwd_tc": ("flash_tc.cu", "ops/attention.py:135"),
     "flash_fwd": ("flash_fwd.cu", "ops/attention.py:135"),
@@ -4695,7 +4767,52 @@ def _tp_train_rank(variants) -> dict:
             gc.collect()
         out["meshes"]["x".join(f"{k}{v}" for k, v in axes.items())] = res
         del tokens
+    out["meshes"][f"tp{world}_bert"] = {"bert": _tp_bert_timed(world,
+                                                                plain)}
     bootstrap.shutdown()
+    return out
+
+
+def _tp_bert_timed(world: int, plain: dict) -> dict:
+    """``bert_train``'s config (``bench.py run_bert``, full-logits MLM) on
+    ``{"tp": world}``: bert_base's V 30522, which 4 does not divide,
+    padded to a multiple of tp (7,631 rows a rank at tp 4). One warm-up
+    and TP_STEPS timed steps."""
+    import gc
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import topology
+    from distributed_tensorflow_tpu_torch.models import bert
+    mesh = topology.make_mesh({"tp": world}, device="cuda")
+    cfg = _bert_config()
+    tokens = bert.synthetic_corpus(BERT_BATCH, cfg.max_seq_len,
+                                   cfg.vocab_size, seed=0,
+                                   device="cuda")["tokens"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step = bert.make_sharded_train_step(cfg, mesh, BERT_BATCH, seed=0)
+    state, m = step(state, {"tokens": tokens})
+    losses = [m["loss"].item()]
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    plain.clear()
+    state, step_ms, timed = _step_events(step, state, {"tokens": tokens},
+                                         TP_STEPS)
+    losses += timed
+    counts = launch_counts()
+    model = state["model"]
+    checksum, agree = _gathered_checksum(cfg, model, mesh)
+    mean_s = float(np.mean(step_ms)) / 1e3
+    out = {"step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+           "tokens_per_s": BERT_BATCH * cfg.max_seq_len / mean_s,
+           "losses": losses, "launches": counts,
+           "plain_calls": dict(plain),
+           "local_embed_rows": model.embed.shape[0],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "param_checksum": checksum, "ranks_agree": agree}
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4712,6 +4829,7 @@ def phase_tp_train(state):
         for mesh, res in r["meshes"].items():
             for variant, v in res.items():
                 per_step = (FUSED_LAUNCHES if variant == "fused"
+                            else BERT_LAUNCHES if variant == "bert"
                             else TRAIN_LAUNCHES)
                 want = expected_counts(per_step, TP_STEPS)
                 tag = f"rank {r['rank']} {mesh} {variant}"
@@ -4737,7 +4855,8 @@ def phase_tp_train(state):
     state["tp_launches"] = {f"{mesh}_{variant}": v["launches"]
                             for mesh, res in r0.items()
                             for variant, v in res.items()}
-    return {"world": world, "config": "transformer_big (bench.py headline)",
+    return {"world": world, "config": "transformer_big (bench.py headline); "
+                                      "bert_base (run_bert) on tp = world",
             "batch_per_data_shard": TRAIN_BATCH, "seq_len": 1024,
             "steps": TP_STEPS, "launches_per_step": TRAIN_LAUNCHES,
             "fused_launches_per_step": FUSED_LAUNCHES, "ranks": ranks}
@@ -4836,8 +4955,70 @@ def _tp_parity_rank() -> dict:
         torch.cuda.empty_cache()
     out.pop("dp_tp_params", None)
     out["n_params"] = sum(w.numel() for w in refs[TP_PARITY_ROWS][2].values())
+    out["runs"]["bert_tp"] = _tp_bert_parity(world)
     bootstrap.shutdown()
     return out
+
+
+def _tp_bert_parity(world: int) -> dict:
+    """BERT MLM (full logits) at ``bert_base`` width, 2 layers, f32, on
+    ``{"tp": world}`` (V 30522 padded at tp 4) against single-device
+    ``bert.make_train_step`` from the same weights, corpus and masks
+    (both draw them from the ``(seed, step)`` generator on the card)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import topology
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM, gather_params, init_params, make_optimizer)
+    cfg = _bert_config(n_layers=2, max_seq_len=TP_PARITY_SEQ,
+                       dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = bert.synthetic_corpus(TP_PARITY_ROWS, TP_PARITY_SEQ,
+                                   cfg.vocab_size, seed=0,
+                                   device="cuda")["tokens"]
+    ref = TransformerLM(cfg, params, device="cuda")
+    ropt = make_optimizer(cfg, ref.parameters())
+    rstep = bert.make_train_step(cfg, ref, ropt, seed=0)
+    mesh = topology.make_mesh({"tp": world}, device="cuda")
+    state, step = bert.make_sharded_train_step(cfg, mesh, TP_PARITY_ROWS,
+                                               seed=0, params=params)
+    del params
+    rst = {"model": ref, "optimizer": ropt, "step": 0}
+    losses, want_losses, grads, want_grads = [], [], [], []
+    for _ in range(TP_PARITY_STEPS):
+        rst, m = rstep(rst, {"tokens": tokens})
+        want_losses.append(m["loss"].item())
+        want_grads.append(dict(_leaves(ref.stacked_params(
+            lambda p: p.grad.clone()))))
+        state, m = step(state, {"tokens": tokens})
+        losses.append(m["loss"].item())
+        grads.append(dict(_leaves(gather_params(
+            cfg, state["model"].stacked_params(lambda p: p.grad), mesh))))
+    want = dict(_leaves(ref.stacked_params(lambda p: p.detach().clone())))
+    got = dict(_leaves(gather_params(cfg, state["model"].stacked_params(),
+                                     mesh)))
+    keys = sorted(want)
+    res = {"losses": losses, "want_losses": want_losses,
+           "local_embed_rows": state["model"].embed.shape[0],
+           "gathered_embed_shape": list(got["embed"].shape),
+           "max_abs_loss_err": max(abs(a - b) for a, b in
+                                   zip(losses, want_losses)),
+           "max_abs_grad_err": max(
+               (g[k] - w).abs().max().item()
+               for g, ws in zip(grads, want_grads) for k, w in ws.items()),
+           "max_abs_param_err": max((got[k] - want[k]).abs().max().item()
+                                    for k in keys),
+           "params_equal": all(torch.equal(got[k], want[k]) for k in keys),
+           "losses_equal": losses == want_losses,
+           "n_params": sum(want[k].numel() for k in keys)}
+    res.update(_adam_param_rule(
+        [got[k] for k in keys], [want[k] for k in keys],
+        [[g[k] for k in keys] for g in grads],
+        [[w[k] for k in keys] for w in want_grads]))
+    del state, step, ref, rst
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_tp_parity(state):
@@ -4859,7 +5040,14 @@ def phase_tp_parity(state):
     for r in ranks:
         allowed = TRAIN_PARAM_FRAC * r["n_params"]
         for name, v in r["runs"].items():
-            if world == 1:
+            if name == "bert_tp":
+                # dp_parity's rule at every world
+                ok = (v["max_abs_loss_err"] <= DP_PARITY_TOL
+                      and v["max_abs_grad_err"] <= DP_PARITY_TOL
+                      and v["max_abs_param_err_held"] <= TRAIN_PARAM_TOL
+                      and v["params_off_by_more_than_tol"]
+                      <= TRAIN_PARAM_FRAC * v["n_params"])
+            elif world == 1:
                 ok = (v["params_equal"] and v["losses_equal"]
                       and v.get("grads_equal", True))
             elif name == "dp_tp_zero1":
@@ -6629,6 +6817,831 @@ def phase_fsdp_parity(state):
                     "pp_parity's allowance", "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# the other workloads: ResNet-50, the MNIST CNN, Wide&Deep/DLRM
+# ---------------------------------------------------------------------------
+
+def _step_events(step, st, batch, n: int):
+    """``n`` steps of ``step`` timed each with CUDA events: ``(state,
+    step ms list, losses)``."""
+    import torch
+    step_ms, losses = [], []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        st, m = step(st, batch)
+        e1.record()
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(m["loss"].item())
+    return st, step_ms, losses
+
+
+def _no_kernel_launched(tag: str, counts: dict):
+    """The other workloads' paths run none of #1-#9."""
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: a kernel of #1-#9 ran: {counts}")
+
+
+def _falls(tag: str, losses: list):
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: losses do not fall: {losses}")
+
+
+def resnet_step_flops(model, images) -> float:
+    """Training FLOPs of one ResNet step, counted from the shapes: 2 MACs
+    an output element of every convolution (``out · in · kh · kw``) and
+    of the classifier, in one eval-mode forward (no statistic changes),
+    times 3 (forward, and the backward's two products)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.layers import Conv, Dense
+    total = [0.0]
+
+    def conv(mod, inp, out):
+        k = mod.kernel
+        total[0] += 2.0 * out.numel() * k.shape[1] * k.shape[2] * k.shape[3]
+
+    def dense(mod, inp, out):
+        total[0] += 2.0 * out.numel() * mod.kernel.shape[0]
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv) else dense)
+             for m in model.modules() if isinstance(m, (Conv, Dense))]
+    model.set_train(False)
+    with torch.no_grad():
+        model(images)
+    model.set_train(True)
+    for h in hooks:
+        h.remove()
+    return 3 * total[0]
+
+
+def _kernel_groups(fn, iters: int = 2) -> dict:
+    """Device ms of one call of ``fn`` by kernel group (from
+    ``torch.profiler``: convolution, GEMM, reduction/normalisation,
+    elementwise and copies, other), the ten kernels that take the most,
+    and the call's host wall under the profiler (which slows the host:
+    the idle share is taken against the CUDA-event step time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    groups: dict = {}
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        n = e.name.lower()
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / iters
+        g = ("conv" if any(s in n for s in ("conv", "xmma", "implicit",
+                                            "dgrad", "wgrad", "cudnn"))
+             else "gemm" if any(s in n for s in ("gemm", "cutlass",
+                                                 "cublas"))
+             else "reduce_norm" if any(s in n for s in ("reduce", "norm",
+                                                        "batch"))
+             else "elementwise_copy" if any(s in n for s in (
+                 "elementwise", "vectorized", "copy", "fill", "index",
+                 "scatter", "gather", "cat"))
+             else "other")
+        groups[g] = groups.get(g, 0.0) + (e.time_range.end
+                                          - e.time_range.start) / 1e3
+    busy = sum(groups.values()) / iters
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms_by_group": {k: v / iters for k, v in groups.items()},
+            "device_busy_ms": busy, "profiled_wall_ms": wall,
+            "top_kernels_ms": dict(top)}
+
+
+def phase_resnet_train(state):
+    """``bench.py run_resnet50``'s configuration (``:224-262``) through
+    ``models/resnet.py``: ResNet-50 (stages (3, 4, 6, 3), width 64, 1000
+    classes) in bf16, batch 128 at 224², random weights and
+    ``synthetic_images`` from seed 0; two warm-up steps (cuDNN picks its
+    algorithms), then RESNET_STEPS timed with CUDA events: step ms,
+    images/s, MFU against 989 TFLOP/s with the FLOPs counted from the
+    conv and dense shapes, peak memory, a falling loss; the device time
+    by kernel group over one more step. No kernel of #1-#9 runs."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models import resnet
+    torch.cuda.empty_cache()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    cfg = resnet.ResNetConfig.resnet50()
+    model = resnet.ResNet(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = resnet.make_optimizer(cfg, model.parameters())
+    step = resnet.make_train_step(cfg, model, opt)
+    data = resnet.synthetic_images(RESNET_BATCH, RESNET_IMAGE,
+                                   cfg.num_classes, seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.items()}
+    flops = resnet_step_flops(model, batch["image"])
+    n_params = sum(p.numel() for p in model.parameters())
+    st = {"model": model, "optimizer": opt, "step": 0}
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(2):                                      # warm-up
+        st, m = step(st, batch)
+        losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    st, step_ms, timed = _step_events(step, st, batch, RESNET_STEPS)
+    counts = launch_counts()
+    losses += timed
+    _no_kernel_launched("resnet_train", counts)
+    _falls("resnet_train", losses)
+    peak = torch.cuda.max_memory_allocated()
+    box = {"st": st}
+
+    def one():
+        box["st"], _ = step(box["st"], batch)
+    groups = _kernel_groups(one, 1)
+    torch.backends.cudnn.benchmark = benchmark
+    state["resnet_train_launches"] = counts
+    mean_s = float(np.mean(step_ms)) / 1e3
+    groups["idle_share"] = max(0.0, 1.0 - groups["device_busy_ms"]
+                               / (mean_s * 1e3))
+    return {"config": "ResNet-50 (bench.py run_resnet50), bf16",
+            "batch": RESNET_BATCH, "image": RESNET_IMAGE,
+            "params": n_params, "step_ms": step_ms,
+            "step_ms_mean": mean_s * 1e3,
+            "images_per_s": RESNET_BATCH / mean_s,
+            "flops_per_step": flops,
+            "mfu": flops / mean_s / PEAK_FLOPS["bfloat16"],
+            "peak_mem_bytes": peak, "losses": losses,
+            "launches": counts, **groups}
+
+
+def _flat_variables(model, of=None) -> dict:
+    from distributed_tensorflow_tpu_torch.models import resnet
+    v = resnet.flax_variables(model, of)
+    return {**{f"params/{k}": a for k, a in _leaves(v["params"])},
+            **{f"stats/{k}": a for k, a in _leaves(v["batch_stats"])}}
+
+
+def _tree_errs(got: dict, want: dict, prefix: str) -> tuple:
+    """``(max abs error, max error over its leaf's largest magnitude, the
+    leaf of the first)`` over the keys of ``want`` starting with
+    ``prefix``."""
+    import numpy as np
+    ab, rel, worst = 0.0, 0.0, None
+    for k, w in want.items():
+        if not k.startswith(prefix):
+            continue
+        d = float(np.abs(got[k] - w).max())
+        if d >= ab:
+            ab, worst = d, k
+        rel = max(rel, d / max(float(np.abs(w).max()), 1e-30))
+    return ab, rel, worst
+
+
+def _vec_rel(got: dict, want: dict, base: dict | None = None) -> tuple:
+    """The parameter leaves as one vector: ``(‖got − want‖₂ / ‖want −
+    base‖₂, the leaf whose error is largest against its own norm)``, base
+    0 (gradients) or the parameters before the step (the update). Per
+    leaf the ratio is no rule: a conv that feeds a BatchNorm gets a
+    gradient the normalisation nearly cancels (the loss does not change
+    with the weights' scale), so its small update is mostly rounding."""
+    import numpy as np
+    err2 = norm2 = 0.0
+    worst, leaf = 0.0, None
+    for k, w in want.items():
+        if not k.startswith("params/"):
+            continue
+        e2 = float(np.square(got[k] - w).sum())
+        n2 = float(np.square(w if base is None else w - base[k]).sum())
+        err2, norm2 = err2 + e2, norm2 + n2
+        if e2 / max(n2, 1e-30) >= worst:
+            worst, leaf = e2 / max(n2, 1e-30), k
+    return math.sqrt(err2 / max(norm2, 1e-30)), leaf
+
+
+def _resnet_step_capture(cfg, model, images, labels, device):
+    """One ``make_train_step`` step; ``(loss, train-mode logits,
+    gradients, variables after the step)``."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import resnet
+    opt = resnet.make_optimizer(cfg, model.parameters())
+    step = resnet.make_train_step(cfg, model, opt)
+    seen = {}
+
+    def keep(mod, inp, out):        # returns None: the output stands
+        seen["logits"] = out.detach()
+    h = model.register_forward_hook(keep)
+    st, m = step({"model": model, "optimizer": opt, "step": 0},
+                 {"image": images.to(device), "label": labels.to(device)})
+    h.remove()
+    return (m["loss"].item(), seen["logits"].float().cpu().numpy(),
+            _flat_variables(model, lambda p: p.grad),
+            _flat_variables(model))
+
+
+def phase_resnet_parity(state):
+    """f32, TF32 off: full ResNet-50 at batch RESNET_PARITY_BATCH and
+    RESNET_PARITY_IMAGE², one ``make_train_step`` step on the card
+    against the port on the CPU from the same converted variables
+    (``flax_variables`` → ``params_from_jax``) and inputs: the eval-mode
+    logits, and of the step the train-mode logits, the loss, every
+    gradient, the BatchNorm running statistics and the parameters'
+    update, each within RESNET_PARITY_TOL."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models import resnet
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = resnet.ResNetConfig.resnet50(dtype=torch.float32)
+    src = resnet.ResNet(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    v = resnet.flax_variables(src)
+    del src
+    data = resnet.synthetic_images(RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE,
+                                   cfg.num_classes, seed=1)
+    images = torch.from_numpy(data["image"])
+    labels = torch.from_numpy(data["label"]).long()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = resnet.params_from_jax(cfg, v["params"], v["batch_stats"],
+                                       device=dev)
+        model.set_train(False)
+        with torch.no_grad():
+            eval_logits = model(images.to(dev)).cpu().numpy()
+        model.set_train(True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            zero_launch_counts()
+        out[dev] = (eval_logits,) + _resnet_step_capture(
+            cfg, model, images, labels, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        del model
+    (e_c, l_c, lg_c, g_c, v_c), (e_g, l_g, lg_g, g_g, v_g) = \
+        out["cpu"], out["cuda"]
+    tol = RESNET_PARITY_TOL
+    init = {f"params/{k}": a for k, a in _leaves(v["params"])}
+    upd, upd_leaf = _vec_rel(v_g, v_c, init)
+    errs = {"eval_logits": float(np.abs(e_g - e_c).max()),
+            "logits": float(np.abs(lg_g - lg_c).max()),
+            "loss": abs(l_g - l_c),
+            "grads_rel": _vec_rel(g_g, g_c)[0],
+            "stats": _tree_errs(v_g, v_c, "stats/")[0],
+            "update_rel": upd}
+    limits = {"eval_logits": tol["logits"], "logits": tol["logits"],
+              "loss": tol["loss"], "grads_rel": tol["grads_rel"],
+              "stats": tol["stats"], "update_rel": tol["update_rel"]}
+    bad = {k: (errs[k], limits[k]) for k in errs if not errs[k] <= limits[k]}
+    _no_kernel_launched("resnet_parity", counts)
+    state["resnet_parity_launches"] = counts
+    if bad:
+        raise AssertionError(f"resnet_parity beyond tolerance: {bad}")
+    return {"config": "ResNet-50, f32, TF32 off",
+            "batch": RESNET_PARITY_BATCH, "image": RESNET_PARITY_IMAGE,
+            "errors": errs, "tolerances": limits,
+            "worst_update_leaf": upd_leaf,
+            "params_max_abs_err": _tree_errs(v_g, v_c, "params/")[0],
+            "logit_scale": float(np.abs(lg_c).max()), "losses": [l_c, l_g],
+            "launches": counts}
+
+
+def phase_mnist_train(state):
+    """The MNIST CNN (``models/mnist_cnn.py``) in f32 at batch
+    MNIST_BATCH, ``synthetic_data`` and weights from seed 0, Adam 1e-3:
+    two warm-up steps, then MNIST_STEPS timed with CUDA events: step ms,
+    images/s, a falling loss; no kernel of #1-#9."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models import mnist_cnn
+    torch.cuda.empty_cache()
+    st, model, opt = mnist_cnn.create_train_state(0, device="cuda")
+    step = mnist_cnn.make_train_step(model, opt)
+    data = mnist_cnn.synthetic_data(MNIST_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.items()}
+    losses = []
+    for _ in range(2):
+        st, m = step(st, batch)
+        losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    st, step_ms, timed = _step_events(step, st, batch, MNIST_STEPS)
+    counts = launch_counts()
+    losses += timed
+    _no_kernel_launched("mnist_train", counts)
+    _falls("mnist_train", losses)
+    state["mnist_train_launches"] = counts
+    mean_s = float(np.mean(step_ms)) / 1e3
+    box = {"st": st}
+
+    def one():
+        box["st"], _ = step(box["st"], batch)
+    groups = _kernel_groups(one, 2)
+    groups["idle_share"] = max(0.0, 1.0 - groups["device_busy_ms"]
+                               / (mean_s * 1e3))
+    return {"config": "MNISTCNN f32",
+            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                     "matmul": torch.backends.cuda.matmul.allow_tf32},
+            "cudnn_benchmark": torch.backends.cudnn.benchmark, **groups,
+            "batch": MNIST_BATCH, "step_ms": step_ms,
+            "step_ms_mean": mean_s * 1e3,
+            "step_ms_median": float(np.median(step_ms)),
+            "images_per_s": MNIST_BATCH / mean_s, "losses": losses,
+            "launches": counts}
+
+
+def _wd_batch(cfg, n: int, seed: int, device="cuda") -> dict:
+    import torch
+    from distributed_tensorflow_tpu_torch.models import wide_deep
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            wide_deep.synthetic_clicks(cfg, n, seed=seed).items()}
+
+
+def _wd_state_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_wide_deep_train(state):
+    """DLRM (``WideDeepConfig.dlrm_like()``: 26 tables × 100,000 × 64 f32,
+    the "dot" interaction, MLP (512, 256, 128)) at batch WD_BATCH,
+    ``synthetic_clicks`` and weights from seed 0, through both training
+    paths: ``make_train_step`` (the flax-layout model, optax Adagrad over
+    every parameter) and ``make_embedding_train_step`` (the embedding
+    API's tables and their per-table Adagrad, the dense tower's own
+    optimizer). One warm-up and WD_STEPS timed steps each: step ms,
+    examples/s, the state held, peak memory, a falling loss; no kernel
+    of #1-#9."""
+    import gc
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models import wide_deep
+    torch.cuda.empty_cache()
+    cfg = wide_deep.WideDeepConfig.dlrm_like()
+    batch = _wd_batch(cfg, WD_BATCH, 0)
+    runs, launches = {}, {}
+    for path in ("dense", "embedding"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if path == "dense":
+            model = wide_deep.WideDeep(cfg, device="cuda",
+                                       generator=torch.Generator(
+                                           device="cuda").manual_seed(0))
+            opt = wide_deep.make_optimizer(cfg, model.parameters())
+            step = wide_deep.make_train_step(cfg, model, opt)
+            st = {"model": model, "optimizer": opt, "step": 0}
+        else:
+            st, step = wide_deep.make_embedding_train_step(
+                cfg, device="cuda", seed=0)
+        st, m = step(st, batch)                               # warm-up
+        losses = [m["loss"].item()]
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        st, step_ms, timed = _step_events(step, st, batch, WD_STEPS)
+        counts = launch_counts()
+        losses += timed
+        _no_kernel_launched(f"wide_deep_train {path}", counts)
+        _falls(f"wide_deep_train {path}", losses)
+        if path == "dense":
+            held = _wd_state_bytes(
+                [*model.parameters(),
+                 *(s for d in opt.state.values() for s in d.values())])
+        else:
+            emb = st["emb"]
+            dm = st["dense"]["model"]
+            held = _wd_state_bytes(
+                [*emb["tables"].values(),
+                 *(a for sl in emb["slots"].values() for a in sl.values()),
+                 *dm.parameters(),
+                 *(s for d in st["dense"]["optimizer"].state.values()
+                   for s in d.values())])
+        mean_s = float(np.mean(step_ms)) / 1e3
+        runs[path] = {"step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+                      "examples_per_s": WD_BATCH / mean_s,
+                      "state_bytes": held,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "losses": losses, "launches": counts}
+        box = {"st": st}
+
+        def one():
+            box["st"], _ = step(box["st"], batch)
+        runs[path].update(_kernel_groups(one, 1))
+        runs[path]["idle_share"] = max(
+            0.0, 1.0 - runs[path]["device_busy_ms"] / (mean_s * 1e3))
+        launches[path] = counts
+        del st, step, box
+        gc.collect()
+    state["wide_deep_train_launches"] = launches["embedding"]
+    return {"config": "dlrm_like (26 x 100000 x 64 f32, dot)",
+            "batch": WD_BATCH, "runs": runs}
+
+
+def _wd_flat(model) -> dict:
+    from distributed_tensorflow_tpu_torch.models import wide_deep
+    return dict(_leaves(wide_deep.flax_params(model)))
+
+
+def _wd_parity_runs(cfg, device, batches, dense0, emb0):
+    """Both W&D steps over ``batches`` on ``device`` from the flax
+    parameters ``dense0`` (the WideDeep tree) and the embedding state
+    ``emb0``: ``{path: (losses, flat final state)}``."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import wide_deep
+    model = wide_deep.params_from_jax(cfg, dense0["wide_deep"], device)
+    opt = wide_deep.make_optimizer(cfg, model.parameters())
+    step = wide_deep.make_train_step(cfg, model, opt)
+    st = {"model": model, "optimizer": opt, "step": 0}
+    dl = []
+    for b in batches:
+        st, m = step(st, {k: v.to(device) for k, v in b.items()})
+        dl.append(m["loss"].item())
+    st2, step2 = wide_deep.make_embedding_train_step(
+        cfg, device=device, dense_params=dense0["tower"], emb_state=emb0)
+    el = []
+    for b in batches:
+        st2, m = step2(st2, {k: v.to(device) for k, v in b.items()})
+        el.append(m["loss"].item())
+    emb = st2["emb"]
+    flat = {**{f"tower/{k}": a for k, a in _wd_flat(
+        st2["dense"]["model"]).items()},
+        **{f"tables/{k}": v.cpu().numpy() for k, v in emb["tables"].items()},
+        **{f"slots/{k}/{s}": a.cpu().numpy() for k, sl in emb["slots"]
+           .items() for s, a in sl.items()}}
+    return {"dense": (dl, _wd_flat(model)), "embedding": (el, flat)}
+
+
+def phase_wide_deep_parity(state):
+    """f32, TF32 off, ``dlrm_like`` at WD_PARITY_VOCAB rows a table:
+    WD_PARITY_STEPS steps of both W&D paths on the card against the port
+    on the CPU from the same parameters and batches: every loss and
+    every parameter, table and slot within WD_PARITY_TOL."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch import embedding as emb_lib
+    from distributed_tensorflow_tpu_torch.models import wide_deep
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = wide_deep.WideDeepConfig.dlrm_like(
+        vocab_sizes=(WD_PARITY_VOCAB,) * 26)
+    gen = torch.Generator().manual_seed(0)
+    src = wide_deep.WideDeep(cfg, device="cpu", generator=gen)
+    tower = wide_deep.WideDeepDense(cfg, device="cpu", generator=gen)
+    emb0 = emb_lib.create_state(wide_deep.build_feature_config(cfg),
+                                generator=gen, device="cpu")
+    emb0 = {"tables": {k: v.numpy() for k, v in emb0["tables"].items()},
+            "slots": {k: {s: a.numpy() for s, a in v.items()}
+                      for k, v in emb0["slots"].items()}, "step": 0}
+    dense0 = {"wide_deep": {n: p.detach().numpy()
+                            for n, p in src.named_parameters()},
+              "tower": wide_deep.flax_params(tower)}
+    batches = [_wd_batch(cfg, WD_PARITY_BATCH, 50 + i, "cpu")
+               for i in range(WD_PARITY_STEPS)]
+    want = _wd_parity_runs(cfg, "cpu", batches, dense0, emb0)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    got = _wd_parity_runs(cfg, "cuda", batches, dense0, emb0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _no_kernel_launched("wide_deep_parity", counts)
+    state["wide_deep_parity_launches"] = counts
+    errs = {}
+    for path, (wl, wp) in want.items():
+        gl, gp = got[path]
+        errs[path] = {
+            "loss": max(abs(a - b) for a, b in zip(gl, wl)),
+            "state": max(float(np.abs(gp[k] - w).max())
+                         for k, w in wp.items())}
+    bad = {p: e for p, e in errs.items()
+           if not (e["loss"] <= WD_PARITY_TOL
+                   and e["state"] <= WD_PARITY_TOL)}
+    if bad:
+        raise AssertionError(f"wide_deep_parity beyond {WD_PARITY_TOL}: "
+                             f"{bad}")
+    return {"config": f"dlrm_like at {WD_PARITY_VOCAB} rows a table, f32",
+            "batch": WD_PARITY_BATCH, "steps": WD_PARITY_STEPS,
+            "errors": errs, "tolerance": WD_PARITY_TOL,
+            "losses": {p: (want[p][0], got[p][0]) for p in want},
+            "launches": counts}
+
+
+def _rank_checksum(tensors) -> tuple:
+    """The float64 checksum of ``tensors`` on this rank, and whether every
+    rank's equals it."""
+    import torch
+    import torch.distributed as dist
+    total = torch.stack([t.detach().double().sum() for t in tensors]).sum()
+    every = [torch.zeros_like(total) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, total)
+    return total.item(), all(torch.equal(t, total) for t in every)
+
+
+def _resnet_dp_rank() -> dict:
+    """One rank of ``resnet_dp``: ResNet-50 bf16 on ``{"dp": world}`` at
+    RESNET_BATCH images a card (timed), then the f32 parity run against
+    single-device ``make_train_step`` on the global batch."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models import resnet
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = topology.make_mesh({"dp": world}, device="cuda")
+    out = {"rank": rank, "world": world}
+    torch.backends.cudnn.benchmark = True
+    cfg = resnet.ResNetConfig.resnet50()
+    gb = RESNET_BATCH * world
+    data = resnet.synthetic_images(gb, RESNET_IMAGE, cfg.num_classes, seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.items()}
+    torch.cuda.reset_peak_memory_stats()
+    st, step = resnet.make_sharded_train_step(cfg, mesh, gb, seed=0)
+    losses = []
+    for _ in range(2):
+        st, m = step(st, batch)
+        losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    st, step_ms, timed = _step_events(step, st, batch, RESNET_DP_STEPS)
+    counts = launch_counts()
+    model = st["model"]
+    checksum, agree = _rank_checksum(list(model.parameters())
+                                     + list(model.buffers()))
+    mean_s = float(np.mean(step_ms)) / 1e3
+    out["timed"] = {"step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+                    "images_per_s": gb / mean_s,
+                    "losses": losses + timed, "launches": counts,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    "param_checksum": checksum, "ranks_agree": agree}
+    del st, step, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # parity: f32, TF32 off, RESNET_PARITY_BATCH images a card at
+    # RESNET_PARITY_IMAGE², against one card on the global batch
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = resnet.ResNetConfig.resnet50(dtype=torch.float32)
+    src = resnet.ResNet(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    v = resnet.flax_variables(src)
+    del src
+    gb = RESNET_PARITY_BATCH * world
+    data = resnet.synthetic_images(gb, RESNET_PARITY_IMAGE, cfg.num_classes,
+                                   seed=1)
+    data["image"] = data["image"] + np.repeat(      # a mean a data rank
+        0.25 * np.arange(world, dtype=np.float32), RESNET_PARITY_BATCH
+    )[:, None, None, None]
+    batch = {k: torch.from_numpy(v_).to("cuda") for k, v_ in data.items()}
+    ref = resnet.params_from_jax(cfg, v["params"], v["batch_stats"], "cuda")
+    ropt = resnet.make_optimizer(cfg, ref.parameters())
+    rstep = resnet.make_train_step(cfg, ref, ropt)
+    rst = {"model": ref, "optimizer": ropt, "step": 0}
+    st, step = resnet.make_sharded_train_step(
+        cfg, mesh, gb, params=v["params"], batch_stats=v["batch_stats"])
+    got_l, want_l = [], []
+    for _ in range(RESNET_DP_PARITY_STEPS):
+        rst, m = rstep(rst, batch)
+        want_l.append(m["loss"].item())
+        st, m = step(st, batch)
+        got_l.append(m["loss"].item())
+    want, got = _flat_variables(ref), _flat_variables(st["model"])
+    upd, upd_leaf = _vec_rel(got, want, {
+        f"params/{k}": a for k, a in _leaves(v["params"])})
+    out["parity"] = {
+        "losses": got_l, "want_losses": want_l,
+        "loss": max(abs(a - b) for a, b in zip(got_l, want_l)),
+        "params_max_abs_err": _tree_errs(got, want, "params/")[0],
+        "update_rel": upd, "worst_update_leaf": upd_leaf,
+        "stats": _tree_errs(got, want, "stats/")[0],
+        "equal": got_l == want_l and all(
+            np.array_equal(got[k], w) for k, w in want.items())}
+    bootstrap.shutdown()
+    return out
+
+
+def phase_resnet_dp(state):
+    """Data-parallel ResNet-50 (``resnet.make_sharded_train_step``, the
+    BatchNorm statistics averaged over the data ranks) on one rank a
+    visible card: bf16 at RESNET_BATCH images a card, two warm-up and
+    RESNET_DP_STEPS timed steps (images/s against ``resnet_train``'s one
+    card); then f32 with TF32 off at RESNET_PARITY_BATCH a card of
+    RESNET_PARITY_IMAGE² (each rank's rows a different mean) against
+    single-device ``make_train_step`` on the global batch,
+    RESNET_DP_PARITY_STEPS step: the loss, the statistics and the
+    parameters' update within RESNET_PARITY_TOL. No kernel of #1-#9; the ranks' variables
+    agree."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(_resnet_dp_rank, world, device="cuda",
+                                     timeout=900).return_values
+    tol = RESNET_PARITY_TOL
+    problems = []
+    for r in ranks:
+        t, p = r["timed"], r["parity"]
+        tag = f"rank {r['rank']}"
+        if any(t["launches"].values()):
+            problems.append(f"{tag}: kernels ran {t['launches']}")
+        if not t["losses"][-1] < t["losses"][0] or not t["ranks_agree"]:
+            problems.append(f"{tag}: {t['losses']} agree={t['ranks_agree']}")
+        if not (p["loss"] <= tol["loss"]
+                and p["update_rel"] <= tol["update_rel"]
+                and p["stats"] <= tol["stats"]):
+            problems.append(f"{tag}: parity {p}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["resnet_dp_launches"] = ranks[0]["timed"]["launches"]
+    return {"world": world, "batch_per_card": RESNET_BATCH,
+            "image": RESNET_IMAGE, "steps": RESNET_DP_STEPS,
+            "parity_batch_per_card": RESNET_PARITY_BATCH,
+            "parity_image": RESNET_PARITY_IMAGE, "tolerances": tol,
+            "ranks": ranks}
+
+
+def _wd_tp_meshes(world: int) -> list:
+    meshes = [{"tp": world}]
+    if world == 4:
+        meshes.append({"dp": 2, "tp": 2})
+    return meshes
+
+
+def _wide_deep_tp_rank() -> dict:
+    """One rank of ``wide_deep_tp``: for each mesh, both W&D steps at
+    ``dlrm_like`` (f32) with a first vocabulary tp does not divide, timed
+    at WD_BATCH a data shard; then at WD_PARITY_VOCAB (+1) rows a table
+    with TF32 off, against the single-device steps on the global batch
+    from the same parameters and embedding state."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch import embedding as emb_lib
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models import wide_deep
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        all_gather)
+    bootstrap.initialize(device="cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {"rank": rank, "world": world, "meshes": {}}
+    for axes in _wd_tp_meshes(world):
+        mesh = topology.make_mesh(axes, device="cuda")
+        n_dp = axes.get("dp", 1)
+        name = "x".join(f"{k}{v}" for k, v in axes.items())
+        res = {}
+        cfg = wide_deep.WideDeepConfig.dlrm_like(
+            vocab_sizes=WD_TP_VOCABS)
+        gb = WD_BATCH * n_dp
+        batch = _wd_batch(cfg, gb, 0)
+        for path in ("dense", "embedding"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            if path == "dense":
+                st, step = wide_deep.make_sharded_train_step(cfg, mesh, gb)
+            else:
+                st, step = wide_deep.make_embedding_train_step(cfg, mesh, gb)
+            st, m = step(st, batch)
+            losses = [m["loss"].item()]
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            st, step_ms, timed = _step_events(step, st, batch, WD_STEPS)
+            counts = launch_counts()
+            if path == "dense":
+                local = {n: tuple(p.shape)
+                         for n, p in st["model"].named_parameters()
+                         if n in ("table_0", "wide_0")}
+                held = _wd_state_bytes(
+                    [*st["model"].parameters(),
+                     *(s for d in st["optimizer"].state.values()
+                       for s in d.values())])
+            else:
+                local = {"table_0": tuple(st["emb"]["tables"]["table_0"]
+                                          .shape)}
+                held = _wd_state_bytes(
+                    [*st["emb"]["tables"].values(),
+                     *(a for sl in st["emb"]["slots"].values()
+                       for a in sl.values())])
+            mean_s = float(np.mean(step_ms)) / 1e3
+            res[path] = {"step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+                         "examples_per_s": gb / mean_s,
+                         "losses": losses + timed, "launches": counts,
+                         "local_shapes": local, "state_bytes": held,
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            del st, step
+            gc.collect()
+
+        # parity at WD_PARITY_VOCAB rows a table, f32, TF32 off
+        torch.backends.cuda.matmul.allow_tf32 = False
+        pcfg = wide_deep.WideDeepConfig.dlrm_like(
+            vocab_sizes=(WD_PARITY_VOCAB + 1,) + (WD_PARITY_VOCAB,) * 25)
+        pgb = WD_PARITY_BATCH * n_dp
+        batches = [_wd_batch(pcfg, pgb, 60 + i)
+                   for i in range(WD_PARITY_STEPS)]
+        gen = torch.Generator().manual_seed(0)
+        full = wide_deep.WideDeep(pcfg, device="cpu", generator=gen)
+        params = {n: p.detach().numpy() for n, p in full.named_parameters()}
+        ref = wide_deep.params_from_jax(pcfg, params, "cuda")
+        ropt = wide_deep.make_optimizer(pcfg, ref.parameters())
+        rstep = wide_deep.make_train_step(pcfg, ref, ropt)
+        rst = {"model": ref, "optimizer": ropt, "step": 0}
+        st, step = wide_deep.make_sharded_train_step(pcfg, mesh, pgb,
+                                                     params=params)
+        tower = wide_deep.flax_params(wide_deep.WideDeepDense(
+            pcfg, device="cpu", generator=gen))
+        emb0 = emb_lib.create_state(wide_deep.build_feature_config(pcfg),
+                                    generator=gen, device="cpu")
+        emb0 = {"tables": {k: v.numpy() for k, v in emb0["tables"].items()},
+                "slots": {k: {s: a.numpy() for s, a in v.items()}
+                          for k, v in emb0["slots"].items()}, "step": 0}
+        est, estep = wide_deep.make_embedding_train_step(
+            pcfg, mesh, pgb, dense_params=tower, emb_state=emb0)
+        gst, gstep = wide_deep.make_embedding_train_step(
+            pcfg, device="cuda", dense_params=tower, emb_state=emb0)
+        par = {"loss": 0.0, "emb_loss": 0.0}
+        for b in batches:
+            rst, m0 = rstep(rst, b)
+            st, m1 = step(st, b)
+            par["loss"] = max(par["loss"], abs(m1["loss"].item()
+                                               - m0["loss"].item()))
+            gst, e0 = gstep(gst, b)
+            est, e1 = estep(est, b)
+            par["emb_loss"] = max(par["emb_loss"], abs(
+                e1["loss"].item() - e0["loss"].item()))
+        got = wide_deep.gather_params(st["model"], mesh)
+        want = {n: p.detach().cpu().numpy()
+                for n, p in ref.named_parameters()}
+        par["params"] = max(float(np.abs(got[k] - w).max())
+                            for k, w in want.items())
+        tab_err = 0.0
+        for k, t in est["emb"]["tables"].items():
+            g = (all_gather(t.contiguous(), mesh, "tp") if "tp" in axes
+                 else t)
+            w = gst["emb"]["tables"][k]
+            tab_err = max(tab_err, (g[:w.shape[0]] - w).abs().max().item())
+        par["tables"] = tab_err
+        res["parity"] = par
+        torch.backends.cuda.matmul.allow_tf32 = True
+        out["meshes"][name] = res
+        del st, step, est, estep, gst, gstep, rst, rstep, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    bootstrap.shutdown()
+    return out
+
+
+def phase_wide_deep_tp(state):
+    """Tensor-parallel DLRM on one rank a visible card: ``{"tp": world}``
+    and at four cards ``{"dp": 2, "tp": 2}``, with a first vocabulary of
+    100,001 rows (no tp divides it: padded, its pad rows zero). Both
+    steps (``make_sharded_train_step``, ``make_embedding_train_step``)
+    timed at WD_BATCH a data shard: step ms, examples/s, the local row
+    blocks, the state a rank holds, peak memory, a falling loss equal on
+    every rank. Then f32 at WD_PARITY_VOCAB (+1) rows a table, both steps
+    against the single-device ones on the global batch: losses and the
+    gathered parameters and tables within WD_PARITY_TOL. No kernel of
+    #1-#9."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(_wide_deep_tp_rank, world,
+                                     device="cuda",
+                                     timeout=900).return_values
+    problems = []
+    for r in ranks:
+        for mesh, res in r["meshes"].items():
+            for path in ("dense", "embedding"):
+                v = res[path]
+                tag = f"rank {r['rank']} {mesh} {path}"
+                if any(v["launches"].values()):
+                    problems.append(f"{tag}: kernels ran {v['launches']}")
+                if not v["losses"][-1] < v["losses"][0]:
+                    problems.append(f"{tag}: losses {v['losses']}")
+                if v["losses"] != ranks[0]["meshes"][mesh][path]["losses"]:
+                    problems.append(f"{tag}: loss differs from rank 0's")
+            p = res["parity"]
+            if not all(x <= WD_PARITY_TOL for x in p.values()):
+                problems.append(f"rank {r['rank']} {mesh} parity {p}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["wide_deep_tp_launches"] = {
+        f"{m}_{p}": res[p]["launches"]
+        for m, res in ranks[0]["meshes"].items()
+        for p in ("dense", "embedding")}
+    return {"world": world, "vocab_sizes": "100001, then 25 x 100000",
+            "batch_per_data_shard": WD_BATCH, "steps": WD_STEPS,
+            "parity_tolerance": WD_PARITY_TOL, "ranks": ranks}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6684,7 +7697,14 @@ def main(argv=None) -> int:
                      ("moe_train", phase_moe_train),
                      ("moe_parity", phase_moe_parity),
                      ("fsdp_train", phase_fsdp_train),
-                     ("fsdp_parity", phase_fsdp_parity)):
+                     ("fsdp_parity", phase_fsdp_parity),
+                     ("resnet_train", phase_resnet_train),
+                     ("resnet_parity", phase_resnet_parity),
+                     ("resnet_dp", phase_resnet_dp),
+                     ("mnist_train", phase_mnist_train),
+                     ("wide_deep_train", phase_wide_deep_train),
+                     ("wide_deep_parity", phase_wide_deep_parity),
+                     ("wide_deep_tp", phase_wide_deep_tp)):
         if only and name not in only:
             continue
         t0 = time.perf_counter()
@@ -6782,6 +7802,16 @@ def main(argv=None) -> int:
         for path in ("moe", "fsdp"):
             row[f"{path}_launches"] = {
                 run: c[name] for run, c in state[f"{path}_launches"].items()}
+        # the other workloads' runs, each from 0: none of #1-#9 is on
+        # their paths (convolutions, BatchNorm, gathers, scatter-adds)
+        row["other_workload_launches"] = {
+            path: state[f"{path}_launches"][name]
+            for path in ("resnet_train", "resnet_parity", "mnist_train",
+                         "wide_deep_train", "wide_deep_parity")}
+        row["other_workload_launches"]["resnet_dp"] = state[
+            "resnet_dp_launches"][name]
+        row["other_workload_launches"]["wide_deep_tp"] = {
+            run: c[name] for run, c in state["wide_deep_tp_launches"].items()}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

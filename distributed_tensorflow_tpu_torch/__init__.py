@@ -2,7 +2,8 @@
 
 The package mirrors the JAX package's module layout (``ops/``,
 ``models/``, ``serving/``, ``telemetry/``, ``resilience/``,
-``checkpoint/``, ``cluster/``, ``parallel/``, ``testing/``) so each
+``checkpoint/``, ``cluster/``, ``parallel/``, ``testing/``,
+``embedding/``) so each
 ported module sits at the same relative path as the module it is held
 against. It imports
 torch, numpy and the standard library only — never jax, flax, optax or
@@ -20,4 +21,4 @@ InferenceEngine``.
 """
 
 __all__ = ["ops", "models", "serving", "telemetry", "resilience",
-           "checkpoint", "cluster", "parallel", "testing"]
+           "checkpoint", "cluster", "parallel", "testing", "embedding"]

@@ -1,1 +1,2 @@
-"""Models (forward only in this slice): :mod:`transformer`."""
+"""Models: :mod:`transformer` (and BERT on it, :mod:`bert`),
+:mod:`resnet`, :mod:`mnist_cnn` and :mod:`wide_deep`."""

@@ -91,14 +91,15 @@ def _masked_mean(losses, labels, count=None):
     return (losses * mask).sum() / count
 
 
-def mlm_loss(logits, labels, count=None, tp=None):
+def mlm_loss(logits, labels, count=None, tp=None, vocab=None):
     """Cross-entropy over masked positions only (JAX ``:54-61``): f32 CE
     of ``logits`` against the labels (0 where ignored), averaged over the
     masked positions (or divided by ``count``); 0 for a batch with
-    none. ``tp``: the logits are this rank's vocab columns."""
+    none. ``tp``: the logits are this rank's vocab columns (``vocab``
+    the true vocabulary when they are padded)."""
     safe = torch.where(labels != IGNORE_LABEL, labels, 0)
-    return _masked_mean(softmax_cross_entropy(logits.float(), safe, tp),
-                        labels, count)
+    return _masked_mean(softmax_cross_entropy(logits.float(), safe, tp,
+                                              vocab), labels, count)
 
 
 def kernel_mlm_loss(hidden, embed, labels, *, compute_dtype, count=None,
@@ -118,16 +119,21 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
     """``loss_fn(inputs, labels, count=None) -> scalar``:
     :func:`kernel_mlm_loss` on the model's hidden states for
     ``loss_impl="kernel"``, else :func:`mlm_loss` on its full logits
-    (vocab-parallel on a tensor-parallel model)."""
+    (vocab-parallel on a tensor-parallel model). On a ``tp`` model whose
+    vocabulary ``tp`` does not divide, the kernel loss is the
+    full-logits one too: the fused kernels have no pad mask (JAX's
+    ``sharded_fused_cross_entropy`` refuses that vocabulary)."""
     tp = model.tp
+    kernel = cfg.loss_impl == "kernel" and (tp is None or
+                                            cfg.vocab_size % tp.size == 0)
 
     def loss_fn(inputs, labels, count=None):
-        if cfg.loss_impl == "kernel":
+        if kernel:
             hidden = model(inputs, return_hidden=True)
             return kernel_mlm_loss(hidden, model.embed_weight(), labels,
                                    compute_dtype=cfg.dtype, count=count,
                                    tp=tp)
-        return mlm_loss(model(inputs), labels, count, tp)
+        return mlm_loss(model(inputs), labels, count, tp, cfg.vocab_size)
 
     return loss_fn
 

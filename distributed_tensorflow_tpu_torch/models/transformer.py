@@ -106,8 +106,8 @@ from distributed_tensorflow_tpu_torch.parallel.moe import (
 from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
     RING_ATTENTION_OP, SequenceParallel, check_impl, resolve_attn_impl)
 from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
-    TensorParallel, check_divisible, vocab_parallel_cross_entropy,
-    vocab_parallel_embed)
+    TensorParallel, check_divisible, padded_rows,
+    vocab_parallel_cross_entropy, vocab_parallel_embed)
 from distributed_tensorflow_tpu_torch.parallel.zero import (
     leaf_metas as _leaf_metas)
 
@@ -730,10 +730,12 @@ _SHARD_AXES = ("tp", "fsdp", "ep")
 
 def check_shardable(cfg: TransformerConfig, sizes: dict):
     """Raise ``ValueError`` naming the dim a mesh of ``sizes`` does not
-    divide: ``n_heads``, ``d_ff`` or ``vocab_size`` by ``tp``
+    divide: ``n_heads`` or ``d_ff`` by ``tp``
     (:func:`~distributed_tensorflow_tpu_torch.parallel.tensor_parallel.
     check_divisible`), ``d_model`` by ``fsdp``, ``moe_experts`` by
-    ``ep``. (The JAX package pads there; the port cuts equal blocks.)"""
+    ``ep``. (The JAX package pads there; the port cuts equal blocks.)
+    ``vocab_size`` is padded to a multiple of ``tp`` instead
+    (:func:`local_param_shapes`)."""
     if "tp" in sizes:
         check_divisible(cfg, sizes["tp"])
     for axis, name in (("fsdp", "d_model"), ("ep", "moe_experts")):
@@ -748,10 +750,12 @@ def check_shardable(cfg: TransformerConfig, sizes: dict):
 def local_param_shapes(cfg: TransformerConfig, sizes: dict) -> dict:
     """The shapes of a rank's shard dict on a mesh of ``sizes``
     (``{axis: size}``): each dim :func:`param_specs` cuts, divided by its
-    axis' size (JAX's ``_local_shape``)."""
+    axis' size (JAX's ``_local_shape``); the vocabulary rounded up to a
+    multiple of ``tp`` first (:func:`~distributed_tensorflow_tpu_torch.
+    parallel.tensor_parallel.padded_rows`), its pad rows zero."""
     def local(shape, spec):
-        return tuple(n // sizes[a] if a in sizes else n
-                     for n, a in zip(shape, spec))
+        return tuple(padded_rows(n, sizes[a]) // sizes[a] if a in sizes
+                     else n for n, a in zip(shape, spec))
     return _map_leaves(lambda path, shape, spec: local(shape, spec),
                        param_shapes(cfg), param_specs(cfg, sizes))
 
@@ -797,7 +801,10 @@ def shard_params_at(cfg: TransformerConfig, params, rank, size) -> dict:
     rank r takes ``gate[:, rF/tp:(r+1)F/tp]`` and ``up[:,
     rF/tp:(r+1)F/tp]`` side by side, and ``silu(gate) · up`` needs no
     exchange. The numbers are JAX's; only the placement of the columns
-    differs."""
+    differs. A vocabulary that ``tp`` does not divide gets zero rows up
+    to :func:`~distributed_tensorflow_tpu_torch.parallel.tensor_parallel.
+    padded_rows` before it is cut (GSPMD's padding; no id looks them
+    up, and the losses mask their logits)."""
     coords, sizes = _coords(rank, size)
     check_shardable(cfg, sizes)
     specs = param_specs(cfg, sizes)
@@ -813,10 +820,26 @@ def shard_params_at(cfg: TransformerConfig, params, rank, size) -> dict:
                 t = torch.cat([gate.chunk(n, dim)[r], up.chunk(n, dim)[r]],
                               dim)
             else:
+                t = _pad_dim(t, dim, padded_rows(t.shape[dim], n))
                 t = t.chunk(n, dim)[r]
         return t.clone(memory_format=torch.contiguous_format)
 
     return _map_leaves(shard, params, specs)
+
+
+def _pad_dim(t: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+    """``t`` with zeros appended along ``dim`` up to ``rows``."""
+    if t.shape[dim] == rows:
+        return t
+    shape = list(t.shape)
+    shape[dim] = rows - t.shape[dim]
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
+def _trim(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` cut back to the full leaf's ``shape`` (a padded vocabulary's
+    pad rows dropped)."""
+    return t[tuple(slice(0, n) for n in shape)]
 
 
 def unshard_params(cfg: TransformerConfig, shards: list,
@@ -829,15 +852,15 @@ def unshard_params(cfg: TransformerConfig, shards: list,
     specs = param_specs(cfg, shape)
     names = list(shape)
 
-    def unshard(path, spec, *parts):
+    def unshard(path, full, spec, *parts):
         parts = list(parts)
         for axis in reversed(names):        # innermost first
             n = shape[axis]
             parts = [_join(path, spec, axis, parts[i:i + n])
                      for i in range(0, len(parts), n)]
-        return parts[0].clone()
+        return _trim(parts[0], full).clone()
 
-    return _map_leaves(unshard, specs, *shards)
+    return _map_leaves(unshard, param_shapes(cfg), specs, *shards)
 
 
 def _join(path, spec, axis, parts):
@@ -874,22 +897,23 @@ def shard_params(cfg: TransformerConfig, params, mesh) -> dict:
 def gather_params(cfg: TransformerConfig, shards, mesh) -> dict:
     """The full parameter dict on every rank from each rank's
     ``shards`` (:func:`shard_params`): each cut dim all-gathered over
-    its axis (``wi``'s halves rejoined as :func:`unshard_params` does)."""
+    its axis (``wi``'s halves rejoined as :func:`unshard_params` does),
+    a padded vocabulary cut back to ``vocab_size`` rows: JAX's shapes."""
     from distributed_tensorflow_tpu_torch.parallel.collectives import (
         all_gather)
     _, sizes = _mesh_coords(mesh)
     specs = param_specs(cfg, mesh)
 
-    def gather(path, t, spec):
+    def gather(path, t, spec, full):
         t = t.detach()
         for axis in sizes:
             if axis not in spec:
                 continue
             parts = all_gather(t, mesh, axis, tiled=False)
             t = _join(path, spec, axis, list(parts.unbind(0)))
-        return t.clone(memory_format=torch.contiguous_format)
+        return _trim(t, full).clone(memory_format=torch.contiguous_format)
 
-    return _map_leaves(gather, shards, specs)
+    return _map_leaves(gather, shards, specs, param_shapes(cfg))
 
 
 def init_params(cfg: TransformerConfig,
@@ -966,37 +990,38 @@ def params_from_jax(cfg: TransformerConfig, tree, device="cuda") -> dict:
 # Training step
 # ---------------------------------------------------------------------------
 
-def softmax_cross_entropy(logits, targets, tp=None):
+def softmax_cross_entropy(logits, targets, tp=None, vocab=None):
     """Per-position CE of f32 ``logits`` ``(..., V)`` against integer
     ``targets`` (``optax.softmax_cross_entropy_with_integer_labels``);
     with ``tp`` the logits are this rank's vocab columns and the CE is
     :func:`~distributed_tensorflow_tpu_torch.parallel.tensor_parallel.
-    vocab_parallel_cross_entropy`."""
+    vocab_parallel_cross_entropy` (``vocab``: the true vocabulary, whose
+    pad columns it masks)."""
     if tp is not None:
-        return vocab_parallel_cross_entropy(logits, targets, tp)
+        return vocab_parallel_cross_entropy(logits, targets, tp, vocab)
     logits = logits.float()
     tl = logits.gather(-1, targets.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - tl
 
 
-def next_token_loss(logits, tokens, tp=None, cols=None):
+def next_token_loss(logits, tokens, tp=None, cols=None, vocab=None):
     """Shifted next-token cross-entropy over full f32 logits (ignores the
     final position), averaged; ``tp``: vocab-sharded logits
     (:func:`softmax_cross_entropy`). ``cols``: the logits are those of
     the positions ``cols`` of ``tokens``' rows (a sequence-parallel
     rank's chunk), whose targets come from the whole rows; the result is
     the chunk's share of the rows' mean (the chunks' results sum to
-    it)."""
+    it). ``vocab``: the true vocabulary of padded ``tp`` logits."""
     if cols is None:
         return softmax_cross_entropy(logits[:, :-1].float(), tokens[:, 1:],
-                                     tp).mean()
+                                     tp, vocab).mean()
     B, S = tokens.shape
     targets, mask = _shifted_targets_and_mask(tokens, cols)
-    return ((softmax_cross_entropy(logits.float(), targets, tp) * mask).sum()
-            / (B * (S - 1)))
+    return ((softmax_cross_entropy(logits.float(), targets, tp, vocab)
+             * mask).sum() / (B * (S - 1)))
 
 
-def _chunk_loss(xc, emb, tc, mc, tp=None):
+def _chunk_loss(xc, emb, tc, mc, tp=None, vocab=None):
     """Summed masked CE of one sequence chunk: its ``(B, C, V)`` logits in
     ``emb``'s dtype (one matrix product), then f32; with ``tp`` this
     rank's vocab columns of them, the chunk entering through
@@ -1004,13 +1029,14 @@ def _chunk_loss(xc, emb, tc, mc, tp=None):
     xc = xc.to(emb.dtype)
     if tp is not None:
         xc = tp_copy(xc, tp.group)
-    return (softmax_cross_entropy((xc @ emb.T).float(), tc, tp) * mc).sum()
+    return (softmax_cross_entropy((xc @ emb.T).float(), tc, tp, vocab)
+            * mc).sum()
 
 
 def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
                           compute_dtype=torch.bfloat16,
                           chunk_policy: str = "recompute", tp=None,
-                          cols=None):
+                          cols=None, vocab=None):
     """Chunked next-token CE over the tied embedding (JAX
     ``:459-510``): ``next_token_loss(hidden @ embed.T, tokens)`` without
     the ``(B, S, V)`` f32 logits. Each of ``num_chunks`` sequence chunks
@@ -1020,9 +1046,10 @@ def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
     backward recomputes its logits; ``"save"`` keeps the logits in
     ``compute_dtype`` (the output of the chunk's matrix product) and
     recomputes only what follows them. ``tp``: ``embed`` is this rank's
-    vocab shard. ``cols``: ``hidden`` holds the positions ``cols`` of
-    ``tokens``' rows, as in :func:`next_token_loss`; the chunks then cut
-    those positions."""
+    vocab shard (``vocab`` the true vocabulary when it is padded).
+    ``cols``: ``hidden`` holds the positions ``cols`` of ``tokens``'
+    rows, as in :func:`next_token_loss`; the chunks then cut those
+    positions."""
     B, S = tokens.shape
     Sh = hidden.shape[1]
     if Sh % num_chunks:
@@ -1040,7 +1067,7 @@ def fused_next_token_loss(hidden, embed, tokens, *, num_chunks: int,
     for c in range(0, Sh, C):
         total = total + checkpoint(
             _chunk_loss, hidden[:, c:c + C], emb, targets[:, c:c + C],
-            mask[:, c:c + C], tp, use_reentrant=False,
+            mask[:, c:c + C], tp, vocab, use_reentrant=False,
             context_fn=context_fn)
     return total / (B * (S - 1))
 
@@ -1193,7 +1220,11 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
     chunk's share of the rows' mean (``loss_chunks`` must divide the
     chunk). With MoE the layers' aux losses are added (JAX
     ``:633-640``). The tied head takes ``model.embed_weight()`` (on an
-    ``fsdp`` mesh the gathered embedding)."""
+    ``fsdp`` mesh the gathered embedding). On a ``tp`` model whose
+    vocabulary ``tp`` does not divide, ``loss_impl="kernel"`` takes
+    :func:`fused_next_token_loss` instead (JAX's ``_kernel_mesh_ok``
+    fallback: the fused kernels have no pad mask), and every loss masks
+    the pad columns."""
     if cfg.loss_chunks > 0:
         scan_chunks = cfg.loss_chunks
     else:
@@ -1207,26 +1238,29 @@ def make_loss_fn(cfg: TransformerConfig, model: TransformerLM):
 
     tp, sp = model.tp, model.sp
     moe = cfg.moe_experts > 0
+    vocab = cfg.vocab_size
+    kernel = cfg.loss_impl == "kernel" and (tp is None
+                                            or vocab % tp.size == 0)
+    fused = cfg.loss_impl == "kernel" or cfg.loss_chunks > 0
 
     def objective(tokens):
         # on a sequence-parallel model the rows are whole: the model
         # takes this rank's chunk, the targets come from the whole rows
         cols = sp.chunk(tokens.shape[1]) if sp is not None else None
         x = tokens if cols is None else tokens[:, cols]
-        hidden = cfg.loss_impl == "kernel" or cfg.loss_chunks > 0
-        out, aux = (model(x, return_hidden=hidden, return_aux=True) if moe
-                    else (model(x, return_hidden=hidden), None))
-        if cfg.loss_impl == "kernel":
+        out, aux = (model(x, return_hidden=fused, return_aux=True) if moe
+                    else (model(x, return_hidden=fused), None))
+        if kernel:
             loss = kernel_next_token_loss(out, model.embed_weight(), tokens,
                                           compute_dtype=cfg.dtype, tp=tp,
                                           cols=cols)
-        elif cfg.loss_chunks > 0:
+        elif fused:
             loss = fused_next_token_loss(
                 out, model.embed_weight(), tokens, num_chunks=scan_chunks,
                 compute_dtype=cfg.dtype, chunk_policy=cfg.loss_chunk_policy,
-                tp=tp, cols=cols)
+                tp=tp, cols=cols, vocab=vocab)
         else:
-            loss = next_token_loss(out, tokens, tp, cols)
+            loss = next_token_loss(out, tokens, tp, cols, vocab)
         return loss if aux is None else loss + aux
 
     return objective
@@ -1584,8 +1618,9 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
     dict) seeds every replica; without it rank 0 initialises from
     ``seed`` and broadcasts. On a mesh with ``tp`` the model holds this
     rank's shards (:func:`shard_params`; :func:`gather_params` reads
-    the full dict back), and ``n_heads``, ``d_ff`` and ``vocab_size``
-    must divide by ``tp`` (else ``ValueError``).
+    the full dict back), ``n_heads`` and ``d_ff`` must divide by ``tp``
+    (else ``ValueError``) and a ``vocab_size`` it does not divide is
+    padded (:func:`local_param_shapes`).
 
     ``grad_sync`` (JAX's values and validation):
 

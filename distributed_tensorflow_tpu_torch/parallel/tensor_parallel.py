@@ -5,13 +5,17 @@ LOGICAL_AXIS_RULES``), written out for one process a rank.
 - :class:`TensorParallel` — this rank's place on ``tp``: the group, its
   size and this rank's index.
 - :func:`check_divisible` — the dims ``tp`` must divide.
+- :func:`padded_rows` — a row count rounded up to a multiple of the
+  shard count: the vocabulary over ``tp`` (its pad rows are zero and no
+  id looks them up) and the embedding tables over their shard axis.
 - :func:`vocab_parallel_embed` — the lookup in a vocab-sharded
   embedding: each rank looks up the ids it owns, zeroes the rest, and
   one all-reduce sums the shards.
 - :func:`vocab_parallel_cross_entropy` — softmax cross-entropy over
   vocab-sharded logits: the row max and sum-exp all-reduced over
-  ``tp``, the target logit picked up by its owner. The ``(N, V)``
-  logits are never gathered.
+  ``tp``, the target logit picked up by its owner, the pad columns of a
+  padded vocabulary masked out. The ``(N, V)`` logits are never
+  gathered.
 
 The activation boundaries themselves are :func:`~distributed_tensorflow_
 tpu_torch.parallel.collectives.tp_copy` and :func:`~distributed_
@@ -50,14 +54,23 @@ class TensorParallel:
 
 
 def check_divisible(cfg, tp: int):
-    """Raise ``ValueError`` naming the first of ``n_heads``, ``d_ff`` and
-    ``vocab_size`` that ``tp`` does not divide. (The JAX package pads or
-    falls back to replicated execution there; the port refuses.)"""
-    for name in ("n_heads", "d_ff", "vocab_size"):
+    """Raise ``ValueError`` naming the first of ``n_heads`` and ``d_ff``
+    that ``tp`` does not divide. (The JAX package pads or falls back to
+    replicated execution there; the port refuses.) The vocabulary is
+    padded instead (:func:`padded_rows`)."""
+    for name in ("n_heads", "d_ff"):
         value = getattr(cfg, name)
         if value % tp:
             raise ValueError(f"{name}={value} is not divisible by tp={tp}; "
                              f"tensor parallelism shards it over tp")
+
+
+def padded_rows(n: int, shards: int) -> int:
+    """``n`` rounded up to a multiple of ``shards``: the rows of a table
+    cut into ``shards`` equal blocks (JAX's ``embedding/embedding.py
+    _padded_vocab``; GSPMD pads a vocab-sharded embedding the same
+    way)."""
+    return -(-n // shards) * shards
 
 
 def local_rows(ids: torch.Tensor, rows: int, rank: int):
@@ -87,15 +100,23 @@ class VocabParallelCrossEntropy(torch.autograd.Function):
     vocab is sharded over ``group``: ``logits`` ``(N, V/tp)`` f32, this
     rank's columns ``[rank·V/tp, (rank+1)·V/tp)``; ``targets`` global
     ids. Three all-reduces of ``N`` floats: the max, the sum of exp, the
-    target logit. The backward is local: ``exp(logits − lse)·g``, less
-    ``g`` at the target on its owner's columns. Each step rounds as
+    target logit. ``vocab``: the true vocabulary of a padded one; the
+    pad columns' logits are −inf before the max and the sum, so they add
+    nothing to the loss or to any gradient. The backward is local:
+    ``exp(logits − lse)·g``, less ``g`` at the target on its owner's
+    columns. Each step rounds as
     ``torch.logsumexp`` and its autograd do (``log Σ exp(x − m) + m``),
     so on a group of one the loss and its gradient are the unsharded
     CE's, bit for bit."""
 
     @staticmethod
-    def forward(ctx, logits, targets, group, rank):
-        local, inside = local_rows(targets, logits.shape[1], rank)
+    def forward(ctx, logits, targets, group, rank, vocab=None):
+        cols = logits.shape[1]
+        if vocab is not None and (rank + 1) * cols > vocab:
+            ids = torch.arange(rank * cols, (rank + 1) * cols,
+                               device=logits.device)
+            logits = logits.masked_fill(ids >= vocab, float("-inf"))
+        local, inside = local_rows(targets, cols, rank)
         m = logits.max(dim=-1).values
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
         s = torch.exp(logits - m[:, None]).sum(dim=-1)
@@ -113,15 +134,17 @@ class VocabParallelCrossEntropy(torch.autograd.Function):
         d = g[:, None] * torch.exp(logits - lse[:, None])
         rows = torch.arange(d.shape[0], device=d.device)[inside]
         d[rows, local[inside]] += -g[rows]
-        return d, None, None, None
+        return d, None, None, None, None
 
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                                 tp: TensorParallel) -> torch.Tensor:
+                                 tp: TensorParallel, vocab: int | None = None
+                                 ) -> torch.Tensor:
     """:class:`VocabParallelCrossEntropy` of ``(..., V/tp)`` f32 logits
-    against ``(...)`` global targets: per-position losses ``(...)``."""
+    against ``(...)`` global targets: per-position losses ``(...)``;
+    ``vocab`` the true vocabulary when ``V`` is padded."""
     shape = targets.shape
     out = VocabParallelCrossEntropy.apply(
         logits.reshape(-1, logits.shape[-1]).float(), targets.reshape(-1),
-        tp.group, tp.rank)
+        tp.group, tp.rank, vocab)
     return out.reshape(shape)

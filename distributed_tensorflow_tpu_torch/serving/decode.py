@@ -256,7 +256,7 @@ def model_forward(cfg: TransformerConfig, params, tokens, lengths=None, *,
     x, kv = _hidden(cfg, params, tokens, lengths, return_kv, tp)
     if last_only:
         x = x[:, -1:]
-    logits = _logits(params, x, cfg.dtype, tp)
+    logits = _logits(params, x, cfg, tp)
     if return_kv:
         return logits, kv
     return logits
@@ -294,11 +294,14 @@ def _hidden(cfg: TransformerConfig, params, tokens, lengths=None,
     return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
 
 
-def _logits(params, x, dt, tp=None):
+def _logits(params, x, cfg: TransformerConfig, tp=None):
     """Final norm and the tied-embedding projection, in f32; with ``tp``
-    each rank's vocab columns all-gathered into the whole row."""
+    each rank's vocab columns all-gathered into the whole row, the pad
+    columns of a padded vocabulary dropped."""
+    dt = cfg.dtype
     x = _rms_norm(x, params["final_norm"]["scale"], dt)
-    return _gather((x @ params["embed"].to(dt).T).float(), tp, -1)
+    logits = _gather((x @ params["embed"].to(dt).T).float(), tp, -1)
+    return logits if tp is None else logits[..., :cfg.vocab_size]
 
 
 def _mlp(h, mlp, dt):
@@ -372,7 +375,7 @@ def make_decode_fn(cfg: TransformerConfig, cache_cfg=None, tp=None,
             x = x + _reduce(merge_heads(o, att["out"].to(dt))[:, 0], tp)
             h = _rms_norm(x, p["RMSNorm_1"]["scale"], dt)
             x = x + _reduce(_mlp(h, p["mlp"], dt), tp)
-        return _logits(params, x, dt, tp), pool
+        return _logits(params, x, cfg, tp), pool
 
     return decode
 
@@ -449,7 +452,7 @@ def make_extend_fn(cfg: TransformerConfig, cache_cfg=None, tp=None,
             x = x + _reduce(merge_heads(o, att["out"].to(dt)), tp)
             h = _rms_norm(x, p["RMSNorm_1"]["scale"], dt)
             x = x + _reduce(_mlp(h, p["mlp"], dt), tp)
-        return _logits(params, x, dt, tp), pool
+        return _logits(params, x, cfg, tp), pool
 
     return extend
 
@@ -475,7 +478,7 @@ def make_draft_fn(cfg: TransformerConfig, tp=None):
                        tp=tp)
         last = x[torch.arange(tokens.shape[0], device=x.device),
                  lengths.clamp_min(1) - 1]                  # (B, D)
-        return torch.argmax(_logits(params, last, cfg.dtype, tp), dim=-1)
+        return torch.argmax(_logits(params, last, cfg, tp), dim=-1)
 
     return draft
 

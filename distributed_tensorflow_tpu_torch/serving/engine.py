@@ -165,8 +165,10 @@ class InferenceEngine:
 
     ``mesh`` (a ``DeviceMesh`` of dims ``dp`` and/or ``tp``; the module
     docstring) places this rank's shard of the full ``params`` on its
-    device, which replaces ``device``; ``n_heads``, ``d_ff`` and
-    ``vocab_size`` must divide by ``tp`` (else ``ValueError``)."""
+    device, which replaces ``device``; ``n_heads`` and ``d_ff`` must
+    divide by ``tp`` (else ``ValueError``), and a ``vocab_size`` it does
+    not divide is padded (the logits' pad columns are dropped before
+    sampling)."""
 
     def __init__(self, cfg: TransformerConfig, params, *, device="cuda",
                  mesh=None,

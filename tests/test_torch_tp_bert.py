@@ -14,7 +14,16 @@ under AdamW, and JAX's own BERT step puts it 1.09e-5 apart between its
 where the port's honours it, so ``fused_optimizer=True`` is held to the
 port's own single-device BERT step on the global batch with the same
 masks instead, within the same tolerances (the port's dp×tp and
-single-device steps also part by 1.2e-5 at that element of ``wi``)."""
+single-device steps also part by 1.2e-5 at that element of ``wi``).
+
+BERT at tp 4 (``bert_base``'s V 30522 is 4·7630 + 2): the same variants
+at a vocabulary of 258 = 4·64 + 2 on ``{"tp": 4}`` (a second four-rank
+spawn), the embedding padded to 260 rows. JAX refuses that vocabulary
+on a ``{"tp": 4}`` mesh (its ``jit`` out-shardings need 4 to divide
+258), so both are held to JAX's full-logits step on ``{"tp": 2}`` with
+the same masks, within the same tolerances: the port's kernel variant
+takes the full-logits loss there, the fused kernels having no pad mask
+(JAX's ``sharded_fused_cross_entropy`` raises for that vocabulary)."""
 
 import numpy as np
 import pytest
@@ -30,7 +39,8 @@ import torch_tp_ranks
 from torch_tp_jax import assert_close, jax_bert_run
 
 GB, STEPS = 8, 3
-DPTP = {"dp": 2, "tp": 2}
+DPTP, TP4, TP2 = {"dp": 2, "tp": 2}, {"tp": 4}, {"tp": 2}
+PAD = {"vocab_size": 258}
 VARIANTS = {"plain": {}, "kernel": {"loss_impl": "kernel"}}
 FUSED = {"fused_optimizer": True}
 
@@ -95,3 +105,26 @@ def test_bert_dptp_fused_optimizer_equals_single_device(port_ranks,
     for r in port_ranks:
         assert_close(r["fused_opt"], want, "bert fused_opt",
                      param_atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def tp4_runs():
+    tokens = np.asarray(jbert.synthetic_corpus(GB, 32, PAD["vocab_size"],
+                                               seed=2)["tokens"])
+    want = jax_bert_run(TP2, PAD, tokens, STEPS)
+    got = multi_process_runner.run(
+        torch_tp_ranks.bert_rank, 4,
+        args=(TP4, [(name, {**PAD, **kw}) for name, kw in VARIANTS.items()],
+              want["init"], tokens.astype(np.int64), want["masks"], STEPS),
+        device="cpu", timeout=300).return_values
+    return want, got
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_bert_tp4_padded_vocab_matches_jax(tp4_runs, variant):
+    want, got = tp4_runs
+    for r in got:
+        assert r[variant]["params"]["embed"].shape == (258, 64)
+        assert_close(r[variant], want, f"bert tp4 {variant}",
+                     param_atol=2e-5)
+        assert r[variant]["losses"] == got[0][variant]["losses"]

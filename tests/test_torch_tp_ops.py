@@ -13,8 +13,11 @@ and against the single-rank computation.
   whole-vocab forward within a relative 1e-6 (f32 rounding of an
   lse near 15); ``local_targets`` maps an id another
   shard owns to −1.
-- ``n_heads``, ``d_ff`` or ``vocab_size`` that ``tp`` does not divide
-  raise ``ValueError`` naming the dim.
+- ``n_heads`` or ``d_ff`` that ``tp`` does not divide raise
+  ``ValueError`` naming the dim; a ``vocab_size`` it does not divide is
+  padded instead: each shard holds ``ceil(V/tp)`` rows, the pad rows
+  zero, and ``unshard_params`` gives back the ``(V, D)`` embedding
+  bitwise.
 - Spawned gloo ranks on ``{"tp": 2}`` (world 2) and ``{"dp": 2, "tp":
   2}`` (world 4), one spawn each: ``tp_copy`` / ``tp_reduce`` around a
   column- then row-parallel product, ``vocab_parallel_embed`` and the
@@ -152,10 +155,21 @@ def test_non_dividing_dim_raises_naming_it(dim):
     if dim == "n_heads":
         kw["d_model"] = 96
     cfg = TransformerConfig.tiny(**kw)
+    full = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if dim == "vocab_size":
+        # padded to 260 rows, 65 a shard; the last shard's last 2 are 0
+        shards = [shard_params_at(cfg, full, r, 4) for r in range(4)]
+        assert [tuple(s["embed"].shape) for s in shards] == [(65, 64)] * 4
+        assert torch.equal(shards[3]["embed"][63:], torch.zeros(2, 64))
+        assert torch.equal(unshard_params(cfg, shards)["embed"],
+                           full["embed"])
+        model = TransformerLM(cfg, device="cpu",
+                              tp=TensorParallel(None, None, 4, 3))
+        assert tuple(model.embed.shape) == (65, 64)
+        return
     with pytest.raises(ValueError, match=dim):
         TransformerLM(cfg, device="cpu",
                       tp=TensorParallel(None, None, 4, 0))
-    full = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match=dim):
         shard_params_at(cfg, full, 0, 4)
 

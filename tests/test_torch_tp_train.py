@@ -10,9 +10,11 @@ from the same converted parameters on the same tokens.
   tolerances), the same on both ranks; the local shapes are the halves
   of the tp-sharded dims.
 - The refusals: ``grad_sync="bucketed"`` and ``"none"`` on a tp mesh
-  raise JAX's ``ValueError``; ``n_heads``, ``d_ff`` or ``vocab_size``
-  that tp does not divide raise ``ValueError`` naming the dim (JAX pads
-  or falls back to replicated execution there). An ``fsdp`` mesh and a
+  raise JAX's ``ValueError``; ``n_heads`` or ``d_ff`` that tp does not
+  divide raise ``ValueError`` naming the dim (JAX pads or falls back to
+  replicated execution there). A ``vocab_size`` that tp does not divide
+  builds its step on padded rows, as JAX's does (it trains in
+  ``tests/test_torch_tp_vocab_pad.py``). An ``fsdp`` mesh and a
   dense config on an ``ep`` mesh build their steps, as JAX's do (they
   train in ``tests/test_torch_fsdp_train.py`` and
   ``tests/test_torch_moe_train.py``; ``sp`` meshes in
@@ -42,7 +44,7 @@ JAX_REFUSALS = [(TP2, {}, {"grad_sync": "bucketed"}),
 PORT_REFUSALS = [
     (TP2, {"n_heads": 3, "d_model": 48}, {}, "ValueError", "n_heads"),
     (TP2, {"d_ff": 129}, {}, "ValueError", "d_ff"),
-    (TP2, {"vocab_size": 255}, {}, "ValueError", "vocab_size"),
+    (TP2, {"vocab_size": 255}, {}, None, None),
     ({"fsdp": 2}, {}, {}, None, None),
     ({"dp": 1, "ep": 2}, {}, {}, None, None),
 ]

@@ -192,9 +192,11 @@ def ops_rank(case: dict) -> dict:
     return out
 
 
-def serve_rank(axes: dict, params: dict, cases: list) -> dict:
+def serve_rank(axes: dict, params: dict, cases: list,
+               cfg_kw: dict | None = None) -> dict:
     """The serving engine on this world's ``axes`` mesh from the full
-    parameters ``params``: each ``(name, kind, prompts, new, kwargs)``
+    parameters ``params`` of ``tiny(max_seq_len=64, **cfg_kw)``: each
+    ``(name, kind, prompts, new, kwargs)``
     case's greedy streams (``kind`` "engine", "swap" — the engine after
     ``install_version`` of the same weights — or "disagg", with
     ``wire=True``), and one export's payload against the single-device
@@ -210,7 +212,7 @@ def serve_rank(axes: dict, params: dict, cases: list) -> dict:
     from distributed_tensorflow_tpu_torch.serving.scheduler import Request
     _init()
     mesh = topology.make_mesh(axes, device="cpu")
-    cfg = TransformerConfig.tiny(max_seq_len=64)
+    cfg = TransformerConfig.tiny(max_seq_len=64, **(cfg_kw or {}))
     full = _params_from_np(cfg, params)
     out = {"rank": dist.get_rank()}
     for name, kind, prompts, new, kw in cases:

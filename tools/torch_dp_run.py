@@ -10,7 +10,8 @@ parallel training of the PyTorch port across GPUs, with the phase breakdown of `
         [--zero 0|1|2] [--grad-sync auto|none|gspmd]
         [--schedule gpipe|1f1b|interleaved] [--interleave v] [--offload]
         [--sp-impl ring|striped|ulysses]
-        [--workload transformer|bert] [--device cuda|cpu] [--tiny]
+        [--workload transformer|bert|resnet|wide_deep] [--device cuda|cpu]
+        [--tiny]
 
 Spawns one rank a device through the port's ``testing/
 multi_process_runner`` (NCCL on ``cuda``, gloo on ``cpu``) and builds
@@ -39,6 +40,20 @@ warm-up step of:
   S, D)`` activation in the compute dtype, the embedding's one, and per
   4096-row CE chunk the f32 dh all-reduce and the two all-gathers of
   its ``(lse, tl)`` (``tp_serial_ms``, with their count and bytes).
+
+``--workload resnet`` (``--mesh dp``) is ``bench.py``'s ``run_scaling``
+ResNet row: ``resnet.make_sharded_train_step`` at ResNet-50, bf16, 128
+images of 224² a rank (``--tiny``: ``ResNetConfig.tiny()``, 8 of 32²),
+the BatchNorm statistics averaged over the data ranks.
+``--workload wide_deep`` (``--mesh dp``, ``tp4`` or ``dp2xtp2``) is the
+DLRM step (``wide_deep.make_sharded_train_step`` at ``dlrm_like``, tables
+row-sharded over ``tp``, 4096 examples a data shard; ``--tiny``:
+``WideDeepConfig.tiny()``, 64) and, timed beside it, the same through
+the embedding API (``make_embedding_train_step``, ``emb_step_ms``). For
+both, the no-sync time is the single-device step on the rank's rows
+(for DLRM on a tp mesh none: the tables need the mesh) and the serial
+collective time the bucketed all-reduce of the gradients over the data
+axes; the rate is images/s or examples/s.
 
 On a sequence-parallel mesh (``sp4``: ``{"sp": world}`` at 32,768
 tokens, one row; ``dp2xsp2``: ``{"dp": 2, "sp": 2}`` at 16,384 tokens,
@@ -105,8 +120,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 sys.path.insert(0, ROOT)
 
-#: rows a rank, as bench.py's scaling row (transformer) and run_bert
-BATCH = {"transformer": 8, "bert": 32}
+#: rows a rank, as bench.py's scaling rows (transformer, resnet) and
+#: run_bert; DLRM's batch a data shard
+BATCH = {"transformer": 8, "bert": 32, "resnet": 128, "wide_deep": 4096}
+TINY_BATCH = {"resnet": 8, "wide_deep": 64}
 
 
 def _config(workload: str, tiny: bool):
@@ -736,6 +753,121 @@ def _rank(args) -> dict:
     return out
 
 
+def _other_rank(args) -> dict:
+    """One rank of ``--workload resnet`` or ``wide_deep``."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.models import resnet, wide_deep
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        GradientBucketer, ReduceOp)
+    rt = bootstrap.initialize(device=args.device)
+    world, rank, device = dist.get_world_size(), dist.get_rank(), rt.device
+    axes = {"tp4": {"tp": world}, "dp2xtp2": {"dp": 2, "tp": -1}}.get(
+        args.mesh, {"dp": world})
+    mesh = topology.make_mesh(axes, device=args.device)
+    n_data = topology.mesh_axis_size(mesh, *topology.data_axes(mesh))
+    rows = (TINY_BATCH if args.tiny else BATCH)[args.workload]
+    gb = rows * n_data
+    mine = slice(topology.data_shard_index(mesh) * rows,
+                 (topology.data_shard_index(mesh) + 1) * rows)
+    timed = _timer(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+    if args.workload == "resnet":
+        cfg = (resnet.ResNetConfig.tiny() if args.tiny
+               else resnet.ResNetConfig.resnet50())
+        size = 32 if args.tiny else 224
+        data = resnet.synthetic_images(gb, size, cfg.num_classes, seed=0)
+        state, step = resnet.make_sharded_train_step(cfg, mesh, gb, size)
+    else:
+        cfg = (wide_deep.WideDeepConfig.tiny() if args.tiny
+               else wide_deep.WideDeepConfig.dlrm_like())
+        data = wide_deep.synthetic_clicks(cfg, gb, seed=0)
+        state, step = wide_deep.make_sharded_train_step(cfg, mesh, gb)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    box = {"state": state}
+
+    def full():
+        box["state"], m = step(box["state"], batch)
+        box["loss"] = m["loss"]
+    full()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = _launches()
+    dt_full = _best(timed, full, args.iters, args.reps)
+    after = _launches()
+    out = {"rank": rank, "device": (torch.cuda.get_device_name()
+                                    if device.type == "cuda" else "cpu"),
+           "loss": float(box["loss"]),
+           "launches": {k: after[k] - before[k] for k in after}}
+    if device.type == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    model = box["state"]["model"]
+    grads = [p.detach().reshape(-1).clone() for p in model.parameters()]
+    del box, state, step, model
+    gc.collect()
+    if args.workload == "wide_deep":
+        estate, estep = wide_deep.make_embedding_train_step(cfg, mesh, gb)
+        ebox = {"state": estate}
+
+        def emb():
+            ebox["state"], _ = estep(ebox["state"], batch)
+        out["emb_step_ms"] = _best(timed, emb, args.iters, args.reps) * 1e3
+        del ebox, estate, estep
+        gc.collect()
+    dt_nosync = None
+    if args.workload == "resnet":
+        model = resnet.ResNet(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(0))
+        opt = resnet.make_optimizer(cfg, model.parameters())
+        nstep = resnet.make_train_step(cfg, model, opt)
+    elif "tp" not in axes:
+        model = wide_deep.WideDeep(cfg, device=device,
+                                   generator=torch.Generator(
+                                       device=device).manual_seed(0))
+        opt = wide_deep.make_optimizer(cfg, model.parameters())
+        nstep = wide_deep.make_train_step(cfg, model, opt)
+    else:
+        nstep = None
+    if nstep is not None:
+        local = {k: v[mine] for k, v in batch.items()}
+        nbox = {"state": {"model": model, "optimizer": opt, "step": 0}}
+
+        def nosync():
+            nbox["state"], _ = nstep(nbox["state"], local)
+        dt_nosync = _best(timed, nosync, args.iters, args.reps)
+        del nbox, model, opt, nstep
+    data_axes = topology.data_axes(mesh)
+    dt_coll = 0.0
+    if data_axes:
+        bucketer = GradientBucketer(mesh, data_axes)
+        gbox = {"g": grads}
+
+        def collective():
+            gbox["g"] = bucketer.all_reduce(gbox["g"], ReduceOp.MEAN)
+        dt_coll = _best(timed, collective, args.iters, args.reps)
+    bootstrap.shutdown()
+    if dt_nosync is None:
+        dt_nosync = dt_full
+        out["nosync_note"] = "no step without the data sync was timed"
+    exposed = max(0.0, dt_full - dt_nosync)
+    unit = "images_per_s" if args.workload == "resnet" else "examples_per_s"
+    out.update({
+        "step_ms": dt_full * 1e3, unit: gb / dt_full,
+        "mesh_shape": topology.mesh_shape(mesh),
+        "compute_frac": min(1.0, dt_nosync / dt_full),
+        "collective_frac": exposed / dt_full,
+        "overlap_eff": (None if dt_coll <= 0 else
+                        max(0.0, min(1.0, 1.0 - exposed / dt_coll))),
+        "nosync_step_ms": dt_nosync * 1e3,
+        "exposed_collective_ms": exposed * 1e3,
+        "collective_serial_ms": dt_coll * 1e3})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--world", type=int, default=None,
@@ -759,7 +891,8 @@ def main() -> int:
     ap.add_argument("--zero", type=int, choices=(0, 1, 2), default=0)
     ap.add_argument("--grad-sync", default="auto",
                     choices=("auto", "none", "gspmd", "bucketed"))
-    ap.add_argument("--workload", choices=("transformer", "bert"),
+    ap.add_argument("--workload", choices=("transformer", "bert", "resnet",
+                                           "wide_deep"),
                     default="transformer")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--tiny", action="store_true")
@@ -769,6 +902,12 @@ def main() -> int:
     args = ap.parse_args()
     if args.mesh in SP_MESHES and args.workload != "transformer":
         ap.error("the sequence-parallel meshes run --workload transformer")
+    other = args.workload in ("resnet", "wide_deep")
+    if other and args.mesh not in (("dp",) if args.workload == "resnet"
+                                   else ("dp", "tp4", "dp2xtp2")):
+        ap.error(f"--workload {args.workload} runs --mesh dp"
+                 + (", tp4 or dp2xtp2" if args.workload == "wide_deep"
+                    else ""))
     if args.mesh.startswith(("ep", "dp2xep")) and not args.moe_experts:
         ap.error(f"--mesh {args.mesh} needs --moe-experts")
 
@@ -781,7 +920,8 @@ def main() -> int:
                            if args.device == "cuda" else 2)
     pipelined = args.mesh in ("pp4", "dp2xpp2")
     if not pipelined:
-        ranks = multi_process_runner.run(_rank, world, args=(args,),
+        ranks = multi_process_runner.run(_other_rank if other else _rank,
+                                         world, args=(args,),
                                          device=args.device,
                                          timeout=1800).return_values
     smi = ""
@@ -799,6 +939,18 @@ def main() -> int:
                 **_pp_main(args, world)}
         return _print(line, args.out)
     r0 = ranks[0]
+    if other:
+        line = {"workload": args.workload, "world": world,
+                "mesh": args.mesh, "device": args.device, "tiny": args.tiny,
+                "rows_per_data_shard": (TINY_BATCH if args.tiny
+                                        else BATCH)[args.workload],
+                "iters": args.iters, "reps": args.reps, "nvidia_smi": smi,
+                **{k: v for k, v in r0.items() if k != "rank"},
+                "ranks": [{k: r.get(k) for k in (
+                    "rank", "step_ms", "emb_step_ms", "nosync_step_ms",
+                    "collective_serial_ms", "loss", "launches",
+                    "peak_mem_bytes")} for r in ranks]}
+        return _print(line, args.out)
     line = {"workload": args.workload, "world": world, "mesh": args.mesh,
             "zero": args.zero, "grad_sync": args.grad_sync,
             "moe_experts": args.moe_experts, "moe_top_k": args.moe_top_k,
