@@ -298,12 +298,37 @@ single-device BERT step by ``dp_parity``'s rule.
     cards ``{"dp": 2, "tp": 2}`` with a first vocabulary of 100,001 (no
     tp divides it): timed at 4096 a data shard, then f32 at 1,000 rows a
     table against the single card on the global batch.
+34. ``ckpt_train`` — the headline step trained 6 steps, its train state
+    (``train_state_variables``) saved at step 3 through a
+    ``CheckpointManager`` with a local tier, ``async_write=True``;
+    restored into a fresh model by ``restore_latest`` (bitwise the saved
+    state) and resumed twice: the losses and state against the
+    uninterrupted run and the two resumes against each other; the
+    checkpoint's bytes, the save's blocking and commit times, a local
+    and a durable restore, GB/s of each; plain and fused AdamW (#9).
+35. ``ckpt_serve`` — ``InferenceEngine.from_checkpoint`` at the headline
+    config from ``ckpt_train``'s directories (step 3) against an engine
+    built from the saved parameters (equal streams), then
+    ``begin_load_version`` to step 6 mid-stream against
+    ``install_version`` at the same step boundary; #1 at the longest
+    prefill against its plain version.
+36. ``online_train`` — ``OnlineTrainer`` at ``OnlineConfig()`` over 4096
+    seeded events, crashed after an uncommitted batch, restored, against
+    an uncrashed run: offsets, membership, state; events/s.
+37. ``ckpt_mesh`` (four cards) — a dp2×tp2 save restored onto tp 4 and
+    one card, and down the host > peer > local > durable ladder after
+    one rank's memory is wiped, bitwise.
+38. ``mesh_repair`` (four cards) — ``make_sharded_train_step`` on dp2×pp2
+    and pp2×tp2, ``make_pipelined_train_step`` GPipe and 1F1B on
+    pp2×tp2, f32 against the single-device step.
 
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
 ``--phases sp_train,sp_parity``, ``--phases moe_train,moe_parity,
 fsdp_train,fsdp_parity``, ``--phases resnet_dp,wide_deep_tp,tp_train,
-tp_parity``), and prints no kernels line.
+tp_parity``, ``--phases ckpt_mesh,mesh_repair``), and prints no kernels
+line. ``ckpt_mesh`` and ``mesh_repair`` run in the whole run only when
+four cards are visible.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -313,7 +338,8 @@ bf16, its times at the largest suffix shape; every row's
 ``sp_launches`` each ``sp_train`` run's, and #1-#3's ``sp`` their times
 at the ring's block shape, each kind of block; ``moe_launches`` and
 ``fsdp_launches`` each ``moe_train`` and ``fsdp_train`` run's;
-``other_workload_launches`` phases 27-33's, all 0),
+``other_workload_launches`` phases 27-33's, all 0; ``ckpt_launches``
+phases 34-36's),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -399,6 +425,28 @@ SPEC_K = 4
 DISAGG_DECODE, DISAGG_PRESSURE_BLOCKS = 2, 94
 SWAP_AFTER_STEPS, CHAOS_P = 3, 0.2
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
+# ckpt_train: the headline step trained CKPT_STEPS steps, saved at
+# CKPT_AT (async, local tier first) and resumed from it; the resumed
+# losses may part from the uninterrupted ones by the kernels' own
+# run-to-run spread (the CE backward's float atomics), and at most by
+# CKPT_LOSS_TOL beyond twice that spread
+CKPT_STEPS, CKPT_AT, CKPT_LOSS_TOL = 6, 3, 1e-3
+# ckpt_serve: requests of CKPT_SERVE_NEW new tokens each
+CKPT_SERVE_REQUESTS, CKPT_SERVE_NEW = 6, 16
+# ckpt_mesh (four cards): the headline config's width at this depth
+CKPT_MESH_LAYERS = 2
+# online_train: OnlineConfig() over ONLINE_EVENTS events, crashed after
+# ONLINE_CRASH_AFTER applied batches (2 past the last commit of 5)
+ONLINE_EVENTS, ONLINE_CRASH_AFTER, ONLINE_TOL = 4096, 37, 1e-5
+# mesh_repair (four cards): C-4(c) sharded steps and C-4(d) pipelined
+# steps on meshes with a replicated axis, pp_parity's f32 config
+MESH_REPAIR_SHARDED = {"dp2pp2": ({"dp": 2, "pp": 2}, {}),
+                       "pp2tp2": ({"pp": 2, "tp": 2}, {})}
+MESH_REPAIR_PIPELINED = {"pp2tp2": ({"pp": 2, "tp": 2},
+                                    (("gpipe", {}), ("1f1b", {})))}
+# phases that need four cards: run by --phases, or in the whole run
+# when four are visible
+FOUR_CARD_PHASES = ("ckpt_mesh", "mesh_repair")
 # kernels launched per train step of transformer_big at batch 8 x 1024:
 # one flash forward, dq and dkv a layer; one CE forward and backward per
 # 4096-row chunk of the 8192 tokens; bf16, so on the tensor-core kernels
@@ -5552,6 +5600,18 @@ def phase_pp_parity(state):
         ranks += multi_process_runner.run(
             _pp_parity_rank, world, args=(PP_PARITY_RUNS[world],),
             device="cuda", timeout=600, env=env).return_values
+    problems = _pp_parity_problems(ranks)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": world, "config": "transformer_big width, "
+            f"{PP_PARITY_LAYERS} layers, f32, full logits",
+            "rows_per_data_shard": PP_PARITY_ROWS, "seq_len": PP_PARITY_SEQ,
+            "microbatches": PP_PARITY_MICRO, "steps": PP_PARITY_STEPS,
+            "ranks": ranks}
+
+
+def _pp_parity_problems(ranks) -> list:
+    """:func:`_pp_parity_rank` results against pp_parity's rule."""
     problems = []
     for r in ranks:
         allowed = TRAIN_PARAM_FRAC * r["n_params"]
@@ -5572,13 +5632,7 @@ def phase_pp_parity(state):
             if not ok:
                 problems.append(f"rank {r['rank']} of {r['world']} {pair}: "
                                 f"not bitwise")
-    if problems:
-        raise AssertionError("; ".join(problems))
-    return {"world": world, "config": "transformer_big width, "
-            f"{PP_PARITY_LAYERS} layers, f32, full logits",
-            "rows_per_data_shard": PP_PARITY_ROWS, "seq_len": PP_PARITY_SEQ,
-            "microbatches": PP_PARITY_MICRO, "steps": PP_PARITY_STEPS,
-            "ranks": ranks}
+    return problems
 
 
 def phase_pp_kernels(state):
@@ -6724,6 +6778,15 @@ def _shard_parity(runs_by_world: dict, base_kw: dict) -> tuple:
         ranks += multi_process_runner.run(
             _shard_parity_rank, world, args=(runs_by_world[world], base_kw),
             device="cuda", timeout=600, env=env).return_values
+    problems = _shard_parity_problems(ranks)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return world, ranks
+
+
+def _shard_parity_problems(ranks) -> list:
+    """:func:`_shard_parity_rank` results against the rule of
+    :func:`_shard_parity`."""
     problems = []
     for r in ranks:
         allowed = TRAIN_PARAM_FRAC * r["n_params"]
@@ -6748,9 +6811,7 @@ def _shard_parity(runs_by_world: dict, base_kw: dict) -> tuple:
                 problems.append(f"rank {r['rank']} of {r['world']}: the "
                                 f"MoE step against the unfused layers "
                                 f"at batch {gb}: {c}")
-    if problems:
-        raise AssertionError("; ".join(problems))
-    return world, ranks
+    return problems
 
 
 def phase_moe_parity(state):
@@ -7642,6 +7703,637 @@ def phase_wide_deep_tp(state):
             "parity_tolerance": WD_PARITY_TOL, "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# checkpointing, the engine's restore entry points, the online DLRM
+# ---------------------------------------------------------------------------
+
+def _ckpt_root() -> str:
+    """Where the checkpoint phases write (``build/`` is git-ignored)."""
+    return os.path.join(ROOT, "build", "ckpt_smoke")
+
+
+def _ckpt_nbytes(path: str) -> int:
+    """The shard bytes a committed checkpoint directory's index records."""
+    with open(os.path.join(path, "checkpoint.index.json")) as f:
+        return sum(m["size"] for m in json.load(f)["shards"].values())
+
+
+def _variable_values(variables) -> dict:
+    """Each variable's global value, cloned on its device."""
+    from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
+        _flatten)
+    return {k: v.read_value().clone()
+            for k, v in _flatten(variables).items()}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def _ckpt_train_run(fused: bool) -> tuple:
+    """The headline step (``_headline_config``, batch TRAIN_BATCH, bf16
+    ``mu``; ``fused``: the fused AdamW) trained CKPT_STEPS steps; at step
+    CKPT_AT the train state (``models/transformer.train_state_variables``)
+    is saved through a ``CheckpointManager`` with a ``local_dir`` tier,
+    ``async_write=True`` (the durable re-commit pipelined behind steps
+    CKPT_AT+1..). A fresh model (another seed) restores it with
+    ``restore_latest`` and trains the remaining steps: the restored
+    state must equal the saved one bitwise; the resumed losses and final
+    state are held to the uninterrupted run's, and a second resume from
+    the same checkpoint gives the kernels' own run-to-run spread. Also
+    times a restore from the durable tier. Launch counters from 0 before
+    the first step to after the last resumed one."""
+    import numpy as np
+    import torch
+    import shutil
+    from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
+        Checkpoint, CheckpointManager)
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        train_state_variables)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _headline_config(fused_optimizer=fused)
+    per_step = FUSED_LAUNCHES if fused else TRAIN_LAUNCHES
+    root = os.path.join(_ckpt_root(), "fused" if fused else "plain")
+    shutil.rmtree(root, ignore_errors=True)
+    durable, local = os.path.join(root, "durable"), os.path.join(root,
+                                                                 "local")
+
+    def build(seed):
+        model, opt, step, batch = _train_setup(cfg, seed, TRAIN_BATCH)
+        st = {"model": model, "optimizer": opt, "step": 0}
+        variables = train_state_variables(cfg, st)
+        ckpt = Checkpoint(**variables, step=np.int64(0))
+        return st, step, batch, variables, ckpt, CheckpointManager(
+            ckpt, durable, local_dir=local, max_to_keep=2)
+
+    st, step, batch, variables, ckpt, mgr = build(0)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    losses, saved = [], None
+    for _ in range(CKPT_STEPS):
+        st, m = step(st, batch)
+        losses.append(m["loss"].item())
+        if st["step"] == CKPT_AT:
+            saved = _variable_values(variables)
+            ckpt._objects["step"] = np.int64(st["step"])
+            torch.cuda.synchronize()
+            mgr.save(CKPT_AT, async_write=True)
+            blocking_ms = ckpt.last_timings["blocking"] * 1e3
+    t0 = time.perf_counter()
+    ckpt.sync()
+    sync_wait_ms = (time.perf_counter() - t0) * 1e3
+    commit_s = ckpt.last_timings["commit"]
+    final = _variable_values(variables)
+    saved_params = {k: v.cpu() for k, v in saved.items()
+                    if k.startswith("params/")}
+    del st, step, variables, ckpt, mgr
+    torch.cuda.empty_cache()
+    nbytes = _ckpt_nbytes(os.path.join(local, f"ckpt-{CKPT_AT}"))
+
+    st, step, _batch, variables, ckpt, mgr = build(1)   # the run's batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore(os.path.join(durable, f"ckpt-{CKPT_AT}"))
+    torch.cuda.synchronize()
+    durable_restore_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tier, number, flat = mgr.restore_latest()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        st["step"] = int(flat["step"])
+        restored = _variable_values(variables)
+        equal = all(restored[k].dtype == saved[k].dtype
+                    and torch.equal(restored[k], saved[k]) for k in saved)
+        del restored
+        resumed = []
+        for _ in range(CKPT_STEPS - CKPT_AT):
+            st, m = step(st, batch)
+            resumed.append(m["loss"].item())
+        runs.append({"tier": tier, "step": number, "restore_s": restore_s,
+                     "restored_equals_saved": equal, "losses": resumed,
+                     "state": _variable_values(variables)})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not fused:
+        ckpt._objects["step"] = np.int64(st["step"])
+        mgr.save(CKPT_STEPS, async_write=False)
+    final_params = {k: v.cpu() for k, v in runs[0]["state"].items()
+                    if k.startswith("params/")}
+    a, b = runs
+    expected = expected_counts(per_step,
+                               CKPT_STEPS + 2 * (CKPT_STEPS - CKPT_AT))
+    out = {
+        "config": "transformer_big", "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq_len": cfg.max_seq_len,
+        "fused_optimizer": fused, "steps": CKPT_STEPS, "saved_at": CKPT_AT,
+        "tensors": len(saved), "checkpoint_bytes": nbytes,
+        "save_blocking_ms": blocking_ms, "sync_wait_ms": sync_wait_ms,
+        "commit_s": commit_s,
+        "local_commit_gb_s": nbytes / commit_s["local"] / 1e9,
+        "durable_commit_gb_s": nbytes / commit_s["durable"] / 1e9,
+        "restore": {"tier": a["tier"], "step": a["step"],
+                    "seconds": a["restore_s"],
+                    "gb_s": nbytes / a["restore_s"] / 1e9},
+        "durable_restore": {"seconds": durable_restore_s,
+                            "gb_s": nbytes / durable_restore_s / 1e9},
+        "losses": losses, "resumed_losses": [r["losses"] for r in runs],
+        "restored_equals_saved": [r["restored_equals_saved"] for r in runs],
+        "resumed_bitwise": (a["losses"] == losses[CKPT_AT:] and all(
+            torch.equal(a["state"][k], final[k]) for k in final)),
+        "resumed_max_abs_loss_diff": max(
+            abs(x - y) for x, y in zip(a["losses"], losses[CKPT_AT:])),
+        "resumed_max_abs_state_diff": _max_diff(a["state"], final),
+        "repeat_max_abs_loss_diff": max(
+            abs(x - y) for x, y in zip(a["losses"], b["losses"])),
+        "repeat_max_abs_state_diff": _max_diff(a["state"], b["state"]),
+        "launches": counts, "expected_launches": expected,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    problems = []
+    if counts != expected:
+        problems.append(f"launches {counts} != {expected}")
+    if any(counts[k] == 0 for k in per_step):
+        problems.append(f"a kernel of the path never launched: {counts}")
+    if not all(out["restored_equals_saved"]):
+        problems.append("the restored state differs from the saved one")
+    if (a["tier"], a["step"]) != ("local", CKPT_AT):
+        problems.append(f"restored tier/step {a['tier']}/{a['step']}")
+    if not all(math.isfinite(x) for x in losses + a["losses"]):
+        problems.append(f"losses {losses} {a['losses']}")
+    # the kernels' own spread bounds the resume's: the same checkpoint
+    # resumed twice differs as much as resume and uninterrupted do
+    if out["resumed_max_abs_loss_diff"] > max(
+            CKPT_LOSS_TOL, 2 * out["repeat_max_abs_loss_diff"]):
+        problems.append(f"resumed losses {a['losses']} against "
+                        f"{losses[CKPT_AT:]}")
+    del runs, final, saved
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out, counts, saved_params, final_params, (durable, local)
+
+
+def phase_ckpt_train(state):
+    """``ckpt_train``: :func:`_ckpt_train_run` with the plain AdamW, then
+    with ``fused_optimizer=True`` (#9). The plain run leaves steps
+    CKPT_AT and CKPT_STEPS in its directories for ``ckpt_serve``."""
+    import torch
+    torch.cuda.empty_cache()
+    plain, counts, params3, params6, dirs = _ckpt_train_run(False)
+    state["ckpt_train_launches"] = counts
+    state["ckpt_dirs"] = dirs
+    state["ckpt_params"] = {CKPT_AT: params3, CKPT_STEPS: params6}
+    fused, counts, *_ = _ckpt_train_run(True)
+    state["ckpt_train_fused_launches"] = counts
+    return {"plain": plain, "fused": fused}
+
+
+def _serve_stream(engine, prompts, swap_at=None, swap=None) -> tuple:
+    """Serve ``prompts`` (CKPT_SERVE_NEW new tokens each) step by step;
+    once ``swap_at`` completions have landed, ``swap(engine)`` runs once
+    between two steps. Returns ``({id: (tokens, version step)}, the
+    step index of the swap's call, each step's weights step)``."""
+    from distributed_tensorflow_tpu_torch.serving.engine import Request
+    for i, p in enumerate(prompts):
+        engine.submit(Request(id=f"c{i}", tokens=p,
+                              max_new_tokens=CKPT_SERVE_NEW))
+    out, called, versions, n = {}, None, [], 0
+    while not engine.scheduler.idle:
+        for rec in engine.step():
+            out[rec["id"]] = (tuple(int(t) for t in rec["tokens"]),
+                              int(rec["model_version"].split("@")[0]))
+        versions.append(engine.weights_step)
+        n += 1
+        if swap is not None and called is None and len(out) >= swap_at:
+            swap(engine)
+            called = n
+    return out, called, versions
+
+
+def phase_ckpt_serve(state):
+    """``ckpt_serve``: ``InferenceEngine.from_checkpoint`` at the headline
+    config (bf16, ``transformer_big``) from ``ckpt_train``'s directories,
+    pinned at step CKPT_AT, serves CKPT_SERVE_REQUESTS requests; its
+    greedy streams must equal an engine built directly from the saved
+    parameters. Then the same requests with ``begin_load_version(
+    CKPT_STEPS)`` once two completions landed (the restore on its thread;
+    joined, so the flip lands at the next step boundary), against the
+    direct engine given ``install_version`` at the same boundary: equal
+    streams and versions, requests in flight requeued. Launches of
+    #1 (``flash_fwd_tc``): 12 a prefill. Then #1 at the longest prompt's
+    prefill shape against its plain version."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        params_from_flat)
+    from distributed_tensorflow_tpu_torch.ops.attention import (
+        flash_attention_fwd)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    torch.cuda.empty_cache()
+    cfg = _headline_config()
+    durable, local = state["ckpt_dirs"]
+    kw = dict(device="cuda", block_size=SERVE_BLOCK, max_slots=SERVE_SLOTS,
+              num_blocks=SERVE_SLOTS * cfg.max_seq_len // SERVE_BLOCK + 1)
+    rng = np.random.default_rng(3)
+    lens = rng.integers(16, cfg.max_seq_len - CKPT_SERVE_NEW,
+                        CKPT_SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+    def direct(step):
+        return params_from_flat(cfg, state["ckpt_params"][step], "params",
+                                "cuda")
+
+    t0 = time.perf_counter()
+    eng = InferenceEngine.from_checkpoint(cfg, durable, local_dir=local,
+                                          at_step=CKPT_AT, **kw)
+    from_checkpoint_s = time.perf_counter() - t0
+    ref = InferenceEngine(cfg, direct(CKPT_AT), snapshot_step=CKPT_AT,
+                          **kw)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    p0 = eng.prefills
+    got, _, _ = _serve_stream(eng, prompts)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    prefills = eng.prefills - p0
+    want, _, _ = _serve_stream(ref, prompts)
+
+    params6 = direct(CKPT_STEPS)
+    zero_launch_counts()
+    p0 = eng.prefills
+    load = {}
+
+    def begin(engine):
+        t = time.perf_counter()
+        assert engine.begin_load_version(CKPT_STEPS)
+        engine._swap_thread.join()
+        load["restore_s"] = time.perf_counter() - t
+        load["requeue_pending"] = len(engine.scheduler.running)
+
+    swapped, called, versions = _serve_stream(eng, prompts, 2, begin)
+    torch.cuda.synchronize()
+    swap_counts = launch_counts()
+    swap_prefills = eng.prefills - p0
+    ref = InferenceEngine(cfg, direct(CKPT_AT), snapshot_step=CKPT_AT,
+                          **kw)
+    info = {}
+    ref_swapped, ref_called, ref_versions = _serve_stream(
+        ref, prompts, 2, lambda e: info.update(e.install_version(
+            params6, step=CKPT_STEPS)))
+    del ref, params6
+    # #1 at the longest prompt's prefill against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    s = int(max(lens))
+    q, k, v = (_rand((1, cfg.n_heads, s, cfg.head_dim), torch.bfloat16,
+                     gen) for _ in range(3))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    check = _fwd_errors(q, k, v, o, lse, True)
+    problems = []
+    if got != want:
+        problems.append("from_checkpoint's streams differ from the engine "
+                        "built from the saved parameters")
+    if {v for _, v in got.values()} != {CKPT_AT}:
+        problems.append(f"versions {set(v for _, v in got.values())}")
+    if counts["flash_fwd_tc"] != cfg.n_layers * prefills or any(
+            n for name, n in counts.items() if name != "flash_fwd_tc"):
+        problems.append(f"launches {counts} for {prefills} prefills")
+    if swapped != ref_swapped or versions != ref_versions:
+        problems.append("the background-loaded swap differs from "
+                        "install_version at the same boundary")
+    flips = [i for i in range(1, len(versions))
+             if versions[i] != versions[i - 1]]
+    if flips != [called] or versions[-1] != CKPT_STEPS:
+        problems.append(f"weights by step {versions}, swap called after "
+                        f"step {called}")
+    if not load.get("requeue_pending") or info.get("requeued") != \
+            load["requeue_pending"]:
+        problems.append(f"no request in flight at the swap: {load} {info}")
+    if {v for _, v in swapped.values()} != {CKPT_AT, CKPT_STEPS}:
+        problems.append(f"versions {set(v for _, v in swapped.values())}")
+    if swap_counts["flash_fwd_tc"] != cfg.n_layers * swap_prefills:
+        problems.append(f"launches {swap_counts} for {swap_prefills} "
+                        f"prefills")
+    if not check["ok"]:
+        problems.append(f"flash_fwd_tc at ({s}) disagrees: {check}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["ckpt_serve_launches"] = {
+        n: counts[n] + swap_counts[n] for n in counts}
+    del eng
+    torch.cuda.empty_cache()
+    return {"config": "transformer_big (the headline config)",
+            "dtype": "bfloat16", "requests": CKPT_SERVE_REQUESTS,
+            "new_tokens": CKPT_SERVE_NEW,
+            "prompt_lens": [int(n) for n in lens],
+            "from_checkpoint_s": from_checkpoint_s,
+            "streams_equal_direct": True, "prefills": prefills,
+            "swap_prefills": swap_prefills, "load": load,
+            "swap_called_after_step": called, "weights_by_step": versions,
+            "requeued": info.get("requeued"),
+            "launches": counts, "swap_launches": swap_counts,
+            "flash_fwd_tc_prefill_check": {"shape": [1, cfg.n_heads, s,
+                                                     cfg.head_dim],
+                                           **check}}
+
+
+def phase_online_train(state):
+    """``online_train``: ``OnlineConfig()`` (the JAX online job's shape)
+    on the card: ONLINE_EVENTS seeded events written to a stream log,
+    ``OnlineTrainer`` with ``commit_every=5`` crashed after
+    ONLINE_CRASH_AFTER applied batches (an uncommitted one), a restore
+    and the rest; against an uncrashed run of the same log: the committed
+    offset, no committed event replayed, table membership equal and the
+    parameters and tables within ONLINE_TOL. Events/s of both; no kernel
+    of #1-#9."""
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.input import stream
+    from distributed_tensorflow_tpu_torch.models import online_dlrm as od
+    cfg = od.OnlineConfig()
+    root = os.path.join(_ckpt_root(), "online")
+    shutil.rmtree(root, ignore_errors=True)
+    log = os.path.join(root, "events.log")
+    with stream.StreamWriter.open(log) as w:
+        stream.append_chunk(w, stream.seeded_events(
+            cfg.seed, 0, ONLINE_EVENTS, n_users=cfg.n_users,
+            n_items=cfg.n_items, zipf_a=cfg.zipf_a))
+
+    def trainer(ck):
+        return od.OnlineTrainer(cfg, log, os.path.join(root, ck),
+                                commit_every=5, device="cuda")
+
+    zero_launch_counts()
+    t1 = trainer("ck")
+    try:
+        t1.run(ONLINE_EVENTS, idle_timeout_s=5.0,
+               crash_after_batches=ONLINE_CRASH_AFTER)
+        crashed = False
+    except RuntimeError:
+        crashed = True
+    t2 = trainer("ck")
+    resumed = t2.restore()
+    out2 = t2.run(ONLINE_EVENTS, idle_timeout_s=5.0)
+    ref = trainer("ck_ref")
+    ref_out = ref.run(ONLINE_EVENTS, idle_timeout_s=5.0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    a, b = t2._state_nested(), ref._state_nested()
+
+    def aux(sd):
+        return pickle.loads(np.asarray(sd["aux"], np.uint8).tobytes())
+
+    membership = all(aux(a[t])["id_to_row"] == aux(b[t])["id_to_row"]
+                     for t in ("user", "item"))
+    diffs = {f"{t}/rows": float(np.abs(a[t]["rows"] - b[t]["rows"]).max())
+             for t in ("user", "item")}
+    diffs.update({f"dense/{k}": float(np.abs(v - b["dense"]["params"][k])
+                                      .max())
+                  for k, v in a["dense"]["params"].items()})
+    bs = cfg.batch_size
+    committed = (ONLINE_CRASH_AFTER // 5) * 5 * bs
+    problems = []
+    if not crashed or resumed != committed:
+        problems.append(f"crashed {crashed}, resumed at {resumed} "
+                        f"(committed {committed})")
+    if out2["events_applied"] != ONLINE_EVENTS - committed:
+        problems.append(f"the restored trainer applied "
+                        f"{out2['events_applied']} events")
+    if out2["offset"] != ref_out["offset"] != ONLINE_EVENTS:
+        problems.append(f"offsets {out2['offset']} {ref_out['offset']}")
+    if not membership or out2["tables"] != ref_out["tables"]:
+        problems.append(f"membership {out2['tables']} {ref_out['tables']}")
+    if max(diffs.values()) > ONLINE_TOL:
+        problems.append(f"state differs from the uncrashed run: {diffs}")
+    if any(counts.values()):
+        problems.append(f"a kernel of #1-#9 ran: {counts}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["online_train_launches"] = counts
+    return {"config": "OnlineConfig()", "events": ONLINE_EVENTS,
+            "batch": bs, "commit_every": 5,
+            "crash_after_batches": ONLINE_CRASH_AFTER,
+            "resumed_offset": resumed, "commits": out2["commits"],
+            "events_per_s_restored": out2["events_per_sec"],
+            "events_per_s_uncrashed": ref_out["events_per_sec"],
+            "tables": ref_out["tables"], "loss_last": ref_out["loss_last"],
+            "max_abs_diff_vs_uncrashed": diffs, "launches": counts}
+
+
+def _digest(values: dict) -> dict:
+    """Each leaf's dtype, shape and crc32 of its bytes (bitwise identity
+    without shipping the tensors between processes)."""
+    import zlib
+    import torch
+    from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
+        to_numpy)
+    out = {}
+    for k, t in values.items():
+        t = t.detach().contiguous().cpu()
+        out[k] = (str(t.dtype), tuple(t.shape),
+                  zlib.crc32(to_numpy(t).tobytes()))
+    return out
+
+
+def _ckpt_mesh_rank(workdir: str) -> dict:
+    """One rank of ``ckpt_mesh`` (four ranks): CKPT_MESH_LAYERS layers of
+    the headline config trained 2 steps on ``{"dp": 2, "tp": 2}`` and
+    saved (``local_dir`` tier, a ``SnapshotStore`` a rank ring-replicated
+    over the coordination KV, then one more memory-only snapshot);
+    restored onto ``{"tp": 4}``; then rank 1's memory is wiped and
+    ``restore_latest`` walks the ladder on a fresh ``{"tp": 4}`` model.
+    Returns digests of the global values."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.checkpoint import (
+        peer_snapshot as ps)
+    from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
+        Checkpoint, CheckpointManager)
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap, topology
+    from distributed_tensorflow_tpu_torch.cluster.coordination import (
+        coordination_service)
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        make_sharded_train_step, train_state_variables)
+    bootstrap.initialize(device="cuda")
+    rank = dist.get_rank()
+    agent = coordination_service()
+    cfg = _headline_config(n_layers=CKPT_MESH_LAYERS)
+    gb = 2 * TRAIN_BATCH
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (gb, cfg.max_seq_len))).to("cuda")
+    mem = os.path.join(workdir, "mem", f"w{rank}")
+
+    def build(axes, seed, store=None):
+        mesh = topology.make_mesh(axes, device="cuda")
+        st, step = make_sharded_train_step(cfg, mesh, gb, seed=seed)
+        variables = train_state_variables(cfg, st, mesh)
+        ckpt = Checkpoint(**variables, step=np.int64(0))
+        mgr = CheckpointManager(ckpt, os.path.join(workdir, "durable"),
+                                local_dir=os.path.join(workdir, "local"),
+                                snapshot_store=store)
+        return st, step, variables, ckpt, mgr
+
+    out = {"rank": rank}
+    st, step, variables, ckpt, mgr = build({"dp": 2, "tp": 2}, 0,
+                                           ps.SnapshotStore(mem))
+    for _ in range(2):
+        st, m = step(st, {"tokens": tokens})
+    ckpt._objects["step"] = np.int64(st["step"])
+    t0 = time.perf_counter()
+    mgr.save(2, async_write=False)
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.snapshot(3)
+    out["snapshot_s"] = time.perf_counter() - t0
+    out["saved"] = _digest(_variable_values(variables))
+    del st, step, variables, ckpt, mgr
+    torch.cuda.empty_cache()
+
+    st, step, variables, ckpt, mgr = build({"tp": 4}, 1)
+    t0 = time.perf_counter()
+    tier, n, _flat = mgr.restore_latest()
+    out["tp4"] = {"tier": tier, "step": n,
+                  "seconds": time.perf_counter() - t0,
+                  "digest": _digest(_variable_values(variables))}
+    st, m = step(st, {"tokens": tokens})
+    out["tp4_loss"] = m["loss"].item()
+    del st, step, variables, ckpt, mgr
+    torch.cuda.empty_cache()
+
+    agent.barrier("ckpt_mesh/before_wipe", timeout_s=300)
+    if rank == 1:
+        ps.wipe_memdir(mem)
+    agent.barrier("ckpt_mesh/wiped", timeout_s=300)
+    store = ps.SnapshotStore(mem)
+    st, step, variables, ckpt, mgr = build({"tp": 4}, 2, store)
+    t0 = time.perf_counter()
+    tier, n, _flat = mgr.restore_latest()
+    out["ladder"] = {"tier": tier, "step": n,
+                     "seconds": time.perf_counter() - t0,
+                     **{k: mgr.last_restore[k]
+                        for k in ("available", "best_available")},
+                     "inventory": store.inventory(),
+                     "digest": _digest(_variable_values(variables))}
+    agent.barrier("ckpt_mesh/done", timeout_s=300)
+    bootstrap.shutdown()
+    return out
+
+
+def _ckpt_one_card_rank(workdir: str) -> dict:
+    """One card restores ``ckpt_mesh``'s dp2×tp2 save (disk tiers only):
+    the single-device model's state digests."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
+        Checkpoint, CheckpointManager)
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        train_state_variables)
+    bootstrap.initialize(device="cuda")
+    cfg = _headline_config(n_layers=CKPT_MESH_LAYERS)
+    model, opt, _step, _batch = _train_setup(cfg, 3, 1)
+    variables = train_state_variables(cfg, {"model": model,
+                                            "optimizer": opt, "step": 0})
+    mgr = CheckpointManager(Checkpoint(**variables, step=np.int64(0)),
+                            os.path.join(workdir, "durable"),
+                            local_dir=os.path.join(workdir, "local"))
+    tier, n, _flat = mgr.restore_latest()
+    out = {"tier": tier, "step": n,
+           "digest": _digest(_variable_values(variables))}
+    bootstrap.shutdown()
+    return out
+
+
+def phase_ckpt_mesh(state):
+    """``ckpt_mesh`` (four cards): :func:`_ckpt_mesh_rank` — a dp2×tp2
+    save restores onto tp 4 and (:func:`_ckpt_one_card_rank`) onto one
+    card bitwise; after rank 1's memory is wiped every rank restores the
+    freshest state from memory (tier ``peer``, parts fetched over the
+    KV), the best tier available, bitwise."""
+    import shutil
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    world = torch.cuda.device_count()
+    if world < 4:
+        raise AssertionError(f"ckpt_mesh needs four cards, {world} visible")
+    workdir = os.path.join(_ckpt_root(), "mesh")
+    shutil.rmtree(workdir, ignore_errors=True)
+    ranks = multi_process_runner.run(_ckpt_mesh_rank, 4, args=(workdir,),
+                                     device="cuda", timeout=900).return_values
+    one = multi_process_runner.run(_ckpt_one_card_rank, 1, args=(workdir,),
+                                   device="cuda", timeout=600).return_values[0]
+    saved = ranks[0]["saved"]
+
+    def differ(digest) -> str:
+        bad = [k for k in saved if digest.get(k) != saved[k]]
+        return f"{len(bad)} of {len(saved)} leaves differ ({bad[:3]})"
+
+    problems = []
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        if r["saved"] != saved:
+            problems.append(f"{tag}: saved digests differ")
+        if (r["tp4"]["tier"], r["tp4"]["step"]) != ("local", 2):
+            problems.append(f"{tag}: tp4 restored {r['tp4']['tier']} "
+                            f"{r['tp4']['step']}")
+        if r["tp4"]["digest"] != saved:
+            problems.append(f"{tag}: the tp4 restore: "
+                            f"{differ(r['tp4']['digest'])}")
+        lad = r["ladder"]
+        if (lad["tier"], lad["step"]) != ("peer", 3) \
+                or lad["best_available"] != "memory" \
+                or lad["digest"] != saved:
+            problems.append(f"{tag}: ladder {lad['tier']} {lad['step']} "
+                            f"{lad['best_available']}: "
+                            f"{differ(lad['digest'])}")
+    if one["digest"] != saved or (one["tier"], one["step"]) != ("local", 2):
+        problems.append(f"one card restored {one['tier']} {one['step']}: "
+                        f"{differ(one['digest'])}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    for r in ranks:
+        for key in ("saved",):
+            r.pop(key)
+        r["tp4"].pop("digest")
+        r["ladder"].pop("digest")
+    return {"world": world, "config": f"transformer_big width, "
+            f"{CKPT_MESH_LAYERS} layers, bf16", "ranks": ranks,
+            "one_card": {"tier": one["tier"], "step": one["step"]}}
+
+
+def phase_mesh_repair(state):
+    """``mesh_repair`` (four cards): C-4(c) ``make_sharded_train_step``
+    on ``{"dp": 2, "pp": 2}`` and ``{"pp": 2, "tp": 2}``
+    (:func:`_shard_parity_rank`, fsdp_parity's rule), C-4(d)
+    ``make_pipelined_train_step`` GPipe and 1F1B on ``{"pp": 2, "tp":
+    2}`` (:func:`_pp_parity_rank`, pp_parity's rule): pp_parity's f32
+    config against the single-device step on the same global batch."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    world = torch.cuda.device_count()
+    if world < 4:
+        raise AssertionError(f"mesh_repair needs four cards, {world} "
+                             f"visible")
+    torch.cuda.empty_cache()
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    sharded = multi_process_runner.run(
+        _shard_parity_rank, 4, args=(MESH_REPAIR_SHARDED, {}),
+        device="cuda", timeout=900, env=env).return_values
+    piped = multi_process_runner.run(
+        _pp_parity_rank, 4, args=(MESH_REPAIR_PIPELINED,), device="cuda",
+        timeout=900, env=env).return_values
+    problems = _shard_parity_problems(sharded) + _pp_parity_problems(piped)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": world, "config": "transformer_big width, "
+            f"{PP_PARITY_LAYERS} layers, f32, full logits",
+            "sharded": sharded, "pipelined": piped}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -7704,8 +8396,16 @@ def main(argv=None) -> int:
                      ("mnist_train", phase_mnist_train),
                      ("wide_deep_train", phase_wide_deep_train),
                      ("wide_deep_parity", phase_wide_deep_parity),
-                     ("wide_deep_tp", phase_wide_deep_tp)):
+                     ("wide_deep_tp", phase_wide_deep_tp),
+                     ("ckpt_train", phase_ckpt_train),
+                     ("ckpt_serve", phase_ckpt_serve),
+                     ("online_train", phase_online_train),
+                     ("ckpt_mesh", phase_ckpt_mesh),
+                     ("mesh_repair", phase_mesh_repair)):
         if only and name not in only:
+            continue
+        if name in FOUR_CARD_PHASES and not only \
+                and torch.cuda.device_count() < 4:
             continue
         t0 = time.perf_counter()
         try:
@@ -7812,6 +8512,14 @@ def main(argv=None) -> int:
             "resnet_dp_launches"][name]
         row["other_workload_launches"]["wide_deep_tp"] = {
             run: c[name] for run, c in state["wide_deep_tp_launches"].items()}
+        # the checkpoint phases, each from 0: ckpt_train (CKPT_STEPS steps
+        # and two resumes, plain and fused AdamW) at the train step's
+        # shapes, ckpt_serve's prefills at the serve path's, the online
+        # DLRM none
+        row["ckpt_launches"] = {
+            path: state[f"{path}_launches"][name]
+            for path in ("ckpt_train", "ckpt_train_fused", "ckpt_serve",
+                         "online_train")}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

@@ -808,23 +808,25 @@ def shard_params_at(cfg: TransformerConfig, params, rank, size) -> dict:
     coords, sizes = _coords(rank, size)
     check_shardable(cfg, sizes)
     specs = param_specs(cfg, sizes)
+    return _map_leaves(
+        lambda path, full, spec: _shard_leaf(path, full, spec, coords, sizes),
+        params, specs)
 
-    def shard(path, full, spec):
-        t = full
-        for axis in _SHARD_AXES:
-            if axis not in spec:
-                continue
-            dim, n, r = spec.index(axis), sizes[axis], coords[axis]
-            if _is_wi_split(path, axis):
-                gate, up = t.chunk(2, dim)
-                t = torch.cat([gate.chunk(n, dim)[r], up.chunk(n, dim)[r]],
-                              dim)
-            else:
-                t = _pad_dim(t, dim, padded_rows(t.shape[dim], n))
-                t = t.chunk(n, dim)[r]
-        return t.clone(memory_format=torch.contiguous_format)
 
-    return _map_leaves(shard, params, specs)
+def _shard_leaf(path, full, spec, coords: dict, sizes: dict) -> torch.Tensor:
+    """One leaf's block of :func:`shard_params_at`."""
+    t = full
+    for axis in _SHARD_AXES:
+        if axis not in spec:
+            continue
+        dim, n, r = spec.index(axis), sizes[axis], coords[axis]
+        if _is_wi_split(path, axis):
+            gate, up = t.chunk(2, dim)
+            t = torch.cat([gate.chunk(n, dim)[r], up.chunk(n, dim)[r]], dim)
+        else:
+            t = _pad_dim(t, dim, padded_rows(t.shape[dim], n))
+            t = t.chunk(n, dim)[r]
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _pad_dim(t: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
@@ -899,21 +901,123 @@ def gather_params(cfg: TransformerConfig, shards, mesh) -> dict:
     ``shards`` (:func:`shard_params`): each cut dim all-gathered over
     its axis (``wi``'s halves rejoined as :func:`unshard_params` does),
     a padded vocabulary cut back to ``vocab_size`` rows: JAX's shapes."""
-    from distributed_tensorflow_tpu_torch.parallel.collectives import (
-        all_gather)
     _, sizes = _mesh_coords(mesh)
     specs = param_specs(cfg, mesh)
+    return _map_leaves(
+        lambda path, t, spec, full: _gather_leaf(path, t, spec, full, mesh,
+                                                 sizes),
+        shards, specs, param_shapes(cfg))
 
-    def gather(path, t, spec, full):
-        t = t.detach()
-        for axis in sizes:
-            if axis not in spec:
-                continue
-            parts = all_gather(t, mesh, axis, tiled=False)
-            t = _join(path, spec, axis, list(parts.unbind(0)))
-        return _trim(t, full).clone(memory_format=torch.contiguous_format)
 
-    return _map_leaves(gather, shards, specs, param_shapes(cfg))
+def _gather_leaf(path, t, spec, full, mesh, sizes: dict) -> torch.Tensor:
+    """One leaf of :func:`gather_params` (collective over ``sizes``'
+    axes)."""
+    from distributed_tensorflow_tpu_torch.parallel.collectives import (
+        all_gather)
+    t = t.detach()
+    for axis in sizes:
+        if axis not in spec:
+            continue
+        parts = all_gather(t.contiguous(), mesh, axis, tiled=False)
+        t = _join(path, spec, axis, list(parts.unbind(0)))
+    return _trim(t, full).clone(memory_format=torch.contiguous_format)
+
+
+def train_state_variables(cfg: TransformerConfig, state, mesh=None) -> dict:
+    """The train state ``{"model", "optimizer", ...}`` of
+    :func:`make_train_step` or :func:`make_sharded_train_step` as
+    :class:`~distributed_tensorflow_tpu_torch.parallel.values.
+    DistributedVariable` s for a :class:`~distributed_tensorflow_tpu_torch.
+    checkpoint.checkpoint.Checkpoint`: ``{"params": ..., "opt_state":
+    {"count", "mu": ..., "nu": ...}}``, each tree at the leaf paths of
+    :func:`jax_params_layout` (a layer stack with ``scan_layers=True``,
+    ``layer_<i>`` otherwise), so ``Checkpoint(**train_state_variables(
+    ...))`` is a ``Checkpoint(params=...)`` the serving engine restores.
+    Each leaf reads the module's parameters or AdamW moments (stacked
+    over layers for a stack), and its global value is the full leaf
+    (:func:`gather_params`' per leaf on a mesh that cuts parameters:
+    ``mesh`` is the step's); an ``assign`` writes this rank's shard back
+    (:func:`shard_params_at`'s block) in place. So a checkpoint of it
+    restores onto any mesh. The moments are made (zero, count 0) where
+    the optimizer has none yet."""
+    from distributed_tensorflow_tpu_torch.parallel.values import (
+        DistributedVariable)
+    model, opt = state["model"], state["optimizer"]
+    group_of = {id(p): g for g in opt.param_groups for p in g["params"]}
+    coords, sizes = _mesh_coords(mesh) if mesh is not None else ({}, {})
+    specs = param_specs(cfg, sizes) if sizes else None
+    shapes = param_shapes(cfg)
+    # path -> (its parameters, stacked over layers, "layer" where its spec
+    # and shape are one layer of the stacked leaf's)
+    leaves = {("embed",): ([model.embed], False, "leaf"),
+              ("final_norm", "scale"): ([model.final_norm.scale], False,
+                                        "leaf")}
+    for g, names in shapes["layers"].items():
+        for n in names:
+            ps = [getattr(getattr(b, g), n) for b in model.layers]
+            if cfg.scan_layers:
+                leaves[("layers", g, n)] = (ps, True, "stack")
+            else:
+                for i, p in enumerate(ps):
+                    leaves[(f"layer_{i}", g, n)] = ([p], False, "layer")
+    for ps, _, _ in leaves.values():
+        for p in ps:
+            opt.moments(p, group_of[id(p)])
+
+    def leaf_of(tree, path, kind):
+        if kind == "layer":                 # one layer of the stack
+            return tree["layers"][path[1]][path[2]][1:]
+        node = tree
+        for k in path:
+            node = node[k]
+        return node
+
+    def variable(path, ps, stacked, kind, of):
+        def read():
+            ts = [of(p) for p in ps]
+            return torch.stack(ts) if stacked else ts[0]
+
+        @torch.no_grad()
+        def write(block):
+            for i, p in enumerate(ps):
+                of(p).copy_(block[i] if stacked else block)
+
+        name = "/".join(path)
+        if specs is None:
+            return DistributedVariable(read=read, write=write, name=name)
+        spec, full = leaf_of(specs, path, kind), leaf_of(shapes, path, kind)
+        return DistributedVariable(
+            read=read, write=write, name=name, mesh=mesh, spec=spec,
+            shape=full,
+            gather=lambda t: _gather_leaf(path, t, spec, full, mesh, sizes),
+            scatter=lambda t: _shard_leaf(path, t, spec, coords, sizes))
+
+    def tree(of):
+        out: dict = {}
+        for path, (ps, stacked, kind) in leaves.items():
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = variable(path, ps, stacked, kind, of)
+        return out
+
+    first = model.embed
+
+    def read_count():
+        return torch.tensor(opt.state[first]["count"], dtype=torch.int64)
+
+    def write_count(t):
+        for ps, _, _ in leaves.values():
+            for p in ps:
+                opt.state[p]["count"] = int(t)
+
+    return {"params": tree(lambda p: p),
+            "opt_state": {
+                "count": DistributedVariable(read=read_count,
+                                             write=write_count,
+                                             name="count"),
+                "mu": tree(lambda p: opt.state[p]["mu"]),
+                "nu": tree(lambda p: opt.state[p]["nu"])}}
 
 
 def init_params(cfg: TransformerConfig,
@@ -978,6 +1082,77 @@ def params_from_jax(cfg: TransformerConfig, tree, device="cuda") -> dict:
            "final_norm": {"scale": to_t(tree["final_norm"]["scale"])}}
     shapes = param_shapes(cfg)
     for g, leaves in shapes["layers"].items():
+        for n, shape in leaves.items():
+            got = tuple(out["layers"][g][n].shape)
+            if got != shape:
+                raise ValueError(f"layers/{g}/{n}: shape {got}, expected "
+                                 f"{shape} for this config")
+    return out
+
+
+def jax_params_layout(cfg: TransformerConfig, params) -> dict:
+    """The checkpoint name map between the two packages' parameter
+    trees: the port's stacked dict (``embed``, ``layers/<group>/<leaf>``,
+    ``final_norm/scale`` — the flax names) laid out as the flax
+    ``TransformerLM`` tree of ``cfg``: itself with ``scan_layers=True``,
+    its layers unstacked as ``layer_<i>`` otherwise. A
+    ``Checkpoint(params=jax_params_layout(cfg, params))`` has JAX's leaf
+    paths; :func:`params_from_jax` maps them back."""
+    if cfg.scan_layers:
+        return params
+    out = {k: v for k, v in params.items() if k != "layers"}
+    for i in range(cfg.n_layers):
+        out[f"layer_{i}"] = {g: {n: t[i] for n, t in leaves.items()}
+                             for g, leaves in params["layers"].items()}
+    return out
+
+
+def params_template(cfg: TransformerConfig) -> dict:
+    """Placeholders at the leaf paths of :func:`jax_params_layout` (a
+    restore template: a plain leaf's restore is name-driven)."""
+    groups = param_shapes(cfg)["layers"]
+    layer = {g: {n: np.zeros(0, np.float32) for n in names}
+             for g, names in groups.items()}
+    out = {"embed": np.zeros(0, np.float32),
+           "final_norm": {"scale": np.zeros(0, np.float32)}}
+    if cfg.scan_layers:
+        out["layers"] = layer
+    else:
+        for i in range(cfg.n_layers):
+            out[f"layer_{i}"] = {g: dict(v) for g, v in layer.items()}
+    return out
+
+
+def params_from_flat(cfg: TransformerConfig, flat: dict, prefix: str,
+                     device="cuda") -> dict:
+    """The port's parameter dict from a checkpoint restore's flat
+    ``{"<prefix>/<path>": value}`` mapping (either package's leaves,
+    numpy arrays or bf16 tensors): nested, then :func:`params_from_jax`'s
+    layout, as tensors on ``device``."""
+    device = resolve_device(device)
+    tree: dict = {}
+    pre = prefix + "/"
+    for key, val in flat.items():
+        if not key.startswith(pre):
+            continue
+        node = tree
+        parts = key[len(pre):].split("/")
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = torch.as_tensor(val)
+    if "layers" not in tree:
+        names = [f"layer_{i}" for i in range(cfg.n_layers)]
+        missing = [n for n in names if n not in tree]
+        if missing:
+            raise ValueError(f"params have neither 'layers' nor {missing}")
+        tree["layers"] = {g: {n: torch.stack([tree[ln][g][n]
+                                               for ln in names])
+                              for n in tree[names[0]][g]}
+                          for g in tree[names[0]]}
+        for ln in names:
+            del tree[ln]
+    out = _map_leaves(lambda path, t: t.to(device), tree)
+    for g, leaves in param_shapes(cfg)["layers"].items():
         for n, shape in leaves.items():
             got = tuple(out["layers"][g][n].shape)
             if got != shape:
@@ -1593,14 +1768,14 @@ def _reduce_loss(loss, mesh, axes):
 
 
 def _check_axes(shape: dict):
-    if "pp" in shape:
-        raise NotImplementedError(
-            f"a {shape} mesh has a pipeline axis: its step is "
-            f"make_pipelined_train_step's")
-    if not set(shape) <= {"dcn", "dp", "fsdp", "sp", "tp", "ep"}:
+    """``NotImplementedError`` for an axis the step does not know. A
+    ``pp`` axis is a replicated dim, as under JAX's GSPMD: it is no
+    data axis, so every pp coordinate trains on the same rows with the
+    same parameters, and no reduction runs over it."""
+    if not set(shape) <= {"dcn", "dp", "fsdp", "sp", "tp", "ep", "pp"}:
         raise NotImplementedError(
             f"a {shape} mesh: the step runs meshes of dcn, dp, fsdp, sp, "
-            f"tp and ep")
+            f"tp, ep and pp")
 
 
 def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
@@ -1661,9 +1836,9 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh, global_batch: int,
     on every mesh (``ep`` alone or with ``dp``/``dcn``, ``tp``, ``sp``,
     ``fsdp``): ``grad_sync="bucketed"``/``"none"`` raise ``ValueError``
     and ``zero=`` ``NotImplementedError``, as in JAX; a rank holds
-    ``E/ep`` experts and ``moe_experts`` must divide by ``ep``. A mesh
-    with ``pp`` raises ``NotImplementedError``
-    (:func:`make_pipelined_train_step` is its step)."""
+    ``E/ep`` experts and ``moe_experts`` must divide by ``ep``. A ``pp``
+    axis is replicated, as JAX's GSPMD runs it (:func:`_check_axes`);
+    :func:`make_pipelined_train_step` is the step that pipelines it."""
     shape = _shape(mesh)
     size = 1
     for v in shape.values():
@@ -1973,10 +2148,12 @@ def make_pipelined_train_step(cfg: TransformerConfig, mesh,
     parameter dict on every rank (``of=``: its gradients);
     ``step.last_stats`` holds the last step's P2P counts (``"p2p"``)
     and offload stats (``"offload"``).
-    Meshes with axes other than ``dp`` and ``pp`` raise
-    ``NotImplementedError``; GPipe microbatches whose rows ``dp`` does not
-    divide raise ``ValueError`` when built, where JAX's raises it at the
-    first step."""
+    Any other axis of the mesh (``tp``, ...) is replicated, as in JAX,
+    whose stage weights are ``P("pp")`` and microbatches ``P(None,
+    "dp")``: each of its coordinates runs the same stages on the same
+    rows, and no reduction runs over it. GPipe microbatches whose rows
+    ``dp`` does not divide raise ``ValueError`` when built, where JAX's
+    raises it at the first step."""
     from distributed_tensorflow_tpu_torch import telemetry
     from distributed_tensorflow_tpu_torch.cluster import topology
     from distributed_tensorflow_tpu_torch.parallel import pipeline as pl
@@ -2030,10 +2207,6 @@ def make_pipelined_train_step(cfg: TransformerConfig, mesh,
             f"(microbatches flow in groups of pp per chunk)")
     if zero not in (0, 1, 2):
         raise ValueError(f"zero={zero!r}; expected 0, 1, or 2")
-    if not set(shape) <= {"dp", "pp"}:
-        raise NotImplementedError(
-            f"make_pipelined_train_step runs meshes of dp and pp, not "
-            f"{shape}")
     telemetry.event("pipeline.schedule", schedule=schedule,
                     n_stages=int(n_stages), n_micro=int(num_microbatches),
                     interleave=int(n_chunks),

@@ -38,7 +38,11 @@ one device:
 - **Hot-swap** — :meth:`install_version` flips the weights in place at
   a step boundary: running requests are re-queued pristine, the prefix
   cache is fenced by the new weights version, and no completion mixes
-  two versions.
+  two versions. :meth:`from_checkpoint` builds an engine from a
+  checkpoint of either package (``Checkpoint(params=...)``) and keeps
+  its provenance; :meth:`load_version` restores another step and
+  installs it, :meth:`begin_load_version` restores on a thread and
+  :meth:`step` installs it at the next step boundary.
 
 Two serving-speed features stack on the same step loop, each off by
 default and each OUTPUT-INVARIANT (greedy tokens are identical with the
@@ -82,6 +86,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import threading
 import time
 import zlib
 
@@ -251,6 +256,12 @@ class InferenceEngine:
         self.weights_step = (int(snapshot_step)
                              if snapshot_step is not None else 0)
         self.swaps = 0
+        self.swap_error: BaseException | None = None
+        # checkpoint provenance (from_checkpoint sets it; load_version
+        # rebuilds a pinned CheckpointManager from it)
+        self._version_source: dict | None = None
+        self._swap_thread: threading.Thread | None = None
+        self._pending_swap = None
         self.pool = init_pool(cache_cfg, self.device, mesh=mesh)
         tp, dp = self.tp, self.dp
         self._prefill = decode_lib.make_prefill_fn(cfg, cache_cfg, tp)
@@ -385,6 +396,143 @@ class InferenceEngine:
         """Spill epoch = incarnation × weights version: a host-tier
         block is re-adopted only while both match."""
         return f"{self.pool_epoch}/{self.weights_version}"
+
+    @classmethod
+    def from_checkpoint(cls, cfg: TransformerConfig, directory: str, *,
+                        checkpoint_name: str = "ckpt",
+                        local_dir: str | None = None,
+                        snapshot_store=None, seed: int = 0,
+                        at_step: int | None = None,
+                        **engine_kwargs) -> "InferenceEngine":
+        """An engine serving the weights restored down the recovery
+        ladder (JAX ``:429``): a checkpoint written as
+        ``Checkpoint(params=...)`` by either package (the flax leaf
+        paths of ``cfg``: ``models/transformer.jax_params_layout``),
+        restored by :meth:`~distributed_tensorflow_tpu_torch.checkpoint.
+        checkpoint.CheckpointManager.restore_latest` (host > peer >
+        local > durable; ``at_step`` pins one exact step and raises when
+        it is torn or gone). With nothing restorable it serves fresh
+        weights from ``seed`` (:func:`init_params`; the numbers differ
+        from JAX's init). The engine keeps the checkpoint's provenance,
+        so :meth:`load_version` can later swap to another step. A
+        restore emits ``serve.swap`` with ``mode="restart"``."""
+        from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
+            Checkpoint, CheckpointManager)
+        from distributed_tensorflow_tpu_torch.models.transformer import (
+            init_params, params_from_flat, params_template)
+        t0 = time.monotonic()
+        mesh = engine_kwargs.get("mesh")
+        device = (_mesh_device(mesh) if mesh is not None
+                  else resolve_device(engine_kwargs.get("device", "cuda")))
+        mgr = CheckpointManager(Checkpoint(params=params_template(cfg)),
+                                directory, checkpoint_name=checkpoint_name,
+                                local_dir=local_dir,
+                                snapshot_store=snapshot_store)
+        res = mgr.restore_latest(at_step=at_step)
+        step = None
+        if res is not None:
+            _tier, step, flat = res
+            params = params_from_flat(cfg, flat, "params", device)
+        else:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            params = init_params(cfg, gen, device)
+        eng = cls(cfg, params, snapshot_step=step, **engine_kwargs)
+        eng._version_source = dict(directory=directory,
+                                   checkpoint_name=checkpoint_name,
+                                   local_dir=local_dir,
+                                   snapshot_store=snapshot_store)
+        if step is not None:
+            telemetry.event(
+                "serve.swap", step=step, version=eng.weights_version,
+                previous=None, mode="restart", requeued=0,
+                dur_s=round(time.monotonic() - t0, 6))
+        return eng
+
+    def _restore_pinned(self, step: int) -> dict:
+        """Snapshot ``step``'s flat state, pinned (a torn or pruned step
+        raises, never a different version)."""
+        if self._version_source is None:
+            raise RuntimeError(
+                "load_version: engine has no checkpoint provenance — "
+                "build it with InferenceEngine.from_checkpoint")
+        from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
+            Checkpoint, CheckpointManager)
+        from distributed_tensorflow_tpu_torch.models.transformer import (
+            params_template)
+        src = self._version_source
+        mgr = CheckpointManager(
+            Checkpoint(params=params_template(self.cfg)), src["directory"],
+            checkpoint_name=src["checkpoint_name"],
+            local_dir=src["local_dir"],
+            snapshot_store=src["snapshot_store"])
+        res = mgr.restore_latest(at_step=int(step))
+        if res is None:
+            raise FileNotFoundError(
+                f"load_version: pinned step {step} not restorable")
+        return res[2]
+
+    def _params_of(self, flat: dict) -> dict:
+        from distributed_tensorflow_tpu_torch.models.transformer import (
+            params_from_flat)
+        return params_from_flat(self.cfg, flat, "params", self.device)
+
+    def load_version(self, step: int, *,
+                     published_wall: "float | None" = None) -> dict:
+        """Synchronous hot-swap to snapshot ``step``: pinned restore,
+        then :meth:`install_version` (the restore is part of the priced
+        transition). :meth:`begin_load_version` keeps the restore off
+        the serving thread."""
+        t0 = time.monotonic()
+        flat = self._restore_pinned(step)
+        return self.install_version(self._params_of(flat), step=step,
+                                    published_wall=published_wall,
+                                    started_mono=t0)
+
+    def begin_load_version(self, step: int, *,
+                           published_wall: "float | None" = None) -> bool:
+        """Restore snapshot ``step`` on a background thread; :meth:`step`
+        installs it at the next step boundary once it has landed (the
+        flip stays on the serving thread). False when a load is already
+        in flight. A failed restore surfaces as a ``serve.swap_error``
+        event and :attr:`swap_error`; the current version keeps
+        serving."""
+        if self._swap_thread is not None and self._swap_thread.is_alive():
+            return False
+
+        def _work():
+            t0 = time.monotonic()
+            try:
+                flat = self._restore_pinned(step)
+            except BaseException as e:       # surfaced at the boundary
+                self._pending_swap = ("error", int(step), e)
+                return
+            self._pending_swap = ("ready", int(step), flat,
+                                  published_wall, t0)
+
+        self._pending_swap = None
+        self._swap_thread = threading.Thread(
+            target=_work, name=f"swap-load-{step}", daemon=True)
+        self._swap_thread.start()
+        return True
+
+    def _poll_pending_swap(self):
+        """Install a background-loaded version at the step boundary."""
+        if self._swap_thread is None or self._swap_thread.is_alive():
+            return
+        self._swap_thread = None
+        pending, self._pending_swap = self._pending_swap, None
+        if pending is None:
+            return
+        if pending[0] == "error":
+            _kind, step, err = pending
+            self.swap_error = err
+            telemetry.event("serve.swap_error", step=step, error=repr(err))
+            return
+        _kind, step, flat, published_wall, t0 = pending
+        self.install_version(self._params_of(flat), step=step,
+                             published_wall=published_wall,
+                             started_mono=t0)
 
     def install_version(self, params, *, step: int | None = None,
                         published_wall: "float | None" = None,
@@ -734,6 +882,10 @@ class InferenceEngine:
         # chaos site first: an injected raise leaves scheduler and cache
         # state untouched, so the caller can simply retry the step
         faults.fire("serve.step", tag=self._step_idx)
+        # a background-loaded version installs here, at the step
+        # boundary: after the fault site, before any admission or
+        # decode touches the old weights
+        self._poll_pending_swap()
         sched = self.scheduler
         finished: list[dict] = []
         with telemetry.span("serve.step", step=self._step_idx) as sp:

@@ -59,7 +59,12 @@ print(json.dumps({"imported": names,
                 "parallel.tensor_parallel", "parallel.pipeline",
                 "parallel.sequence_parallel",
                 "parallel.offload", "telemetry.trace",
-                "testing.multi_process_runner"):
+                "testing.multi_process_runner", "cluster.coordination",
+                "cluster.elastic", "parallel.values",
+                "checkpoint.checkpoint", "checkpoint.delta",
+                "checkpoint.failure_handling",
+                "checkpoint.preemption_watcher", "embedding.dynamic",
+                "input.stream", "models.online_dlrm"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []
 
@@ -89,3 +94,24 @@ def test_chip_smoke_refuses_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+#: the port's checkpoint modules: their files are JAX's on-disk format,
+#: bf16 included, without ml_dtypes (absent on the card's machine)
+CHECKPOINT_MODULES = ("checkpoint.checkpoint", "checkpoint.peer_snapshot",
+                      "checkpoint.delta", "checkpoint.failure_handling",
+                      "embedding.dynamic", "models.online_dlrm")
+
+
+@pytest.mark.parametrize("module", CHECKPOINT_MODULES)
+def test_checkpoint_modules_load_no_ml_dtypes(module):
+    code = f"""
+import json, sys
+import distributed_tensorflow_tpu_torch.{module}
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "ml_dtypes" or m.startswith("ml_dtypes."))))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

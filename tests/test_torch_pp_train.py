@@ -14,10 +14,10 @@ converted parameters on the same tokens.
 - Every refusal of JAX's raises the port's with the same type for the
   same arguments; GPipe microbatches whose rows ``dp`` does not divide,
   which JAX's step refuses at its first call, the port refuses when
-  built (``ValueError`` both). The port alone refuses a mesh with axes
-  other than ``dp`` and ``pp`` (``NotImplementedError``), and
-  ``make_sharded_train_step`` refuses a ``pp`` mesh, naming
-  ``make_pipelined_train_step``.
+  built (``ValueError`` both). A mesh with another axis (``{"pp": 2,
+  "tp": 2}``) builds, as JAX's does (it replicates over the axis; the
+  training parity is ``tests/test_torch_mesh_repair.py``'s), and so
+  does ``make_sharded_train_step`` on a ``pp`` mesh.
 """
 
 import numpy as np
@@ -61,10 +61,10 @@ REFUSALS = [
     ("pp2", {}, {"schedule": "interleaved"}, 6, 3),
     ("pp2", {}, {"zero": 3}, GB, M),
 ]
-#: refused by the port when built: a mesh with another axis
-#: (NotImplementedError; JAX replicates over it), and GPipe microbatches
-#: of 3 rows over dp 2 (ValueError; JAX's shard_map raises it at the
-#: first step, test_gpipe_uneven_microbatch_refused_as_jax)
+#: built by the port as by JAX: a mesh with another axis (JAX
+#: replicates over it); refused by the port when built: GPipe
+#: microbatches of 3 rows over dp 2 (ValueError; JAX's shard_map raises
+#: it at the first step, test_gpipe_uneven_microbatch_refused_as_jax)
 PORT_REFUSALS = [("pp2tp2", {}, {}, GB, M),
                  ("dp2pp2", {}, {"schedule": "gpipe"}, 12, 4)]
 
@@ -219,10 +219,10 @@ def test_gpipe_uneven_microbatch_refused_as_jax(tokens, port_world4):
 
 
 def test_port_only_refusals(port_world2, port_world4):
+    """No refusal is the port's alone any more: the pipelined step
+    builds on ``{"pp": 2, "tp": 2}`` and the sharded step on a ``pp``
+    mesh, as JAX's do (C-4(c), (d))."""
     n = len(_refusals(("dp2pp2",)))
-    got = port_world4[0]["refusals"][n]
-    assert got is not None and got[0] == "NotImplementedError", got
+    assert port_world4[0]["refusals"][n] is None
     for ranks in (port_world2, port_world4):
-        g = ranks[0]["sharded_refusal"]
-        assert g is not None and g[0] == "NotImplementedError"
-        assert "make_pipelined_train_step" in g[1]
+        assert ranks[0]["sharded_refusal"] is None
