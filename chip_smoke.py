@@ -321,14 +321,44 @@ single-device BERT step by ``dp_parity``'s rule.
 38. ``mesh_repair`` (four cards) — ``make_sharded_train_step`` on dp2×pp2
     and pp2×tp2, ``make_pipelined_train_step`` GPipe and 1F1B on
     pp2×tp2, f32 against the single-device step.
+39. ``keras_scripts`` — the three ``examples/*_keras_script.py`` with
+    only their two import lines replaced by the port's (asserted),
+    exec'd as ``__main__`` on the card, as written (MNIST 3 epochs at
+    batch 256, the functional ResNet-50 at 64 × 64, the encoder): epoch
+    losses (falling), evaluation accuracy, examples/s and ms a step
+    (CUDA events), peak memory, device time by kernel group and the
+    idle share; no kernel of #1-#9.
+40. ``keras_parity`` — the MNIST script's model and the encoder with
+    dropout 0, from one ``set_weights`` tree, ``fit`` 2 epochs in f32
+    (TF32 off) under momentum SGD on the card and on the CPU in this
+    process: losses, metrics and weights by ``train_parity``'s rule;
+    MNIST under the script's Adam reported beside them.
+41. ``strategy_native`` — ``examples/train_mnist.py``'s native path on
+    the port: ``MirroredStrategy``, ``Dataset.from_tensor_slices(...)
+    .shuffle().batch().repeat()``, ``experimental_distribute_dataset``,
+    ``replicate``, ``compile_step(mnist_cnn.make_train_step)``,
+    ``StepTelemetry``, 50 steps: a falling loss, steps/s.
+42. ``keras_mirrored4`` (four cards) — the MNIST Keras model under
+    ``MirroredStrategy`` over 4 ranks, f32 at global batch 256, against
+    one card from the same weights and data by ``dp_parity``'s rule;
+    the ResNet script's graph 20 steps at global batch 256 (BatchNorm
+    statistics global): images/s against one card at 64.
+43. ``strategy_run4`` (four cards) — scope, a mirrored and an ON_READ
+    variable, ``run`` with a ``PerReplica`` argument, ``all_reduce``,
+    ``all_gather``, ``merge_call``, ``reduce`` SUM and MEAN with and
+    without ``axis``, ``experimental_distribute_values_from_function``,
+    every rank against numpy; ``compile_step`` on 4 ranks against one
+    card's step on the global batch.
 
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
 ``--phases sp_train,sp_parity``, ``--phases moe_train,moe_parity,
 fsdp_train,fsdp_parity``, ``--phases resnet_dp,wide_deep_tp,tp_train,
-tp_parity``, ``--phases ckpt_mesh,mesh_repair``), and prints no kernels
-line. ``ckpt_mesh`` and ``mesh_repair`` run in the whole run only when
-four cards are visible.
+tp_parity``, ``--phases ckpt_mesh,mesh_repair``, ``--phases
+keras_mirrored4,strategy_run4``), and prints no kernels line.
+``ckpt_mesh``, ``mesh_repair``, ``keras_mirrored4`` and
+``strategy_run4`` run in the whole run only when four cards are
+visible.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -339,7 +369,7 @@ bf16, its times at the largest suffix shape; every row's
 at the ring's block shape, each kind of block; ``moe_launches`` and
 ``fsdp_launches`` each ``moe_train`` and ``fsdp_train`` run's;
 ``other_workload_launches`` phases 27-33's, all 0; ``ckpt_launches``
-phases 34-36's),
+phases 34-36's; ``keras_launches`` phases 39-41's, all 0),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -446,7 +476,27 @@ MESH_REPAIR_PIPELINED = {"pp2tp2": ({"pp": 2, "tp": 2},
                                     (("gpipe", {}), ("1f1b", {})))}
 # phases that need four cards: run by --phases, or in the whole run
 # when four are visible
-FOUR_CARD_PHASES = ("ckpt_mesh", "mesh_repair")
+FOUR_CARD_PHASES = ("ckpt_mesh", "mesh_repair", "keras_mirrored4",
+                    "strategy_run4")
+# keras_scripts: the Keras scripts run on the port with only these
+# import lines replaced
+KERAS_SCRIPTS = ("examples/train_mnist_keras_script.py",
+                 "examples/train_resnet_keras_script.py",
+                 "examples/train_bert_keras_script.py")
+KERAS_IMPORTS = (("import distributed_tensorflow_tpu as tf_distribute",
+                  "import distributed_tensorflow_tpu_torch as tf_distribute"),
+                 ("from distributed_tensorflow_tpu import keras",
+                  "from distributed_tensorflow_tpu_torch import keras"))
+# keras_parity: rows and batch of each run's 2-epoch fit (a partial
+# final batch each); "_adam" runs are reported, not held
+KERAS_PARITY = {"mnist": (520, 256), "encoder": (200, 64),
+                "mnist_adam": (520, 256)}
+# strategy_native: train_mnist.py's defaults
+NATIVE_STEPS, NATIVE_BATCH = 50, 256
+# keras_mirrored4: the MNIST fit (rows, global batch, epochs) and the
+# ResNet graph's timed steps at its global batch
+K4_MNIST = (1100, 256, 2)
+K4_RESNET_STEPS, K4_RESNET_BATCH = 20, 256
 # kernels launched per train step of transformer_big at batch 8 x 1024:
 # one flash forward, dq and dkv a layer; one CE forward and backward per
 # 4096-row chunk of the 8192 tokens; bf16, so on the tensor-core kernels
@@ -8334,6 +8384,574 @@ def phase_mesh_repair(state):
             "sharded": sharded, "pipelined": piped}
 
 
+# ---------------------------------------------------------------------------
+# The strategy API and the Keras shim (phases 39-43)
+# ---------------------------------------------------------------------------
+
+def _port_script(path: str) -> str:
+    """``path``'s source with exactly its two import lines replaced by the
+    port's; raises if anything else would differ."""
+    with open(os.path.join(ROOT, path)) as f:
+        src = f.read()
+    lines = src.split("\n")
+    out = list(lines)
+    for old, new in KERAS_IMPORTS:
+        hits = [i for i, line in enumerate(lines) if line == old]
+        if len(hits) != 1:
+            raise AssertionError(f"{path}: {old!r} found {len(hits)} times")
+        out[hits[0]] = new
+    changed = [i for i, (a, b) in enumerate(zip(lines, out)) if a != b]
+    if len(changed) != 2 or len(out) != len(lines):
+        raise AssertionError(f"{path}: lines {changed} changed")
+    return "\n".join(out)
+
+
+class _KerasProbe:
+    """Times every ``Model._train_step`` with CUDA events and keeps the
+    model, its last batch, ``fit``'s histories and ``evaluate``'s
+    results, while installed (``with``)."""
+
+    def __init__(self):
+        from distributed_tensorflow_tpu_torch.training.model import Model
+        self.cls = Model
+        self.step_ms, self.rows, self.history, self.evals = [], [], [], []
+        self.model = self.batch = None
+
+    def __enter__(self):
+        import torch
+        cls, probe = self.cls, self
+        self.orig = (cls._train_step, cls.fit, cls.evaluate)
+        step, fit, evaluate = self.orig
+
+        def timed_step(model, mstate, batch, full):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(model, mstate, batch, full)
+            e1.record()
+            probe._events.append((e0, e1))
+            probe.rows.append(int(batch[0].shape[0]))
+            probe.model, probe.batch = model, batch
+            return out
+
+        def fit_(model, *a, **kw):
+            h = fit(model, *a, **kw)
+            probe.history.append(dict(h.history))
+            return h
+
+        def evaluate_(model, *a, **kw):
+            r = evaluate(model, *a, **kw)
+            probe.evals.append(r)
+            return r
+        self._events = []
+        cls._train_step, cls.fit, cls.evaluate = timed_step, fit_, evaluate_
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self.cls._train_step, self.cls.fit, self.cls.evaluate = self.orig
+        torch.cuda.synchronize()
+        self.step_ms = [a.elapsed_time(b) for a, b in self._events]
+        return False
+
+
+def _keras_groups(probe) -> dict:
+    """``_kernel_groups`` of one more train step of the probed model on
+    its last batch, and the idle share against the mean step."""
+    import numpy as np
+    m, batch = probe.model, probe.batch
+
+    def one():
+        m._train_step(m._metric_init(), batch, True)
+    groups = _kernel_groups(one, 2)
+    mean = float(np.mean(probe.step_ms))
+    groups["idle_share"] = max(0.0, 1.0 - groups["device_busy_ms"] / mean)
+    return groups
+
+
+def phase_keras_scripts(state):
+    """Phase 39: each Keras script, its import lines alone replaced,
+    exec'd as ``__main__`` on the card."""
+    import io
+    import contextlib
+    import numpy as np
+    import torch
+    out = {}
+    counts_all = {}
+    for path in KERAS_SCRIPTS:
+        code = _port_script(path)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with _KerasProbe() as probe, contextlib.redirect_stdout(buf):
+            exec(compile(code, os.path.join(ROOT, path), "exec"),
+                 {"__name__": "__main__", "__file__": path})
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        name = os.path.basename(path).removesuffix("_keras_script.py")
+        _no_kernel_launched(name, counts)
+        hist = probe.history[0]
+        _falls(name, hist["loss"])
+        ms = probe.step_ms
+        rows = int(np.sum(probe.rows))
+        groups = _keras_groups(probe)
+        out[name] = {
+            "epoch_losses": hist["loss"], "history": hist,
+            "eval_loss_accuracy": probe.evals[-1],
+            "steps": len(ms), "batch": probe.rows[0],
+            "step_ms_mean": float(np.mean(ms)),
+            "step_ms_median": float(np.median(ms)),
+            "step_ms_first": ms[0],
+            "examples_per_s": rows / (float(np.sum(ms)) / 1e3),
+            "examples_per_s_steady": probe.rows[0] / (
+                float(np.median(ms)) / 1e3),
+            "script_wall_s": wall,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "n_params": sum(t.numel() for t in
+                            probe.model._param_list),
+            **groups, "stdout_tail": buf.getvalue()[-400:],
+            "launches": counts}
+        counts_all[name] = counts
+    state["keras_scripts_launches"] = {
+        k: sum(c[k] for c in counts_all.values())
+        for k in next(iter(counts_all.values()))}
+    return {"scripts": list(KERAS_SCRIPTS), **out}
+
+
+def _parity_encoder(keras):
+    """The encoder script's model with dropout 0."""
+    layers = keras.layers
+    inputs = keras.Input(shape=(64,), dtype="int32")
+    x = layers.Embedding(1000, 64)(inputs)
+    for _ in range(2):
+        attn = layers.MultiHeadAttention(4, 16, dropout=0.0)(x, x)
+        attn = layers.Dropout(0.0)(attn)
+        x = layers.LayerNormalization(epsilon=1e-6)(layers.Add()([x, attn]))
+        ff = layers.Dense(256, activation="gelu")(x)
+        ff = layers.Dense(64)(ff)
+        ff = layers.Dropout(0.0)(ff)
+        x = layers.LayerNormalization(epsilon=1e-6)(layers.Add()([x, ff]))
+    x = layers.GlobalAveragePooling1D()(x)
+    x = layers.Dense(64, activation="tanh")(x)
+    return keras.Model(inputs=inputs, outputs=layers.Dense(4)(x))
+
+
+def _parity_mnist(keras):
+    """The MNIST script's Sequential with dropout 0."""
+    return keras.Sequential([
+        keras.Input((28, 28, 1)),
+        keras.layers.Conv2D(32, 3, padding="same", activation="relu"),
+        keras.layers.Conv2D(64, 3, padding="same", activation="relu"),
+        keras.layers.MaxPooling2D(2),
+        keras.layers.Flatten(),
+        keras.layers.Dropout(0.0),
+        keras.layers.Dense(128, activation="relu"),
+        keras.layers.Dense(10)])
+
+
+def _flat_np(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_np(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _param_rule(got: dict, want: dict) -> dict:
+    """``train_parity``'s rule on two weight trees: the elements beyond
+    TRAIN_PARAM_TOL may be at most TRAIN_PARAM_FRAC of all."""
+    import numpy as np
+    n = sum(w.size for w in want.values())
+    beyond = sum(int((np.abs(got[k] - w) > TRAIN_PARAM_TOL).sum())
+                 for k, w in want.items())
+    worst = max(float(np.abs(got[k] - w).max()) for k, w in want.items())
+    return {"n_params": n, "beyond_tol": beyond,
+            "allowed": TRAIN_PARAM_FRAC * n, "max_abs_err": worst,
+            "ok": beyond <= TRAIN_PARAM_FRAC * n}
+
+
+def phase_keras_parity(state):
+    """Phase 40: the MNIST model and the encoder, dropout 0, one weight
+    tree, 2 epochs on the card and on the CPU, held under momentum SGD:
+    Adam divides each gradient by about its own size, so the f32 noise of
+    near-zero gradients (cuDNN and the CPU sum convolutions in other
+    orders) grows into real steps — MNIST under the script's Adam is run
+    and reported beside them, not held (on an H100: 2,377 of 1.6 M
+    elements past 1e-6, the loss 1.07e-5 apart; PERF.md §6)."""
+    import numpy as np
+    import torch
+    import distributed_tensorflow_tpu_torch as tfd
+    from distributed_tensorflow_tpu_torch import keras
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zero_launch_counts()
+    out, problems = {}, []
+    try:
+        for run, (n, batch) in KERAS_PARITY.items():
+            kind = run.removesuffix("_adam")
+            rng = np.random.default_rng(5)
+            if kind == "mnist":
+                build = _parity_mnist
+                x = rng.normal(size=(n, 28, 28, 1)).astype("float32")
+                y = (np.abs(x.mean(axis=(1, 2, 3))) * 40).astype(
+                    "int32") % 10
+            else:
+                build = _parity_encoder
+                x = rng.integers(1, 1000, size=(n, 64)).astype("int32")
+                y = (x[:, :8].sum(axis=1) % 4).astype("int32")
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                strategy = tfd.MirroredStrategy(
+                    devices=["cpu"] if dev == "cpu" else None)
+                with strategy.scope():
+                    model = build(keras)
+                    model.compile(
+                        optimizer=(keras.optimizers.Adam(1e-3)
+                                   if run.endswith("_adam") else
+                                   keras.optimizers.SGD(0.01, momentum=0.9)),
+                        loss=keras.losses.SparseCategoricalCrossentropy(
+                            from_logits=True), metrics=["accuracy"])
+                if dev == "cpu":
+                    init = model.get_weights()
+                model.set_weights(init)
+                h = model.fit(x, y, batch_size=batch, epochs=2, verbose=0)
+                runs[dev] = {"history": h.history,
+                             "weights": _flat_np(model.get_weights())}
+            hg, hw = runs["cuda"]["history"], runs["cpu"]["history"]
+            loss_err = max(abs(a - b) for a, b in zip(hg["loss"],
+                                                      hw["loss"]))
+            metric_err = max(abs(a - b) for a, b in zip(hg["accuracy"],
+                                                        hw["accuracy"]))
+            rule = _param_rule(runs["cuda"]["weights"],
+                               runs["cpu"]["weights"])
+            ok = (loss_err <= TRAIN_LOSS_TOL and metric_err <= TRAIN_LOSS_TOL
+                  and rule["ok"])
+            held = not run.endswith("_adam")
+            out[run] = {"rows": n, "batch": batch, "held": held,
+                        "card": hg, "cpu": hw,
+                        "max_abs_loss_err": loss_err,
+                        "max_abs_metric_err": metric_err, "params": rule,
+                        "ok": ok}
+            if held and not ok:
+                problems.append(f"{run}: {out[run]}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    counts = launch_counts()
+    _no_kernel_launched("keras_parity", counts)
+    state["keras_parity_launches"] = counts
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"loss_tol": TRAIN_LOSS_TOL, "param_tol": TRAIN_PARAM_TOL,
+            "param_frac_allowed": TRAIN_PARAM_FRAC, **out,
+            "launches": counts}
+
+
+def phase_strategy_native(state):
+    """Phase 41: ``examples/train_mnist.py``'s native path on the port,
+    one card."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.input.dataset import Dataset
+    from distributed_tensorflow_tpu_torch.models.mnist_cnn import (
+        create_train_state, make_train_step, synthetic_data)
+    from distributed_tensorflow_tpu_torch.parallel.mirrored import (
+        MirroredStrategy)
+    from distributed_tensorflow_tpu_torch.training.loops import (
+        StepTelemetry)
+    torch.cuda.empty_cache()
+    strategy = MirroredStrategy()
+    data = synthetic_data(4096)
+    ds = Dataset.from_tensor_slices(data).shuffle(4096).batch(
+        NATIVE_BATCH).repeat()
+    dist_ds = strategy.experimental_distribute_dataset(ds)
+    state_, model, tx = create_train_state(0, learning_rate=1e-3,
+                                           device=strategy.device)
+    state_ = strategy.replicate(state_)
+    step_fn = strategy.compile_step(make_train_step(model, tx))
+    tel = StepTelemetry()
+    it = iter(dist_ds)
+    zero_launch_counts()
+    losses, step_ms = [], []
+    t0 = time.perf_counter()
+    for step in range(NATIVE_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        batch = next(it)
+        e0.record()
+        state_, metrics = step_fn(state_, batch)
+        e1.record()
+        losses.append(metrics["loss"])
+        tel.step_completed(step)
+        step_ms.append((e0, e1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    step_ms = [a.elapsed_time(b) for a, b in step_ms]
+    counts = launch_counts()
+    _no_kernel_launched("strategy_native", counts)
+    if not (np.mean(losses[-5:]) < np.mean(losses[:5])
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"strategy_native: losses {losses}")
+    state["strategy_native_launches"] = counts
+    return {"replicas": strategy.num_replicas_in_sync,
+            "global_batch": NATIVE_BATCH, "steps": NATIVE_STEPS,
+            "steps_per_s": NATIVE_STEPS / wall,
+            "examples_per_s": NATIVE_STEPS * NATIVE_BATCH / wall,
+            "step_ms_mean": float(np.mean(step_ms)),
+            "step_ms_median": float(np.median(step_ms)),
+            "host_wall_s": wall, "first_losses": losses[:5],
+            "last_losses": losses[-5:], "launches": counts}
+
+
+def _keras_mirrored_rank() -> dict:
+    """One rank of ``keras_mirrored4``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import distributed_tensorflow_tpu_torch as tfd
+    from distributed_tensorflow_tpu_torch import keras
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    bootstrap.initialize(device="cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "world": world}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, gb, epochs = K4_MNIST
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, 28, 28, 1)).astype("float32")
+    y = (np.abs(x.mean(axis=(1, 2, 3))) * 40).astype("int32") % 10
+
+    def mnist_fit(strategy, init):
+        with strategy.scope():
+            model = _parity_mnist(keras)
+            model.compile(optimizer=keras.optimizers.Adam(1e-3),
+                          loss=keras.losses.SparseCategoricalCrossentropy(
+                              from_logits=True), metrics=["accuracy"])
+        if init is None:
+            init = model.get_weights()
+        model.set_weights(init)
+        h = model.fit(x, y, batch_size=gb, epochs=epochs, verbose=0)
+        return model, h.history, init
+    mirrored = tfd.MirroredStrategy()
+    model4, h4, init = mnist_fit(mirrored, None)
+    out["mnist"] = {"replicas": mirrored.num_replicas_in_sync,
+                    "history": h4}
+    w4 = _flat_np(model4.get_weights())
+    if rank == 0:
+        # one card from the same initial weights and data
+        model1, h1, _ = mnist_fit(tfd.OneDeviceStrategy(), init)
+        w1 = _flat_np(model1.get_weights())
+        loss_err = max(abs(a - b) for a, b in zip(h4["loss"], h1["loss"]))
+        metric_err = max(abs(a - b) for a, b in zip(h4["accuracy"],
+                                                    h1["accuracy"]))
+        rule = _param_rule(w4, w1)
+        out["mnist"].update(one_card=h1, max_abs_loss_err=loss_err,
+                            max_abs_metric_err=metric_err, params=rule,
+                            ok=(loss_err <= DP_PARITY_TOL
+                                and metric_err <= DP_PARITY_TOL
+                                and rule["ok"]))
+    dist.barrier()
+    del model4
+    torch.cuda.empty_cache()
+
+    # the ResNet script's graph: 20 steps at the global batch on every
+    # card (BatchNorm statistics global), then one card at its share
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ns: dict = {"__name__": "resnet_keras_script"}
+    exec(compile(_port_script(KERAS_SCRIPTS[1]), KERAS_SCRIPTS[1], "exec"),
+         ns)
+    rx = np.random.default_rng(1).normal(
+        size=(K4_RESNET_BATCH * K4_RESNET_STEPS, 64, 64, 3)).astype("float32")
+    ry = (np.abs(rx.mean(axis=(1, 2, 3))) * 400).astype("int32") % 10
+
+    def resnet_fit(strategy, batch, steps):
+        with strategy.scope():
+            model = ns["build_resnet50"]()
+            model.compile(optimizer=keras.optimizers.SGD(0.05, momentum=0.9),
+                          loss=keras.losses.SparseCategoricalCrossentropy(
+                              from_logits=True), metrics=["accuracy"])
+        with _KerasProbe() as probe:
+            h = model.fit(rx[:batch * steps], ry[:batch * steps],
+                          batch_size=batch, epochs=1, verbose=0,
+                          shuffle=False)
+        ms = probe.step_ms[2:]            # past the first steps' warm-up
+        return {"steps": len(probe.step_ms), "step_ms_mean": float(
+            np.mean(ms)), "images_per_s": batch / (float(np.mean(ms)) / 1e3),
+            "loss": h.history["loss"],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    out["resnet"] = {"world": resnet_fit(mirrored, K4_RESNET_BATCH,
+                                         K4_RESNET_STEPS)}
+    dist.barrier()
+    if rank == 0:
+        out["resnet"]["one_card"] = resnet_fit(
+            tfd.OneDeviceStrategy(), K4_RESNET_BATCH // world,
+            K4_RESNET_STEPS)
+        out["resnet"]["speedup"] = (out["resnet"]["world"]["images_per_s"]
+                                    / out["resnet"]["one_card"]
+                                    ["images_per_s"])
+    dist.barrier()
+    out["launches"] = launch_counts()
+    bootstrap.shutdown()
+    return out
+
+
+def phase_keras_mirrored4(state):
+    """Phase 42 (four cards): the Keras shim under ``MirroredStrategy``
+    on one rank a card."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(_keras_mirrored_rank, world,
+                                     device="cuda",
+                                     timeout=900).return_values
+    r0 = ranks[0]
+    problems = []
+    if not r0["mnist"].get("ok"):
+        problems.append(f"mnist parity {r0['mnist']}")
+    for r in ranks:
+        if r["mnist"]["history"] != r0["mnist"]["history"]:
+            problems.append(f"rank {r['rank']}: history differs")
+        if any(r["launches"].values()):
+            problems.append(f"rank {r['rank']}: kernels {r['launches']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": world, "mnist_rows_batch_epochs": K4_MNIST,
+            "rule": "loss and accuracy within DP_PARITY_TOL, weights by "
+                    "train_parity's rule", "ranks": ranks}
+
+
+def _strategy_run_rank() -> dict:
+    """One rank of ``strategy_run4``: every check against numpy."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import distributed_tensorflow_tpu_torch as tfd
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.input.dataset import Dataset
+    from distributed_tensorflow_tpu_torch.models import mnist_cnn
+    from distributed_tensorflow_tpu_torch.parallel.values import (
+        VariableAggregation as Agg, VariableSynchronization as Sync)
+    bootstrap.initialize(device="cuda")
+    rank = dist.get_rank()
+    s = tfd.MirroredStrategy()
+    R = s.num_replicas_in_sync
+    x = np.random.default_rng(3).normal(size=(R, 4)).astype(np.float32)
+    px = tfd.PerReplica([x[i] for i in range(R)])
+    errs = {}
+
+    def err(name, got, want):
+        got = [g.cpu().numpy() if hasattr(g, "cpu") else np.asarray(g)
+               for g in (got.values if isinstance(got, tfd.PerReplica)
+                         else [got])]
+        want = want if isinstance(want, list) else [want]
+        errs[name] = max(float(np.abs(g - np.asarray(w, np.float32)).max())
+                         for g, w in zip(got, want))
+
+    def fn(v):
+        ctx = tfd.get_replica_context()
+        return {"y": v * 2.0 + 1.0, "sum": ctx.all_reduce("sum", v),
+                "gather": ctx.all_gather(v[None], axis=0),
+                "merged": ctx.merge_call(
+                    lambda st, t: st.extended.reduce_to("sum", t) + 1.0,
+                    args=(v,))}
+    with s.scope():
+        mv = s.create_variable(np.zeros(4, np.float32))
+        rv = s.create_variable(np.zeros(4, np.float32),
+                               synchronization=Sync.ON_READ,
+                               aggregation=Agg.SUM)
+
+    def write(v):
+        mv.assign(v * 3.0)
+        rv.assign_add(v)
+        return rv.read_value()
+    res = s.run(fn, args=(px,))
+    y = x * 2 + 1
+    err("run/y", res["y"], list(y))
+    err("all_reduce", res["sum"], [x.sum(0)] * R)
+    err("all_gather", res["gather"], [x] * R)
+    err("merge_call", res["merged"], [x.sum(0) + 1] * R)
+    for op, f in (("sum", np.sum), ("mean", np.mean)):
+        err(f"reduce/{op}", s.reduce(op, res["y"]), f(y, axis=0))
+        err(f"reduce/{op}/axis", s.reduce(op, res["y"], axis=0),
+            f(f(y, axis=1), axis=0))
+    local = s.run(write, args=(px,))
+    err("on_read/local", local, list(x))
+    err("mirrored/mean", mv.read_value(), (3 * x).mean(0))
+    err("on_read/sum", rv.read_value(), x.sum(0))
+    vals = s.experimental_distribute_values_from_function(
+        lambda ctx: np.full(3, ctx.replica_id_in_sync_group, np.float32))
+    err("values_fn", s.run(lambda v: v + 1.0, args=(vals,)),
+        [np.full(3, r + 1.0) for r in range(R)])
+
+    # compile_step on R ranks against one card's step on the global batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = mnist_cnn.synthetic_data(256, seed=4)
+    gb = 64
+    init = mnist_cnn.flax_params(mnist_cnn.MNISTCNN(
+        device="cpu", generator=torch.Generator().manual_seed(0)))
+
+    def steps(strategy, distribute):
+        model = mnist_cnn.params_from_jax(init, device=strategy.device)
+        tx = mnist_cnn.make_optimizer(model.parameters())
+        st = strategy.replicate({"model": model, "optimizer": tx, "step": 0})
+        step = strategy.compile_step(mnist_cnn.make_train_step(model, tx))
+        ds = Dataset.from_tensor_slices(data).batch(gb)
+        it = iter(strategy.experimental_distribute_dataset(ds)
+                  if distribute else ds)
+        losses = []
+        for _ in range(3):
+            st, m = step(st, next(it))
+            losses.append(float(m["loss"]))
+        return losses, _flat_np(mnist_cnn.flax_params(model))
+    got_l, got_w = steps(s, True)
+    out = {"rank": rank, "replicas": R, "errors": errs, "losses": got_l}
+    if rank == 0:
+        want_l, want_w = steps(tfd.OneDeviceStrategy(), False)
+        out["one_card_losses"] = want_l
+        out["compile_step"] = {
+            "max_abs_loss_err": max(abs(a - b) for a, b in zip(got_l,
+                                                               want_l)),
+            "params": _param_rule(got_w, want_w)}
+    dist.barrier()
+    out["launches"] = launch_counts()
+    bootstrap.shutdown()
+    return out
+
+
+def phase_strategy_run4(state):
+    """Phase 43 (four cards): the TF-parity path on one rank a card."""
+    import torch
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    world = torch.cuda.device_count()
+    ranks = multi_process_runner.run(_strategy_run_rank, world,
+                                     device="cuda",
+                                     timeout=600).return_values
+    problems = []
+    for r in ranks:
+        bad = {k: v for k, v in r["errors"].items() if v > 1e-6}
+        if bad:
+            problems.append(f"rank {r['rank']}: {bad}")
+        if r["losses"] != ranks[0]["losses"]:
+            problems.append(f"rank {r['rank']}: losses differ")
+    cs = ranks[0]["compile_step"]
+    if not (cs["max_abs_loss_err"] <= DP_PARITY_TOL and cs["params"]["ok"]):
+        problems.append(f"compile_step {cs}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": world, "value_tol": 1e-6,
+            "compile_step_rule": "loss within DP_PARITY_TOL, weights by "
+                                 "train_parity's rule", "ranks": ranks}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -8400,8 +9018,13 @@ def main(argv=None) -> int:
                      ("ckpt_train", phase_ckpt_train),
                      ("ckpt_serve", phase_ckpt_serve),
                      ("online_train", phase_online_train),
+                     ("keras_scripts", phase_keras_scripts),
+                     ("keras_parity", phase_keras_parity),
+                     ("strategy_native", phase_strategy_native),
                      ("ckpt_mesh", phase_ckpt_mesh),
-                     ("mesh_repair", phase_mesh_repair)):
+                     ("mesh_repair", phase_mesh_repair),
+                     ("keras_mirrored4", phase_keras_mirrored4),
+                     ("strategy_run4", phase_strategy_run4)):
         if only and name not in only:
             continue
         if name in FOUR_CARD_PHASES and not only \
@@ -8520,6 +9143,13 @@ def main(argv=None) -> int:
             path: state[f"{path}_launches"][name]
             for path in ("ckpt_train", "ckpt_train_fused", "ckpt_serve",
                          "online_train")}
+        # the strategy and Keras phases, each from 0: none of #1-#9 is
+        # on their paths (convolutions, dense layers and the Keras MHA's
+        # einsum-softmax-einsum are cuDNN's and cuBLAS's)
+        row["keras_launches"] = {
+            path: state[f"{path}_launches"][name]
+            for path in ("keras_scripts", "keras_parity",
+                         "strategy_native")}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

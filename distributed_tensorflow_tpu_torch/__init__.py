@@ -3,7 +3,7 @@
 The package mirrors the JAX package's module layout (``ops/``,
 ``models/``, ``serving/``, ``telemetry/``, ``resilience/``,
 ``checkpoint/``, ``cluster/``, ``parallel/``, ``testing/``,
-``embedding/``) so each
+``embedding/``, ``input/``, ``training/``, ``utils/``) so each
 ported module sits at the same relative path as the module it is held
 against. It imports
 torch, numpy and the standard library only — never jax, flax, optax or
@@ -17,8 +17,62 @@ on a CPU tensor its wrapper runs the plain PyTorch version instead.
 
 Importing this package imports no submodule: import what you use, e.g.
 ``from distributed_tensorflow_tpu_torch.serving.engine import
-InferenceEngine``.
+InferenceEngine``. The strategy API and the Keras shim are also lazy
+top-level names (``_LAZY``), as the JAX package exports them, so a
+Keras script runs on the port with its import lines changed::
+
+    import distributed_tensorflow_tpu_torch as tf_distribute
+    from distributed_tensorflow_tpu_torch import keras
+    strategy = tf_distribute.MirroredStrategy()
 """
 
+import importlib
+
 __all__ = ["ops", "models", "serving", "telemetry", "resilience",
-           "checkpoint", "cluster", "parallel", "testing", "embedding"]
+           "checkpoint", "cluster", "parallel", "testing", "embedding",
+           "input", "training", "utils"]
+
+_P = "distributed_tensorflow_tpu_torch."
+
+#: top-level name -> the submodule that defines it (loaded on first use)
+_LAZY = {
+    **{n: _P + "parallel.strategy" for n in (
+        "Strategy", "ReplicaContext", "StrategyExtended", "ValueContext",
+        "get_replica_context", "get_strategy", "has_strategy",
+        "in_cross_replica_context")},
+    "OneDeviceStrategy": _P + "parallel.one_device",
+    "MirroredStrategy": _P + "parallel.mirrored",
+    **{n: _P + "parallel.collectives" for n in (
+        "ReduceOp", "CollectiveType", "CommunicationImplementation",
+        "CommunicationOptions")},
+    **{n: _P + "parallel.values" for n in (
+        "DistributedValues", "PerReplica", "Mirrored",
+        "DistributedVariable", "MirroredVariable", "SyncOnReadVariable",
+        "VariableSynchronization", "VariableAggregation")},
+    **{n: _P + "parallel.cross_device_ops" for n in (
+        "CrossDeviceOps", "ReductionToOneDevice", "IciAllReduce",
+        "NcclAllReduce", "HierarchicalAllReduce",
+        "select_cross_device_ops")},
+    **{n: _P + "input.dataset" for n in (
+        "Dataset", "DistributedDataset", "InputOptions", "AutoShardPolicy",
+        "InputContext")},
+}
+
+#: top-level submodules loaded on first use (``tf_distribute.keras``)
+_LAZY_MODULES = {"keras": _P + "keras", "collectives":
+                 _P + "parallel.collectives"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        value = getattr(importlib.import_module(_LAZY[name]), name)
+    elif name in _LAZY_MODULES:
+        value = importlib.import_module(_LAZY_MODULES[name])
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY) | set(_LAZY_MODULES))

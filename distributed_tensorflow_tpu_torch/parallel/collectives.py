@@ -27,12 +27,23 @@ Sequence parallelism's collectives: :class:`Ring` and
 gradient the reverse shift), :func:`all_to_all` (``jax.lax.all_to_all``
 with ``tiled=True``, differentiable) and :class:`AllToAllV` (uneven
 blocks, for the striped relayout).
+
+The strategy API's surface (JAX ``:34-229``, ``:501``):
+:class:`CollectiveType`, :class:`CommunicationImplementation` (AUTO,
+RING, NCCL and ICI are kept for configuration compatibility; every one
+is NCCL on the card and gloo on the CPU), :class:`CommunicationOptions`,
+:class:`CollectiveKeys`, :func:`broadcast`, :func:`permute`,
+:func:`permute_shift`, :func:`axis_index` and :func:`mesh_all_reduce`.
+A collective over a subset of a mesh's dims (a strategy's data dims on
+a mesh with ``tp``) runs on that subset's own group
+(:func:`axis_group`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import threading
 import weakref
 from typing import Sequence
 
@@ -68,19 +79,116 @@ def _names(axis_names: AxisName) -> tuple:
     return (axis_names,) if isinstance(axis_names, str) else tuple(axis_names)
 
 
+class CollectiveType(enum.Enum):
+    """The six collective kinds (JAX ``:34``)."""
+
+    REDUCTION = "reduction"
+    BROADCAST = "broadcast"
+    GATHER = "gather"
+    PERMUTE = "permute"
+    ALL_TO_ALL = "all_to_all"
+    REDUCE_SCATTER = "reduce_scatter"
+
+
+class CommunicationImplementation(enum.Enum):
+    """JAX ``:65``: kept for configuration compatibility; every value
+    runs on NCCL on the card and gloo on the CPU."""
+
+    AUTO = "AUTO"
+    RING = "RING"
+    NCCL = "NCCL"
+    ICI = "ICI"
+
+
+@dataclasses.dataclass(frozen=True)
+class CommunicationOptions:
+    """JAX ``:80``: ``bytes_per_pack`` sizes the cross-device ops' and
+    the gradient bucketer's packs (0: one pack per dtype run, the
+    bucketer's default 4 MiB); ``timeout_seconds`` and
+    ``implementation`` are carried for compatibility."""
+
+    bytes_per_pack: int = 0
+    timeout_seconds: float | None = None
+    implementation: CommunicationImplementation = \
+        CommunicationImplementation.AUTO
+
+    def merge(self, other: "CommunicationOptions | None"
+              ) -> "CommunicationOptions":
+        """``other``'s set fields over this one's (JAX ``:99``)."""
+        if other is None:
+            return self
+        return CommunicationOptions(
+            bytes_per_pack=other.bytes_per_pack or self.bytes_per_pack,
+            timeout_seconds=(other.timeout_seconds
+                             if other.timeout_seconds is not None
+                             else self.timeout_seconds),
+            implementation=(other.implementation
+                            if other.implementation
+                            is not CommunicationImplementation.AUTO
+                            else self.implementation))
+
+
+class CollectiveKeys:
+    """Group and instance key bookkeeping (JAX ``:117``)."""
+
+    def __init__(self, group_key_start: int = 1):
+        self._group_key = group_key_start
+        self._instance_keys: dict[int, int] = {}
+        self._lock = threading.Lock()
+
+    def get_group_key(self, devices: Sequence) -> int:
+        with self._lock:
+            key = self._group_key
+            self._group_key += 1
+            self._instance_keys[key] = 0
+            return key
+
+    def get_instance_key(self, group_key: int) -> int:
+        with self._lock:
+            if group_key not in self._instance_keys:
+                raise ValueError(f"Unknown group key {group_key}")
+            self._instance_keys[group_key] += 1
+            return self._instance_keys[group_key]
+
+
+def _subset_group(mesh: DeviceMesh, names: tuple):
+    """The group of this rank over the dims ``names`` (in mesh order):
+    every rank builds every such group once, in the same order, as
+    ``new_group`` needs; cached on the mesh. Group rank order is
+    ascending global rank, which is row-major over ``names``."""
+    cache = mesh.__dict__.setdefault("_dtt_subgroups", {})
+    if names in cache:
+        return cache[names]
+    dims = tuple(mesh.mesh_dim_names)
+    sel = [dims.index(n) for n in names]
+    rest = [d for d in range(len(dims)) if d not in sel]
+    grid = mesh.mesh.permute(rest + sel)
+    size = 1
+    for d in sel:
+        size *= mesh.size(d)
+    me = dist.get_rank()
+    mine = None
+    for row in grid.reshape(-1, size).tolist():
+        group = dist.new_group(row)
+        if me in row:
+            mine = group
+    cache[names] = mine
+    return mine
+
+
 def axis_group(mesh: DeviceMesh, axis_names: AxisName):
-    """The process group of one mesh dim, or of all of them (the world
-    the mesh spans). A reduction over another subset of several dims
-    runs dim by dim (:func:`all_reduce`)."""
+    """The process group of one mesh dim, of all of them (the world the
+    mesh spans) or of any subset of them (:func:`_subset_group`)."""
     names = _names(axis_names)
     dims = tuple(mesh.mesh_dim_names)
     if len(names) == 1:
         return mesh.get_group(names[0])
     if sorted(names) == sorted(dims):
         return dist.group.WORLD
-    raise NotImplementedError(
-        f"a collective over {names} of a mesh with dims {dims}: only one "
-        f"dim or all of them")
+    unknown = [n for n in names if n not in dims]
+    if unknown:
+        raise ValueError(f"axes {unknown} are not dims of the mesh {dims}")
+    return _subset_group(mesh, tuple(sorted(names, key=dims.index)))
 
 
 def _reduce_groups(mesh: DeviceMesh, axis_names: AxisName) -> list:
@@ -776,3 +884,87 @@ def simulate_overlap(ready_s: Sequence[float], dur_s: Sequence[float],
         eff = max(0.0, min(1.0, 1.0 - exposed / serial))
     return {"serial_s": serial, "exposed_s": exposed,
             "overlap_eff": eff, "finish_s": finish}
+
+
+# ---------------------------------------------------------------------------
+# The strategy API's remaining collectives (JAX :201-229, :501)
+# ---------------------------------------------------------------------------
+
+def axis_index(mesh: DeviceMesh, axis_names: AxisName) -> int:
+    """This rank's row-major index over ``axis_names`` (JAX's
+    ``combined_axis_index``: the replica id over a strategy's data
+    dims)."""
+    idx = 0
+    dims = tuple(mesh.mesh_dim_names)
+    for name in _names(axis_names):
+        idx = idx * mesh.size(dims.index(name)) + mesh.get_local_rank(name)
+    return idx
+
+
+def _group_ranks(mesh: DeviceMesh, axis_names: AxisName) -> list:
+    """The global ranks of this rank's group over ``axis_names``, in
+    row-major index order."""
+    group = axis_group(mesh, axis_names)
+    if group is dist.group.WORLD:
+        ranks = list(range(dist.get_world_size()))
+    else:
+        ranks = dist.get_process_group_ranks(group)
+    return sorted(ranks)
+
+
+def broadcast(x: torch.Tensor, mesh: DeviceMesh, axis_names: AxisName,
+              source: int = 0) -> torch.Tensor:
+    """BROADCAST (JAX ``:201``): the value of the rank at index
+    ``source`` over ``axis_names``, on every rank of the group."""
+    out = x.clone()
+    ranks = _group_ranks(mesh, axis_names)
+    if len(ranks) > 1:
+        dist.broadcast(out, src=ranks[source],
+                       group=axis_group(mesh, axis_names))
+    return out
+
+
+def permute(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
+            perm: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """PERMUTE (JAX ``:209``): ``perm`` holds ``(source, dest)`` index
+    pairs along ``axis_name``; a rank named as no dest receives zeros.
+    Every send and receive of this rank goes in one
+    ``batch_isend_irecv``."""
+    ranks = _group_ranks(mesh, axis_name)
+    me = axis_index(mesh, axis_name)
+    out = torch.zeros_like(x)
+    ops = []
+    src = x.contiguous()
+    for s_idx, d_idx in perm:
+        if s_idx == me and d_idx == me:
+            out.copy_(x)
+        elif s_idx == me:
+            ops.append(dist.P2POp(dist.isend, src, ranks[d_idx]))
+        elif d_idx == me:
+            ops.append(dist.P2POp(dist.irecv, out, ranks[s_idx]))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    return out
+
+
+def permute_shift(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
+                  shift: int = 1) -> torch.Tensor:
+    """The ring shift built on PERMUTE (JAX ``:217``): index ``i``'s
+    value lands on ``i + shift``."""
+    return RingExchange([x], Ring.of(mesh, axis_name), shift).wait()[0]
+
+
+def mesh_all_reduce(mesh: DeviceMesh | None, x, axis_names: AxisName,
+                    op: ReduceOp | str = ReduceOp.SUM) -> torch.Tensor:
+    """JAX ``:501``: reduce an array whose leading axis holds one row a
+    replica over ``axis_names``. Every rank holds every row (JAX's host
+    view); each contributes the row of its own index, so the result is
+    the reduction of all of them, on every rank."""
+    x = torch.as_tensor(x)
+    if mesh is None:
+        if x.shape[0] != 1:
+            raise ValueError(f"{x.shape[0]} rows for one replica")
+        return x[0].clone()
+    return all_reduce(x[axis_index(mesh, axis_names)].contiguous(), mesh,
+                      axis_names, op)

@@ -19,12 +19,20 @@ cut by: one mesh axis name (or None) a dim, as
 
 So a checkpoint of variables is topology-free: it holds global values,
 and a restore onto another mesh writes each rank's new block.
-:class:`PerReplica`, :class:`Mirrored` and :func:`select_replica` are
-JAX's containers.
+:class:`PerReplica`, :class:`Mirrored`, :func:`regroup` and
+:func:`select_replica` are JAX's containers.
+
+**Replica context.** Inside ``Strategy.run`` (:func:`replica_overlay`)
+a strategy's variable reads and writes are replica-local, as JAX's
+traced overlay makes them (JAX ``strategy.py:103-170``): a read gives
+this replica's value (an ON_READ variable's own row), ``assign`` /
+``assign_add`` / ``assign_sub`` record the new value, and the strategy
+writes it back after ``fn`` with the variable's aggregation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import threading
 from typing import Callable, Sequence
@@ -80,6 +88,35 @@ class Mirrored(DistributedValues):
     @property
     def primary(self):
         return self._values[0]
+
+
+def regroup(structs: Sequence):
+    """A list of per-replica nests -> one nest of :class:`PerReplica`
+    leaves (JAX's ``_regroup_leaves``)."""
+    from distributed_tensorflow_tpu_torch.utils import tree
+    td = tree.tree_structure(structs[0])
+    leaves = [tree.tree_leaves(s) for s in structs]
+    return tree.tree_unflatten(td, [PerReplica(v) for v in zip(*leaves)])
+
+
+_REPLICA = threading.local()
+
+
+def _overlay() -> dict | None:
+    return getattr(_REPLICA, "overlay", None)
+
+
+@contextlib.contextmanager
+def replica_overlay(variables: Sequence):
+    """Make ``variables`` replica-local for the body (module docstring);
+    yields the overlay ``{id(var): [var, value, written]}``."""
+    prev = _overlay()
+    overlay = {id(v): [v, None, False] for v in variables}
+    _REPLICA.overlay = overlay
+    try:
+        yield overlay
+    finally:
+        _REPLICA.overlay = prev
 
 
 def select_replica(replica_id: int, structured):
@@ -198,14 +235,33 @@ class DistributedVariable:
         return self._value if self._read is None else self._read()
 
     # -- reads ------------------------------------------------------------
+    def _replica_value(self):
+        """Inside a replica overlay: this replica's value (None outside
+        one, or for a variable the overlay does not hold)."""
+        ov = _overlay()
+        entry = ov.get(id(self)) if ov is not None else None
+        if entry is None:
+            return None
+        if entry[1] is None:
+            local = self._local()
+            entry[1] = (local[0] if self.synchronization
+                        is VariableSynchronization.ON_READ else local)
+        return entry[1]
+
     @property
     def value(self) -> torch.Tensor:
-        """This rank's local shard."""
-        return self._local()
+        """This rank's local shard (inside ``Strategy.run``, this
+        replica's value)."""
+        rv = self._replica_value()
+        return rv if rv is not None else self._local()
 
     def read_value(self) -> torch.Tensor:
         """The global value (collective when the variable is cut or
-        ON_READ: every rank of the mesh calls it)."""
+        ON_READ: every rank of the mesh calls it); inside
+        ``Strategy.run``, this replica's value."""
+        rv = self._replica_value()
+        if rv is not None:
+            return rv
         local = self._local().detach()
         if self.synchronization is VariableSynchronization.ON_READ:
             return self._reduce_on_read(local)
@@ -262,10 +318,25 @@ class DistributedVariable:
         return self._spec
 
     # -- writes -----------------------------------------------------------
+    def _replica_assign(self, value) -> bool:
+        """Inside a replica overlay, record ``value`` as this replica's
+        (True), else False."""
+        if self._replica_value() is None:
+            return False
+        entry = _overlay()[id(self)]
+        cur = entry[1]
+        entry[1] = torch.as_tensor(value).to(device=cur.device,
+                                             dtype=cur.dtype)
+        entry[2] = True
+        return True
+
     @torch.no_grad()
     def assign(self, value) -> "DistributedVariable":
         """Write the global ``value``: this rank keeps its block, in
-        place."""
+        place (inside ``Strategy.run``: this replica's value, written
+        back after ``fn``)."""
+        if self._replica_assign(value):
+            return self
         local = self._local()
         value = torch.as_tensor(value).to(device=local.device,
                                           dtype=local.dtype)
@@ -290,6 +361,14 @@ class DistributedVariable:
             self._write(block)
         return self
 
+    @torch.no_grad()
+    def _set_local(self, local: torch.Tensor):
+        """Write this rank's local value in place."""
+        if self._read is None:
+            self._value.copy_(local)
+        else:
+            self._write(local)
+
     def _replica_index(self) -> int:
         idx = 0
         names = _mesh_names(self._mesh)
@@ -300,10 +379,14 @@ class DistributedVariable:
         return idx
 
     def assign_add(self, delta) -> "DistributedVariable":
-        return self.assign(self.read_value() + torch.as_tensor(delta))
+        cur = self.read_value()
+        return self.assign(cur + torch.as_tensor(delta).to(cur.device,
+                                                           cur.dtype))
 
     def assign_sub(self, delta) -> "DistributedVariable":
-        return self.assign(self.read_value() - torch.as_tensor(delta))
+        cur = self.read_value()
+        return self.assign(cur - torch.as_tensor(delta).to(cur.device,
+                                                           cur.dtype))
 
     def __repr__(self) -> str:
         return (f"DistributedVariable(name={self.name!r}, "

@@ -15,7 +15,12 @@ from distributed_tensorflow_tpu_torch.telemetry.registry import (
     Gauge,
     Histogram,
     MetricsRegistry,
+    Timer,
+    counter,
+    gauge,
     get_registry,
+    histogram,
+    timer,
 )
 from distributed_tensorflow_tpu_torch.telemetry.events import (
     EventLog,
@@ -32,8 +37,8 @@ from distributed_tensorflow_tpu_torch.telemetry.events import (
 )
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "get_registry",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "Timer",
+    "counter", "gauge", "get_registry", "histogram", "timer",
     "EventLog", "EventLogCorruptError", "configure", "enabled", "event",
     "event_log_path", "read_events", "read_run", "rotated_segments",
     "shutdown", "span",

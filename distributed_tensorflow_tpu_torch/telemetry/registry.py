@@ -4,13 +4,18 @@ The port's own copy of ``distributed_tensorflow_tpu/telemetry/
 registry.py`` — the instruments the serving engine and scheduler
 record into, with the same names, types and export dicts, and the
 collectors (``register_collector``) through which the goodput ledger
-exports its breakdown. Delta export belongs to the fleet-telemetry
-slice.
+exports its breakdown; :class:`Timer` (a duration timer over a
+histogram, as the input pipeline's infeed times its waits),
+:meth:`Histogram.percentile` and :meth:`MetricsRegistry.register` (the
+monitoring gauges of ``utils/summary.py``). Delta export belongs to the
+fleet-telemetry slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 
 
 class Counter:
@@ -102,6 +107,14 @@ class Histogram:
         with self._lock:
             return self._count
 
+    def percentile(self, q: float) -> float | None:
+        """Trailing-window percentile, q in [0, 100]."""
+        with self._lock:
+            if not self._samples:
+                return None
+            s = sorted(self._samples)
+        return s[min(len(s) - 1, max(0, int(round(q / 100 * (len(s) - 1)))))]
+
     def export(self) -> dict:
         with self._lock:
             s = sorted(self._samples)
@@ -113,6 +126,50 @@ class Histogram:
                 return s[min(len(s) - 1,
                              max(0, int(round(q / 100 * (len(s) - 1)))))]
             out.update(p50=pct(50), p95=pct(95), p99=pct(99))
+        return out
+
+
+class Timer:
+    """Accumulating duration timer whose samples feed a histogram, so
+    exports carry duration percentiles."""
+
+    kind = "timer"
+
+    def __init__(self, name: str, description: str = "",
+                 window: int = 512):
+        self.name = name
+        self.description = description
+        self._hist = Histogram(name, window=window)
+
+    @contextlib.contextmanager
+    def time(self):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._hist.record(time.perf_counter() - start)
+
+    def record(self, seconds: float):
+        self._hist.record(seconds)
+
+    @property
+    def count(self) -> int:
+        return self._hist.count
+
+    @property
+    def total_seconds(self) -> float:
+        with self._hist._lock:
+            return self._hist._sum
+
+    @property
+    def average_seconds(self) -> float:
+        with self._hist._lock:
+            return self._hist._sum / self._hist._count \
+                if self._hist._count else 0.0
+
+    def export(self) -> dict:
+        out = self._hist.export()
+        out["type"] = "timer"
         return out
 
 
@@ -150,6 +207,21 @@ class MetricsRegistry:
         return self._instrument(Histogram, name, description,
                                 window=window)
 
+    def timer(self, name: str, description: str = "",
+              window: int = 512) -> Timer:
+        return self._instrument(Timer, name, description, window=window)
+
+    def register(self, instrument, name: str | None = None):
+        """Adopt an instrument built elsewhere (the monitoring gauges);
+        a name registered again takes the newest instrument."""
+        with self._lock:
+            self._instruments[name or instrument.name] = instrument
+        return instrument
+
+    def get(self, name: str):
+        with self._lock:
+            return self._instruments.get(name)
+
     def register_collector(self, prefix: str, fn):
         """``fn() -> {name: value}``; merged into every snapshot under
         ``<prefix>/<name>`` as gauge entries (for instrument sets that
@@ -184,3 +256,20 @@ _default = MetricsRegistry()
 def get_registry() -> MetricsRegistry:
     """The process-wide default registry."""
     return _default
+
+
+def counter(name: str, description: str = "") -> Counter:
+    return _default.counter(name, description)
+
+
+def gauge(name: str, description: str = "") -> Gauge:
+    return _default.gauge(name, description)
+
+
+def histogram(name: str, description: str = "",
+              window: int = 512) -> Histogram:
+    return _default.histogram(name, description, window=window)
+
+
+def timer(name: str, description: str = "", window: int = 512) -> Timer:
+    return _default.timer(name, description, window=window)

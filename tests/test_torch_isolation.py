@@ -64,7 +64,16 @@ print(json.dumps({"imported": names,
                 "checkpoint.checkpoint", "checkpoint.delta",
                 "checkpoint.failure_handling",
                 "checkpoint.preemption_watcher", "embedding.dynamic",
-                "input.stream", "models.online_dlrm"):
+                "input.stream", "models.online_dlrm",
+                "parallel.strategy", "parallel.one_device",
+                "parallel.mirrored", "parallel.cross_device_ops",
+                "input.dataset", "utils.summary", "utils.profiler",
+                "utils.tree", "training.model", "training.layers",
+                "training.functional", "training.losses",
+                "training.metrics", "training.regularizers",
+                "training.schedules", "training.optimizers",
+                "training.callbacks", "training.saving", "training.loops",
+                "keras"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []
 
@@ -115,3 +124,46 @@ print(json.dumps(sorted(m for m in sys.modules
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+#: the package's lazy top-level names, by the submodule that defines them
+LAZY_GROUPS = {
+    "strategy": ("Strategy", "OneDeviceStrategy", "MirroredStrategy",
+                 "ReplicaContext", "get_strategy", "has_strategy",
+                 "get_replica_context", "in_cross_replica_context"),
+    "collectives": ("ReduceOp", "CollectiveType",
+                    "CommunicationImplementation", "CommunicationOptions"),
+    "values": ("DistributedValues", "PerReplica", "Mirrored",
+               "DistributedVariable", "MirroredVariable",
+               "SyncOnReadVariable", "VariableSynchronization",
+               "VariableAggregation"),
+    "cross_device_ops": ("CrossDeviceOps", "ReductionToOneDevice",
+                         "IciAllReduce", "HierarchicalAllReduce",
+                         "select_cross_device_ops"),
+    "dataset": ("Dataset", "DistributedDataset", "InputOptions",
+                "AutoShardPolicy"),
+    "keras": ("keras",),
+}
+
+
+@pytest.mark.parametrize("group", sorted(LAZY_GROUPS))
+def test_lazy_top_level_names_resolve(group):
+    """``import distributed_tensorflow_tpu_torch`` alone loads no
+    submodule; each lazy name then resolves with nothing imported first,
+    and no JAX module comes with it."""
+    code = f"""
+import json, sys
+import distributed_tensorflow_tpu_torch as pkg
+bare = sorted(m for m in sys.modules
+              if m.startswith("distributed_tensorflow_tpu_torch."))
+got = {{n: type(getattr(pkg, n)).__name__ for n in {LAZY_GROUPS[group]!r}}}
+print(json.dumps({{"bare": bare, "got": got,
+                  "new": sorted(sys.modules)}}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bare"] == []
+    assert set(res["got"]) == set(LAZY_GROUPS[group])
+    assert [m for m in res["new"] if _forbidden(m)] == []
