@@ -350,15 +350,42 @@ single-device BERT step by ``dp_parity``'s rule.
     every rank against numpy; ``compile_step`` on 4 ranks against one
     card's step on the global batch.
 
+44. ``ps_dlrm`` — ``train_dlrm_async_ps`` at ``dlrm_like()``, batch
+    4096, over two thread lanes on the card (two closures in flight, the
+    server copy on the host): every step, a falling loss, examples/s,
+    the host-side apply time; one lane with one closure in flight
+    against the synchronous ``ps_worker_grads`` + ``ps_apply_grads``
+    sequence; one remote closure's bytes and seconds at this width.
+45. ``online_coord`` — ``OnlineTrainer(coordinator=ClusterCoordinator(
+    num_workers=2))`` at ``OnlineConfig()`` against the local path on
+    the same log (events/s, commits), and with one lane and a window of
+    1 held to it.
+46. ``multi_worker4`` (four cards) — four worker tasks from
+    ``MultiProcessRunner`` with JAX's ``TF_CONFIG``, each building
+    ``MultiWorkerMirroredStrategy()`` from it alone: ``run``, ``reduce``
+    and ``gather`` against numpy; ``check_health`` True, then False
+    within its timeout while one rank stays out; ``examples/
+    train_resnet.py worker_main``'s path at ResNet-50, 224², 128 images
+    a card: the same loss on every rank, images/s.
+47. ``allreduce_algos4`` (four cards) — ring, recursive halving-doubling,
+    shuffle and NCCL's all-reduce at 4 MiB and 256 MiB of f32, each
+    against NCCL's result and the f64 sum; ms and bus GB/s.
+48. ``ps_remote4`` (four cards) — ``train_and_evaluate`` over a
+    coordinator, three remote workers and an evaluator outside the
+    group: ``train_dlrm_async_ps`` over remote lanes with worker 2
+    killed mid-closure (every step completes, the closure re-runs), the
+    evaluator evaluating every checkpoint of the server copy.
+
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
 ``--phases sp_train,sp_parity``, ``--phases moe_train,moe_parity,
 fsdp_train,fsdp_parity``, ``--phases resnet_dp,wide_deep_tp,tp_train,
 tp_parity``, ``--phases ckpt_mesh,mesh_repair``, ``--phases
-keras_mirrored4,strategy_run4``), and prints no kernels line.
-``ckpt_mesh``, ``mesh_repair``, ``keras_mirrored4`` and
-``strategy_run4`` run in the whole run only when four cards are
-visible.
+keras_mirrored4,strategy_run4``, ``--phases multi_worker4,
+allreduce_algos4,ps_remote4``), and prints no kernels line.
+``ckpt_mesh``, ``mesh_repair``, ``keras_mirrored4``, ``strategy_run4``,
+``multi_worker4``, ``allreduce_algos4`` and ``ps_remote4`` run in the
+whole run only when four cards are visible.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -369,7 +396,8 @@ bf16, its times at the largest suffix shape; every row's
 at the ring's block shape, each kind of block; ``moe_launches`` and
 ``fsdp_launches`` each ``moe_train`` and ``fsdp_train`` run's;
 ``other_workload_launches`` phases 27-33's, all 0; ``ckpt_launches``
-phases 34-36's; ``keras_launches`` phases 39-41's, all 0),
+phases 34-36's; ``keras_launches`` phases 39-41's and
+``cluster_launches`` phases 44-45's, all 0),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -474,10 +502,31 @@ MESH_REPAIR_SHARDED = {"dp2pp2": ({"dp": 2, "pp": 2}, {}),
                        "pp2tp2": ({"pp": 2, "tp": 2}, {})}
 MESH_REPAIR_PIPELINED = {"pp2tp2": ({"pp": 2, "tp": 2},
                                     (("gpipe", {}), ("1f1b", {})))}
+# ps_dlrm: train_dlrm_async_ps at dlrm_like() and WD_BATCH over PS_LANES
+# thread lanes on the card, PS_IN_FLIGHT closures in flight, PS_STEPS
+# steps; then one lane, one closure in flight, PS_PARITY_STEPS steps
+# against the synchronous ps_worker_grads + ps_apply_grads sequence
+PS_LANES, PS_IN_FLIGHT, PS_STEPS = 2, 2, 10
+PS_PARITY_STEPS, PS_TOL = 3, 1e-5
+# multi_worker4: check_health's timeout while one rank stays out; the
+# ResNet-50 steps of examples/train_resnet.py worker_main's path
+MW4_HEALTH_S, MW4_WARMUP, MW4_STEPS = 3.0, 2, 5
+# allreduce_algos4: f32 elements (4 MiB, 256 MiB), timed calls, the
+# tolerance against NCCL's sum and the f64 sum (sums of 4 unit normals)
+AR4_SIZES = {"4MiB": 1 << 20, "256MiB": 64 << 20}
+AR4_ITERS, AR4_TOL = 10, 1e-5
+# ps_remote4: DLRM's widths with tables of PSR4_VOCAB rows (a closure
+# under the KV's 4 MiB cap; one at dlrm_like()'s 100,000 rows does not
+# fit, so these are no config #4 numbers), PSR4_STEPS steps,
+# PSR4_IN_FLIGHT in flight, worker 2 killed after PSR4_KILL_AT, a
+# checkpoint every PSR4_CKPT_EVERY
+PSR4_VOCAB, PSR4_STEPS, PSR4_IN_FLIGHT = 300, 60, 4
+PSR4_KILL_AT, PSR4_CKPT_EVERY = 20, 15
 # phases that need four cards: run by --phases, or in the whole run
 # when four are visible
 FOUR_CARD_PHASES = ("ckpt_mesh", "mesh_repair", "keras_mirrored4",
-                    "strategy_run4")
+                    "strategy_run4", "multi_worker4", "allreduce_algos4",
+                    "ps_remote4")
 # keras_scripts: the Keras scripts run on the port with only these
 # import lines replaced
 KERAS_SCRIPTS = ("examples/train_mnist_keras_script.py",
@@ -8952,6 +9001,687 @@ def phase_strategy_run4(state):
                                  "train_parity's rule", "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# The cluster half: async PS, the coordinator, TF_CONFIG clusters
+# ---------------------------------------------------------------------------
+
+def _host_tree(tree_):
+    """Every tensor leaf of a nest of dicts as a host numpy array."""
+    import torch
+    if isinstance(tree_, dict):
+        return {k: _host_tree(v) for k, v in tree_.items()}
+    if isinstance(tree_, torch.Tensor):
+        return tree_.detach().cpu().numpy()
+    return tree_
+
+
+def _state_diff(a: dict, b: dict) -> float:
+    """Max abs difference of two PS server copies (dense params, tables)."""
+    import numpy as np
+    diffs = []
+    for part in (("dense", "params"), ("emb", "tables")):
+        x, y = (_host_tree(s[part[0]][part[1]]) for s in (a, b))
+        diffs += [float(np.abs(x[k] - y[k]).max()) for k in x]
+    return max(diffs)
+
+
+def _closure_bytes(cfg, st) -> dict:
+    """One remote closure of ``train_dlrm_async_ps`` at ``cfg``: the
+    pickled task and its answer (the dense table gradients), as the KV
+    transport would carry them, and the seconds to pickle and unpickle
+    each; the gradient itself computed on the card, from card copies of
+    the parameters, as a worker's lane makes them."""
+    import pickle
+    import torch
+    from distributed_tensorflow_tpu_torch.coordinator import remote_dispatch
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    handle = remote_dispatch._ResourceHandle(1, "1:0")
+    args = (cfg, st["dense"]["params"], st["emb"]["tables"], handle)
+    t0 = time.perf_counter()
+    task = pickle.dumps((wd.ps_worker_grads, args, {}))
+    t1 = time.perf_counter()
+    pickle.loads(task)
+    t2 = time.perf_counter()
+    it = wd._ps_dataset(cfg, WD_BATCH, 0)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    answer = wd.ps_worker_grads(cfg, _on_card(st["dense"]["params"]),
+                                _on_card(st["emb"]["tables"]), it)
+    t4 = time.perf_counter()
+    reply = pickle.dumps(("ok", answer))
+    t5 = time.perf_counter()
+    pickle.loads(reply)
+    t6 = time.perf_counter()
+    return {"task_bytes": len(task), "answer_bytes": len(reply),
+            "task_pickle_s": t1 - t0, "task_unpickle_s": t2 - t1,
+            "grads_on_card_s": t4 - t3, "answer_pickle_s": t5 - t4,
+            "answer_unpickle_s": t6 - t5,
+            "cap_bytes": remote_dispatch.MAX_PAYLOAD_BYTES,
+            "fits_cap": len(task) <= remote_dispatch.MAX_PAYLOAD_BYTES}
+
+
+def phase_ps_dlrm(state):
+    """``train_dlrm_async_ps`` at ``WideDeepConfig.dlrm_like()`` (26 ×
+    100,000 × 64 f32), batch WD_BATCH, over PS_LANES thread lanes on the
+    card (each with its own stream), PS_IN_FLIGHT closures in flight,
+    PS_STEPS steps, the server copy on the host: every step completes,
+    the loss on lane 0's rows falls; examples/s, the host-side apply time, the lanes'
+    closure time; no kernel of #1-#9. Then one lane with one closure in
+    flight, PS_PARITY_STEPS steps, against the synchronous
+    ``ps_worker_grads`` + ``ps_apply_grads`` sequence on the card from
+    the same state and batches: losses and state within PS_TOL. And one
+    remote closure's bytes and seconds at this width (``_closure_bytes``)."""
+    import itertools
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.coordinator.cluster_coordinator \
+        import ClusterCoordinator
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    torch.cuda.empty_cache()
+    cfg = wd.WideDeepConfig.dlrm_like()
+    real_apply = wd.ps_apply_grads
+    apply_s, done_at = [], []
+
+    def timed_apply(*a):
+        t0 = time.perf_counter()
+        out = real_apply(*a)
+        apply_s.append(time.perf_counter() - t0)
+        return out
+
+    wd.ps_apply_grads = timed_apply
+    # the lanes draw their batches from the rows of seeds 0 and 1: the
+    # loss is held on lane 0's rows, before and after
+    wd._LOCAL_DS_COUNTER = itertools.count(0)
+    rows = wd.synthetic_clicks(cfg, 1024, seed=0)
+    coord = ClusterCoordinator(num_workers=PS_LANES)
+    try:
+        init = wd.ps_init_state(cfg, seed=0, device="cpu")
+        before = _ps_loss_on(cfg, init, rows)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        final, losses = wd.train_dlrm_async_ps(
+            cfg, coord, steps=PS_STEPS, batch_size=WD_BATCH,
+            max_in_flight=PS_IN_FLIGHT, state=init,
+            on_step=lambda n: done_at.append(time.perf_counter()))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        closure_s = coord.cluster.coordinator_metrics.closure_execution \
+            .average_seconds
+    finally:
+        coord.shutdown()
+        wd.ps_apply_grads = real_apply
+    _no_kernel_launched("ps_dlrm", counts)
+    after = _ps_loss_on(cfg, final, rows)
+    if len(losses) != PS_STEPS or not all(map(math.isfinite, losses)) \
+            or not after < before:
+        raise AssertionError(f"ps_dlrm: {len(losses)} steps, {losses}, "
+                             f"lane 0's rows {before} -> {after}")
+    steady = (PS_STEPS - 1) * WD_BATCH / (done_at[-1] - done_at[0])
+    bytes_ = _closure_bytes(cfg, final)
+    del final, init
+
+    # parity: one lane, one closure in flight, against the synchronous
+    # sequence on the card
+    wd._LOCAL_DS_COUNTER = itertools.count(0)
+    coord = ClusterCoordinator(num_workers=1)
+    try:
+        got, got_l = wd.train_dlrm_async_ps(
+            cfg, coord, steps=PS_PARITY_STEPS, batch_size=WD_BATCH,
+            max_in_flight=1, state=wd.ps_init_state(cfg, device="cpu"))
+    finally:
+        coord.shutdown()
+    wd._LOCAL_DS_COUNTER = itertools.count(0)
+    it = wd._ps_dataset(cfg, WD_BATCH, 0)
+    want = wd.ps_init_state(cfg, device="cpu")
+    want_l = []
+    for _ in range(PS_PARITY_STEPS):
+        loss, dg, tg = wd.ps_worker_grads(
+            cfg, _on_card(want["dense"]["params"]),
+            _on_card(want["emb"]["tables"]), it)
+        want = wd.ps_apply_grads(cfg, want, dg, tg)
+        want_l.append(float(loss))
+    loss_err = max(abs(a - b) for a, b in zip(got_l, want_l))
+    state_err = _state_diff(got, want)
+    if loss_err > PS_TOL or state_err > PS_TOL:
+        raise AssertionError(f"ps_dlrm parity: loss {loss_err}, "
+                             f"state {state_err}")
+    state["ps_dlrm_launches"] = counts
+    return {"config": "dlrm_like (26 x 100000 x 64 f32, dot)",
+            "batch": WD_BATCH, "lanes": PS_LANES,
+            "in_flight": PS_IN_FLIGHT, "steps": PS_STEPS,
+            "losses": losses, "loss_on_lane0_rows": [before, after],
+            "wall_s": wall,
+            "examples_per_s_steady": steady,
+            "examples_per_s_wall": PS_STEPS * WD_BATCH / wall,
+            "host_apply_ms": [s * 1e3 for s in apply_s],
+            "host_apply_ms_mean": float(np.mean(apply_s)) * 1e3,
+            "lane_closure_ms_mean": closure_s * 1e3,
+            "remote_closure": bytes_,
+            "parity": {"steps": PS_PARITY_STEPS, "tol": PS_TOL,
+                       "losses": got_l, "want_losses": want_l,
+                       "max_abs_loss_err": loss_err,
+                       "max_abs_state_err": state_err},
+            "launches": counts}
+
+
+def phase_online_coord(state):
+    """``OnlineTrainer(coordinator=ClusterCoordinator(num_workers=2))`` at
+    ``OnlineConfig()`` over ONLINE_EVENTS seeded events on the card
+    (lanes on the card, a window of 2), against the local path on the
+    same log: events/s, commits, offsets; and with one lane and a window
+    of 1 held to the local path (offsets, membership, the state within
+    ONLINE_TOL). No kernel of #1-#9."""
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.coordinator.cluster_coordinator \
+        import ClusterCoordinator
+    from distributed_tensorflow_tpu_torch.input import stream
+    from distributed_tensorflow_tpu_torch.models import online_dlrm as od
+    cfg = od.OnlineConfig()
+    root = os.path.join(_ckpt_root(), "online_coord")
+    shutil.rmtree(root, ignore_errors=True)
+    log = os.path.join(root, "events.log")
+    with stream.StreamWriter.open(log) as w:
+        stream.append_chunk(w, stream.seeded_events(
+            cfg.seed, 0, ONLINE_EVENTS, n_users=cfg.n_users,
+            n_items=cfg.n_items, zipf_a=cfg.zipf_a))
+    zero_launch_counts()
+    runs, trainers = {}, {}
+    for name, lanes, window in (("local", 0, 1), ("coord1", 1, 1),
+                                ("coord2", 2, 2)):
+        coord = ClusterCoordinator(num_workers=lanes) if lanes else None
+        try:
+            t = od.OnlineTrainer(cfg, log, os.path.join(root, name),
+                                 commit_every=5, coordinator=coord,
+                                 max_in_flight=window, device="cuda")
+            runs[name] = t.run(ONLINE_EVENTS, idle_timeout_s=5.0)
+            trainers[name] = t
+        finally:
+            if coord is not None:
+                coord.shutdown()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _no_kernel_launched("online_coord", counts)
+    a, b = trainers["coord1"]._state_nested(), trainers["local"]._state_nested()
+
+    def aux(sd):
+        return pickle.loads(np.asarray(sd["aux"], np.uint8).tobytes())
+
+    diffs = {f"{t}/rows": float(np.abs(a[t]["rows"] - b[t]["rows"]).max())
+             for t in ("user", "item")}
+    diffs.update({f"dense/{k}": float(np.abs(v - b["dense"]["params"][k])
+                                      .max())
+                  for k, v in a["dense"]["params"].items()})
+    problems = []
+    for name, out in runs.items():
+        if out["offset"] != ONLINE_EVENTS or out["commits"] < 1:
+            problems.append(f"{name}: {out['offset']} {out['commits']}")
+    if not all(aux(a[t])["id_to_row"] == aux(b[t])["id_to_row"]
+               for t in ("user", "item")) or max(diffs.values()) > ONLINE_TOL:
+        problems.append(f"one lane, window 1 against local: {diffs}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["online_coord_launches"] = counts
+    return {"config": "OnlineConfig()", "events": ONLINE_EVENTS,
+            "batch": cfg.batch_size, "commit_every": 5,
+            "events_per_s": {k: v["events_per_sec"] for k, v in runs.items()},
+            "commits": {k: v["commits"] for k, v in runs.items()},
+            "loss_last": {k: v["loss_last"] for k, v in runs.items()},
+            "coord1_max_abs_diff_vs_local": diffs, "tol": ONLINE_TOL,
+            "launches": counts}
+
+
+def _smi_cards() -> list:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,pci.bus_id,memory.used",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return out.stdout.strip().splitlines()
+
+
+def _card_facts(device) -> dict:
+    import torch
+    p = torch.cuda.get_device_properties(device)
+    return {"device": str(device), "pci_bus_id": getattr(
+        p, "pci_bus_id", None), "uuid": str(getattr(p, "uuid", ""))}
+
+
+def _multi_worker_rank() -> dict:
+    """One rank of ``multi_worker4``: the strategy from ``TF_CONFIG``
+    alone, its values against numpy, ``check_health``, then
+    ``examples/train_resnet.py worker_main``'s path."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.cluster.coordination import (
+        coordination_service)
+    from distributed_tensorflow_tpu_torch.models import resnet
+    from distributed_tensorflow_tpu_torch.parallel.multi_worker import (
+        MultiWorkerMirroredStrategy)
+    from distributed_tensorflow_tpu_torch.parallel.strategy import (
+        get_replica_context)
+    from distributed_tensorflow_tpu_torch.parallel.values import PerReplica
+    s = MultiWorkerMirroredStrategy()
+    rank, R = dist.get_rank(), s.num_replicas_in_sync
+    out = {"rank": rank, "replicas": R,
+           "task": json.loads(os.environ["TF_CONFIG"])["task"],
+           **_card_facts(s.device)}
+    x = np.random.default_rng(5).normal(size=(R, 4)).astype(np.float32)
+
+    def fn(v):
+        return {"y": v * 2.0 + 1.0,
+                "sum": get_replica_context().all_reduce("sum", v)}
+    res = s.run(fn, args=(PerReplica([x[i] for i in range(R)]),))
+    y = x * 2 + 1
+    want = {"run/y": (res["y"], list(y)),
+            "run/sum": (res["sum"], [x.sum(0)] * R),
+            "reduce/sum": (s.reduce("sum", res["y"]), y.sum(0)),
+            "reduce/mean": (s.reduce("mean", res["y"]), y.mean(0)),
+            "reduce/mean/axis0": (s.reduce("mean", res["y"], axis=0),
+                                  y.mean(1).mean(0)),
+            "gather": (s.gather(res["y"], axis=0), y.reshape(-1))}
+    errs = {}
+    for k, (got, w) in want.items():
+        got = [t.cpu().numpy() for t in (got.values if isinstance(
+            got, PerReplica) else [got])]
+        w = w if isinstance(w, list) else [w]
+        errs[k] = max(float(np.abs(g - np.asarray(v)).max())
+                      for g, v in zip(got, w))
+    out["errors"] = errs
+
+    agent = coordination_service()
+    out["health_all_in"] = s.check_health(timeout_s=60.0)
+    if rank == R - 1:                    # held back until the others fail
+        for r in range(R - 1):
+            agent.key_value_get(f"mw4/timed_out/{r}", timeout_s=120)
+        out["health_late"] = s.check_health(timeout_s=60.0)
+    else:
+        t0 = time.perf_counter()
+        out["health_held_back"] = s.check_health(timeout_s=MW4_HEALTH_S)
+        out["health_held_back_s"] = time.perf_counter() - t0
+        agent.key_value_set(f"mw4/timed_out/{rank}", "1")
+    dist.barrier()
+
+    # examples/train_resnet.py worker_main on the port: every global
+    # device on "dp", each process its own rows seeded by its process id
+    torch.backends.cudnn.benchmark = True
+    cfg = resnet.ResNetConfig.resnet50()
+    gb = RESNET_BATCH * R
+    st, step = resnet.make_sharded_train_step(cfg, s.mesh, gb,
+                                              image_size=RESNET_IMAGE)
+    mine = resnet.synthetic_images(RESNET_BATCH, RESNET_IMAGE,
+                                   cfg.num_classes, seed=rank)
+    batch = {}
+    for k, v in mine.items():
+        full = np.zeros((gb,) + v.shape[1:], v.dtype)
+        full[rank * RESNET_BATCH:(rank + 1) * RESNET_BATCH] = v
+        batch[k] = torch.from_numpy(full).to(s.device)
+    for _ in range(MW4_WARMUP):
+        st, m = step(st, batch)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    st, step_ms, losses = _step_events(step, st, batch, MW4_STEPS)
+    out["launches"] = launch_counts()
+    mean_s = float(np.mean(step_ms)) / 1e3
+    out["resnet"] = {"step_ms": step_ms, "losses": losses,
+                     "images_per_s": gb / mean_s,
+                     "global_batch": gb}
+    if rank == 0:
+        out["nvidia_smi"] = _smi_cards()
+    dist.barrier()
+    bootstrap.shutdown()
+    return out
+
+
+def phase_multi_worker4(state):
+    """Four cards: four worker tasks from the port's ``MultiProcessRunner``
+    with ``create_cluster_spec(num_workers=4)`` (JAX's ``TF_CONFIG``, a
+    card a task), each building ``MultiWorkerMirroredStrategy()`` from
+    ``TF_CONFIG`` alone: ``run``, ``reduce`` and ``gather`` against numpy
+    (the one-process result) within 1e-6; ``check_health`` True, then
+    False within MW4_HEALTH_S on the three in-time ranks while the fourth
+    stays out, True for it late; then ``examples/train_resnet.py
+    worker_main``'s path at ResNet-50 bf16, RESNET_BATCH images of
+    RESNET_IMAGE² a card, MW4_STEPS timed steps: every rank ends with
+    the same loss; images/s. The cards each task used (PCI bus ids) and
+    ``nvidia-smi``'s memory per card while they train."""
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    spec = multi_process_runner.create_cluster_spec(num_workers=4)
+    runner = multi_process_runner.MultiProcessRunner(
+        _multi_worker_rank, spec, device="cuda", timeout=900)
+    ranks = sorted(runner.start().join().return_values,
+                   key=lambda r: r["rank"])
+    problems = []
+    for r in ranks:
+        bad = {k: v for k, v in r["errors"].items() if v > 1e-6}
+        if bad or not r["health_all_in"] or any(r["launches"].values()):
+            problems.append(f"rank {r['rank']}: {bad} {r['launches']}")
+        if r["rank"] == 3:
+            if r.get("health_late") is not True:
+                problems.append("the held-back rank did not pass late")
+        elif r["health_held_back"] is not False \
+                or r["health_held_back_s"] > MW4_HEALTH_S + 2.0:
+            problems.append(f"rank {r['rank']}: held-back health "
+                            f"{r['health_held_back']} in "
+                            f"{r['health_held_back_s']:.2f} s")
+        if r["resnet"]["losses"] != ranks[0]["resnet"]["losses"]:
+            problems.append(f"rank {r['rank']}: losses differ")
+    if len({r["pci_bus_id"] for r in ranks}) != 4:
+        problems.append(f"cards {[r['pci_bus_id'] for r in ranks]}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": 4, "health_timeout_s": MW4_HEALTH_S,
+            "resnet": {"batch_per_card": RESNET_BATCH,
+                       "image": RESNET_IMAGE, "steps": MW4_STEPS,
+                       "images_per_s": ranks[0]["resnet"]["images_per_s"],
+                       "final_loss": ranks[0]["resnet"]["losses"][-1]},
+            "ranks": ranks}
+
+
+def _allreduce_rank() -> dict:
+    """One rank of ``allreduce_algos4``."""
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.parallel import (
+        all_reduce_algorithms as ar)
+    bootstrap.initialize(device="cuda")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, **_card_facts(torch.device("cuda",
+                                                    torch.cuda.current_device()))}
+    for label, numel in AR4_SIZES.items():
+        g = torch.Generator(device="cuda").manual_seed(100 + rank)
+        x = torch.randn(numel, device="cuda", generator=g)
+        exact = x.double()
+        dist.all_reduce(exact)
+        lib = ar.library_all_reduce(x)
+        rows = {}
+        for alg in ar.ALGORITHMS:
+            y = ar.all_reduce(x, algorithm=alg)
+            err_lib = float((y - lib).abs().max())
+            err64 = float((y.double() - exact).abs().max())
+            torch.cuda.synchronize()
+            dist.barrier()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(AR4_ITERS):
+                ar.all_reduce(x, algorithm=alg)
+            e1.record()
+            e1.synchronize()
+            ms = e0.elapsed_time(e1) / AR4_ITERS
+            algbw = numel * 4 / (ms / 1e3) / 1e9
+            rows[alg] = {"ms": ms, "algbw_GBps": algbw,
+                         "busbw_GBps": algbw * 2 * (n - 1) / n,
+                         "max_abs_err_vs_nccl": err_lib,
+                         "max_abs_err_vs_f64": err64}
+            del y
+        out[label] = rows
+        del x, exact, lib
+        torch.cuda.empty_cache()
+    dist.barrier()
+    bootstrap.shutdown()
+    return out
+
+
+def phase_allreduce_algos4(state):
+    """Four cards, one rank a card: ring, recursive halving-doubling,
+    shuffle (``parallel/all_reduce_algorithms.py``) and NCCL's
+    all-reduce ("xla") at AR4_SIZES of f32, each rank's contribution
+    ``randn`` from its own seed: each held to NCCL's result and to the
+    f64 sum within AR4_TOL absolute (sums of 4 unit normals); ms a call
+    (CUDA events over AR4_ITERS calls) and bus GB/s (NCCL's convention,
+    ``2 (n-1) / n`` of the algorithm bandwidth)."""
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    ranks = multi_process_runner.run(_allreduce_rank, 4, device="cuda",
+                                     timeout=600).return_values
+    problems = []
+    for r in ranks:
+        for label in AR4_SIZES:
+            for alg, row in r[label].items():
+                if row["max_abs_err_vs_nccl"] > AR4_TOL \
+                        or row["max_abs_err_vs_f64"] > AR4_TOL:
+                    problems.append(f"rank {r['rank']} {label} {alg}: {row}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"world": 4, "sizes_f32_elements": AR4_SIZES, "tol": AR4_TOL,
+            "iters": AR4_ITERS, "ranks": ranks}
+
+
+def _victim_grads(*args, **kwargs):
+    """Worker 2's ``ps_worker_grads`` in ``ps_remote4`` once the
+    coordinator has asked for the kill: mark the closure in flight and
+    hold it, so the kill lands mid-closure."""
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    workdir = os.environ["DTX_PSR4_DIR"]
+    if os.path.exists(os.path.join(workdir, "kill_now")):
+        open(os.path.join(workdir, "victim_busy"), "w").close()
+        time.sleep(30.0)
+    return _REAL_PS_GRADS[0](*args, **kwargs)
+
+
+_REAL_PS_GRADS: list = []
+
+
+def _on_card(tree: dict, device="cuda") -> dict:
+    """Copies of a PS server copy's tensors on ``device``; the server
+    copy itself stays where it is."""
+    import torch
+    return {k: torch.as_tensor(v).to(device, copy=True)
+            for k, v in tree.items()}
+
+
+def _ps_loss_on(cfg, st: dict, rows: dict, device="cuda") -> float:
+    """The loss of a PS server copy on ``rows`` (on the card)."""
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    loss, _, _ = wd.ps_worker_grads(
+        cfg, _on_card(st["dense"]["params"], device),
+        _on_card(st["emb"]["tables"], device), iter([rows]))
+    return loss
+
+
+def _ps_remote_task(workdir: str):
+    """A task of ``ps_remote4``, dispatched by ``train_and_evaluate``:
+    worker 0 coordinates ``train_dlrm_async_ps`` over remote lanes to
+    workers 1-3 and checkpoints the server copy every PSR4_CKPT_EVERY
+    steps (two kept); workers 1-3 serve closures; the evaluator, outside
+    the process group, evaluates each checkpoint and acknowledges it on
+    the KV."""
+    import pickle
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
+        Checkpoint, CheckpointManager)
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.cluster.coordination import (
+        coordination_service)
+    from distributed_tensorflow_tpu_torch.coordinator import remote_dispatch
+    from distributed_tensorflow_tpu_torch.coordinator.cluster_coordinator \
+        import ClusterCoordinator
+    from distributed_tensorflow_tpu_torch.coordinator.evaluator import (
+        SidecarEvaluator, train_and_evaluate)
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    os.environ["DTX_PSR4_DIR"] = workdir
+    cfg = wd.WideDeepConfig.dlrm_like(vocab_sizes=(PSR4_VOCAB,) * 26)
+    ckdir = os.path.join(workdir, "ckpt")
+
+    def template():
+        st = wd.ps_init_state(cfg, device="cpu")
+        return {"dense": _host_tree(st["dense"]["params"]),
+                "tables": _host_tree(st["emb"]["tables"])}
+
+    def train_fn(ctx):
+        rt = bootstrap.runtime()
+        facts = {"rank": rt.process_id, **_card_facts(rt.device)}
+        if rt.process_id != 0:
+            if rt.process_id == 2:
+                _REAL_PS_GRADS.append(wd.ps_worker_grads)
+                wd.ps_worker_grads = _victim_grads
+            remote_dispatch.run_worker_loop()
+            return ("worker-done", facts)
+        agent = coordination_service()
+        coord = ClusterCoordinator(
+            remote_worker_ids=list(range(1, rt.num_processes)))
+        ckpt = Checkpoint(single_writer=True, **template())
+        mgr = CheckpointManager(ckpt, ckdir, checkpoint_name="ps",
+                                max_to_keep=2)
+        real_apply = wd.ps_apply_grads
+        box, smi = {}, {}
+
+        def capture(*a):
+            box["state"] = real_apply(*a)
+            return box["state"]
+
+        def on_step(n):
+            if n == 5:
+                smi["cards"] = _smi_cards()
+            if n == PSR4_KILL_AT:
+                open(os.path.join(workdir, "kill_now"), "w").close()
+            if n % PSR4_CKPT_EVERY == 0:
+                st = box["state"]
+                ckpt._objects.update(
+                    dense=_host_tree(st["dense"]["params"]),
+                    tables=_host_tree(st["emb"]["tables"]))
+                mgr.save(checkpoint_number=n)
+                agent.key_value_get(f"psr4/evaluated/{n}", timeout_s=300)
+
+        wd.ps_apply_grads = capture
+        t0 = time.perf_counter()
+        try:
+            _, losses = wd.train_dlrm_async_ps(
+                cfg, coord, steps=PSR4_STEPS, batch_size=WD_BATCH,
+                max_in_flight=PSR4_IN_FLIGHT, on_step=on_step)
+        finally:
+            wd.ps_apply_grads = real_apply
+        wall = time.perf_counter() - t0
+        metrics = coord.cluster.coordinator_metrics.closure_execution
+        st = box["state"]
+        task = pickle.dumps((wd.ps_worker_grads, (
+            cfg, st["dense"]["params"], st["emb"]["tables"],
+            remote_dispatch._ResourceHandle(1, "1:0")), {}))
+        out = {"losses": losses, "wall_s": wall,
+               "redispatched": sum(w.failures
+                                   for w in coord.cluster.workers),
+               "closure_s_mean": metrics.average_seconds,
+               "closures_timed": metrics.count,
+               "task_bytes": len(task), "nvidia_smi": smi.get("cards"),
+               **facts}
+        coord.shutdown()
+        return ("coordinator", out)
+
+    def eval_fn(ctx):
+        rt = bootstrap.runtime()
+        ckpt = Checkpoint(single_writer=True, **template())
+
+        # worker 1's training rows (its dataset's seed is its id)
+        rows = wd.synthetic_clicks(cfg, 1024, seed=1)
+
+        def evaluate(c, step):
+            loss = _ps_loss_on(cfg, {"dense": {"params": c._objects["dense"]},
+                                     "emb": {"tables": c._objects["tables"]}},
+                               rows, rt.device)
+            ctx.agent.key_value_set(f"psr4/evaluated/{step}", "1")
+            return {"loss": loss}
+
+        ev = SidecarEvaluator(ckpt, ckdir, evaluate, checkpoint_name="ps",
+                              poll_interval_s=0.1, final_step=PSR4_STEPS,
+                              idle_timeout_s=300,
+                              evaluate_every_checkpoint=True)
+        return ("evaluator", {"evaluated": ev.run(), "in_group": rt.in_group,
+                              "grouped": torch.distributed.is_initialized(),
+                              "device": str(rt.device)})
+
+    return train_and_evaluate(train_fn, eval_fn, strategy=None)
+
+
+def phase_ps_remote4(state):
+    """Four cards: a coordinator (worker 0) and three remote workers
+    (workers 1-3, a card each) from ``TF_CONFIG``, and an evaluator task
+    outside the process group, all under ``train_and_evaluate``:
+    ``train_dlrm_async_ps`` over remote lanes at DLRM's widths with
+    tables of PSR4_VOCAB rows (so that a closure fits the KV's 4 MiB
+    cap), PSR4_STEPS steps, PSR4_IN_FLIGHT in flight. Worker 2 is killed
+    (``MultiProcessRunner.terminate``) while it holds a closure: every
+    step completes, the closure re-runs on a survivor, the killed task's
+    exit code is not 0, the loss falls. The evaluator evaluates every
+    checkpoint of the server copy (saved every PSR4_CKPT_EVERY steps,
+    two kept) on worker 1's training rows, and acknowledges each on the
+    KV through its store client; the loss there falls. Closures
+    re-dispatched, seconds a closure, one closure's bytes."""
+    import shutil
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    workdir = os.path.join(ROOT, "build", "ps_remote4")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    spec = multi_process_runner.create_cluster_spec(num_workers=4,
+                                                    has_evaluator=True)
+    runner = multi_process_runner.MultiProcessRunner(
+        _ps_remote_task, spec, args=(workdir,), device="cuda", timeout=900)
+    runner.start()
+    deadline = time.monotonic() + 600
+    while not os.path.exists(os.path.join(workdir, "victim_busy")):
+        if time.monotonic() > deadline:
+            runner.terminate_all()
+            raise AssertionError("worker 2 never held a closure")
+        time.sleep(0.05)
+    t_kill = time.perf_counter()
+    runner.terminate("worker", 2)
+    result = runner.join(timeout=900, raise_on_error=False)
+    tasks = result.tasks
+    coord = tasks[("worker", 0)]
+    ev = tasks[("evaluator", 0)]
+    problems = []
+    if coord.error or not coord.value:
+        problems.append(f"coordinator: {coord.error or coord.stdout[-3000:]}")
+    if ev.error or not ev.value:
+        problems.append(f"evaluator: {ev.error or ev.stdout[-3000:]}")
+    if tasks[("worker", 2)].exitcode in (0, None):
+        problems.append(f"worker 2 exit {tasks[('worker', 2)].exitcode}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    c = coord.value[1]
+    e = ev.value[1]
+    losses = c["losses"]
+    steps = [s for s, _ in e["evaluated"]]
+    want_steps = list(range(PSR4_CKPT_EVERY, PSR4_STEPS + 1,
+                            PSR4_CKPT_EVERY))
+    evals = [m["loss"] for _, m in e["evaluated"]]
+    if len(losses) != PSR4_STEPS or not all(map(math.isfinite, losses)) \
+            or not evals[-1] < evals[0]:
+        problems.append(f"losses {losses}; on worker 1's rows {evals}")
+    if c["redispatched"] < 1:
+        problems.append("no closure was re-dispatched")
+    if steps != want_steps or e["in_group"] or e["grouped"]:
+        problems.append(f"evaluator: {e}")
+    for k in (("worker", 1), ("worker", 3)):
+        if tasks[k].value is None or tasks[k].value[0] != "worker-done":
+            problems.append(f"{k}: {tasks[k].error or tasks[k].exitcode}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"config": f"dlrm_like's widths, tables of {PSR4_VOCAB} rows "
+                      "(not config #4's 100000: its closure exceeds the "
+                      "KV cap)",
+            "batch": WD_BATCH, "steps": PSR4_STEPS,
+            "in_flight": PSR4_IN_FLIGHT, "killed": "worker 2",
+            "killed_exitcode": tasks[("worker", 2)].exitcode,
+            "redispatched": c["redispatched"],
+            "closure_s_mean": c["closure_s_mean"],
+            "closures_timed": c["closures_timed"],
+            "wall_s": c["wall_s"], "task_bytes": c["task_bytes"],
+            "loss_first10": sum(losses[:10]) / 10,
+            "loss_last10": sum(losses[-10:]) / 10,
+            "evaluated": e["evaluated"], "evaluator_device": e["device"],
+            "cards": {"coordinator": c["pci_bus_id"],
+                      **{f"worker{k[1]}": tasks[k].value[1]["pci_bus_id"]
+                         for k in (("worker", 1), ("worker", 3))}},
+            "nvidia_smi": c["nvidia_smi"],
+            "seconds_from_kill": time.perf_counter() - t_kill}
+
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -9021,10 +9751,15 @@ def main(argv=None) -> int:
                      ("keras_scripts", phase_keras_scripts),
                      ("keras_parity", phase_keras_parity),
                      ("strategy_native", phase_strategy_native),
+                     ("ps_dlrm", phase_ps_dlrm),
+                     ("online_coord", phase_online_coord),
                      ("ckpt_mesh", phase_ckpt_mesh),
                      ("mesh_repair", phase_mesh_repair),
                      ("keras_mirrored4", phase_keras_mirrored4),
-                     ("strategy_run4", phase_strategy_run4)):
+                     ("strategy_run4", phase_strategy_run4),
+                     ("multi_worker4", phase_multi_worker4),
+                     ("allreduce_algos4", phase_allreduce_algos4),
+                     ("ps_remote4", phase_ps_remote4)):
         if only and name not in only:
             continue
         if name in FOUR_CARD_PHASES and not only \
@@ -9150,6 +9885,12 @@ def main(argv=None) -> int:
             path: state[f"{path}_launches"][name]
             for path in ("keras_scripts", "keras_parity",
                          "strategy_native")}
+        # the cluster phases, each from 0: the async-PS DLRM on thread
+        # lanes and the online trainer through the coordinator launch
+        # none of #1-#9 (the four-card phases check 0 in their own lines)
+        row["cluster_launches"] = {
+            path: state[f"{path}_launches"][name]
+            for path in ("ps_dlrm", "online_coord")}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

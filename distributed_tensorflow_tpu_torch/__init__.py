@@ -2,8 +2,8 @@
 
 The package mirrors the JAX package's module layout (``ops/``,
 ``models/``, ``serving/``, ``telemetry/``, ``resilience/``,
-``checkpoint/``, ``cluster/``, ``parallel/``, ``testing/``,
-``embedding/``, ``input/``, ``training/``, ``utils/``) so each
+``checkpoint/``, ``cluster/``, ``coordinator/``, ``parallel/``,
+``testing/``, ``embedding/``, ``input/``, ``training/``, ``utils/``) so each
 ported module sits at the same relative path as the module it is held
 against. It imports
 torch, numpy and the standard library only — never jax, flax, optax or
@@ -17,9 +17,11 @@ on a CPU tensor its wrapper runs the plain PyTorch version instead.
 
 Importing this package imports no submodule: import what you use, e.g.
 ``from distributed_tensorflow_tpu_torch.serving.engine import
-InferenceEngine``. The strategy API and the Keras shim are also lazy
-top-level names (``_LAZY``), as the JAX package exports them, so a
-Keras script runs on the port with its import lines changed::
+InferenceEngine``. The strategy API (the multi-worker, parameter-server,
+central-storage and TPU strategies included), the cluster resolvers, the
+``ClusterCoordinator`` and the Keras shim are also lazy top-level names
+(``_LAZY``), as the JAX package exports them, so a script runs on the
+port with its import lines changed::
 
     import distributed_tensorflow_tpu_torch as tf_distribute
     from distributed_tensorflow_tpu_torch import keras
@@ -29,8 +31,8 @@ Keras script runs on the port with its import lines changed::
 import importlib
 
 __all__ = ["ops", "models", "serving", "telemetry", "resilience",
-           "checkpoint", "cluster", "parallel", "testing", "embedding",
-           "input", "training", "utils"]
+           "checkpoint", "cluster", "coordinator", "parallel", "testing",
+           "embedding", "input", "training", "utils"]
 
 _P = "distributed_tensorflow_tpu_torch."
 
@@ -53,6 +55,28 @@ _LAZY = {
         "CrossDeviceOps", "ReductionToOneDevice", "IciAllReduce",
         "NcclAllReduce", "HierarchicalAllReduce",
         "select_cross_device_ops")},
+    **{n: _P + "parallel.multi_worker" for n in (
+        "MultiWorkerMirroredStrategy", "CollectiveAllReduceStrategy")},
+    **{n: _P + "parallel.parameter_server" for n in (
+        "ParameterServerStrategy", "ParameterServerStrategyV1",
+        "ParameterServerStrategyV2")},
+    "CentralStorageStrategy": _P + "parallel.central_storage",
+    "TPUStrategy": _P + "parallel.tpu_strategy",
+    **{n: _P + "parallel.sharded_variable" for n in (
+        "Partitioner", "FixedShardsPartitioner", "MinSizePartitioner",
+        "MaxSizePartitioner", "ShardedVariable")},
+    **{n: _P + "parallel.ps_values" for n in (
+        "AggregatingVariable", "CachingVariable")},
+    **{n: _P + "cluster.resolver" for n in (
+        "ClusterSpec", "ClusterResolver", "SimpleClusterResolver",
+        "TFConfigClusterResolver", "TPUClusterResolver")},
+    **{n: _P + "cluster.platform_resolvers" for n in (
+        "GCEClusterResolver", "KubernetesClusterResolver",
+        "SageMakerClusterResolver", "SlurmClusterResolver")},
+    **{n: _P + "coordinator.cluster_coordinator" for n in (
+        "ClusterCoordinator", "RemoteValue", "PerWorkerValues")},
+    "RetryPolicy": _P + "resilience.retry",
+    "coordination_service": _P + "cluster.coordination",
     **{n: _P + "input.dataset" for n in (
         "Dataset", "DistributedDataset", "InputOptions", "AutoShardPolicy",
         "InputContext")},

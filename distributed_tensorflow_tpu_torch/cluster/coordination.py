@@ -11,10 +11,12 @@ tensorflow_tpu_torch.cluster.elastic.namespace`), the fault sites
 - **One process** (no process group, or a group of one): every
   operation is served by :class:`_LocalService`, JAX's in-process
   service with its semantics.
-- **Several processes**: the operations ride the ``torch.distributed``
-  store of the default process group — the ``TCPStore`` that
-  ``cluster/bootstrap.initialize`` made — under the prefix
-  ``dtx_kv/``. That store cannot list a prefix, cannot refuse a second
+- **Several processes**: the operations ride the ``TCPStore`` that
+  rank 0 hosts for the default process group (the one
+  ``cluster/bootstrap.initialize`` made), through a connection of the
+  agent's own (``bootstrap.store_client``), under the prefix
+  ``dtx_kv/``; a group that bootstrap did not make uses its default
+  store. That store cannot list a prefix, cannot refuse a second
   write and raises its own errors, so :class:`_StoreService` adds:
 
   - a key index: a key's first write claims a slot of an append-only
@@ -26,7 +28,15 @@ tensorflow_tpu_torch.cluster.elastic.namespace`), the fault sites
     (the negotiation keys of the restore ladder are write-once);
   - timeouts: a ``get`` waits with the store's ``wait`` and raises
     :class:`CoordinationError`; a barrier that times out raises
-    :class:`BarrierTimeoutError` naming the missing processes.
+    :class:`BarrierTimeoutError` naming the missing processes;
+  - cheap leaf deletes: a key's first write also marks each of its
+    parent directories, so deleting a key that has nothing under it
+    (a remote closure's task and result keys) skips the index scan.
+
+- **A task outside the process group** (a ``ps`` or ``evaluator``
+  task, ``cluster/bootstrap.py``) reaches the same store through a
+  client that :func:`attach_store` installs; it joins no barrier and
+  its ``process_id`` is -1.
 """
 
 from __future__ import annotations
@@ -193,9 +203,17 @@ class _StoreService:
 
     def _register(self, key: str):
         """Claim an index slot the first time ``key`` is written (again
-        after a delete)."""
+        after a delete), and mark its parent directories."""
         if self._store.add(f"{_PREFIX}reg/{key}", 1) != 1:
             return
+        parts = key.split("/")
+        dirs = [f"{_PREFIX}dir/{'/'.join(parts[:i])}"
+                for i in range(1, len(parts))]
+        if dirs and hasattr(self._store, "multi_set"):
+            self._store.multi_set(dirs, [b"1"] * len(dirs))
+        else:
+            for d in dirs:
+                self._store.set(d, b"1")
         slot = self._store.add(f"{_PREFIX}idx/n", 1)
         self._store.set(f"{_PREFIX}idx/s{slot}", key.encode())
 
@@ -242,8 +260,10 @@ class _StoreService:
         return sorted(out)
 
     def delete(self, key: str):
-        for k in [key] + [k for k in self._indexed()
-                          if k.startswith(key + "/")]:
+        keys = [key]
+        if self._has(f"{_PREFIX}dir/{key}"):
+            keys += [k for k in self._indexed() if k.startswith(key + "/")]
+        for k in keys:
             self._store.delete_key(self._v(k))
             self._store.delete_key(f"{_PREFIX}once/{k}")
             self._store.delete_key(f"{_PREFIX}reg/{k}")
@@ -259,6 +279,10 @@ class _StoreService:
         marks its own slot; the last one sets the release key, which the
         others wait for. A timeout names the processes whose slot is
         missing."""
+        if self._rank < 0:
+            raise CoordinationError(
+                f"barrier {name!r}: a task outside the process group "
+                "joins no barrier")
         base = f"{_PREFIX}bar/{name}"
         self._store.set(f"{base}/p{self._rank}", b"1")
         if self._store.add(f"{base}/n", 1) >= self._world:
@@ -276,12 +300,15 @@ class _StoreService:
 class CoordinationServiceAgent:
     """Client handle to the coordination service (JAX's
     ``CoordinationServiceAgent``). Use :func:`coordination_service` for
-    the process-wide instance; every method works in one process."""
+    the process-wide instance; every method works in one process.
+    ``store``: a connection of this agent's own to the group's store
+    (:func:`private_agent`)."""
 
-    def __init__(self):
+    def __init__(self, store=None):
         self._local = _LOCAL
         self._service: _StoreService | None = None
         self._service_of = None
+        self._own_store = store
         self.op_counts = collections.Counter()
 
     # -- identity ---------------------------------------------------------
@@ -295,14 +322,23 @@ class CoordinationServiceAgent:
     @property
     def _client(self) -> _StoreService | None:
         """The store service of the current default group, None in one
-        process (a new group — a reformed cluster — gets a new one)."""
+        process (a new group — a reformed cluster — gets a new one); for
+        a task outside the group, the attached store's."""
         dist = self._dist()
+        if self._own_store is not None:
+            if self._service is None:
+                rank, world = ((dist.get_rank(), dist.get_world_size())
+                               if dist is not None
+                               else (-1, _ATTACHED["world"]))
+                self._service = _StoreService(self._own_store, rank, world)
+            return self._service
         if dist is None or dist.get_world_size() < 2:
-            return None
+            return _attached_service()
         from torch.distributed import distributed_c10d
         store = distributed_c10d._get_default_store()
         if self._service is None or self._service_of is not store:
-            self._service = _StoreService(store, dist.get_rank(),
+            self._service = _StoreService(_connection(store),
+                                          dist.get_rank(),
                                           dist.get_world_size())
             self._service_of = store
         return self._service
@@ -314,11 +350,15 @@ class CoordinationServiceAgent:
     @property
     def process_id(self) -> int:
         dist = self._dist()
+        if dist is None and _ATTACHED["factory"] is not None:
+            return -1
         return dist.get_rank() if dist is not None else 0
 
     @property
     def num_processes(self) -> int:
         dist = self._dist()
+        if dist is None and _ATTACHED["factory"] is not None:
+            return _ATTACHED["world"]
         return dist.get_world_size() if dist is not None else 1
 
     @property
@@ -414,8 +454,55 @@ class CoordinationServiceAgent:
         return list(range(self.num_processes))
 
 
+_ATTACHED: dict = {"factory": None, "service": None, "world": 0}
+_ATTACH_LOCK = threading.Lock()
+
+
+def attach_store(factory, world: int = 0):
+    """Serve this process's KV from the store ``factory()`` returns (a
+    client of the group's store, made on first use) when it is in no
+    process group: a ``ps`` or ``evaluator`` task. ``world`` is the
+    group's size; None detaches."""
+    with _ATTACH_LOCK:
+        _ATTACHED.update(factory=factory, service=None, world=world)
+
+
+def _attached_service() -> _StoreService | None:
+    with _ATTACH_LOCK:
+        if _ATTACHED["factory"] is None:
+            return None
+        if _ATTACHED["service"] is None:
+            _ATTACHED["service"] = _StoreService(_ATTACHED["factory"](), -1,
+                                                 _ATTACHED["world"])
+        return _ATTACHED["service"]
+
+
 _AGENT: CoordinationServiceAgent | None = None
 _AGENT_LOCK = threading.Lock()
+
+
+def _connection(default_store):
+    """A connection of this agent's own to rank 0's store, or the
+    default group's store when bootstrap did not make the group."""
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    rt = bootstrap._RUNTIME
+    if rt is not None and rt.coordinator_address:
+        return bootstrap.store_client(rt.coordinator_address)
+    return default_store
+
+
+def private_agent() -> CoordinationServiceAgent:
+    """An agent with its own connection to the group's store, so that
+    its blocking gets hold no other thread's operations (a store client
+    serialises them); the process-wide agent in one process, where the
+    local service blocks per key."""
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    rt = bootstrap._RUNTIME
+    agent = coordination_service()
+    if rt is None or not rt.coordinator_address or not agent.is_distributed:
+        return agent
+    return CoordinationServiceAgent(
+        store=bootstrap.store_client(rt.coordinator_address))
 
 
 def coordination_service() -> CoordinationServiceAgent:

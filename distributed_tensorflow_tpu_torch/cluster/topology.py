@@ -1,5 +1,11 @@
-"""Mesh construction over ``torch.distributed`` — port of the mesh part
-of ``distributed_tensorflow_tpu/cluster/topology.py``.
+"""Topology, device assignment and mesh construction over
+``torch.distributed`` — port of ``distributed_tensorflow_tpu/cluster/
+topology.py``.
+
+:class:`Topology` and :class:`DeviceAssignment` keep JAX's fields and
+arithmetic; :meth:`Topology.detect` reads the visible cards
+(``cuda:0`` ... ``cuda:N-1``, or the CPU on a machine without one) and
+the process group's size and rank, where JAX's reads ``jax.devices()``.
 
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over every
 rank of the default process group (one device a rank), with named dims.
@@ -13,8 +19,9 @@ The default process group must exist first
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 import torch.distributed as dist
@@ -35,6 +42,93 @@ DCN_AXIS = "dcn"
 
 # Axes over which input batches shard, outermost first.
 DATA_AXES = (DCN_AXIS, DATA_AXIS, FSDP_AXIS)
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """The accelerators of the job (JAX ``:37``): ``devices`` in
+    enumeration order, the process count and this process's index, the
+    platform ("gpu" or "cpu")."""
+
+    devices: tuple
+    num_processes: int
+    process_index: int
+    platform: str
+
+    @classmethod
+    def detect(cls, devices: Sequence | None = None) -> "Topology":
+        """The visible cards (or ``devices``) and the process group's
+        size and rank (1 and 0 with no group)."""
+        if devices is None:
+            n = torch.cuda.device_count()
+            devices = ([torch.device("cuda", i) for i in range(n)] if n
+                       else [torch.device("cpu")])
+        devices = tuple(devices)
+        grouped = dist.is_available() and dist.is_initialized()
+        kind = getattr(devices[0], "type", None) if devices else None
+        return cls(
+            devices=devices,
+            num_processes=dist.get_world_size() if grouped else 1,
+            process_index=dist.get_rank() if grouped else 0,
+            platform=({"cuda": "gpu"}.get(kind, kind) if kind is not None
+                      else getattr(devices[0], "platform", "none")
+                      if devices else "none"))
+
+    @property
+    def num_devices(self) -> int:
+        return len(self.devices)
+
+    @property
+    def num_devices_per_process(self) -> int:
+        return max(1, self.num_devices // max(1, self.num_processes))
+
+    def local_devices(self) -> list:
+        return [d for d in self.devices
+                if getattr(d, "process_index", 0) == self.process_index]
+
+    @property
+    def mesh_shape(self) -> tuple:
+        """Physical mesh shape from the devices' coordinates where they
+        report them, else flat ``(num_devices,)`` (always, for cards)."""
+        coords = [getattr(d, "coords", None) for d in self.devices]
+        if any(c is None for c in coords):
+            return (self.num_devices,)
+        dims = tuple(max(c[i] for c in coords) + 1
+                     for i in range(len(coords[0])))
+        cores = max(getattr(d, "core_on_chip", 0) for d in self.devices) + 1
+        return dims + (cores,)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceAssignment:
+    """Logical replicas onto devices (JAX ``:87``): replica r's logical
+    cores are devices ``r*c .. r*c+c-1``."""
+
+    topology: Topology
+    num_replicas: int
+    num_cores_per_replica: int = 1
+
+    @classmethod
+    def build(cls, topology: Topology | None = None,
+              num_replicas: int | None = None,
+              num_cores_per_replica: int = 1) -> "DeviceAssignment":
+        topology = topology or Topology.detect()
+        if num_replicas is None:
+            num_replicas = topology.num_devices // num_cores_per_replica
+        if num_replicas * num_cores_per_replica > topology.num_devices:
+            raise ValueError(
+                f"Requested {num_replicas} replicas x {num_cores_per_replica} "
+                f"cores > {topology.num_devices} devices")
+        return cls(topology, num_replicas, num_cores_per_replica)
+
+    def device(self, replica: int, logical_core: int = 0):
+        idx = replica * self.num_cores_per_replica + logical_core
+        return self.topology.devices[idx]
+
+    def replica_devices(self, replica: int) -> list:
+        base = replica * self.num_cores_per_replica
+        return list(self.topology.devices[base:base
+                                          + self.num_cores_per_replica])
 
 
 def _normalize_axes(axes, num_devices: int):

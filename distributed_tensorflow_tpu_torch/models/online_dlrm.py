@@ -14,9 +14,13 @@ exactly the uncommitted records.
 The checkpoint layout (:func:`checkpoint_template`) and the table state
 are JAX's (numpy leaves only), so either package restores the other's
 online checkpoints. Gradients are computed locally
-(:func:`worker_grads`, torch autograd on the trainer's device); the
-``ClusterCoordinator`` path of the JAX package belongs to a later slice,
-and ``OnlineTrainer(coordinator=...)`` raises ``NotImplementedError``.
+(:func:`worker_grads`, torch autograd on the trainer's device), or
+asynchronously through a ``ClusterCoordinator``
+(``OnlineTrainer(coordinator=)``, JAX ``:218-237``): each batch's
+gradient is a scheduled closure (:func:`worker_grads_host`, host arrays
+in and out, on the lane's device), with up to ``max_in_flight`` in
+flight, applied in schedule order so that the committed cursor is
+always the contiguous applied prefix.
 """
 
 from __future__ import annotations
@@ -119,8 +123,10 @@ def worker_grads(cfg: OnlineConfig, dense_params, user_rows, item_rows,
                  dense, labels):
     """``(loss, dense_grads, user_row_grads, item_row_grads)`` of one
     batch, w.r.t. the dense parameters and the gathered rows, on the
-    rows' device."""
-    device = torch.as_tensor(user_rows).device
+    device of the coordinator lane running it, else the rows'."""
+    from distributed_tensorflow_tpu_torch.coordinator.cluster_coordinator \
+        import lane_device
+    device = lane_device() or torch.as_tensor(user_rows).device
 
     def leaf(a, dtype=None):
         t = torch.as_tensor(a).to(device)
@@ -138,6 +144,16 @@ def worker_grads(cfg: OnlineConfig, dense_params, user_rows, item_rows,
                                     + [urows, irows])
     return (loss.detach(), dict(zip(keys, grads[:len(keys)])),
             grads[-2], grads[-1])
+
+
+def worker_grads_host(cfg: OnlineConfig, dense_params, user_rows,
+                      item_rows, dense, labels):
+    """:func:`worker_grads` as a scheduled closure runs it (JAX's
+    ``worker_grads``): host arrays in, host arrays out."""
+    loss, dg, ug, ig = worker_grads(cfg, dense_params, user_rows, item_rows,
+                                    dense, labels)
+    return (loss.cpu().numpy(), {k: v.cpu().numpy() for k, v in dg.items()},
+            ug.cpu().numpy(), ig.cpu().numpy())
 
 
 @torch.no_grad()
@@ -191,10 +207,13 @@ def unpack_restored(flat: dict, prefix: str = "online") -> dict:
 
 class OnlineTrainer:
     """Continuous streaming trainer with exactly-once event application
-    (JAX's, local path). One instance is one incarnation: construct,
+    (JAX's). One instance is one incarnation: construct,
     :meth:`restore`, then :meth:`run` until ``total_events`` are applied
-    and committed. ``agent`` (a coordination agent) gets the committed
-    offset as an advisory ``dtx_online/committed_offset`` key."""
+    and committed. Gradients are computed locally, or through
+    ``coordinator`` (a ``ClusterCoordinator``, thread or remote lanes)
+    with up to ``max_in_flight`` scheduled closures, applied in schedule
+    order. ``agent`` (a coordination agent) gets the committed offset as
+    an advisory ``dtx_online/committed_offset`` key."""
 
     def __init__(self, cfg: OnlineConfig, stream_path: str,
                  ckpt_dir: str, *, commit_every: int = 5,
@@ -205,16 +224,11 @@ class OnlineTrainer:
                  agent=None, device="cuda"):
         from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
             Checkpoint, CheckpointManager)
-        if coordinator is not None:
-            raise NotImplementedError(
-                "OnlineTrainer(coordinator=...) schedules gradients on a "
-                "ClusterCoordinator, which the port does not have yet; "
-                "leave coordinator=None for the local path")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.stream_path = stream_path
         self.commit_every = commit_every
-        self.coordinator = None
+        self.coordinator = coordinator
         self.max_in_flight = max(1, max_in_flight)
         self.agent = agent
         if static_tables:
@@ -338,13 +352,22 @@ class OnlineTrainer:
         return pad, n
 
     def _compute_grads(self, urows_idx, irows_idx, batch):
-        return worker_grads(self.cfg, self.dense_params,
-                            self.user_table.gather(urows_idx),
-                            self.item_table.gather(irows_idx),
+        urows = self.user_table.gather(urows_idx)
+        irows = self.item_table.gather(irows_idx)
+        if self.coordinator is not None:
+            def host(t):
+                return t.detach().cpu().numpy()
+            return self.coordinator.schedule(worker_grads_host, args=(
+                self.cfg, {k: host(v) for k, v in self.dense_params.items()},
+                host(urows), host(irows), batch["dense"], batch["label"]))
+        return worker_grads(self.cfg, self.dense_params, urows, irows,
                             batch["dense"], batch["label"])
 
     def _apply(self, urows_idx, irows_idx, n_real, result):
         loss, dgrads, ugrads, igrads = result
+        if isinstance(ugrads, np.ndarray):      # a scheduled closure's
+            dgrads = {k: self._tensor(v) for k, v in dgrads.items()}
+            ugrads, igrads = self._tensor(ugrads), self._tensor(igrads)
         if n_real < self.cfg.batch_size:
             scale = self.cfg.batch_size / n_real
             ugrads = ugrads[:n_real] * scale
@@ -368,15 +391,15 @@ class OnlineTrainer:
         ``crash_after_batches`` raises after an apply, before the next
         commit. Returns summary counters (``events_per_sec`` included)."""
         losses: list = []
+        in_flight: list = []
         batches_done = 0
         t_first = None
-        for lo, hi, events in self._batches(total_events, idle_timeout_s):
-            batch, n_real = self._pad(self._stack(events))
-            uidx = self.user_table.translate(batch["user"])
-            iidx = self.item_table.translate(batch["item"])
-            t0 = time.perf_counter()
-            loss = self._apply(uidx, iidx, n_real,
-                               self._compute_grads(uidx, iidx, batch))
+
+        def apply_one():
+            nonlocal batches_done, t_first
+            lo, hi, uidx, iidx, n_real, t0, rv = in_flight.pop(0)
+            result = rv.fetch() if hasattr(rv, "fetch") else rv
+            loss = self._apply(uidx, iidx, n_real, result)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dur = time.perf_counter() - t0
@@ -402,6 +425,22 @@ class OnlineTrainer:
                     f"batches (before commit)")
             if self.step % self.commit_every == 0:
                 self.commit()
+
+        for lo, hi, events in self._batches(total_events, idle_timeout_s):
+            batch, n_real = self._pad(self._stack(events))
+            uidx = self.user_table.translate(batch["user"])
+            iidx = self.item_table.translate(batch["item"])
+            t0 = time.perf_counter()
+            rv = self._compute_grads(uidx, iidx, batch)
+            in_flight.append((lo, hi, uidx, iidx, n_real, t0, rv))
+            # apply in schedule order: the committed cursor is always the
+            # contiguous applied prefix (JAX :466-473)
+            while len(in_flight) >= (self.max_in_flight
+                                     if self.coordinator is not None
+                                     else 1):
+                apply_one()
+        while in_flight:
+            apply_one()
         if self.offset < total_events:
             raise TimeoutError(
                 f"stream went idle at offset {self.offset} before "

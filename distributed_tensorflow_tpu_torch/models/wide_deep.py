@@ -1,7 +1,5 @@
 """Wide&Deep / DLRM — port of ``distributed_tensorflow_tpu/models/
-wide_deep.py`` (benchmark workload #4), without the coordinator-driven
-asynchronous parameter-server driver (``train_dlrm_async_ps``,
-``_ps_dataset``), which waits for the coordinator's port.
+wide_deep.py`` (benchmark workload #4).
 
 - :class:`WideDeepConfig` (``tiny``, ``dlrm_like``) and
   :data:`WIDE_DEEP_RULES`.
@@ -23,7 +21,9 @@ asynchronous parameter-server driver (``train_dlrm_async_ps``,
 - The embedding-API path: :func:`build_feature_config`,
   :class:`WideDeepDense`, :func:`make_embedding_train_step`, and the pure
   parameter-server helpers :func:`ps_init_state`, :func:`ps_worker_grads`
-  and :func:`ps_apply_grads`.
+  and :func:`ps_apply_grads`, and the asynchronous parameter-server
+  driver :func:`train_dlrm_async_ps` over a ``ClusterCoordinator`` with
+  its per-worker dataset :func:`_ps_dataset` (JAX ``:460-525``).
 - :func:`synthetic_clicks` — JAX's numpy draw, bit for bit.
 - :func:`params_from_jax` / :func:`flax_params` — flax trees in and out.
 """
@@ -523,13 +523,16 @@ def ps_init_state(cfg: WideDeepConfig, seed: int = 0, device="cuda") -> dict:
 def ps_worker_grads(cfg: WideDeepConfig, dense_params: dict, tables: dict,
                     it):
     """On a worker: the next batch of ``it`` and ``(loss, dense grads,
-    table grads)`` as numpy arrays, at the given parameters."""
+    table grads)`` as numpy arrays, at the given parameters — on the
+    device of the coordinator lane running it, else the tables'."""
+    from distributed_tensorflow_tpu_torch.coordinator.cluster_coordinator \
+        import lane_device
     batch = next(it)
-    device = next(iter(tables.values())).device
+    device = lane_device() or next(iter(tables.values())).device
     model = WideDeepDense(cfg, device=device)
-    params = {n: p.detach().clone().requires_grad_(True)
+    params = {n: p.detach().to(device, copy=True).requires_grad_(True)
               for n, p in dense_params.items()}
-    tabs = {k: v.detach().clone().requires_grad_(True)
+    tabs = {k: v.detach().to(device, copy=True).requires_grad_(True)
             for k, v in tables.items()}
     b = _batch(batch, device)
     loss = embedding_loss(
@@ -560,6 +563,84 @@ def ps_apply_grads(cfg: WideDeepConfig, state: dict, dgrads: dict,
                        for k, v in tgrads.items()},
         build_feature_config(cfg))
     return {"dense": {"params": params, "opt_state": sums}, "emb": emb}
+
+
+def _host_state(state: dict) -> dict:
+    """The server copy on the host: every tensor leaf on the CPU."""
+    from distributed_tensorflow_tpu_torch.utils import tree
+    return tree.tree_map(
+        lambda v: v.detach().cpu() if isinstance(v, torch.Tensor) else v,
+        state)
+
+
+def train_dlrm_async_ps(cfg: WideDeepConfig, coord, *, steps: int,
+                        batch_size: int = 32, max_in_flight: int = 4,
+                        dataset_seed: int = 0, log_every: int = 0,
+                        on_step=None, state: dict | None = None):
+    """Config #4 end to end (JAX ``:460-500``): per-worker datasets live
+    on the workers, gradient closures (:func:`ps_worker_grads`) are
+    scheduled across them with up to ``max_in_flight`` in flight, and
+    the coordinator folds each result into the server copy as it lands,
+    in schedule order (:func:`ps_apply_grads`; a gradient may be a few
+    updates stale — the async-PS semantics). The server copy lives on
+    the host, as JAX's (``state``, default :func:`ps_init_state` on the
+    CPU); each closure carries the current dense parameters and tables.
+    ``coord`` is a ``ClusterCoordinator`` with thread or remote lanes.
+    Returns ``(final_state, losses)``."""
+    import functools
+    state = _host_state(state if state is not None
+                        else ps_init_state(cfg, device="cpu"))
+    dataset_fn = functools.partial(_ps_dataset, cfg, batch_size,
+                                   dataset_seed)
+    per_worker_it = coord.create_per_worker_dataset(dataset_fn)
+    losses: list = []
+    in_flight: list = []
+    scheduled = 0
+    while scheduled < steps or in_flight:
+        while scheduled < steps and len(in_flight) < max_in_flight:
+            rv = coord.schedule(
+                ps_worker_grads,
+                args=(cfg, state["dense"]["params"],
+                      state["emb"]["tables"], per_worker_it))
+            in_flight.append(rv)
+            scheduled += 1
+        rv = in_flight.pop(0)
+        loss, dgrads, tgrads = rv.fetch()
+        state = ps_apply_grads(cfg, state, dgrads, tgrads)
+        losses.append(float(loss))
+        if on_step is not None:
+            on_step(len(losses))
+        if log_every and len(losses) % log_every == 0:
+            recent = losses[-log_every:]
+            print(f"step {len(losses):4d}  loss "
+                  f"{sum(recent) / len(recent):.4f}", flush=True)
+    return state, losses
+
+
+_LOCAL_DS_COUNTER = iter(range(1 << 30))
+
+
+def _ps_dataset(cfg: WideDeepConfig, batch_size: int, seed: int):
+    """Per-worker dataset factory (runs on the worker; JAX ``:503-525``):
+    an endless stream of batches drawn with replacement from 1024
+    :func:`synthetic_clicks` rows, as numpy arrays — JAX's draws, bit
+    for bit. Each worker's stream is seeded by its worker id (remote
+    lanes) or a process-local counter (thread lanes)."""
+    from distributed_tensorflow_tpu_torch.coordinator.remote_dispatch \
+        import current_worker_service
+    svc = current_worker_service()
+    wid = svc.worker_id if svc is not None else next(_LOCAL_DS_COUNTER)
+    seed = seed * 1009 + wid
+    data = synthetic_clicks(cfg, 1024, seed=seed)
+    n = data["label"].shape[0]
+
+    def gen():
+        rng = np.random.default_rng(seed)
+        while True:
+            idx = rng.integers(0, n, size=batch_size)
+            yield {k: v[idx] for k, v in data.items()}
+
+    return gen()
 
 
 def synthetic_clicks(cfg: WideDeepConfig, n: int, seed: int = 0) -> dict:

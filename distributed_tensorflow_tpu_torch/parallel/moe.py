@@ -272,10 +272,13 @@ def _experts(params, tokens, gate_vals, idx, pos, keep, C, cfg, group):
 
 
 def init_moe_params(cfg: MoEConfig, generator: torch.Generator | None = None,
-                    device="cpu") -> dict:
+                    device="cuda") -> dict:
     """f32 ``router`` N(0, 0.02), ``wi`` N(0, D^-1/2), ``wo`` N(0,
     F^-1/2) (JAX's initialisers), drawn in that order from
-    ``generator``."""
+    ``generator``, on ``device`` (a CUDA device with no card raises)."""
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        resolve_device)
+    device = resolve_device(device)
     D, E, Fd = cfg.d_model, cfg.num_experts, cfg.d_ff
     shapes = {"router": ((D, E), 0.02), "wi": ((E, D, Fd), D ** -0.5),
               "wo": ((E, Fd, D), Fd ** -0.5)}
@@ -293,9 +296,12 @@ class MoELayer(nn.Module):
     layer is initialised from ``generator`` (:func:`init_moe_params`)."""
 
     def __init__(self, cfg: MoEConfig, params: dict | None = None, *,
-                 group: ExpertParallel | None = None, device="cpu",
+                 group: ExpertParallel | None = None, device="cuda",
                  generator: torch.Generator | None = None):
+        from distributed_tensorflow_tpu_torch.models.transformer import (
+            resolve_device)
         super().__init__()
+        device = resolve_device(device)
         self.cfg, self.group = cfg, group
         if params is None:
             params = init_moe_params(cfg, generator, device)

@@ -1,36 +1,48 @@
-"""Run a function once per rank in separate processes — port of what data
-parallelism needs of ``distributed_tensorflow_tpu/testing/
-multi_process_runner.py``.
+"""Run a function in separate processes — port of
+``distributed_tensorflow_tpu/testing/multi_process_runner.py``.
 
-Ranks are ``multiprocessing`` *spawn* processes (never fork: a fresh
-interpreter, no inherited CUDA or thread state). Each child gets the
-launcher environment that :func:`~distributed_tensorflow_tpu_torch.
-cluster.bootstrap.initialize` reads (``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) plus the JAX runner's
-``DTX_MPR_TASK_INDEX`` / ``DTX_MPR_NUM_TASKS``, and calls ``fn`` —
-which initialises the process group itself::
+Tasks are ``multiprocessing`` *spawn* processes (never fork: a fresh
+interpreter, no inherited CUDA or thread state). Two forms:
 
-    def rank_fn(device):
-        bootstrap.initialize(device=device)
-        return torch.distributed.get_rank()
+- :func:`run` ``(fn, n)``: ``n`` ranks with the launcher environment
+  that :func:`~distributed_tensorflow_tpu_torch.cluster.bootstrap.
+  initialize` reads (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+  ``MASTER_ADDR``, ``MASTER_PORT``) plus the JAX runner's
+  ``DTX_MPR_TASK_INDEX`` / ``DTX_MPR_NUM_TASKS``; ``fn`` initialises
+  the process group itself::
 
-    result = multi_process_runner.run(rank_fn, 2, args=("cpu",),
-                                      device="cpu")
-    assert result.return_values == [0, 1]
+      def rank_fn(device):
+          bootstrap.initialize(device=device)
+          return torch.distributed.get_rank()
+
+      result = multi_process_runner.run(rank_fn, 2, args=("cpu",),
+                                        device="cpu")
+      assert result.return_values == [0, 1]
+
+- :class:`MultiProcessRunner` over a cluster spec
+  (:func:`create_cluster_spec`; ``run(..., num_ps=, has_evaluator=,
+  has_chief=)`` builds one): every task gets JAX's ``TF_CONFIG``, and on
+  the card a chief or worker task also gets its card (``LOCAL_RANK``,
+  its rank in the group); ``start``, ``poll``, ``terminate`` (SIGKILL
+  one task), ``terminate_all`` and ``join``. ``run(fn, n)`` is such a
+  runner too, whose ``task_env`` hook gives the launcher environment.
 
 ``fn`` must be a module-level function (spawn pickles it by import
 path). A child that raises comes back as :class:`SubprocessError` with
 its traceback; one that dies without reporting, or does not finish
 within ``timeout``, as :class:`UnexpectedSubprocessExitError` (the
-others are killed). A rank that has reported stays up until every rank
-has (or one has failed): rank 0 hosts the rendezvous store, which a
-slower peer may still need to build its process groups. ``restart``,
-``reform`` and ``terminate`` belong to a later slice.
+others are killed). A task that has reported stays up until every live
+task has (or one has failed): rank 0 hosts the rendezvous store, which
+a slower peer may still need. A child leaves with ``os._exit``, skipping
+interpreter teardown: a dead peer can leave a collective library's
+shutdown waiting on it. The pool runner, ``restart`` and ``reform``
+belong to a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import multiprocessing
 import os
 import pickle
@@ -40,7 +52,7 @@ import sys
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, Sequence
 
 _MP = multiprocessing.get_context("spawn")
 
@@ -51,6 +63,25 @@ def pick_unused_port() -> int:
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def create_cluster_spec(num_workers: int = 1, num_ps: int = 0,
+                        has_chief: bool = False,
+                        has_evaluator: bool = False) -> dict[str, list[str]]:
+    """≙ multi_worker_test_base.create_cluster_spec: localhost addresses
+    with freshly picked ports (JAX's)."""
+    spec: dict[str, list[str]] = {}
+    if has_chief:
+        spec["chief"] = [f"127.0.0.1:{pick_unused_port()}"]
+    if num_workers:
+        spec["worker"] = [f"127.0.0.1:{pick_unused_port()}"
+                          for _ in range(num_workers)]
+    if num_ps:
+        spec["ps"] = [f"127.0.0.1:{pick_unused_port()}"
+                      for _ in range(num_ps)]
+    if has_evaluator:
+        spec["evaluator"] = [f"127.0.0.1:{pick_unused_port()}"]
+    return spec
 
 
 @dataclasses.dataclass
@@ -114,6 +145,12 @@ def _child_main(env: dict, payload: bytes, conn, stdout_path: str,
         fn, args, kwargs = pickle.loads(payload)
         reply = pickle.dumps(("ok", fn(*args, **kwargs)))
         exitcode = 0
+    except SystemExit as e:
+        # keep a platform exit code (the preemption-restart convention)
+        exitcode = e.code if isinstance(e.code, int) else \
+            (0 if e.code is None else 1)
+        reply = pickle.dumps(("ok", None) if exitcode == 0
+                             else ("error", f"SystemExit({e.code})"))
     except BaseException:
         reply = pickle.dumps(("error", traceback.format_exc()))
         exitcode = 1
@@ -135,102 +172,224 @@ def _child_main(env: dict, payload: bytes, conn, stdout_path: str,
     os._exit(exitcode)
 
 
+def _launcher_env(num_workers: int) -> Callable[[str, int, int], dict]:
+    """The task environment of :func:`run`'s launcher form: what
+    ``torchrun`` gives rank ``task_id`` of ``num_workers``."""
+    port = str(pick_unused_port())
+
+    def env(task_type: str, task_id: int, task_index: int) -> dict:
+        return {"RANK": str(task_id), "LOCAL_RANK": str(task_id),
+                "WORLD_SIZE": str(num_workers),
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port}
+    return env
+
+
 def run(fn: Callable, num_workers: int, *, args: tuple = (),
         kwargs: dict | None = None, device="cuda",
         env: Mapping[str, str] | None = None,
-        timeout: float = 300.0) -> MultiProcessRunnerResult:
+        timeout: float = 300.0, num_ps: int = 0,
+        has_evaluator: bool = False,
+        has_chief: bool = False) -> MultiProcessRunnerResult:
     """Spawn ``num_workers`` ranks running ``fn(*args, **kwargs)``, wait
     for all, and return their results (``return_values`` in rank order).
     ``device`` is what the ranks run on: with ``"cpu"`` each child uses
     one intra-op thread; with ``"cuda"`` rank r's ``LOCAL_RANK`` is r.
-    Raises :class:`SubprocessError` if a rank raised, and
+    With ``num_ps``, ``has_evaluator`` or ``has_chief`` the tasks are a
+    ``TF_CONFIG`` cluster instead (JAX's ``run``), ``return_values`` in
+    task order (chief, evaluator, ps, worker). Raises
+    :class:`SubprocessError` if a task raised, and
     :class:`UnexpectedSubprocessExitError` if one crashed or ``timeout``
-    seconds passed (every rank is killed first)."""
-    import torch
-    cpu = torch.device(device).type == "cpu"
-    port = pick_unused_port()
-    payload = pickle.dumps((fn, args, kwargs or {}))
-    tmpdir = tempfile.mkdtemp(prefix="mpr_")
-    procs, conns, paths = {}, {}, {}
-    for rank in range(num_workers):
-        child_env = {"RANK": str(rank), "LOCAL_RANK": str(rank),
-                     "WORLD_SIZE": str(num_workers),
-                     "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-                     "DTX_MPR_TASK_INDEX": str(rank),
-                     "DTX_MPR_NUM_TASKS": str(num_workers)}
-        child_env.update(env or {})
-        parent_conn, child_conn = _MP.Pipe()
-        paths[rank] = os.path.join(tmpdir, f"worker_{rank}.out")
-        p = _MP.Process(target=_child_main,
-                        args=(child_env, payload, child_conn, paths[rank],
-                              1 if cpu else 0),
-                        daemon=True)
-        p.start()
-        child_conn.close()
-        procs[rank], conns[rank] = p, parent_conn
-    replies: dict[int, tuple] = {}
-    deadline = time.monotonic() + timeout
-    released = False
+    seconds passed (every task is killed first)."""
+    cluster = num_ps or has_evaluator or has_chief
+    spec = create_cluster_spec(num_workers=num_workers, num_ps=num_ps,
+                               has_chief=has_chief,
+                               has_evaluator=has_evaluator)
+    runner = MultiProcessRunner(
+        fn, spec, args=args, kwargs=kwargs, env=env, device=device,
+        timeout=timeout,
+        task_env=None if cluster else _launcher_env(num_workers))
+    runner.start()
+    try:
+        return runner.join()
+    finally:
+        runner.terminate_all()
 
-    def release():
-        # every rank may exit now: all have reported, or one failed (its
-        # exit then ends the peers' waits on it, as a crash would)
-        for conn in conns.values():
+
+class MultiProcessRunner:
+    """Run ``fn`` once a cluster task, in spawn processes (≙
+    multi_process_runner.MultiProcessRunner :107): each task gets JAX's
+    ``TF_CONFIG`` (``{"cluster": spec, "task": {"type", "index"}}``) and
+    ``DTX_MPR_*``; a chief or worker task also gets ``LOCAL_RANK`` = its
+    rank in the group (its card on ``device="cuda"``), a ``ps`` or
+    ``evaluator`` task none. ``task_env(task_type, task_id, task_index)``,
+    if given, makes a task's environment in place of those two.
+    ``terminate`` SIGKILLs a task (≙ :646); ``join`` collects the
+    results and raises a child's failure."""
+
+    def __init__(self, fn: Callable, cluster_spec: Mapping[str, Sequence[str]],
+                 *, args: tuple = (), kwargs: dict | None = None,
+                 env: Mapping[str, str] | None = None, device="cuda",
+                 timeout: float = 300.0,
+                 task_env: Callable[[str, int, int], Mapping[str, str]]
+                 | None = None):
+        import torch
+        self._fn = fn
+        self._spec = {k: list(v) for k, v in cluster_spec.items()}
+        self._args = args
+        self._kwargs = kwargs or {}
+        self._extra_env = dict(env or {})
+        self._cpu = torch.device(device).type == "cpu"
+        self._timeout = timeout
+        self._env_fn = task_env
+        self._procs: dict[tuple[str, int], Any] = {}
+        self._conns: dict[tuple[str, int], Any] = {}
+        self._paths: dict[tuple[str, int], str] = {}
+        self._replies: dict[tuple[str, int], tuple] = {}
+        self._terminated: set = set()
+        self._released = False
+        self._tmpdir = None
+
+    def _task_keys(self) -> list[tuple[str, int]]:
+        return [(t, i) for t in sorted(self._spec)
+                for i in range(len(self._spec[t]))]
+
+    @property
+    def num_tasks(self) -> int:
+        return sum(len(v) for v in self._spec.values())
+
+    def _task_env(self, task_type: str, task_id: int,
+                  task_index: int) -> dict:
+        env = {"DTX_MPR_NUM_TASKS": str(self.num_tasks),
+               "DTX_MPR_TASK_INDEX": str(task_index)}
+        if self._env_fn is not None:
+            env.update(self._env_fn(task_type, task_id, task_index))
+            env.update(self._extra_env)
+            return env
+        env["TF_CONFIG"] = json.dumps({
+            "cluster": self._spec,
+            "task": {"type": task_type, "index": task_id}})
+        if task_type in ("chief", "worker"):
+            chiefs = len(self._spec.get("chief", ()))
+            env["LOCAL_RANK"] = str(task_id + chiefs
+                                    if task_type == "worker" else 0)
+        env.update(self._extra_env)
+        return env
+
+    def start(self) -> "MultiProcessRunner":
+        self._tmpdir = tempfile.mkdtemp(prefix="mpr_")
+        payload = pickle.dumps((self._fn, self._args, self._kwargs))
+        for task_index, key in enumerate(self._task_keys()):
+            parent_conn, child_conn = _MP.Pipe()
+            self._paths[key] = os.path.join(self._tmpdir,
+                                            f"{key[0]}_{key[1]}.out")
+            p = _MP.Process(
+                target=_child_main,
+                args=(self._task_env(key[0], key[1], task_index), payload,
+                      child_conn, self._paths[key], 1 if self._cpu else 0),
+                daemon=True)
+            p.start()
+            child_conn.close()
+            self._procs[key], self._conns[key] = p, parent_conn
+        return self
+
+    def poll(self) -> dict[tuple[str, int], int]:
+        """Exit codes of the tasks whose process has exited
+        (non-blocking)."""
+        return {k: p.exitcode for k, p in self._procs.items()
+                if p.exitcode is not None}
+
+    def terminate(self, task_type: str, task_id: int):
+        """SIGKILL one task (≙ multi_process_runner.terminate :646)."""
+        key = (task_type, task_id)
+        self._terminated.add(key)
+        p = self._procs[key]
+        p.kill()
+        p.join(10)
+
+    def terminate_all(self):
+        for p in self._procs.values():
+            if p.is_alive():
+                p.kill()
+        for p in self._procs.values():
+            p.join(5)
+
+    def _read_replies(self):
+        for key, conn in self._conns.items():
+            if key in self._replies:
+                continue
+            if conn.poll(0.02):
+                try:
+                    self._replies[key] = pickle.loads(conn.recv_bytes())
+                except (EOFError, OSError):
+                    self._replies[key] = ("died", None)
+            elif self._procs[key].exitcode is not None \
+                    and not conn.poll(0):
+                self._replies[key] = ("died", None)
+
+    def _release(self):
+        for conn in self._conns.values():
             try:
                 conn.send_bytes(b"exit")
             except (BrokenPipeError, OSError):
                 pass
+        self._released = True
 
-    try:
-        # read each reply as it comes: a child blocks in send() until
-        # its value is read, so waiting for exits first could deadlock
-        while len(replies) < num_workers and time.monotonic() < deadline:
-            for rank, conn in conns.items():
-                if rank in replies:
-                    continue
-                if conn.poll(0.02):
-                    try:
-                        replies[rank] = pickle.loads(conn.recv_bytes())
-                    except (EOFError, OSError):
-                        replies[rank] = ("died", None)
-                elif procs[rank].exitcode is not None and not conn.poll(0):
-                    replies[rank] = ("died", None)
-                if (not released and rank in replies
-                        and replies[rank][0] != "ok"):
-                    release()
-                    released = True
-        if not released:
-            release()
-        for p in procs.values():
-            p.join(max(0.0, deadline - time.monotonic()) + 5.0)
-    finally:
-        for p in procs.values():
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    tasks = {}
-    for rank, p in procs.items():
-        status, data = replies.get(rank, ("timeout", None))
-        stdout = ""
-        if os.path.exists(paths[rank]):     # not if it died at start-up
-            with open(paths[rank], errors="replace") as f:
-                stdout = f.read()
-        tasks[("worker", rank)] = TaskResult(
-            "worker", rank, p.exitcode,
-            value=data if status == "ok" else None,
-            error=data if status == "error" else None, stdout=stdout)
-    shutil.rmtree(tmpdir, ignore_errors=True)
-    result = MultiProcessRunnerResult(tasks)
-    errors = sorted(k for k, t in tasks.items() if t.error is not None)
-    if errors:
-        raise SubprocessError(
-            f"task {errors[0]} raised:\n{tasks[errors[0]].error}", result)
-    bad = sorted(k for k, t in tasks.items() if t.exitcode != 0
-                 or replies.get(k[1], ("timeout",))[0] != "ok")
-    if bad:
-        logs = "\n".join(f"--- {k} (exit {tasks[k].exitcode}) ---\n"
-                         f"{tasks[k].stdout[-2000:]}" for k in bad)
-        raise UnexpectedSubprocessExitError(
-            f"tasks {bad} did not report within {timeout}s or exited "
-            f"abnormally; stdout:\n{logs}", result)
-    return result
+    def join(self, timeout: float | None = None,
+             raise_on_error: bool = True) -> MultiProcessRunnerResult:
+        """Wait for every task (a terminated one counts as done); release
+        them, collect their results and raise the first failure (unless
+        ``raise_on_error`` is False). A failure releases every task at
+        once: the failed one's exit then ends its peers' waits on it, as
+        a crash would, and their replies are still read."""
+        deadline = time.monotonic() + (timeout or self._timeout)
+        try:
+            # read each reply as it comes: a child blocks in send() until
+            # its value is read, so waiting for exits first could deadlock
+            while time.monotonic() < deadline:
+                self._read_replies()
+                if not self._released and any(
+                        r[0] != "ok" for k, r in self._replies.items()
+                        if k not in self._terminated):
+                    self._release()
+                if all(k in self._replies or k in self._terminated
+                       for k in self._procs):
+                    break
+            if not self._released:
+                self._release()
+            for p in self._procs.values():
+                p.join(max(0.0, deadline - time.monotonic()) + 5.0)
+        finally:
+            for p in self._procs.values():
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+        tasks = {}
+        for key, p in self._procs.items():
+            status, data = self._replies.get(key, ("timeout", None))
+            stdout = ""
+            if os.path.exists(self._paths[key]):
+                with open(self._paths[key], errors="replace") as f:
+                    stdout = f.read()
+            tasks[key] = TaskResult(
+                key[0], key[1], p.exitcode,
+                value=data if status == "ok" else None,
+                error=data if status == "error" else None, stdout=stdout)
+        shutil.rmtree(self._tmpdir, ignore_errors=True)
+        result = MultiProcessRunnerResult(tasks)
+        if not raise_on_error:
+            return result
+        errors = sorted(k for k, t in tasks.items() if t.error is not None)
+        if errors:
+            raise SubprocessError(
+                f"task {errors[0]} raised:\n{tasks[errors[0]].error}", result)
+        bad = sorted(k for k, t in tasks.items() if k not in self._terminated
+                     and (t.exitcode != 0 or self._replies.get(
+                         k, ("timeout",))[0] != "ok"))
+        if bad:
+            logs = "\n".join(f"--- {k} (exit {tasks[k].exitcode}) ---\n"
+                             f"{tasks[k].stdout[-2000:]}" for k in bad)
+            raise UnexpectedSubprocessExitError(
+                f"tasks {bad} did not report within "
+                f"{timeout or self._timeout}s or exited abnormally; "
+                f"stdout:\n{logs}", result)
+        return result

@@ -73,7 +73,17 @@ print(json.dumps({"imported": names,
                 "training.metrics", "training.regularizers",
                 "training.schedules", "training.optimizers",
                 "training.callbacks", "training.saving", "training.loops",
-                "keras"):
+                "keras", "cluster.resolver", "cluster.platform_resolvers",
+                "cluster.kv_gc", "parallel.all_reduce_algorithms",
+                "parallel.multi_worker", "parallel.sharded_variable",
+                "parallel.ps_values", "parallel.central_storage",
+                "parallel.parameter_server", "parallel.tpu_strategy",
+                "resilience.retry", "resilience.health",
+                "coordinator.cluster_coordinator",
+                "coordinator.remote_dispatch", "coordinator.watchdog",
+                "coordinator.metric_utils",
+                "coordinator.distribute_coordinator",
+                "coordinator.evaluator"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []
 
@@ -143,6 +153,20 @@ LAZY_GROUPS = {
     "dataset": ("Dataset", "DistributedDataset", "InputOptions",
                 "AutoShardPolicy"),
     "keras": ("keras",),
+    "cluster_strategies": ("MultiWorkerMirroredStrategy",
+                           "CollectiveAllReduceStrategy",
+                           "ParameterServerStrategy",
+                           "ParameterServerStrategyV1",
+                           "ParameterServerStrategyV2",
+                           "CentralStorageStrategy", "TPUStrategy",
+                           "ShardedVariable", "FixedShardsPartitioner",
+                           "AggregatingVariable", "CachingVariable"),
+    "coordinator": ("ClusterCoordinator", "RemoteValue", "PerWorkerValues",
+                    "RetryPolicy", "coordination_service"),
+    "resolvers": ("ClusterSpec", "ClusterResolver", "SimpleClusterResolver",
+                  "TFConfigClusterResolver", "TPUClusterResolver",
+                  "SlurmClusterResolver", "SageMakerClusterResolver",
+                  "GCEClusterResolver", "KubernetesClusterResolver"),
 }
 
 

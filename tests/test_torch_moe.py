@@ -324,7 +324,8 @@ def test_layer_initialises_with_jaxs_distributions():
     initialisers (router N(0, 0.02), wi N(0, D^-1/2), wo N(0, F^-1/2)),
     and ``moe_forward`` through the module."""
     cfg = tmoe.MoEConfig(num_experts=8, d_model=64, d_ff=256)
-    layer = tmoe.MoELayer(cfg, generator=torch.Generator().manual_seed(0))
+    layer = tmoe.MoELayer(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
     want = {"router": ((64, 8), 0.02), "wi": ((8, 64, 256), 64 ** -0.5),
             "wo": ((8, 256, 64), 256 ** -0.5)}
     for name, (shape, std) in want.items():
@@ -337,3 +338,17 @@ def test_layer_initialises_with_jaxs_distributions():
     want_out, want_aux = tmoe.moe_forward(
         {n: getattr(layer, n) for n in want}, x, cfg)
     assert torch.equal(out, want_out) and torch.equal(aux, want_aux)
+
+
+def test_entry_points_default_to_the_card():
+    """``init_moe_params`` and ``MoELayer`` default to ``device="cuda"``,
+    as every other entry point of the port does."""
+    import inspect
+    assert inspect.signature(tmoe.init_moe_params).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(tmoe.MoELayer).parameters[
+        "device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tmoe.init_moe_params(tmoe.MoEConfig(num_experts=2, d_model=8,
+                                                d_ff=16))

@@ -303,11 +303,20 @@ def test_online_checkpoints_cross_packages(online_runs, tmp_path):
             _host(other.dense_params["w0"]), _host(src.dense_params["w0"]))
 
 
-def test_coordinator_path_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        tod.OnlineTrainer(tod.OnlineConfig.tiny(), str(tmp_path / "s"),
-                          str(tmp_path / "ck"), coordinator=object(),
-                          device="cpu")
+def test_coordinator_is_accepted(tmp_path):
+    """``coordinator=`` is taken, and the trainer schedules its gradients
+    there (``tests/test_torch_ps_dlrm.py`` holds that path against
+    JAX's)."""
+    from distributed_tensorflow_tpu_torch.coordinator.cluster_coordinator \
+        import ClusterCoordinator
+    coord = ClusterCoordinator(num_workers=1, device="cpu")
+    try:
+        t = tod.OnlineTrainer(tod.OnlineConfig.tiny(), str(tmp_path / "s"),
+                              str(tmp_path / "ck"), coordinator=coord,
+                              device="cpu")
+        assert t.coordinator is coord and t.max_in_flight == 2
+    finally:
+        coord.shutdown()
 
 
 def test_eval_snapshot_matches_jax(online_runs):
