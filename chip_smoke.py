@@ -375,6 +375,43 @@ single-device BERT step by ``dp_parity``'s rule.
     group: ``train_dlrm_async_ps`` over remote lanes with worker 2
     killed mid-closure (every step completes, the closure re-runs), the
     evaluator evaluating every checkpoint of the server copy.
+49. ``fleet_serve`` — the supervised serving fleet at ``transformer_big``
+    width: ``RecoverySupervisor`` over one ``serving_replica`` (its own
+    process on the card) serving ``seeded_requests`` (64 requests,
+    prompts of 128-511 tokens, 16-63 new), SIGKILLed once mid-load by a
+    ``seeded_kill_plan``. First in f32 (TF32 off: the CUDA-core flash
+    forward): the union of the completion logs covers all 64 ids, every
+    duplicate is byte-identical, every stream equals one in-process
+    ``InferenceEngine``'s on the same card with the same weights; then
+    in bf16 (the tensor-core flash forward), timed alone (the f32 run
+    shares the host with the two in-process engines): requests/s, TTFT
+    p50/p99 from the true arrival, the kill → first-heartbeat recovery
+    time, duplicates that differ (counted, with the first), streams
+    against the in-process engine's (counted). Every generation's
+    replica launches the flash forward (its counters, published by the
+    replica as it serves), no other kernel, and the last generation 12
+    a prefill.
+50. ``router4`` (four cards) — ``tools/torch_serve_router.py``'s
+    ``run_phase``: four ``routed_replica``s, one a card, under the
+    supervisor, the ``Router`` in its own process, on
+    ``seeded_tenant_workload`` with the tool's chaos rates and spike at
+    ``transformer_big`` (256-token session prefixes in blocks of 16,
+    16-63-token suffixes, 16-63 new tokens); a replica and the router
+    SIGKILLed once each by ``--kill-seed``. Affinity routing in f32:
+    zero dropped, duplicates byte-identical, no request routed twice in
+    the journal; then the same workload and kills under ``policy=
+    "random"`` in bf16 (zero dropped, no double route; differing
+    duplicates counted). Prefix-hit rates of both, each tenant's
+    admits, rejects and sheds, interactive p50/p99, re-routes, the
+    recovery time and each replica generation's flash launches.
+51. ``autoscale4`` (four cards) — ``serving_replica(spike=...)`` at
+    ``transformer_big`` in bf16 on ``seeded_spike_schedule``'s default
+    shape (vocabulary 32768) under ``RecoverySupervisor(autoscaler=
+    CapacityArbiter(Autoscaler(...), budget=4), drain_on_scale=True)``
+    between 1 and 4 replicas: zero dropped across the scale reforms,
+    every scale reform preceded by a drain every replica completed;
+    each decision with its time and burn rate, the replicas of each
+    generation, their flash launches.
 
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
@@ -382,10 +419,11 @@ named phases after ``device`` and ``build`` (the four-card runs: also
 fsdp_train,fsdp_parity``, ``--phases resnet_dp,wide_deep_tp,tp_train,
 tp_parity``, ``--phases ckpt_mesh,mesh_repair``, ``--phases
 keras_mirrored4,strategy_run4``, ``--phases multi_worker4,
-allreduce_algos4,ps_remote4``), and prints no kernels line.
-``ckpt_mesh``, ``mesh_repair``, ``keras_mirrored4``, ``strategy_run4``,
-``multi_worker4``, ``allreduce_algos4`` and ``ps_remote4`` run in the
-whole run only when four cards are visible.
+allreduce_algos4,ps_remote4``, ``--phases router4,autoscale4``), and
+prints no kernels line. ``ckpt_mesh``, ``mesh_repair``,
+``keras_mirrored4``, ``strategy_run4``, ``multi_worker4``,
+``allreduce_algos4``, ``ps_remote4``, ``router4`` and ``autoscale4``
+run in the whole run only when four cards are visible.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -397,7 +435,8 @@ at the ring's block shape, each kind of block; ``moe_launches`` and
 ``fsdp_launches`` each ``moe_train`` and ``fsdp_train`` run's;
 ``other_workload_launches`` phases 27-33's, all 0; ``ckpt_launches``
 phases 34-36's; ``keras_launches`` phases 39-41's and
-``cluster_launches`` phases 44-45's, all 0),
+``cluster_launches`` phases 44-45's, all 0; ``fleet_launches`` each
+generation's of phase 49, by dtype, the replica's own counters),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -526,7 +565,34 @@ PSR4_KILL_AT, PSR4_CKPT_EVERY = 20, 15
 # when four are visible
 FOUR_CARD_PHASES = ("ckpt_mesh", "mesh_repair", "keras_mirrored4",
                     "strategy_run4", "multi_worker4", "allreduce_algos4",
-                    "ps_remote4")
+                    "ps_remote4", "router4", "autoscale4")
+# fleet_serve: seeded_requests' count, seed and shape, the replica's
+# engine (32 slots of up to 575 tokens in blocks of 16: a decode step
+# costs ~60 ms of host at any batch, so wide batches keep the phase
+# short), the kill's step window (mid-load: the first 32 requests
+# finish by ~step 90, the 64 by ~150)
+FLEET_REQUESTS, FLEET_SEED = 64, 0
+FLEET_WORKLOAD = dict(prompt_range=(128, 512), new_tokens_range=(16, 64))
+FLEET_ENGINE = dict(num_blocks=1160, block_size=16, max_slots=32,
+                    max_prompt_len=512)
+FLEET_KILL_STEPS = (70, 110)
+# router4: replicas, the kill seed (a replica and the router), and the
+# seed of the tool's workload
+ROUTER4_WORKERS, ROUTER4_KILL_SEED, ROUTER4_SEED = 4, 0, 0
+# autoscale4: the replica paced as the JAX package's shared fleet paces
+# it (2 slots, 0.15 s a step: one replica's capacity is below the
+# spike's rate), the spike's default shape plus a linger long enough
+# for the burn to clear and the fleet to scale back down, the SLO-burn
+# policy (p99 latency under 2 s over 6 s / 2 s windows at 2x) with a
+# cooldown and clear hold longer than a reform's outage (a replica at
+# transformer_big takes ~20 s to respawn and warm, and a window without
+# completions reads as clear: at the shared fleet's 15 s / 5 s the
+# fleet scaled down mid-outage and flapped for 850 s), and a deadline
+# past which the run is stopped (and fails its gate)
+AS4_ENGINE = dict(num_blocks=64, block_size=16, max_slots=2,
+                  max_prompt_len=16)
+AS4_STEP_DELAY_S, AS4_LINGER_S, AS4_SEED = 0.15, 45.0, 0
+AS4_COOLDOWN_S, AS4_CLEAR_HOLD_S, AS4_DEADLINE_S = 40.0, 10.0, 300.0
 # keras_scripts: the Keras scripts run on the port with only these
 # import lines replaced
 KERAS_SCRIPTS = ("examples/train_mnist_keras_script.py",
@@ -941,26 +1007,8 @@ def abs_err(got, want) -> float:
 
 
 def launch_counts() -> dict:
-    from distributed_tensorflow_tpu_torch.ops import (
-        attention, fused_adamw, fused_ce)
-    return {"flash_fwd_tc": attention.flash_attention_fwd.launches_tc,
-            "flash_fwd": attention.flash_attention_fwd.launches,
-            "flash_bwd_dq_tc": attention.flash_attention_bwd.launches_dq_tc,
-            "flash_bwd_dq": attention.flash_attention_bwd.launches_dq,
-            "flash_bwd_dkv_tc":
-                attention.flash_attention_bwd.launches_dkv_tc,
-            "flash_bwd_dkv": attention.flash_attention_bwd.launches_dkv,
-            "fused_ce_fwd_tc": fused_ce.fused_ce_fwd.launches_tc,
-            "fused_ce_fwd": fused_ce.fused_ce_fwd.launches,
-            "fused_ce_dh_tc": fused_ce.fused_ce_bwd.launches_dh_tc,
-            "fused_ce_dh": fused_ce.fused_ce_bwd.launches_dh,
-            "fused_ce_bwd_a_tc": fused_ce.fused_ce_bwd.launches_a_tc,
-            "fused_ce_bwd_a": fused_ce.fused_ce_bwd.launches_a,
-            "fused_ce_bwd_tc": fused_ce.fused_ce_bwd.launches_tc,
-            "fused_ce_bwd": fused_ce.fused_ce_bwd.launches,
-            "fused_ce_de_tc": fused_ce.fused_ce_bwd.launches_de_tc,
-            "fused_ce_de": fused_ce.fused_ce_bwd.launches_de,
-            "fused_adamw": fused_adamw.fused_adamw_update.launches}
+    from distributed_tensorflow_tpu_torch.ops import launch_counts as counts
+    return counts()
 
 
 def zero_launch_counts():
@@ -9681,6 +9729,433 @@ def phase_ps_remote4(state):
             "seconds_from_kill": time.perf_counter() - t_kill}
 
 
+# ---------------------------------------------------------------------------
+# the supervised, routed serving fleet
+# ---------------------------------------------------------------------------
+
+def _fleet_dir(name: str) -> str:
+    import shutil
+    d = os.path.join(ROOT, "build", "fleet_smoke", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _replica_launches(run_dir: str) -> dict:
+    """``{"t<task>g<gen>": counters}`` as each replica generation last
+    published them (its own process's kernel counters)."""
+    import glob
+    out = {}
+    for path in sorted(glob.glob(os.path.join(run_dir,
+                                              "launches-*-g*.json"))):
+        with open(path) as f:
+            rec = json.load(f)
+        out[f"t{rec['task']}g{rec['gen']}"] = rec
+    return out
+
+
+def _launch_problems(recs: dict, route: str) -> list:
+    """Every replica generation launched ``route`` (its warm-up
+    included), the generations together also beyond their warm-ups, and
+    no other kernel ran."""
+    problems = []
+    if not recs:
+        return ["no replica published its launch counters"]
+    for key, rec in recs.items():
+        counts = rec["launches"]
+        if counts[route] == 0:
+            problems.append(f"{key}: {route} never launched")
+        others = {k: n for k, n in counts.items() if k != route and n}
+        if others:
+            problems.append(f"{key}: another kernel ran: {others}")
+    if sum(r["launches"][route] - (r["warmup"] or {}).get(route, 0)
+           for r in recs.values()) <= 0:
+        problems.append(f"{route} launched by warm-ups only")
+    return problems
+
+
+def _supervisor_times(tdir: str) -> dict:
+    """From the supervisor's events: each generation's start, and each
+    chaos kill's wall and recovery time — kill to
+    the first and to the last replica heartbeat of the next generation
+    (the heartbeat's own wall)."""
+    from distributed_tensorflow_tpu_torch.telemetry import events as tv
+    evs = tv.read_events(os.path.join(tdir, "events-supervisor.jsonl"))
+    kills = [e for e in evs if e["ev"] == "recovery.chaos_kill"]
+    starts = {e["generation"]: e["wall"] for e in evs
+              if e["ev"] == "recovery.generation_start"}
+    first_hb: dict = {}
+    for e in evs:
+        if e["ev"] == "clock.hb":
+            key = (e["generation"], e["worker"])
+            first_hb.setdefault(key, e["worker_wall"])
+    recovery = []
+    for k in kills:
+        nxt = [w for (g, _), w in first_hb.items()
+               if g == k["generation"] + 1]
+        recovery.append({"kill_wall": k["wall"], "worker": k["worker"],
+                         "at_step": k["at_step"],
+                         "first_heartbeat_s": (min(nxt) - k["wall"]
+                                               if nxt else None),
+                         "all_heartbeats_s": (max(nxt) - k["wall"]
+                                              if nxt else None)})
+    return {"gen_starts": starts, "recovery": recovery}
+
+
+def _pct(vals, q):
+    import numpy as np
+    return float(np.percentile(vals, q)) if vals else None
+
+
+def _router_tool():
+    """``tools/torch_serve_router.py`` (its phases and analysis)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_serve_router as tsr
+    return tsr
+
+
+def _fleet_serve_run(tag: str, dtype) -> dict:
+    """One supervised run of ``fleet_serve``: one replica, one seeded
+    kill. Returns its streams, duplicates, timings and launches."""
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+    from distributed_tensorflow_tpu_torch.resilience import (
+        RecoverySupervisor, seeded_kill_plan)
+    from distributed_tensorflow_tpu_torch.serving.replica import (
+        serving_replica)
+    from distributed_tensorflow_tpu_torch.telemetry import events as tv
+    tsr = _router_tool()
+
+    run_dir = _fleet_dir(f"fleet_serve_{tag}")
+    tdir = os.path.join(run_dir, "telemetry")
+    cfg = TransformerConfig.transformer_big(dtype=dtype)
+    plan = seeded_kill_plan(FLEET_SEED, 1, kills=1,
+                            step_range=FLEET_KILL_STEPS)
+    sup = RecoverySupervisor(
+        serving_replica, num_workers=1,
+        args=(run_dir, FLEET_REQUESTS, FLEET_SEED, cfg.vocab_size),
+        kwargs={"engine_kwargs": FLEET_ENGINE, "cfg": cfg,
+                "workload_kwargs": FLEET_WORKLOAD},
+        device="cuda", kill_plan=plan, max_restarts=2,
+        generation_timeout_s=300.0, telemetry_dir=tdir)
+    t0 = time.time()
+    sup.run()
+    wall = time.time() - t0
+    served, dups, mismatched, first_bad = tsr.served_union(run_dir)
+    sv = _supervisor_times(tdir)
+    starts = sorted(sv["gen_starts"].values())
+    replica = tv.read_events(os.path.join(tdir, "events-0.jsonl"))
+    arrival = min(e["wall"] for e in replica if e["ev"] == "serve.admit")
+    done_at: dict = {}
+    for e in replica:
+        if e["ev"] == "serve.request":
+            done_at.setdefault(e["id"], e["wall"])
+    ttft = []
+    for rid, w_done in done_at.items():
+        g0 = max(w for w in starts if w <= w_done)
+        pre = [e["wall"] for e in replica if e["ev"] == "serve.prefill"
+               and e["id"] == rid and g0 <= e["wall"] <= w_done]
+        ttft.append(min(pre) - arrival)
+    last_start = starts[-1]
+    last_prefills = sum(1 for e in replica if e["ev"] == "serve.prefill"
+                        and e["wall"] >= last_start)
+    launches = _replica_launches(run_dir)
+    return {"run_dir": run_dir, "wall_s": wall, "served": served,
+            "duplicates": dups, "duplicates_mismatched": mismatched,
+            "first_mismatched": first_bad,
+            "generation": sup.generation,
+            "failures": [f.describe() for f in sup.history],
+            "kill_plan": [k.__dict__ for k in plan],
+            "recovery": sv["recovery"],
+            "requests_per_s": len(done_at) / (max(done_at.values())
+                                              - arrival),
+            "ttft_p50_s": _pct(ttft, 50), "ttft_p99_s": _pct(ttft, 99),
+            "last_gen_prefills": last_prefills, "launches": launches,
+            "n_layers": cfg.n_layers}
+
+
+def _fleet_reference(dtype) -> dict:
+    """The streams of one in-process engine on the same card with the
+    replica's weights, engine and workload."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_tensorflow_tpu_torch.serving.replica import (
+        seeded_params, seeded_requests)
+    cfg = TransformerConfig.transformer_big(dtype=dtype)
+    reqs = seeded_requests(FLEET_SEED, FLEET_REQUESTS, cfg.vocab_size,
+                           **FLEET_WORKLOAD)
+    engine = InferenceEngine(cfg, seeded_params(cfg, "cuda"), device="cuda",
+                             queue_capacity=len(reqs) + 1, **FLEET_ENGINE)
+    for r in reqs:
+        engine.submit(r)
+    want = {rid: list(rec["tokens"])
+            for rid, rec in engine.run_until_idle().items()}
+    del engine
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_fleet_serve(state):
+    """The supervised serving fleet on one card: f32 gate, bf16 timed.
+    The f32 run (untimed) shares the host and card with the two
+    in-process reference engines; the bf16 run is timed alone."""
+    import threading
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    box: dict = {}
+
+    def _f32_run():
+        try:
+            box["f32"] = _fleet_serve_run("f32", torch.float32)
+        except BaseException as e:          # noqa: BLE001 — re-raised
+            box["error"] = e
+
+    f32_thread = threading.Thread(target=_f32_run, name="fleet-f32")
+    f32_thread.start()
+    try:
+        want = {"f32": _fleet_reference(torch.float32),
+                "bf16": _fleet_reference(torch.bfloat16)}
+    finally:
+        f32_thread.join()
+    if "error" in box:
+        raise box["error"]
+    runs = {"f32": box["f32"],
+            "bf16": _fleet_serve_run("bf16", torch.bfloat16)}
+    out, problems, fleet = {}, [], {}
+    for tag, route in (("f32", "flash_fwd"), ("bf16", "flash_fwd_tc")):
+        run = runs[tag]
+        served = run.pop("served")
+        launches = run.pop("launches")
+        differ = sorted(rid for rid in want[tag]
+                        if served.get(rid) != want[tag][rid])
+        missing = sorted(set(want[tag]) - set(served))
+        if missing:
+            problems.append(f"{tag}: dropped {missing[:5]}")
+        if run["generation"] < 1 or not run["recovery"]:
+            problems.append(f"{tag}: the kill did not land "
+                            f"({run['failures']})")
+        if tag == "f32":
+            if run["duplicates_mismatched"]:
+                problems.append(f"f32: {run['duplicates_mismatched']} "
+                                f"duplicates differ, first "
+                                f"{run['first_mismatched']}")
+            if differ:
+                problems.append(f"f32: {len(differ)} streams differ from "
+                                f"the in-process engine, first {differ[0]}")
+        problems += [f"{tag}: {p}" for p in _launch_problems(
+            launches, route)]
+        last = launches.get(f"t0g{run['generation']}")
+        if last and last["launches"][route] != \
+                run["n_layers"] * run["last_gen_prefills"]:
+            problems.append(
+                f"{tag}: last generation {route} "
+                f"{last['launches'][route]} != {run['n_layers']} x "
+                f"{run['last_gen_prefills']} prefills")
+        fleet[tag] = {key: rec["launches"] for key, rec in launches.items()}
+        out[tag] = {**run, "route": route,
+                    "streams_differing_from_engine": len(differ),
+                    "first_differing_from_engine": (differ[0] if differ
+                                                    else None),
+                    "launches": {key: rec["launches"][route]
+                                 for key, rec in launches.items()}}
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["fleet_launches"] = {"fleet_serve": fleet}
+    return {"config": "transformer_big", "requests": FLEET_REQUESTS,
+            "workload": FLEET_WORKLOAD, "engine": FLEET_ENGINE, **out}
+
+
+def phase_router4(state):
+    """Four routed replicas, one a card, the router in its own process;
+    a replica and the router SIGKILLed once. Affinity in f32 (gated),
+    then random in bf16."""
+    import torch
+    from distributed_tensorflow_tpu_torch.serving import router as rt
+    from distributed_tensorflow_tpu_torch.telemetry import events as tv
+    tsr = _router_tool()
+    if torch.cuda.device_count() < ROUTER4_WORKERS:
+        raise RuntimeError(f"router4 needs {ROUTER4_WORKERS} cards, "
+                           f"{torch.cuda.device_count()} visible")
+    run_dir = _fleet_dir("router4")
+    kill_s = tsr.router_kill_after_s(ROUTER4_KILL_SEED)
+    wl = rt.seeded_tenant_workload(
+        ROUTER4_SEED, tenants=tsr.phase_tenants("transformer_big"),
+        **tsr.workload_params(True, "transformer_big"))
+    out, problems = {}, []
+    for policy, dtype, route in (("affinity", "float32", "flash_fwd"),
+                                 ("random", "bfloat16", "flash_fwd_tc")):
+        phase_dir = os.path.join(run_dir, policy)
+        t0 = time.time()
+        info = tsr.run_phase(phase_dir, ROUTER4_SEED, policy,
+                             ROUTER4_WORKERS, kill_seed=ROUTER4_KILL_SEED,
+                             router_kill_s=kill_s, device="cuda",
+                             preset="transformer_big", dtype=dtype)
+        wall = time.time() - t0
+        journal = rt.RouterJournal.replay(
+            os.path.join(phase_dir, rt.ROUTER_JOURNAL))
+        rejected = {r["id"] for r in journal if r["kind"] == "reject"}
+        routes: dict = {}
+        for r in journal:
+            if r["kind"] == "route":
+                routes[r["id"]] = routes.get(r["id"], 0) + 1
+        served, dups, mismatched, first_bad = tsr.served_union(phase_dir)
+        dropped = sorted({r.id for r in wl} - rejected - set(served))
+        double = sorted(rid for rid, n in routes.items() if n > 1)
+        launches = _replica_launches(phase_dir)
+        sv = _supervisor_times(os.path.join(phase_dir, "telemetry"))
+        if dropped:
+            problems.append(f"{policy}: dropped {dropped[:5]}")
+        if double:
+            problems.append(f"{policy}: routed twice {double[:5]}")
+        if dtype == "float32" and mismatched:
+            problems.append(f"{policy}: {mismatched} duplicates differ, "
+                            f"first {first_bad}")
+        if not info["router_killed"] or info["restarts"] < 1:
+            problems.append(f"{policy}: chaos did not land ({info})")
+        problems += [f"{policy}: {p}" for p in _launch_problems(
+            launches, route)]
+        out[policy] = {
+            "dtype": dtype, "route": route, "wall_s": wall,
+            "requests": len(wl), "rejected": len(rejected),
+            "served_unique": len(served), "duplicates": dups,
+            "duplicates_mismatched": mismatched,
+            "first_mismatched": first_bad,
+            "restarts": info["restarts"], "generation": info["generation"],
+            "router_kill_after_epoch_s": kill_s,
+            "recovery": sv["recovery"],
+            "launches": {key: {"total": rec["launches"][route],
+                               "warmup": (rec["warmup"] or {}).get(route)}
+                         for key, rec in launches.items()}}
+    summary = tsr.analyze(run_dir, ROUTER4_SEED, chaos=True,
+                          preset="transformer_big")
+    tenants: dict = {}
+    for ev in tv.read_run(os.path.join(run_dir, "affinity",
+                                       "telemetry")).values():
+        for e in ev:
+            if e["ev"] == "router.tenant":
+                tenants[e["tenant"]] = {k: e.get(k) for k in (
+                    "admitted", "rejected_quota", "rejected_total",
+                    "sheds", "tokens_admitted", "quota_utilization")}
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["router4_launches"] = {p: o["launches"] for p, o in out.items()}
+    return {"config": "transformer_big", "workers": ROUTER4_WORKERS,
+            "kill_seed": ROUTER4_KILL_SEED, **out,
+            "tenants_affinity": tenants,
+            "summary": {k: summary[k] for k in (
+                "affinity_hit_rate", "random_hit_rate", "affinity_uplift",
+                "reroutes", "route_reasons", "sheds",
+                "rejects_by_tenant_cause", "interactive_p50_s",
+                "interactive_p99_s", "interactive_recovered",
+                "interactive_recovery_p99_s", "batch_p50_s", "batch_p99_s",
+                "batch_starved_past_slo", "goodput_frac",
+                "identity_error_frac", "badput_reroute_replay_s")}}
+
+
+def phase_autoscale4(state):
+    """``serving_replica(spike=...)`` under the SLO-burn autoscaler,
+    between 1 and 4 replicas, draining before every scale reform."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
+    from distributed_tensorflow_tpu_torch.resilience import (
+        AutoscalePolicy, Autoscaler, CapacityArbiter, RecoverySupervisor)
+    from distributed_tensorflow_tpu_torch.resilience.autoscaler import (
+        serving_records_fn)
+    from distributed_tensorflow_tpu_torch.serving.replica import (
+        completed_ids_all, seeded_spike_schedule, serving_replica)
+    from distributed_tensorflow_tpu_torch.telemetry import events as tv
+    from distributed_tensorflow_tpu_torch.telemetry import slo as tv_slo
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError("autoscale4 needs 4 cards")
+    run_dir = _fleet_dir("autoscale4")
+    tdir = os.path.join(run_dir, "telemetry")
+    cfg = TransformerConfig.transformer_big(dtype=torch.bfloat16)
+    policy = AutoscalePolicy(
+        min_replicas=1, max_replicas=4, fire_consecutive=2, clear_burn=1.0,
+        clear_hold_s=AS4_CLEAR_HOLD_S, cooldown_s=AS4_COOLDOWN_S,
+        min_evidence=4, interval_s=0.5,
+        slo=tv_slo.SLO("p99_latency", "latency", objective=0.99,
+                       threshold_s=2.0, windows=((6.0, 2.0, 2.0),)))
+    arbiter = CapacityArbiter(
+        Autoscaler(policy, records_fn=serving_records_fn(tdir)), budget=4)
+    sup = RecoverySupervisor(
+        serving_replica, num_workers=1,
+        args=(run_dir, 0, AS4_SEED, cfg.vocab_size),
+        kwargs={"spike": {"linger_s": AS4_LINGER_S},
+                "step_delay_s": AS4_STEP_DELAY_S,
+                "engine_kwargs": AS4_ENGINE, "cfg": cfg},
+        device="cuda", autoscaler=arbiter, drain_on_scale=True,
+        min_workers=1, max_workers=4, max_restarts=2,
+        generation_timeout_s=300.0, telemetry_dir=tdir)
+    import threading
+    deadline = threading.Timer(AS4_DEADLINE_S, sup.request_stop)
+    deadline.start()
+    t0 = time.time()
+    try:
+        sup.run()
+    finally:
+        deadline.cancel()
+    wall = time.time() - t0
+    wl = seeded_spike_schedule(AS4_SEED, vocab_size=cfg.vocab_size)
+    served = completed_ids_all(run_dir)
+    dropped = sorted({r.id for r in wl} - set(served))
+    evs = tv.read_events(os.path.join(tdir, "events-supervisor.jsonl"))
+    with open(os.path.join(run_dir, "run-epoch.json")) as f:
+        epoch = json.load(f)["epoch"]
+    decisions = [{"t_s": e["wall"] - epoch, "outcome": e["outcome"],
+                  "direction": e["direction"], "target": e["target"],
+                  "burn_long": e["burn_long"], "burn_short": e["burn_short"],
+                  "reason": e["reason"]}
+                 for e in evs if e["ev"] == "scale.decision"]
+    applied = [{"t_s": e["wall"] - epoch, "generation": e["generation"],
+                "from": e["from_workers"], "to": e["to_workers"],
+                "drained": e["drained"], "direction": e["direction"]}
+               for e in evs if e["ev"] == "scale.applied"]
+    launches = _replica_launches(run_dir)
+    gens: dict = {}
+    for key, rec in launches.items():
+        gens.setdefault(rec["gen"], []).append(rec["task"])
+    problems = []
+    if dropped:
+        problems.append(f"dropped {dropped[:5]}")
+    if wall >= AS4_DEADLINE_S:
+        problems.append(f"stopped at the {AS4_DEADLINE_S:.0f} s deadline")
+    if not applied:
+        problems.append("no scale action was applied")
+    for a in applied:
+        if a["drained"] != a["from"]:
+            problems.append(f"scale to generation {a['generation']}: "
+                            f"{a['drained']} of {a['from']} replicas "
+                            f"drained")
+    if sup.history:
+        problems.append(f"failures: {[f.describe() for f in sup.history]}")
+    problems += _launch_problems(launches, "flash_fwd_tc")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["autoscale4_launches"] = {k: r["launches"]["flash_fwd_tc"]
+                                    for k, r in launches.items()}
+    return {"config": "transformer_big", "dtype": "bfloat16",
+            "requests": len(wl), "served": len(served), "wall_s": wall,
+            "decisions": decisions, "applied": applied,
+            "replicas_by_generation": {g: sorted(t)
+                                       for g, t in sorted(gens.items())},
+            "launches": {k: {"total": r["launches"]["flash_fwd_tc"],
+                             "warmup": (r["warmup"] or {}).get(
+                                 "flash_fwd_tc")}
+                         for k, r in launches.items()},
+            "policy": {"threshold_s": 2.0, "windows": [[6.0, 2.0, 2.0]],
+                       "cooldown_s": AS4_COOLDOWN_S,
+                       "clear_hold_s": AS4_CLEAR_HOLD_S,
+                       "step_delay_s": AS4_STEP_DELAY_S,
+                       "engine": AS4_ENGINE, "linger_s": AS4_LINGER_S}}
+
+
 
 def main(argv=None) -> int:
     import argparse
@@ -9714,6 +10189,7 @@ def main(argv=None) -> int:
                      ("disagg_serve", phase_disagg_serve),
                      ("disagg_parity", phase_disagg_parity),
                      ("swap_chaos", phase_swap_chaos),
+                     ("fleet_serve", phase_fleet_serve),
                      ("train", phase_train),
                      ("train_fused", phase_train_fused),
                      ("train_parity", phase_train_parity),
@@ -9759,7 +10235,9 @@ def main(argv=None) -> int:
                      ("strategy_run4", phase_strategy_run4),
                      ("multi_worker4", phase_multi_worker4),
                      ("allreduce_algos4", phase_allreduce_algos4),
-                     ("ps_remote4", phase_ps_remote4)):
+                     ("ps_remote4", phase_ps_remote4),
+                     ("router4", phase_router4),
+                     ("autoscale4", phase_autoscale4)):
         if only and name not in only:
             continue
         if name in FOUR_CARD_PHASES and not only \
@@ -9891,6 +10369,12 @@ def main(argv=None) -> int:
         row["cluster_launches"] = {
             path: state[f"{path}_launches"][name]
             for path in ("ps_dlrm", "online_coord")}
+        # the supervised fleet, each replica generation's own counters
+        # (its process's; the kill lands mid-load), by dtype
+        row["fleet_launches"] = {
+            path: {tag: {gen: c[name] for gen, c in by_gen.items()}
+                   for tag, by_gen in runs.items()}
+            for path, runs in state["fleet_launches"].items()}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

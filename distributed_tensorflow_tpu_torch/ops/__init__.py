@@ -8,4 +8,29 @@
   the unfused ``ce_reference``.
 - :mod:`_build` — builds a ``csrc/*.cu`` source with ``nvcc`` into
   ``build/torch_kernels/`` at first use and loads it with ``ctypes``.
+
+Each kernel wrapper adds one to its counter where it launches its
+kernel; :func:`launch_counts` reads them all.
 """
+
+
+def launch_counts() -> dict:
+    """This process's kernel launch counters, by kernel name."""
+    from distributed_tensorflow_tpu_torch.ops import (
+        attention, fused_adamw, fused_ce)
+    fwd, bwd = attention.flash_attention_fwd, attention.flash_attention_bwd
+    cf, cb = fused_ce.fused_ce_fwd, fused_ce.fused_ce_bwd
+    return {"flash_fwd_tc": fwd.launches_tc, "flash_fwd": fwd.launches,
+            "flash_bwd_dq_tc": bwd.launches_dq_tc,
+            "flash_bwd_dq": bwd.launches_dq,
+            "flash_bwd_dkv_tc": bwd.launches_dkv_tc,
+            "flash_bwd_dkv": bwd.launches_dkv,
+            "fused_ce_fwd_tc": cf.launches_tc, "fused_ce_fwd": cf.launches,
+            "fused_ce_dh_tc": cb.launches_dh_tc,
+            "fused_ce_dh": cb.launches_dh,
+            "fused_ce_bwd_a_tc": cb.launches_a_tc,
+            "fused_ce_bwd_a": cb.launches_a,
+            "fused_ce_bwd_tc": cb.launches_tc, "fused_ce_bwd": cb.launches,
+            "fused_ce_de_tc": cb.launches_de_tc,
+            "fused_ce_de": cb.launches_de,
+            "fused_adamw": fused_adamw.fused_adamw_update.launches}

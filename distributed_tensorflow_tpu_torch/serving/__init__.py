@@ -24,6 +24,15 @@
   wire format (:func:`pack_payload`, byte-compatible with the JAX
   package's), :class:`FileKV` publish/fetch, and
   :class:`DisaggregatedEngine` (prefill and decode replicas, rescue).
+- :mod:`replica`   — the supervised replica workers
+  (:func:`serving_replica`, the router-fed :func:`routed_replica`):
+  heartbeats, completion logs (zero dropped requests across restarts),
+  drain-before-stop, the seeded workloads.
+- :mod:`router` + :mod:`tenancy` — the multi-tenant frontend: prefix
+  cache-affinity routing (least-loaded by scraped queue depth, then
+  seeded random), per-tenant token-bucket quotas, weighted-fair
+  admission with priority classes, and a decision journal that
+  re-routes a dead replica's work and survives a router kill.
 """
 
 from distributed_tensorflow_tpu_torch.serving.decode import (
@@ -37,12 +46,25 @@ from distributed_tensorflow_tpu_torch.serving.migrate import (
     pack_payload, payload_committed, publish_payload, unpack_payload)
 from distributed_tensorflow_tpu_torch.serving.scheduler import (
     AdmissionQueue, ContinuousBatchingScheduler, QueueOverflowError,
-    Request)
+    Request, Sequence)
+from distributed_tensorflow_tpu_torch.serving.replica import (
+    completed_ids, seeded_requests, serving_replica)
+from distributed_tensorflow_tpu_torch.serving.router import (
+    Router, RouterJournal, RoutingPolicy, prefix_chain_keys,
+    seeded_tenant_workload)
+from distributed_tensorflow_tpu_torch.serving.tenancy import (
+    TenancyController, TenantConfig, TokenBucket, default_tenants,
+    evaluate_tenants, fair_shares)
 
 __all__ = ["AdmissionQueue", "BlockAllocator", "BlockTable", "CacheConfig",
            "ContinuousBatchingScheduler", "DisaggregatedEngine", "FileKV",
            "HostTier", "InferenceEngine", "MigrationPayload",
            "OutOfBlocksError", "PrefixCache", "QueueOverflowError",
-           "Request", "fetch_payload", "kv_quantization_probe",
+           "Request", "Sequence", "fetch_payload", "kv_quantization_probe",
            "pack_payload", "payload_committed", "publish_payload",
-           "truncated_draft", "unpack_payload"]
+           "truncated_draft", "unpack_payload",
+           "completed_ids", "seeded_requests", "serving_replica",
+           "Router", "RouterJournal", "RoutingPolicy", "prefix_chain_keys",
+           "seeded_tenant_workload",
+           "TenancyController", "TenantConfig", "TokenBucket",
+           "default_tenants", "evaluate_tenants", "fair_shares"]

@@ -131,11 +131,24 @@ class EventLog:
             merged.update(extra)
             self.event(name, **merged)
 
+    def flush(self):
+        with self._lock:
+            if self._f is not None:
+                self._f.flush()
+
     def close(self):
         with self._lock:
             if self._f is not None:
+                self._f.flush()
                 self._f.close()
                 self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 _LOG: EventLog | None = None
@@ -181,6 +194,11 @@ def shutdown():
         if _LOG is not None:
             _LOG.close()
         _LOG = None
+
+
+def get_event_log() -> EventLog | None:
+    """The process-wide log, or None when telemetry is off."""
+    return _LOG
 
 
 def enabled() -> bool:

@@ -33,10 +33,16 @@ its traceback; one that dies without reporting, or does not finish
 within ``timeout``, as :class:`UnexpectedSubprocessExitError` (the
 others are killed). A task that has reported stays up until every live
 task has (or one has failed): rank 0 hosts the rendezvous store, which
-a slower peer may still need. A child leaves with ``os._exit``, skipping
+a slower peer may still need; ``poll`` counts it with the exit code it
+will leave with. A child leaves with ``os._exit``, skipping
 interpreter teardown: a dead peer can leave a collective library's
-shutdown waiting on it. The pool runner, ``restart`` and ``reform``
-belong to a later slice.
+shutdown waiting on it.
+
+The recovery supervisor's primitives are JAX's: ``restart`` (one task
+respawned with its environment plus overrides, the dead incarnation's
+result kept in ``history``), ``reform`` (every task respawned under a
+fresh cluster spec, resized with ``allow_resize``) and ``alive_tasks``.
+The pool runner belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -143,16 +149,18 @@ def _child_main(env: dict, payload: bytes, conn, stdout_path: str,
             import torch
             torch.set_num_threads(threads)
         fn, args, kwargs = pickle.loads(payload)
-        reply = pickle.dumps(("ok", fn(*args, **kwargs)))
+        reply = pickle.dumps(("ok", fn(*args, **kwargs), 0))
         exitcode = 0
     except SystemExit as e:
-        # keep a platform exit code (the preemption-restart convention)
+        # keep a platform exit code (the preemption-restart convention:
+        # the recovery supervisor classifies failures by exit code)
         exitcode = e.code if isinstance(e.code, int) else \
             (0 if e.code is None else 1)
-        reply = pickle.dumps(("ok", None) if exitcode == 0
-                             else ("error", f"SystemExit({e.code})"))
+        reply = pickle.dumps(("ok", None, 0) if exitcode == 0
+                             else ("error", f"SystemExit({e.code})",
+                                   exitcode))
     except BaseException:
-        reply = pickle.dumps(("error", traceback.format_exc()))
+        reply = pickle.dumps(("error", traceback.format_exc(), 1))
         exitcode = 1
     # plain pickle bytes: the connection's own pickler would hand tensors
     # over as shared-memory handles, which die with this process
@@ -223,8 +231,9 @@ class MultiProcessRunner:
     rank in the group (its card on ``device="cuda"``), a ``ps`` or
     ``evaluator`` task none. ``task_env(task_type, task_id, task_index)``,
     if given, makes a task's environment in place of those two.
-    ``terminate`` SIGKILLs a task (≙ :646); ``join`` collects the
-    results and raises a child's failure."""
+    ``terminate`` SIGKILLs a task (≙ :646); ``restart`` and ``reform``
+    respawn tasks (≙ :279, :297); ``join`` collects the results and
+    raises a child's failure."""
 
     def __init__(self, fn: Callable, cluster_spec: Mapping[str, Sequence[str]],
                  *, args: tuple = (), kwargs: dict | None = None,
@@ -244,10 +253,16 @@ class MultiProcessRunner:
         self._procs: dict[tuple[str, int], Any] = {}
         self._conns: dict[tuple[str, int], Any] = {}
         self._paths: dict[tuple[str, int], str] = {}
+        self._envs: dict[tuple[str, int], dict] = {}
+        self._incarnation: dict[tuple[str, int], int] = {}
         self._replies: dict[tuple[str, int], tuple] = {}
         self._terminated: set = set()
         self._released = False
+        self._payload: bytes | None = None
         self._tmpdir = None
+        #: TaskResults of dead incarnations replaced by :meth:`restart`
+        #: or dropped by :meth:`reform` (a supervisor's failure history)
+        self.history: list[TaskResult] = []
 
     def _task_keys(self) -> list[tuple[str, int]]:
         return [(t, i) for t in sorted(self._spec)
@@ -275,28 +290,123 @@ class MultiProcessRunner:
         env.update(self._extra_env)
         return env
 
+    def _spawn(self, key: tuple[str, int], env: dict):
+        """(Re)spawn one task with ``env``; a later incarnation logs to
+        a file of its own."""
+        inc = self._incarnation.get(key, 0)
+        os.makedirs(self._tmpdir, exist_ok=True)
+        parent_conn, child_conn = _MP.Pipe()
+        self._paths[key] = os.path.join(
+            self._tmpdir, f"{key[0]}_{key[1]}.out" if inc == 0
+            else f"{key[0]}_{key[1]}.r{inc}.out")
+        p = _MP.Process(
+            target=_child_main,
+            args=(env, self._payload, child_conn, self._paths[key],
+                  1 if self._cpu else 0),
+            daemon=True)
+        p.start()
+        child_conn.close()
+        self._procs[key], self._conns[key] = p, parent_conn
+        self._envs[key] = env
+        self._incarnation[key] = inc + 1
+        self._replies.pop(key, None)
+        self._terminated.discard(key)
+        self._released = False
+
     def start(self) -> "MultiProcessRunner":
         self._tmpdir = tempfile.mkdtemp(prefix="mpr_")
-        payload = pickle.dumps((self._fn, self._args, self._kwargs))
+        self._payload = pickle.dumps((self._fn, self._args, self._kwargs))
         for task_index, key in enumerate(self._task_keys()):
-            parent_conn, child_conn = _MP.Pipe()
-            self._paths[key] = os.path.join(self._tmpdir,
-                                            f"{key[0]}_{key[1]}.out")
-            p = _MP.Process(
-                target=_child_main,
-                args=(self._task_env(key[0], key[1], task_index), payload,
-                      child_conn, self._paths[key], 1 if self._cpu else 0),
-                daemon=True)
-            p.start()
-            child_conn.close()
-            self._procs[key], self._conns[key] = p, parent_conn
+            self._spawn(key, self._task_env(key[0], key[1], task_index))
         return self
 
+    def _task_result(self, key: tuple[str, int]) -> TaskResult:
+        """The current incarnation's result: its reply, if it sent one,
+        and its output so far."""
+        status, data = self._replies.get(key, ("timeout", None, None))[:2]
+        stdout = ""
+        if os.path.exists(self._paths[key]):
+            with open(self._paths[key], errors="replace") as f:
+                stdout = f.read()
+        return TaskResult(key[0], key[1], self._procs[key].exitcode,
+                          value=data if status == "ok" else None,
+                          error=data if status == "error" else None,
+                          stdout=stdout)
+
+    def restart(self, task_type: str, task_id: int, *,
+                env: Mapping[str, str] | None = None):
+        """Per-task restart (≙ :279): SIGKILL the task if still up,
+        keep its result in :attr:`history`, and respawn it with its
+        prior environment plus ``env`` (e.g. a fresh ``TF_CONFIG`` or a
+        bumped ``DTX_CLUSTER_GENERATION``). ``join`` then waits on the
+        new incarnation."""
+        key = (task_type, task_id)
+        p = self._procs[key]
+        if p.exitcode is None:
+            p.kill()
+            p.join(10)
+        self._read_replies(wait_s=0.0)
+        self.history.append(self._task_result(key))
+        self._conns[key].close()
+        new_env = dict(self._envs[key])
+        new_env.update(env or {})
+        self._spawn(key, new_env)
+
+    def reform(self, cluster_spec: Mapping[str, Sequence[str]] | None = None,
+               *, env: Mapping[str, str] | None = None,
+               allow_resize: bool = False):
+        """Whole-cluster restart (≙ :297): kill every task, take a fresh
+        cluster spec (fresh ports: the dead incarnation's sockets may
+        linger), and respawn every task with its new ``TF_CONFIG``,
+        ``LOCAL_RANK`` and ``DTX_MPR_*`` plus ``env``. The recovery
+        supervisor's reform primitive. ``allow_resize=True`` lets the
+        spec change the cluster's shape: dropped slots go to
+        :attr:`history`, new slots spawn fresh."""
+        self.terminate_all()
+        if cluster_spec is not None:
+            new = {k: list(v) for k, v in cluster_spec.items()}
+            if sorted((t, len(v)) for t, v in new.items()) != \
+                    sorted((t, len(v)) for t, v in self._spec.items()) \
+                    and not allow_resize:
+                raise ValueError(
+                    f"reform must keep the cluster shape: "
+                    f"{self._spec.keys()} -> {new.keys()}")
+            old_keys = set(self._task_keys())
+            self._spec = new
+            self._read_replies(wait_s=0.0)
+            for key in sorted(old_keys - set(self._task_keys())):
+                self.history.append(self._task_result(key))
+                self._conns.pop(key).close()
+                for table in (self._procs, self._paths, self._envs,
+                              self._replies):
+                    table.pop(key, None)
+        for task_index, key in enumerate(self._task_keys()):
+            new_env = self._task_env(key[0], key[1], task_index)
+            new_env.update(env or {})
+            if key in self._procs:
+                self.restart(key[0], key[1], env=new_env)
+            else:
+                self._spawn(key, new_env)
+
     def poll(self) -> dict[tuple[str, int], int]:
-        """Exit codes of the tasks whose process has exited
-        (non-blocking)."""
-        return {k: p.exitcode for k, p in self._procs.items()
-                if p.exitcode is not None}
+        """Exit codes of the tasks that have finished (non-blocking): a
+        task that has reported counts with the code it will exit with,
+        though it stays up until :meth:`join` releases it."""
+        self._read_replies(wait_s=0.0)
+        out = {}
+        for key, p in self._procs.items():
+            reply = self._replies.get(key)
+            if reply is not None and reply[0] != "died":
+                out[key] = reply[2]
+            elif p.exitcode is not None:
+                out[key] = p.exitcode
+        return out
+
+    def alive_tasks(self) -> list[tuple[str, int]]:
+        """Tasks still running their function (not exited, not
+        reported)."""
+        return sorted(k for k, p in self._procs.items()
+                      if p.exitcode is None and k not in self._replies)
 
     def terminate(self, task_type: str, task_id: int):
         """SIGKILL one task (≙ multi_process_runner.terminate :646)."""
@@ -313,18 +423,18 @@ class MultiProcessRunner:
         for p in self._procs.values():
             p.join(5)
 
-    def _read_replies(self):
+    def _read_replies(self, wait_s: float = 0.02):
         for key, conn in self._conns.items():
             if key in self._replies:
                 continue
-            if conn.poll(0.02):
+            if conn.poll(wait_s):
                 try:
                     self._replies[key] = pickle.loads(conn.recv_bytes())
                 except (EOFError, OSError):
-                    self._replies[key] = ("died", None)
+                    self._replies[key] = ("died", None, None)
             elif self._procs[key].exitcode is not None \
                     and not conn.poll(0):
-                self._replies[key] = ("died", None)
+                self._replies[key] = ("died", None, None)
 
     def _release(self):
         for conn in self._conns.values():
@@ -363,17 +473,7 @@ class MultiProcessRunner:
                 if p.is_alive():
                     p.kill()
                     p.join(5)
-        tasks = {}
-        for key, p in self._procs.items():
-            status, data = self._replies.get(key, ("timeout", None))
-            stdout = ""
-            if os.path.exists(self._paths[key]):
-                with open(self._paths[key], errors="replace") as f:
-                    stdout = f.read()
-            tasks[key] = TaskResult(
-                key[0], key[1], p.exitcode,
-                value=data if status == "ok" else None,
-                error=data if status == "error" else None, stdout=stdout)
+        tasks = {key: self._task_result(key) for key in self._procs}
         shutil.rmtree(self._tmpdir, ignore_errors=True)
         result = MultiProcessRunnerResult(tasks)
         if not raise_on_error:

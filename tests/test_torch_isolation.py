@@ -83,7 +83,11 @@ print(json.dumps({"imported": names,
                 "coordinator.remote_dispatch", "coordinator.watchdog",
                 "coordinator.metric_utils",
                 "coordinator.distribute_coordinator",
-                "coordinator.evaluator"):
+                "coordinator.evaluator",
+                "resilience.heartbeats", "resilience.supervisor",
+                "resilience.autoscaler", "resilience.rollout",
+                "telemetry.slo", "telemetry.exporter",
+                "serving.tenancy", "serving.router", "serving.replica"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []
 
