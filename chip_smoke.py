@@ -390,7 +390,41 @@ single-device BERT step by ``dp_parity``'s rule.
     against the in-process engine's (counted). Every generation's
     replica launches the flash forward (its counters, published by the
     replica as it serves), no other kernel, and the last generation 12
-    a prefill.
+    a prefill. The decode step and the verify run the JAX engine's
+    fixed shapes (``max_slots`` rows, the whole window), so the bf16
+    streams too must equal the in-process engine's: every stream apart
+    must be explained by a preemption replayed through prefill in one
+    of the two runs (named, with the first such request). The run's
+    event files (replica and supervisor) are assembled into one Chrome
+    trace (``telemetry/trace.assemble_run``, written to the run
+    directory) with its ``trace_completeness`` and ``classify_run``;
+    every record the respawned replica wrote carries ``"gen": 1`` and
+    none before it a stamp, and the goodput ledger over the events
+    prices the kill → respawn gap as ``recovery``. The respawn split
+    the events give: death → ``recovery.restart`` → the new process's
+    first record → its first ``serve.admit`` → its first heartbeat.
+49a. ``data_service_train`` — the headline train step fed by the
+    disaggregated data service (``input/data_service.py``): 16 seeded
+    token-shard files (uniform tokens from a ``torch.Generator``), a
+    ``Dataset.from_files(...).batch(8)`` pipeline of ``(8, 1024)``
+    batches; a ``DataServiceDispatcher`` and the client in this process,
+    two ``DataInputWorker``s in their own processes (CPU), all over a
+    ``TCPStore`` this process hosts. A seeded ``data.worker_step``
+    raise crashes one input worker mid-epoch and a seeded ``data.fetch``
+    delay of 1.6 stall budgets stalls the trainer once under a
+    ``StallDetector``. Two epochs: every split has one done record and
+    is consumed once an epoch, the batches equal a direct read of the
+    ``Dataset`` (as multisets), at least one lease re-issued, the stall
+    detected once and priced ``infeed_wait``, the loss finite, and 12
+    ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``, 2
+    ``fused_ce_fwd_tc`` and ``fused_ce_bwd_tc`` a step. Steps/s and
+    tokens/s against the same step fed from memory, the ``infeed_wait``
+    share, the detect time.
+49b. ``fleet_sim_host`` — no kernel: ``testing/fleet_sim.FleetSim`` at
+    256 simulated workers (threads) under the real supervisor, clean
+    and with a seeded crash and stall, then ``testing/day_sim.DaySim``
+    at its compressed default day scored by ``telemetry/audit``'s
+    ``check_audit``; the gates of the JAX package's fleet and day tests.
 50. ``router4`` (four cards) — ``tools/torch_serve_router.py``'s
     ``run_phase``: four ``routed_replica``s, one a card, under the
     supervisor, the ``Router`` in its own process, on
@@ -436,7 +470,8 @@ at the ring's block shape, each kind of block; ``moe_launches`` and
 ``other_workload_launches`` phases 27-33's, all 0; ``ckpt_launches``
 phases 34-36's; ``keras_launches`` phases 39-41's and
 ``cluster_launches`` phases 44-45's, all 0; ``fleet_launches`` each
-generation's of phase 49, by dtype, the replica's own counters),
+generation's of phase 49, by dtype, the replica's own counters;
+``data_service_launches`` phases 49a-49b's),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -576,6 +611,14 @@ FLEET_WORKLOAD = dict(prompt_range=(128, 512), new_tokens_range=(16, 64))
 FLEET_ENGINE = dict(num_blocks=1160, block_size=16, max_slots=32,
                     max_prompt_len=512)
 FLEET_KILL_STEPS = (70, 110)
+# data_service_train: token-shard files, rows (sequences) a file, epochs,
+# input workers, the seed of the files, the kill and the stall, and the
+# lease budget (a dead input worker's splits are re-issued after it);
+# memory-fed steps timed against the service-fed run
+DS_FILES, DS_ROWS, DS_EPOCHS, DS_WORKERS, DS_SEED = 16, 16, 2, 2, 0
+DS_LEASE_S, DS_MEM_STEPS = 1.0, 16
+# fleet_sim_host: simulated workers, steps, the fault seed; DaySim's seed
+FSIM_WORKERS, FSIM_STEPS, FSIM_SEED, DAY_SEED = 256, 12, 0, 1
 # router4: replicas, the kill seed (a replica and the router), and the
 # seed of the tool's workload
 ROUTER4_WORKERS, ROUTER4_KILL_SEED, ROUTER4_SEED = 4, 0, 0
@@ -9861,6 +9904,8 @@ def _fleet_serve_run(tag: str, dtype) -> dict:
                         and e["wall"] >= last_start)
     launches = _replica_launches(run_dir)
     return {"run_dir": run_dir, "wall_s": wall, "served": served,
+            "trace": _fleet_trace(run_dir, tdir),
+            "preempted": sorted(_replica_preempted(tdir)),
             "duplicates": dups, "duplicates_mismatched": mismatched,
             "first_mismatched": first_bad,
             "generation": sup.generation,
@@ -9891,11 +9936,100 @@ def _fleet_reference(dtype) -> dict:
                              queue_capacity=len(reqs) + 1, **FLEET_ENGINE)
     for r in reqs:
         engine.submit(r)
-    want = {rid: list(rec["tokens"])
-            for rid, rec in engine.run_until_idle().items()}
+    done = engine.run_until_idle()
+    want = {rid: list(rec["tokens"]) for rid, rec in done.items()}
+    preempted = sorted(rid for rid, rec in done.items()
+                       if rec["preemptions"] or rec["replayed_tokens"])
     del engine
     torch.cuda.empty_cache()
-    return want
+    return want, preempted
+
+
+def _fleet_trace(run_dir: str, tdir: str) -> dict:
+    """The run's event files (the replica's and the supervisor's)
+    merged into one Chrome trace (written to ``trace.json``), its
+    completeness and bottleneck class, the generation stamps of the
+    replica's records, the goodput ledger over the events, and the
+    respawn split the events give."""
+    from distributed_tensorflow_tpu_torch.telemetry import events as tv
+    from distributed_tensorflow_tpu_torch.telemetry import goodput, trace
+    events = tv.read_run(tdir)
+    chrome = trace.assemble_run(tdir)
+    path = os.path.join(run_dir, "trace.json")
+    with open(path, "w") as f:
+        json.dump(chrome, f)
+    ledger = goodput.ledger_from_events(events)
+    wall = ledger["wall_s"] or 1.0
+    bad = ledger["badput_s"]
+    cls = trace.classify_run({"recovery": bad["recovery"] / wall,
+                              "infeed": bad["infeed_wait"] / wall,
+                              "checkpoint": bad["ckpt_block"] / wall})
+    sup = events.get("supervisor", [])
+    rep = events.get(0, [])
+    g1 = min((e["wall"] for e in sup if e["ev"] == "recovery.generation_start"
+              and e.get("generation") == 1), default=None)
+    split = {}
+    problems = []
+    if g1 is None:
+        problems.append("no generation 1 in the supervisor's events")
+    else:
+        late = [e for e in rep if e["wall"] >= g1]
+        early = [e for e in rep if e["wall"] < g1]
+        if not late:
+            problems.append("the respawned replica wrote no record")
+        bad_stamp = [e["ev"] for e in late if e.get("gen") != 1]
+        if bad_stamp:
+            problems.append(f"{len(bad_stamp)} generation-1 records lack "
+                            f"gen 1, first {bad_stamp[0]}")
+        if any("gen" in e for e in early):
+            problems.append("a generation-0 record carries a gen stamp")
+        death = min((e["wall"] for e in sup
+                     if e["ev"] == "recovery.worker_death"), default=None)
+        restart = min((e["wall"] for e in sup if e["ev"] == "recovery.restart"
+                       and death is not None and e["wall"] >= death),
+                      default=None)
+        admit = min((e["wall"] for e in late if e["ev"] == "serve.admit"),
+                    default=None)
+        hb = min((e["worker_wall"] for e in sup if e["ev"] == "clock.hb"
+                  and e.get("generation") == 1), default=None)
+
+        def since(w):
+            return None if w is None or death is None else w - death
+        split = {"death_to_restart_s": since(restart),
+                 "death_to_first_record_s": since(late[0]["wall"]
+                                                  if late else None),
+                 "first_record": late[0]["ev"] if late else None,
+                 "death_to_first_admit_s": since(admit),
+                 "death_to_first_heartbeat_s": since(hb),
+                 "records_gen1": len(late), "records_gen0": len(early)}
+    if bad["recovery"] <= 0:
+        problems.append(f"the ledger prices no recovery: {bad}")
+    comp = trace.trace_completeness(events)
+    if not comp["complete"]:
+        problems.append(f"trace incomplete: missing {comp['missing']}")
+    return {"trace_path": os.path.relpath(path, ROOT),
+            "trace_events": len(chrome["traceEvents"]),
+            "flow_links": chrome["otherData"]["flow_links"],
+            "clock_offsets_s": chrome["otherData"]["clock_offsets_s"],
+            "completeness": {"complete": comp["complete"],
+                             "expected": comp["expected_generations"],
+                             "generations": {str(g): d["worker_events"]
+                                             for g, d in
+                                             comp["generations"].items()}},
+            "classify": {"class": cls["class"], "measured": cls["measured"]},
+            "ledger": {"wall_s": ledger["wall_s"],
+                       "goodput_frac": ledger["goodput_frac"],
+                       "badput_s": bad},
+            "respawn_split": split, "problems": problems}
+
+
+def _replica_preempted(tdir: str) -> set:
+    """Request ids the replica preempted (replayed through prefill) in
+    any generation, from its ``serve.request`` records."""
+    from distributed_tensorflow_tpu_torch.telemetry import events as tv
+    return {e["id"] for e in tv.read_events(os.path.join(
+        tdir, "events-0.jsonl")) if e["ev"] == "serve.request"
+        and (e.get("preemptions") or e.get("replayed_tokens"))}
 
 
 def phase_fleet_serve(state):
@@ -9918,21 +10052,39 @@ def phase_fleet_serve(state):
     f32_thread = threading.Thread(target=_f32_run, name="fleet-f32")
     f32_thread.start()
     try:
-        want = {"f32": _fleet_reference(torch.float32),
-                "bf16": _fleet_reference(torch.bfloat16)}
+        ref = {"f32": _fleet_reference(torch.float32),
+               "bf16": _fleet_reference(torch.bfloat16)}
     finally:
         f32_thread.join()
     if "error" in box:
         raise box["error"]
     runs = {"f32": box["f32"],
             "bf16": _fleet_serve_run("bf16", torch.bfloat16)}
+    want = {tag: r[0] for tag, r in ref.items()}
     out, problems, fleet = {}, [], {}
     for tag, route in (("f32", "flash_fwd"), ("bf16", "flash_fwd_tc")):
         run = runs[tag]
         served = run.pop("served")
         launches = run.pop("launches")
+        problems += [f"{tag}: {p}" for p in run["trace"].pop("problems")]
         differ = sorted(rid for rid in want[tag]
                         if served.get(rid) != want[tag][rid])
+        # a stream may part where a preemption replayed its tokens
+        # through prefill in one run (other shapes, other sums); with
+        # the fixed decode shapes nothing else may part them
+        replayed = set(ref[tag][1]) | set(run["preempted"])
+        unexplained = [rid for rid in differ if rid not in replayed]
+        if unexplained:
+            problems.append(f"{tag}: {len(unexplained)} streams differ from "
+                            f"the in-process engine with no preemption "
+                            f"in either run, first {unexplained[0]}")
+        run["apart_explained"] = {
+            "count": len(differ) - len(unexplained),
+            "first": next((rid for rid in differ if rid in replayed), None),
+            "cause": "a preemption replayed through prefill",
+            "preempted_reference": len(ref[tag][1]),
+            "preempted_replica": len(run["preempted"])}
+        run.pop("preempted")
         missing = sorted(set(want[tag]) - set(served))
         if missing:
             problems.append(f"{tag}: dropped {missing[:5]}")
@@ -9968,6 +10120,370 @@ def phase_fleet_serve(state):
     state["fleet_launches"] = {"fleet_serve": fleet}
     return {"config": "transformer_big", "requests": FLEET_REQUESTS,
             "workload": FLEET_WORKLOAD, "engine": FLEET_ENGINE, **out}
+
+
+# ---------------------------------------------------------------------------
+# the data service feeding the train step; the fleet simulations
+# ---------------------------------------------------------------------------
+
+def _ds_reader(path: str):
+    """One token-shard file's rows (sequences of the train step)."""
+    import numpy as np
+    yield from np.load(path)
+
+
+def _ds_pipeline(files):
+    """The input pipeline over a file subset: rows batched into the
+    headline step's ``(TRAIN_BATCH, seq_len)`` token batches (module
+    level: input workers resolve it by reference)."""
+    from distributed_tensorflow_tpu_torch.input.dataset import Dataset
+    return Dataset.from_files(list(files), _ds_reader).batch(
+        TRAIN_BATCH, drop_remainder=True)
+
+
+def _ds_config():
+    from distributed_tensorflow_tpu_torch.input import data_service as dsvc
+    return dsvc.DataServiceConfig(job="headline", lease_timeout_s=DS_LEASE_S,
+                                  fetch_timeout_s=120.0)
+
+
+def _ds_agent(port: int):
+    """A coordination agent on a connection of its own to the store this
+    smoke's process hosts (no process group)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster.coordination import (
+        CoordinationServiceAgent)
+    return CoordinationServiceAgent(store=dist.TCPStore(
+        "127.0.0.1", port, is_master=False, timeout=timedelta(seconds=120)))
+
+
+def _ds_input_worker(port: int, files, schedule_json: str) -> dict:
+    """One input worker (its own process, on the CPU): serves leased
+    splits until the trainer releases it, or dies at the seeded fault."""
+    from distributed_tensorflow_tpu_torch.cluster.coordination import (
+        CoordinationError)
+    from distributed_tensorflow_tpu_torch.input import data_service as dsvc
+    from distributed_tensorflow_tpu_torch.input.split_provider import (
+        SplitProvider)
+    from distributed_tensorflow_tpu_torch.resilience import faults
+    wid = int(json.loads(os.environ["TF_CONFIG"])["task"]["index"])
+    faults.install(faults.FaultSchedule.from_json(schedule_json))
+    provider = SplitProvider.from_factory(files, _ds_pipeline, seed=DS_SEED)
+    worker = dsvc.DataInputWorker(
+        _ds_agent(port), provider, _ds_config(), worker_id=wid,
+        num_workers=DS_WORKERS, epochs=DS_EPOCHS)
+    try:
+        worker.run()
+    except CoordinationError:
+        pass                    # the trainer's store went first: released
+    return {"worker": wid, "splits": worker.splits_processed}
+
+
+def _ds_write_files(run_dir: str, vocab: int, seq_len: int) -> list:
+    """DS_FILES token-shard files of DS_ROWS sequences each: uniform
+    tokens from a seeded ``torch.Generator``."""
+    import numpy as np
+    import torch
+    g = torch.Generator().manual_seed(DS_SEED)
+    files = []
+    for i in range(DS_FILES):
+        path = os.path.join(run_dir, f"tokens-{i:03d}.npy")
+        np.save(path, torch.randint(0, vocab, (DS_ROWS, seq_len),
+                                    generator=g).numpy())
+        files.append(path)
+    return files
+
+
+def phase_data_service_train(state):
+    """The headline step fed by the data service: a dispatcher and the
+    client here, two input workers in their own processes, one killed by
+    a seeded fault; a seeded fetch delay stalls the trainer once."""
+    import collections
+    import io
+    import random
+    import statistics
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.input import data_service as dsvc
+    from distributed_tensorflow_tpu_torch.input.split_provider import (
+        SplitProvider)
+    from distributed_tensorflow_tpu_torch.resilience import faults
+    from distributed_tensorflow_tpu_torch.telemetry import events as tv
+    from distributed_tensorflow_tpu_torch.telemetry import goodput
+    from distributed_tensorflow_tpu_torch.telemetry.stall import StallDetector
+    from distributed_tensorflow_tpu_torch.testing import (
+        multi_process_runner as mpr)
+    from distributed_tensorflow_tpu_torch.testing.fleet_sim import (
+        seeded_data_kill_schedule)
+    from distributed_tensorflow_tpu_torch.training.loops import StepTelemetry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _headline_config()
+    run_dir = _fleet_dir("data_service_train")
+    tdir = os.path.join(run_dir, "telemetry")
+    files = _ds_write_files(run_dir, cfg.vocab_size, cfg.max_seq_len)
+    direct = list(_ds_pipeline(files))
+    direct_set = sorted(b.tobytes() for b in direct)
+    batches_per_epoch = len(direct)
+
+    # the service first: the input workers import torch while the model
+    # is built and the memory-fed steps run
+    port = mpr.pick_unused_port()
+    store = dist.TCPStore("127.0.0.1", port, is_master=True,
+                          wait_for_workers=False,
+                          timeout=timedelta(seconds=120))
+    kill = seeded_data_kill_schedule(DS_SEED, DS_WORKERS, kills=1,
+                                     attempt_range=(1, 4))
+    runner = mpr.MultiProcessRunner(
+        _ds_input_worker, mpr.create_cluster_spec(num_workers=DS_WORKERS),
+        args=(port, files, kill.to_json()), device="cpu", timeout=300)
+    runner.start()
+    t_spawn = time.perf_counter()
+    dcfg = _ds_config()
+    provider = SplitProvider.from_factory(files, _ds_pipeline, seed=DS_SEED)
+    dispatcher = dsvc.DataServiceDispatcher(
+        _ds_agent(port), provider, dcfg, num_workers=DS_WORKERS,
+        epochs=DS_EPOCHS).start()
+    agent = _ds_agent(port)
+    client = dsvc.DataServiceClient(agent, dcfg)
+    try:
+        model, opt, step, _ = _train_setup(cfg, 0, TRAIN_BATCH)
+        st = {"model": model, "optimizer": opt, "step": 0}
+        mem = [torch.from_numpy(b).to("cuda") for b in direct[:DS_MEM_STEPS]]
+        st, metrics = step(st, {"tokens": mem[0]})           # warm-up
+        metrics["loss"].item()
+        mem_ms = []
+        t0 = time.perf_counter()
+        for b in mem:
+            h0 = time.perf_counter()
+            st, metrics = step(st, {"tokens": b})
+            metrics["loss"].item()
+            mem_ms.append((time.perf_counter() - h0) * 1e3)
+        mem_wall = time.perf_counter() - t0
+        del mem
+        median_s = statistics.median(mem_ms) / 1e3
+        # the timed run starts once the service has produced a split (the
+        # input workers' spawn and import are set-up, not infeed)
+        while not any(agent.key_value_try_get(dsvc._done_key(dcfg, 0, s))
+                      for s in range(provider.num_splits)):
+            if time.perf_counter() - t_spawn > 120:
+                raise AssertionError("the data service produced no split "
+                                     "in 120 s")
+            time.sleep(0.05)
+        ready_s = time.perf_counter() - t_spawn
+        # the stall: one fetch delayed 1.6 budgets (past one budget, short
+        # of the watchdog's second trigger), at a seeded fetch past the
+        # detector's first median
+        budget = max(1.0, 4.0 * median_s)
+        delay = round(1.6 * budget, 3)
+        at = random.Random(f"dtx-data-stall:{DS_SEED}").randrange(6, 12)
+        faults.install(faults.FaultSchedule(rules=(faults.FaultRule(
+            site="data.fetch", action="delay", delay_s=delay,
+            hits=(at,)),), seed=DS_SEED))
+        tv.configure(tdir, process_id=0)
+        ledger = goodput.GoodputLedger()
+        goodput.activate(ledger)
+        detector = StallDetector(factor=4.0, min_steps=5,
+                                 min_timeout_s=budget, output=io.StringIO())
+        telem = StepTelemetry(infeed=client, stall_detector=detector)
+        zero_launch_counts()
+        consumed = {e: [] for e in range(DS_EPOCHS)}
+        losses, svc_ms = [], []
+        t0 = time.perf_counter()
+        for e in range(DS_EPOCHS):
+            it = client.epoch(e)
+            while True:
+                ledger.enter("infeed_wait")
+                h0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    break
+                consumed[e].append(b.tobytes())
+                st, metrics = step(st, {"tokens": torch.from_numpy(b).to(
+                    "cuda")})
+                losses.append(metrics["loss"].item())
+                svc_ms.append((time.perf_counter() - h0) * 1e3)
+                telem.step_completed(st["step"], loss=losses[-1])
+        svc_wall = time.perf_counter() - t0
+        counts = launch_counts()
+        detector.stop()
+        snap = ledger.snapshot()
+        ledger.close()
+        goodput.activate(None)
+        fired = faults.events()
+        faults.clear()
+        dsvc.signal_shutdown(agent, dcfg)
+        acked = dsvc.await_shutdown_acks(agent, dcfg, DS_WORKERS,
+                                         timeout_s=10.0)
+        done = {e: sum(agent.key_value_try_get(dsvc._done_key(dcfg, e, s))
+                       is not None for s in range(provider.num_splits))
+                for e in range(DS_EPOCHS)}
+    finally:
+        faults.clear()
+        goodput.activate(None)
+        dispatcher.stop()
+        tv.shutdown()
+    workers = runner.join(timeout=60, raise_on_error=False).tasks
+    del store
+    events = tv.read_events(os.path.join(tdir, "events-0.jsonl"))
+    stalls = [e for e in events if e["ev"] == "stall.suspected"]
+    steps_ev = [e for e in events if e["ev"] == "train.step"]
+    taken = collections.Counter((e["epoch"], e["split"]) for e in events
+                                if e["ev"] == "data.split_consumed")
+    n_steps = len(losses)
+    expected = expected_counts(TRAIN_LAUNCHES, n_steps)
+    problems = []
+    for e in range(DS_EPOCHS):
+        if sorted(consumed[e]) != direct_set:
+            problems.append(f"epoch {e}: the batches are not the direct "
+                            f"read's ({len(consumed[e])} of "
+                            f"{batches_per_epoch})")
+        if done[e] != provider.num_splits:
+            problems.append(f"epoch {e}: {done[e]} done records of "
+                            f"{provider.num_splits}")
+        once = [s for s in range(provider.num_splits)
+                if taken.get((e, s)) != 1]
+        if once:
+            problems.append(f"epoch {e}: splits not consumed once {once}")
+    if dispatcher.splits_reassigned < 1:
+        problems.append("no lease was re-issued")
+    crashed = [k for k, t in workers.items()
+               if t.error and "FaultInjected" in t.error]
+    if len(crashed) != 1:
+        problems.append(f"input workers crashed: {crashed} "
+                        f"({ {k: (t.error or '')[-200:] for k, t in workers.items()} })")
+    if len(stalls) != 1 or stalls[0].get("badput_bucket") != "infeed_wait":
+        problems.append(f"stalls {stalls}")
+    # the step the stall held up: the first to end after the detection
+    after = [e for e in steps_ev
+             if stalls and e["wall"] >= stalls[0]["wall"]]
+    priced = after[0].get("infeed_wait_s", 0.0) if after else 0.0
+    if priced < delay or snap["badput_s"]["infeed_wait"] < delay:
+        problems.append(f"the stall's {delay} s is not priced infeed_wait "
+                        f"(largest step wait {priced}, ledger "
+                        f"{snap['badput_s']['infeed_wait']})")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"losses not finite: {losses}")
+    if counts != expected:
+        problems.append(f"launches {counts} != {expected}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["data_service_train_launches"] = counts
+    tokens = TRAIN_BATCH * cfg.max_seq_len
+    svc_sorted = sorted(svc_ms)
+    return {"config": "transformer_big", "batch": TRAIN_BATCH,
+            "seq_len": cfg.max_seq_len, "files": DS_FILES,
+            "batches_per_epoch": batches_per_epoch, "epochs": DS_EPOCHS,
+            "input_workers": DS_WORKERS, "tokens": "uniform, torch.Generator",
+            "steps": n_steps,
+            "service": {"wall_s": svc_wall, "steps_per_s": n_steps / svc_wall,
+                        "tokens_per_s": n_steps * tokens / svc_wall,
+                        "step_ms_median": statistics.median(svc_ms),
+                        "step_ms_p90": svc_sorted[int(0.9 * (n_steps - 1))],
+                        "infeed_wait_s": client.total_wait_s,
+                        "infeed_wait_share": client.total_wait_s / svc_wall,
+                        "ledger": snap},
+            "memory": {"steps": len(mem_ms), "wall_s": mem_wall,
+                       "steps_per_s": len(mem_ms) / mem_wall,
+                       "tokens_per_s": len(mem_ms) * tokens / mem_wall,
+                       "step_ms_median": statistics.median(mem_ms)},
+            "service_ready_s": ready_s,
+            "reassigned": dispatcher.splits_reassigned,
+            "crashed_worker": [list(k) for k in crashed],
+            "splits_by_worker": {str(k[1]): (t.value or {}).get("splits")
+                                 for k, t in workers.items()},
+            "acks_all": acked,
+            "stall": {"at_fetch": at, "delay_s": delay, "budget_s": budget,
+                      "stalled_s_at_detect": stalls[0].get("stalled_s"),
+                      "median_step_s": stalls[0].get("median_step_s"),
+                      "badput_bucket": stalls[0].get("badput_bucket"),
+                      "priced_infeed_wait_s": priced},
+            "faults_fired": [list(f[:4]) for f in fired],
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "launches": counts, "launches_per_step": TRAIN_LAUNCHES}
+
+
+def phase_fleet_sim_host(state):
+    """The fleet simulations on the card's machine (no kernel): FleetSim
+    at 256 workers, clean and with a seeded crash and stall; DaySim's
+    compressed day scored by the audit."""
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.telemetry import audit
+    from distributed_tensorflow_tpu_torch.telemetry import events as tv
+    from distributed_tensorflow_tpu_torch.testing import day_sim, fleet_sim
+    zero_launch_counts()
+    problems = []
+    t0 = time.perf_counter()
+    clean = fleet_sim.FleetSim(FSIM_WORKERS, steps=6, step_s=0.01,
+                               publish_every=2, hb_shard_size=32).run()
+    clean_s = time.perf_counter() - t0
+    if not clean.completed or clean.rollup_workers_seen != FSIM_WORKERS \
+            or clean.max_agent_ops_per_step >= FSIM_WORKERS / 2 \
+            or clean.ops_per_worker_per_step >= 12:
+        problems.append(f"clean run: completed {clean.completed}, seen "
+                        f"{clean.rollup_workers_seen}, fan-in "
+                        f"{clean.max_agent_ops_per_step}, ops "
+                        f"{clean.ops_per_worker_per_step}, {clean.error}")
+    sched = fleet_sim.seeded_fleet_schedule(
+        FSIM_SEED, FSIM_WORKERS, kinds=("crash", "stall"), stall_s=2.0)
+    t0 = time.perf_counter()
+    chaos = fleet_sim.FleetSim(FSIM_WORKERS, steps=FSIM_STEPS, step_s=0.01,
+                               fault_schedule=sched, stall_timeout_s=0.7,
+                               hb_shard_size=32).run()
+    chaos_s = time.perf_counter() - t0
+    kinds = sorted({d["kind"] for d in chaos.detections})
+    if not chaos.completed or chaos.generations < 2 or "crash" not in kinds:
+        problems.append(f"chaos run: completed {chaos.completed}, "
+                        f"generations {chaos.generations}, detections "
+                        f"{chaos.detections}, {chaos.error}")
+    logdir = tempfile.mkdtemp(prefix="day_", dir=_fleet_dir("fleet_sim_host"))
+    t0 = time.perf_counter()
+    day = day_sim.DaySim(seed=DAY_SEED, logdir=logdir).run()
+    day_s = time.perf_counter() - t0
+    out = audit.audit_day(tv.read_run(logdir))
+    fails = audit.check_audit(out, require_warm_restore=True,
+                              goodput_floor=0.5)
+    if not day["completed_run"] or fails or out["requests"]["dropped"]:
+        problems.append(f"day: completed {day['completed_run']}, gates "
+                        f"{fails}, requests {out['requests']}, "
+                        f"{day['error']}")
+    counts = launch_counts()
+    if any(counts.values()):
+        problems.append(f"a kernel ran: {counts}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["fleet_sim_host_launches"] = counts
+
+    def row(r, secs):
+        return {"seconds": secs, "wall_s": r.wall_s,
+                "generations": r.generations, "restarts": r.restarts,
+                "detect_s_max": r.detect_s_max, "mttr_s_max": r.mttr_s_max,
+                "ops_per_worker_per_step": r.ops_per_worker_per_step,
+                "rollup_fan_in_ops_per_step": r.max_agent_ops_per_step,
+                "max_agent_ops": r.max_agent_ops,
+                "supervisor_ops_total": r.supervisor_ops_total,
+                "rollup_latency_s_mean": r.rollup_latency_s_mean,
+                "rollup_workers_seen": r.rollup_workers_seen,
+                "faults_fired": r.faults_fired, "failures": r.failures,
+                "detections": r.detections}
+    return {"workers": FSIM_WORKERS, "clean": row(clean, clean_s),
+            "chaos": row(chaos, chaos_s),
+            "day": {"seconds": day_s, "seed": DAY_SEED,
+                    "wall_s": day["wall_s"], "generated": day["generated"],
+                    "completed": day["completed"],
+                    "generations": day["generations"],
+                    "rack_kill": day["rack_kill"],
+                    "scales_applied": day["scales_applied"],
+                    "goodput_frac": out["ledger"]["goodput_frac"],
+                    "rack_loss": out["rack_loss"],
+                    "max_unattributed_frac": out["max_unattributed_frac"],
+                    "check_audit": fails}}
 
 
 def phase_router4(state):
@@ -10190,6 +10706,8 @@ def main(argv=None) -> int:
                      ("disagg_parity", phase_disagg_parity),
                      ("swap_chaos", phase_swap_chaos),
                      ("fleet_serve", phase_fleet_serve),
+                     ("data_service_train", phase_data_service_train),
+                     ("fleet_sim_host", phase_fleet_sim_host),
                      ("train", phase_train),
                      ("train_fused", phase_train_fused),
                      ("train_parity", phase_train_parity),
@@ -10375,6 +10893,12 @@ def main(argv=None) -> int:
             path: {tag: {gen: c[name] for gen, c in by_gen.items()}
                    for tag, by_gen in runs.items()}
             for path, runs in state["fleet_launches"].items()}
+        # the fleet trace and data-service phases: the headline
+        # step fed by the data service, from 0 over its run; the fleet
+        # simulations run no kernel
+        row["data_service_launches"] = {
+            path: state[f"{path}_launches"][name]
+            for path in ("data_service_train", "fleet_sim_host")}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

@@ -19,8 +19,10 @@ Importing this package imports no submodule: import what you use, e.g.
 ``from distributed_tensorflow_tpu_torch.serving.engine import
 InferenceEngine``. The strategy API (the multi-worker, parameter-server,
 central-storage and TPU strategies included), the cluster resolvers, the
-``ClusterCoordinator`` and the Keras shim are also lazy top-level names
-(``_LAZY``), as the JAX package exports them, so a script runs on the
+``ClusterCoordinator``, the topology and ``initialize``, and the Keras
+shim are also lazy top-level names (``_LAZY``), as the JAX package
+exports them, and so is every name a subpackage's ``__init__.py`` binds
+(each through :func:`lazy_names`), so a script runs on the
 port with its import lines changed::
 
     import distributed_tensorflow_tpu_torch as tf_distribute
@@ -80,23 +82,40 @@ _LAZY = {
     **{n: _P + "input.dataset" for n in (
         "Dataset", "DistributedDataset", "InputOptions", "AutoShardPolicy",
         "InputContext")},
+    **{n: _P + "cluster.topology" for n in (
+        "Topology", "DeviceAssignment", "make_mesh")},
+    "initialize": _P + "cluster.bootstrap",
 }
 
 #: top-level submodules loaded on first use (``tf_distribute.keras``)
 _LAZY_MODULES = {"keras": _P + "keras", "collectives":
-                 _P + "parallel.collectives"}
+                 _P + "parallel.collectives",
+                 "bootstrap": _P + "cluster.bootstrap",
+                 "summary": _P + "utils.summary",
+                 **{n: _P + n for n in __all__}}
 
 
-def __getattr__(name):
-    if name in _LAZY:
-        value = getattr(importlib.import_module(_LAZY[name]), name)
-    elif name in _LAZY_MODULES:
-        value = importlib.import_module(_LAZY_MODULES[name])
-    else:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    globals()[name] = value
-    return value
+def lazy_names(namespace: dict, names: dict, modules: dict | None = None):
+    """PEP 562 ``__getattr__`` and ``__dir__`` for a package whose
+    ``names`` (name -> defining module) and ``modules`` (name ->
+    module) load on first use; a resolved name is cached in
+    ``namespace``, the package's globals."""
+    modules = modules or {}
+
+    def __getattr__(name):
+        if name in names:
+            value = getattr(importlib.import_module(names[name]), name)
+        elif name in modules:
+            value = importlib.import_module(modules[name])
+        else:
+            raise AttributeError(
+                f"module {namespace['__name__']!r} has no attribute {name!r}")
+        namespace[name] = value
+        return value
+
+    def __dir__():
+        return sorted(set(namespace) | set(names) | set(modules))
+    return __getattr__, __dir__
 
 
-def __dir__():
-    return sorted(set(globals()) | set(_LAZY) | set(_LAZY_MODULES))
+__getattr__, __dir__ = lazy_names(globals(), _LAZY, _LAZY_MODULES)

@@ -1,2 +1,28 @@
-"""Input pipelines of the port: :mod:`stream`, the append-only event log
-the online trainer consumes. Import the submodule you use."""
+"""Input pipelines of the port — port of ``distributed_tensorflow_tpu/
+input``: :mod:`dataset` (the tf.data-style ``Dataset`` and its
+distributed forms), :mod:`stream` (the append-only event log the online
+trainer consumes), :mod:`split_provider` and :mod:`data_service` (the
+disaggregated data service: a dispatcher and input workers feeding the
+trainer over the coordination KV, each file split exactly once an
+epoch). JAX's package-level names load on first use; ``image_ops`` and
+``example_parser``'s names are not ported yet."""
+
+from distributed_tensorflow_tpu_torch import lazy_names as _lazy_names
+
+_M = "distributed_tensorflow_tpu_torch.input."
+
+#: package-level name -> the submodule that defines it
+_LAZY = {
+    **{n: _M + "dataset" for n in (
+        "AUTOTUNE", "AutoShardPolicy", "Dataset",
+        "DistributedDataset", "InputContext", "InputOptions")},
+    **{n: _M + "data_service" for n in (
+        "DataInputWorker", "DataServiceClient",
+        "DataServiceConfig", "DataServiceDispatcher")},
+    "SplitProvider": _M + "split_provider",
+    **{n: _M + "stream" for n in (
+        "StreamCorruptError", "StreamDataset", "StreamReader",
+        "StreamWriter")},
+}
+
+__getattr__, __dir__ = _lazy_names(globals(), _LAZY)

@@ -10,8 +10,18 @@
   ``build/torch_kernels/`` at first use and loads it with ``ctypes``.
 
 Each kernel wrapper adds one to its counter where it launches its
-kernel; :func:`launch_counts` reads them all.
+kernel; :func:`launch_counts` reads them all. ``flash_attention``,
+``mha_reference`` and ``collective_ops`` (``parallel.collectives``) load
+on first use, as JAX's package names.
 """
+
+from distributed_tensorflow_tpu_torch import lazy_names as _lazy_names
+
+_LAZY = {n: "distributed_tensorflow_tpu_torch.ops.attention"
+         for n in ("flash_attention", "mha_reference")}
+__getattr__, __dir__ = _lazy_names(
+    globals(), _LAZY,
+    {"collective_ops": "distributed_tensorflow_tpu_torch.parallel.collectives"})
 
 
 def launch_counts() -> dict:

@@ -49,6 +49,7 @@ import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.cluster import topology as topo_lib
 from distributed_tensorflow_tpu_torch.parallel import collectives
+from distributed_tensorflow_tpu_torch.parallel import values as values_lib
 from distributed_tensorflow_tpu_torch.parallel.collectives import (
     CommunicationOptions, ReduceOp)
 from distributed_tensorflow_tpu_torch.parallel.cross_device_ops import (
@@ -560,12 +561,41 @@ class Strategy:
 
     def init_state(self, init_fn: Callable, *args, sharding_rules=None,
                    **kwargs):
-        """``init_fn(*args, **kwargs)`` replicated (mirrored state)."""
-        if sharding_rules is not None:
-            raise NotImplementedError(
-                "sharding_rules: the port shards state through its models' "
-                "own mesh steps (models/transformer.make_sharded_train_step)")
-        return self.replicate(init_fn(*args, **kwargs))
+        """``init_fn(*args, **kwargs)`` replicated (mirrored state), or,
+        with ``sharding_rules``, placed by a tree of specs of the state's
+        structure (JAX's ``PartitionSpec`` tree): a spec is a tuple with
+        one entry per array dim (a mesh dim name, a tuple of names, or
+        None), and a None spec replicates. A leaf whose spec cuts a
+        dim becomes a :class:`DistributedVariable` holding this rank's
+        block (``parallel/values.scatter_dims``: the dim chunked over
+        its names, outermost first, as JAX places it); a leaf that no
+        spec cuts stays a replicated tensor."""
+        state = self.replicate(init_fn(*args, **kwargs))
+        if sharding_rules is None:
+            return state
+        leaves, td = tree.tree_flatten(state)
+        specs = tree.td_leaves(td, sharding_rules)
+        names = (tuple(self.mesh.mesh_dim_names)
+                 if self.mesh is not None else ())
+        out = []
+        for leaf, spec in zip(leaves, specs):
+            spec = tuple(spec or ())
+            cut = [a for e in spec for a in
+                   ((e,) if isinstance(e, str) else (e or ()))]
+            if any(a not in names for a in cut):
+                raise ValueError(f"spec {spec} names a dim not in the "
+                                 f"mesh {names}")
+            if not isinstance(leaf, torch.Tensor) or not cut:
+                out.append(leaf)
+                continue
+            if len(spec) > leaf.dim():
+                raise ValueError(f"spec {spec} has more entries than the "
+                                 f"leaf's {leaf.dim()} dims")
+            spec = spec + (None,) * (leaf.dim() - len(spec))
+            out.append(DistributedVariable(
+                values_lib.scatter_dims(leaf, self.mesh, spec),
+                mesh=self.mesh, spec=spec, shape=tuple(leaf.shape)))
+        return tree.tree_unflatten(td, out)
 
     def gradient_bucketer(self):
         """The bucketed gradient all-reduce over the data dims (None on

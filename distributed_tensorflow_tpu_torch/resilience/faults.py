@@ -23,7 +23,24 @@ The port's instrumented sites:
   once per spilled 1F1B stage input, tag ``c<cycle>``): a ``raise``
   fails the device→host copy; the store retries once, and a double
   failure surfaces as ``OffloadSpillError`` at the backward that needs
-  the lost input.
+  the lost input;
+- ``fleet.step`` (``testing/fleet_sim.py``'s simulated-worker step,
+  tag = the worker pid; the per-tag hit counter is the worker's step
+  number): ``raise`` crashes the worker, ``delay`` stalls it past the
+  supervisor's staleness budget, ``signal`` partitions it (KV ops and
+  heartbeats suppressed for a window);
+- ``data.dispatch`` (``input/data_service.DataServiceDispatcher.tick``,
+  tag = the job): a ``raise`` fails one dispatch round; the background
+  loop absorbs it and the next tick re-derives the assignment;
+- ``data.fetch`` (``input/data_service.DataServiceClient``'s split
+  fetch, tag = the split id): a ``raise`` models a transient payload
+  read failure that the trainer retries under its decorrelated
+  ``RetryPolicy``; a ``delay`` stalls the trainer's fetch;
+- ``data.worker_step`` (``input/data_service.DataInputWorker``, once
+  per split-processing attempt, tag = the worker id): ``raise``
+  crashes the input worker mid-epoch, ``delay`` stalls it past the
+  lease budget; either ends in the dispatcher re-issuing the lease and
+  an exactly-once epoch.
 
 Determinism: hit counters are kept per ``(site, tag)`` and per site; a
 rule with ``tag`` set counts per tag, one without per site.

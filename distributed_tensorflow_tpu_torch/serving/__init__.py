@@ -56,6 +56,20 @@ from distributed_tensorflow_tpu_torch.serving.tenancy import (
     TenancyController, TenantConfig, TokenBucket, default_tenants,
     evaluate_tenants, fair_shares)
 
+from distributed_tensorflow_tpu_torch import lazy_names as _lazy_names
+
+#: JAX's package-level names of the pool and the decode builders, loaded
+#: on first use
+_LAZY = {
+    **{n: "distributed_tensorflow_tpu_torch.serving.kv_cache"
+       for n in ("init_pool", "pool_shardings")},
+    **{n: "distributed_tensorflow_tpu_torch.serving.decode" for n in (
+        "canonical_params", "make_decode_fn", "make_draft_fn",
+        "make_extend_fn", "make_prefill_fn", "model_forward",
+        "param_shardings")},
+}
+__getattr__, __dir__ = _lazy_names(globals(), _LAZY)
+
 __all__ = ["AdmissionQueue", "BlockAllocator", "BlockTable", "CacheConfig",
            "ContinuousBatchingScheduler", "DisaggregatedEngine", "FileKV",
            "HostTier", "InferenceEngine", "MigrationPayload",
@@ -67,4 +81,4 @@ __all__ = ["AdmissionQueue", "BlockAllocator", "BlockTable", "CacheConfig",
            "Router", "RouterJournal", "RoutingPolicy", "prefix_chain_keys",
            "seeded_tenant_workload",
            "TenancyController", "TenantConfig", "TokenBucket",
-           "default_tenants", "evaluate_tenants", "fair_shares"]
+           "default_tenants", "evaluate_tenants", "fair_shares", *_LAZY]

@@ -15,9 +15,13 @@ one device:
 - **Prefill** runs each prompt at its exact length through the flash
   forward (the ``flash_fwd`` CUDA kernel on the card, one launch per
   layer); **decode** attends one query per sequence against its block
-  window in plain PyTorch. The decode batch holds only the running
-  sequences, and the window only as many blocks as the longest of them
-  has — the JAX engine pads both to fixed shapes so it compiles once.
+  window in plain PyTorch. Decode and the speculative verify take the
+  JAX engine's fixed shapes: ``max_slots`` rows (rounded up to a
+  multiple of ``dp``), each sequence at its slot, idle rows feeding
+  token 0 into the trash row, and the engine's whole ``window``. So a
+  sequence's logits never depend on what shares its batch (at bf16 a
+  batch of another size meets GEMMs of another shape, and a near-tie
+  in the argmax could flip).
 - **Telemetry** — ``serve.admit`` / ``serve.prefill`` / ``serve.token``
   / ``serve.step`` / ``serve.request`` events with the JAX engine's
   fields, and the same ``inference/`` and ``serving/`` instruments.
@@ -744,19 +748,19 @@ class InferenceEngine:
             step=self._step_idx)
 
     def _decode_batch(self, batch: list[Sequence]):
-        """One incremental token for every running sequence. The batch
-        is exactly the running sequences and the window as wide as the
-        longest one's blocks; positions past a sequence's length are
-        masked, so neither choice changes any row's result."""
-        bs = self.cache_cfg.block_size
-        W = max(len(s.table.blocks) for s in batch) * bs
-        B = self._padded(len(batch))
+        """One incremental token for every running sequence, in JAX's
+        fixed shapes: a ``(max_slots,)`` batch (a multiple of ``dp``)
+        with each sequence at its slot, over the whole window; idle rows
+        feed token 0 at length 0 into the trash row and their logits are
+        never read."""
+        B, W = self._padded(self.max_slots), self.window
         tokens = np.zeros(B, np.int64)
         positions = np.zeros(B, np.int64)
         lengths = np.zeros(B, np.int64)
         write_rows = np.zeros(B, np.int64)
         window_rows = np.zeros((B, W), np.int64)
-        for i, seq in enumerate(batch):
+        for seq in batch:
+            i = seq.slot
             if self.prefix_caching:
                 # the write at position length-1 must not land in a
                 # block a prefix-cache sibling shares: copy-on-write
@@ -777,8 +781,8 @@ class InferenceEngine:
         nxt = self._pick(logits)
         self.decode_steps += 1
         emit = telemetry.enabled()
-        for i, seq in enumerate(batch):
-            self.scheduler.append_token(seq, int(nxt[i]))
+        for seq in batch:
+            self.scheduler.append_token(seq, int(nxt[seq.slot]))
             if emit:
                 self._emit_token(seq)
 
@@ -830,24 +834,24 @@ class InferenceEngine:
                 self._apply_copies(seq.table.ensure_writable(
                     seq.length - 1, seq.length + spans[i],
                     self.scheduler.allocator))
-        W = max(len(s.table.blocks) for s in batch) \
-            * self.cache_cfg.block_size
-        E = k + 1
-        rows_b = self._padded(B)
+        # the verify takes the decode step's fixed shapes: every slot,
+        # the whole window
+        W, E = self.window, k + 1
+        rows_b = self._padded(self.max_slots)
         tokens = np.zeros((rows_b, E), np.int64)
         positions = np.full((rows_b, E), W, np.int64)  # pad -> masked
         lengths = np.zeros(rows_b, np.int64)
         write_rows = np.zeros((rows_b, E), np.int64)   # pad -> trash row
         window_rows = np.zeros((rows_b, W), np.int64)
         for i, seq in enumerate(batch):
-            L, ke = seq.length, spans[i]
-            tokens[i, 0] = seq.last_token
-            tokens[i, 1:ke + 1] = proposals[i, :ke]
-            positions[i, :ke + 1] = np.arange(L - 1, L + ke)
-            lengths[i] = L + ke
-            write_rows[i, :ke + 1] = seq.table.rows(np.arange(L - 1,
+            s, L, ke = seq.slot, seq.length, spans[i]
+            tokens[s, 0] = seq.last_token
+            tokens[s, 1:ke + 1] = proposals[i, :ke]
+            positions[s, :ke + 1] = np.arange(L - 1, L + ke)
+            lengths[s] = L + ke
+            write_rows[s, :ke + 1] = seq.table.rows(np.arange(L - 1,
                                                               L + ke))
-            window_rows[i] = seq.table.window_rows(W)
+            window_rows[s] = seq.table.window_rows(W)
         logits, self.pool = self._extend(
             self.params, self.pool, t(tokens), t(positions), t(lengths),
             t(write_rows), t(window_rows))
@@ -860,13 +864,13 @@ class InferenceEngine:
         for i, seq in enumerate(batch):
             ke = spans[i]
             j = 0
-            while j < ke and proposals[i, j] == target_next[i, j]:
+            while j < ke and proposals[i, j] == target_next[seq.slot, j]:
                 j += 1
             self._m_spec_proposed.increment(ke)
             self._m_spec_accepted.increment(j)
             self._spec_proposed_n += ke
             self._spec_accepted_n += j
-            for tok in target_next[i, :j + 1]:
+            for tok in target_next[seq.slot, :j + 1]:
                 self.scheduler.append_token(seq, int(tok))
                 committed_total += 1
                 if emit:

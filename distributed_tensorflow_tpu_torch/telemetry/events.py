@@ -78,6 +78,14 @@ class EventLog:
         self._f = open(path, "a", buffering=1, encoding="utf-8")
         self._t0 = time.monotonic()
         self._last_t = 0.0
+        # a reformed cluster's restarted process appends to the same
+        # events-<pid>.jsonl, so each record says which generation wrote
+        # it; generation 0 stays unstamped
+        try:
+            from distributed_tensorflow_tpu_torch.cluster import elastic
+            self._gen = elastic.generation()
+        except Exception:
+            self._gen = 0
         if run_id:
             self.event("run.start", run_id=run_id)
 
@@ -92,6 +100,8 @@ class EventLog:
             rec["t"] = round(t, 6)
             rec["wall"] = round(time.time(), 6)
             rec["pid"] = self.process_id
+            if self._gen:
+                rec["gen"] = self._gen
             rec.update(fields)
             line = json.dumps(rec) + "\n"
             self._f.write(line)

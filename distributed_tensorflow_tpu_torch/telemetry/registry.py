@@ -7,8 +7,9 @@ collectors (``register_collector``) through which the goodput ledger
 exports its breakdown; :class:`Timer` (a duration timer over a
 histogram, as the input pipeline's infeed times its waits),
 :meth:`Histogram.percentile` and :meth:`MetricsRegistry.register` (the
-monitoring gauges of ``utils/summary.py``). Delta export belongs to the
-fleet-telemetry slice.
+monitoring gauges of ``utils/summary.py``), and
+:meth:`MetricsRegistry.names`, which the stall detector scans for
+blocked dispatch lanes (``telemetry/stall.py``).
 """
 
 from __future__ import annotations
@@ -221,6 +222,10 @@ class MetricsRegistry:
     def get(self, name: str):
         with self._lock:
             return self._instruments.get(name)
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._instruments)
 
     def register_collector(self, prefix: str, fn):
         """``fn() -> {name: value}``; merged into every snapshot under

@@ -42,11 +42,18 @@ The recovery supervisor's primitives are JAX's: ``restart`` (one task
 respawned with its environment plus overrides, the dead incarnation's
 result kept in ``history``), ``reform`` (every task respawned under a
 fresh cluster spec, resized with ``allow_resize``) and ``alive_tasks``.
-The pool runner belongs to a later slice.
+
+:class:`MultiProcessPoolRunner` keeps its task processes across runs
+(JAX's pool runner): each :meth:`~MultiProcessPoolRunner.run` sends the
+function down a pipe with a fresh ``TF_CONFIG`` (fresh ports), so a
+suite pays the spawn and the torch import once, and each run still gets
+a cluster of its own. A task that must be killed mid-run needs
+:class:`MultiProcessRunner`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -492,4 +499,263 @@ class MultiProcessRunner:
                 f"tasks {bad} did not report within "
                 f"{timeout or self._timeout}s or exited abnormally; "
                 f"stdout:\n{logs}", result)
+        return result
+
+
+# ---------------------------------------------------------------------------
+# Pool runner: persistent task processes amortising spawn and the import
+# ---------------------------------------------------------------------------
+
+_POOL_TASK_DIED = "pool task died without reporting"
+
+
+def _pool_task_cleanup():
+    """Reset a pooled process between runs (JAX ``:474``): every run
+    gets a fresh cluster (fresh ports in a fresh ``TF_CONFIG``), so the
+    child drops the old process group and store client, the in-process
+    KV and barriers, and the remote-dispatch generation; the next run's
+    ``bootstrap.initialize`` rebuilds them."""
+    with contextlib.suppress(Exception):
+        from distributed_tensorflow_tpu_torch.cluster import bootstrap
+        bootstrap.shutdown()
+    with contextlib.suppress(Exception):
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with contextlib.suppress(Exception):
+        from distributed_tensorflow_tpu_torch.cluster import coordination
+        coordination._LOCAL._kv.clear()
+        coordination._LOCAL._barriers.clear()
+        coordination.attach_store(None)
+        coordination._AGENT = None
+    with contextlib.suppress(Exception):
+        rd = sys.modules.get(
+            "distributed_tensorflow_tpu_torch.coordinator.remote_dispatch")
+        if rd is not None:
+            rd._reset_generation_for_tests()
+
+
+def _pool_child_main(base_env: dict, conn, ready_path: str, threads: int):
+    """Persistent pool-task entry (JAX ``:513``): import torch once,
+    then serve tasks. One message a task: ``(env_updates, stdout_path,
+    payload)``; the reply is ``("ok", value)`` or ``("error",
+    traceback)`` as plain pickle bytes. ``None`` ends the process."""
+    os.environ.update(base_env)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    import torch
+    if threads:
+        torch.set_num_threads(threads)
+    with open(ready_path, "w") as f:
+        f.write("ready")
+    while True:
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            break
+        if msg is None:
+            break
+        env_updates, stdout_path, payload = msg
+        out_f = open(stdout_path, "w", buffering=1)
+        os.dup2(out_f.fileno(), 1)
+        os.dup2(out_f.fileno(), 2)
+        # restore every variable this run sets: a caller's ``env`` must
+        # not leak into later pooled runs
+        env_saved = {k: os.environ.get(k) for k in env_updates}
+        try:
+            os.environ.update(env_updates)
+            fn, args, kwargs = pickle.loads(payload)
+            value = fn(*args, **kwargs)
+            try:
+                reply = pickle.dumps(("ok", value))
+            except Exception:
+                reply = pickle.dumps(("ok", repr(value)))
+        except BaseException:
+            reply = pickle.dumps(("error", traceback.format_exc()))
+        finally:
+            with contextlib.suppress(BaseException):
+                _pool_task_cleanup()
+            for k, old in env_saved.items():
+                if old is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = old
+            out_f.flush()
+            out_f.close()       # fds 1/2 keep their dup'd descriptors
+        conn.send_bytes(reply)
+    os._exit(0)
+
+
+class MultiProcessPoolRunner:
+    """A persistent pool of cluster-task processes (JAX ``:561``).
+
+    Tests share long-lived task processes, so each run pays pipe round
+    trips instead of a spawn and the torch import. Every :meth:`run`
+    builds a fresh localhost cluster spec (fresh ports), so runs stay
+    hermetic. ``device`` is what the tasks run on: ``"cpu"`` gives each
+    one intra-op thread, ``"cuda"`` gives a chief or worker task its
+    card (``LOCAL_RANK``). A child that dies marks the pool broken, and
+    the next ``run`` restarts it.
+    """
+
+    def __init__(self, *, num_workers: int = 2, num_ps: int = 0,
+                 has_chief: bool = False, has_evaluator: bool = False,
+                 device="cuda", env: Mapping[str, str] | None = None):
+        import torch
+        self._shape = dict(num_workers=num_workers, num_ps=num_ps,
+                           has_chief=has_chief, has_evaluator=has_evaluator)
+        self._cpu = torch.device(device).type == "cpu"
+        self._extra_env = dict(env or {})
+        self._procs: dict[tuple[str, int], Any] = {}
+        self._conns: dict[tuple[str, int], Any] = {}
+        self._tmpdir = None
+        self._run_seq = 0
+
+    # -- lifecycle --------------------------------------------------------
+    @property
+    def started(self) -> bool:
+        return bool(self._procs)
+
+    def _task_keys(self) -> list[tuple[str, int]]:
+        spec = create_cluster_spec(**self._shape)
+        return [(t, i) for t in sorted(spec) for i in range(len(spec[t]))]
+
+    def start(self, timeout: float = 120.0) -> "MultiProcessPoolRunner":
+        self.shutdown()
+        self._tmpdir = tempfile.mkdtemp(prefix="mpp_")
+        ready_paths = {}
+        for key in self._task_keys():
+            env = dict(self._extra_env)
+            parent_conn, child_conn = _MP.Pipe()
+            ready = os.path.join(self._tmpdir, f"ready_{key[0]}_{key[1]}")
+            p = _MP.Process(target=_pool_child_main,
+                            args=(env, child_conn, ready,
+                                  1 if self._cpu else 0), daemon=True)
+            p.start()
+            child_conn.close()
+            self._procs[key] = p
+            self._conns[key] = parent_conn
+            ready_paths[key] = ready
+        deadline = time.monotonic() + timeout
+        for key, path in ready_paths.items():
+            while not os.path.exists(path):
+                if time.monotonic() > deadline:
+                    self.shutdown()
+                    raise RuntimeError(
+                        f"pool task {key} failed to come up in {timeout}s")
+                if self._procs[key].exitcode is not None:
+                    self.shutdown()
+                    raise RuntimeError(f"pool task {key} died during startup")
+                time.sleep(0.05)
+        return self
+
+    def shutdown(self):
+        for conn in self._conns.values():
+            with contextlib.suppress(Exception):
+                conn.send(None)
+        for p in self._procs.values():
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        self._procs.clear()
+        self._conns.clear()
+        if self._tmpdir is not None:
+            shutil.rmtree(self._tmpdir, ignore_errors=True)
+            self._tmpdir = None
+
+    # -- dispatch ---------------------------------------------------------
+    def run(self, fn: Callable, *, args: tuple = (),
+            kwargs: dict | None = None,
+            env: Mapping[str, str] | None = None,
+            timeout: float = 300.0,
+            raise_on_error: bool = True) -> MultiProcessRunnerResult:
+        """Run ``fn`` once a cluster task on the pooled processes: the
+        contract of :func:`run` (``TF_CONFIG`` tasks), without killing
+        tasks. A task that raised is :class:`SubprocessError`; one that
+        died, or did not report within ``timeout``, is
+        :class:`UnexpectedSubprocessExitError` (the pool restarts)."""
+        if not self.started or any(p.exitcode is not None
+                                   for p in self._procs.values()):
+            # a child died while the pool was idle: restart
+            self.start()
+        self._run_seq += 1
+        spec = create_cluster_spec(**self._shape)
+        payload = pickle.dumps((fn, args, kwargs or {}))
+        ntasks = sum(len(v) for v in spec.values())
+        chiefs = len(spec.get("chief", ()))
+        stdout_paths: dict[tuple[str, int], str] = {}
+        task_index = 0
+        for task_type in sorted(spec):
+            for task_id in range(len(spec[task_type])):
+                key = (task_type, task_id)
+                env_updates = {
+                    "TF_CONFIG": json.dumps({
+                        "cluster": spec,
+                        "task": {"type": task_type, "index": task_id}}),
+                    "DTX_MPR_NUM_TASKS": str(ntasks),
+                    "DTX_MPR_TASK_INDEX": str(task_index),
+                }
+                if task_type in ("chief", "worker"):
+                    env_updates["LOCAL_RANK"] = str(
+                        task_id + chiefs if task_type == "worker" else 0)
+                env_updates.update(env or {})
+                stdout_path = os.path.join(
+                    self._tmpdir,
+                    f"run{self._run_seq}_{task_type}_{task_id}.out")
+                stdout_paths[key] = stdout_path
+                self._conns[key].send((env_updates, stdout_path, payload))
+                task_index += 1
+
+        results: dict[tuple[str, int], TaskResult] = {}
+        deadline = time.monotonic() + timeout
+        pending = dict(self._conns)
+        broken = False
+        while pending and time.monotonic() < deadline:
+            for key, conn in list(pending.items()):
+                value, error, got = None, None, False
+                if conn.poll(0.05):
+                    try:
+                        status, data = pickle.loads(conn.recv_bytes())
+                        got = True
+                        if status == "ok":
+                            value = data
+                        else:
+                            error = data
+                    except (EOFError, OSError):
+                        got, error, broken = True, _POOL_TASK_DIED, True
+                elif self._procs[key].exitcode is not None:
+                    got, error, broken = True, _POOL_TASK_DIED, True
+                if got:
+                    stdout = ""
+                    path = stdout_paths[key]
+                    if os.path.exists(path):
+                        with open(path, errors="replace") as f:
+                            stdout = f.read()
+                    results[key] = TaskResult(
+                        task_type=key[0], task_id=key[1],
+                        exitcode=self._procs[key].exitcode or 0,
+                        value=value, error=error, stdout=stdout)
+                    del pending[key]
+        if pending or broken:
+            self.shutdown()      # the next run restarts cleanly
+            if pending:
+                raise UnexpectedSubprocessExitError(
+                    f"pooled tasks {sorted(pending)} did not report within "
+                    f"{timeout}s (pool restarted)",
+                    MultiProcessRunnerResult(results))
+        result = MultiProcessRunnerResult(results)
+        if raise_on_error:
+            crashed = sorted(k for k, t in results.items()
+                             if t.error == _POOL_TASK_DIED)
+            if crashed:
+                raise UnexpectedSubprocessExitError(
+                    f"pooled tasks {crashed} died without reporting "
+                    f"(pool restarted)", result)
+            errors = sorted(k for k, t in results.items()
+                            if t.error is not None)
+            if errors:
+                raise SubprocessError(
+                    f"pooled task {errors[0]} raised:\n"
+                    f"{results[errors[0]].error}", result)
         return result

@@ -87,7 +87,10 @@ print(json.dumps({"imported": names,
                 "resilience.heartbeats", "resilience.supervisor",
                 "resilience.autoscaler", "resilience.rollout",
                 "telemetry.slo", "telemetry.exporter",
-                "serving.tenancy", "serving.router", "serving.replica"):
+                "serving.tenancy", "serving.router", "serving.replica",
+                "telemetry.aggregate", "telemetry.stall", "telemetry.audit",
+                "input.split_provider", "input.data_service",
+                "testing.fleet_sim", "testing.day_sim"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []
 
@@ -167,6 +170,8 @@ LAZY_GROUPS = {
                            "AggregatingVariable", "CachingVariable"),
     "coordinator": ("ClusterCoordinator", "RemoteValue", "PerWorkerValues",
                     "RetryPolicy", "coordination_service"),
+    "cluster_names": ("initialize", "bootstrap", "Topology",
+                      "DeviceAssignment", "make_mesh", "summary"),
     "resolvers": ("ClusterSpec", "ClusterResolver", "SimpleClusterResolver",
                   "TFConfigClusterResolver", "TPUClusterResolver",
                   "SlurmClusterResolver", "SageMakerClusterResolver",

@@ -2,7 +2,7 @@
 """Where a serving step's time goes in the PyTorch port, on one GPU.
 
     python3 tools/torch_serve_profile.py [--prompt-len 512] [--slots 8]
-        [--prefix-len 0] [--speculative-k 0]
+        [--batch N] [--prefix-len 0] [--speculative-k 0]
 
 Builds the port's ``InferenceEngine`` at the full width of
 ``transformer_big`` in bf16 (random weights from seed 0) and traces two
@@ -16,8 +16,10 @@ windows with ``torch.profiler``:
   whole prompt). Before it, untraced, the line's ``host_ms`` times a
   hit of that shape at its first use and again, and a cold prefill of
   the whole prompt's length again (each one request, host clock);
-- ``decode``  — ``--steps`` steps of a full decode batch of ``--slots``
-  sequences (prompts of ``--decode-prompt-len``), no admissions. With
+- ``decode``  — ``--steps`` steps of a decode batch of ``--batch``
+  sequences (default: ``--slots``, a full batch; prompts of
+  ``--decode-prompt-len``) in an engine of ``--slots`` slots, no
+  admissions. With
   ``--speculative-k k`` each step is a speculative one (``spec_decode``:
   up to k proposals of the default truncated draft, as many as the
   widest span can commit, then one verify).
@@ -118,11 +120,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sequences in the decode window (default: --slots)")
     ap.add_argument("--decode-prompt-len", type=int, default=256)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--prefix-len", type=int, default=0)
     ap.add_argument("--speculative-k", type=int, default=0)
     args = ap.parse_args()
+    batch = args.slots if args.batch is None else args.batch
+    if not 1 <= batch <= args.slots:
+        ap.error("--batch must lie in [1, --slots]")
     if not 0 <= args.prefix_len < args.prompt_len:
         ap.error("--prefix-len must lie in [0, --prompt-len)")
     if not torch.cuda.is_available():
@@ -187,7 +194,7 @@ def main() -> int:
                           "prefix_cache", {}).get("hit_tokens", 0) - hits0}),
           flush=True)
 
-    for i in range(args.slots):
+    for i in range(batch):
         engine.submit(Request(id=f"d{i}", tokens=prompt(
             args.decode_prompt_len), max_new_tokens=args.steps + 8))
     while len(engine.scheduler.queue) or not all(
@@ -201,8 +208,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     window = "spec_decode" if args.speculative_k else "decode"
-    print(json.dumps({**summarize(f"{window}_batch{args.slots}", prof,
-                                  wall, args.steps),
+    print(json.dumps({**summarize(f"{window}_batch{batch}", prof,
+                                  wall, args.steps), "slots": args.slots,
                       **({"speculative": engine.stats()["speculative"]}
                          if args.speculative_k else {})}), flush=True)
     engine.run_until_idle()
