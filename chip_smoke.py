@@ -447,17 +447,41 @@ single-device BERT step by ``dp_parity``'s rule.
     each decision with its time and burn rate, the replicas of each
     generation, their flash launches.
 
+52. ``image_resnet`` — ``bench.py run_input_pipeline``'s TPU sizes from
+    files: 768 JPEGs of 280² cropped to 224, batch 128, through the
+    files route (``jpeg_pipeline``) and the native TFRecord route
+    (``jpeg_tfrecord_pipeline``); each route's host images/s serial and
+    parallel, then ResNet-50 bf16 fed through ``InfeedLoop``: step ms,
+    images/s, ``infeed_wait_frac``, a falling loss, against the same
+    model's synthetic rate. The codec is JPEG (Pillow is installed).
+53. ``tfrecord_dlrm`` — ``tools/torch_train_from_tfrecords.py`` at
+    ``dlrm_like()``, batch 4096, from tf.Example shards: steps/s and
+    examples/s against the same step in memory, the host's parse ms a
+    batch, the first batch's loss falling.
+54. ``tensor_tracer`` — ``trace_fn`` over the headline model's forward
+    and kernel loss: the entries, #1 and #4 launched under the tracer,
+    traced against untraced ms, the first NaN op after a NaN is written
+    into layer 2's query weight, and ``trace_flax``'s sorted order.
+55. ``profiler_capture`` — ``profile(logdir)`` around three headline
+    steps: ``op_profile`` names the tensor-core kernels, the step
+    markers carry the steps.
+56. ``conformance`` — the 26 strategy checks for OneDevice and Mirrored
+    on one NCCL rank.
+57. ``conformance4`` (four cards) — the 26 checks for Mirrored,
+    MultiWorker and CentralStorage on four NCCL ranks.
+
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
 ``--phases sp_train,sp_parity``, ``--phases moe_train,moe_parity,
 fsdp_train,fsdp_parity``, ``--phases resnet_dp,wide_deep_tp,tp_train,
 tp_parity``, ``--phases ckpt_mesh,mesh_repair``, ``--phases
 keras_mirrored4,strategy_run4``, ``--phases multi_worker4,
-allreduce_algos4,ps_remote4``, ``--phases router4,autoscale4``), and
-prints no kernels line. ``ckpt_mesh``, ``mesh_repair``,
-``keras_mirrored4``, ``strategy_run4``, ``multi_worker4``,
-``allreduce_algos4``, ``ps_remote4``, ``router4`` and ``autoscale4``
-run in the whole run only when four cards are visible.
+allreduce_algos4,ps_remote4``, ``--phases router4,autoscale4``,
+``--phases conformance4``), and prints no kernels line.
+``ckpt_mesh``, ``mesh_repair``, ``keras_mirrored4``,
+``strategy_run4``, ``multi_worker4``, ``allreduce_algos4``,
+``ps_remote4``, ``router4``, ``autoscale4`` and ``conformance4`` run
+in the whole run only when four cards are visible.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -471,7 +495,8 @@ at the ring's block shape, each kind of block; ``moe_launches`` and
 phases 34-36's; ``keras_launches`` phases 39-41's and
 ``cluster_launches`` phases 44-45's, all 0; ``fleet_launches`` each
 generation's of phase 49, by dtype, the replica's own counters;
-``data_service_launches`` phases 49a-49b's),
+``data_service_launches`` phases 49a-49b's;
+``input_tracer_launches`` phases 52-56's),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -486,6 +511,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -596,11 +622,39 @@ AR4_ITERS, AR4_TOL = 10, 1e-5
 # checkpoint every PSR4_CKPT_EVERY
 PSR4_VOCAB, PSR4_STEPS, PSR4_IN_FLIGHT = 300, 60, 4
 PSR4_KILL_AT, PSR4_CKPT_EVERY = 20, 15
+# image_resnet: bench.py run_input_pipeline's TPU sizes (bench.py:329-331):
+# IMG_COUNT JPEGs of IMG_SRC² cropped to IMG_CROP, batch IMG_BATCH,
+# IMG_WARMUP then IMG_STEPS steps a route (three passes over the
+# images: the loss check compares the first pass's mean with the
+# last's), the parallel pipeline's prefetch and the infeed's depth; the
+# codec is JPEG, a fixed route (Pillow is installed on the card's
+# machine)
+IMG_COUNT, IMG_SRC, IMG_CROP, IMG_BATCH = 768, 280, 224, 128
+IMG_WARMUP, IMG_STEPS, IMG_PREFETCH, IMG_INFEED_DEPTH = 2, 16, 4, 3
+IMG_CODEC = "jpeg"
+# the image phase's SGD learning rate: bench.py's 0.1, with no warmup,
+# does not train ResNet-50 from a random init on these images in 12
+# steps (the loss rose from 6.92 to 25-70), so the learning check would
+# mean nothing; every other setting is resnet_train's
+IMG_LR = 0.01
+# tfrecord_dlrm: dlrm_like() at TFR_BATCH from TFR_SHARDS tf.Example
+# shards of TFR_PER_SHARD examples, TFR_STEPS steps (the first untimed)
+TFR_BATCH, TFR_SHARDS, TFR_PER_SHARD, TFR_STEPS = 4096, 4, 4096, 10
+# tensor_tracer: the headline model's forward and kernel loss at batch
+# TT_BATCH; the NaN goes into layer TT_NAN_LAYER's query weight
+TT_BATCH, TT_NAN_LAYER = 8, 2
+# the traced pass runs the same kernels on the same inputs as the
+# untraced one: its loss within this relative distance
+TT_LOSS_TOL = 1e-6
+# profiler_capture: PROF_STEPS headline train steps under profile()
+PROF_STEPS = 3
+CONFORMANCE_KINDS = ("OneDevice", "Mirrored")
+CONFORMANCE4_KINDS = ("Mirrored", "MultiWorker", "CentralStorage")
 # phases that need four cards: run by --phases, or in the whole run
 # when four are visible
 FOUR_CARD_PHASES = ("ckpt_mesh", "mesh_repair", "keras_mirrored4",
                     "strategy_run4", "multi_worker4", "allreduce_algos4",
-                    "ps_remote4", "router4", "autoscale4")
+                    "ps_remote4", "router4", "autoscale4", "conformance4")
 # fleet_serve: seeded_requests' count, seed and shape, the replica's
 # engine (32 slots of up to 575 tokens in blocks of 16: a decode step
 # costs ~60 ms of host at any batch, so wide batches keep the phase
@@ -10673,6 +10727,492 @@ def phase_autoscale4(state):
 
 
 
+# ---------------------------------------------------------------------------
+# The last modules: input from files, the tensor tracer, the profiler and
+# strategy conformance
+# ---------------------------------------------------------------------------
+
+def _input_dir(name: str) -> str:
+    """A fresh ``build/input_smoke/<name>`` (git-ignored)."""
+    import shutil
+    path = os.path.join(ROOT, "build", "input_smoke", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _sweep_images_per_s(ds) -> float:
+    """One pass of a non-repeating image pipeline: images/s."""
+    n = 0
+    t0 = time.perf_counter()
+    for b in ds:
+        n += b["label"].shape[0]
+    return n / (time.perf_counter() - t0)
+
+
+def _map_workers(ds):
+    return next((st["workers"] for st in ds.pipeline_stats()
+                 if st["name"].startswith("map")), None)
+
+
+def _epoch_falls(tag: str, losses: list, per_epoch: int):
+    """The mean loss of the last epoch's ``per_epoch`` steps below the
+    first epoch's: both passes cover the same images, while single
+    steps swing from batch to batch in the first steps from a random
+    init."""
+    import numpy as np
+    first, last = np.mean(losses[:per_epoch]), np.mean(losses[-per_epoch:])
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"{tag}: the epoch mean loss does not fall "
+                             f"({first} -> {last}): {losses}")
+
+
+def _infeed_run(step, st, ds, warmup: int, steps: int) -> tuple:
+    """``warmup`` then ``steps`` steps of ``step`` fed through
+    ``InfeedLoop`` (batches pinned and copied to the card on its
+    thread); the launch counters are set to 0 after the warm-up and read
+    after the timed steps, whose losses are read once they are done."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.training.loops import InfeedLoop
+
+    def place(b):
+        return {k: torch.from_numpy(np.asarray(v)).pin_memory().to(
+            "cuda", non_blocking=True) for k, v in b.items()}
+    infeed = InfeedLoop(iter(ds), place_fn=place,
+                        buffer_size=IMG_INFEED_DEPTH)
+    losses = []
+    try:
+        for _ in range(warmup):
+            st, m = step(st, infeed.next())
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        infeed.total_wait_s, infeed.batches = 0.0, 0
+        zero_launch_counts()
+        dispatch = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            b = infeed.next()
+            h0 = time.perf_counter()
+            st, m = step(st, b)
+            dispatch.append((time.perf_counter() - h0) * 1e3)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        wait_s = infeed.total_wait_s
+    finally:
+        infeed.stop()
+    return st, {"losses": [x.item() for x in losses],
+                "step_ms_mean": dt / steps * 1e3,
+                "images_per_s": IMG_BATCH * steps / dt,
+                "infeed_wait_frac": wait_s / dt,
+                "infeed_wait_ms_per_step": wait_s / steps * 1e3,
+                "host_dispatch_ms": dispatch, "launches": counts}
+
+
+def phase_image_resnet(state):
+    """``bench.py run_input_pipeline``'s TPU configuration
+    (``bench.py:329-331``) from files: IMG_COUNT JPEGs of IMG_SRC² written
+    by ``generate_jpeg_directory`` (labels of its 10 classes, so that a
+    few steps learn), cropped to IMG_CROP, batch IMG_BATCH. Two routes:
+    the files (``jpeg_pipeline``) and the native TFRecord reader
+    (``write_jpeg_tfrecords`` → ``jpeg_tfrecord_pipeline``). The codec
+    is JPEG (Pillow is on the card's machine). Each route: one pass of
+    its host pipeline serial (``num_parallel_calls=None``, no prefetch;
+    the files were just written, so the page cache holds them)
+    and parallel (AUTOTUNE, prefetch IMG_PREFETCH) in images/s, with the
+    map's workers and the host's cores; then ResNet-50 in bf16, as
+    ``resnet_train`` builds it, fed through ``InfeedLoop`` from the
+    parallel pipeline, IMG_WARMUP then IMG_STEPS steps at learning rate
+    IMG_LR: step ms, images/s, ``infeed_wait_frac``, and the last pass
+    over the images' mean loss below the first pass's. The
+    same model on
+    ``synthetic_images`` already on the card gives the synthetic rate
+    of the same call, and again while a thread drains the parallel files
+    pipeline (the decode threads' load without a batch to wait for); each
+    fed step's host dispatch ms shows whether the host or the card sets
+    the pace. No kernel of #1-#9 runs."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.input import image_ops
+    from distributed_tensorflow_tpu_torch.input.dataset import AUTOTUNE
+    from distributed_tensorflow_tpu_torch.models import resnet
+    torch.cuda.empty_cache()
+    root = _input_dir("image_resnet")
+    t0 = time.perf_counter()
+    files = image_ops.generate_jpeg_directory(
+        os.path.join(root, "jpegs"), IMG_COUNT, image_size=IMG_SRC)
+    rec = os.path.join(root, "images.tfrecord")
+    image_ops.write_jpeg_tfrecords(rec, files)
+    write_s = time.perf_counter() - t0
+    jpeg_bytes = sum(os.path.getsize(f) for f in files)
+
+    def pipeline(route: str, parallel: bool, repeat: bool):
+        kw = dict(batch_size=IMG_BATCH, image_size=IMG_CROP,
+                  num_parallel_calls=AUTOTUNE if parallel else None,
+                  prefetch_depth=IMG_PREFETCH if parallel else 0,
+                  repeat=repeat)
+        if route == "files":
+            return image_ops.jpeg_pipeline(files, **kw)
+        return image_ops.jpeg_tfrecord_pipeline(rec, shuffle=True, seed=0,
+                                                **kw)
+
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    cfg = resnet.ResNetConfig.resnet50(learning_rate=IMG_LR)
+    model = resnet.ResNet(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = resnet.make_optimizer(cfg, model.parameters())
+    step = resnet.make_train_step(cfg, model, opt)
+    st = {"model": model, "optimizer": opt, "step": 0}
+    routes = {}
+    for route in ("files", "tfrecord"):
+        serial = _sweep_images_per_s(pipeline(route, False, False))
+        par_ds = pipeline(route, True, False)
+        parallel = _sweep_images_per_s(par_ds)
+        st, run = _infeed_run(step, st, pipeline(route, True, True),
+                              IMG_WARMUP, IMG_STEPS)
+        _no_kernel_launched(f"image_resnet {route}", run["launches"])
+        _epoch_falls(f"image_resnet {route}", run["losses"],
+                     IMG_COUNT // IMG_BATCH)
+        routes[route] = {"serial_images_per_s": serial,
+                         "parallel_images_per_s": parallel,
+                         "speedup_vs_serial": parallel / serial,
+                         "map_workers": _map_workers(par_ds), **run}
+    data = resnet.synthetic_images(IMG_BATCH, IMG_CROP, cfg.num_classes,
+                                   seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.items()}
+    st, _, _ = _step_events(step, st, batch, 1)
+    st, step_ms, _ = _step_events(step, st, batch, 5)
+    # the same synthetic steps while a thread drains the parallel files
+    # pipeline: the decode threads' load alone, no batch to wait for
+    stop = threading.Event()
+
+    def drain():
+        for _ in pipeline("files", True, True):
+            if stop.is_set():
+                return
+    drainer = threading.Thread(target=drain, daemon=True)
+    drainer.start()
+    try:
+        st, loaded_ms, _ = _step_events(step, st, batch, 3)
+    finally:
+        stop.set()
+        drainer.join(timeout=60)
+    torch.backends.cudnn.benchmark = benchmark
+    synthetic = IMG_BATCH / (float(np.mean(step_ms)) / 1e3)
+    state["image_resnet_launches"] = {
+        k: sum(r["launches"][k] for r in routes.values())
+        for k in routes["files"]["launches"]}
+    del st, step, model, opt
+    torch.cuda.empty_cache()
+    return {"config": "ResNet-50 bf16 (bench.py run_input_pipeline, TPU "
+                      "sizes)", "learning_rate": IMG_LR, "codec": IMG_CODEC,
+            "codec_why": "Pillow is installed on the card's machine",
+            "images": IMG_COUNT, "source_size": IMG_SRC, "crop": IMG_CROP,
+            "batch": IMG_BATCH, "host_cpus": os.cpu_count(),
+            "write_s": write_s, "jpeg_bytes": jpeg_bytes,
+            "routes": routes, "synthetic_images_per_s": synthetic,
+            "synthetic_step_ms": step_ms,
+            "synthetic_under_decode_step_ms": loaded_ms,
+            "synthetic_under_decode_images_per_s":
+                IMG_BATCH / (float(np.mean(loaded_ms)) / 1e3),
+            "infeed_wait_target": 0.05}
+
+
+def _tfrecord_tool():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_from_tfrecords",
+        os.path.join(ROOT, "tools", "torch_train_from_tfrecords.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def phase_tfrecord_dlrm(state):
+    """``tools/torch_train_from_tfrecords.py --preset dlrm_like``:
+    ``dlrm_like()`` (26 × 100,000 × 64 f32, "dot") trained at batch
+    TFR_BATCH from TFR_SHARDS tf.Example shards of TFR_PER_SHARD
+    examples through ``example_reader`` (parse → map → repeat → shuffle
+    → batch → prefetch, on a ``{"dp": 1}`` NCCL mesh), TFR_STEPS steps:
+    steps/s and examples/s of the timed steps against the same step on
+    an in-memory ``synthetic_clicks`` batch in the same call, the host
+    pipeline's ms a batch, the step loop's input wait, and the loss of
+    the first batch's rows falling over the steps (each step sees fresh
+    rows, on which the loss moves little). No kernel of #1-#9 runs."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.cluster.topology import make_mesh
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    tool = _tfrecord_tool()
+    cfg = tool.make_config("dlrm_like")
+    torch.cuda.empty_cache()
+    root = _input_dir("tfrecord_dlrm")
+    t0 = time.perf_counter()
+    files = tool.write_click_shards(cfg, root, TFR_SHARDS, TFR_PER_SHARD)
+    write_s = time.perf_counter() - t0
+    host_ms = tool.host_ms_per_batch(files, cfg, TFR_BATCH, 2)
+    try:
+        zero_launch_counts()
+        run = tool.train(cfg, files, TFR_BATCH, TFR_STEPS, "cuda")
+        counts = launch_counts()
+        _no_kernel_launched("tfrecord_dlrm", counts)
+        if not run["first_batch_loss_after"] < run[
+                "first_batch_loss_before"]:
+            raise AssertionError(
+                f"tfrecord_dlrm: the first batch's loss does not fall: "
+                f"{run['first_batch_loss_before']} -> "
+                f"{run['first_batch_loss_after']}")
+        mesh = make_mesh({"dp": -1}, device="cuda")
+        st, step = wd.make_sharded_train_step(cfg, mesh, TFR_BATCH)
+        batch = _wd_batch(cfg, TFR_BATCH, 0)
+        st, _, _ = _step_events(step, st, batch, 1)
+        st, mem_ms, _ = _step_events(step, st, batch, 5)
+        del st, step
+    finally:
+        bootstrap.shutdown()
+    torch.cuda.empty_cache()
+    mem_s = float(np.mean(mem_ms)) / 1e3
+    state["tfrecord_dlrm_launches"] = counts
+    return {"config": "dlrm_like (26 x 100000 x 64 f32, dot)",
+            "batch": TFR_BATCH, "shards": TFR_SHARDS,
+            "examples_written": TFR_SHARDS * TFR_PER_SHARD,
+            "write_s": write_s, "host_ms_per_batch": host_ms,
+            "in_memory_step_ms": mem_ms,
+            "in_memory_examples_per_s": TFR_BATCH / mem_s,
+            "from_files_over_in_memory": run["examples_per_s"]
+            * mem_s / TFR_BATCH, "launches": counts, **run}
+
+
+def phase_tensor_tracer(state):
+    """``utils/tensor_tracer.trace_fn`` over one forward and kernel-loss
+    pass of the headline model (``transformer_big`` bf16, batch TT_BATCH
+    × 1024, no autograd): every op's outputs traced on the card, read
+    once at the end. The launch counters are set to 0 just before the
+    traced pass: #1 (``flash_fwd_tc``) 12 and #4 (``fused_ce_fwd_tc``) 2
+    must run under the tracer. Reports the entries, no NaN and the
+    untraced loss on clean weights, the traced and untraced ms; then a
+    NaN written into layer TT_NAN_LAYER's query weight: the first
+    NaN-producing op in program order (``trace_fn``), and ``trace_flax``'s
+    module entries — its ``first_nan`` in JAX's sorted order and the
+    first NaN layer in layer order."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM, init_params, make_loss_fn)
+    from distributed_tensorflow_tpu_torch.utils import tensor_tracer as tt
+    torch.cuda.empty_cache()
+    cfg = _headline_config()
+    model = TransformerLM(cfg, init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0), device="cuda"), device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TT_BATCH, cfg.max_seq_len))).to("cuda")
+    loss_fn = make_loss_fn(cfg, model)
+
+    def fwd():
+        with torch.no_grad():
+            return loss_fn(tokens)
+    want = fwd().item()
+    untraced = [time_ms(fwd, iters=3, warmup=1)]
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out, rep = tt.trace_fn(fwd)
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    expected = expected_counts({"flash_fwd_tc": 12, "fused_ce_fwd_tc": 2}, 1)
+    problems = []
+    if counts != expected:
+        problems.append(f"launches {counts} != {expected}")
+    if rep.first_nan() is not None:
+        problems.append(f"NaN on clean weights at {rep.first_nan()}")
+    if abs(out.item() - want) > TT_LOSS_TOL * abs(want):
+        problems.append(f"traced loss {out.item()} != untraced {want}")
+    ops = sorted({n.split()[1].split(".")[0] for n, _ in rep.entries})
+    if "flash_attention" not in ops:
+        problems.append(f"the registered flash op was not traced: {ops}")
+    untraced.append(time_ms(fwd, iters=3, warmup=0))
+    with torch.no_grad():
+        w = model.layers[TT_NAN_LAYER].attn.query
+        keep = w[0, 0, 0].clone()
+        w[0, 0, 0] = float("nan")
+    try:
+        _, bad = tt.trace_fn(fwd)
+        _, flax_bad = tt.trace_flax(model, tokens)
+    finally:
+        with torch.no_grad():
+            w[0, 0, 0] = keep
+    first = bad.first_nan()
+    layers = sorted({int(n.split("/")[0][len("layer_"):])
+                     for n, _ in flax_bad.nan_entries()
+                     if n.startswith("layer_")})
+    if first is None or flax_bad.first_nan() != "__call__" or \
+            not layers or layers[0] != TT_NAN_LAYER:
+        problems.append(f"first NaN {first!r}, trace_flax "
+                        f"{flax_bad.first_nan()!r}, NaN layers {layers}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["tensor_tracer_launches"] = counts
+    del model, loss_fn
+    torch.cuda.empty_cache()
+    return {"config": "transformer_big bf16 forward + kernel loss",
+            "batch": TT_BATCH, "seq_len": cfg.max_seq_len,
+            "entries": len(rep.entries), "ops": len(ops),
+            "loss": want, "traced_ms": traced_ms,
+            "untraced_ms": untraced, "traced_over_untraced":
+            traced_ms / float(np.mean(untraced)),
+            "nan_layer": TT_NAN_LAYER, "first_nan_op": first,
+            "first_nan_index": [n for n, _ in bad.entries].index(
+                bad.nan_entries()[0][0]),
+            "trace_flax_first_nan": flax_bad.first_nan(),
+            "trace_flax_nan_layers": layers,
+            "trace_flax_entries": len(flax_bad.entries),
+            "launches": counts}
+
+
+#: the tensor-core kernels op_profile must name on the headline step, by
+#: the substring of their CUDA function names
+PROF_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
+                "fused_ce_fwd_tc", "fused_ce_bwd_tc")
+
+
+def phase_profiler_capture(state):
+    """``utils/profiler.profile(logdir)`` around PROF_STEPS headline
+    train steps, each in a ``step_marker(i)`` with telemetry on: the
+    launches are TRAIN_LAUNCHES a step; ``op_profile`` of the exported
+    Chrome trace names each of PROF_KERNELS among its rows (their ranks
+    and ms reported with the top ten); the ``profiler.step_marker``
+    events carry steps 0..PROF_STEPS-1 and the trace holds their
+    ranges."""
+    import glob
+    import torch
+    from distributed_tensorflow_tpu_torch.telemetry import events
+    from distributed_tensorflow_tpu_torch.utils import profiler
+    torch.cuda.empty_cache()
+    root = _input_dir("profiler_capture")
+    logdir, tdir = os.path.join(root, "profile"), os.path.join(root, "tel")
+    cfg = _headline_config()
+    model, opt, step, batch = _train_setup(cfg, 0, TRAIN_BATCH)
+    st = {"model": model, "optimizer": opt, "step": 0}
+    st, _ = step(st, batch)                                 # warm-up
+    torch.cuda.synchronize()
+    events.configure(tdir, process_id=0)
+    try:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with profiler.profile(logdir):
+            for i in range(PROF_STEPS):
+                with profiler.step_marker(i):
+                    st, m = step(st, batch)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        events.shutdown()
+    rows = profiler.op_profile(logdir, top=100_000, device_substr="GPU")
+    markers = [e["step"] for e in events.read_events(
+        events.event_log_path(tdir, 0)) if e["ev"] == "profiler.step_marker"]
+    trace = glob.glob(os.path.join(logdir, "plugins", "profile", "*",
+                                   "*.pt.trace.json"))
+    text = open(trace[0]).read() if trace else ""
+    named = {}
+    for k in PROF_KERNELS:
+        hits = [(i, r) for i, r in enumerate(rows) if k in r.name]
+        if hits:
+            named[k] = {"rank": hits[0][0], "ms": sum(r.total_ms
+                                                      for _, r in hits),
+                        "count": sum(r.count for _, r in hits)}
+    problems = []
+    expected = expected_counts(TRAIN_LAUNCHES, PROF_STEPS)
+    if counts != expected:
+        problems.append(f"launches {counts} != {expected}")
+    if sorted(named) != sorted(PROF_KERNELS):
+        problems.append(f"kernels not in op_profile: "
+                        f"{sorted(set(PROF_KERNELS) - set(named))}")
+    if markers != list(range(PROF_STEPS)):
+        problems.append(f"step markers {markers}")
+    if any(f'"train step_num={i}"' not in text for i in range(PROF_STEPS)):
+        problems.append("a step range is missing from the trace")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["profiler_capture_launches"] = counts
+    del st, step, model, opt
+    torch.cuda.empty_cache()
+    total = sum(r.total_ms for r in rows)
+    return {"steps": PROF_STEPS, "profiled_wall_s": wall,
+            "trace_bytes": len(text), "gpu_rows": len(rows),
+            "gpu_ms_total": total, "kernels": named,
+            "top10": [{"name": r.name[:90], "ms": r.total_ms,
+                       "fraction": r.fraction, "count": r.count}
+                      for r in rows[:10]],
+            "step_markers": markers, "launches": counts}
+
+
+def _conformance_rank(kinds) -> dict:
+    """One NCCL rank of ``conformance`` / ``conformance4``: the suite of
+    each kind on this rank's card, and the kernels it launched."""
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.testing.strategy_conformance \
+        import check_builtin
+    bootstrap.initialize(device="cuda")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    results = check_builtin(kinds, device="cuda")
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "seconds": time.perf_counter() - t0, "results": results,
+           "launches": launch_counts()}
+    dist.barrier()
+    bootstrap.shutdown()
+    return out
+
+
+def _conformance(world: int, kinds) -> tuple:
+    from distributed_tensorflow_tpu_torch.testing import multi_process_runner
+    from distributed_tensorflow_tpu_torch.testing.strategy_conformance \
+        import StrategyConformance
+    ranks = multi_process_runner.run(_conformance_rank, world,
+                                     args=(kinds,), device="cuda",
+                                     timeout=600).return_values
+    checks = StrategyConformance.contract_checks()
+    problems = []
+    for r in ranks:
+        _no_kernel_launched(f"conformance rank {r['rank']}", r["launches"])
+        for kind, res in r["results"].items():
+            if res["failures"] or sorted(
+                    res["passed"] + res["not_implemented"]) != checks:
+                problems.append(f"rank {r['rank']} {kind}: "
+                                f"{res['failures']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    summary = {kind: {"passed": len(ranks[0]["results"][kind]["passed"]),
+                      "not_implemented": ranks[0]["results"][kind][
+                          "not_implemented"]} for kind in kinds}
+    return ranks, {"world": world, "checks": len(checks),
+                   "summary": summary,
+                   "seconds_by_rank": [r["seconds"] for r in ranks]}
+
+
+def phase_conformance(state):
+    """``testing/strategy_conformance``'s 26 checks for OneDevice and
+    Mirrored on one NCCL rank on the card: the passed and
+    not-implemented lists, none failed; no kernel of #1-#9."""
+    ranks, out = _conformance(1, CONFORMANCE_KINDS)
+    state["conformance_launches"] = ranks[0]["launches"]
+    return out
+
+
+def phase_conformance4(state):
+    """Four cards: the 26 checks for Mirrored, MultiWorker and
+    CentralStorage inside each of four NCCL ranks (a replica a rank and
+    card: the collectives cross the cards)."""
+    import torch
+    _, out = _conformance(torch.cuda.device_count(), CONFORMANCE4_KINDS)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -10747,6 +11287,11 @@ def main(argv=None) -> int:
                      ("strategy_native", phase_strategy_native),
                      ("ps_dlrm", phase_ps_dlrm),
                      ("online_coord", phase_online_coord),
+                     ("image_resnet", phase_image_resnet),
+                     ("tfrecord_dlrm", phase_tfrecord_dlrm),
+                     ("tensor_tracer", phase_tensor_tracer),
+                     ("profiler_capture", phase_profiler_capture),
+                     ("conformance", phase_conformance),
                      ("ckpt_mesh", phase_ckpt_mesh),
                      ("mesh_repair", phase_mesh_repair),
                      ("keras_mirrored4", phase_keras_mirrored4),
@@ -10755,7 +11300,8 @@ def main(argv=None) -> int:
                      ("allreduce_algos4", phase_allreduce_algos4),
                      ("ps_remote4", phase_ps_remote4),
                      ("router4", phase_router4),
-                     ("autoscale4", phase_autoscale4)):
+                     ("autoscale4", phase_autoscale4),
+                     ("conformance4", phase_conformance4)):
         if only and name not in only:
             continue
         if name in FOUR_CARD_PHASES and not only \
@@ -10899,6 +11445,14 @@ def main(argv=None) -> int:
         row["data_service_launches"] = {
             path: state[f"{path}_launches"][name]
             for path in ("data_service_train", "fleet_sim_host")}
+        # the input, tracer, profiler and conformance phases, each from
+        # 0 over its run: #1 and #4 under the tracer, the headline
+        # step's kernels under the profiler, none on the input paths
+        # (convolutions, BatchNorm and DLRM's gathers) or in conformance
+        row["input_tracer_launches"] = {
+            path: state[f"{path}_launches"][name]
+            for path in ("image_resnet", "tfrecord_dlrm", "tensor_tracer",
+                         "profiler_capture", "conformance")}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)

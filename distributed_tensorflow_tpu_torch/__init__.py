@@ -92,6 +92,8 @@ _LAZY_MODULES = {"keras": _P + "keras", "collectives":
                  _P + "parallel.collectives",
                  "bootstrap": _P + "cluster.bootstrap",
                  "summary": _P + "utils.summary",
+                 "bfloat16": _P + "utils.bfloat16",
+                 "tensor_tracer": _P + "utils.tensor_tracer",
                  **{n: _P + n for n in __all__}}
 
 

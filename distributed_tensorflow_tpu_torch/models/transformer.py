@@ -456,6 +456,13 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, shapes["mlp"], device, fsdp,
                            fsdp_dims.get("mlp"))
 
+    @staticmethod
+    def flax_output(out):
+        """The block's output as flax's ``Block`` returns it, ``(x,
+        None)`` (its scan carry; MoE sows its aux): what
+        ``utils/tensor_tracer.trace_flax`` names."""
+        return (out[0] if isinstance(out, tuple) else out, None)
+
     def forward(self, x, lengths=None):
         if self.tp is None:
             x = x + self.attn(self.RMSNorm_0(x), lengths)

@@ -50,14 +50,22 @@ def nvcc_path() -> str:
                        "are built from source at first use")
 
 
-def library_path(name: str) -> str:
+def hashed_path(build_dir: str, name: str, sources, flags) -> str:
+    """``<build_dir>/<name>-<hash>.so``, the hash of every file in
+    ``sources`` and of the compiler ``flags``: an edited source, header
+    or flag names another library."""
     h = hashlib.sha1()
-    for path in (os.path.join(CSRC, f"{name}.cu"),
-                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))):
+    for path in sources:
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+    h.update(" ".join(flags).encode())
+    return os.path.join(build_dir, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def library_path(name: str) -> str:
+    return hashed_path(BUILD_DIR, name, (
+        os.path.join(CSRC, f"{name}.cu"),
+        *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))), NVCC_FLAGS)
 
 
 def build(name: str) -> str:

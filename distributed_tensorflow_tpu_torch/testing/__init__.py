@@ -2,8 +2,9 @@
 spawn process a task, and the persistent pool), :mod:`fleet_sim` (a
 fleet of simulated workers as threads of one process under the real
 recovery supervisor, and the data-service fleet) and :mod:`day_sim`
-(a compressed production day over it). Modules and the main names load
-on first use."""
+(a compressed production day over it) and :mod:`strategy_conformance`
+(the Strategy-API contract suite). Modules and the main names load on
+first use."""
 
 from distributed_tensorflow_tpu_torch import lazy_names as _lazy_names
 
@@ -15,6 +16,7 @@ _LAZY = {
     **{n: _M + "fleet_sim" for n in (
         "FleetSim", "DataServiceSim", "DomainTopology")},
     "DaySim": _M + "day_sim",
+    "StrategyConformance": _M + "strategy_conformance",
 }
 #: package-level module names
 _LAZY_MODULES = {n: _M + n for n in (

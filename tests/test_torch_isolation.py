@@ -90,7 +90,10 @@ print(json.dumps({"imported": names,
                 "serving.tenancy", "serving.router", "serving.replica",
                 "telemetry.aggregate", "telemetry.stall", "telemetry.audit",
                 "input.split_provider", "input.data_service",
-                "testing.fleet_sim", "testing.day_sim"):
+                "testing.fleet_sim", "testing.day_sim",
+                "input.native_loader", "input.example_parser",
+                "input.image_ops", "utils.bfloat16", "utils.tensor_tracer",
+                "testing.strategy_conformance"):
         assert f"distributed_tensorflow_tpu_torch.{sub}" in res["imported"]
     assert [m for m in res["new"] if _forbidden(m)] == []
 
@@ -176,6 +179,7 @@ LAZY_GROUPS = {
                   "TFConfigClusterResolver", "TPUClusterResolver",
                   "SlurmClusterResolver", "SageMakerClusterResolver",
                   "GCEClusterResolver", "KubernetesClusterResolver"),
+    "utils_modules": ("bfloat16", "tensor_tracer"),
 }
 
 
