@@ -321,10 +321,13 @@ single-device BERT step by ``dp_parity``'s rule.
 38. ``mesh_repair`` (four cards) — ``make_sharded_train_step`` on dp2×pp2
     and pp2×tp2, ``make_pipelined_train_step`` GPipe and 1F1B on
     pp2×tp2, f32 against the single-device step.
-39. ``keras_scripts`` — the three ``examples/*_keras_script.py`` with
-    only their two import lines replaced by the port's (asserted),
-    exec'd as ``__main__`` on the card, as written (MNIST 3 epochs at
-    batch 256, the functional ResNet-50 at 64 × 64, the encoder): epoch
+39. ``keras_scripts`` — the three ``examples/*_keras_script.py`` and
+    ``examples/train_mnist_checkpoint_schedule_script.py`` with only
+    their two import lines replaced by the port's (asserted), exec'd as
+    ``__main__`` on the card, as written (MNIST 3 epochs at batch 256,
+    the functional ResNet-50 at 64 × 64, the encoder; MNIST 3 epochs
+    under ``ExponentialDecay`` with ``ModelCheckpoint``, ``save`` and
+    ``load_model``): epoch
     losses (falling), evaluation accuracy, examples/s and ms a step
     (CUDA events), peak memory, device time by kernel group and the
     idle share; no kernel of #1-#9.
@@ -469,6 +472,36 @@ single-device BERT step by ``dp_parity``'s rule.
     on one NCCL rank.
 57. ``conformance4`` (four cards) — the 26 checks for Mirrored,
     MultiWorker and CentralStorage on four NCCL ranks.
+58. ``entry_points`` — the user entry points run as a user runs them,
+    each a subprocess with ``--device cuda`` that writes its launch
+    counters and measurements to its ``DTX_ENTRY_REPORT`` file:
+    ``tools/torch_train_transformer.py --axes dp=1`` at
+    ``transformer_big`` (the headline row: a falling loss, tokens/s,
+    #1-#3 12 a step and #4, #7 2 a step exactly) alone; then side by
+    side ``torch_serve_transformer.py`` (8 seeded requests at
+    ``transformer_big``: 12 ``flash_fwd_tc`` a prefill exactly), the
+    serve script again with ``--write-ckpt --ckpt-dir`` (its streams
+    equal the first run's),
+    ``torch_train_bert.py`` at bert_base (remat "nothing": #1 24 a
+    step, #2 and #3 12), ``torch_train_resnet.py --gen-jpegs``
+    (ResNet-50 at 224² from JPEG files), ``torch_train_mnist.py
+    --telemetry-dir`` and the Keras checkpoint script (its import lines
+    replaced), the last three launching none of #1-#9; then
+    ``torch_obs_report.py --check`` and ``torch_trace_report.py`` on
+    MNIST's run directory.
+59. ``entry_points4`` (four cards) — ``torch_train_transformer.py
+    --axes dp=2,tp=2`` (rank 0 launches #1-#3 12 a step, #4 and #7 once
+    a 4096-row chunk of its 4 rows),
+    then side by side ``torch_serve_transformer.py --elastic --workers
+    2 --kill-seed 0`` (every request served, its streams equal to the
+    unkilled engine's run beside it), ``torch_train_mnist.py --elastic
+    --workers 2 --kill-seed 0``, ``torch_train_online.py --supervised
+    --kill-seed 0``, ``torch_live_rollout.py --kills 1`` and
+    ``torch_shared_fleet.py`` at shortened traffic (their tiny models'
+    replicas each launching #1's f32 route); each run directory
+    passes ``torch_obs_report.py --check --require
+    recovery.chaos_kill`` (the shared fleet's serve directory
+    ``--require scale.applied``: it has no kill).
 
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
@@ -477,11 +510,13 @@ fsdp_train,fsdp_parity``, ``--phases resnet_dp,wide_deep_tp,tp_train,
 tp_parity``, ``--phases ckpt_mesh,mesh_repair``, ``--phases
 keras_mirrored4,strategy_run4``, ``--phases multi_worker4,
 allreduce_algos4,ps_remote4``, ``--phases router4,autoscale4``,
-``--phases conformance4``), and prints no kernels line.
+``--phases conformance4``, ``--phases entry_points4``), and prints no
+kernels line.
 ``ckpt_mesh``, ``mesh_repair``, ``keras_mirrored4``,
 ``strategy_run4``, ``multi_worker4``, ``allreduce_algos4``,
-``ps_remote4``, ``router4``, ``autoscale4`` and ``conformance4`` run
-in the whole run only when four cards are visible.
+``ps_remote4``, ``router4``, ``autoscale4``, ``conformance4`` and
+``entry_points4`` run in the whole run only when four cards are
+visible.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -496,7 +531,8 @@ phases 34-36's; ``keras_launches`` phases 39-41's and
 ``cluster_launches`` phases 44-45's, all 0; ``fleet_launches`` each
 generation's of phase 49, by dtype, the replica's own counters;
 ``data_service_launches`` phases 49a-49b's;
-``input_tracer_launches`` phases 52-56's),
+``input_tracer_launches`` phases 52-56's; ``entry_points_launches``
+each subprocess's of phase 58),
 the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line, as does a machine with no CUDA
@@ -654,7 +690,8 @@ CONFORMANCE4_KINDS = ("Mirrored", "MultiWorker", "CentralStorage")
 # when four are visible
 FOUR_CARD_PHASES = ("ckpt_mesh", "mesh_repair", "keras_mirrored4",
                     "strategy_run4", "multi_worker4", "allreduce_algos4",
-                    "ps_remote4", "router4", "autoscale4", "conformance4")
+                    "ps_remote4", "router4", "autoscale4", "conformance4",
+                    "entry_points4")
 # fleet_serve: seeded_requests' count, seed and shape, the replica's
 # engine (32 slots of up to 575 tokens in blocks of 16: a decode step
 # costs ~60 ms of host at any batch, so wide batches keep the phase
@@ -694,11 +731,43 @@ AS4_COOLDOWN_S, AS4_CLEAR_HOLD_S, AS4_DEADLINE_S = 40.0, 10.0, 300.0
 # import lines replaced
 KERAS_SCRIPTS = ("examples/train_mnist_keras_script.py",
                  "examples/train_resnet_keras_script.py",
-                 "examples/train_bert_keras_script.py")
+                 "examples/train_bert_keras_script.py",
+                 "examples/train_mnist_checkpoint_schedule_script.py")
 KERAS_IMPORTS = (("import distributed_tensorflow_tpu as tf_distribute",
                   "import distributed_tensorflow_tpu_torch as tf_distribute"),
                  ("from distributed_tensorflow_tpu import keras",
                   "from distributed_tensorflow_tpu_torch import keras"))
+# entry_points: the port's user entry points (tools/torch_*.py and the
+# Keras checkpoint script) run as subprocesses on the card with --device
+# cuda, each writing its launch counters and measurements to its
+# DTX_ENTRY_REPORT file: the flagship's and BERT's steps, the serve
+# script's requests, the JPEGs written and ResNet-50's steps at 224²
+# (the JAX script's 32² default is its tiny CPU demo), the MNIST steps,
+# and each subprocess's time limit
+EP_TRANSFORMER_STEPS, EP_BERT_STEPS, EP_REQUESTS = 6, 4, 8
+EP_JPEGS, EP_RESNET_STEPS, EP_RESNET_IMAGE, EP_MNIST_STEPS = 256, 6, 224, 40
+EP_KERAS_SCRIPT = "examples/train_mnist_checkpoint_schedule_script.py"
+# the BERT script trains bert_config() as configured (remat "nothing"):
+# the forward runs twice a layer, #1 24 a step, #2 and #3 12
+EP_BERT_LAUNCHES = {"flash_fwd_tc": 24, "flash_bwd_dq_tc": 12,
+                    "flash_bwd_dkv_tc": 12}
+EP_TIMEOUT_S = 600
+# entry_points4: the flagship's dp2×tp2 steps; the elastic serve's
+# requests (the JAX script's default), the elastic MNIST steps, the
+# supervised online stream's events and pacing, the rollout's and the
+# shared fleet's shortened traffic (duration, spike window, linger);
+# the fleet's cooldown and clear hold autoscale4's, longer than a
+# replica's respawn on the card (at the JAX script's 15 s / 5 s the
+# outage reads as clear and the fleet flaps: 14 scale reforms)
+EP4_STEPS, EP4_REQUESTS, EP4_MNIST_STEPS = 4, 24, 30
+EP4_ONLINE = ("--events", "240", "--pace-s", "0.1")
+EP4_ROLLOUT = ("--duration", "10", "--kills", "1", "--kill-steps", "5",
+               "30")
+EP4_FLEET = ("--duration", "30", "--spike-start", "6", "--spike-end", "18",
+             "--linger", "12", "--cooldown", str(AS4_COOLDOWN_S),
+             "--clear-hold", str(AS4_CLEAR_HOLD_S))
+EP4_FLEET_SCALES = 2
+EP4_TIMEOUT_S = 900
 # keras_parity: rows and batch of each run's 2-epoch fit (a partial
 # final batch each); "_adam" runs are reported, not held
 KERAS_PARITY = {"mnist": (520, 256), "encoder": (200, 64),
@@ -8684,7 +8753,8 @@ def phase_keras_scripts(state):
                  {"__name__": "__main__", "__file__": path})
         wall = time.perf_counter() - t0
         counts = launch_counts()
-        name = os.path.basename(path).removesuffix("_keras_script.py")
+        name = os.path.basename(path).removesuffix(
+            "_keras_script.py").removesuffix("_script.py")
         _no_kernel_launched(name, counts)
         hist = probe.history[0]
         _falls(name, hist["loss"])
@@ -11213,6 +11283,429 @@ def phase_conformance4(state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The user entry points: tools/torch_*.py run as subprocesses
+# ---------------------------------------------------------------------------
+
+def _entry_dir(name: str) -> str:
+    import shutil
+    d = os.path.join(ROOT, "build", "entry_smoke", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _tool(script: str, *argv) -> list:
+    """The command line of ``tools/<script>`` on the card."""
+    return [sys.executable, os.path.join(ROOT, "tools", script), *argv,
+            "--device", "cuda"]
+
+
+_KERAS_RUNNER = """
+import json, os, runpy, sys
+sys.path.insert(0, {root!r})
+try:
+    runpy.run_path({path!r}, run_name="__main__")
+finally:
+    from distributed_tensorflow_tpu_torch.ops import launch_counts
+    with open(os.environ["DTX_ENTRY_REPORT"], "w") as f:
+        json.dump({{"launches": launch_counts()}}, f)
+"""
+
+
+def _keras_entry(workdir: str) -> list:
+    """The Keras checkpoint script with only its import lines replaced,
+    run by a runner that writes the process's launch counters."""
+    path = os.path.join(workdir, os.path.basename(EP_KERAS_SCRIPT))
+    with open(path, "w") as f:
+        f.write(_port_script(EP_KERAS_SCRIPT))
+    return [sys.executable, "-c",
+            _KERAS_RUNNER.format(root=ROOT, path=path)]
+
+
+def _run_entries(workdir: str, jobs: dict, timeout_s: float) -> dict:
+    """Run ``jobs`` (``{tag: argv}``) as concurrent subprocesses from the
+    repository's root, each in a session of its own, with
+    ``DTX_ENTRY_REPORT`` set; wait for all (killing every one's process
+    group at ``timeout_s`` or when another fails) and return ``{tag:
+    {"rc", "seconds", "report", "out_tail"}}``; raises if one exited
+    non-zero."""
+    import signal
+    procs, files, t0 = {}, {}, {}
+    try:
+        for tag, argv in jobs.items():
+            files[tag] = open(os.path.join(workdir, f"{tag}.out"), "w")
+            env = dict(os.environ, DTX_ENTRY_REPORT=os.path.join(
+                workdir, f"{tag}.report.json"))
+            t0[tag] = time.perf_counter()
+            procs[tag] = subprocess.Popen(
+                argv, cwd=ROOT, env=env, stdout=files[tag],
+                stderr=subprocess.STDOUT, start_new_session=True)
+        out, deadline = {}, time.perf_counter() + timeout_s
+        for tag, proc in procs.items():
+            try:
+                rc = proc.wait(max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            seconds = time.perf_counter() - t0[tag]
+            files[tag].close()
+            with open(os.path.join(workdir, f"{tag}.out")) as f:
+                text = f.read()
+            report = {}
+            path = os.path.join(workdir, f"{tag}.report.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    report = json.load(f)
+            out[tag] = {"rc": rc, "seconds": seconds, "report": report,
+                        "out_tail": text[-1500:], "out": text}
+            if rc != 0:
+                raise AssertionError(
+                    f"{tag}: exit {rc} after {seconds:.1f} s: "
+                    f"{text[-2500:]}")
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                proc.wait()
+        for f in files.values():
+            f.close()
+
+
+def _entry_kernels(counts: dict) -> dict:
+    """#1-#4 and #7's routes of a launch-counter record."""
+    return {k: counts[k] for k in ENTRY_KERNELS}
+
+
+#: the kernels an entry point's path may launch: #1-#4 and #7 on the
+#: tensor cores (bf16) and, for the tiny fleet models, #1 on the CUDA
+#: cores (f32)
+ENTRY_KERNELS = ("flash_fwd_tc", "flash_fwd", "flash_bwd_dq_tc",
+                 "flash_bwd_dkv_tc", "fused_ce_fwd_tc", "fused_ce_bwd_tc")
+
+
+def _brief(job: dict, keys) -> dict:
+    return {k: job["report"][k] for k in keys if k in job["report"]}
+
+
+def phase_entry_points(state):
+    """Phase 58: the user entry points on one card, as a user runs them
+    (subprocesses, ``--device cuda``): the flagship trainer alone (its
+    rate is measured), then side by side the serve script, again from a
+    checkpoint it writes, BERT, ResNet-50 from JPEG files, MNIST with
+    telemetry and the Keras checkpoint script (their rates measured
+    side by side), then the two report tools on MNIST's run
+    directory."""
+    import numpy as np
+    import torch
+    torch.cuda.empty_cache()
+    work = _entry_dir("entry_points")
+    tel = os.path.join(work, "mnist_telemetry")
+    ckpt = os.path.join(work, "serve_ckpt")
+    runs = {}
+    runs.update(_run_entries(work, {"train_transformer": _tool(
+        "torch_train_transformer.py", "--axes", "dp=1", "--steps",
+        str(EP_TRANSFORMER_STEPS))}, EP_TIMEOUT_S))
+    runs.update(_run_entries(work, {
+        "serve": _tool("torch_serve_transformer.py", "--requests",
+                       str(EP_REQUESTS)),
+        "serve_ckpt": _tool("torch_serve_transformer.py", "--requests",
+                            str(EP_REQUESTS), "--write-ckpt",
+                            "--ckpt-dir", ckpt),
+        "train_bert": _tool("torch_train_bert.py", "--axes", "dp=1",
+                            "--steps", str(EP_BERT_STEPS)),
+        "train_resnet": _tool("torch_train_resnet.py", "--gen-jpegs",
+                              str(EP_JPEGS), "--steps",
+                              str(EP_RESNET_STEPS), "--image-size",
+                              str(EP_RESNET_IMAGE)),
+        "train_mnist": _tool("torch_train_mnist.py", "--steps",
+                             str(EP_MNIST_STEPS), "--telemetry-dir", tel),
+        "keras_checkpoint": _keras_entry(work)}, EP_TIMEOUT_S))
+    runs.update(_run_entries(work, {
+        "obs_report": _tool("torch_obs_report.py", "--check", tel),
+        "trace_report": _tool("torch_trace_report.py", tel)},
+        EP_TIMEOUT_S))
+
+    problems = []
+    counts = {tag: r["report"].get("launches") for tag, r in runs.items()}
+    if None in counts.values():
+        raise AssertionError(f"no launch report from "
+                             f"{[t for t, c in counts.items() if c is None]}")
+    tr = runs["train_transformer"]["report"]
+    if (tr["d_model"], tr["n_layers"], tr["seq_len"]) != (1024, 12, 1024):
+        problems.append(f"train_transformer ran {tr['d_model']} x "
+                        f"{tr['n_layers']} at {tr['seq_len']} tokens, not "
+                        f"transformer_big")
+    if not (all(math.isfinite(v) for v in tr["losses"])
+            and tr["losses"][-1] < tr["losses"][0]):
+        problems.append(f"train_transformer losses {tr['losses']}")
+    if "tokens/s over" not in runs["train_transformer"]["out"]:
+        problems.append("train_transformer printed no tokens/s line")
+    want = expected_counts(TRAIN_LAUNCHES, EP_TRANSFORMER_STEPS)
+    if counts["train_transformer"] != want:
+        problems.append(f"train_transformer launches "
+                        f"{counts['train_transformer']} != {want}")
+    br = runs["train_bert"]["report"]
+    if br["d_model"] != 768 or not all(math.isfinite(v)
+                                       for v in br["losses"]):
+        problems.append(f"train_bert d {br['d_model']}, losses "
+                        f"{br['losses']}")
+    want = expected_counts(EP_BERT_LAUNCHES, EP_BERT_STEPS)
+    if counts["train_bert"] != want:
+        problems.append(f"train_bert launches {counts['train_bert']} "
+                        f"!= {want}")
+    for tag in ("serve", "serve_ckpt"):
+        rep = runs[tag]["report"]
+        prefills = rep["stats"]["prefills"]
+        want = expected_counts({"flash_fwd_tc": 12}, prefills)
+        if rep["d_model"] != 1024 or rep["served"] != EP_REQUESTS:
+            problems.append(f"{tag}: d {rep['d_model']}, served "
+                            f"{rep['served']} of {EP_REQUESTS}")
+        if counts[tag] != want or prefills < EP_REQUESTS:
+            problems.append(f"{tag}: launches {counts[tag]} over "
+                            f"{prefills} prefills, want {want}")
+    streams = runs["serve"]["report"]["streams"]
+    if runs["serve_ckpt"]["report"]["streams"] != streams:
+        problems.append("the checkpointed engine's streams part from the "
+                        "seeded engine's")
+    if "wrote serving checkpoint to" not in runs["serve_ckpt"]["out"]:
+        problems.append("serve_ckpt wrote no checkpoint")
+    rr = runs["train_resnet"]["report"]
+    if rr["model"] != "resnet50" or not all(math.isfinite(v)
+                                            for v in rr["losses"]):
+        problems.append(f"train_resnet {rr['model']}, losses "
+                        f"{rr['losses']}")
+    mr = runs["train_mnist"]["report"]
+    if not np.mean(mr["losses"][-5:]) < np.mean(mr["losses"][:5]):
+        problems.append(f"train_mnist losses {mr['losses']}")
+    if "restored-model eval loss" not in runs["keras_checkpoint"]["out"]:
+        problems.append("the Keras checkpoint script printed no restored "
+                        "evaluation")
+    for tag in ("train_resnet", "train_mnist", "keras_checkpoint",
+                "obs_report", "trace_report"):
+        if any(counts[tag].values()):
+            problems.append(f"{tag} launched a kernel: "
+                            f"{ {k: n for k, n in counts[tag].items() if n} }")
+    if not runs["obs_report"]["out"].startswith("ok "):
+        problems.append(f"obs_report: {runs['obs_report']['out_tail']}")
+    if "trace written:" not in runs["trace_report"]["out"]:
+        problems.append(f"trace_report: "
+                        f"{runs['trace_report']['out_tail']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    state["entry_points_launches"] = counts
+    return {
+        "card": state["smi"],
+        "job_seconds": {t: r["seconds"] for t, r in runs.items()},
+        "train_transformer": {
+            **_brief(runs["train_transformer"], (
+                "mesh", "d_model", "n_layers", "seq_len", "global_batch",
+                "losses", "tokens_per_s", "steady_tokens_per_s",
+                "steady_step_ms", "peak_mem_bytes")),
+            "launches": _entry_kernels(counts["train_transformer"])},
+        "serve": {
+            **_brief(runs["serve"], (
+                "served", "seconds", "requests_per_s", "tokens_per_s",
+                "latency_p50_s", "latency_p99_s")),
+            "prefills": runs["serve"]["report"]["stats"]["prefills"],
+            "launches": _entry_kernels(counts["serve"])},
+        "serve_ckpt": {
+            **_brief(runs["serve_ckpt"], ("served", "requests_per_s")),
+            "streams_equal": True,
+            "launches": _entry_kernels(counts["serve_ckpt"])},
+        "train_bert": {
+            **_brief(runs["train_bert"], ("losses", "samples_per_s")),
+            "launches": _entry_kernels(counts["train_bert"])},
+        "train_resnet": _brief(runs["train_resnet"], (
+            "model", "losses", "images_per_s", "infeed_wait_frac")),
+        "train_mnist": _brief(runs["train_mnist"], ("losses",
+                                                    "steps_per_s")),
+        "keras_checkpoint": runs["keras_checkpoint"]["out_tail"][-300:],
+        "obs_report": runs["obs_report"]["out_tail"][-300:],
+        "trace_report": runs["trace_report"]["out_tail"][-400:],
+        "launches": {t: _entry_kernels(c) for t, c in counts.items()}}
+
+
+def _check_ok(tag: str, tdir: str, require: str) -> dict:
+    return {f"{tag}_check": _tool("torch_obs_report.py", "--check",
+                                  "--require", require, tdir)}
+
+
+def phase_entry_points4(state):
+    """Phase 59 (four cards): the entry points whose paths exist only
+    across processes and cards — the flagship on dp2×tp2, then side by
+    side the elastic serve and MNIST runs with a seeded kill each (the
+    serve script's unkilled reference beside them), the supervised
+    online cluster with a kill, the live rollout with a kill and the
+    shared fleet through a spike; each run directory gated by
+    ``torch_obs_report.py --check``."""
+    import glob
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_ce
+    from distributed_tensorflow_tpu_torch.serving.replica import (
+        launches_path)
+    tsr = _router_tool()
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError("entry_points4 needs 4 cards")
+    work = _entry_dir("entry_points4")
+    d = {k: os.path.join(work, k) for k in (
+        "serve", "mnist", "online", "rollout", "fleet")}
+    runs = {}
+    runs.update(_run_entries(work, {"train_transformer": _tool(
+        "torch_train_transformer.py", "--axes", "dp=2,tp=2", "--steps",
+        str(EP4_STEPS))}, EP4_TIMEOUT_S))
+    runs.update(_run_entries(work, {
+        "serve_elastic": _tool(
+            "torch_serve_transformer.py", "--elastic", "--workers", "2",
+            "--kill-seed", "0", "--requests", str(EP4_REQUESTS),
+            "--telemetry-dir", d["serve"]),
+        "serve_reference": _tool("torch_serve_transformer.py",
+                                 "--requests", str(EP4_REQUESTS)),
+        "mnist_elastic": _tool(
+            "torch_train_mnist.py", "--elastic", "--workers", "2",
+            "--kill-seed", "0", "--steps", str(EP4_MNIST_STEPS),
+            "--telemetry-dir", d["mnist"]),
+        "online": _tool("torch_train_online.py", "--supervised",
+                        "--kill-seed", "0", *EP4_ONLINE,
+                        "--telemetry-dir", d["online"]),
+        "rollout": _tool("torch_live_rollout.py", *EP4_ROLLOUT,
+                         "--telemetry-dir", d["rollout"]),
+        "shared_fleet": _tool("torch_shared_fleet.py", *EP4_FLEET,
+                              "--telemetry-dir", d["fleet"])},
+        EP4_TIMEOUT_S))
+    checks = {}
+    for tag in ("serve", "mnist", "online", "rollout"):
+        checks.update(_check_ok(tag, d[tag], "recovery.chaos_kill"))
+    checks.update(_check_ok("fleet", os.path.join(d["fleet"], "serve"),
+                            "scale.applied"))
+    runs.update(_run_entries(work, checks, EP4_TIMEOUT_S))
+
+    problems = []
+    tr = runs["train_transformer"]["report"]
+    # a rank of dp2×tp2 holds 4 of the 8 rows: 4096 tokens, one CE chunk
+    tokens = tr["global_batch"] // 2 * tr["seq_len"]
+    ce = -(-tokens // fused_ce.ROW_CHUNK)
+    want = expected_counts({**TRAIN_LAUNCHES, "fused_ce_fwd_tc": ce,
+                            "fused_ce_bwd_tc": ce}, EP4_STEPS)
+    got = tr["launches"]
+    if got != want:
+        problems.append(f"train_transformer rank 0 launches {got} != "
+                        f"{want}")
+    if tr["mesh"] != {"dp": 2, "tp": 2} or not (
+            tr["losses"][-1] < tr["losses"][0]):
+        problems.append(f"train_transformer mesh {tr['mesh']}, losses "
+                        f"{tr['losses']}")
+    served, dups, mismatched, first_bad = tsr.served_union(d["serve"])
+    ref = runs["serve_reference"]["report"]["streams"]
+    apart = sorted(rid for rid in ref if served.get(rid) != ref[rid])
+    se = runs["serve_elastic"]["report"]
+    if se["restarts"] != 1 or len(served) != EP4_REQUESTS or apart \
+            or mismatched:
+        problems.append(f"serve_elastic: {se['restarts']} restarts, "
+                        f"{len(served)} of {EP4_REQUESTS} served, "
+                        f"{mismatched} duplicates mismatched ({first_bad}),"
+                        f" {len(apart)} streams apart from the unkilled "
+                        f"engine's ({apart[:4]})")
+    replica_launches = {}
+    for task in range(2):
+        for gen in range(3):
+            path = launches_path(d["serve"], task, gen)
+            if os.path.exists(path):
+                with open(path) as f:
+                    rec = json.load(f)
+                replica_launches[f"t{task}g{gen}"] = rec["launches"][
+                    "flash_fwd_tc"]
+    # a replica generation that completed a request prefilled it
+    # through #1 (one whose shard was already served prefills nothing)
+    completed = set()
+    for task in range(2):
+        path = os.path.join(d["serve"], f"served-{task}.jsonl")
+        with open(path) as f:
+            completed |= {f"t{task}g{json.loads(line)['gen']}"
+                          for line in f if line.strip()}
+    if not completed or any(not replica_launches.get(k)
+                            for k in completed):
+        problems.append(f"serve replicas' flash_fwd_tc launches "
+                        f"{replica_launches}, generations that completed "
+                        f"requests {sorted(completed)}")
+    # the tiny fleet models prefill through #1's f32 route: each
+    # rollout replica generation that finished (its report) and each
+    # fleet replica generation (its published counters, warm-up
+    # included) launched it
+    tiny_launches = {}
+    for path in sorted(glob.glob(os.path.join(work,
+                                              "rollout.report.json-*"))):
+        with open(path) as f:
+            tiny_launches["rollout" + path.rsplit("json", 1)[1]] = \
+                json.load(f)["launches"]["flash_fwd"]
+    for key, rec in _replica_launches(d["fleet"]).items():
+        tiny_launches[f"fleet-{key}"] = rec["launches"]["flash_fwd"]
+    if not any(k.startswith("rollout") for k in tiny_launches) or \
+            not any(k.startswith("fleet") for k in tiny_launches) or \
+            not all(tiny_launches.values()):
+        problems.append(f"the tiny fleets' flash_fwd launches "
+                        f"{tiny_launches}")
+    me = runs["mnist_elastic"]["report"]
+    if me["restarts"] != 1 or me["workers"] != 2:
+        problems.append(f"mnist_elastic: {me['restarts']} restarts, "
+                        f"{me['workers']} workers")
+    on = runs["online"]["report"]
+    results = {r[0]: r for r in on["results"]
+               if isinstance(r, list) and isinstance(r[0], str)}
+    events = int(EP4_ONLINE[1])
+    if on["restarts"] != 1 or results.get("trainer", [None, 0])[1] \
+            != events:
+        problems.append(f"online: {on['restarts']} restarts, results "
+                        f"{on['results']}")
+    ro = runs["rollout"]["report"]["summary"]
+    if ro["requests"]["dropped"] or ro["versions"]["mixed_or_wrong"]:
+        problems.append(f"rollout: dropped {ro['requests']}, versions "
+                        f"{ro['versions']}")
+    # at a shortened duration with a kill the ramp may still be running
+    # or rolled back for the burn the respawn causes (JAX's rollout
+    # rolls back under a kill too); whichever, the state is coherent
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_live_rollout
+    problems += torch_live_rollout.final_state_problems(ro["rollout"])
+    # one spike: one scale-up, at most one scale-down back (more is the
+    # flapping JAX's 15 s / 5 s policy shows on the card)
+    sf = runs["shared_fleet"]["report"]["summary"]
+    if sf["requests"]["dropped"] or not sf["scale_up"]["applied_up"] \
+            or sf["result"]["serve_scales"] > EP4_FLEET_SCALES:
+        problems.append(f"shared_fleet: requests {sf['requests']}, "
+                        f"scale_up {sf['scale_up']}, result "
+                        f"{sf['result']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {
+        "card": state["smi"],
+        "job_seconds": {t: r["seconds"] for t, r in runs.items()},
+        "train_transformer": {
+            k: tr[k] for k in ("mesh", "losses", "tokens_per_s",
+                               "steady_tokens_per_s", "steady_step_ms",
+                               "peak_mem_bytes") if k in tr},
+        "train_transformer_launches": _entry_kernels(got),
+        "serve_elastic": {"served": len(served), "duplicates": dups,
+                          "restarts": se["restarts"],
+                          "kill_plan": se["kill_plan"],
+                          "streams_apart": len(apart),
+                          "flash_fwd_tc_by_replica": replica_launches},
+        "flash_fwd_by_tiny_replica": tiny_launches,
+        "mnist_elastic": me, "online": on,
+        "rollout": {k: ro[k] for k in ("requests", "versions", "swaps",
+                                       "rollout", "ledger")
+                    if k in ro},
+        "shared_fleet": {k: sf[k] for k in (
+            "scale_up", "slo_recovered", "capacity_returned", "requests",
+            "ledger", "result") if k in sf},
+        "checks": {t: r["out_tail"][-300:] for t, r in runs.items()
+                   if t.endswith("_check")}}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -11222,6 +11715,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = (None if args.phases is None
             else {"device", "build", *args.phases.split(",")})
+    if os.path.isdir(os.path.join(ROOT, "distributed_tensorflow_tpu_torch")):
+        # this process and every one it starts (ranks, replicas, the
+        # entry-point scripts) keep the bytecode of what they import
+        # under build/pycache: a machine that keeps none compiles the
+        # same sources again in each fresh process (torch._dynamo and
+        # sympy alone, at a registered op's first dispatch, ~6 s)
+        cache = os.path.join(ROOT, "build", "pycache")
+        os.environ["PYTHONPYCACHEPREFIX"] = cache
+        os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+        sys.pycache_prefix, sys.dont_write_bytecode = cache, False
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -11292,6 +11795,7 @@ def main(argv=None) -> int:
                      ("tensor_tracer", phase_tensor_tracer),
                      ("profiler_capture", phase_profiler_capture),
                      ("conformance", phase_conformance),
+                     ("entry_points", phase_entry_points),
                      ("ckpt_mesh", phase_ckpt_mesh),
                      ("mesh_repair", phase_mesh_repair),
                      ("keras_mirrored4", phase_keras_mirrored4),
@@ -11301,7 +11805,8 @@ def main(argv=None) -> int:
                      ("ps_remote4", phase_ps_remote4),
                      ("router4", phase_router4),
                      ("autoscale4", phase_autoscale4),
-                     ("conformance4", phase_conformance4)):
+                     ("conformance4", phase_conformance4),
+                     ("entry_points4", phase_entry_points4)):
         if only and name not in only:
             continue
         if name in FOUR_CARD_PHASES and not only \
@@ -11453,6 +11958,12 @@ def main(argv=None) -> int:
             path: state[f"{path}_launches"][name]
             for path in ("image_resnet", "tfrecord_dlrm", "tensor_tracer",
                          "profiler_capture", "conformance")}
+        # the user entry points (tools/torch_*.py), each subprocess's own
+        # counters over its run: the flagship's and BERT's steps and the
+        # serve script's prefills run #1-#4 and #7, the rest none
+        row["entry_points_launches"] = {
+            tag: c[name]
+            for tag, c in state["entry_points_launches"].items()}
         summary.append(row)
     emit({"kernels": summary})
     print(state["smi"], flush=True)
