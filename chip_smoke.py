@@ -43,7 +43,21 @@ printing one JSON line:
    bf16 against their plain versions and SDPA, and #4, #7 at a 4096-row
    chunk of BERT's MLM loss (V 30522, D 768, 85 % of the rows unmasked
    with a zero gradient, plus an all-unmasked chunk) against their plain
-   versions and the unfused ``F.cross_entropy(F.linear)``.
+   versions and the unfused ``F.cross_entropy(F.linear)``. Then the
+   routes that take every input the Pallas kernels take (ROADMAP C-2),
+   each kernel against its plain version (tolerances below; f16 its
+   own), timed against it in turns with its library call beside it: f16
+   #1-#3 at (8, 16, 1024, 64) causal (against SDPA); #1-#3 at head dim
+   256 in f32, bf16 and f16 at Gemma-7B's attention, (2, 16, 1024, 256)
+   causal; #4-#8 in bf16 and f32 at Llama-2-7B's head, one 4096-row
+   chunk with V 32000 and D 4096 (the backward one launch a column
+   window), and in f16 at the headline chunk (against the unfused
+   ``F.cross_entropy(F.linear)``); #9 with bf16 and with f16 ``p`` and
+   ``g`` over the headline's 98 tensors (against
+   ``torch.optim.AdamW(fused=True)``); last the f16 public ops once
+   (``flash_attention``, ``fused_cross_entropy`` in each variant),
+   at small shapes, counted from 0: the f16 rows' launches, from this
+   side run (no main path runs f16).
 4. ``serve``   — ``InferenceEngine.generate`` at the full width of
    ``transformer_big`` in bf16 (random weights from seed 0), 8 requests
    × 32 new tokens. The launch counters are set to 0 just before and
@@ -65,9 +79,11 @@ printing one JSON line:
    mask; streams against the cold engine's: where they part, the cold
    logits' top-2 margin there must not exceed twice the hit path's
    measured logit error.
-5b. ``prefix_parity`` — f32, TF32 off, full depth: every suffix logit
-   of a hit against ``TransformerLM`` recompute (1e-3), streams equal to
-   the cold engine's, 12 ``flash_fwd`` a prefill.
+5b. ``prefix_parity`` — f32, TF32 off, ``transformer_big``'s width at
+   ``F32_PARITY_LAYERS`` (6) layers, as the other f32 serving parity
+   phases (5c, 5e, 5g, 5h): every suffix logit of a hit against
+   ``TransformerLM`` recompute (1e-3), streams equal to the cold
+   engine's, one ``flash_fwd`` a layer a prefill.
 5c. ``spill`` — f32, a 24-block pool with a ``HostTier``: a long
    generation evicts the first prompt's cached blocks to host memory,
    the first prompt again re-adopts them; blocks and bytes each way,
@@ -89,12 +105,13 @@ printing one JSON line:
    block accounting conserved; a live ``GoodputLedger`` whose fresh
    tokens equal the tokens generated, with ``kv_migrate`` above 0; the
    streams under ``prefix_serve``'s rule.
-5g. ``disagg_parity`` — f32, TF32 off, full depth: the serve prompts
+5g. ``disagg_parity`` — f32, TF32 off: the serve prompts
    through ``DisaggregatedEngine`` with streams equal to the monolithic
    engine's, again with decode pools of 94 blocks (at least one rescue
    and one replay preemption), and once with ``kv_dtype="int8"``; every
    payload survives ``pack``/``unpack`` and a ``FileKV`` publish/fetch
-   bit for bit; 12 ``flash_fwd`` a prefill on whichever replica runs it.
+   bit for bit; one ``flash_fwd`` a layer a prefill on whichever
+   replica runs it.
 5h. ``swap_chaos`` — f32, TF32 off: an engine with ``prefix_caching``
    serves under weights A and, after 3 steps, ``install_version`` flips
    it to weights B (seed 1): every completion on B's version,
@@ -501,7 +518,19 @@ single-device BERT step by ``dp_parity``'s rule.
     replicas each launching #1's f32 route); each run directory
     passes ``torch_obs_report.py --check --require
     recovery.chaos_kill`` (the shared fleet's serve directory
-    ``--require scale.applied``: it has no kill).
+    ``--require scale.applied``: it has no kill). The shared fleet runs
+    the JAX script's default policy (15 s cooldown, 5 s clear hold) and
+    may reform its serving gang at most ``EP4_FLEET_SCALES`` times.
+60. ``chaos4`` (four cards) — ``tools/torch_chaos_sweep.py --seeds 1``
+    in each mode (the default suite, ``--kill``, ``--kill --shrink
+    --workers 3``, ``--serve``, ``--serve --disagg --workers 3``,
+    ``--router``, ``--spike``, ``--data``, ``--online``, ``--rollout``,
+    ``--offload``, ``--day``), every seed surviving, the ``--serve``
+    and ``--disagg`` replicas (``transformer_big``) and the offload
+    ranks launching #1 (their counters, by process; the router's JAX
+    default tiny replicas take ``mha_reference``); then ``tools/torch_fleet_sweep.py --seeds 1``,
+    ``torch_day_report.py --check`` on the ``--day`` run directory and
+    ``torch_health_report.py --check`` on the ``--serve`` one.
 
 ``python3 chip_smoke.py --phases pp_train,pp_parity`` runs only the
 named phases after ``device`` and ``build`` (the four-card runs: also
@@ -510,13 +539,13 @@ fsdp_train,fsdp_parity``, ``--phases resnet_dp,wide_deep_tp,tp_train,
 tp_parity``, ``--phases ckpt_mesh,mesh_repair``, ``--phases
 keras_mirrored4,strategy_run4``, ``--phases multi_worker4,
 allreduce_algos4,ps_remote4``, ``--phases router4,autoscale4``,
-``--phases conformance4``, ``--phases entry_points4``), and prints no
-kernels line.
+``--phases conformance4``, ``--phases entry_points4``, ``--phases
+chaos4``), and prints no kernels line.
 ``ckpt_mesh``, ``mesh_repair``, ``keras_mirrored4``,
 ``strategy_run4``, ``multi_worker4``, ``allreduce_algos4``,
-``ps_remote4``, ``router4``, ``autoscale4``, ``conformance4`` and
-``entry_points4`` run in the whole run only when four cards are
-visible.
+``ps_remote4``, ``router4``, ``autoscale4``, ``conformance4``,
+``entry_points4`` and ``chaos4`` run in the whole run only when four
+cards are visible.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the path
 that runs it and on each BERT path, error, measured times and the
@@ -555,13 +584,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # tolerances of kernel vs plain version, same inputs, on the card
 TOL = {"float32": {"o": 1e-4, "lse": 1e-4},     # f32 accumulation order
-       "bfloat16": {"o": 2e-2, "lse": 1e-2}}    # bf16 output rounding
+       "bfloat16": {"o": 2e-2, "lse": 1e-2},    # bf16 output rounding
+       # f16 output and p rounding: 3 more mantissa bits than bf16
+       "float16": {"o": 5e-3, "lse": 1e-3}}
 # gradients (dq, dk, dv, dh, dE): largest error over the plain version's
 # largest magnitude. f32: accumulation order (and, for dE, atomics whose
 # order varies by run); bf16: outputs rounded to bf16 (2^-8) and rounded
 # intermediates (ds, p, p_adj) that an f32 difference in the last bits
 # can send to the neighbouring bf16 value.
-GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 # CE lse and target logit, absolute: f32 sums of up to 1024 products in
 # another order, on values near ln V
 CE_ROW_TOL = 1e-3
@@ -595,7 +626,7 @@ TRAIN_PARAM_FRAC = 1e-4
 GRAD_AGREE = 1e-3
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores,
 # HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 SOURCES = ("flash_fwd", "flash_bwd", "flash_tc", "fused_ce", "fused_ce_tc",
@@ -619,6 +650,12 @@ SPEC_K = 4
 DISAGG_DECODE, DISAGG_PRESSURE_BLOCKS = 2, 94
 SWAP_AFTER_STEPS, CHAOS_P = 3, 0.2
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
+# the f32 serving parity phases (prefix_parity, spill, spec_parity,
+# disagg_parity, swap_chaos): transformer_big's width at this depth.
+# Their decode is host-bound, a launch per layer per op, so half the
+# depth takes about half their time: the cut that pays for the kernels
+# phase's routes of ROADMAP C-2 (about 60 s) in the one-card run
+F32_PARITY_LAYERS = 6
 # ckpt_train: the headline step trained CKPT_STEPS steps, saved at
 # CKPT_AT (async, local tier first) and resumed from it; the resumed
 # losses may part from the uninterrupted ones by the kernels' own
@@ -691,7 +728,7 @@ CONFORMANCE4_KINDS = ("Mirrored", "MultiWorker", "CentralStorage")
 FOUR_CARD_PHASES = ("ckpt_mesh", "mesh_repair", "keras_mirrored4",
                     "strategy_run4", "multi_worker4", "allreduce_algos4",
                     "ps_remote4", "router4", "autoscale4", "conformance4",
-                    "entry_points4")
+                    "entry_points4", "chaos4")
 # fleet_serve: seeded_requests' count, seed and shape, the replica's
 # engine (32 slots of up to 575 tokens in blocks of 16: a decode step
 # costs ~60 ms of host at any batch, so wide batches keep the phase
@@ -756,18 +793,46 @@ EP_TIMEOUT_S = 600
 # requests (the JAX script's default), the elastic MNIST steps, the
 # supervised online stream's events and pacing, the rollout's and the
 # shared fleet's shortened traffic (duration, spike window, linger);
-# the fleet's cooldown and clear hold autoscale4's, longer than a
-# replica's respawn on the card (at the JAX script's 15 s / 5 s the
-# outage reads as clear and the fleet flaps: 14 scale reforms)
+# the fleet at the JAX script's default policy (15 s cooldown, 5 s clear
+# hold): the arbiter counts a scale action applied once the reformed
+# replicas heartbeat (ROADMAP C-10; before that, the respawn outage read
+# as clear and the fleet flapped: 14 scale reforms)
 EP4_STEPS, EP4_REQUESTS, EP4_MNIST_STEPS = 4, 24, 30
 EP4_ONLINE = ("--events", "240", "--pace-s", "0.1")
 EP4_ROLLOUT = ("--duration", "10", "--kills", "1", "--kill-steps", "5",
                "30")
 EP4_FLEET = ("--duration", "30", "--spike-start", "6", "--spike-end", "18",
-             "--linger", "12", "--cooldown", str(AS4_COOLDOWN_S),
-             "--clear-hold", str(AS4_CLEAR_HOLD_S))
+             "--linger", "12")
 EP4_FLEET_SCALES = 2
 EP4_TIMEOUT_S = 900
+# chaos4: tools/torch_chaos_sweep.py at one seed in each mode (its card
+# default --device cuda; run directories kept and made under the mode's
+# own TMPDIR, so the phase finds them), three waves of four modes side by
+# side, then the fleet sweep and the two report checks on the --day and
+# --serve run directories. The router's gate needs arrivals after its
+# respawned replicas' warm-up, so it runs beside the three shortest
+# modes (the day's simulation in-process, the default suite, --data's
+# single MNIST process); the others after it
+CHAOS4_MODES = {"default": (), "kill": ("--kill",),
+                "shrink": ("--kill", "--shrink", "--workers", "3"),
+                "serve": ("--serve",),
+                "disagg": ("--serve", "--disagg", "--workers", "3"),
+                "router": ("--router",), "spike": ("--spike",),
+                "data": ("--data",), "online": ("--online",),
+                "rollout": ("--rollout",), "offload": ("--offload",),
+                "day": ("--day",)}
+CHAOS4_WAVES = (("router", "day", "default", "data"),
+                ("serve", "kill", "shrink", "offload"),
+                ("spike", "disagg", "online", "rollout"))
+# the modes whose scripts run the flash op on the card: each launches #1
+# (the serving replicas' prefills at transformer_big; the offload ranks
+# also #2 and #3). The router's replicas run JAX's default preset, tiny
+# with head dim 16 on mha_reference as JAX's tiny: their counters are
+# reported, not gated
+CHAOS4_FLASH = {"serve": ("flash_fwd_tc", "flash_fwd"),
+                "disagg": ("flash_fwd_tc", "flash_fwd"),
+                "offload": ("flash_fwd_tc", "flash_fwd")}
+CHAOS4_TIMEOUT_S = 1200
 # keras_parity: rows and batch of each run's 2-epoch fit (a partial
 # final batch each); "_adam" runs are reported, not held
 KERAS_PARITY = {"mnist": (520, 256), "encoder": (200, 64),
@@ -1040,19 +1105,30 @@ KERNELS = {   # name: (source, TPU kernel it replaces), in the TPU's order
     "fused_ce_de_tc": ("fused_ce_tc.cu", "ops/fused_ce.py:242"),
     "fused_ce_de": ("fused_ce.cu", "ops/fused_ce.py:242"),
     "fused_adamw": ("fused_adamw.cu", "ops/fused_adamw.py:53"),
+    # f16 on the same tensor-core kernels (ROADMAP C-2)
+    "flash_fwd_tc_f16": ("flash_tc.cu", "ops/attention.py:135"),
+    "flash_bwd_dq_tc_f16": ("flash_tc.cu", "ops/attention.py:260"),
+    "flash_bwd_dkv_tc_f16": ("flash_tc.cu", "ops/attention.py:309"),
+    "fused_ce_fwd_tc_f16": ("fused_ce_tc.cu", "ops/fused_ce.py:75"),
+    "fused_ce_dh_tc_f16": ("fused_ce_tc.cu", "ops/fused_ce.py:137"),
+    "fused_ce_bwd_a_tc_f16": ("fused_ce_tc.cu", "ops/fused_ce.py:159"),
+    "fused_ce_bwd_tc_f16": ("fused_ce_tc.cu", "ops/fused_ce.py:201"),
+    "fused_ce_de_tc_f16": ("fused_ce_tc.cu", "ops/fused_ce.py:242"),
 }
 # the path each kernel's "launches" are read on: the train step, the
 # public op fused_cross_entropy with bwd_variant "a" and "split" (the
-# kernels phase), the train step with fused_optimizer=True, or the f32
+# kernels phase), the train step with fused_optimizer=True, the f32
 # train step of train_parity (the CUDA-core attention and CE kernels take
-# f32)
+# f32), or the f16 public ops of the kernels phase (f16_ops)
 KERNEL_PATH = {"fused_ce_dh": "ce_variants", "fused_ce_bwd_a": "ce_variants",
                "fused_ce_bwd_a_tc": "ce_variants",
                "fused_ce_de": "ce_variants", "fused_ce_dh_tc": "ce_variants",
                "fused_ce_de_tc": "ce_variants", "fused_adamw": "train_fused",
                "flash_fwd": "train_parity", "flash_bwd_dq": "train_parity",
                "flash_bwd_dkv": "train_parity",
-               "fused_ce_fwd": "train_parity", "fused_ce_bwd": "train_parity"}
+               "fused_ce_fwd": "train_parity", "fused_ce_bwd": "train_parity",
+               **{name: "f16_ops" for name in KERNELS
+                  if name.endswith("_f16")}}
 
 
 def emit(obj):
@@ -1182,14 +1258,17 @@ def zero_launch_counts():
         attention, fused_adamw, fused_ce)
     attention.flash_attention_fwd.launches = 0
     attention.flash_attention_fwd.launches_tc = 0
+    attention.flash_attention_fwd.launches_f16 = 0
     for name in ("launches_dq", "launches_dq_tc", "launches_dkv",
-                 "launches_dkv_tc"):
+                 "launches_dkv_tc", "launches_dq_f16", "launches_dkv_f16"):
         setattr(attention.flash_attention_bwd, name, 0)
     fused_ce.fused_ce_fwd.launches = 0
     fused_ce.fused_ce_fwd.launches_tc = 0
+    fused_ce.fused_ce_fwd.launches_f16 = 0
     for name in ("launches", "launches_tc", "launches_a", "launches_a_tc",
                  "launches_dh", "launches_de", "launches_dh_tc",
-                 "launches_de_tc"):
+                 "launches_de_tc", "launches_f16", "launches_a_f16",
+                 "launches_dh_f16", "launches_de_f16"):
         setattr(fused_ce.fused_ce_bwd, name, 0)
     fused_adamw.fused_adamw_update.launches = 0
 
@@ -1892,8 +1971,8 @@ def _check_ce_variants(state, gen):
         t32 = t.to(torch.int32)
         ptrs = (h.data_ptr(), e.data_ptr(), t32.data_ptr(), lse.data_ptr(),
                 g.data_ptr())
-        source, dims = (("fused_ce_tc", (n, v, d)) if tc else
-                        ("fused_ce", (n, v, d, ce.KERNEL_DTYPES[dt])))
+        source, dims = ("fused_ce_tc" if tc else "fused_ce",
+                        (n, v, d, 0, d, ce.KERNEL_DTYPES[dt]))
 
         def kernel_a():
             return ce.fused_ce_bwd(h, e, t, lse, g, variant="a")
@@ -2121,6 +2200,338 @@ def _check_fused_adamw(state, gen):
             "library_ms": library, "library_ms_events": library_events}
 
 
+# the new routes' shapes: f16 attention at the headline's (8, 16, 1024,
+# 64); head dim 256 at Gemma-7B's attention (google/gemma-7b config.json:
+# num_attention_heads 16, head_dim 256), batch 2 of 1024 tokens; the CE at
+# Llama-2-7B's head, one 4096-row chunk (meta-llama/Llama-2-7b-hf
+# config.json: hidden_size 4096, vocab_size 32000); f16 CE at the
+# headline chunk; #9 with 16-bit p and g over the headline's 98 tensors
+C2_F16_ATTN = (8, 16, 1024, 64)
+C2_HD256 = (2, 16, 1024, 256)
+C2_LLAMA_CE = (4096, 32000, 4096)
+C2_F16_CE = (4096, 32768, 1024)
+# the f16 public-op run whose launches the f16 rows report: one
+# flash_attention forward and backward, fused_cross_entropy in each
+# backward variant. No main path runs f16, so the count is a side run's,
+# at these small shapes, and its rows say so (launches_from)
+C2_F16_OPS_ATTN = (1, 2, 256, 64)
+C2_F16_OPS_CE = (512, 2048, 256)
+F16_LAUNCHES_FROM = (f"a side run of the f16 public ops (flash_attention "
+                     f"at {C2_F16_OPS_ATTN}, fused_cross_entropy in each "
+                     f"backward variant at {C2_F16_OPS_CE}), not a main "
+                     f"path: none runs f16")
+F16_KERNELS = ("flash_fwd_tc_f16", "flash_bwd_dq_tc_f16",
+               "flash_bwd_dkv_tc_f16", "fused_ce_fwd_tc_f16",
+               "fused_ce_dh_tc_f16", "fused_ce_bwd_a_tc_f16",
+               "fused_ce_bwd_tc_f16", "fused_ce_de_tc_f16")
+
+
+def _row_of(err, tm, flops, nbytes, dtype, lib_ms, shape, **extra) -> dict:
+    """A kernel line's numbers from a timing in turns and the work."""
+    bound, bound_by = bound_ms(flops, nbytes, dtype)
+    return {"max_abs_err": err, "ms": tm["ms"], "ms_runs": tm["ms_runs"],
+            "plain_ms": tm["plain_ms"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms, "flops": flops,
+            "bytes": nbytes, "bound_share": bound / tm["ms"],
+            "achieved_tflops": flops / (tm["ms"] * 1e-3) / 1e12,
+            "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+            **extra}
+
+
+def _c2_attention(shape, dtype, gen, iters: int) -> dict:
+    """#1-#3 (the route ``attention_route`` names) causal at ``shape`` in
+    ``dtype`` against the plain versions on the same inputs, then each
+    kernel timed against its plain version in turns and SDPA (forward;
+    backward alone) beside it: ``{"fwd", "dq", "dkv"}`` rows."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import attention as A
+    dt = str(dtype).replace("torch.", "")
+    q, k, v, do = (_rand(shape, dtype, gen) for _ in range(4))
+    sm = shape[-1] ** -0.5
+    o, lse = A.flash_attention_fwd(q, k, v, causal=True)
+    errs = _fwd_errors(q, k, v, o, lse, True)
+    if not errs["ok"]:
+        raise AssertionError(f"flash forward {dt} at {shape}: {errs}")
+    delta = (o.float() * do.float()).sum(-1)
+    got = (A.launch_bwd_dq(q, k, v, do, lse, delta, sm_scale=sm,
+                           causal=True, causal_offset=0),
+           *A.launch_bwd_dkv(q, k, v, do, lse, delta, sm_scale=sm,
+                             causal=True, causal_offset=0))
+    want = A.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                       sm_scale=sm)
+    rel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got,
+                                               want)}
+    if max(rel.values()) > GRAD_TOL[dt]:
+        raise AssertionError(f"flash backward {dt} at {shape}: {rel}")
+    bwd_err = {"dq": abs_err(got[0], want[0]),
+               "dkv": max(abs_err(got[1], want[1]),
+                          abs_err(got[2], want[2]))}
+    del got, want
+
+    def plain_bwd():
+        A.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                    sm_scale=sm)
+
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=sm)
+    lib = {"fwd": time_ms(lambda: torch.nn.functional.
+                          scaled_dot_product_attention(
+                              q, k, v, is_causal=True, scale=sm), iters),
+           "bwd": time_ms(lambda: torch.autograd.grad(
+               sdpa, leaves, do, retain_graph=True), iters)}
+    del sdpa, leaves
+    rows = {}
+    t = in_turns(lambda: A.flash_attention_fwd(q, k, v, causal=True),
+                 lambda: A.flash_attention_plain(q, k, v, causal=True,
+                                                 sm_scale=sm), iters)
+    rows["fwd"] = _row_of(errs["o_err"], t, *attention_work(
+        q, k, True, 0, "fwd"), dtype, lib["fwd"], shape,
+        library="scaled_dot_product_attention", rel_err={"o": errs["o_err"],
+                                                         "lse": errs["lse_err"]})
+    for op, launch in (("dq", A.launch_bwd_dq), ("dkv", A.launch_bwd_dkv)):
+        t = in_turns(lambda: launch(q, k, v, do, lse, delta, sm_scale=sm,
+                                    causal=True, causal_offset=0),
+                     plain_bwd, iters)
+        rows[op] = _row_of(bwd_err[op], t, *attention_work(
+            q, k, True, 0, op), dtype, lib["bwd"], shape,
+            library="scaled_dot_product_attention backward (dq, dk, dv)",
+            plain_note="the plain backward computes dq, dk and dv",
+            rel_err=rel)
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _c2_ce(shape, dtype, gen, iters: int) -> dict:
+    """#4 and every backward variant (#7 "b", #6 "a", "split" #5 then #8)
+    at ``shape`` in ``dtype`` through the wrapper (a d_model above 1024
+    in one launch a column window) against the plain versions on the
+    same inputs, each timed against its plain version in turns, and the
+    unfused ``F.cross_entropy(F.linear(h, E))`` (forward; backward
+    alone) beside them: rows by kernel name (16-bit names without the
+    dtype suffix)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_ce as ce
+    n, v, d = shape
+    dt = str(dtype).replace("torch.", "")
+    h = _rand((n, d), dtype, gen)
+    e = _rand((v, d), dtype, gen, 0.05)
+    t = torch.randint(0, v, (n,), device="cuda", generator=gen)
+    g = torch.rand(n, device="cuda", generator=gen)
+    lse, tl = ce.fused_ce_fwd(h, e, t)
+    plse, ptl = ce.fused_ce_fwd_plain(h, e, t)
+    fwd_err = max(abs_err(lse, plse), abs_err(tl, ptl))
+    if fwd_err > CE_ROW_TOL:
+        raise AssertionError(f"fused_ce_fwd {dt} at {shape}: {fwd_err}")
+    want = ce.fused_ce_bwd_plain(h, e, t, plse, g)
+    errs = {}
+    for variant in ce.BWD_VARIANTS:
+        dh, de = ce.fused_ce_bwd(h, e, t, plse, g, variant=variant)
+        r = max(rel_err(dh, want[0]), rel_err(de, want[1]))
+        if r > GRAD_TOL[dt]:
+            raise AssertionError(f"fused_ce_bwd {variant} {dt} at {shape}: "
+                                 f"rel err {r}")
+        errs[variant] = max(abs_err(dh, want[0]), abs_err(de, want[1]))
+        if variant == "split":
+            errs["dh"], errs["de"] = (abs_err(dh, want[0]),
+                                      abs_err(de, want[1]))
+        del dh, de
+    del want
+    lib = _ce_library(h, e, t, g)
+    el = h.element_size()
+    windows = len(ce.kernel_windows(dtype, d))
+    tc = dtype != torch.float32
+    names = ({"fwd": "fused_ce_fwd_tc", "b": "fused_ce_bwd_tc",
+              "a": "fused_ce_bwd_a_tc", "dh": "fused_ce_dh_tc",
+              "de": "fused_ce_de_tc"} if tc else
+             {"fwd": "fused_ce_fwd", "b": "fused_ce_bwd",
+              "a": "fused_ce_bwd_a", "dh": "fused_ce_dh",
+              "de": "fused_ce_de"})
+    rows = {}
+
+    def timer(fn, n):
+        # one warm-up: the Llama-sized f32 backward takes ~0.6 s a call
+        return time_ms(fn, n, warmup=1)
+
+    t_fwd = in_turns(lambda: ce.fused_ce_fwd(h, e, t),
+                     lambda: ce.fused_ce_fwd_plain(h, e, t), iters,
+                     timer=timer)
+    rows[names["fwd"]] = _row_of(fwd_err, t_fwd, *ce_work(n, v, d, el,
+                                                          "fwd"), dtype,
+                                 lib["unfused_fwd_ms"], shape,
+                                 library="F.cross_entropy(F.linear(h, E)), "
+                                         "unfused")
+    for variant in ("b", "a"):
+        tm = in_turns(lambda: ce.fused_ce_bwd(h, e, t, plse, g,
+                                              variant=variant),
+                      lambda: ce.fused_ce_bwd_plain(h, e, t, plse, g),
+                      iters, timer=timer)
+        # each window's launch recomputes the logits over all of D
+        rows[names[variant]] = _row_of(
+            errs[variant], tm, *ce_work(n, v, d, el, "bwd"), dtype,
+            lib["unfused_bwd_ms"], shape, windows=windows,
+            design_flops=(windows * 2 * (2 if variant == "b" else 1) + 4)
+            * n * v * d,
+            library="F.cross_entropy(F.linear(h, E)) backward alone, "
+                    "unfused")
+    for which in ("dh", "de"):
+        plain = getattr(ce, f"fused_ce_{which}_plain")
+        out = torch.empty_like(h if which == "dh" else e)
+        t32 = t.to(torch.int32)
+        source = "fused_ce_tc" if tc else "fused_ce"
+
+        def kernel():
+            for off, w in ce.kernel_windows(dtype, d):
+                ce._launch(names[which], h.device, h.data_ptr(),
+                           e.data_ptr(),
+                           t32.data_ptr(), plse.data_ptr(), g.data_ptr(),
+                           out.data_ptr(), n, v, d, off, w,
+                           ce.KERNEL_DTYPES[dtype], source=source)
+
+        tm = in_turns(kernel, lambda: plain(h, e, t, plse, g), iters,
+                      timer=timer)
+        rows[names[which]] = _row_of(
+            errs[which], tm, *ce_work(n, v, d, el, which), dtype,
+            lib["unfused_bwd_ms"], shape, windows=windows,
+            design_flops=(windows * 2 + 2) * n * v * d,
+            library="F.cross_entropy(F.linear(h, E)) backward alone (dh "
+                    "and dE), unfused")
+        del out
+    del h, e, t, g, lse, tl, plse, ptl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _c2_adamw(dtype, gen) -> dict:
+    """#9 with ``dtype`` p and g (f32 mu and nu) against ``adamw_reference``
+    on the headline's 98 tensors (every output within ADAMW_ULP of its
+    dtype), the update timed against its plain version in turns, and
+    ``torch.optim.AdamW(fused=True)`` on the same p (moments in p's
+    dtype, as it keeps them) beside it."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig, param_shapes)
+    from distributed_tensorflow_tpu_torch.ops.fused_adamw import (
+        adamw_reference, bias_corrections, fused_adamw_update)
+    hp = dict(ADAMW_HYPER)
+    wd = hp.pop("weight_decay")
+    tree = param_shapes(TransformerConfig.transformer_big())
+    shapes = [tree["embed"], tree["final_norm"]["scale"]] + [
+        s[1:] for leaves_ in tree["layers"].values() for s in leaves_.values()
+        for _ in range(s[0])]
+    n_params = sum(math.prod(s) for s in shapes)
+    p, g, mu, nu = _adamw_inputs(shapes, torch.float32, gen)
+    p = [x.to(dtype) for x in p]
+    g = [x.to(dtype) for x in g]
+    c1, c2 = bias_corrections(0, hp["b1"], hp["b2"])
+    want = [adamw_reference(*x, c1, c2, wd=wd, **hp)
+            for x in zip(p, g, mu, nu)]
+    kp, km, kv = ([x.clone() for x in xs] for xs in (p, mu, nu))
+    fused_adamw_update(kp, g, km, kv, 0, weight_decay=wd, **hp)
+    torch.cuda.synchronize()
+    worst = {"p": 0, "mu": 0, "nu": 0}
+    err = 0.0
+    for got, w in zip(zip(kp, km, kv), want):
+        for name, a, b in zip(("p", "mu", "nu"), got, w):
+            worst[name] = max(worst[name], ulps(a, b))
+        err = max(err, abs_err(got[0], w[0]))
+    del kp, km, kv, want
+    if max(worst.values()) > ADAMW_ULP:
+        raise AssertionError(f"fused_adamw with {dtype} p: ulps {worst}")
+
+    def plain():
+        for x in zip(p, g, mu, nu):
+            adamw_reference(*x, c1, c2, wd=wd, **hp)
+
+    tm = in_turns(lambda: fused_adamw_update(p, g, mu, nu, 0,
+                                             weight_decay=wd, **hp),
+                  plain, 5, timer=device_ms)
+    leaves_ = [x.clone().requires_grad_() for x in p]
+    for x, gx in zip(leaves_, g):
+        x.grad = gx
+    lib = torch.optim.AdamW(leaves_, lr=hp["lr"], betas=(hp["b1"], hp["b2"]),
+                            eps=hp["eps"], weight_decay=wd, fused=True)
+    library = device_ms(lib.step)
+    del lib, leaves_, p, g, mu, nu
+    torch.cuda.empty_cache()
+    el = torch.empty((), dtype=dtype).element_size()
+    # p and g read, mu and nu (f32) read, p, mu, nu written
+    nbytes = n_params * (3 * el + 4 * 4)
+    return _row_of(err, tm, 13 * n_params, nbytes, torch.float32, library,
+                   [len(shapes), n_params], ulps=worst,
+                   p_dtype=str(dtype).replace("torch.", ""),
+                   library="torch.optim.AdamW(fused=True).step, moments in "
+                           "p's dtype")
+
+
+def _check_c2_routes(state, gen):
+    """The routes that take every input the Pallas kernels take (ROADMAP
+    C-2), each through its hand-written kernel against its plain version
+    on the same inputs, timed against it in turns, with the library call
+    beside it: f16 #1-#3 at the headline's attention; #1-#3 at head dim
+    256 in f32, bf16 and f16 at Gemma-7B's attention; #4-#8 at Llama-2-7B's
+    head (D 4096: one launch a column window) in bf16 and f32, and in f16
+    at the headline chunk; #9 with bf16 and f16 p and g. Then the f16
+    public ops once, counted from 0: the f16 rows' launches."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import attention as A
+    from distributed_tensorflow_tpu_torch.ops import fused_ce as ce
+    f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    rows, c2 = {}, {}
+    att = _c2_attention(C2_F16_ATTN, f16, gen, 10)
+    for op, name in (("fwd", "flash_fwd_tc_f16"), ("dq", "flash_bwd_dq_tc_f16"),
+                     ("dkv", "flash_bwd_dkv_tc_f16")):
+        rows[name] = att[op]
+    for dt, suffix in ((f32, ""), (bf16, "_tc"), (f16, "_tc_f16")):
+        att = _c2_attention(C2_HD256, dt, gen, 3 if dt == f32 else 10)
+        for op, name in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"),
+                         ("dkv", "flash_bwd_dkv")):
+            c2.setdefault(name + suffix, {})["hd256"] = att[op]
+    for dt in (bf16, f32):
+        for name, row in _c2_ce(C2_LLAMA_CE, dt, gen,
+                                1 if dt == f32 else 3).items():
+            c2.setdefault(name, {})["llama"] = row
+    for name, row in _c2_ce(C2_F16_CE, f16, gen, 3).items():
+        rows[name + "_f16"] = row
+    for dt in (bf16, f16):
+        c2.setdefault("fused_adamw", {})[
+            f"p_{str(dt).replace('torch.', '')}"] = _c2_adamw(dt, gen)
+
+    # the f16 rows' path: the public ops in f16, counted from 0
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    q, k, v = (_rand(C2_F16_OPS_ATTN, f16, gen).requires_grad_()
+               for _ in range(3))
+    A.flash_attention(q, k, v, causal=True).float().sum().backward()
+    n, vv, d = C2_F16_OPS_CE
+    h = _rand((n, d), f16, gen).requires_grad_()
+    e = _rand((vv, d), f16, gen, 0.05).requires_grad_()
+    t = torch.randint(0, vv, (n,), device="cuda", generator=gen)
+    for variant in ce.BWD_VARIANTS:
+        ce.fused_cross_entropy(h, e, t, bwd_variant=variant).sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    state["f16_ops_launches"] = counts
+    want = {"flash_fwd_tc_f16": 1, "flash_bwd_dq_tc_f16": 1,
+            "flash_bwd_dkv_tc_f16": 1, "fused_ce_fwd_tc_f16": 3,
+            "fused_ce_bwd_tc_f16": 1, "fused_ce_bwd_a_tc_f16": 1,
+            "fused_ce_dh_tc_f16": 1, "fused_ce_de_tc_f16": 1}
+    if counts != expected_counts(want, 1):
+        raise AssertionError(f"f16 public ops: launches {counts}, expected "
+                             f"{want}")
+    state.update(rows)
+    state["c2_rows"] = c2
+    return {"f16": {k: {kk: r[kk] for kk in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "library_ms")}
+                    for k, r in rows.items()},
+            "c2": {k: {s: {kk: r[kk] for kk in ("max_abs_err", "ms",
+                                                 "plain_ms", "bound_ms",
+                                                 "library_ms")}
+                       for s, r in sub.items()} for k, sub in c2.items()},
+            "f16_ops_launches": {k: c for k, c in counts.items() if c}}
+
+
 def _check_bert_attention(state, gen):
     """#1, #2 and #3 at BERT's train shape, (32, 12, 512, 64) bf16 not
     causal (every k-tile visited, no tail masked): the forward and the
@@ -2290,6 +2701,8 @@ def phase_kernels(state):
     torch.cuda.empty_cache()
     out["bert_attention"] = _check_bert_attention(state, gen)
     out["bert_ce"] = _check_bert_ce(state, gen)
+    torch.cuda.empty_cache()
+    out["c2_routes"] = _check_c2_routes(state, gen)
     return out
 
 
@@ -2858,20 +3271,24 @@ def phase_prefix_serve(state):
 
 
 def _f32_big(seed):
+    """``transformer_big``'s width in f32 (TF32 off) at
+    :data:`F32_PARITY_LAYERS` layers, weights from ``seed``."""
     import torch
     from distributed_tensorflow_tpu_torch.models.transformer import (
         TransformerConfig, init_params)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = TransformerConfig.transformer_big(dtype=torch.float32)
+    cfg = TransformerConfig.transformer_big(dtype=torch.float32,
+                                            n_layers=F32_PARITY_LAYERS)
     return cfg, init_params(cfg, torch.Generator(
         device="cuda").manual_seed(seed), device="cuda")
 
 
 def phase_prefix_parity(state):
-    """f32, TF32 off, full ``transformer_big``: every suffix logit of a
+    """f32, TF32 off, ``transformer_big``'s width at
+    :data:`F32_PARITY_LAYERS` layers: every suffix logit of a
     prefix hit against ``TransformerLM`` recompute of the whole prompt
-    (the CUDA-core flash forward, 12 a prefill), and the caching
+    (the CUDA-core flash forward, one a layer a prefill), and the caching
     engine's streams equal to the cold engine's."""
     import numpy as np
     import torch
@@ -2930,6 +3347,7 @@ def phase_prefix_parity(state):
     torch.cuda.empty_cache()
     state["prefix_parity_launches"] = counts
     return {"config": "transformer_big", "dtype": "float32",
+            "layers": cfg.n_layers,
             "prefix_len": PREFIX_PARITY_LEN,
             "prompt_lens": [len(p) for p in by_id.values()],
             "hits": [[p["len"], p["cached"]] for p in hits],
@@ -3025,6 +3443,7 @@ def phase_spill(state):
     torch.cuda.empty_cache()
     state["spill_launches"] = counts
     return {"config": "transformer_big", "dtype": "float32",
+            "layers": cfg.n_layers,
             "usable_blocks": SPILL_BLOCKS - 1, "prompt_len": SPILL_PROMPT,
             "spill_tier": st, "prefix_cache": pc.stats(),
             "block_bytes": block_bytes,
@@ -3214,7 +3633,8 @@ def phase_spec_serve(state):
 
 
 def phase_spec_parity(state):
-    """f32, TF32 off, full ``transformer_big``, k = 4, with the default
+    """f32, TF32 off, ``transformer_big``'s width at
+    :data:`F32_PARITY_LAYERS` layers, k = 4, with the default
     draft and with the target as its own draft: the streams exactly
     those of non-speculative decode, every verify row's logits against
     ``TransformerLM`` recompute of its context (the committed stream
@@ -3291,7 +3711,8 @@ def phase_spec_parity(state):
         raise AssertionError("; ".join(problems))
     state["spec_parity_launches"] = runs["truncated"]["counts"]
     state["spec_parity_self_launches"] = runs["self"]["counts"]
-    return {"config": "transformer_big", "dtype": "float32", "k": SPEC_K,
+    return {"config": "transformer_big", "dtype": "float32",
+            "layers": cfg.n_layers, "k": SPEC_K,
             "prompt_lens": [int(n) for n in lens],
             "tol": PARITY_LOGIT_TOL, "streams_equal_plain": True,
             **{name: {"speculative": r["stats"],
@@ -3548,12 +3969,15 @@ def _check_wire(payload) -> int:
 
 
 def phase_disagg_parity(state):
-    """f32, TF32 off, full ``transformer_big``: ``DisaggregatedEngine``
+    """f32, TF32 off, ``transformer_big``'s width at
+    :data:`F32_PARITY_LAYERS` layers: ``DisaggregatedEngine``
     streams equal to the monolithic engine's on the serve prompts —
     plainly, under decode pools small enough to force a rescue and a
     replay preemption, and with ``kv_dtype="int8"`` — every payload
     bit-exact through ``pack``/``unpack`` and a ``FileKV`` directory."""
     import torch
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerConfig)
     from distributed_tensorflow_tpu_torch.serving.engine import (
         InferenceEngine)
     from distributed_tensorflow_tpu_torch.serving.migrate import (
@@ -3628,13 +4052,16 @@ def phase_disagg_parity(state):
         raise AssertionError("; ".join(problems))
     state["disagg_parity_launches"] = launches
     return {"config": "transformer_big", "dtype": "float32",
-            "layers": cfg.n_layers, "depth_cut": False,
+            "layers": cfg.n_layers,
+            "depth_cut": cfg.n_layers < TransformerConfig.transformer_big(
+                ).n_layers,
             "prompt_lens": [len(p) for p in prompts.values()],
             "new_tokens": SERVE_NEW, **out}
 
 
 def phase_swap_chaos(state):
-    """f32, TF32 off, full ``transformer_big``. **swap**: a prefix-caching
+    """f32, TF32 off, ``transformer_big``'s width at
+    :data:`F32_PARITY_LAYERS` layers. **swap**: a prefix-caching
     engine flipped from weights A to B by ``install_version`` after
     :data:`SWAP_AFTER_STEPS` steps; every completion on B's version and
     equal to a fresh B engine's, ``requeued`` the sequences running at
@@ -3771,6 +4198,7 @@ def phase_swap_chaos(state):
     state["swap_launches"] = swap_counts
     state["chaos_launches"] = chaos_counts
     return {"config": "transformer_big", "dtype": "float32",
+            "layers": cfg.n_layers,
             "swap": {"prompts": len(swap_rounds[0]),
                      "prefix_len": PREFIX_PARITY_LEN,
                      "after_steps": SWAP_AFTER_STEPS,
@@ -11323,10 +11751,12 @@ def _keras_entry(workdir: str) -> list:
             _KERAS_RUNNER.format(root=ROOT, path=path)]
 
 
-def _run_entries(workdir: str, jobs: dict, timeout_s: float) -> dict:
+def _run_entries(workdir: str, jobs: dict, timeout_s: float,
+                 envs: "dict | None" = None) -> dict:
     """Run ``jobs`` (``{tag: argv}``) as concurrent subprocesses from the
     repository's root, each in a session of its own, with
-    ``DTX_ENTRY_REPORT`` set; wait for all (killing every one's process
+    ``DTX_ENTRY_REPORT`` set (and ``envs[tag]``, where given); wait for
+    all (killing every one's process
     group at ``timeout_s`` or when another fails) and return ``{tag:
     {"rc", "seconds", "report", "out_tail"}}``; raises if one exited
     non-zero."""
@@ -11336,7 +11766,7 @@ def _run_entries(workdir: str, jobs: dict, timeout_s: float) -> dict:
         for tag, argv in jobs.items():
             files[tag] = open(os.path.join(workdir, f"{tag}.out"), "w")
             env = dict(os.environ, DTX_ENTRY_REPORT=os.path.join(
-                workdir, f"{tag}.report.json"))
+                workdir, f"{tag}.report.json"), **(envs or {}).get(tag, {}))
             t0[tag] = time.perf_counter()
             procs[tag] = subprocess.Popen(
                 argv, cwd=ROOT, env=env, stdout=files[tag],
@@ -11706,6 +12136,86 @@ def phase_entry_points4(state):
                    if t.endswith("_check")}}
 
 
+def _chaos_launches(tmp: str, tag: str, workdir: str) -> dict:
+    """#1-#3's launches of a chaos mode's processes: each serving replica
+    generation's published counters under its kept run directories, and
+    each offload rank's report; ``{"<where>": {kernel: n}}`` of the
+    nonzero counters."""
+    import glob
+    flash = ("flash_fwd_tc", "flash_fwd", "flash_bwd_dq_tc", "flash_bwd_dq",
+             "flash_bwd_dkv_tc", "flash_bwd_dkv")
+    out = {}
+    for path in sorted(glob.glob(os.path.join(tmp, "**",
+                                              "launches-*-g*.json"),
+                                 recursive=True)):
+        with open(path) as f:
+            rec = json.load(f)
+        where = os.path.relpath(os.path.dirname(path), tmp)
+        out[f"{where}/t{rec['task']}g{rec['gen']}"] = rec["launches"]
+    for path in sorted(glob.glob(os.path.join(
+            workdir, f"{tag}.report.json-offload*"))):
+        with open(path) as f:
+            out["rank" + path.rsplit("offload", 1)[1]] = json.load(f)[
+                "launches"]
+    return {k: {n: c[n] for n in flash if c.get(n)} for k, c in out.items()}
+
+
+def phase_chaos4(state):
+    """Phase 60 (four cards): ``tools/torch_chaos_sweep.py --seeds 1`` in
+    each of its modes, every seed surviving (three waves of four modes
+    side by side; run directories kept); the modes of ``CHAOS4_FLASH``
+    launched #1 (every mode's counters reported, by process); then
+    ``tools/torch_fleet_sweep.py --seeds 1``, ``torch_day_report.py
+    --check`` on the --day run directory and ``torch_health_report.py
+    --check`` on the --serve one."""
+    import glob
+
+    import torch
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError("chaos4 needs 4 cards")
+    work = _entry_dir("chaos4")
+    runs, launches, problems = {}, {}, []
+    for wave in CHAOS4_WAVES:
+        jobs, envs = {}, {}
+        for tag in wave:
+            tmp = os.path.join(work, f"{tag}_tmp")
+            os.makedirs(tmp)
+            jobs[tag] = _tool("torch_chaos_sweep.py", "--seeds", "1",
+                              "--keep-dirs", *CHAOS4_MODES[tag])
+            envs[tag] = {"TMPDIR": tmp}
+        runs.update(_run_entries(work, jobs, CHAOS4_TIMEOUT_S, envs=envs))
+        for tag in wave:
+            if "survival: 1/1 seeds" not in runs[tag]["out"]:
+                problems.append(f"{tag}: {runs[tag]['out_tail'][-400:]}")
+            launches[tag] = _chaos_launches(
+                os.path.join(work, f"{tag}_tmp"), tag, work)
+    for tag, kernels in CHAOS4_FLASH.items():
+        if not any(c.get(k) for c in launches[tag].values()
+                   for k in kernels):
+            problems.append(f"{tag}: no #1 launch in its processes "
+                            f"{launches[tag]}")
+    day = glob.glob(os.path.join(work, "day_tmp", "day_sweep_s0_*"))
+    serve = glob.glob(os.path.join(work, "serve_tmp", "chaos_serve_s0_*"))
+    if len(day) != 1 or len(serve) != 1:
+        raise AssertionError(f"chaos4: kept run directories day {day}, "
+                             f"serve {serve}")
+    runs.update(_run_entries(work, {
+        "fleet_sweep": _tool("torch_fleet_sweep.py", "--seeds", "1"),
+        "day_report": _tool("torch_day_report.py", day[0], "--check"),
+        "health_report": _tool("torch_health_report.py", serve[0],
+                               "--check")}, CHAOS4_TIMEOUT_S))
+    if "survival: 1/1 seeds" not in runs["fleet_sweep"]["out"]:
+        problems.append(f"fleet_sweep: {runs['fleet_sweep']['out_tail']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"card": state["smi"],
+            "modes": {t: " ".join(CHAOS4_MODES[t]) or "(default)"
+                      for t in CHAOS4_MODES},
+            "job_seconds": {t: r["seconds"] for t, r in runs.items()},
+            "flash_launches": launches,
+            "tails": {t: r["out_tail"][-300:] for t, r in runs.items()}}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -11806,7 +12316,8 @@ def main(argv=None) -> int:
                      ("router4", phase_router4),
                      ("autoscale4", phase_autoscale4),
                      ("conformance4", phase_conformance4),
-                     ("entry_points4", phase_entry_points4)):
+                     ("entry_points4", phase_entry_points4),
+                     ("chaos4", phase_chaos4)):
         if only and name not in only:
             continue
         if name in FOUR_CARD_PHASES and not only \
@@ -11839,6 +12350,8 @@ def main(argv=None) -> int:
                "launches": state[f"{path}_launches"][name],
                "launches_path": path,
                "train_launches": state["train_launches"][name]}
+        if path == "f16_ops":
+            row["launches_from"] = F16_LAUNCHES_FROM
         row.update({key: k[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")})
@@ -11878,6 +12391,10 @@ def main(argv=None) -> int:
                          "bert_score")}
         if name in state["bert_rows"]:
             row["bert"] = state["bert_rows"][name]
+        # the kernel at the shapes of the routes ROADMAP C-2 added:
+        # head dim 256 (Gemma-7B), D 4096 (Llama-2-7B), 16-bit p (#9)
+        if name in state["c2_rows"]:
+            row["c2"] = state["c2_rows"][name]
         # the data-parallel runs of dp_train (rank 0), each from 0
         row["dp_launches"] = {v: c[name]
                               for v, c in state["dp_launches"].items()}

@@ -150,7 +150,11 @@ class DynamicTableConfig:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A numpy copy of ``t``: a CPU tensor's ``numpy()`` shares its
+    storage, which later in-place row updates would write through (a
+    state taken earlier must keep its values, as JAX's arrays do)."""
+    a = t.detach().cpu().numpy()
+    return a.copy() if t.device.type == "cpu" else a
 
 
 class DynamicTable:

@@ -43,4 +43,13 @@ def launch_counts() -> dict:
             "fused_ce_bwd_tc": cb.launches_tc, "fused_ce_bwd": cb.launches,
             "fused_ce_de_tc": cb.launches_de_tc,
             "fused_ce_de": cb.launches_de,
-            "fused_adamw": fused_adamw.fused_adamw_update.launches}
+            "fused_adamw": fused_adamw.fused_adamw_update.launches,
+            # f16 on the tensor-core kernels
+            "flash_fwd_tc_f16": fwd.launches_f16,
+            "flash_bwd_dq_tc_f16": bwd.launches_dq_f16,
+            "flash_bwd_dkv_tc_f16": bwd.launches_dkv_f16,
+            "fused_ce_fwd_tc_f16": cf.launches_f16,
+            "fused_ce_dh_tc_f16": cb.launches_dh_f16,
+            "fused_ce_bwd_a_tc_f16": cb.launches_a_f16,
+            "fused_ce_bwd_tc_f16": cb.launches_f16,
+            "fused_ce_de_tc_f16": cb.launches_de_f16}

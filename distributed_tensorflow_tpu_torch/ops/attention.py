@@ -10,21 +10,21 @@ Port of ``distributed_tensorflow_tpu/ops/attention.py``. Layout is
   fully-masked rows output 0).
 - :func:`flash_attention_fwd` — the flash-attention forward, returning
   ``(o, lse)``. On a CUDA tensor it launches a hand-written Hopper
-  kernel, the port of the Pallas ``_fwd_kernel``: in bf16
+  kernel, the port of the Pallas ``_fwd_kernel``: in bf16 and f16
   ``flash_fwd_tc`` (``csrc/flash_tc.cu``, tensor cores), in f32
   ``flash_fwd`` (``csrc/flash_fwd.cu``, CUDA cores); on a CPU tensor it
   runs :func:`flash_attention_plain`, the plain PyTorch version of the
   same function. Any other device raises. It records no autograd graph.
 - :func:`flash_attention_bwd` — the backward ``(dq, dk, dv)`` from the
   forward's ``(o, lse)``: on a CUDA tensor the kernels of the ports of
-  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, in bf16
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, in bf16 and f16
   ``flash_bwd_dq_tc`` and ``flash_bwd_dkv_tc`` (``csrc/flash_tc.cu``,
   tensor cores), in f32 ``flash_bwd_dq`` and ``flash_bwd_dkv``
   (``csrc/flash_bwd.cu``, CUDA cores); on a CPU tensor
   :func:`flash_attention_bwd_plain`.
   :func:`attention_route` states which kernel a CUDA call takes; a head
-  dim below 128 other than 64 is zero-padded to the next of the two the
-  kernels are built for (:func:`kernel_head_dim`).
+  dim up to 256 other than 64, 128 and 256 is zero-padded to the next of
+  the three the kernels are built for (:func:`kernel_head_dim`).
 - :func:`flash_attention_op` — the forward and its gradient as one
   registered op, ``dtt_torch::flash_attention(q, k, v, causal,
   sm_scale) -> (o, lse)`` (:data:`FLASH_ATTENTION_OP`), the counterpart
@@ -45,9 +45,9 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 #: head dims the CUDA kernels are instantiated for; flash_attention_fwd
 #: and flash_attention_bwd zero-pad any smaller one to the next of them
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 #: input dtypes the CUDA kernels take (code passed to the C entry points)
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the kernels of the forward and of the backward's two halves
 ATTENTION_OPS = ("fwd", "dq", "dkv")
 #: C signature of ``flash_fwd`` in ``csrc/flash_fwd.cu``: q, k, v, o, lse
@@ -62,7 +62,7 @@ FLASH_BWD_ARGTYPES = {
            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     for name, n in (("flash_bwd_dq", 7), ("flash_bwd_dkv", 8))}
 #: C signatures of ``csrc/flash_tc.cu``: those of the CUDA-core entry
-#: points they stand in for in bf16
+#: points they stand in for in bf16 and f16
 FLASH_TC_ARGTYPES = {"flash_fwd_tc": FLASH_FWD_ARGTYPES,
                      "flash_bwd_dq_tc": FLASH_BWD_ARGTYPES["flash_bwd_dq"],
                      "flash_bwd_dkv_tc": FLASH_BWD_ARGTYPES["flash_bwd_dkv"]}
@@ -154,7 +154,9 @@ def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
     bottom-right aligned: query ``i`` sees key ``j`` iff
     ``j <= i + causal_offset`` (default ``Sk - Sq``). A row that sees no
     key at all gets ``o = 0`` and ``lse = +inf``, as the Pallas kernel
-    stores so that a backward recomputes ``p = 0`` there."""
+    stores so that a backward recomputes ``p = 0`` there. In f16, ``p``
+    is rounded to f16 before ``p v`` as the Pallas kernel rounds it to
+    the input dtype (JAX ``:184``); ``l`` sums the unrounded ``p``."""
     sq, sk = q.shape[2], k.shape[2]
     if causal_offset is None:
         causal_offset = sk - sq
@@ -168,7 +170,8 @@ def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
     empty = torch.isneginf(m)
     p = torch.exp(s - torch.where(empty, 0.0, m))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / torch.where(
+    pv = p.to(v.dtype).float() if v.dtype == torch.float16 else p
+    o = torch.einsum("bhqk,bhkd->bhqd", pv, v.float()) / torch.where(
         empty, 1.0, l)
     lse = torch.where(empty, float("inf"), m + torch.log(l))
     return o.to(q.dtype), lse[..., 0]
@@ -180,13 +183,14 @@ def attention_route(dtype, hd: int, op: str) -> str:
     ``csrc/flash_bwd.cu``), for inputs of ``dtype`` and head dim ``hd``
     and ``op`` — ``"fwd"``, ``"dq"`` or ``"dkv"``.
 
-    - bf16 goes to the tensor cores, every op;
+    - bf16 and f16 go to the tensor cores, every op;
     - f32 stays on the CUDA cores, whose f32 products keep f32 parity
       (on tensor cores f32 would be TF32);
-    - a head dim up to 128 is taken: :func:`flash_attention_fwd` and
+    - a head dim up to 256 is taken: :func:`flash_attention_fwd` and
       :func:`flash_attention_bwd` zero-pad it to :func:`kernel_head_dim`;
-    - any other dtype, a head dim above 128 (the kernels keep a row of
-      the head in registers) or an unknown ``op`` raises ValueError."""
+    - any other dtype, a head dim above 256 (the kernels' tiles at 256
+      take most of a block's shared memory) or an unknown ``op`` raises
+      ValueError."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"flash_attention: dtype {dtype} not in "
                          f"{sorted(map(str, KERNEL_DTYPES))}")
@@ -194,7 +198,7 @@ def attention_route(dtype, hd: int, op: str) -> str:
     if op not in ATTENTION_OPS:
         raise ValueError(f"flash_attention: op={op!r}; expected one of "
                          f"{ATTENTION_OPS}")
-    return "tc" if dtype == torch.bfloat16 else "cuda_cores"
+    return "cuda_cores" if dtype == torch.float32 else "tc"
 
 
 def kernel_head_dim(hd: int) -> int:
@@ -202,7 +206,7 @@ def kernel_head_dim(hd: int) -> int:
     zero-padded to: the smallest that holds it. Exact: zero columns of q
     and k add nothing to the scores, zero columns of v give zero columns
     of o (so ``delta = rowsum(o · do)`` is unchanged), and the padded
-    columns of dq, dk and dv are dropped. ValueError above 128."""
+    columns of dq, dk and dv are dropped. ValueError above 256."""
     for kd in KERNEL_HEAD_DIMS:
         if 0 < hd <= kd:
             return kd
@@ -275,10 +279,12 @@ def _launch_kernel(q, k, v, sm_scale, causal, causal_offset):
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
-    if tc:
-        flash_attention_fwd.launches_tc += 1
-    else:
+    if not tc:
         flash_attention_fwd.launches += 1
+    elif q.dtype == torch.float16:
+        flash_attention_fwd.launches_f16 += 1
+    else:
+        flash_attention_fwd.launches_tc += 1
     return o, lse
 
 
@@ -289,10 +295,11 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
 
     A CUDA tensor goes through the kernel :func:`attention_route` names:
     in bf16 ``flash_fwd_tc`` (tensor cores; one launch counted in
-    ``flash_attention_fwd.launches_tc``), in f32 ``flash_fwd`` (CUDA
-    cores; ``flash_attention_fwd.launches``). A CPU tensor goes through
-    :func:`flash_attention_plain`. Any other device raises. A head dim
-    other than 64 and 128 (at most 128) is zero-padded to
+    ``flash_attention_fwd.launches_tc``; in f16 in ``.launches_f16``),
+    in f32 ``flash_fwd`` (CUDA cores; ``flash_attention_fwd.launches``).
+    A CPU tensor goes through :func:`flash_attention_plain`. Any other
+    device raises. A head dim other than 64, 128 and 256 (at most 256)
+    is zero-padded to
     :func:`kernel_head_dim` for the kernel and ``o`` sliced back
     (:func:`with_padded_head`); ``sm_scale`` defaults to the true head
     dim's. Gradients go through :func:`flash_attention`."""
@@ -313,6 +320,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
 
 flash_attention_fwd.launches = 0       # f32, CUDA cores
 flash_attention_fwd.launches_tc = 0    # bf16, tensor cores
+flash_attention_fwd.launches_f16 = 0   # f16, tensor cores
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +415,9 @@ def _launch_bwd(op, outs, q, k, v, do, lse, delta, sm_scale, causal,
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
-    counter = f"launches_{op}_tc" if route == "tc" else f"launches_{op}"
+    counter = (f"launches_{op}" if route != "tc" else
+               f"launches_{op}_f16" if q.dtype == torch.float16 else
+               f"launches_{op}_tc")
     setattr(flash_attention_bwd, counter,
             getattr(flash_attention_bwd, counter) + 1)
 
@@ -456,7 +466,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     A CUDA tensor goes through the dq and the dk/dv kernels
     :func:`attention_route` names (counting one launch each in
     ``flash_attention_bwd.launches_dq_tc`` and ``.launches_dkv_tc`` in
-    bf16, ``.launches_dq`` and ``.launches_dkv`` in f32); a CPU tensor
+    bf16, ``.launches_dq_f16`` and ``.launches_dkv_f16`` in f16,
+    ``.launches_dq`` and ``.launches_dkv`` in f32); a CPU tensor
     through :func:`flash_attention_bwd_plain`. Any other device
     raises."""
     if sm_scale is None:
@@ -487,6 +498,8 @@ flash_attention_bwd.launches_dq = 0        # f32, CUDA cores
 flash_attention_bwd.launches_dq_tc = 0     # bf16, tensor cores
 flash_attention_bwd.launches_dkv = 0       # f32, CUDA cores
 flash_attention_bwd.launches_dkv_tc = 0    # bf16, tensor cores
+flash_attention_bwd.launches_dq_f16 = 0    # f16, tensor cores
+flash_attention_bwd.launches_dkv_f16 = 0   # f16, tensor cores
 
 
 @torch.library.custom_op("dtt_torch::flash_attention", mutates_args=())

@@ -11,7 +11,7 @@
 //   ds = p * (do v^T - delta) * sm_scale,
 //   dq = ds k,  dk = ds^T q,  dv = p^T do,
 // for q, do (BH, Sq, hd) and k, v (BH, Sk, hd), contiguous, f32, hd in
-// {64, 128}; lse, delta (BH, Sq) f32. Masking is the forward's
+// {64, 128, 256}; lse, delta (BH, Sq) f32. Masking is the forward's
 // (flash_fwd.cu): bottom-right causal via causal_offset, ragged q and k
 // tails masked here, and a row whose lse is +inf (it saw no key) gets
 // p = 0. Every product accumulates in f32 (in f32 the Pallas kernels'
@@ -42,23 +42,32 @@
 // the S x S score and probability matrices never leave the SM, every
 // block reads its own tile once, and causal work is halved by skipping
 // the tiles above the diagonal.
+//
+// Tiles are BT rows (a template argument): 64 at hd 64 and 128; at hd 256
+// four 64 x 257 f32 tiles would take 263 KB, past the 232,448 bytes a
+// block may have, so the tiles there are 32 rows (thread (ty, tx) owns
+// rows ty + 16 i, i < 2, a 2 x 2 register tile of each 32 x 32 score
+// tile): 135,808 bytes (dq) and 140,288 (dk/dv) of shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BM = 64;      // q rows per tile
-constexpr int BN = 64;      // k rows per tile
 constexpr int NT = 256;     // threads per block
-constexpr int PS = BN + 1;  // padded row stride of the ds / p tiles
 
-// Rows [r0, r0 + 64) of a contiguous (rows, HD) matrix into shared
-// memory at stride HD + 1; rows past `rows` are zero.
+// rows of a q- or k-tile at head dim HD
 template <int HD>
+__host__ __device__ constexpr int tile_rows() {
+  return HD > 128 ? 32 : 64;
+}
+
+// Rows [r0, r0 + BT) of a contiguous (rows, HD) matrix into shared
+// memory at stride HD + 1; rows past `rows` are zero.
+template <int HD, int BT>
 __device__ __forceinline__ void stage(float* dst, const float* src, int r0,
                                       int rows) {
-  for (int e = threadIdx.x; e < 64 * HD; e += NT) {
+  for (int e = threadIdx.x; e < BT * HD; e += NT) {
     const int r = e / HD, d = e % HD;
     dst[r * (HD + 1) + d] =
         (r0 + r < rows) ? src[(size_t)(r0 + r) * HD + d] : 0.f;
@@ -66,39 +75,42 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int r0,
 }
 
 // acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d], both tiles at
-// stride HD + 1.
-template <int HD>
+// stride HD + 1; R = BT / 16 rows and columns a thread.
+template <int HD, int R>
 __device__ __forceinline__ void tile_abt(const float* A, const float* B,
-                                         float acc[4][4], int ty, int tx) {
+                                         float acc[R][R], int ty, int tx) {
   constexpr int S = HD + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
-    float a[4], b[4];
+    float a[R], b[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * S + d];
+    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * S + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * S + d];
+    for (int j = 0; j < R; ++j) b[j] = B[(tx + 16 * j) * S + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
-  // Q, dO, K, V at stride HD + 1; dS at stride PS
-  return sizeof(float) * (size_t)(4 * 64 * (HD + 1) + BM * PS);
+  // Q, dO, K, V at stride HD + 1; dS at stride BT + 1
+  constexpr int BT = tile_rows<HD>();
+  return sizeof(float) * (size_t)(4 * BT * (HD + 1) + BT * (BT + 1));
 }
 
 template <int HD>
 constexpr size_t dkv_smem_bytes() {
-  // K, V, Q, dO at stride HD + 1; P^T, dS^T at stride PS; lse, delta
-  return sizeof(float) * (size_t)(4 * 64 * (HD + 1) + 2 * BN * PS + 2 * BM);
+  // K, V, Q, dO at stride HD + 1; P^T, dS^T at stride BT + 1; lse, delta
+  constexpr int BT = tile_rows<HD>();
+  return sizeof(float) *
+         (size_t)(4 * BT * (HD + 1) + 2 * BT * (BT + 1) + 2 * BT);
 }
 
 template <int HD>
@@ -110,59 +122,62 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Sq, int Sk, float sm_scale, int causal,
                     int causal_offset) {
+  constexpr int BT = tile_rows<HD>();
+  constexpr int R = BT / 16;     // rows (and score columns) per thread
+  constexpr int PS = BT + 1;     // padded row stride of the dS tile
   constexpr int S = HD + 1;
   constexpr int DJ = HD / 16;  // output dims per thread
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* DOs = Qs + 64 * S;
-  float* Ks = DOs + 64 * S;
-  float* Vs = Ks + 64 * S;
-  float* DSs = Vs + 64 * S;
+  float* DOs = Qs + BT * S;
+  float* Ks = DOs + BT * S;
+  float* Vs = Ks + BT * S;
+  float* DSs = Vs + BT * S;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BM;
+  const int q0 = blockIdx.y * BT;
   const size_t qoff = (size_t)bh * Sq * HD;
   const size_t koff = (size_t)bh * Sk * HD;
 
-  stage<HD>(Qs, q + qoff, q0, Sq);
-  stage<HD>(DOs, dout + qoff, q0, Sq);
-  float lse_r[4], dl_r[4];
+  stage<HD, BT>(Qs, q + qoff, q0, Sq);
+  stage<HD, BT>(DOs, dout + qoff, q0, Sq);
+  float lse_r[R], dl_r[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     lse_r[i] = row < Sq ? lse[(size_t)bh * Sq + row] : INFINITY;
     dl_r[i] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
   }
-  float acc[4][DJ];
+  float acc[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   // keys [0, k_end) can be visible to some row of this tile
   int k_end = Sk;
   if (causal) {
-    const long long last = (long long)q0 + BM - 1 + causal_offset;
+    const long long last = (long long)q0 + BT - 1 + causal_offset;
     k_end = last < 0 ? 0 : (last + 1 < Sk ? (int)(last + 1) : Sk);
   }
 
-  for (int k0 = 0; k0 < k_end; k0 += BN) {
+  for (int k0 = 0; k0 < k_end; k0 += BT) {
     __syncthreads();  // Q, dO visible / previous K, V, dS consumed
-    stage<HD>(Ks, k + koff, k0, Sk);
-    stage<HD>(Vs, v + koff, k0, Sk);
+    stage<HD, BT>(Ks, k + koff, k0, Sk);
+    stage<HD, BT>(Vs, v + koff, k0, Sk);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    tile_abt<HD>(Qs, Ks, s, ty, tx);
-    tile_abt<HD>(DOs, Vs, dp, ty, tx);
+    float s[R][R], dp[R][R];
+    tile_abt<HD, R>(Qs, Ks, s, ty, tx);
+    tile_abt<HD, R>(DOs, Vs, dp, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int row = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int col = k0 + tx + 16 * j;
         const bool ok = row < Sq && col < Sk &&
                         (!causal || col <= row + causal_offset);
@@ -174,21 +189,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float da[4];
+    for (int c = 0; c < BT; ++c) {
+      float da[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = DSs[(ty + 16 * i) * PS + c];
+      for (int i = 0; i < R; ++i) da[i] = DSs[(ty + 16 * i) * PS + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const float kv = Ks[c * S + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(da[i], kv, acc[i][j]);
+        for (int i = 0; i < R; ++i) acc[i][j] = fmaf(da[i], kv, acc[i][j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     float* out = dq + qoff + (size_t)row * HD;
@@ -207,31 +222,34 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int Sq, int Sk, float sm_scale,
                      int causal, int causal_offset) {
+  constexpr int BT = tile_rows<HD>();
+  constexpr int R = BT / 16;     // rows (and score columns) per thread
+  constexpr int PS = BT + 1;     // padded row stride of the P^T, dS^T tiles
   constexpr int S = HD + 1;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + 64 * S;
-  float* Qs = Vs + 64 * S;
-  float* DOs = Qs + 64 * S;
-  float* PTs = DOs + 64 * S;
-  float* DSTs = PTs + BN * PS;
-  float* lse_s = DSTs + BN * PS;
-  float* dl_s = lse_s + BM;
+  float* Vs = Ks + BT * S;
+  float* Qs = Vs + BT * S;
+  float* DOs = Qs + BT * S;
+  float* PTs = DOs + BT * S;
+  float* DSTs = PTs + BT * PS;
+  float* lse_s = DSTs + BT * PS;
+  float* dl_s = lse_s + BT;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BN;
+  const int k0 = blockIdx.y * BT;
   const size_t qoff = (size_t)bh * Sq * HD;
   const size_t koff = (size_t)bh * Sk * HD;
 
-  stage<HD>(Ks, k + koff, k0, Sk);
-  stage<HD>(Vs, v + koff, k0, Sk);
-  float acc_dk[4][DJ], acc_dv[4][DJ];
+  stage<HD, BT>(Ks, k + koff, k0, Sk);
+  stage<HD, BT>(Vs, v + koff, k0, Sk);
+  float acc_dk[R][DJ], acc_dv[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
@@ -241,14 +259,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   if (causal) {
     const long long first = (long long)k0 - causal_offset;
     q_begin = first <= 0 ? 0
-                         : (first >= Sq ? Sq : (int)(first / BM) * BM);
+                         : (first >= Sq ? Sq : (int)(first / BT) * BT);
   }
 
-  for (int q0 = q_begin; q0 < Sq; q0 += BM) {
+  for (int q0 = q_begin; q0 < Sq; q0 += BT) {
     __syncthreads();  // K, V visible / previous Q, dO, P^T, dS^T consumed
-    stage<HD>(Qs, q + qoff, q0, Sq);
-    stage<HD>(DOs, dout + qoff, q0, Sq);
-    if (tid < BM) {
+    stage<HD, BT>(Qs, q + qoff, q0, Sq);
+    stage<HD, BT>(DOs, dout + qoff, q0, Sq);
+    if (tid < BT) {
       const int row = q0 + tid;
       lse_s[tid] = row < Sq ? lse[(size_t)bh * Sq + row] : INFINITY;
       dl_s[tid] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
@@ -256,14 +274,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
     __syncthreads();
 
     // transposed scores: rows are keys (ty + 16 i), columns queries
-    float s[4][4], dpt[4][4];
-    tile_abt<HD>(Ks, Qs, s, ty, tx);
-    tile_abt<HD>(Vs, DOs, dpt, ty, tx);
+    float s[R][R], dpt[R][R];
+    tile_abt<HD, R>(Ks, Qs, s, ty, tx);
+    tile_abt<HD, R>(Vs, DOs, dpt, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int key = k0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int c = tx + 16 * j;
         const int row = q0 + c;
         const bool ok = row < Sq && key < Sk &&
@@ -276,10 +294,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BM; ++c) {
-      float pa[4], da[4];
+    for (int c = 0; c < BT; ++c) {
+      float pa[R], da[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         pa[i] = PTs[(ty + 16 * i) * PS + c];
         da[i] = DSTs[(ty + 16 * i) * PS + c];
       }
@@ -288,7 +306,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
         const float dov = DOs[c * S + tx + 16 * j];
         const float qv = Qs[c * S + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           acc_dv[i][j] = fmaf(pa[i], dov, acc_dv[i][j]);
           acc_dk[i][j] = fmaf(da[i], qv, acc_dk[i][j]);
         }
@@ -297,7 +315,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= Sk) continue;
     float* dko = dk + koff + (size_t)key * HD;
@@ -311,7 +329,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 }
 
 // one launch of `kern` over (BH, tiles) blocks; q-tiles (dq) or k-tiles
-// (dkv) of 64 rows on grid y, whose limit is 65535
+// (dkv) of tile_rows<hd>() rows on grid y, whose limit is 65535
 template <typename Kernel, typename... Outs>
 cudaError_t launch(Kernel kern, size_t smem, int tiles, const void* q,
                    const void* k, const void* v, const void* dout,
@@ -335,7 +353,8 @@ cudaError_t launch(Kernel kern, size_t smem, int tiles, const void* q,
 
 extern "C" {
 
-// dtype: 0 = float32 (bfloat16 takes flash_bwd_dq_tc / flash_bwd_dkv_tc).
+// dtype: 0 = float32 (bfloat16 and float16 take flash_bwd_dq_tc /
+// flash_bwd_dkv_tc); hd 64, 128 or 256.
 // Each returns cudaGetLastError() after the launch (cudaErrorInvalidValue
 // for a dtype / head_dim it does not take, cudaErrorInvalidConfiguration
 // past the grid's limit of 65535 tiles on y; BH, on x, takes any int).
@@ -345,14 +364,18 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                  float sm_scale, int causal, int causal_offset,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (Sq + BM - 1) / BM;
-  if (dtype == 0 && hd == 64)
-    return (int)launch(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(), tiles,
-                       q, k, v, dout, lse, delta, BH, Sq, Sk, sm_scale,
-                       causal, causal_offset, st, dq);
-  if (dtype == 0 && hd == 128)
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (hd == 64)
+    return (int)launch(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(),
+                       (Sq + 63) / 64, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       sm_scale, causal, causal_offset, st, dq);
+  if (hd == 128)
     return (int)launch(flash_bwd_dq_kernel<128>, dq_smem_bytes<128>(),
-                       tiles, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       (Sq + 63) / 64, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       sm_scale, causal, causal_offset, st, dq);
+  if (hd == 256)
+    return (int)launch(flash_bwd_dq_kernel<256>, dq_smem_bytes<256>(),
+                       (Sq + 31) / 32, q, k, v, dout, lse, delta, BH, Sq, Sk,
                        sm_scale, causal, causal_offset, st, dq);
   return (int)cudaErrorInvalidValue;
 }
@@ -363,14 +386,18 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   int dtype, float sm_scale, int causal, int causal_offset,
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (Sk + BN - 1) / BN;
-  if (dtype == 0 && hd == 64)
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (hd == 64)
     return (int)launch(flash_bwd_dkv_kernel<64>, dkv_smem_bytes<64>(),
-                       tiles, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       (Sk + 63) / 64, q, k, v, dout, lse, delta, BH, Sq, Sk,
                        sm_scale, causal, causal_offset, st, dk, dv);
-  if (dtype == 0 && hd == 128)
+  if (hd == 128)
     return (int)launch(flash_bwd_dkv_kernel<128>, dkv_smem_bytes<128>(),
-                       tiles, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       (Sk + 63) / 64, q, k, v, dout, lse, delta, BH, Sq, Sk,
+                       sm_scale, causal, causal_offset, st, dk, dv);
+  if (hd == 256)
+    return (int)launch(flash_bwd_dkv_kernel<256>, dkv_smem_bytes<256>(),
+                       (Sk + 31) / 32, q, k, v, dout, lse, delta, BH, Sq, Sk,
                        sm_scale, causal, causal_offset, st, dk, dv);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,7 @@
 // here, where its products keep f32 parity (on tensor cores f32 would be
 // TF32). Same function: o = softmax(q k^T * sm_scale + mask) v and the
 // per-row logsumexp lse, for q (BH, Sq, hd) and k, v (BH, Sk, hd),
-// contiguous, f32, hd in {64, 128}. Causal masking is bottom-right
+// contiguous, f32, hd in {64, 128, 256}. Causal masking is bottom-right
 // aligned: query i sees key j iff j <= i + causal_offset (the wrapper
 // defaults the offset to Sk - Sq). Ragged tails of q and k are masked
 // here. A row that sees no key stores o = 0 and lse = +inf, row by row
@@ -36,7 +36,9 @@
 // that. What the design keeps: every input byte is read from device
 // memory once per q-tile that needs it, the S x S score matrix never
 // leaves the SM, and causal work is halved by skipping tiles above the
-// diagonal.
+// diagonal. At hd 256 the tiles keep 64 rows: Q, K, V and P take
+// 213,760 bytes of shared memory (under the 232,448 a block may have) and
+// the output accumulator 64 registers a thread.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -215,7 +217,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32 (bfloat16 takes flash_fwd_tc). Returns
+// dtype: 0 = float32 (bfloat16 and float16 take flash_fwd_tc); hd 64,
+// 128 or 256. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype
 // / head_dim it does not take, cudaErrorInvalidConfiguration past the
 // grid's limit of 65535 q-tiles on y; BH, on x, takes any int).
@@ -231,6 +234,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
                      causal_offset, st);
   else if (dtype == 0 && hd == 128)
     err = launch<128>(q, k, v, o, l, BH, Sq, Sk, sm_scale, causal,
+                      causal_offset, st);
+  else if (dtype == 0 && hd == 256)
+    err = launch<256>(q, k, v, o, l, BH, Sq, Sk, sm_scale, causal,
                       causal_offset, st);
   return (int)err;
 }

@@ -1,15 +1,18 @@
-// Flash attention in bf16 on Hopper's tensor cores (sm_90a): mma.sync
-// m16n8k16 (bf16 -> f32) fed by ldmatrix from shared-memory tiles that
-// cp.async fills through a ring of stages. f32 attention stays on the
-// CUDA-core kernels of flash_fwd.cu and flash_bwd.cu, whose f32 products
-// keep f32 parity (on tensor cores f32 would be TF32).
+// Flash attention in bf16 and f16 on Hopper's tensor cores (sm_90a):
+// mma.sync m16n8k16 (bf16 -> f32, f16 -> f32) fed by ldmatrix from
+// shared-memory tiles that cp.async fills through a ring of stages. Every
+// kernel is a template on its 16-bit element type T; "bf16" below stands
+// for T. f32 attention stays on the CUDA-core kernels of flash_fwd.cu and
+// flash_bwd.cu, whose f32 products keep f32 parity (on tensor cores f32
+// would be TF32).
 //
-// Replaces, for bf16 inputs, in distributed_tensorflow_tpu/ops/attention.py:
+// Replaces, for bf16 and f16 inputs, in
+// distributed_tensorflow_tpu/ops/attention.py:
 // - flash_fwd_tc: _fwd_kernel (:135; _flash_forward :210, pl.pallas_call
 //   at :227). For q (BH, Sq, hd) and k, v (BH, Sk, hd), bf16, hd in
-//   {64, 128}: o = softmax(q k^T sm_scale + mask) v in bf16 and the row
-//   logsumexp lse in f32. As in Pallas, p is rounded to bf16 before p v
-//   (:184) and l is summed from the unrounded f32 p (:182).
+//   {64, 128, 256}: o = softmax(q k^T sm_scale + mask) v in bf16 and the
+//   row logsumexp lse in f32. As in Pallas, p is rounded to bf16 before
+//   p v (:184) and l is summed from the unrounded f32 p (:182).
 // - flash_bwd_dkv_tc: _bwd_dkv_kernel (:309; pl.pallas_call at :409).
 //   With p = exp(q k^T sm_scale - lse) recomputed from the forward's lse
 //   and delta = rowsum(o do) (f32, computed by the caller, :371):
@@ -85,9 +88,26 @@
 // the same dq on every run. The grid is (BH, q-tiles), the last q-tile
 // (the most k-tiles) first. BH sits on grid x in all three kernels, so
 // it takes any int; the tiles on grid y are limited to 65535.
+//
+// Head dim 256 (Gemma-7B's). A block keeps the same 64-row tiles and 4
+// warps, but no warp holds a 16 x 256 f32 accumulator (128 registers; two
+// of them in dk/dv): the output columns are cut into windows on grid z,
+// DV = 128 wide in the forward and dq (block z accumulates columns
+// [128 z, 128 z + 128) of o or dq: the hd-128 kernel's registers) and 64
+// wide in dk/dv (at 128 its two accumulators and the 16 k-steps of the
+// score products spilled registers). The score products (q k^T, do v^T)
+// still run over all 256 columns, so each block of a tile recomputes
+// them: the forward does 1.5x the operations of one pass, dq 1.33x and
+// dk/dv 2.5x (4 windows), and the two forward blocks of a tile compute
+// the same row max and sum (lse written once, by z = 0). Q (dq: Q and dO) is read from shared
+// memory at every k-step, not held in registers. Tiles stay whole rows
+// (264 columns padded) in shared memory: 168,960 bytes (forward),
+// 202,752 (dq) and 203,776 (dk/dv) a block, one block an SM, under the
+// 232,448 a block may take.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -102,6 +122,18 @@ constexpr int STAGES = 2;     // cp.async ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// output columns a block accumulates: all of a head up to 128, a
+// 128-wide window (grid z) at 256; the dk/dv kernel, which holds two
+// accumulators, a 64-wide one
+template <int HD>
+__host__ __device__ constexpr int out_cols() {
+  return HD > 128 ? 128 : HD;
+}
+template <int HD>
+__host__ __device__ constexpr int dkv_out_cols() {
+  return HD > 128 ? 64 : HD;
+}
+
 // 4 bytes from global to shared memory, asynchronously
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
@@ -109,16 +141,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [r0, r0 + 64) of a contiguous (rows, HD) bf16 matrix into a
+// Rows [r0, r0 + 64) of a contiguous (rows, HD) 16-bit matrix into a
 // 64 x (HD + 8) shared tile by 16-byte cp.async copies; rows past `rows`
 // are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
+template <int HD, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
                                           int rows) {
   constexpr int SEGS = HD / 8;
 #pragma unroll
@@ -133,16 +160,16 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
 
 // A fragment (16 x 16, rows row0 + 0..15, columns 16 ks + 0..15) of a
 // shared tile at stride LD
-template <int LD>
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* t,
+template <int LD, typename T>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const T* t,
                                        int row0, int ks, int lane) {
   ldsm_x4(a, t + (row0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
 }
 
 // B fragments of two n8 tiles (rows n0 + 0..15 of the tile as the n
 // index, columns 16 ks + 0..15 as k): b[0..1] n-tile n0, b[2..3] n0 + 8
-template <int LD>
-__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const bf16* t,
+template <int LD, typename T>
+__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const T* t,
                                        int n0, int ks, int lane) {
   ldsm_x4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
                  ((lane >> 3) & 1) * 8);
@@ -151,31 +178,32 @@ __device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const bf16* t,
 // B fragments of one k16 step (rows 16 kk + 0..15 of the tile as k) over
 // two n8 tiles (columns d0 + 0..15 as n), read transposed: b[0..1]
 // columns d0 + 0..7, b[2..3] d0 + 8..15
-template <int LD>
-__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4], const bf16* t,
+template <int LD, typename T>
+__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4], const T* t,
                                         int kk, int d0, int lane) {
   ldsm_x4_t(b, t + (kk * 16 + (lane & 15)) * LD + d0 + (lane >> 4) * 8);
 }
 
-// acc (16 x HD) += A (16 x 64, the f32 C fragments c of 8 n8 tiles,
-// rounded to bf16) times the 64 x HD shared tile t
-template <int HD>
-__device__ __forceinline__ void gemm_c_as_a(float (&acc)[HD / 8][4],
+// acc (16 x DV) += A (16 x 64, the f32 C fragments c of 8 n8 tiles,
+// rounded to T) times columns [0, DV) of the 64-row shared tile t at
+// stride LD (t points at the first column of the window)
+template <typename T, int DV, int LD>
+__device__ __forceinline__ void gemm_c_as_a(float (&acc)[DV / 8][4],
                                             const float (&c)[8][4],
-                                            const bf16* t, int lane) {
+                                            const T* t, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint32_t a[4] = {
-        pack_bf16(c[2 * kk][0], c[2 * kk][1]),
-        pack_bf16(c[2 * kk][2], c[2 * kk][3]),
-        pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]),
-        pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3])};
+        pack2<T>(c[2 * kk][0], c[2 * kk][1]),
+        pack2<T>(c[2 * kk][2], c[2 * kk][3]),
+        pack2<T>(c[2 * kk + 1][0], c[2 * kk + 1][1]),
+        pack2<T>(c[2 * kk + 1][2], c[2 * kk + 1][3])};
 #pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
+    for (int dp = 0; dp < DV / 16; ++dp) {
       uint32_t b[4];
-      ldsm_bt<HD + 8>(b, t, kk, dp * 16, lane);
-      mma_bf16(acc[2 * dp], a, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+      ldsm_bt<LD>(b, t, kk, dp * 16, lane);
+      mma16<T>(acc[2 * dp], a, b[0], b[1]);
+      mma16<T>(acc[2 * dp + 1], a, b[2], b[3]);
     }
   }
 }
@@ -203,24 +231,27 @@ constexpr size_t dkv_smem_bytes() {
 // Forward
 // ---------------------------------------------------------------------------
 
-template <int HD>
-__global__ void __launch_bounds__(NT, HD == 64 ? 3 : 2)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT, HD == 64 ? 3 : (HD == 128 ? 2 : 1))
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ lse, int Sq, int Sk, float scale_log2,
                     int causal, int causal_offset) {
   constexpr int LD = HD + 8;
   constexpr int TILE = BN * LD;
+  constexpr int DV = out_cols<HD>();
+  constexpr bool RESIDENT = HD <= 128;  // Q fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* KV = Qs + BM * LD;  // stage s: K at KV + 2 s TILE, V after it
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* KV = Qs + BM * LD;  // stage s: K at KV + 2 s TILE, V after it
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qd = lane & 3;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
-  const bf16* kb = k + (size_t)bh * Sk * HD;
-  const bf16* vb = v + (size_t)bh * Sk * HD;
+  const int c0 = blockIdx.z * DV;                     // output columns
+  const T* kb = k + (size_t)bh * Sk * HD;
+  const T* vb = v + (size_t)bh * Sk * HD;
   // this thread's rows: row0 (fragment elements 0, 1) and row0 + 8 (2, 3)
   const int row0 = q0 + warp * 16 + (lane >> 2);
 
@@ -235,7 +266,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<HD>(Qs, q + (size_t)bh * Sq * HD, q0, Sq);
   cp_async_commit();
   auto load_kv = [&](int t) {
-    bf16* Ks = KV + (t % STAGES) * 2 * TILE;
+    T* Ks = KV + (t % STAGES) * 2 * TILE;
     load_tile<HD>(Ks, kb, t * BN, Sk);
     load_tile<HD>(Ks + TILE, vb, t * BN, Sk);
   };
@@ -246,14 +277,16 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<STAGES - 1>();  // Q landed
   __syncthreads();
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[RESIDENT ? HD / 16 : 1][4];
+  if constexpr (RESIDENT) {
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    ldsm_a<LD>(qf[ks], Qs, warp * 16, ks, lane);
+    for (int ks = 0; ks < HD / 16; ++ks)
+      ldsm_a<LD>(qf[ks], Qs, warp * 16, ks, lane);
+  }
 
-  float acc[HD / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -263,8 +296,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // tile t landed; tile t - 1's stage no longer read
     if (t + STAGES - 1 < ntiles) load_kv(t + STAGES - 1);
     cp_async_commit();
-    const bf16* Ks = KV + (t % STAGES) * 2 * TILE;
-    const bf16* Vs = Ks + TILE;
+    const T* Ks = KV + (t % STAGES) * 2 * TILE;
+    const T* Vs = Ks + TILE;
     const int k0 = t * BN;
 
     float s[8][4];
@@ -273,14 +306,22 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      uint32_t a[4];
+      if constexpr (RESIDENT) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[ks][i];
+      } else {
+        ldsm_a<LD>(a, Qs, warp * 16, ks, lane);
+      }
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj) {
         uint32_t b[4];
         ldsm_b<LD>(b, Ks, nj * 16, ks, lane);
-        mma_bf16(s[2 * nj], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * nj + 1], qf[ks], b[2], b[3]);
+        mma16<T>(s[2 * nj], a, b[0], b[1]);
+        mma16<T>(s[2 * nj + 1], a, b[2], b[3]);
       }
+    }
 
     // the Sk tail, or a key past the warp's first row's causal limit
     const bool mask = k0 + BN > Sk ||
@@ -314,7 +355,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m[r] = m_new;
       l[r] *= alpha;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         acc[j][2 * r] *= alpha;
         acc[j][2 * r + 1] *= alpha;
       }
@@ -327,7 +368,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           l[r] += p;  // this lane's columns; the quad is summed at the end
         }
     }
-    gemm_c_as_a<HD>(acc, s, Vs, lane);
+    gemm_c_as_a<T, DV, LD>(acc, s, Vs + c0, lane);
   }
   cp_async_wait<0>();
 
@@ -340,13 +381,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row >= Sq) continue;
     const bool empty = lr == 0.f;  // acc is 0 there too
     const float denom = empty ? 1.f : lr;
-    bf16* orow = o + ((size_t)bh * Sq + row) * HD + 2 * qd;
+    T* orow = o + ((size_t)bh * Sq + row) * HD + c0 + 2 * qd;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * r] / denom,
-                                acc[j][2 * r + 1] / denom);
-    if (qd == 0)
+    for (int j = 0; j < DV / 8; ++j)
+      store2<T>(orow + j * 8, acc[j][2 * r] / denom,
+                acc[j][2 * r + 1] / denom);
+    if (qd == 0 && blockIdx.z == 0)
       lse[(size_t)bh * Sq + row] =
           empty ? INFINITY : (m[r] + log2f(lr)) * LN2;
   }
@@ -356,31 +396,32 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Backward: dk, dv
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(NT, 2)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int Sq, int Sk, float sm_scale,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int Sq, int Sk, float sm_scale,
                         float scale_log2, int causal, int causal_offset) {
   constexpr int LD = HD + 8;
   constexpr int TILE = BM * LD;
+  constexpr int DV = dkv_out_cols<HD>();
   constexpr bool RESIDENT = HD == 64;  // K, V fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BN * LD;
-  bf16* QD = Vs + BN * LD;  // stage s: Q at QD + 2 s TILE, dO after it
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + BN * LD;
+  T* QD = Vs + BN * LD;  // stage s: Q at QD + 2 s TILE, dO after it
   float* LDl = reinterpret_cast<float*>(QD + STAGES * 2 * TILE);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qd = lane & 3;
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BN;  // k-tile 0 sees the most q-tiles
+  const int c0 = blockIdx.z * DV;  // output columns
   const size_t qoff = (size_t)bh * Sq * HD;
-  const bf16* qb = q + qoff;
-  const bf16* dob = dout + qoff;
+  const T* qb = q + qoff;
+  const T* dob = dout + qoff;
   const float* lb = lse + (size_t)bh * Sq;
   const float* db = delta + (size_t)bh * Sq;
   // this thread's key rows: key0 (fragment elements 0, 1), key0 + 8 (2, 3)
@@ -401,7 +442,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
   auto load_q = [&](int t) {
     const int qt0 = q_begin + t * BM;
-    bf16* Qst = QD + (t % STAGES) * 2 * TILE;
+    T* Qst = QD + (t % STAGES) * 2 * TILE;
     load_tile<HD>(Qst, qb, qt0, Sq);
     load_tile<HD>(Qst + TILE, dob, qt0, Sq);
     float* L = LDl + (t % STAGES) * 2 * BM;
@@ -432,9 +473,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+  float dk_acc[DV / 8][4], dv_acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
@@ -443,8 +484,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // q-tile t landed; q-tile t - 1's stage no longer read
     if (t + STAGES - 1 < ntiles) load_q(t + STAGES - 1);
     cp_async_commit();
-    const bf16* Qs = QD + (t % STAGES) * 2 * TILE;
-    const bf16* DOs = Qs + TILE;
+    const T* Qs = QD + (t % STAGES) * 2 * TILE;
+    const T* DOs = Qs + TILE;
     const float* L = LDl + (t % STAGES) * 2 * BM;
     const float* Dl = L + BM;
     const int qt0 = q_begin + t * BM;
@@ -468,8 +509,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int nj = 0; nj < 4; ++nj) {
         uint32_t b[4];
         ldsm_b<LD>(b, Qs, nj * 16, ks, lane);
-        mma_bf16(st[2 * nj], a, b[0], b[1]);
-        mma_bf16(st[2 * nj + 1], a, b[2], b[3]);
+        mma16<T>(st[2 * nj], a, b[0], b[1]);
+        mma16<T>(st[2 * nj + 1], a, b[2], b[3]);
       }
     }
     // a key past Sk, or past the causal limit of the tile's first query
@@ -492,7 +533,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         st[j][e] = p;
       }
     }
-    gemm_c_as_a<HD>(dv_acc, st, DOs, lane);
+    gemm_c_as_a<T, DV, LD>(dv_acc, st, DOs + c0, lane);
 
     // dP^T = V dO^T, then dS^T in place
     float dpt[8][4];
@@ -513,8 +554,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int nj = 0; nj < 4; ++nj) {
         uint32_t b[4];
         ldsm_b<LD>(b, DOs, nj * 16, ks, lane);
-        mma_bf16(dpt[2 * nj], a, b[0], b[1]);
-        mma_bf16(dpt[2 * nj + 1], a, b[2], b[3]);
+        mma16<T>(dpt[2 * nj], a, b[0], b[1]);
+        mma16<T>(dpt[2 * nj + 1], a, b[2], b[3]);
       }
     }
 #pragma unroll
@@ -526,7 +567,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dpt[j][e] = st[j][e] * (dpt[j][e] - ((e & 1) ? dc.y : dc.x)) *
                     sm_scale;
     }
-    gemm_c_as_a<HD>(dk_acc, dpt, Qs, lane);
+    gemm_c_as_a<T, DV, LD>(dk_acc, dpt, Qs + c0, lane);
   }
   cp_async_wait<0>();
 
@@ -534,13 +575,11 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= Sk) continue;
-    const size_t off = ((size_t)bh * Sk + key) * HD + 2 * qd;
+    const size_t off = ((size_t)bh * Sk + key) * HD + c0 + 2 * qd;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) =
-          __floats2bfloat162_rn(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) =
-          __floats2bfloat162_rn(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+    for (int j = 0; j < DV / 8; ++j) {
+      store2<T>(dk + off + j * 8, dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
+      store2<T>(dv + off + j * 8, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
     }
   }
 }
@@ -549,30 +588,31 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Backward: dq
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(NT, 2)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       const float* __restrict__ delta, T* __restrict__ dq,
                        int Sq, int Sk, float sm_scale, float scale_log2,
                        int causal, int causal_offset) {
   constexpr int LD = HD + 8;
   constexpr int TILE = BN * LD;
+  constexpr int DV = out_cols<HD>();
   constexpr bool RESIDENT = HD == 64;  // Q, dO fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* DOs = Qs + BM * LD;
-  bf16* KV = DOs + BM * LD;  // stage s: K at KV + 2 s TILE, V after it
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* DOs = Qs + BM * LD;
+  T* KV = DOs + BM * LD;  // stage s: K at KV + 2 s TILE, V after it
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qd = lane & 3;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
+  const int c0 = blockIdx.z * DV;                     // output columns
   const size_t qoff = (size_t)bh * Sq * HD;
-  const bf16* kb = k + (size_t)bh * Sk * HD;
-  const bf16* vb = v + (size_t)bh * Sk * HD;
+  const T* kb = k + (size_t)bh * Sk * HD;
+  const T* vb = v + (size_t)bh * Sk * HD;
   // this thread's rows: row0 (fragment elements 0, 1) and row0 + 8 (2, 3)
   const int row0 = q0 + warp * 16 + (lane >> 2);
 
@@ -588,7 +628,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<HD>(DOs, dout + qoff, q0, Sq);
   cp_async_commit();
   auto load_kv = [&](int t) {
-    bf16* Ks = KV + (t % STAGES) * 2 * TILE;
+    T* Ks = KV + (t % STAGES) * 2 * TILE;
     load_tile<HD>(Ks, kb, t * BN, Sk);
     load_tile<HD>(Ks + TILE, vb, t * BN, Sk);
   };
@@ -617,9 +657,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  float acc[HD / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -628,8 +668,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // tile t landed; tile t - 1's stage no longer read
     if (t + STAGES - 1 < ntiles) load_kv(t + STAGES - 1);
     cp_async_commit();
-    const bf16* Ks = KV + (t % STAGES) * 2 * TILE;
-    const bf16* Vs = Ks + TILE;
+    const T* Ks = KV + (t % STAGES) * 2 * TILE;
+    const T* Vs = Ks + TILE;
     const int k0 = t * BN;
 
     // S = Q K^T, then p in place
@@ -651,8 +691,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int nj = 0; nj < 4; ++nj) {
         uint32_t b[4];
         ldsm_b<LD>(b, Ks, nj * 16, ks, lane);
-        mma_bf16(s[2 * nj], a, b[0], b[1]);
-        mma_bf16(s[2 * nj + 1], a, b[2], b[3]);
+        mma16<T>(s[2 * nj], a, b[0], b[1]);
+        mma16<T>(s[2 * nj + 1], a, b[2], b[3]);
       }
     }
     // the Sk tail, or a key past the warp's first row's causal limit
@@ -690,8 +730,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int nj = 0; nj < 4; ++nj) {
         uint32_t b[4];
         ldsm_b<LD>(b, Vs, nj * 16, ks, lane);
-        mma_bf16(dp[2 * nj], a, b[0], b[1]);
-        mma_bf16(dp[2 * nj + 1], a, b[2], b[3]);
+        mma16<T>(dp[2 * nj], a, b[0], b[1]);
+        mma16<T>(dp[2 * nj + 1], a, b[2], b[3]);
       }
     }
 #pragma unroll
@@ -699,7 +739,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]) * sm_scale;
-    gemm_c_as_a<HD>(acc, dp, Ks, lane);
+    gemm_c_as_a<T, DV, LD>(acc, dp, Ks + c0, lane);
   }
   cp_async_wait<0>();
 
@@ -707,71 +747,139 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
-    bf16* out = dq + qoff + (size_t)row * HD + 2 * qd;
+    T* out = dq + qoff + (size_t)row * HD + c0 + 2 * qd;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
+    for (int j = 0; j < DV / 8; ++j)
+      store2<T>(out + j * 8, acc[j][2 * r], acc[j][2 * r + 1]);
   }
 }
 
-template <int HD>
+// grid of a launch: (BH, 64-row tiles, output-column windows of DV)
+template <int HD, int DV>
+dim3 grid_of(int BH, int rows) {
+  return dim3(BH, (rows + BM - 1) / BM, HD / DV);
+}
+
+template <typename T, int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int BH, int Sq, int Sk, float sm_scale,
                        int causal, int causal_offset, cudaStream_t stream) {
-  auto kern = flash_fwd_tc_kernel<HD>;
+  auto kern = flash_fwd_tc_kernel<T, HD>;
   constexpr size_t smem = fwd_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Sq + BM - 1) / BM);
+  const dim3 grid = grid_of<HD, out_cols<HD>()>(BH, Sq);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), Sq, Sk, sm_scale * LOG2E, causal,
       causal_offset);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <typename T, int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int BH, int Sq, int Sk, float sm_scale,
                       int causal, int causal_offset, cudaStream_t stream) {
-  auto kern = flash_bwd_dq_tc_kernel<HD>;
+  auto kern = flash_bwd_dq_tc_kernel<T, HD>;
   constexpr size_t smem = dq_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Sq + BM - 1) / BM);
+  const dim3 grid = grid_of<HD, out_cols<HD>()>(BH, Sq);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), Sq, Sk, sm_scale, sm_scale * LOG2E, causal,
+      static_cast<T*>(dq), Sq, Sk, sm_scale, sm_scale * LOG2E, causal,
       causal_offset);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <typename T, int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int BH, int Sq, int Sk,
                        float sm_scale, int causal, int causal_offset,
                        cudaStream_t stream) {
-  auto kern = flash_bwd_dkv_tc_kernel<HD>;
+  auto kern = flash_bwd_dkv_tc_kernel<T, HD>;
   constexpr size_t smem = dkv_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Sk + BN - 1) / BN);
+  const dim3 grid = grid_of<HD, dkv_out_cols<HD>()>(BH, Sk);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, sm_scale,
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, sm_scale,
       sm_scale * LOG2E, causal, causal_offset);
   return cudaGetLastError();
+}
+
+// f(Tag<T, HD>) for dtype (1 = bf16, 2 = f16) and hd (64, 128, 256);
+// cudaErrorInvalidValue for any other
+template <typename T, int HD>
+struct Tag {
+  using type = T;
+  static constexpr int hd = HD;
+};
+
+template <typename F>
+cudaError_t dispatch(int dtype, int hd, F f) {
+  if (dtype == 1) {
+    if (hd == 64) return f(Tag<bf16, 64>());
+    if (hd == 128) return f(Tag<bf16, 128>());
+    if (hd == 256) return f(Tag<bf16, 256>());
+  } else if (dtype == 2) {
+    if (hd == 64) return f(Tag<f16, 64>());
+    if (hd == 128) return f(Tag<f16, 128>());
+    if (hd == 256) return f(Tag<f16, 256>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the C entry points' bodies: checks, then the launch of dtype and hd
+cudaError_t fwd_entry(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int BH, int Sq, int Sk, int hd, int dtype,
+                      float sm_scale, int causal, int causal_offset,
+                      cudaStream_t st) {
+  if ((Sq + BM - 1) / BM > 65535) return cudaErrorInvalidConfiguration;
+  return dispatch(dtype, hd, [&](auto tag) {
+    using D = decltype(tag);
+    return launch_fwd<typename D::type, D::hd>(
+        q, k, v, o, lse, BH, Sq, Sk, sm_scale, causal, causal_offset, st);
+  });
+}
+
+cudaError_t dq_entry(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int BH, int Sq, int Sk, int hd, int dtype,
+                     float sm_scale, int causal, int causal_offset,
+                     cudaStream_t st) {
+  if ((Sq + BM - 1) / BM > 65535) return cudaErrorInvalidConfiguration;
+  return dispatch(dtype, hd, [&](auto tag) {
+    using D = decltype(tag);
+    return launch_dq<typename D::type, D::hd>(q, k, v, dout, lse, delta, dq,
+                                              BH, Sq, Sk, sm_scale, causal,
+                                              causal_offset, st);
+  });
+}
+
+cudaError_t dkv_entry(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, int BH, int Sq, int Sk, int hd,
+                      int dtype, float sm_scale, int causal,
+                      int causal_offset, cudaStream_t st) {
+  if ((Sk + BN - 1) / BN > 65535) return cudaErrorInvalidConfiguration;
+  return dispatch(dtype, hd, [&](auto tag) {
+    using D = decltype(tag);
+    return launch_dkv<typename D::type, D::hd>(q, k, v, dout, lse, delta, dk,
+                                               dv, BH, Sq, Sk, sm_scale,
+                                               causal, causal_offset, st);
+  });
 }
 
 }  // namespace
@@ -779,23 +887,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 extern "C" {
 
 // The arguments of flash_fwd / flash_bwd_dq / flash_bwd_dkv (flash_fwd.cu,
-// flash_bwd.cu); dtype must be 1 (bfloat16). Each returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype
-// or head_dim it does not take, cudaErrorInvalidConfiguration past the
-// grid's limit of 65535 tiles on y; BH, on x, takes any int).
+// flash_bwd.cu); dtype must be 1 (bfloat16) or 2 (float16), hd 64, 128 or
+// 256. Each returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a dtype or head_dim it does not take,
+// cudaErrorInvalidConfiguration past the grid's limit of 65535 tiles on
+// y; BH, on x, takes any int).
 int flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
                  void* lse, int BH, int Sq, int Sk, int hd, int dtype,
                  float sm_scale, int causal, int causal_offset, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((Sq + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (hd == 64)
-    return (int)launch_fwd<64>(q, k, v, o, lse, BH, Sq, Sk, sm_scale, causal,
-                               causal_offset, st);
-  if (hd == 128)
-    return (int)launch_fwd<128>(q, k, v, o, lse, BH, Sq, Sk, sm_scale,
-                                causal, causal_offset, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)fwd_entry(q, k, v, o, lse, BH, Sq, Sk, hd, dtype, sm_scale,
+                        causal, causal_offset,
+                        static_cast<cudaStream_t>(stream));
 }
 
 int flash_bwd_dq_tc(const void* q, const void* k, const void* v,
@@ -803,16 +905,9 @@ int flash_bwd_dq_tc(const void* q, const void* k, const void* v,
                     void* dq, int BH, int Sq, int Sk, int hd, int dtype,
                     float sm_scale, int causal, int causal_offset,
                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((Sq + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (hd == 64)
-    return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk,
-                              sm_scale, causal, causal_offset, st);
-  if (hd == 128)
-    return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk,
-                               sm_scale, causal, causal_offset, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)dq_entry(q, k, v, dout, lse, delta, dq, BH, Sq, Sk, hd, dtype,
+                       sm_scale, causal, causal_offset,
+                       static_cast<cudaStream_t>(stream));
 }
 
 int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
@@ -820,16 +915,9 @@ int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
                      void* dk, void* dv, int BH, int Sq, int Sk, int hd,
                      int dtype, float sm_scale, int causal,
                      int causal_offset, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((Sk + BN - 1) / BN > 65535) return (int)cudaErrorInvalidConfiguration;
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (hd == 64)
-    return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk,
-                               sm_scale, causal, causal_offset, st);
-  if (hd == 128)
-    return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, Sq,
-                                Sk, sm_scale, causal, causal_offset, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)dkv_entry(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk, hd,
+                        dtype, sm_scale, causal, causal_offset,
+                        static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) {

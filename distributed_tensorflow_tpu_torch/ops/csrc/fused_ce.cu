@@ -100,7 +100,7 @@ constexpr int BWD_R = (BN * LL + BV * LL + BN * (BV + 1) > (BV + BN) * DG)
                           ? BN * LL + BV * LL + BN * (BV + 1)
                           : (BV + BN) * DG;
 constexpr int PS = BV + 1;   // padded stride of the p_adj tile
-constexpr int MAX_D = 1024;  // dh accumulator: BN x D f32 in shared memory
+constexpr int MAX_D = 1024;  // widest window: BN x window f32 in shared memory
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -247,8 +247,9 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
   }
 }
 
-size_t bwd_smem_bytes(int D) {
-  return sizeof(float) * ((size_t)BN * D + BN * PS + BWD_R);
+// for a window of W columns of d_model
+size_t bwd_smem_bytes(int W) {
+  return sizeof(float) * ((size_t)BN * W + BN * PS + BWD_R);
 }
 
 // The four backward kernels, one body. The block owns BN rows of the
@@ -263,14 +264,20 @@ size_t bwd_smem_bytes(int D) {
 //   #5 fused_ce_dh    (_dh_kernel):           TOK_ROWS
 //   #8 fused_ce_de    (_de_kernel):           vocab rows
 //   #6 fused_ce_bwd_a (_bwd_merged_kernel):   vocab rows, ATOMIC_B
+// Both gradients are computed for the window of d_model columns
+// [d_off, d_off + W) only (all of D when d_off = 0 and W = D): the logits
+// run over the full D, the products and the writes over the window, so a
+// D too wide for the BN x D accumulator is covered by one launch a window.
 template <typename T, bool TOK_ROWS, bool ATOMIC_B>
 __device__ __forceinline__ void bwd_body(
     const T* __restrict__ A, const T* __restrict__ B,
     const int* __restrict__ t, const float* __restrict__ lse,
     const float* __restrict__ g, T* __restrict__ dA,
-    float* __restrict__ dB, int NR, int NC, int D, float* smem) {
-  float* dAs = smem;            // BN x D, the dA accumulator
-  float* Ps = dAs + BN * D;     // BN x PS, p_adj in T's precision
+    float* __restrict__ dB, int NR, int NC, int D, int d_off, int W,
+    float* smem) {
+  const int d_end = d_off + W;
+  float* dAs = smem;            // BN x W, the dA accumulator
+  float* Ps = dAs + BN * W;     // BN x PS, p_adj in T's precision
   float* R = Ps + BN * PS;      // staging, used by the two phases in turn:
   float* As = R;                //   logits: A chunk BN x LL,
   float* Bs = As + BN * LL;     //     B chunk BV x LL,
@@ -284,7 +291,7 @@ __device__ __forceinline__ void bwd_body(
   const int ty = (tid % NT) >> 4;
   const int r0 = blockIdx.x * BN;
 
-  for (int e = tid; e < BN * D; e += BWD_NT) dAs[e] = 0.f;
+  for (int e = tid; e < BN * W; e += BWD_NT) dAs[e] = 0.f;
   // the token data of this thread's rows (TOK_ROWS) or, loaded per tile,
   // of its columns
   int tk[4];
@@ -378,18 +385,18 @@ __device__ __forceinline__ void bwd_body(
     // gradients over d_model chunks of DG: group grp takes dims
     // [dg, dg + DG / 2) of each
     const int dg = grp * (DG / 2);
-    for (int d0 = 0; d0 < D; d0 += DG) {
+    for (int d0 = d_off; d0 < d_end; d0 += DG) {
       __syncthreads();  // Ps visible / Lp, previous chunk consumed
       for (int e = tid; e < BV * DG; e += BWD_NT) {
         const int r = e / DG, c = e % DG;
-        Bc[e] = (c0 + r < NC && d0 + c < D)
+        Bc[e] = (c0 + r < NC && d0 + c < d_end)
                     ? to_f32(B[(size_t)(c0 + r) * D + d0 + c])
                     : 0.f;
       }
       if (ATOMIC_B) {
         for (int e = tid; e < BN * DG; e += BWD_NT) {
           const int r = e / DG, c = e % DG;
-          Ac[e] = (r0 + r < NR && d0 + c < D)
+          Ac[e] = (r0 + r < NR && d0 + c < d_end)
                       ? to_f32(A[(size_t)(r0 + r) * D + d0 + c])
                       : 0.f;
         }
@@ -419,7 +426,7 @@ __device__ __forceinline__ void bwd_body(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int dim = d0 + dg + tx + 16 * j;
-          if (dim < D) dAs[(ty + 16 * i) * D + dim] += a[i][j];
+          if (dim < d_end) dAs[(ty + 16 * i) * W + dim - d_off] += a[i][j];
         }
 
       if (!ATOMIC_B) continue;
@@ -448,17 +455,17 @@ __device__ __forceinline__ void bwd_body(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int dim = d0 + dg + tx + 16 * j;
-          if (dim < D) atomicAdd(&dB[(size_t)cr * D + dim], b[i][j]);
+          if (dim < d_end) atomicAdd(&dB[(size_t)cr * D + dim], b[i][j]);
         }
       }
     }
   }
 
   __syncthreads();
-  for (int e = tid; e < BN * D; e += BWD_NT) {
-    const int r = e / D;
+  for (int e = tid; e < BN * W; e += BWD_NT) {
+    const int r = e / W;
     if (r0 + r < NR)
-      dA[(size_t)(r0 + r) * D + e % D] = from_f32<T>(dAs[e]);
+      dA[(size_t)(r0 + r) * D + d_off + e % W] = from_f32<T>(dAs[e]);
   }
 }
 
@@ -469,31 +476,34 @@ __device__ __forceinline__ void bwd_body(
   const T *__restrict__ h, const T *__restrict__ E,                     \
       const int *__restrict__ t, const float *__restrict__ lse,         \
       const float *__restrict__ g, T *__restrict__ dA,                  \
-      float *__restrict__ dB, int N, int V, int D
+      float *__restrict__ dB, int N, int V, int D, int d_off, int W
 
 template <typename T>
 __global__ void __launch_bounds__(BWD_NT) fused_ce_bwd_kernel(CE_BWD_ARGS) {
   extern __shared__ float smem[];
-  bwd_body<T, true, true>(h, E, t, lse, g, dA, dB, N, V, D, smem);
+  bwd_body<T, true, true>(h, E, t, lse, g, dA, dB, N, V, D, d_off, W, smem);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(BWD_NT) fused_ce_dh_kernel(CE_BWD_ARGS) {
   extern __shared__ float smem[];
-  bwd_body<T, true, false>(h, E, t, lse, g, dA, dB, N, V, D, smem);
+  bwd_body<T, true, false>(h, E, t, lse, g, dA, dB, N, V, D, d_off, W,
+                           smem);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(BWD_NT) fused_ce_de_kernel(CE_BWD_ARGS) {
   extern __shared__ float smem[];
-  bwd_body<T, false, false>(E, h, t, lse, g, dA, dB, V, N, D, smem);
+  bwd_body<T, false, false>(E, h, t, lse, g, dA, dB, V, N, D, d_off, W,
+                            smem);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(BWD_NT)
 fused_ce_bwd_a_kernel(CE_BWD_ARGS) {
   extern __shared__ float smem[];
-  bwd_body<T, false, true>(E, h, t, lse, g, dA, dB, V, N, D, smem);
+  bwd_body<T, false, true>(E, h, t, lse, g, dA, dB, V, N, D, d_off, W,
+                           smem);
 }
 
 template <typename T>
@@ -511,18 +521,19 @@ cudaError_t launch_fwd(const void* h, const void* E, const int* t,
 template <typename T>
 cudaError_t launch_bwd(void (*kern)(const T*, const T*, const int*,
                                     const float*, const float*, T*, float*,
-                                    int, int, int),
+                                    int, int, int, int, int),
                        int rows, const void* h, const void* E, const int* t,
                        const float* lse, const float* g, void* dA, float* dB,
-                       int N, int V, int D, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(D);
+                       int N, int V, int D, int d_off, int W,
+                       cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(W);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((rows + BN - 1) / BN);
   kern<<<grid, BWD_NT, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(E), t, lse, g,
-      static_cast<T*>(dA), dB, N, V, D);
+      static_cast<T*>(dA), dB, N, V, D, d_off, W);
   return cudaGetLastError();
 }
 
@@ -532,21 +543,22 @@ cudaError_t launch_bwd(void (*kern)(const T*, const T*, const int*,
 cudaError_t launch_bwd_variant(int variant, int dtype, const void* h,
                                const void* E, const int* t, const float* lse,
                                const float* g, void* dA, float* dB, int N,
-                               int V, int D, cudaStream_t stream) {
+                               int V, int D, int d_off, int W,
+                               cudaStream_t stream) {
   if (dtype != 0) return cudaErrorInvalidValue;
   switch (variant) {
     case 0:
       return launch_bwd<float>(fused_ce_bwd_kernel<float>, N, h, E, t, lse,
-                               g, dA, dB, N, V, D, stream);
+                               g, dA, dB, N, V, D, d_off, W, stream);
     case 1:
       return launch_bwd<float>(fused_ce_dh_kernel<float>, N, h, E, t, lse, g,
-                               dA, dB, N, V, D, stream);
+                               dA, dB, N, V, D, d_off, W, stream);
     case 2:
       return launch_bwd<float>(fused_ce_de_kernel<float>, V, h, E, t, lse, g,
-                               dA, dB, N, V, D, stream);
+                               dA, dB, N, V, D, d_off, W, stream);
     case 3:
       return launch_bwd<float>(fused_ce_bwd_a_kernel<float>, V, h, E, t, lse,
-                               g, dA, dB, N, V, D, stream);
+                               g, dA, dB, N, V, D, d_off, W, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -555,18 +567,22 @@ cudaError_t launch_bwd_variant(int variant, int dtype, const void* h,
 // fused_ce_bwd and fused_ce_dh; dh_acc: (N, D) f32, zeroed by the caller,
 // added into by fused_ce_bwd_a; de: (V, D) in the dtype, written once by
 // fused_ce_de and fused_ce_bwd_a; de_acc: (V, D) f32, zeroed by the
-// caller, added into by fused_ce_bwd.
+// caller, added into by fused_ce_bwd. Each computes the gradient columns
+// [d_off, d_off + W) of its outputs (a window of at most MAX_D; d_off = 0,
+// W = D for all of them when D <= MAX_D) from the logits over all of D.
 int bwd_entry(int variant, const void* h, const void* E, const void* t,
               const void* lse, const void* g, void* dA, void* dB, int N,
-              int V, int D, int dtype, void* stream) {
+              int V, int D, int d_off, int W, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ti = static_cast<const int*>(t);
   const float* l = static_cast<const float*>(lse);
   const float* gg = static_cast<const float*>(g);
   float* b = static_cast<float*>(dB);
-  if (D < 1 || D > MAX_D || V < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || V < 1 || N < 1 || W < 1 || W > MAX_D || d_off < 0 ||
+      d_off + W > D)
+    return (int)cudaErrorInvalidValue;
   return (int)launch_bwd_variant(variant, dtype, h, E, ti, l, gg, dA, b, N, V,
-                                 D, st);
+                                 D, d_off, W, st);
 }
 
 }  // namespace
@@ -590,26 +606,32 @@ int fused_ce_fwd(const void* h, const void* E, const void* t, void* lse,
 
 int fused_ce_bwd(const void* h, const void* E, const void* t,
                  const void* lse, const void* g, void* dh, void* de_acc,
-                 int N, int V, int D, int dtype, void* stream) {
-  return bwd_entry(0, h, E, t, lse, g, dh, de_acc, N, V, D, dtype, stream);
+                 int N, int V, int D, int d_off, int W, int dtype,
+                 void* stream) {
+  return bwd_entry(0, h, E, t, lse, g, dh, de_acc, N, V, D, d_off, W, dtype,
+                   stream);
 }
 
 int fused_ce_dh(const void* h, const void* E, const void* t,
                 const void* lse, const void* g, void* dh, int N, int V,
-                int D, int dtype, void* stream) {
-  return bwd_entry(1, h, E, t, lse, g, dh, nullptr, N, V, D, dtype, stream);
+                int D, int d_off, int W, int dtype, void* stream) {
+  return bwd_entry(1, h, E, t, lse, g, dh, nullptr, N, V, D, d_off, W, dtype,
+                   stream);
 }
 
 int fused_ce_de(const void* h, const void* E, const void* t,
                 const void* lse, const void* g, void* de, int N, int V,
-                int D, int dtype, void* stream) {
-  return bwd_entry(2, h, E, t, lse, g, de, nullptr, N, V, D, dtype, stream);
+                int D, int d_off, int W, int dtype, void* stream) {
+  return bwd_entry(2, h, E, t, lse, g, de, nullptr, N, V, D, d_off, W, dtype,
+                   stream);
 }
 
 int fused_ce_bwd_a(const void* h, const void* E, const void* t,
                    const void* lse, const void* g, void* dh_acc, void* de,
-                   int N, int V, int D, int dtype, void* stream) {
-  return bwd_entry(3, h, E, t, lse, g, de, dh_acc, N, V, D, dtype, stream);
+                   int N, int V, int D, int d_off, int W, int dtype,
+                   void* stream) {
+  return bwd_entry(3, h, E, t, lse, g, de, dh_acc, N, V, D, d_off, W, dtype,
+                   stream);
 }
 
 const char* kernel_error_string(int err) {

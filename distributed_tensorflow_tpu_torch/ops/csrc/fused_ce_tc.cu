@@ -116,6 +116,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -143,13 +144,14 @@ constexpr int F_PARTS = 2;
 // columns 64 (w / 4) of each vocab tile. Writes tl where a thread holds
 // the target column, and (m, l) of each row over this warp's columns of
 // the slice to pm, pl [(2 y + w / 4) N + row].
+template <typename T>
 __global__ void __launch_bounds__(F_THREADS, 2)
-fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ E,
+fused_ce_fwd_tc_kernel(const T* __restrict__ h, const T* __restrict__ E,
                        const int* __restrict__ t, float* __restrict__ tl,
                        float* __restrict__ pm, float* __restrict__ pl, int N,
                        int V, int D, int tiles_per_slice) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int gr = lane >> 2, q = lane & 3;
@@ -173,8 +175,8 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ E,
   // stage of load li: token rows and vocab tile vt0 + li / KC, d_model
   // chunk li % KC; 1024 16-byte pieces of each operand, 4 a thread
   auto load = [&](int li) {
-    bf16* As = smem + (li % F_STAGES) * F_STAGE;
-    bf16* Bs = As + F_BM * F_LD;
+    T* As = smem + (li % F_STAGES) * F_STAGE;
+    T* Bs = As + F_BM * F_LD;
     const int v0 = (vt0 + li / KC) * F_BV;
     const int d0 = (li % KC) * F_BK;
 #pragma unroll
@@ -208,8 +210,8 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ E,
     __syncthreads();  // stage it landed; stage it - 1 no longer read
     if (it + F_STAGES - 1 < total) load(it + F_STAGES - 1);
     cp_async_commit();
-    const bf16* As = smem + (it % F_STAGES) * F_STAGE;
-    const bf16* Bs = As + F_BM * F_LD;
+    const T* As = smem + (it % F_STAGES) * F_STAGE;
+    const T* Bs = As + F_BM * F_LD;
 #pragma unroll
     for (int ks = 0; ks < F_BK / 16; ++ks) {
       uint32_t a[2][4], b[4][4];
@@ -226,8 +228,8 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ E,
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int nj = 0; nj < 4; ++nj) {
-          mma_bf16(acc[mi][2 * nj], a[mi], b[nj][0], b[nj][1]);
-          mma_bf16(acc[mi][2 * nj + 1], a[mi], b[nj][2], b[nj][3]);
+          mma16<T>(acc[mi][2 * nj], a[mi], b[nj][0], b[nj][1]);
+          mma16<T>(acc[mi][2 * nj + 1], a[mi], b[nj][2], b[nj][3]);
         }
     }
     if (it % KC != KC - 1) continue;
@@ -316,53 +318,73 @@ constexpr int B_BR = 32;            // rows of the row operand per block
 constexpr int B_BC = 64;            // rows of the column operand per tile
 constexpr int B_DC = 128;           // d_model chunk
 constexpr int B_LD = B_DC + 8;      // padded chunk row
-constexpr int B_MAX_D = 1024;       // the row gradient in registers
+constexpr int B_MAX_D = 1024;       // widest window: its row gradient in registers
 constexpr int B_MAX_C = B_MAX_D / B_DC;
-constexpr int B_PLD = B_BC + 8;     // p_adj tile row (bf16)
+constexpr int B_PLD = B_BC + 8;     // p_adj tile row (16-bit)
 constexpr int B_RLD = B_BC + 4;     // logits hand-over row (f32)
+constexpr int B_RING = 2;           // stages of the outside-window ring
+constexpr int B_RROWS = B_BR + B_BC;  // rows of a ring stage: A, then B
 
-size_t bwd_smem_bytes(int D) {
-  const int kc = (D + B_DC - 1) / B_DC;
+// shared memory of a window of W columns; `ring` when the window is not
+// all of D (the chunks outside it stream through the ring)
+size_t bwd_smem_bytes(int W, bool ring) {
+  const int kc = (W + B_DC - 1) / B_DC;
   return sizeof(float) * B_BR * B_RLD +
          sizeof(bf16) * ((size_t)kc * B_BC * B_LD +
-                         (size_t)B_BR * (kc * B_DC + 8) + B_BR * B_PLD);
+                         (size_t)B_BR * (kc * B_DC + 8) + B_BR * B_PLD +
+                         (ring ? (size_t)B_RING * B_RROWS * B_LD : 0));
 }
 
 // The block owns rows [32 x, 32 x + 32) of the row operand A (NR x D)
 // and walks the column operand B (NC x D) in tiles of 64 rows. s[r][c] =
 // A_r . B_c is a logits entry: of token r and vocab c when TOK_ROWS (A =
 // h, B = E: the dh pass), of vocab r and token c otherwise (A = E, B = h:
-// the dE pass). p_adj (bf16) times the B tile is added into the row
-// gradient dA (32 x D f32, in registers), written once in bf16.
+// the dE pass). p_adj (rounded to T) times the B tile is added into the
+// row gradient dA (32 x W f32, in registers), written once in T.
 // Logits: warp w sums k-half w / 4 of each chunk for columns 16 (w % 4).
 // Gradient: warp w owns the 8-column tiles at d = 64 j + 8 w.
 //
-// Each B tile is staged once, in KC = ceil(D / 128) chunk slots, and
-// read by both phases. A slot is refilled with the next tile's chunk
-// once every warp has finished the gradient product on it, two slots at
-// a time to save barriers: the gradient step of even chunk c >= 2
-// refills chunks c - 2 and c - 1 (chunks [0, L), L = 2 floor((KC - 1)
-// / 2)), and the next tile's first logits step the rest, [L, KC). The
-// logits wait for the first lot before chunk 0 and for the rest before
-// chunk L: 7 barriers a tile at D = 1024.
+// Window. The gradients are computed for the columns [d_off, d_off + W)
+// of d_model only (W <= 1024; d_off = 0, W = D for every D up to 1024).
+// The logits still need all of D: the window's chunks are staged as below
+// and the chunks outside it, [0, d_off) and [d_off + W, D), stream
+// through a 2-stage ring of A and B chunks (shared memory of their own),
+// one behind the other, before the window's chunks on each tile. A D
+// above 1024 is covered by one launch a window, each recomputing the
+// logits over all of D: ceil(D / W) times the logits of one pass.
+//
+// Each B tile's window is staged once, in KC = ceil(W / 128) chunk
+// slots, and read by both phases. A slot is refilled with the next
+// tile's chunk once every warp has finished the gradient product on it,
+// two slots at a time to save barriers: the gradient step of even chunk
+// c >= 2 refills chunks c - 2 and c - 1 (chunks [0, L), L = 2 floor((KC
+// - 1) / 2)), and the next tile's first logits step the rest, [L, KC).
+// The logits wait for the first lot before chunk 0 and for the rest
+// before chunk L: 7 barriers a tile at D = 1024.
 // DH_ADD (the variant "a": vocab rows, A = E, B = h) adds a third
 // product on each tile, dB += p_adj^T A_rows into the f32 token
-// gradient dB (in fragment order, see fused_ce_bwd_a_tc), with float4
-// atomics, chunk by chunk beside the gradient product; the block walks
-// the tiles from its own, tile x % ntiles.
-template <bool TOK_ROWS, bool DH_ADD>
+// gradient dB (in fragment order over all of D, see fused_ce_bwd_a_tc),
+// with float4 atomics, chunk by chunk beside the gradient product; the
+// block walks the tiles from its own, tile x % ntiles.
+template <typename T, bool TOK_ROWS, bool DH_ADD>
 __device__ __forceinline__ void bwd_tc_body(
-    const bf16* __restrict__ A, const bf16* __restrict__ B,
+    const T* __restrict__ A, const T* __restrict__ B,
     const int* __restrict__ t, const float* __restrict__ lse,
-    const float* __restrict__ g, bf16* __restrict__ dA,
-    float* __restrict__ dB, int NR, int NC, int D,
+    const float* __restrict__ g, T* __restrict__ dA,
+    float* __restrict__ dB, int NR, int NC, int D, int d_off, int W,
     unsigned char* smem_raw) {
-  const int KC = (D + B_DC - 1) / B_DC;
+  const int KC = (W + B_DC - 1) / B_DC;
   const int ALD = KC * B_DC + 8;
+  const int d_end = d_off + W;
+  // chunks outside the window: before it (d_off is a multiple of 128),
+  // then after it
+  const int n_before = d_off / B_DC;
+  const int n_out = n_before + (D - d_end + B_DC - 1) / B_DC;
   float* Red = reinterpret_cast<float*>(smem_raw);
-  bf16* Bt = reinterpret_cast<bf16*>(smem_raw + sizeof(float) * B_BR * B_RLD);
-  bf16* As = Bt + KC * B_BC * B_LD;
-  bf16* Ps = As + B_BR * ALD;
+  T* Bt = reinterpret_cast<T*>(smem_raw + sizeof(float) * B_BR * B_RLD);
+  T* As = Bt + KC * B_BC * B_LD;
+  T* Ps = As + B_BR * ALD;
+  T* Rg = Ps + B_BR * B_PLD;  // the ring, when n_out > 0
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kh = warp >> 2, wn = warp & 3;
@@ -375,26 +397,53 @@ __device__ __forceinline__ void bwd_tc_body(
     return DH_ADD ? (i + blockIdx.x) % ntiles : i;
   };
 
-  // the block's rows of A, zero past NR and D, and column tile 0: the
-  // first cp.async group
+  // the block's rows of A over the window, zero past NR and the window,
+  // and column tile 0: the first cp.async group
   {
     const int segs = KC * B_DC / 8;
     for (int idx = tid; idx < B_BR * segs; idx += B_THREADS) {
       const int r = idx / segs, d = (idx % segs) * 8;
-      const bool p = r0 + r < NR && d < D;
-      cp_async16(As + r * ALD + d, p ? A + (size_t)(r0 + r) * D + d : A, p);
+      const bool p = r0 + r < NR && d < W;
+      cp_async16(As + r * ALD + d,
+                 p ? A + (size_t)(r0 + r) * D + d_off + d : A, p);
     }
   }
-  // chunk c of column tile T into slot c: 1024 16-byte pieces, 4 a thread
-  auto load = [&](int T, int c) {
-    bf16* dst = Bt + c * B_BC * B_LD;
-    const int c0 = T * B_BC, d0 = c * B_DC;
+  // window chunk c of column tile Tt into slot c: 1024 16-byte pieces, 4 a
+  // thread
+  auto load = [&](int Tt, int c) {
+    T* dst = Bt + c * B_BC * B_LD;
+    const int c0 = Tt * B_BC, d0 = c * B_DC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = tid + i * B_THREADS;
+      const int r = idx >> 4, d = d0 + (idx & 15) * 8;
+      const bool p = c0 + r < NC && d < W;
+      cp_async16(dst + r * B_LD + (idx & 15) * 8,
+                 p ? B + (size_t)(c0 + r) * D + d_off + d : B, p);
+    }
+  };
+  // outside chunk oc of column tile Tt into ring stage oc % 2: the A
+  // rows' chunk (512 pieces, 2 a thread), then the B tile's (1024, 4)
+  auto load_ring = [&](int Tt, int oc) {
+    T* Ar = Rg + (oc % B_RING) * B_RROWS * B_LD;
+    T* Br = Ar + B_BR * B_LD;
+    const int d0 =
+        oc < n_before ? oc * B_DC : d_end + (oc - n_before) * B_DC;
+    const int c0 = Tt * B_BC;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * B_THREADS;
+      const int r = idx >> 4, d = d0 + (idx & 15) * 8;
+      const bool p = r0 + r < NR && d < D;
+      cp_async16(Ar + r * B_LD + (idx & 15) * 8,
+                 p ? A + (size_t)(r0 + r) * D + d : A, p);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * B_THREADS;
       const int r = idx >> 4, d = d0 + (idx & 15) * 8;
       const bool p = c0 + r < NC && d < D;
-      cp_async16(dst + r * B_LD + (idx & 15) * 8,
+      cp_async16(Br + r * B_LD + (idx & 15) * 8,
                  p ? B + (size_t)(c0 + r) * D + d : B, p);
     }
   };
@@ -424,47 +473,67 @@ __device__ __forceinline__ void bwd_tc_body(
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[j][mi][k] = 0.f;
 
-  for (int T = 0; T < ntiles; ++T) {
-    const int c0 = tile_of(T) * B_BC;
+  // sacc += this warp's 16 columns of one 128-wide chunk over its k-half:
+  // the A rows' chunk at Ab (row stride ald), the B tile's at Bs
+  float sacc[2][2][4];
+  auto logits_chunk = [&](const T* Ab, int ald, const T* Bs) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = (kh * 4 + kk) * 16;
+      uint32_t a[2][4], b[4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[mi], Ab + (mi * 16 + (lane & 15)) * ald + k +
+                           (lane >> 4) * 8);
+      ldsm_x4(b, Bs + (wn * 16 + (lane & 7) + ((lane >> 4) << 3)) * B_LD +
+                     k + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma16<T>(sacc[mi][0], a[mi], b[0], b[1]);
+        mma16<T>(sacc[mi][1], a[mi], b[2], b[3]);
+      }
+    }
+  };
+
+  for (int T_ = 0; T_ < ntiles; ++T_) {
+    const int c0 = tile_of(T_) * B_BC;
     // logits: 32 x 64, this warp's 16 columns over its k-half
-    float sacc[2][2][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int k = 0; k < 4; ++k) sacc[mi][nt][k] = 0.f;
+    if (n_out > 0) {
+      // the chunks outside the window, through the ring; stage oc % 2 is
+      // refilled only after the barrier that ends its last read
+      load_ring(tile_of(T_), 0);
+      cp_async_commit();
+      for (int oc = 0; oc < n_out; ++oc) {
+        if (oc + 1 < n_out) load_ring(tile_of(T_), oc + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // chunk oc landed
+        const T* Ar = Rg + (oc % B_RING) * B_RROWS * B_LD;
+        logits_chunk(Ar, B_LD, Ar + B_BR * B_LD);
+        __syncthreads();  // stage oc % 2 read by every warp
+      }
+    }
     for (int c = 0; c < KC; ++c) {
       if (c == 0) {
         // chunks [0, L) landed; every warp is done with the last tile
         cp_async_wait<0>();
         __syncthreads();
-        if (T > 0) {
-          for (int cc = L; cc < KC; ++cc) load(tile_of(T), cc);
+        if (T_ > 0) {
+          for (int cc = L; cc < KC; ++cc) load(tile_of(T_), cc);
           cp_async_commit();
         }
       }
-      if (c == L && T > 0) {  // chunks [L, KC) landed
+      if (c == L && T_ > 0) {  // chunks [L, KC) landed
         cp_async_wait<0>();
         __syncthreads();
       }
-      const bf16* Bs = Bt + c * B_BC * B_LD;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int k = (kh * 4 + kk) * 16;
-        uint32_t a[2][4], b[4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldsm_x4(a[mi], As + (mi * 16 + (lane & 15)) * ALD + c * B_DC + k +
-                             (lane >> 4) * 8);
-        ldsm_x4(b, Bs + (wn * 16 + (lane & 7) + ((lane >> 4) << 3)) * B_LD +
-                       k + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(sacc[mi][0], a[mi], b[0], b[1]);
-          mma_bf16(sacc[mi][1], a[mi], b[2], b[3]);
-        }
-      }
+      logits_chunk(As + c * B_DC, ALD, Bt + c * B_BC * B_LD);
     }
 
     // p_adj: k-half 1 hands its sums to k-half 0, which forms the tile
@@ -526,8 +595,7 @@ __device__ __forceinline__ void bwd_tc_body(
               }
               pv[e] = p;
             }
-            *reinterpret_cast<__nv_bfloat162*>(Ps + rl * B_PLD + cl) =
-                __floats2bfloat162_rn(pv[0], pv[1]);
+            store2<T>(Ps + rl * B_PLD + cl, pv[0], pv[1]);
           }
         }
     }
@@ -539,14 +607,14 @@ __device__ __forceinline__ void bwd_tc_body(
       for (int ks = 0; ks < 4; ++ks)
         ldsm_x4(pf[mi][ks], Ps + (mi * 16 + (lane & 15)) * B_PLD + ks * 16 +
                                 (lane >> 4) * 8);
-    // DH_ADD: dB[c0 + 0..63, :] += p_adj^T (64 x 32) A rows (32 x D),
-    // chunk by chunk beside the gradient product, so that the adds spread
-    // over the chunk loop. Warp w owns tokens 32 (w >> 2) + 16 mi and, of
-    // each 128-wide chunk, columns 32 (w & 3) + 8 nt. p_adj^T fragments
-    // by ldmatrix.trans of Ps (vocab-major), A's by ldmatrix.trans of As.
-    // dB is in fragment order: the 16 x 8 tile (slab, ct) at ((slab D / 8
-    // + ct) 32 + lane) 4, lane 4 gr + 2 qh + hf holding row 8 hf + gr,
-    // columns 4 qh .. 4 qh + 3.
+    // DH_ADD: dB[c0 + 0..63, window] += p_adj^T (64 x 32) A rows (32 x
+    // W), chunk by chunk beside the gradient product, so that the adds
+    // spread over the chunk loop. Warp w owns tokens 32 (w >> 2) + 16 mi
+    // and, of each 128-wide chunk, columns 32 (w & 3) + 8 nt. p_adj^T
+    // fragments by ldmatrix.trans of Ps (vocab-major), A's by
+    // ldmatrix.trans of As. dB is in fragment order: the 16 x 8 tile
+    // (slab, ct) at ((slab D / 8 + ct) 32 + lane) 4, lane 4 gr + 2 qh + hf
+    // holding row 8 hf + gr, columns 4 qh .. 4 qh + 3.
     const int wt = warp >> 2, wc = warp & 3;
     uint32_t pt[2][2][4];  // [m tile][k step]
     float* slab0 = nullptr;
@@ -565,13 +633,13 @@ __device__ __forceinline__ void bwd_tc_body(
 #pragma unroll
     for (int c = 0; c < B_MAX_C; ++c) {
       if (c < KC) {
-        if (c >= 2 && !(c & 1) && T + 1 < ntiles) {
+        if (c >= 2 && !(c & 1) && T_ + 1 < ntiles) {
           __syncthreads();  // slots c - 2, c - 1 read by every warp
-          load(tile_of(T + 1), c - 2);
-          load(tile_of(T + 1), c - 1);
+          load(tile_of(T_ + 1), c - 2);
+          load(tile_of(T_ + 1), c - 1);
           cp_async_commit();
         }
-        const bf16* Bs = Bt + c * B_BC * B_LD;
+        const T* Bs = Bt + c * B_BC * B_LD;
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
@@ -580,22 +648,23 @@ __device__ __forceinline__ void bwd_tc_body(
             ldsm_x4_t(b, Bs + (kp * 32 + lane) * B_LD + jj * 64 + warp * 8);
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi) {
-              mma_bf16(acc[2 * c + jj][mi], pf[mi][2 * kp], b[0], b[1]);
-              mma_bf16(acc[2 * c + jj][mi], pf[mi][2 * kp + 1], b[2], b[3]);
+              mma16<T>(acc[2 * c + jj][mi], pf[mi][2 * kp], b[0], b[1]);
+              mma16<T>(acc[2 * c + jj][mi], pf[mi][2 * kp + 1], b[2], b[3]);
             }
           }
         if (DH_ADD) {
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
-            const int ct = c * (B_DC / 8) + wc * 4 + nt;
-            if (ct * 8 >= D) continue;  // D % 8 == 0: all in or all out
+            const int cw = c * (B_DC / 8) + wc * 4 + nt;  // in the window
+            if (cw * 8 >= W) continue;  // W % 8 == 0: all in or all out
+            const int ct = d_off / 8 + cw;
             uint32_t b[4];  // k steps 0 and 1 (vocab rows 0-15, 16-31)
             ldsm_x4_t(b, As + lane * ALD + c * B_DC + wc * 32 + nt * 8);
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi) {
               float h4[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_bf16(h4, pt[mi][0], b[0], b[1]);
-              mma_bf16(h4, pt[mi][1], b[2], b[3]);
+              mma16<T>(h4, pt[mi][0], b[0], b[1]);
+              mma16<T>(h4, pt[mi][1], b[2], b[3]);
               // lanes q, q ^ 1 swap a pair: 4 contiguous columns a lane
               const bool odd = q & 1;
               const float s0 = __shfl_xor_sync(0xffffffffu,
@@ -616,167 +685,243 @@ __device__ __forceinline__ void bwd_tc_body(
 
 #pragma unroll
   for (int j = 0; j < 2 * B_MAX_C; ++j) {
-    const int col = j * 64 + warp * 8 + 2 * q;
-    if (col >= D) continue;  // D % 8 == 0: a column tile is all in or out
+    const int col = j * 64 + warp * 8 + 2 * q;  // in the window
+    if (col >= W) continue;  // W % 8 == 0: a column tile is all in or out
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int row = r0 + mi * 16 + gr + 8 * hf;
         if (row < NR)
-          *reinterpret_cast<__nv_bfloat162*>(dA + (size_t)row * D + col) =
-              __floats2bfloat162_rn(acc[j][mi][2 * hf],
-                                    acc[j][mi][2 * hf + 1]);
+          store2<T>(dA + (size_t)row * D + d_off + col, acc[j][mi][2 * hf],
+                    acc[j][mi][2 * hf + 1]);
       }
   }
 }
 
+#define CE_TC_BWD_ARGS                                                   \
+  const T *__restrict__ h, const T *__restrict__ E,                      \
+      const int *__restrict__ t, const float *__restrict__ lse,          \
+      const float *__restrict__ g
+
 // the two passes, each its own symbol so that a profile tells them apart
+template <typename T>
 __global__ void __launch_bounds__(B_THREADS, 1)
-fused_ce_bwd_tc_dh_kernel(const bf16* __restrict__ h,
-                          const bf16* __restrict__ E,
-                          const int* __restrict__ t,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ g, bf16* __restrict__ dh,
-                          int N, int V, int D) {
+fused_ce_bwd_tc_dh_kernel(CE_TC_BWD_ARGS, T* __restrict__ dh, int N, int V,
+                          int D, int d_off, int W) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tc_body<true, false>(h, E, t, lse, g, dh, nullptr, N, V, D,
-                           smem_raw);
+  bwd_tc_body<T, true, false>(h, E, t, lse, g, dh, nullptr, N, V, D, d_off,
+                              W, smem_raw);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(B_THREADS, 1)
-fused_ce_bwd_tc_de_kernel(const bf16* __restrict__ h,
-                          const bf16* __restrict__ E,
-                          const int* __restrict__ t,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ g, bf16* __restrict__ de,
-                          int N, int V, int D) {
+fused_ce_bwd_tc_de_kernel(CE_TC_BWD_ARGS, T* __restrict__ de, int N, int V,
+                          int D, int d_off, int W) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tc_body<false, false>(E, h, t, lse, g, de, nullptr, V, N, D,
-                            smem_raw);
+  bwd_tc_body<T, false, false>(E, h, t, lse, g, de, nullptr, V, N, D, d_off,
+                               W, smem_raw);
 }
 
 // the variant "a": the dE pass body, which also adds dh
+template <typename T>
 __global__ void __launch_bounds__(B_THREADS, 1)
-fused_ce_bwd_a_tc_kernel(const bf16* __restrict__ h,
-                         const bf16* __restrict__ E,
-                         const int* __restrict__ t,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ g,
-                         float* __restrict__ dh_acc, bf16* __restrict__ de,
-                         int N, int V, int D) {
+fused_ce_bwd_a_tc_kernel(CE_TC_BWD_ARGS, float* __restrict__ dh_acc,
+                         T* __restrict__ de, int N, int V, int D, int d_off,
+                         int W) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tc_body<false, true>(E, h, t, lse, g, de, dh_acc, V, N, D, smem_raw);
+  bwd_tc_body<T, false, true>(E, h, t, lse, g, de, dh_acc, V, N, D, d_off, W,
+                              smem_raw);
+}
+
+// the shapes and the window the backward kernels take: D % 8 == 0; a
+// window [d_off, d_off + W) inside D, W % 8 == 0, W <= 1024, d_off a
+// multiple of 128, and W a multiple of 128 unless the window ends at D
+bool bwd_shapes_ok(int N, int V, int D, int d_off, int W) {
+  return N >= 1 && V >= 1 && D >= 8 && D % 8 == 0 && W >= 8 && W % 8 == 0 &&
+         W <= B_MAX_D && d_off >= 0 && d_off % B_DC == 0 && d_off + W <= D &&
+         (W % B_DC == 0 || d_off + W == D);
 }
 
 // One backward pass, the dh pass over the N token rows or the dE pass
-// over the V vocab rows, after checking the shapes the passes take.
+// over the V vocab rows, for one window, after checking the shapes.
+template <typename T>
 cudaError_t bwd_pass(bool dh_pass, const void* h, const void* E,
                      const void* t, const void* lse, const void* g,
-                     void* out, int N, int V, int D, cudaStream_t st) {
-  if (N < 1 || V < 1 || D < 8 || D % 8 || D > B_MAX_D)
-    return cudaErrorInvalidValue;
-  const auto kern =
-      dh_pass ? fused_ce_bwd_tc_dh_kernel : fused_ce_bwd_tc_de_kernel;
-  const size_t smem = bwd_smem_bytes(D);
+                     void* out, int N, int V, int D, int d_off, int W,
+                     cudaStream_t st) {
+  if (!bwd_shapes_ok(N, V, D, d_off, W)) return cudaErrorInvalidValue;
+  auto kern = fused_ce_bwd_tc_de_kernel<T>;
+  if (dh_pass) kern = fused_ce_bwd_tc_dh_kernel<T>;
+  const size_t smem = bwd_smem_bytes(W, W != D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<((dh_pass ? N : V) + B_BR - 1) / B_BR, B_THREADS, smem, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(E),
+      static_cast<const T*>(h), static_cast<const T*>(E),
       static_cast<const int*>(t), static_cast<const float*>(lse),
-      static_cast<const float*>(g), static_cast<bf16*>(out), N, V, D);
+      static_cast<const float*>(g), static_cast<T*>(out), N, V, D, d_off, W);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fwd_launch(const void* h, const void* E, const void* t,
+                       void* lse, void* tl, void* pm, void* pl, int N, int V,
+                       int D, int tiles_per_slice, int slices,
+                       cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_fwd_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)F_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + F_BM - 1) / F_BM, slices);
+  fused_ce_fwd_tc_kernel<T><<<grid, F_THREADS, F_SMEM, st>>>(
+      static_cast<const T*>(h), static_cast<const T*>(E),
+      static_cast<const int*>(t), static_cast<float*>(tl),
+      static_cast<float*>(pm), static_cast<float*>(pl), N, V, D,
+      tiles_per_slice);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_ce_lse_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(pm), static_cast<const float*>(pl),
+      static_cast<float*>(lse), N, F_PARTS * slices);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_a_launch(const void* h, const void* E, const void* t,
+                         const void* lse, const void* g, void* dh_acc,
+                         void* de, int N, int V, int D, int d_off, int W,
+                         cudaStream_t st) {
+  if (!bwd_shapes_ok(N, V, D, d_off, W)) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(W, W != D);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_bwd_a_tc_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_ce_bwd_a_tc_kernel<T><<<(V + B_BR - 1) / B_BR, B_THREADS, smem, st>>>(
+      static_cast<const T*>(h), static_cast<const T*>(E),
+      static_cast<const int*>(t), static_cast<const float*>(lse),
+      static_cast<const float*>(g), static_cast<float*>(dh_acc),
+      static_cast<T*>(de), N, V, D, d_off, W);
+  return cudaGetLastError();
+}
+
+// f(T) with T the element type of dtype: 1 = bf16, 2 = f16
+template <typename F>
+cudaError_t by_dtype(int dtype, F f) {
+  if (dtype == 1) return f(bf16());
+  if (dtype == 2) return f(f16());
+  return cudaErrorInvalidValue;
+}
+
+// the C entry points' bodies: checks, then the launches of dtype
+cudaError_t fwd_entry(const void* h, const void* E, const void* t, void* lse,
+                      void* tl, void* pm, void* pl, int N, int V, int D,
+                      int tiles_per_slice, int slices, int dtype,
+                      cudaStream_t st) {
+  const int vtiles = (V + F_BV - 1) / F_BV;
+  if (N < 1 || V < 1 || D < 8 || D % 8 || tiles_per_slice < 1 ||
+      slices < 1 || (slices - 1) * tiles_per_slice >= vtiles ||
+      slices * tiles_per_slice < vtiles)
+    return cudaErrorInvalidValue;
+  return by_dtype(dtype, [&](auto tag) {
+    return fwd_launch<decltype(tag)>(h, E, t, lse, tl, pm, pl, N, V, D,
+                                     tiles_per_slice, slices, st);
+  });
+}
+
+// one pass (dh_pass: dh over the token rows, else dE over the vocab
+// rows), or with both both, dh first
+cudaError_t passes_entry(bool dh, bool de, const void* h, const void* E,
+                         const void* t, const void* lse, const void* g,
+                         void* dh_out, void* de_out, int N, int V, int D,
+                         int d_off, int W, int dtype, cudaStream_t st) {
+  return by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    if (dh) {
+      const cudaError_t err = bwd_pass<T>(true, h, E, t, lse, g, dh_out, N,
+                                          V, D, d_off, W, st);
+      if (err != cudaSuccess || !de) return err;
+    }
+    return bwd_pass<T>(false, h, E, t, lse, g, de_out, N, V, D, d_off, W,
+                       st);
+  });
+}
+
+cudaError_t bwd_a_entry(const void* h, const void* E, const void* t,
+                        const void* lse, const void* g, void* dh_acc,
+                        void* de, int N, int V, int D, int d_off, int W,
+                        int dtype, cudaStream_t st) {
+  return by_dtype(dtype, [&](auto tag) {
+    return bwd_a_launch<decltype(tag)>(h, E, t, lse, g, dh_acc, de, N, V, D,
+                                       d_off, W, st);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// h (N, D), E (V, D) bf16 with D % 8 == 0 (16-byte rows); t (N,) int32.
-// lse, tl (N,) f32, tl zeroed by the caller; pm, pl f32 scratch of
-// 2 slices x N each. Vocab tiles of 128 go to slices of tiles_per_slice
-// each, slices of them (every slice non-empty). Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for a
-// shape it does not take).
+// h (N, D), E (V, D) of dtype (1 = bf16, 2 = f16) with D % 8 == 0
+// (16-byte rows); t (N,) int32. lse, tl (N,) f32, tl zeroed by the
+// caller; pm, pl f32 scratch of 2 slices x N each. Vocab tiles of 128 go
+// to slices of tiles_per_slice each, slices of them (every slice
+// non-empty). Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for a shape or dtype it does not take).
 int fused_ce_fwd_tc(const void* h, const void* E, const void* t, void* lse,
                     void* tl, void* pm, void* pl, int N, int V, int D,
-                    int tiles_per_slice, int slices, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vtiles = (V + F_BV - 1) / F_BV;
-  if (N < 1 || V < 1 || D < 8 || D % 8 || tiles_per_slice < 1 ||
-      slices < 1 || (slices - 1) * tiles_per_slice >= vtiles ||
-      slices * tiles_per_slice < vtiles)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)F_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + F_BM - 1) / F_BM, slices);
-  fused_ce_fwd_tc_kernel<<<grid, F_THREADS, F_SMEM, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(E),
-      static_cast<const int*>(t), static_cast<float*>(tl),
-      static_cast<float*>(pm), static_cast<float*>(pl), N, V, D,
-      tiles_per_slice);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fused_ce_lse_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(pm), static_cast<const float*>(pl),
-      static_cast<float*>(lse), N, F_PARTS * slices);
-  return (int)cudaGetLastError();
+                    int tiles_per_slice, int slices, int dtype,
+                    void* stream) {
+  return (int)fwd_entry(h, E, t, lse, tl, pm, pl, N, V, D, tiles_per_slice,
+                        slices, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// h (N, D), E (V, D) bf16 with D % 8 == 0 and D <= 1024; t, lse, g (N,);
-// dh (N, D) and de (V, D) bf16, each written once: the dh pass, then the
+// The backward entry points take h (N, D), E (V, D) of dtype with
+// D % 8 == 0, t, lse, g (N,), and compute the gradient columns
+// [d_off, d_off + W) of their outputs (bwd_shapes_ok: W <= 1024; d_off
+// = 0, W = D covers a D up to 1024 in one launch). fused_ce_bwd_tc: dh
+// (N, D) and de (V, D), each window written once: the dh pass, then the
 // dE pass, on the stream in that order.
 int fused_ce_bwd_tc(const void* h, const void* E, const void* t,
                     const void* lse, const void* g, void* dh, void* de,
-                    int N, int V, int D, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bwd_pass(true, h, E, t, lse, g, dh, N, V, D, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)bwd_pass(false, h, E, t, lse, g, de, N, V, D, st);
+                    int N, int V, int D, int d_off, int W, int dtype,
+                    void* stream) {
+  return (int)passes_entry(true, true, h, E, t, lse, g, dh, de, N, V, D,
+                           d_off, W, dtype,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The variant "split", one pass each, with fused_ce_bwd_tc's arguments:
-// dh (N, D), written once by fused_ce_dh_tc; de (V, D), by fused_ce_de_tc.
+// dh (N, D), its window written once by fused_ce_dh_tc; de (V, D), by
+// fused_ce_de_tc.
 int fused_ce_dh_tc(const void* h, const void* E, const void* t,
                    const void* lse, const void* g, void* dh, int N, int V,
-                   int D, void* stream) {
-  return (int)bwd_pass(true, h, E, t, lse, g, dh, N, V, D,
-                       static_cast<cudaStream_t>(stream));
+                   int D, int d_off, int W, int dtype, void* stream) {
+  return (int)passes_entry(true, false, h, E, t, lse, g, dh, nullptr, N, V,
+                           D, d_off, W, dtype,
+                           static_cast<cudaStream_t>(stream));
 }
 
 int fused_ce_de_tc(const void* h, const void* E, const void* t,
                    const void* lse, const void* g, void* de, int N, int V,
-                   int D, void* stream) {
-  return (int)bwd_pass(false, h, E, t, lse, g, de, N, V, D,
-                       static_cast<cudaStream_t>(stream));
+                   int D, int d_off, int W, int dtype, void* stream) {
+  return (int)passes_entry(false, true, h, E, t, lse, g, nullptr, de, N, V,
+                           D, d_off, W, dtype,
+                           static_cast<cudaStream_t>(stream));
 }
 
-// The variant "a", one pass: h (N, D), E (V, D) bf16 with D % 8 == 0 and
-// D <= 1024; t, lse, g (N,); de (V, D) bf16, written once; dh_acc f32,
-// zeroed by the caller, of ceil(N / 64) * 64 rows x D in fragment order
-// (the 16 x 8 tile of rows 16 s, columns 8 c at ((s D / 8 + c) 32 + l) 4,
-// l = 4 (r % 8) + 2 ((d % 8) / 4) + (r % 16) / 8 holding row r, columns
-// d .. d + 3 of it, d % 4 == 0), into which dh is added.
+// The variant "a", one pass a window: de (V, D), its window written once;
+// dh_acc f32, zeroed by the caller, of ceil(N / 64) * 64 rows x D in
+// fragment order (the 16 x 8 tile of rows 16 s, columns 8 c at
+// ((s D / 8 + c) 32 + l) 4, l = 4 (r % 8) + 2 ((d % 8) / 4) + (r % 16) / 8
+// holding row r, columns d .. d + 3 of it, d % 4 == 0), into which the
+// window's columns of dh are added.
 int fused_ce_bwd_a_tc(const void* h, const void* E, const void* t,
                       const void* lse, const void* g, void* dh_acc, void* de,
-                      int N, int V, int D, void* stream) {
-  if (N < 1 || V < 1 || D < 8 || D % 8 || D > B_MAX_D)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_bwd_a_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_ce_bwd_a_tc_kernel<<<(V + B_BR - 1) / B_BR, B_THREADS, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(E),
-      static_cast<const int*>(t), static_cast<const float*>(lse),
-      static_cast<const float*>(g), static_cast<float*>(dh_acc),
-      static_cast<bf16*>(de), N, V, D);
-  return (int)cudaGetLastError();
+                      int N, int V, int D, int d_off, int W, int dtype,
+                      void* stream) {
+  return (int)bwd_a_entry(h, E, t, lse, g, dh_acc, de, N, V, D, d_off, W,
+                          dtype, static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) {

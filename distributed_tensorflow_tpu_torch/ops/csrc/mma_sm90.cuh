@@ -1,17 +1,21 @@
 // PTX building blocks of the tensor-core kernels (sm_90a): cp.async
-// copies from global to shared memory, ldmatrix loads of bf16 fragments
-// and the mma.sync m16n8k16 bf16 -> f32 product. Included by
+// copies from global to shared memory, ldmatrix loads of 16-bit
+// fragments and the mma.sync m16n8k16 bf16 -> f32 and f16 -> f32
+// products, with the pair packing and storing of each 16-bit type
+// (mma16<T>, pack2<T>, store2<T>: T is bf16 or half). Included by
 // fused_ce_tc.cu and flash_tc.cu; ops/_build.py hashes every csrc/*.cuh
 // into each library's name, so an edit here rebuilds both.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -37,15 +41,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// four 8 x 8 bf16 matrices; lane i gives the row address of matrix i / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// four 8 x 8 matrices of 16-bit values; lane i gives the row address of
+// matrix i / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -64,6 +69,55 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same product with f16 operands, f32 accumulation
+__device__ __forceinline__ void mma_f16(float (&c)[4],
+                                        const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the product of T's operands (bf16 or f16), f32 accumulation
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16<bf16>(float (&c)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  mma_bf16(c, a, b0, b1);
+}
+template <>
+__device__ __forceinline__ void mma16<f16>(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  mma_f16(c, a, b0, b1);
+}
+
+// two f32 values rounded to T (round to nearest) in one 32-bit word, lo
+// in the low half: an mma operand register, or two adjacent elements
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// elements p[0], p[1] of a T array (4-byte aligned) from two f32 values
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
 }
 
 }  // namespace

@@ -15,7 +15,9 @@ scalar even when ``mu`` is stored in bf16: the JAX update casts ``mu``
 to f32 before it multiplies by the Python-float ``b1``. optax's
 ``adamw`` (and the port's plain-op ``AdamW`` class, which follows it)
 multiplies a bf16 ``mu`` by bf16(0.9) = 0.8984375 instead, so the two
-part after one step with a bf16 ``mu``.
+part after one step with a bf16 ``mu``. As the JAX kernel does, every
+tensor is read in its own dtype (f32, bf16 or f16; ``p`` and ``g`` in
+one dtype) and each output is rounded back to its input's dtype.
 
 - :func:`adamw_reference` — the plain PyTorch version of one tensor's
   update.
@@ -32,13 +34,16 @@ import ctypes
 
 import torch
 
-#: mu dtypes the kernel takes (code passed to the C entry point); p, g
-#: and nu are f32
-MU_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: C signature of ``csrc/fused_adamw.cu``: p, g, mu, nu, n, mu dtype,
-#: lr, b1, 1 - b1, b2, 1 - b2, eps, wd, c1, c2, stream
+#: dtypes the kernel takes for each of p (with g), mu and nu (code
+#: passed to the C entry point)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: mu dtypes the kernel takes (every one of KERNEL_DTYPES)
+MU_DTYPES = KERNEL_DTYPES
+#: C signature of ``csrc/fused_adamw.cu``: p, g, mu, nu, n, the dtypes of
+#: p (and g), mu and nu, lr, b1, 1 - b1, b2, 1 - b2, eps, wd, c1, c2,
+#: stream
 ADAMW_ARGTYPES = {"fused_adamw": [ctypes.c_void_p] * 4
-                  + [ctypes.c_longlong, ctypes.c_int]
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
                   + [ctypes.c_float] * 9 + [ctypes.c_void_p]}
 
 
@@ -85,12 +90,14 @@ def _check_leaf(p, g, mu, nu):
             raise ValueError(f"fused_adamw: {name} is not contiguous")
     if not p.is_contiguous():
         raise ValueError("fused_adamw: p is not contiguous")
-    if not (p.dtype == g.dtype == nu.dtype == torch.float32):
-        raise ValueError(f"fused_adamw: p {p.dtype}, g {g.dtype} and nu "
-                         f"{nu.dtype} must be float32")
-    if mu.dtype not in MU_DTYPES:
-        raise ValueError(f"fused_adamw: mu {mu.dtype} must be one of "
-                         f"{sorted(map(str, MU_DTYPES))}")
+    names = sorted(map(str, KERNEL_DTYPES))
+    if p.dtype != g.dtype or p.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"fused_adamw: p {p.dtype} and g {g.dtype} must "
+                         f"share a dtype in {names}")
+    for name, t in (("mu", mu), ("nu", nu)):
+        if t.dtype not in KERNEL_DTYPES:
+            raise ValueError(f"fused_adamw: {name} {t.dtype} must be one "
+                             f"of {names}")
 
 
 def _launch(leaves, hyper):
@@ -113,7 +120,9 @@ def _launch(leaves, hyper):
                 continue
             err = lib.fused_adamw(p.data_ptr(), g.data_ptr(), mu.data_ptr(),
                                   nu.data_ptr(), p.numel(),
-                                  MU_DTYPES[mu.dtype], *hyper, stream)
+                                  KERNEL_DTYPES[p.dtype],
+                                  KERNEL_DTYPES[mu.dtype],
+                                  KERNEL_DTYPES[nu.dtype], *hyper, stream)
             if err != 0:
                 raise RuntimeError(f"fused_adamw kernel launch failed: CUDA "
                                    f"error {err} "

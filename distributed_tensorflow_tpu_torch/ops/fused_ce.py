@@ -7,9 +7,10 @@ device memory:
 - :func:`ce_reference` — the unfused semantics contract.
 - :func:`fused_ce_fwd` — ``(lse, tl)``, the row logsumexp and the target
   logit. On a CUDA tensor it launches the port of the Pallas
-  ``_fwd_kernel``: in bf16 ``fused_ce_fwd_tc`` of ``csrc/fused_ce_tc.cu``
-  (tensor cores), in f32 ``fused_ce_fwd`` of ``csrc/fused_ce.cu`` (CUDA
-  cores); on a CPU tensor it runs :func:`fused_ce_fwd_plain`.
+  ``_fwd_kernel``: in bf16 and f16 ``fused_ce_fwd_tc`` of
+  ``csrc/fused_ce_tc.cu`` (tensor cores), in f32 ``fused_ce_fwd`` of
+  ``csrc/fused_ce.cu`` (CUDA cores); on a CPU tensor it runs
+  :func:`fused_ce_fwd_plain`.
 - :func:`fused_ce_bwd` — ``(dh, dE)`` from the saved ``lse`` and the
   per-row cotangent ``g``, by one of three variants. On a CUDA tensor it
   launches: for ``"b"`` (the port of the merged backward
@@ -20,11 +21,15 @@ device memory:
   ``csrc/fused_ce_tc.cu``, in f32 ``fused_ce_dh`` then ``fused_ce_de`` of
   ``csrc/fused_ce.cu``; for ``"a"`` (``_bwd_merged_kernel``) in bf16
   ``fused_ce_bwd_a_tc`` of ``csrc/fused_ce_tc.cu``, in f32
-  ``fused_ce_bwd_a`` of ``csrc/fused_ce.cu``. :func:`kernel_route`
-  states the rule; bf16 inputs whose d_model is no multiple of 8 are
-  zero-padded for the tensor-core kernels (:func:`with_padded_d`). On a
-  CPU tensor it runs :func:`fused_ce_bwd_plain`, or for ``"split"``
-  :func:`fused_ce_dh_plain` and :func:`fused_ce_de_plain`.
+  ``fused_ce_bwd_a`` of ``csrc/fused_ce.cu`` (f16 takes the bf16
+  kernels' tensor-core route). :func:`kernel_route` states the rule;
+  16-bit inputs whose d_model is no multiple of 8 are zero-padded for
+  the tensor-core kernels (:func:`with_padded_d`), and a d_model above
+  :data:`KERNEL_MAX_D` is covered by one launch a column window
+  (:func:`kernel_windows`). On a CPU tensor it runs
+  :func:`fused_ce_bwd_plain`, or for ``"split"`` :func:`fused_ce_dh_plain`
+  and :func:`fused_ce_de_plain`; each takes the same ``window``, so the
+  kernels' loop over the windows runs on them too.
 - :func:`fused_cross_entropy` — the public op, differentiable in
   ``hidden`` and ``embed`` through :class:`FusedCrossEntropy`.
 - :func:`sharded_fused_cross_entropy` — the op on a vocab sharded over
@@ -46,31 +51,38 @@ import math
 import torch
 
 #: input dtypes the CUDA kernels take (code passed to the C entry points)
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: widest d_model the backward kernels take (each keeps a 32 x D f32
-#: gradient accumulator on chip)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: widest window of d_model one backward launch takes (each keeps a
+#: 32 x window f32 gradient accumulator on chip); a wider d_model is
+#: covered by one launch a window (:func:`kernel_windows`)
 KERNEL_MAX_D = 1024
+#: the window of a tensor-core backward launch when d_model is above
+#: KERNEL_MAX_D: the chunks outside the window stream through a ring of
+#: their own, which takes the shared memory of the other half
+TC_WINDOW_D = 512
 #: rows per chunk of :func:`fused_cross_entropy`, as in the JAX op
 ROW_CHUNK = 4096
 #: backward variants of :func:`fused_ce_bwd`
 BWD_VARIANTS = ("b", "a", "split")
-#: C signatures of ``csrc/fused_ce.cu``: pointers, then N, V, D, dtype,
-#: stream
+#: C signatures of ``csrc/fused_ce.cu``: pointers, then N, V, D (the
+#: backward also the window's d_off and width), dtype, stream
 CE_ARGTYPES = {
-    name: [ctypes.c_void_p] * n + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    for name, n in (("fused_ce_fwd", 5), ("fused_ce_bwd", 7),
-                    ("fused_ce_bwd_a", 7), ("fused_ce_dh", 6),
-                    ("fused_ce_de", 6))}
-#: C signatures of ``csrc/fused_ce_tc.cu`` (bf16 only): pointers, then
-#: N, V, D (and for the forward tiles per slice, slices), stream
-CE_TC_ARGTYPES = {
-    "fused_ce_fwd_tc": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    "fused_ce_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
-    **{name: [ctypes.c_void_p] * n + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    **{name: [ctypes.c_void_p] * n + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+       for name, n in (("fused_ce_bwd", 7), ("fused_ce_bwd_a", 7),
+                       ("fused_ce_dh", 6), ("fused_ce_de", 6))}}
+#: C signatures of ``csrc/fused_ce_tc.cu`` (bf16 and f16): pointers, then
+#: N, V, D (the forward then its tiles per slice and slices, the backward
+#: its window's d_off and width), dtype, stream
+CE_TC_ARGTYPES = {
+    "fused_ce_fwd_tc": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    **{name: [ctypes.c_void_p] * n + [ctypes.c_int] * 6 + [ctypes.c_void_p]
        for name, n in (("fused_ce_bwd_tc", 7), ("fused_ce_dh_tc", 6),
                        ("fused_ce_de_tc", 6), ("fused_ce_bwd_a_tc", 7))}}
-#: the tensor-core kernels stage 16-byte rows: bf16 d_model is zero-padded
-#: to a multiple of this many columns
+#: the tensor-core kernels stage 16-byte rows: 16-bit d_model is
+#: zero-padded to a multiple of this many columns
 TC_D_MULTIPLE = 8
 #: token rows of a tile of ``fused_ce_bwd_a_tc``, which adds all of a
 #: tile's rows into its dh accumulator (zeros past N)
@@ -112,6 +124,13 @@ def fused_ce_fwd_plain(hidden, embed, targets):
     return lse, torch.where(inside, tl, torch.zeros_like(tl))
 
 
+def _window_cols(window, d):
+    """``slice`` of the d_model columns of ``window`` (``(d_off,
+    width)``; None: all ``d``)."""
+    return slice(0, d) if window is None else slice(window[0],
+                                                    window[0] + window[1])
+
+
 def _p_adj_plain(hidden, embed, targets, lse, g):
     """``p_adj = (exp(h Eᵀ − lse) − onehot(t)) · g``, ``(N, V)``, rounded
     to ``embed``'s dtype and returned in f32 (JAX ``_p_adj`` and
@@ -123,28 +142,50 @@ def _p_adj_plain(hidden, embed, targets, lse, g):
     return (p * g.float()[:, None]).to(embed.dtype).float()
 
 
-def fused_ce_dh_plain(hidden, embed, targets, lse, g):
+def fused_ce_dh_plain(hidden, embed, targets, lse, g, window=None):
     """Plain PyTorch version of the dh kernel (#5): ``dh = p_adj E`` in
-    ``hidden``'s dtype, accumulated in f32."""
+    ``hidden``'s dtype, accumulated in f32. With ``window = (d_off,
+    width)`` only those columns of dh, from the logits over all of d_model,
+    as one windowed launch computes them."""
     p = _p_adj_plain(hidden, embed, targets, lse, g)
-    return (p @ embed.float()).to(hidden.dtype)
+    cols = _window_cols(window, hidden.shape[1])
+    return (p @ embed.float()[:, cols]).to(hidden.dtype)
 
 
-def fused_ce_de_plain(hidden, embed, targets, lse, g):
+def fused_ce_de_plain(hidden, embed, targets, lse, g, window=None):
     """Plain PyTorch version of the dE kernel (#8): ``dE = p_adjᵀ h`` in
-    ``embed``'s dtype, accumulated in f32."""
+    ``embed``'s dtype, accumulated in f32; ``window`` as
+    :func:`fused_ce_dh_plain`'s."""
     p = _p_adj_plain(hidden, embed, targets, lse, g)
-    return (p.T @ hidden.float()).to(embed.dtype)
+    cols = _window_cols(window, hidden.shape[1])
+    return (p.T @ hidden.float()[:, cols]).to(embed.dtype)
 
 
-def fused_ce_bwd_plain(hidden, embed, targets, lse, g):
+def fused_ce_bwd_plain(hidden, embed, targets, lse, g, window=None):
     """Plain PyTorch version of the merged backwards (#7, #6): ``(dh,
     dE)`` from one ``p_adj``; ``dh = p_adj E`` in ``hidden``'s dtype and
-    ``dE = p_adjᵀ h`` in ``embed``'s, both accumulated in f32."""
+    ``dE = p_adjᵀ h`` in ``embed``'s, both accumulated in f32; with
+    ``window`` only its columns of each, as :func:`fused_ce_dh_plain`."""
     p = _p_adj_plain(hidden, embed, targets, lse, g)
-    dh = p @ embed.float()
-    de = p.T @ hidden.float()
+    cols = _window_cols(window, hidden.shape[1])
+    dh = p @ embed.float()[:, cols]
+    de = p.T @ hidden.float()[:, cols]
     return dh.to(hidden.dtype), de.to(embed.dtype)
+
+
+def kernel_windows(dtype, d: int) -> list:
+    """``[(d_off, width), ...]``: the windows of d_model the backward
+    kernels of ``dtype`` run over, one launch each, left to right: all
+    of ``d`` up to :data:`KERNEL_MAX_D`; above it windows of
+    :data:`KERNEL_MAX_D` on the CUDA cores (f32) and of
+    :data:`TC_WINDOW_D` on the tensor cores, the last one narrower
+    where the width does not divide ``d``. Each launch recomputes the
+    logits over all of ``d`` and writes (or adds) only its window's
+    gradient columns."""
+    if d <= KERNEL_MAX_D:
+        return [(0, d)]
+    width = KERNEL_MAX_D if dtype == torch.float32 else TC_WINDOW_D
+    return [(o, min(width, d - o)) for o in range(0, d, width)]
 
 
 def fwd_vocab_split(n: int, v: int, sm_count: int) -> tuple[int, int]:
@@ -219,24 +260,22 @@ def kernel_route(dtype, d: int, op: str) -> str:
     inputs of ``dtype`` and d_model ``d`` and ``op`` — ``"fwd"`` or a
     backward variant (``"b"``, ``"a"``, ``"split"``).
 
-    - bf16 goes to the tensor cores, every op. Their kernels stage
+    - bf16 and f16 go to the tensor cores, every op. Their kernels stage
       16-byte rows, so :func:`fused_ce_fwd` and :func:`fused_ce_bwd`
       zero-pad a ``d`` that is no multiple of 8 to the next one
       (:func:`with_padded_d`), which is exact;
     - f32 stays on the CUDA cores, whose f32 products keep f32 parity
-      (on tensor cores f32 would be TF32), and takes any ``d``;
-    - every backward keeps a ``32 x d`` f32 gradient on chip: ``d`` at
-      most :data:`KERNEL_MAX_D`, else ValueError; any other dtype raises
-      ValueError too."""
+      (on tensor cores f32 would be TF32);
+    - every backward keeps a ``32 x window`` f32 gradient on chip, so a
+      ``d`` above :data:`KERNEL_MAX_D` runs one launch a column window
+      (:func:`kernel_windows`): any ``d`` is taken;
+    - any other dtype, or an unknown ``op``, raises ValueError."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ce: no kernel for dtype {dtype}")
     if op not in ("fwd", *BWD_VARIANTS):
         raise ValueError(f"fused_ce: op={op!r}; expected 'fwd' or one of "
                          f"{BWD_VARIANTS}")
-    if op != "fwd" and d > KERNEL_MAX_D:
-        raise ValueError(f"fused_ce_bwd: d_model {d} > {KERNEL_MAX_D}, the "
-                         f"widest the kernel takes")
-    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    return "cuda_core" if dtype == torch.float32 else "tensor_core"
 
 
 def with_padded_d(fn, hidden, embed, *args):
@@ -301,9 +340,10 @@ def fused_ce_fwd(hidden, embed, targets):
     """``(lse, tl)`` of ``hidden @ embed.T``, both ``(N,)`` f32.
 
     A CUDA tensor goes through the kernel :func:`kernel_route` names: in
-    bf16 ``fused_ce_fwd_tc`` (tensor cores, d_model zero-padded to a
-    multiple of 8; its forward and the merge of its vocab slices counted
-    as one launch in ``fused_ce_fwd.launches_tc``), in f32
+    bf16 and f16 ``fused_ce_fwd_tc`` (tensor cores, d_model zero-padded
+    to a multiple of 8; its forward and the merge of its vocab slices
+    counted as one launch in ``fused_ce_fwd.launches_tc``, in f16
+    ``.launches_f16``), in f32
     ``fused_ce_fwd`` (CUDA cores; ``fused_ce_fwd.launches``). A CPU
     tensor goes through :func:`fused_ce_fwd_plain`; any other device
     raises."""
@@ -343,13 +383,17 @@ def _fwd_tc(hidden, embed, t, lse):
     _launch("fused_ce_fwd_tc", hidden.device, hidden.data_ptr(),
             embed.data_ptr(), t.data_ptr(), lse.data_ptr(), tl.data_ptr(),
             part[0].data_ptr(), part[1].data_ptr(), n, v, d, per, slices,
-            source="fused_ce_tc")
-    fused_ce_fwd.launches_tc += 1
+            KERNEL_DTYPES[hidden.dtype], source="fused_ce_tc")
+    if hidden.dtype == torch.float16:
+        fused_ce_fwd.launches_f16 += 1
+    else:
+        fused_ce_fwd.launches_tc += 1
     return lse, tl
 
 
 fused_ce_fwd.launches = 0       # f32, CUDA cores
 fused_ce_fwd.launches_tc = 0    # bf16, tensor cores
+fused_ce_fwd.launches_f16 = 0   # f16, tensor cores
 
 
 def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
@@ -357,8 +401,11 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
     (``(N,)`` f32), from the forward's ``lse``.
 
     A CUDA tensor goes through the kernels of ``variant`` (the rule:
-    :func:`kernel_route`; bf16 d_model zero-padded to a multiple of 8),
-    each launch counted on this function:
+    :func:`kernel_route`; 16-bit d_model zero-padded to a multiple of 8;
+    one launch a column window of :func:`kernel_windows`), each launch
+    counted on this function (f16 takes the bf16 kernels, counted in
+    ``.launches_f16``, ``.launches_a_f16``, ``.launches_dh_f16`` and
+    ``.launches_de_f16``):
 
     - ``"b"`` in bf16: ``fused_ce_bwd_tc`` (``.launches_tc``, one for its
       two passes), on tensor cores: a dh pass over token tiles, then a
@@ -406,57 +453,63 @@ def fused_ce_bwd(hidden, embed, targets, lse, g, *, variant: str = "b"):
             return with_padded_d(_bwd_tc, hidden, embed, t, lse, g, variant)
         args = (hidden.data_ptr(), embed.data_ptr(), t.data_ptr(),
                 lse.data_ptr(), g.data_ptr())
-        shape = (n, v, d, KERNEL_DTYPES[hidden.dtype])
+        windows = kernel_windows(hidden.dtype, d)
         f32 = dict(dtype=torch.float32, device=hidden.device)
+
+        def run(entry, counter, *outs):
+            for off, w in windows:
+                _launch(entry, hidden.device, *args,
+                        *(x.data_ptr() for x in outs), n, v, d, off, w,
+                        KERNEL_DTYPES[hidden.dtype])
+                setattr(fused_ce_bwd, counter,
+                        getattr(fused_ce_bwd, counter) + 1)
+
         if variant == "b":
             dh = torch.empty_like(hidden)
             de_acc = torch.zeros((v, d), **f32)
-            _launch("fused_ce_bwd", hidden.device, *args, dh.data_ptr(),
-                    de_acc.data_ptr(), *shape)
-            fused_ce_bwd.launches += 1
+            run("fused_ce_bwd", "launches", dh, de_acc)
             return dh, de_acc.to(embed.dtype)
         if variant == "a":
             dh_acc = torch.zeros((n, d), **f32)
             de = torch.empty_like(embed)
-            _launch("fused_ce_bwd_a", hidden.device, *args,
-                    dh_acc.data_ptr(), de.data_ptr(), *shape)
-            fused_ce_bwd.launches_a += 1
+            run("fused_ce_bwd_a", "launches_a", dh_acc, de)
             return dh_acc.to(hidden.dtype), de
         dh, de = torch.empty_like(hidden), torch.empty_like(embed)
-        _launch("fused_ce_dh", hidden.device, *args, dh.data_ptr(), *shape)
-        fused_ce_bwd.launches_dh += 1
-        _launch("fused_ce_de", hidden.device, *args, de.data_ptr(), *shape)
-        fused_ce_bwd.launches_de += 1
+        run("fused_ce_dh", "launches_dh", dh)
+        run("fused_ce_de", "launches_de", de)
         return dh, de
 
 
 def _bwd_tc(hidden, embed, t, lse, g, variant):
-    """The bf16 tensor-core kernels of ``variant``; D a multiple of 8."""
+    """The tensor-core kernels of ``variant`` (bf16, f16), one launch a
+    window of :func:`kernel_windows`; D a multiple of 8."""
     n, d = hidden.shape
     v = embed.shape[0]
     args = (hidden.data_ptr(), embed.data_ptr(), t.data_ptr(),
             lse.data_ptr(), g.data_ptr())
     dev = hidden.device
+    suffix = "_f16" if hidden.dtype == torch.float16 else "_tc"
+
+    def run(entry, counter, *outs):
+        for off, w in kernel_windows(hidden.dtype, d):
+            _launch(entry, dev, *args, *(x.data_ptr() for x in outs), n, v,
+                    d, off, w, KERNEL_DTYPES[hidden.dtype],
+                    source="fused_ce_tc")
+            name = counter + suffix
+            setattr(fused_ce_bwd, name, getattr(fused_ce_bwd, name) + 1)
+
     if variant == "a":
         rows = -(-n // TC_A_TOKEN_TILE) * TC_A_TOKEN_TILE
         dh_acc = torch.zeros(rows * d, dtype=torch.float32, device=dev)
         de = torch.empty_like(embed)
-        _launch("fused_ce_bwd_a_tc", dev, *args, dh_acc.data_ptr(),
-                de.data_ptr(), n, v, d, source="fused_ce_tc")
-        fused_ce_bwd.launches_a_tc += 1
+        run("fused_ce_bwd_a_tc", "launches_a", dh_acc, de)
         return dh_from_fragment_order(dh_acc, n, d, hidden.dtype), de
     dh, de = torch.empty_like(hidden), torch.empty_like(embed)
     if variant == "b":
-        _launch("fused_ce_bwd_tc", dev, *args, dh.data_ptr(), de.data_ptr(),
-                n, v, d, source="fused_ce_tc")
-        fused_ce_bwd.launches_tc += 1
+        run("fused_ce_bwd_tc", "launches", dh, de)
         return dh, de
-    _launch("fused_ce_dh_tc", dev, *args, dh.data_ptr(), n, v, d,
-            source="fused_ce_tc")
-    fused_ce_bwd.launches_dh_tc += 1
-    _launch("fused_ce_de_tc", dev, *args, de.data_ptr(), n, v, d,
-            source="fused_ce_tc")
-    fused_ce_bwd.launches_de_tc += 1
+    run("fused_ce_dh_tc", "launches_dh", dh)
+    run("fused_ce_de_tc", "launches_de", de)
     return dh, de
 
 
@@ -468,6 +521,10 @@ fused_ce_bwd.launches_dh = 0    # "split", #5, f32 (CUDA cores)
 fused_ce_bwd.launches_de = 0    # "split", #8, f32 (CUDA cores)
 fused_ce_bwd.launches_dh_tc = 0    # "split", #5, bf16 (tensor cores)
 fused_ce_bwd.launches_de_tc = 0    # "split", #8, bf16 (tensor cores)
+fused_ce_bwd.launches_f16 = 0      # "b", #7, f16 (tensor cores)
+fused_ce_bwd.launches_a_f16 = 0    # "a", #6, f16 (tensor cores)
+fused_ce_bwd.launches_dh_f16 = 0   # "split", #5, f16 (tensor cores)
+fused_ce_bwd.launches_de_f16 = 0   # "split", #8, f16 (tensor cores)
 
 
 class FusedCrossEntropy(torch.autograd.Function):

@@ -293,8 +293,10 @@ class CapacityArbiter:
                             serving (``applying_down``)
     ``awaiting_donation``   training shrink landed → grow serving
                             (``applying_up``)
-    ``applying_up/down``    serving reform landed → (down only) hand the
-                            freed capacity back to training
+    ``applying_up/down``    serving reform landed and every replica of
+                            it has heartbeated (the port waits for that;
+                            JAX's arbiter does not) → (down only) hand
+                            the freed capacity back to training
                             (``reason="reclaim"``), start the cooldown
     ======================  =============================================
 
@@ -396,13 +398,15 @@ class CapacityArbiter:
                                         reason="slo_burn")
                 self._enter("applying_up", now)
         elif self._state == "applying_up":
-            if serve_sup.num_workers >= self._pending.target:
+            if (serve_sup.num_workers >= self._pending.target
+                    and serve_sup.replicas_ready()):
                 self.engine.action_applied(now)
                 self._emit(serve_sup, self._pending, "applied")
                 self._pending = None
                 self._enter("idle", now)
         elif self._state == "applying_down":
-            if serve_sup.num_workers <= self._pending.target:
+            if (serve_sup.num_workers <= self._pending.target
+                    and serve_sup.replicas_ready()):
                 # capacity released: hand it back to training (never
                 # past its baseline size or the budget)
                 if not self.train_done and self.train_sup is not None:

@@ -315,6 +315,7 @@ class RecoverySupervisor:
         self._dir = work_dir or tempfile.mkdtemp(prefix="dtx_supervisor_")
         os.makedirs(self._dir, exist_ok=True)
         self._hb = heartbeats or _hb.FileHeartbeatSource(self._dir)
+        self._last_hbs: dict = {}
         self._runner_factory = runner_factory or mpr.MultiProcessRunner
         self._spec_fn = (cluster_spec_fn or
                          (lambda n: mpr.create_cluster_spec(num_workers=n)))
@@ -399,8 +400,18 @@ class RecoverySupervisor:
             env.setdefault(_events.ENV_TELEMETRY_DIR, self._telemetry_dir)
         return env
 
+    def replicas_ready(self) -> bool:
+        """Whether every task of the current generation has heartbeated
+        at least once, as the watch loop's latest tick read them: a
+        reformed gang that is serving, not one that is only spawned (a
+        replica heartbeats once its warm-up request is done). The
+        capacity arbiter holds a scale action open until this holds."""
+        hbs = self._last_hbs
+        return all(hbs.get(i) is not None for i in range(self._num_workers))
+
     def _clear_heartbeats(self, clear_n: int | None = None):
         self._hb_seen: dict[int, int | None] = {}
+        self._last_hbs: dict = {}
         self._hb.generation = self.generation
         # a scale-down leaves heartbeat files of removed slots behind —
         # clear the LARGER of the old/new sizes so they cannot read as
@@ -503,6 +514,7 @@ class RecoverySupervisor:
             if len(exits) == runner.num_tasks:
                 return None
             hbs = self._hb.read_all(self._num_workers)
+            self._last_hbs = hbs
             self._observe_heartbeats(hbs)
             self._fire_due_kills(exits, hbs)
             stalled = self._check_stall(exits, t0, hbs)
@@ -741,11 +753,17 @@ class RecoverySupervisor:
 
         from distributed_tensorflow_tpu_torch.cluster import elastic
         failed_ids = set()
+        # a machine lost this round broke the group: the others' crashes
+        # are its collateral (gloo and NCCL raise on a dead peer at once,
+        # where JAX's survivors hang until the straggler kill), and
+        # count toward no shrink streak, or the policy would drop a live
+        # slot tied with the dead one
+        lost = any(f.kind in self._MACHINE_LOST_KINDS for f in failures)
         for f in failures:
             self.history.append(f)
             self.failures_total += 1
             self.health.record_failure(f.task[1])
-            if f.task[1] >= 0:
+            if f.task[1] >= 0 and not (lost and f.kind == "crash"):
                 failed_ids.add(f.task[1])
                 self._fail_streak[f.task[1]] = \
                     self._fail_streak.get(f.task[1], 0) + 1

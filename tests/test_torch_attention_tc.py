@@ -59,17 +59,18 @@ def test_attention_route(dtype, hd, op, route):
 
 @pytest.mark.parametrize("hd,kd", [(1, 64), (16, 64), (32, 64), (64, 64),
                                    (65, 128), (80, 128), (96, 128),
-                                   (128, 128)])
+                                   (128, 128), (129, 256), (160, 256),
+                                   (256, 256)])
 def test_kernel_head_dim(hd, kd):
     assert tattn.kernel_head_dim(hd) == kd
 
 
 @pytest.mark.parametrize("dtype,hd,op,match", [
-    (torch.float16, 64, "fwd", "dtype"),
-    (torch.float16, 64, "dkv", "dtype"),
-    (BF16, 160, "fwd", "head_dim"),         # above 128: no kernel
-    (BF16, 256, "dkv", "head_dim"),
-    (F32, 192, "dq", "head_dim"),
+    (torch.float64, 64, "fwd", "dtype"),
+    (torch.int8, 64, "dkv", "dtype"),
+    (BF16, 257, "fwd", "head_dim"),         # above 256: no kernel
+    (torch.float16, 512, "dkv", "head_dim"),
+    (F32, 320, "dq", "head_dim"),
     (BF16, 64, "bwd", "op="),
 ])
 def test_attention_route_refuses(dtype, hd, op, match):

@@ -99,6 +99,9 @@ class _FakeSup:
     def _event(self, name, **fields):
         self.events.append((name, fields))
 
+    def replicas_ready(self) -> bool:
+        return True
+
     def advance(self):
         if self._due is not None:
             left, n = self._due

@@ -100,14 +100,15 @@ def test_library_path_follows_sources_and_headers(monkeypatch, tmp_path):
 
 
 def test_ce_tensor_core_entry_points():
-    """``fused_ce_tc.cu`` binds the bf16 forward, the "b" backward, the two
-    "split" passes and the one-pass "a" backward (h, E, t, lse, g, the
-    f32 dh accumulator, dE; N, V, D; stream), and ``fused_ce.cu`` keeps
-    only f32 kernels."""
+    """``fused_ce_tc.cu`` binds the 16-bit (bf16, f16) forward, the "b"
+    backward, the two "split" passes and the one-pass "a" backward (h, E,
+    t, lse, g, the f32 dh accumulator, dE; N, V, D, the column window's
+    d_off and width, the dtype; stream), and ``fused_ce.cu`` keeps only
+    f32 kernels."""
     assert sorted(CE_TC_ARGTYPES) == sorted(
         ["fused_ce_fwd_tc", "fused_ce_bwd_tc", "fused_ce_dh_tc",
          "fused_ce_de_tc", "fused_ce_bwd_a_tc"])
     assert CE_TC_ARGTYPES["fused_ce_bwd_a_tc"] == (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     with open(os.path.join(_build.CSRC, "fused_ce.cu")) as f:
         assert "__nv_bfloat16" not in f.read()

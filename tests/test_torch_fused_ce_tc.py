@@ -58,13 +58,13 @@ def test_kernel_route(dtype, d, op, route):
 
 
 @pytest.mark.parametrize("dtype,d,op,match", [
-    (BF16, 1032, "b", "1024"),              # dh no longer fits on chip
-    (F32, 2048, "b", "1024"),
-    (BF16, 2048, "split", "1024"),
-    (BF16, 1032, "split", "1024"),
-    (BF16, 1032, "a", "1024"),              # nor dE
-    (torch.float16, 1024, "fwd", "dtype"),
-    (torch.float16, 1024, "a", "dtype"),
+    (torch.float64, 1032, "b", "dtype"),    # any d: windows above 1024
+    (torch.float64, 2048, "b", "dtype"),
+    (torch.int32, 2048, "split", "dtype"),
+    (torch.float64, 1032, "split", "dtype"),
+    (torch.int8, 1032, "a", "dtype"),
+    (torch.float64, 1024, "fwd", "dtype"),
+    (torch.float64, 1024, "a", "dtype"),
     (BF16, 1024, "c", "op="),
 ])
 def test_kernel_route_refuses(dtype, d, op, match):

@@ -35,7 +35,10 @@ workload; ``--preset transformer_big`` serves ``transformer_big()``
 (random weights from seed 0) on prompts of a 256-token session prefix
 (16 blocks of 16) and a 16-64-token suffix, with the token budgets and
 quotas scaled by the requests' size. ``--device cuda`` (the default)
-puts replica ``i`` on card ``i``; the router uses no card.
+puts replica ``i`` on card ``i``; the router uses no card. There the
+tiny preset's replicas run JAX's tiny config, attention through
+``mha_reference`` (no flash kernel), and its chaos arrivals last
+``CARD_CHAOS_DURATION_S``.
 """
 
 import argparse
@@ -62,6 +65,15 @@ CHAOS_WORKLOAD = dict(WORKLOAD, duration_s=44.0,
                       rates={"acme": 1.8, "batchco": 0.8,
                              "burst": 1.2})
 
+#: the chaos variant's arrivals on the card at the tiny preset. JAX's
+#: 44 s were sized for a 15-20 s gang-restart outage; on an H100 beside
+#: three other chaos sweeps a respawned replica (spawn, torch import,
+#: CUDA init, warm-up) took 25.4 s, its warm-up ended at 37.7 s and the
+#: recovery window (warm-up + CHAOS_RECOVERY_LAG_S) opened after the
+#: last arrival, with no sample to judge. 20 s more arrivals at the same
+#: rates keep the window's samples with JAX's gate unchanged
+CARD_CHAOS_DURATION_S = 64.0
+
 #: arrivals this long after the disturbance ends (the spike's end, or
 #: the last respawned replica's warm-up under chaos) must meet the
 #: tenant SLO again
@@ -73,7 +85,8 @@ CHAOS_RECOVERY_LAG_S = 10.0
 #: token-denominated budgets (tick budget, quotas) — a request's mean
 #: cost (prompt + new tokens) over the tiny workload's
 PRESETS = {
-    "tiny": dict(workload={}, engine={}, scale=1),
+    "tiny": dict(workload={}, engine={}, scale=1,
+                 card_chaos_duration_s=CARD_CHAOS_DURATION_S),
     "transformer_big": dict(
         workload=dict(block_size=16, session_prefix_blocks=16,
                       suffix_range=(16, 64), new_tokens_range=(16, 64),
@@ -96,9 +109,16 @@ def model_config(preset: str, dtype: str = "bfloat16"):
     return TransformerConfig.transformer_big(dtype=getattr(torch, dtype))
 
 
-def workload_params(chaos: bool, preset: str = "tiny") -> dict:
-    return dict(CHAOS_WORKLOAD if chaos else WORKLOAD,
-                **PRESETS[preset]["workload"])
+def workload_params(chaos: bool, preset: str = "tiny",
+                    device: str = "cpu") -> dict:
+    """The workload's shape: JAX's, the preset's prompt shape, and under
+    chaos on the card the preset's ``card_chaos_duration_s``."""
+    wl = dict(CHAOS_WORKLOAD if chaos else WORKLOAD,
+              **PRESETS[preset]["workload"])
+    card_s = PRESETS[preset].get("card_chaos_duration_s")
+    if chaos and device == "cuda" and card_s:
+        wl["duration_s"] = card_s
+    return wl
 
 
 def phase_tenants(preset: str = "tiny"):
@@ -123,7 +143,8 @@ def phase_tenants(preset: str = "tiny"):
 
 def router_main(run_dir: str, tdir: str, seed: int, policy: str,
                 n_replicas: int, chaos: bool = False,
-                preset: str = "tiny", tick_s: float = 0.04,
+                preset: str = "tiny", device: str = "cpu",
+                tick_s: float = 0.04,
                 max_wall_s: float = 240.0):
     """The router process (spawn target; both incarnations run this —
     the second resumes from the journal the first left)."""
@@ -133,7 +154,7 @@ def router_main(run_dir: str, tdir: str, seed: int, policy: str,
 
     tv_events.configure(tdir, process_id="router")
     replicas = list(range(n_replicas))
-    wl_params = workload_params(chaos, preset)
+    wl_params = workload_params(chaos, preset, device)
 
     # wait until every replica's exporter has ticked once (its engine is
     # warm): arrivals must not start while the fleet is starting up
@@ -238,7 +259,7 @@ def run_phase(phase_dir: str, seed: int, policy: str, workers: int,
 
     ctx = mp.get_context("spawn")
     rargs = (phase_dir, tdir, seed, policy, workers,
-             kill_seed is not None, preset)
+             kill_seed is not None, preset, device)
     router_proc = ctx.Process(target=router_main, args=rargs,
                               name="dtx-router")
     router_proc.start()
@@ -341,7 +362,8 @@ def served_union(phase_dir: str) -> "tuple[dict, int, int, list]":
 
 
 def analyze(run_dir: str, seed: int, chaos: bool = False,
-            preset: str = "tiny", policy: str = "affinity") -> dict:
+            preset: str = "tiny", policy: str = "affinity",
+            device: str = "cpu") -> dict:
     """Cross-phase verdicts -> ``router-summary.json`` (JAX's fields):
     the ``policy`` phase's directory against ``random``'s."""
     from distributed_tensorflow_tpu_torch.serving import router as rt
@@ -351,7 +373,7 @@ def analyze(run_dir: str, seed: int, chaos: bool = False,
     aff = os.path.join(run_dir, policy)
     rnd = os.path.join(run_dir, "random")
     tenants = {t.name: t for t in phase_tenants(preset)}
-    wl_params = workload_params(chaos, preset)
+    wl_params = workload_params(chaos, preset, device)
     wl = rt.seeded_tenant_workload(seed, tenants=phase_tenants(preset),
                                    **wl_params)
 
@@ -546,7 +568,8 @@ def main():
           f"{info2['restarts']} restarts", flush=True)
     summary = analyze(args.run_dir, args.seed,
                       chaos=args.kill_seed is not None,
-                      preset=args.preset, policy=args.policy)
+                      preset=args.preset, policy=args.policy,
+                      device=args.device)
     print(json.dumps(summary, indent=2))
     ok = (not summary["dropped"]
           and summary["duplicates_mismatched"] == 0
